@@ -1,0 +1,32 @@
+"""flextree-tpu on PyTorch and CUDA: the port's package.
+
+A second implementation of the ``flextree_tpu`` package for NVIDIA Hopper
+(H100), held against it module by module: the same public functions and
+data layouts, plain PyTorch where the JAX package wrote plain ``jnp``, and
+a kernel written by hand in CUDA C++ (``csrc/``) wherever the JAX package
+wrote a Pallas kernel for the TPU.  It imports ``torch`` and never ``jax``
+nor ``flextree_tpu``: what it needs of the JAX package it keeps as its own
+copy.
+
+Ported so far (the serving path):
+
+- :mod:`.models` — the dense decoder LM's single-device forward, the
+  contiguous KV cache, prefill/decode and ``generate``;
+- :mod:`.ops.paged_attention` — one-token paged decode attention, the
+  CUDA kernel ``csrc/paged_attention.cu`` beside its plain PyTorch twin;
+- :mod:`.serving` — the paged KV cache, the continuous batcher, the
+  prefix index and the serving engine (``python -m
+  flextree_tpu_torch.serving``);
+- :mod:`.obs` — the metrics registry and the flight recorder the engine
+  reports through;
+- :mod:`.convert` — the JAX parameter pytree (as numpy) to the port's
+  parameters.
+
+Entry points run on ``cuda`` unless the caller asks for ``cpu``
+(:func:`.device.resolve_device`); with no GPU and no ``cpu`` request they
+raise instead of falling back.
+"""
+
+from .device import resolve_device
+
+__all__ = ["resolve_device"]
