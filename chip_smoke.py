@@ -27,7 +27,30 @@ failure raises and exits non-zero:
    ``torch.profiler``: the device's busy share of the wall time and the
    kernels that take it;
 6. float32 token identity — the kernel engine, the gather-oracle engine
-   and the contiguous-cache ``generate`` give the same greedy tokens.
+   and the contiguous-cache ``generate`` give the same greedy tokens;
+7. flash parity — each flash kernel (forward, dq, dk/dv) against its
+   plain version on the same inputs, float32 and bfloat16, at the
+   training shape (B=8, T=1024, H=8, D=64), at B=4, T=4096, H=16, D=128
+   and on edge cases (ragged Tq, Tq != Tk with offsets, non-causal, rows
+   that see no key, an lse cotangent): out within 2e-5 and grads within
+   1e-4 in float32; in bfloat16, where both round at the same points,
+   each element within 2**-5 of max(|ref|, rms(ref)) and the rms error
+   within 2e-4 of rms(ref); the lse within 1e-4; rows that see no key
+   exactly 0; every ``variant`` runs the one forward kernel;
+8. training — ``trainer.main`` at the flagship width (bf16 compute,
+   flash attention, batch 8 x 1024 tokens, 30 steps, warmup-cosine,
+   clipping, a checkpoint every 10 steps): the loss is finite and falls,
+   each flash kernel launches steps x layers times, the saved checkpoint
+   restores bitwise; then steady step time, tokens/s, peak memory and a
+   ``torch.profiler`` breakdown of three more steps;
+9. float32 end to end — three train steps at full width (batch 2 x 1024)
+   with flash and with reference attention from one state: losses within
+   rtol 1e-5 and gradients within atol 1e-5; the parameters against atol
+   1e-5 printed, each miss beside its step-1 gradient and gradient gap,
+   and beside a witness (reference attention on the batch rows reversed);
+10. flash times — each flash kernel, its plain version and the SDPA
+    yardstick at the training shape (CUDA-event medians), beside the
+    least time the card could take.
 
 Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -58,13 +81,14 @@ PROMPT_RANGE = (16, 256)
 MAX_NEW = 64
 SEED = 0
 
-# memory rate (bytes/s) and float32 non-tensor-core peak (FLOP/s) by card
-# name, from NVIDIA's data sheets (dense, full power limit)
+# memory rate (bytes/s), float32 non-tensor-core peak and bf16 tensor-core
+# peak (FLOP/s) by card name, from NVIDIA's data sheets (dense, full power
+# limit)
 _CARDS = (
-    ("H200", 4.8e12, 67e12),
-    ("H100 NVL", 3.9e12, 60e12),
-    ("H100 PCIe", 2.0e12, 51e12),
-    ("H100", 3.35e12, 67e12),
+    ("H200", 4.8e12, 67e12, 989e12),
+    ("H100 NVL", 3.9e12, 60e12, 835e12),
+    ("H100 PCIe", 2.0e12, 51e12, 756e12),
+    ("H100", 3.35e12, 67e12, 989e12),
 )
 
 
@@ -73,9 +97,9 @@ def log(msg: str) -> None:
 
 
 def card_peaks(name: str):
-    for key, bw, flops in _CARDS:
+    for key, *peaks in _CARDS:
         if key in name:
-            return bw, flops
+            return peaks
     raise RuntimeError(f"no peak rates recorded for card {name!r}")
 
 
@@ -275,20 +299,305 @@ def phase_times(dev, pa, pools, rounds, bw, fp32_peak):
     }
 
 
-def phase_profile(eng, reqs):
-    """Run ``reqs`` again (fresh ids) under ``torch.profiler``: device
-    busy time (kernel time summed; one stream, so no overlap) over the
-    wall time, and the kernels that take the most."""
+FLASH_REPLACES = (
+    ("flash_fwd", "flextree_tpu/ops/pallas_attention.py:79 and :212"),
+    ("flash_bwd_dq", "flextree_tpu/ops/pallas_attention.py:524"),
+    ("flash_bwd_dkv", "flextree_tpu/ops/pallas_attention.py:601"),
+)
+
+# flash parity cases: (name, B, Tq, Tk, H, D, causal, q_offset, k_offset,
+# with an lse cotangent)
+FLASH_TRAIN = (8, 1024, 8, 64)  # B, T, H, D of one layer of the train step
+FLASH_CASES = (
+    ("train", 8, 1024, 1024, 8, 64, True, 0, 0, False),
+    ("long", 4, 4096, 4096, 16, 128, True, 0, 0, False),
+    ("ragged", 2, 100, 100, 4, 64, True, 0, 0, False),
+    ("cross", 2, 96, 200, 4, 64, True, 104, 0, False),
+    ("noncausal", 2, 100, 160, 4, 128, False, 0, 0, False),
+    ("masked_rows", 2, 128, 128, 4, 64, True, 0, 64, False),
+    ("lse_grad", 2, 192, 192, 4, 40, True, 0, 0, True),
+)
+# float32: max |kernel - plain| on out and on the grads (the JAX package's
+# own tolerances for its kernels); the lse within LSE_TOL in both dtypes
+F32_TOL = {"out": 2e-5, "grad": 1e-4}
+LSE_TOL = 1e-4
+# bfloat16, where kernel and plain round at the same points and differ in
+# float32 summation order: each element within BF16_PEAK of max(|ref|,
+# rms(ref)), and the rms of the difference within BF16_RMS of rms(ref).
+# Set from the measured errors; removing one rounding point of the TPU
+# kernels breaks them (chip_flash_mutants.py, PERF.md)
+BF16_PEAK = 2 ** -5
+BF16_RMS = 2e-4
+
+
+def flash_counts(fa):
+    return {"flash_fwd": fa.flash_fwd.launches,
+            "flash_bwd_dq": fa.flash_bwd_dq.launches,
+            "flash_bwd_dkv": fa.flash_bwd_dkv.launches}
+
+
+def zero_flash_counts(fa):
+    fa.flash_fwd.launches = 0
+    fa.flash_bwd_dq.launches = 0
+    fa.flash_bwd_dkv.launches = 0
+
+
+def flash_inputs(case, dtype, dev, gen):
+    """q, k, v, do and the lse cotangent (or None) of a parity case."""
+    _, b, tq, tk, h, d, _, _, _, with_glse = case
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen).to(dev, dtype)
+
+    glse = (torch.randn((b, h, tq), generator=gen).to(dev)
+            if with_glse else None)
+    return rnd(b, tq, h, d), rnd(b, tk, h, d), rnd(b, tk, h, d), \
+        rnd(b, tq, h, d), glse
+
+
+def by_batch(fn, *tensors, **kw):
+    """``fn`` one batch element at a time (every tensor is batch-first),
+    results concatenated: the plain versions form (H, Tq, Tk) matrices,
+    and at the long shape a whole batch of them would be ~17 GB each."""
+    outs = []
+    for i in range(tensors[0].shape[0]):
+        outs.append(fn(*(None if t is None else t[i:i + 1] for t in tensors),
+                       **kw))
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(parts) for parts in zip(*outs))
+    return torch.cat(outs)
+
+
+def bf16_errors(got, ref):
+    """``(peak, rms)`` of a bfloat16 result against its plain version: the
+    largest ``|got - ref| / max(|ref|, rms(ref))`` over the elements, and
+    ``rms(got - ref) / rms(ref)``."""
+    g, r = got.float(), ref.float()
+    diff = (g - r).abs()
+    rms = r.square().mean().sqrt().clamp_min(1e-30)
+    peak = (diff / torch.maximum(r.abs(), rms)).max()
+    return peak.item(), (diff.square().mean().sqrt() / rms).item()
+
+
+def flash_compare(fa, case, dtype, dev, gen):
+    """One parity case through the three kernels and their plain versions
+    on the same inputs.  Returns ``(errors, failures, note, kernel
+    run)``: errors maps out/lse/dq/dk/dv to ``{"abs": max |got - ref|}``
+    (bfloat16 adds ``peak`` and ``rms``, :func:`bf16_errors`), failures
+    lists each bar or exact-zero rule broken, note counts the rows that
+    see no key and the keys no row sees, and the run is ``(q, k, v,
+    out)``."""
+    _, _, tq, tk, _, d, causal, qo, ko, _ = case
+    q, k, v, do, glse = flash_inputs(case, dtype, dev, gen)
+    kw = dict(causal=causal, scale=d ** -0.5, q_offset=qo, k_offset=ko)
+    out, lse = fa.flash_fwd(q, k, v, **kw)
+    p_out, p_lse = by_batch(fa.flash_fwd_plain, q, k, v, **kw)
+    dq = fa.flash_bwd_dq(q, k, v, out, do, lse, glse, **kw)
+    p_dq = by_batch(fa.flash_bwd_dq_plain, q, k, v, out, do, lse, glse, **kw)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, out, do, lse, glse, **kw)
+    p_dk, p_dv = by_batch(fa.flash_bwd_dkv_plain, q, k, v, out, do, lse,
+                          glse, **kw)
+    torch.cuda.synchronize()
+    errs, failures = {}, []
+    for key, got, ref in (("out", out, p_out), ("lse", lse, p_lse),
+                          ("dq", dq, p_dq), ("dk", dk, p_dk),
+                          ("dv", dv, p_dv)):
+        e = {"abs": (got.float() - ref.float()).abs().max().item()}
+        if key == "lse":
+            ok = e["abs"] <= LSE_TOL
+        elif dtype == torch.float32:
+            ok = e["abs"] <= F32_TOL["out" if key == "out" else "grad"]
+        else:
+            e["peak"], e["rms"] = bf16_errors(got, ref)
+            ok = e["peak"] <= BF16_PEAK and e["rms"] <= BF16_RMS
+        if not ok:  # also NaN
+            failures.append(f"{key} {e}")
+        errs[key] = e
+    # rows that see no key: exactly 0 out and dq, the +1e30 sentinel;
+    # keys that no row sees: exactly 0 dk and dv
+    qpos = qo + torch.arange(tq, device=dev)
+    kpos = ko + torch.arange(tk, device=dev)
+    vis = (qpos[:, None] >= kpos[None, :]) if causal else \
+        torch.ones(tq, tk, dtype=torch.bool, device=dev)
+    dead_q, dead_k = ~vis.any(1), ~vis.any(0)
+    if dead_q.any() and not ((out[:, dead_q] == 0).all()
+                             and (dq[:, dead_q] == 0).all()
+                             and (lse[:, :, dead_q] == 1e30).all()):
+        failures.append("rows that see no key are not exactly 0")
+    if dead_k.any() and not ((dk[:, dead_k] == 0).all()
+                             and (dv[:, dead_k] == 0).all()):
+        failures.append("keys no row sees have nonzero grads")
+    note = (f"{int(dead_q.sum())} dead rows, {int(dead_k.sum())} dead keys "
+            f"exact")
+    return errs, failures, note, (q, k, v, out)
+
+
+def describe_case(case, tname):
+    name, b, tq, tk, h, d, causal, qo, ko, with_glse = case
+    return (f"{name} {tname} (B={b} Tq={tq} Tk={tk} H={h} D={d} "
+            f"causal={causal} offsets={qo},{ko}{' g_lse' if with_glse else ''})")
+
+
+def describe_errors(errs):
+    return ", ".join(
+        f"{key} {e['abs']:.3g}" + (f" (peak {e['peak']:.3g}, rms "
+                                   f"{e['rms']:.3g})" if "peak" in e else "")
+        for key, e in errs.items())
+
+
+def phase_flash_parity(dev, fa):
+    """Each flash kernel against its plain version on the same inputs, in
+    float32 and bfloat16, at the training shape, the long shape and the
+    edge cases (:func:`flash_compare`); at the training shape
+    ``flash_attention`` gives the kernel's output bitwise for each
+    ``variant``.  Returns each kernel's largest absolute error at the
+    training shape."""
+    gen = torch.Generator().manual_seed(SEED + 2)
+    worst = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    for case in FLASH_CASES:
+        for tname, dtype in (("f32", torch.float32),
+                             ("bf16", torch.bfloat16)):
+            errs, failures, note, run = flash_compare(fa, case, dtype, dev,
+                                                      gen)
+            if failures:
+                raise AssertionError(f"flash parity {describe_case(case, tname)}"
+                                     f": " + "; ".join(failures))
+            if case[0] == "train":
+                # every JAX forward schedule runs this one kernel
+                q, k, v, out = run
+                for variant in fa.VARIANTS:
+                    got = fa.flash_attention(q, k, v, causal=True,
+                                             variant=variant)
+                    if not torch.equal(got, out):
+                        raise AssertionError(f"flash variant {variant!r} "
+                                             f"differs from the kernel")
+                for name, keys in (("flash_fwd", ("out",)),
+                                   ("flash_bwd_dq", ("dq",)),
+                                   ("flash_bwd_dkv", ("dk", "dv"))):
+                    worst[name] = max([worst[name]]
+                                      + [errs[k_]["abs"] for k_ in keys])
+            log(f"phase 7 flash parity {describe_case(case, tname)}: "
+                f"{describe_errors(errs)}; {note}")
+            del run
+            torch.cuda.empty_cache()
+    return worst
+
+
+def median_ms(fn, n=30, warmup=3):
+    """Median ms of ``fn()`` over ``n`` launches timed with CUDA events,
+    after ``warmup`` untimed ones."""
+    for _ in range(warmup):
+        fn()
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
+    for i in range(n):
+        starts[i].record()
+        fn()
+        ends[i].record()
+    torch.cuda.synchronize()
+    return float(np.median([s.elapsed_time(e) for s, e in zip(starts, ends)]))
+
+
+def flash_work(b, t, h, d, elem):
+    """(flops, bytes) of each flash kernel for one causal layer of
+    (B, T, H, D): products over the visible (i, j) pairs — 2 per
+    multiply-add, 2 products of D in the forward (q.k, p.v), 3 in dq
+    (q.k, do.v, ds.k), 4 in dk/dv (q.k, do.v, p^T do, ds^T q) — and each
+    input read once, each output written once (lse and its row vectors
+    float32)."""
+    pairs = b * h * t * (t + 1) // 2
+    x = b * t * h * d * elem  # one (B, T, H, D) tensor
+    rows = b * h * t * 4  # one float32 (B, H, T) vector
+    return {
+        "flash_fwd": (4 * pairs * d, 3 * x + x + rows),
+        "flash_bwd_dq": (6 * pairs * d, 5 * x + rows + x),
+        "flash_bwd_dkv": (8 * pairs * d, 5 * x + rows + 2 * x),
+    }
+
+
+def phase_flash_times(dev, fa, bw, bf16_peak):
+    """Each flash kernel, its plain version and the SDPA yardstick at the
+    training shape in bf16, causal: CUDA-event medians after warm-up,
+    beside the bound from the data sheet.  SDPA's backward computes dq,
+    dk and dv in one call; both backward rows carry that one time."""
+    b, t, h, d = FLASH_TRAIN
+    gen = torch.Generator().manual_seed(SEED + 3)
+    dtype = torch.bfloat16
+    q, k, v, do = (torch.randn((b, t, h, d), generator=gen).to(dev, dtype)
+                   for _ in range(4))
+    kw = dict(causal=True, scale=d ** -0.5)
+    out, lse = fa.flash_fwd(q, k, v, **kw)
+    runs = {
+        "flash_fwd": (lambda: fa.flash_fwd(q, k, v, **kw),
+                      lambda: fa.flash_fwd_plain(q, k, v, **kw)),
+        "flash_bwd_dq": (
+            lambda: fa.flash_bwd_dq(q, k, v, out, do, lse, **kw),
+            lambda: fa.flash_bwd_dq_plain(q, k, v, out, do, lse, **kw)),
+        "flash_bwd_dkv": (
+            lambda: fa.flash_bwd_dkv(q, k, v, out, do, lse, **kw),
+            lambda: fa.flash_bwd_dkv_plain(q, k, v, out, do, lse, **kw)),
+    }
+    # the yardstick, on (B, H, T, D) views; never called by the port
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    lib_err = (sdpa_out.transpose(1, 2).float() - out.float()).abs().max()
+    if not lib_err.item() <= 0.05:
+        raise AssertionError(f"SDPA yardstick disagrees: {lib_err.item()}")
+    dot = do.transpose(1, 2)
+    lib_fwd = median_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True))
+    lib_bwd = median_ms(lambda: torch.autograd.grad(
+        sdpa_out, (qt, kt, vt), dot, retain_graph=True))
+    work = flash_work(b, t, h, d, q.element_size())
+    out_rows = {}
+    for name, (kern, plain) in runs.items():
+        ms = median_ms(kern)
+        plain_ms = median_ms(plain, n=20)
+        flops, n_bytes = work[name]
+        t_bytes = n_bytes / bw * 1e3
+        t_ops = flops / bf16_peak * 1e3
+        out_rows[name] = {
+            "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_fwd if name == "flash_fwd" else lib_bwd,
+            "flops": flops, "bytes": n_bytes,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        }
+        log(f"phase 10 times {name} (B={b} T={t} H={h} D={d} bf16 causal): "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+            f"{out_rows[name]['library_ms']:.4f} ms, bound "
+            f"{out_rows[name]['bound_ms']:.4f} ms ({out_rows[name]['bound_by']}: "
+            f"{flops / 1e9:.2f} GFLOP, {n_bytes / 1e6:.1f} MB); "
+            f"{flops / ms / 1e9:.1f} TFLOP/s")
+    return out_rows
+
+
+TRAIN_STEPS = 30
+TRAIN_ARGV = [
+    "--model", "dense", "--vocab", str(MODEL["vocab_size"]),
+    "--d-model", str(MODEL["d_model"]), "--n-heads", str(MODEL["n_heads"]),
+    "--n-layers", str(MODEL["n_layers"]), "--d-ff", str(MODEL["d_ff"]),
+    "--dtype", "bfloat16", "--attn-impl", "flash",
+    "--batch", str(FLASH_TRAIN[0]), "--seq-len", str(FLASH_TRAIN[1]),
+    "--corpus-tokens", "1000000", "--seed", str(SEED),
+    "--steps", str(TRAIN_STEPS), "--schedule", "warmup_cosine",
+    "--warmup-steps", "5", "--grad-clip", "1.0", "--ckpt-every", "10",
+    "--log-every", "1",
+]
+
+
+def device_profile(run, tag):
+    """``run()`` under ``torch.profiler``: the wall time, the device's busy
+    share of it (kernel time summed; one stream, so no overlap) and the
+    kernels that take the most."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
-        for r in reqs:
-            eng.submit(dataclasses.replace(r, rid=r.rid + 10_000,
-                                           arrival_s=0.0))
-        eng.run_until_idle()
+        run()
         torch.cuda.synchronize()
         wall_s = time.monotonic() - t0
 
@@ -310,15 +619,227 @@ def phase_profile(eng, reqs):
                  "device_ms": device_us(e) / 1e3} for e in top],
     }
     if rows:
-        log(f"phase 5 profile: wall {wall_s:.3f} s, device busy "
+        log(f"{tag}: wall {wall_s:.3f} s, device busy "
             f"{out['device_busy_s']:.3f} s = "
             f"{100 * out['device_busy_share']:.1f}% (under the profiler)")
         for t in out["top"]:
             log(f"  {t['device_ms']:9.3f} ms  x{t['count']:<6d} {t['name']}")
     else:
-        log("phase 5 profile: the profiler recorded no device time "
-            "(not measured)")
+        log(f"{tag}: the profiler recorded no device time (not measured)")
     return out
+
+
+def phase_train(dev, fa, trainer, ckpt, train_mod):
+    """The flagship train run through ``trainer.main``, the normal entry
+    point, with the flash launch counts set to 0 just before and read
+    just after; then, after that read, steady-state step times and a
+    profile of a few more steps from the trained state."""
+    import tempfile
+
+    b, t = FLASH_TRAIN[:2]
+    layers = MODEL["n_layers"]
+    with tempfile.TemporaryDirectory(prefix="ft-train-") as ckpt_dir:
+        out: dict = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_flash_counts(fa)
+        t0 = time.monotonic()
+        trainer.main(TRAIN_ARGV + ["--ckpt-dir", ckpt_dir], out=out)
+        torch.cuda.synchronize()
+        wall_s = time.monotonic() - t0
+        launches = flash_counts(fa)
+        peak_bytes = torch.cuda.max_memory_allocated()
+        res = out["result"]
+        losses = [loss for _, loss in res.losses]
+        if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
+            raise AssertionError(f"train losses not finite: {losses}")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"train loss did not fall: {losses[0]} -> "
+                                 f"{losses[-1]}")
+        want = TRAIN_STEPS * layers
+        if any(n != want for n in launches.values()):
+            raise AssertionError(f"flash launches {launches} != steps x "
+                                 f"layers = {want}")
+        if res.report.skipped_steps:
+            raise AssertionError(f"skipped steps {res.report.skipped_steps}")
+        saved = ckpt.restore_train_state(ckpt_dir, dev)
+        live = train_mod.tree_leaves(res.state)
+        back = train_mod.tree_leaves(saved)
+        if len(live) != len(back) or not all(
+            a.dtype == b_.dtype and torch.equal(a, b_)
+            for a, b_ in zip(live, back)
+        ):
+            raise AssertionError("the saved checkpoint does not restore "
+                                 "bitwise to the live state")
+    hist = res.report.metrics["histograms"]["train.step_ms"]
+    # steady state: more steps from the trained state, host-timed to
+    # the device's end, one at a time
+    step = train_mod.make_train_step(out["model_cfg"], out["train_cfg"],
+                                     device=dev)
+    data = np.random.default_rng(SEED).integers(
+        0, MODEL["vocab_size"], (2, b, t)).astype(np.int32)
+    state = res.state
+    step_s = []
+    for i in range(12):
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        state, metrics = step(state, data[0], data[1])
+        float(metrics["loss"])
+        step_s.append(time.monotonic() - t1)
+    steady_ms = float(np.median(step_s[2:])) * 1e3
+
+    def three_steps():
+        s = state
+        for _ in range(3):
+            s, m = step(s, data[0], data[1])
+        float(m["loss"])
+
+    prof = device_profile(three_steps, "phase 8 profile (3 train steps)")
+    summary = {
+        "steps": TRAIN_STEPS, "wall_s": wall_s,
+        "loss_first": losses[0], "loss_last": losses[-1],
+        "launches": launches, "peak_mem_bytes": peak_bytes,
+        "registry_step_ms_p50": hist["p50"],
+        "registry_step_ms_min": hist["min"],
+        "steady_step_ms_median": steady_ms,
+        "tokens_per_s": b * t / (steady_ms / 1e3),
+        "profile": prof,
+    }
+    log(f"phase 8 train (flagship, bf16, flash, B={b} T={t}): {TRAIN_STEPS} "
+        f"steps in {wall_s:.3f} s via trainer.main; loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}; flash launches {launches} = {TRAIN_STEPS} steps x "
+        f"{layers} layers; checkpoint restores bitwise; steady step "
+        f"{steady_ms:.3f} ms (median of 10) = {summary['tokens_per_s']:.0f} "
+        f"tokens/s; registry step_ms p50 {hist['p50']}; peak memory "
+        f"{peak_bytes / 2**30:.3f} GiB")
+    return summary
+
+
+F32_STEPS = 3
+F32_BATCH = 2
+
+
+def named_leaves(tree, prefix=""):
+    """``[(path, tensor)]`` of a dict/list tree, in ``tree_map`` order."""
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items()
+                for x in named_leaves(v, f"{prefix}{k}.")]
+    if isinstance(tree, list):
+        return [x for i, v in enumerate(tree)
+                for x in named_leaves(v, f"{prefix}{i}.")]
+    return [(prefix[:-1], tree)]
+
+
+def f32_run(models, train_mod, cfg, init, batches, dev):
+    """Train steps from ``init`` over ``batches``: ``(losses, [(name,
+    final param)], [each step's gradients])``."""
+    step = train_mod.make_train_step(cfg, train_mod.TrainConfig(),
+                                     device=dev)
+    state, losses, grads = init, [], []
+    for tokens, targets in batches:
+        params = train_mod.tree_map(
+            lambda p: p.detach().requires_grad_(), state["params"])
+        logits = models.forward(params, torch.as_tensor(
+            tokens, device=dev).long(), cfg)
+        loss_sum, _ = models.cross_entropy_loss(
+            logits, torch.as_tensor(targets, device=dev))
+        grads.append(torch.autograd.grad(loss_sum / tokens.size,
+                                         train_mod.tree_leaves(params)))
+        del params, logits, loss_sum
+        state, metrics = step(state, tokens, targets)
+        losses.append(float(metrics["loss"]))
+    return losses, named_leaves(state["params"]), grads
+
+
+def f32_gaps(run, base):
+    """How far ``run`` lands from ``base``: the largest relative loss gap,
+    the largest gradient gap over the steps, the largest parameter gap,
+    and one line per parameter leaf with elements more than 1e-5 apart,
+    giving at those elements the step-1 gradient and its gap."""
+    (l_run, p_run, g_run), (l_base, p_base, g_base) = run, base
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(l_run, l_base))
+    grad_abs = max((a - b).abs().max().item()
+                   for gs_run, gs_base in zip(g_run, g_base)
+                   for a, b in zip(gs_run, gs_base))
+    param_abs, misses = 0.0, []
+    for i, ((name, a), (_, b)) in enumerate(zip(p_run, p_base)):
+        gap = (a - b).abs()
+        param_abs = max(param_abs, gap.max().item())
+        over = gap > 1e-5
+        if over.any():
+            g1 = g_base[0][i][over].abs()
+            dg1 = (g_run[0][i][over] - g_base[0][i][over]).abs()
+            misses.append(
+                f"{name}: {int(over.sum())}/{gap.numel()} over, gap "
+                f"{gap.max().item():.3g}; step-1 |g| there "
+                f"{g1.min().item():.3g}..{g1.max().item():.3g}, its gap "
+                f"{dg1.min().item():.3g}..{dg1.max().item():.3g} (largest "
+                f"gap/|g| {(dg1 / g1.clamp_min(1e-30)).max().item():.3g})")
+    return loss_rel, grad_abs, param_abs, misses
+
+
+def phase_f32_train(dev, models, train_mod, data_mod):
+    """Flash against reference attention, float32 compute at full width,
+    from one initial state over the same batches: each step's loss within
+    rtol 1e-5 and each step's gradients within atol 1e-5, checked; each
+    parameter against the JAX package's atol 1e-5, printed.  A parameter
+    can miss that bar while its gradients agree: AdamW's first step moves
+    a parameter by ``lr * g / (|g| + eps)``, so where |g| is near eps =
+    1e-8 a gradient gap of the size of g moves it by up to ~lr (PERF.md).
+    Each miss is printed with its step-1 gradient and gradient gap; and a
+    second witness, reference attention on the same batches with their
+    rows reversed (the same loss, a different float32 summation order),
+    is held against the reference the same way."""
+    dataset = data_mod.LMDataset(
+        data_mod.synthetic_tokens(200_000, MODEL["vocab_size"], seed=SEED),
+        batch=F32_BATCH, seq_len=FLASH_TRAIN[1], seed=SEED)
+    batches = [dataset.batch_at(i) for i in range(F32_STEPS)]
+    reversed_rows = [(np.ascontiguousarray(t[::-1]),
+                      np.ascontiguousarray(g[::-1])) for t, g in batches]
+    init = train_mod.init_train_state(
+        models.TransformerConfig(**MODEL),
+        torch.Generator().manual_seed(SEED), device=dev)
+
+    def cfg(impl):
+        return models.TransformerConfig(**MODEL, dtype=torch.float32,
+                                        attn_impl=impl)
+
+    ref = f32_run(models, train_mod, cfg("reference"), init, batches, dev)
+    flash = f32_run(models, train_mod, cfg("flash"), init, batches, dev)
+    witness = f32_run(models, train_mod, cfg("reference"), init,
+                      reversed_rows, dev)
+    loss_rel, grad_abs, param_abs, misses = f32_gaps(flash, ref)
+    w_loss, w_grad, w_param, w_misses = f32_gaps(witness, ref)
+    log(f"phase 9 f32 train, flash vs reference ({F32_STEPS} steps, B="
+        f"{F32_BATCH} T={FLASH_TRAIN[1]}, full width): losses {flash[0]} vs "
+        f"{ref[0]}; max loss rel gap {loss_rel:.3g} (bar 1e-5); max grad "
+        f"abs gap {grad_abs:.3g} (bar 1e-5); max param abs gap "
+        f"{param_abs:.3g} (JAX bar 1e-5; {len(misses)} leaves miss it)")
+    for m in misses:
+        log(f"  param over the bar: {m}")
+    log(f"phase 9 witness, reference with the batch rows reversed vs "
+        f"reference: max loss rel gap {w_loss:.3g}; max grad abs gap "
+        f"{w_grad:.3g}; max param abs gap {w_param:.3g} ({len(w_misses)} "
+        f"leaves over 1e-5)")
+    for m in w_misses:
+        log(f"  witness param over 1e-5: {m}")
+    if not (loss_rel <= 1e-5 and grad_abs <= 1e-5):
+        raise AssertionError(f"f32 flash vs reference: loss rel {loss_rel}, "
+                             f"grad abs {grad_abs} (bar 1e-5 each)")
+    return {"loss_rel_gap": loss_rel, "grad_abs_gap": grad_abs,
+            "param_abs_gap": param_abs, "param_misses": misses,
+            "witness_param_abs_gap": w_param, "witness_misses": w_misses}
+
+
+def phase_profile(eng, reqs):
+    """Run ``reqs`` again (fresh ids) under ``torch.profiler``."""
+    def run():
+        for r in reqs:
+            eng.submit(dataclasses.replace(r, rid=r.rid + 10_000,
+                                           arrival_s=0.0))
+        eng.run_until_idle()
+
+    return device_profile(run, "phase 5 profile")
 
 
 def main() -> int:
@@ -326,13 +847,17 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
-    from flextree_tpu_torch import kernels, serving
+    from flextree_tpu_torch import data as data_mod
+    from flextree_tpu_torch import kernels, models, serving, trainer
     from flextree_tpu_torch.models.generate import generate
     from flextree_tpu_torch.models.transformer import (
         TransformerConfig,
         init_params,
     )
+    from flextree_tpu_torch.ops import flash_attention as fa
     from flextree_tpu_torch.ops import paged_attention as pa
+    from flextree_tpu_torch.parallel import train as train_mod
+    from flextree_tpu_torch.utils import checkpoint as ckpt
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -341,7 +866,7 @@ def main() -> int:
     # ---- phase 1: device and build
     smi = smi_line()
     kind = torch.cuda.get_device_name(0)
-    bw, fp32_peak = card_peaks(kind)
+    bw, fp32_peak, bf16_peak = card_peaks(kind)
     log(f"phase 1 device: {kind}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}; nvidia-smi: {smi}")
     t0 = time.monotonic()
@@ -428,6 +953,19 @@ def main() -> int:
             raise AssertionError(f"request {r.rid}: engine != generate")
     log(f"phase 6 f32: kernel engine == gather engine on all {N_REQUESTS} "
         f"requests; == generate on 4")
+    del params
+
+    # ---- phase 7: each flash kernel against its plain version
+    worst = phase_flash_parity(dev, fa)
+
+    # ---- phase 8: the flagship train run through trainer.main
+    train = phase_train(dev, fa, trainer, ckpt, train_mod)
+
+    # ---- phase 9: float32 flash vs reference train steps
+    phase_f32_train(dev, models, train_mod, data_mod)
+
+    # ---- phase 10: flash kernel times at the training shape
+    ftimes = phase_flash_times(dev, fa, bw, bf16_peak)
 
     kline = {"kernels": [{
         "name": "paged_attention",
@@ -441,7 +979,19 @@ def main() -> int:
         "bound_ms": times["bound_ms"],
         "bound_by": times["bound_by"],
         "library_ms": times["library_ms"],
-    }]}
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": f"flextree_tpu_torch/csrc/{name}.cu",
+        "replaces": replaces,
+        "launches": train["launches"][name],
+        "max_abs_err": worst[name],
+        "ms": ftimes[name]["ms"],
+        "plain_ms": ftimes[name]["plain_ms"],
+        "bound_ms": ftimes[name]["bound_ms"],
+        "bound_by": ftimes[name]["bound_by"],
+        "library_ms": ftimes[name]["library_ms"],
+    } for name, replaces in FLASH_REPLACES]}
     print(json.dumps(kline))
     print(smi)
     print(json.dumps({"ok": True, "device": {

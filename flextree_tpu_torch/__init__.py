@@ -8,19 +8,27 @@ wrote a Pallas kernel for the TPU.  It imports ``torch`` and never ``jax``
 nor ``flextree_tpu``: what it needs of the JAX package it keeps as its own
 copy.
 
-Ported so far (the serving path):
+Ported so far (the serving path and the dense train step on one card):
 
-- :mod:`.models` — the dense decoder LM's single-device forward, the
-  contiguous KV cache, prefill/decode and ``generate``;
+- :mod:`.models` — the dense decoder LM's single-device forward (reference
+  or flash attention), its cross-entropy loss, the contiguous KV cache,
+  prefill/decode and ``generate``;
 - :mod:`.ops.paged_attention` — one-token paged decode attention, the
   CUDA kernel ``csrc/paged_attention.cu`` beside its plain PyTorch twin;
+- :mod:`.ops.flash_attention` — causal flash attention forward and
+  backward, the CUDA kernels ``csrc/flash_fwd.cu``, ``flash_bwd_dq.cu``
+  and ``flash_bwd_dkv.cu`` beside their plain versions;
+- :mod:`.parallel` — the train step (``train``), the run loop (``loop``)
+  and the local-attention switch (``ring_attention``);
+- :mod:`.trainer` — the training CLI (``python -m
+  flextree_tpu_torch.trainer``); :mod:`.data` the corpus and batching;
+  :mod:`.utils.checkpoint` the JAX package's checkpoint format;
 - :mod:`.serving` — the paged KV cache, the continuous batcher, the
   prefix index and the serving engine (``python -m
   flextree_tpu_torch.serving``);
-- :mod:`.obs` — the metrics registry and the flight recorder the engine
-  reports through;
-- :mod:`.convert` — the JAX parameter pytree (as numpy) to the port's
-  parameters.
+- :mod:`.obs` — the metrics registry and the flight recorder;
+- :mod:`.convert` — the JAX parameter pytree and train state (as numpy)
+  to and from the port's.
 
 Entry points run on ``cuda`` unless the caller asks for ``cpu``
 (:func:`.device.resolve_device`); with no GPU and no ``cpu`` request they

@@ -1,10 +1,11 @@
-"""Weight carry-over from the JAX package.
+"""Weight and train-state carry-over from the JAX package.
 
 ``flextree_tpu.models.transformer.init_params`` returns a pytree of
-``(in, out)``-shaped float32 arrays; the port keeps that layout, so the
-conversion is a copy.  The caller turns the JAX arrays into numpy
-(``jax.tree.map(np.asarray, params)``) — this module imports neither JAX
-nor the JAX package.
+``(in, out)``-shaped float32 arrays and ``parallel.train.init_train_state``
+wraps it as ``{"params", "mu", "nu", "step"}``; the port keeps both
+layouts, so the conversion is a copy.  The caller turns the JAX arrays
+into numpy (``jax.tree.map(np.asarray, tree)``) — this module imports
+neither JAX nor the JAX package.
 """
 
 from __future__ import annotations
@@ -12,7 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["params_from_numpy"]
+__all__ = ["params_from_numpy", "train_state_from_numpy",
+           "train_state_to_numpy"]
 
 _LAYER_KEYS = ("ln1", "wq", "wk", "wv", "wo", "ln2", "w1", "w2")
 
@@ -38,3 +40,31 @@ def params_from_numpy(tree: dict, device=None) -> dict:
         layers.append({k: t(layer[k]) for k in _LAYER_KEYS})
     return {"embed": t(tree["embed"]), "ln_f": t(tree["ln_f"]),
             "layers": layers}
+
+
+def train_state_from_numpy(tree: dict, device=None) -> dict:
+    """The port's train state from the JAX ``init_train_state`` pytree
+    (or any JAX train state of the replicated f32 layout) given as numpy:
+    params and both moments through :func:`params_from_numpy`, ``step`` a
+    0-d int32 tensor.  A state with other entries (the ``"ef"`` residual
+    of a lossy codec, ZeRO shards) raises: the port does not run them."""
+    from .device import resolve_device
+
+    dev = resolve_device(device)
+    if set(tree) != {"params", "mu", "nu", "step"}:
+        raise ValueError(
+            f"expected a replicated f32 train state with keys params, mu, "
+            f"nu, step; got {sorted(tree)}"
+        )
+    state = {k: params_from_numpy(tree[k], dev) for k in ("params", "mu", "nu")}
+    state["step"] = torch.tensor(int(np.asarray(tree["step"])),
+                                 dtype=torch.int32, device=dev)
+    return state
+
+
+def train_state_to_numpy(state: dict) -> dict:
+    """The port's train state as the JAX pytree of numpy arrays (host
+    copies; ``step`` a 0-d int32 array)."""
+    from .parallel.train import tree_map
+
+    return tree_map(lambda t: t.detach().cpu().numpy().copy(), state)

@@ -2,11 +2,12 @@
 
 Each kernel is one ``csrc/*.cu`` file with a plain C entry point, compiled
 by ``nvcc`` for Hopper (``sm_90a``) into a shared library and bound with
-``ctypes`` — no PyTorch headers, so a build takes seconds.  Builds happen
-at first use, from the sources in the checkout, into ``build/kernels/``
-at the repository root (listed in ``.gitignore``).  A library's file name
-carries a hash of its source and flags, so an edited source is never
-served by a stale build.  :func:`build` starts one ``nvcc`` per source,
+``ctypes`` — no PyTorch headers, so a build takes seconds.  Sources may
+include the package's own ``csrc/*.cuh`` headers.  Builds happen at first
+use, from the sources in the checkout, into ``build/kernels/`` at the
+repository root (listed in ``.gitignore``).  A library's file name carries
+a hash of its source, the headers and the flags, so an edited source is
+never served by a stale build.  :func:`build` starts one ``nvcc`` per source,
 all at once, and waits for them together.
 """
 
@@ -20,7 +21,7 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["SOURCES", "BUILD_DIR", "build", "load", "build_log"]
+__all__ = ["SOURCES", "HEADERS", "BUILD_DIR", "build", "load", "build_log"]
 
 _PKG = Path(__file__).resolve().parent
 BUILD_DIR = _PKG.parent / "build" / "kernels"
@@ -28,7 +29,12 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 #: kernel name -> its source under the package
 SOURCES = {
     "paged_attention": _PKG / "csrc" / "paged_attention.cu",
+    "flash_fwd": _PKG / "csrc" / "flash_fwd.cu",
+    "flash_bwd_dq": _PKG / "csrc" / "flash_bwd_dq.cu",
+    "flash_bwd_dkv": _PKG / "csrc" / "flash_bwd_dkv.cu",
 }
+#: headers the sources include; part of every build's hash
+HEADERS = sorted((_PKG / "csrc").glob("*.cuh"))
 
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -39,6 +45,15 @@ _SIGNATURES = {
     "paged_attention": (
         "ft_paged_attention_decode",
         [_P] * 8 + [_I] * 6 + [_F, _I, _P],
+    ),
+    "flash_fwd": ("ft_flash_fwd", [_P] * 5 + [_I] * 5 + [_F] + [_I] * 4 + [_P]),
+    "flash_bwd_dq": (
+        "ft_flash_bwd_dq",
+        [_P] * 8 + [_I] * 5 + [_F] * 2 + [_I] * 4 + [_P],
+    ),
+    "flash_bwd_dkv": (
+        "ft_flash_bwd_dkv",
+        [_P] * 9 + [_I] * 5 + [_F] * 2 + [_I] * 4 + [_P],
     ),
 }
 
@@ -61,6 +76,8 @@ def _nvcc() -> str:
 
 def _library_path(name: str) -> Path:
     h = hashlib.sha256(SOURCES[name].read_bytes())
+    for header in HEADERS:
+        h.update(header.read_bytes())
     h.update(" ".join(_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 

@@ -1,5 +1,5 @@
-"""The dense LM and its generation loop (serving half of the JAX package's
-``flextree_tpu.models``)."""
+"""The dense LM, its loss and its generation loop (the JAX package's
+``flextree_tpu.models`` without the MoE model)."""
 
 from .generate import (
     cached_attention,
@@ -13,10 +13,13 @@ from .generate import (
 from .transformer import (
     TransformerConfig,
     apply_rope,
+    attention_block,
     cast_params,
+    cross_entropy_loss,
     final_logits,
     forward,
     init_params,
+    layer_forward,
     mlp_block,
     rms_norm,
 )
@@ -27,9 +30,12 @@ __all__ = [
     "cast_params",
     "rms_norm",
     "apply_rope",
+    "attention_block",
+    "layer_forward",
     "mlp_block",
     "final_logits",
     "forward",
+    "cross_entropy_loss",
     "init_kv_cache",
     "cached_attention",
     "prefill",

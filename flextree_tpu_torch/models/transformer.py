@@ -1,10 +1,14 @@
-"""The dense decoder-only transformer LM, single-device serving half.
+"""The dense decoder-only transformer LM on one device.
 
-PyTorch counterpart of ``flextree_tpu/models/transformer.py`` for what the
-serving path runs: the config, parameter init, RMSNorm, split-half RoPE,
-the GELU MLP, the tied-embedding LM head and the single-device forward
-with full-matrix reference attention.  The tensor- and sequence-parallel
-paths of the JAX module come with the training slices of the port.
+PyTorch counterpart of ``flextree_tpu/models/transformer.py``: the config,
+parameter init, RMSNorm, split-half RoPE, the attention and GELU MLP
+residual halves, the tied-embedding LM head, the single-device forward
+and the summed cross-entropy loss.  Attention dispatches through
+:func:`..parallel.ring_attention.local_attention` by
+``TransformerConfig.attn_impl``: ``"reference"`` (full matrix) or
+``"flash"`` (the CUDA flash kernels).  The tensor- and sequence-parallel
+axes of the JAX module wait on the port's collectives: a ``tp_axis`` or
+``sp_axis`` argument raises.
 
 Parameters are a plain dict in the JAX pytree's layout — ``{"embed",
 "ln_f", "layers": [{"ln1", "wq", "wk", "wv", "wo", "ln2", "w1", "w2"}]}``
@@ -29,9 +33,12 @@ __all__ = [
     "cast_params",
     "rms_norm",
     "apply_rope",
+    "attention_block",
+    "layer_forward",
     "mlp_block",
     "final_logits",
     "forward",
+    "cross_entropy_loss",
 ]
 
 _MATRICES = ("wq", "wk", "wv", "wo", "w1", "w2")
@@ -46,6 +53,12 @@ class TransformerConfig:
     d_ff: int = 512
     rope_theta: float = 10000.0
     dtype: torch.dtype = torch.float32  # compute dtype; params stay float32
+    # local attention compute: "reference" (full matrix) or "flash" (the
+    # CUDA flash kernels, ops.flash_attention)
+    attn_impl: str = "reference"
+    # extra kwargs for the flash kernel (block_q / block_k / variant) as a
+    # hashable tuple of (key, value) pairs, as in the JAX config
+    attn_opts: tuple = ()
 
     @property
     def head_dim(self) -> int:
@@ -150,21 +163,64 @@ def final_logits(embed, ln_f, h):
     return x.float() @ embed.T.float()
 
 
-def forward(params, tokens, cfg: TransformerConfig):
-    """Logits (B, T, vocab) float32 for ``tokens`` (B, T) int on one
-    device, with causal full-matrix attention (the JAX module's
-    ``attn_impl="reference"``)."""
-    from .generate import _qkv, cached_attention
+def _single_device(tp_axis, sp_axis) -> None:
+    if tp_axis is not None or sp_axis is not None:
+        raise NotImplementedError(
+            f"tp_axis={tp_axis!r} / sp_axis={sp_axis!r}: tensor and "
+            f"sequence parallelism are not ported yet (ROADMAP.md, Queue 1: "
+            f"'Sequence, pipeline and expert parallelism')"
+        )
 
-    b, t = tokens.shape
-    positions = torch.arange(t, device=tokens.device)
+
+def attention_block(layer, x, positions, cfg: TransformerConfig, *,
+                    tp_axis=None, sp_axis=None):
+    """Pre-norm attention residual half: ``x + W_o attn(RoPE(QKV(norm
+    x)))``, causal, with the attention from ``cfg.attn_impl``."""
+    from ..parallel.ring_attention import local_attention
+    from .generate import _qkv
+
+    _single_device(tp_axis, sp_axis)
+    attn_opts = dict(cfg.attn_opts)
+    if attn_opts and cfg.attn_impl != "flash":
+        raise ValueError(
+            f"attn_opts {sorted(attn_opts)} require attn_impl='flash', "
+            f"got {cfg.attn_impl!r}"
+        )
+    b, t = x.shape[:2]
+    h = rms_norm(x, layer["ln1"])
+    q, k, v = _qkv(layer, h, cfg)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    attn = local_attention(q, k, v, causal=True, impl=cfg.attn_impl,
+                           **attn_opts)
+    return x + attn.reshape(b, t, -1) @ layer["wo"].to(cfg.dtype)
+
+
+def layer_forward(layer, x, positions, cfg: TransformerConfig, *,
+                  tp_axis=None, sp_axis=None):
+    """One transformer block on hidden states ``x`` (B, T, d) at global
+    ``positions`` (T,)."""
+    x = attention_block(layer, x, positions, cfg, tp_axis=tp_axis,
+                        sp_axis=sp_axis)
+    return mlp_block(layer, x, cfg)
+
+
+def forward(params, tokens, cfg: TransformerConfig, *, tp_axis=None,
+            sp_axis=None):
+    """Logits (B, T, vocab) float32 for ``tokens`` (B, T) int on one
+    device, with causal attention from ``cfg.attn_impl``."""
+    _single_device(tp_axis, sp_axis)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
     x = params["embed"][tokens].to(cfg.dtype)
     for layer in params["layers"]:
-        h = rms_norm(x, layer["ln1"])
-        q, k, v = _qkv(layer, h, cfg)
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
-        attn = cached_attention(q, k, v, positions)
-        x = x + attn.reshape(b, t, -1) @ layer["wo"].to(cfg.dtype)
-        x = mlp_block(layer, x, cfg)
+        x = layer_forward(layer, x, positions, cfg)
     return final_logits(params["embed"], params["ln_f"], x)
+
+
+def cross_entropy_loss(logits, targets):
+    """Per-token cross entropy, summed: ``(loss_sum, token_count)``.
+    Summed, not meaned, so the caller normalizes by the batch's token
+    count, as the JAX train step does."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    return (logz - gold).sum(), float(targets.numel())

@@ -1,0 +1,284 @@
+"""The port's flash attention (``flextree_tpu_torch.ops.flash_attention``,
+its plain path on the CPU) against the JAX package's ``flash_attention``
+(Pallas in interpret mode on the CPU) and its oracle
+``attention_with_offsets``, on the same NumPy inputs.
+
+Tolerances (float32): 2e-5 on the output and the lse, 1e-4 on dq, dk and
+dv — the JAX package's own for its kernel against the oracle
+(``tests/test_pallas_attention.py``); the two implementations differ only
+in summation order.  Rows that see no key are held exactly: zero output,
+``-1e30`` public lse, zero gradients.  Each case runs forward, lse and
+both backward kernels in one ``jax.vjp`` (with random cotangents for the
+output and the lse), so every case exercises the lse-cotangent path.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from flextree_tpu.ops import pallas_attention as jfa
+from flextree_tpu_torch.ops import flash_attention as tfa
+from flextree_tpu_torch.parallel.ring_attention import (
+    attention_reference,
+    local_attention,
+)
+
+FWD_ATOL = 2e-5
+GRAD_ATOL = 1e-4
+
+# name: (B, Tq, Tk, H, D, causal, q_offset, k_offset, block_q, block_k)
+CASES = {
+    "causal": (2, 48, 48, 2, 16, True, 0, 0, 16, 16),
+    "noncausal": (1, 48, 48, 2, 16, False, 0, 0, 16, 16),
+    "ragged_tail": (1, 50, 50, 2, 16, True, 0, 0, 16, 16),
+    "q_shifted": (1, 32, 96, 2, 16, True, 64, 0, 16, 16),
+    "k_ahead": (1, 32, 96, 2, 32, True, 0, 64, 16, 16),
+    "fully_masked": (1, 16, 96, 2, 32, True, 0, 80, 16, 16),
+    "cross_lengths": (1, 32, 80, 2, 32, False, 0, 0, 16, 32),
+}
+
+
+def _inputs(b, tq, tk, h, d, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def rnd(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    return rnd(b, tq, h, d), rnd(b, tk, h, d), rnd(b, tk, h, d), \
+        rnd(b, tq, h, d), rnd(b, tq, h)
+
+
+def _torch_run(q, k, v, g_out, g_lse, **kw):
+    """(out, lse, dq, dk, dv) of the port's flash_attention with the lse
+    output, backpropagating ``g_out`` and ``g_lse``."""
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out, lse = tfa.flash_attention(tq, tk, tv, return_lse=True, **kw)
+    torch.autograd.backward((out, lse), (torch.from_numpy(g_out),
+                                         torch.from_numpy(g_lse)))
+    return [x.detach().numpy() for x in (out, lse, tq.grad, tk.grad, tv.grad)]
+
+
+def _jax_run(q, k, v, g_out, g_lse, **kw):
+    def f(q, k, v):
+        return jfa.flash_attention(q, k, v, return_lse=True, **kw)
+
+    (out, lse), vjp = jax.vjp(f, *(jnp.asarray(x) for x in (q, k, v)))
+    grads = vjp((jnp.asarray(g_out), jnp.asarray(g_lse)))
+    return [np.asarray(x) for x in (out, lse, *grads)]
+
+
+def _close(got, want, atol):
+    np.testing.assert_allclose(np.asarray(got, np.float64),
+                               np.asarray(want, np.float64), atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_flash_matches_jax_flash(name):
+    b, tq, tk, h, d, causal, qo, ko, bq, bk = CASES[name]
+    q, k, v, g_out, g_lse = _inputs(b, tq, tk, h, d)
+    kw = dict(causal=causal, q_offset=qo, k_offset=ko, block_q=bq,
+              block_k=bk)
+    got = _torch_run(q, k, v, g_out, g_lse, **kw)
+    want = _jax_run(q, k, v, g_out, g_lse, **kw)
+    for label, g, w, tol in zip(("out", "lse", "dq", "dk", "dv"), got, want,
+                                (FWD_ATOL, FWD_ATOL) + (GRAD_ATOL,) * 3):
+        assert g.shape == w.shape, label
+        _close(g, w, tol)
+    if name == "fully_masked":  # no row sees a key: exact zeros, no NaN
+        out, lse, dq, dk, dv = got
+        assert not out.any() and not dq.any() and not dk.any()
+        assert not dv.any()
+        assert (lse == np.float32(-1e30)).all()
+
+
+@pytest.mark.parametrize("causal,qo,ko,tk", [(True, 0, 0, 40),
+                                             (True, 64, 0, 96),
+                                             (False, 0, 0, 72)])
+def test_flash_matches_oracle(causal, qo, ko, tk):
+    """Output and gradients against ``jax.grad`` of the JAX oracle on the
+    (B*H, T, D) layout."""
+    b, tq, h, d = 2, 40 if tk == 40 else 32, 2, 16
+    q, k, v, g_out, _ = _inputs(b, tq, tk, h, d, seed=1)
+    scale = d ** -0.5
+
+    def bhd(x):
+        return x.transpose(0, 2, 1, 3).reshape(b * h, x.shape[1], d)
+
+    def oracle(q, k, v):
+        out = jfa.attention_with_offsets(bhd(q), bhd(k), bhd(v),
+                                         causal=causal, scale=scale,
+                                         q_offset=qo, k_offset=ko)
+        return out.reshape(b, h, tq, d).transpose(0, 2, 1, 3)
+
+    want, vjp = jax.vjp(oracle, *(jnp.asarray(x) for x in (q, k, v)))
+    want_grads = vjp(jnp.asarray(g_out))
+    tq_, tk_, tv_ = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out = tfa.flash_attention(tq_, tk_, tv_, causal=causal, q_offset=qo,
+                              k_offset=ko)
+    out.backward(torch.from_numpy(g_out))
+    _close(out.detach().numpy(), want, FWD_ATOL)
+    for g, w in zip((tq_.grad, tk_.grad, tv_.grad), want_grads):
+        _close(g.numpy(), w, GRAD_ATOL)
+
+
+def test_oracle_matches_jax_oracle():
+    q, k, v, _, _ = _inputs(1, 24, 40, 2, 16, seed=2)
+    flat = [x.transpose(0, 2, 1, 3).reshape(2, x.shape[1], 16)
+            for x in (q, k, v)]
+    want = jfa.attention_with_offsets(*(jnp.asarray(x) for x in flat),
+                                      causal=True, scale=0.3, q_offset=16,
+                                      k_offset=0)
+    got = tfa.attention_with_offsets(*(torch.from_numpy(x) for x in flat),
+                                     causal=True, scale=0.3, q_offset=16,
+                                     k_offset=0)
+    _close(got.numpy(), want, FWD_ATOL)
+
+
+def test_flash_without_lse_matches_jax_core():
+    """The output-only core (the one the model runs) and its backward."""
+    q, k, v, g_out, _ = _inputs(1, 40, 40, 2, 16, seed=3)
+    kw = dict(causal=True, block_q=16, block_k=16)
+    out, vjp = jax.vjp(lambda *a: jfa.flash_attention(*a, **kw),
+                       *(jnp.asarray(x) for x in (q, k, v)))
+    want = [np.asarray(x) for x in (out, *vjp(jnp.asarray(g_out)))]
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    got_out = tfa.flash_attention(tq, tk, tv, **kw)
+    got_out.backward(torch.from_numpy(g_out))
+    got = [got_out.detach().numpy(), tq.grad.numpy(), tk.grad.numpy(),
+           tv.grad.numpy()]
+    for g, w, tol in zip(got, want, (FWD_ATOL,) + (GRAD_ATOL,) * 3):
+        _close(g, w, tol)
+
+
+@pytest.mark.parametrize("variant", tfa.VARIANTS)
+def test_variants_match_jax_variants(variant):
+    """Each JAX forward schedule against the port's one kernel path."""
+    q, k, v, _, _ = _inputs(1, 48, 48, 2, 16, seed=4)
+    kw = dict(causal=True, block_q=16, block_k=16, return_lse=True,
+              variant=variant)
+    want = jfa.flash_attention(*(jnp.asarray(x) for x in (q, k, v)), **kw)
+    got = tfa.flash_attention(*(torch.from_numpy(x) for x in (q, k, v)),
+                              **kw)
+    for g, w in zip(got, want):
+        _close(g.numpy(), np.asarray(w), FWD_ATOL)
+
+
+def test_variants_are_one_path():
+    q, k, v, g_out, g_lse = _inputs(1, 40, 40, 2, 16, seed=5)
+    runs = [_torch_run(q, k, v, g_out, g_lse, variant=var)
+            for var in tfa.VARIANTS]
+    for other in runs[1:]:
+        for a, b in zip(runs[0], other):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_lse_matches_logsumexp():
+    q, k, v, _, _ = _inputs(2, 32, 32, 2, 16, seed=6)
+    _, lse = tfa.flash_attention(*(torch.from_numpy(x) for x in (q, k, v)),
+                                 return_lse=True)
+    s = np.einsum("bqhd,bkhd->bhqk", q, k).astype(np.float64) / 4.0
+    mask = np.arange(32)[:, None] >= np.arange(32)[None, :]
+    s = np.where(mask[None, None], s, -np.inf)
+    want = np.log(np.exp(s - s.max(-1, keepdims=True)).sum(-1)) + s.max(-1)
+    _close(lse.numpy(), want.transpose(0, 2, 1), 1e-4)
+
+
+def test_internal_lse_sentinel_and_exact_zero_grads():
+    """Inside, a row that sees no key carries +1e30, so the backward's
+    exp2(s - lse) is exactly 0 — even with a nonzero lse cotangent."""
+    q, k, v, g_out, _ = _inputs(1, 16, 32, 2, 16, seed=7)
+    t = [torch.from_numpy(x) for x in (q, k, v, g_out)]
+    kw = dict(causal=True, scale=0.25, q_offset=0, k_offset=40)
+    out, lse = tfa.flash_fwd(*t[:3], **kw)
+    assert (lse == 1e30).all() and not out.any()
+    glse = torch.ones_like(lse)
+    assert not tfa.flash_bwd_dq(*t[:3], out, t[3], lse, glse, **kw).any()
+    dk, dv = tfa.flash_bwd_dkv(*t[:3], out, t[3], lse, glse, **kw)
+    assert not dk.any() and not dv.any()
+
+
+def _online_softmax_walk(q, k, v, scale):
+    """The forward kernel's walk over (B, T, H, D) inputs, causal: key
+    tile by key tile, a running max, p rounded to v's dtype before
+    ``p @ v`` and the accumulator rescaled as the max grows."""
+    qs = tfa._prescaled(q, scale).float()
+    b, t, h, d = q.shape
+    m = torch.full((b, h, t), -1e30)
+    l = torch.zeros(b, h, t)
+    acc = torch.zeros(b, h, t, d)
+    for k0 in range(0, t, tfa.KERNEL_TILE_K):
+        kt, vt = (x[:, k0:k0 + tfa.KERNEL_TILE_K].float() for x in (k, v))
+        vis = torch.arange(t)[:, None] >= k0 + torch.arange(kt.shape[1])
+        s = torch.einsum("bqhd,bkhd->bhqk", qs, kt).masked_fill(~vis, -1e30)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp2(s - m_new[..., None]).masked_fill(~vis, 0.0)
+        corr = torch.exp2(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bhqk,bkhd->bhqd", p.to(v.dtype).float(), vt)
+        m = m_new
+    return (acc / l[..., None]).transpose(1, 2).to(v.dtype)
+
+
+def test_plain_versions_take_the_kernels_numerics_in_bf16():
+    """bf16 inputs: the plain forward rounds the pre-scale and p to bf16
+    where the kernel does — p against the running max of its key tile —
+    so it matches a tile-by-tile walk in all but float32 summation order,
+    and stays near the float32 result."""
+    q, k, v, _, _ = _inputs(1, 192, 192, 2, 32, seed=8)
+    t32 = [torch.from_numpy(x) for x in (q, k, v)]
+    t16 = [x.to(torch.bfloat16) for x in t32]
+    out16, lse16 = tfa.flash_fwd_plain(*t16, causal=True, scale=32 ** -0.5)
+    out32, _ = tfa.flash_fwd_plain(*t32, causal=True, scale=32 ** -0.5)
+    assert out16.dtype == torch.bfloat16 and lse16.dtype == torch.float32
+    walk = _online_softmax_walk(*t16, 32 ** -0.5)
+    assert (out16 != walk).float().mean() < 1e-3
+    assert ((out16.float() - walk.float()).abs()
+            <= 2 ** -7 * walk.float().abs()).all()
+    assert (out16.float() - out32).abs().max() < 0.05
+
+
+@pytest.mark.parametrize("bad,match", [
+    (dict(q=np.zeros((2, 8, 16), np.float32)), "B, T, H, D"),
+    (dict(v=np.zeros((1, 4, 2, 16), np.float32)), "differ"),
+    (dict(variant="nope"), "variant"),
+    (dict(block_q=0), "positive"),
+])
+def test_flash_raises_like_jax(bad, match):
+    args = dict(q=np.zeros((1, 8, 2, 16), np.float32),
+                k=np.zeros((1, 8, 2, 16), np.float32),
+                v=np.zeros((1, 8, 2, 16), np.float32))
+    args.update(bad)
+    q, k, v = (torch.from_numpy(args.pop(n)) for n in ("q", "k", "v"))
+    with pytest.raises(ValueError, match=match):
+        tfa.flash_attention(q, k, v, **args)
+
+
+def test_kernel_wrappers_refuse_non_cuda_tensors():
+    """Off the CPU a wrapper launches its kernel or raises; it never falls
+    back to the plain version."""
+    q = torch.zeros((1, 8, 2, 16), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_fwd(q, q, q, causal=True, scale=0.25)
+    lse = torch.zeros((1, 2, 8), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_bwd_dq(q, q, q, q, q, lse, causal=True, scale=0.25)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_bwd_dkv(q, q, q, q, q, lse, causal=True, scale=0.25)
+
+
+def test_local_attention_switch():
+    q, k, v, _, _ = _inputs(1, 24, 24, 2, 16, seed=9)
+    t = [torch.from_numpy(x) for x in (q, k, v)]
+    ref = local_attention(*t, impl="reference")
+    _close(ref.numpy(), attention_reference(*t).numpy(), 0)
+    flash = local_attention(*t, impl="flash", block_q=8, variant="kvgrid")
+    _close(flash.numpy(), ref.numpy(), FWD_ATOL)
+    with pytest.raises(TypeError, match="flash kwargs"):
+        local_attention(*t, impl="reference", block_q=8)
+    with pytest.raises(ValueError, match="impl"):
+        local_attention(*t, impl="nope")
+    with pytest.raises(NotImplementedError, match="causal"):
+        local_attention(*t, causal=False)

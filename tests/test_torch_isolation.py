@@ -1,5 +1,5 @@
-"""The port stands alone: ``flextree_tpu_torch`` and ``chip_smoke.py``
-import neither ``jax`` nor the JAX package (not even its JAX-free
+"""The port stands alone: ``flextree_tpu_torch`` and its chip scripts
+(``chip_smoke.py``, ``chip_flash_mutants.py``) import neither ``jax`` nor the JAX package (not even its JAX-free
 modules), and the smoke script refuses to report without a GPU."""
 
 import ast
@@ -19,7 +19,7 @@ FORBIDDEN = ("jax", "jaxlib", "flextree_tpu")
 def _port_sources():
     files = sorted(PKG.rglob("*.py"))
     assert len(files) >= 15, files
-    return files + [ROOT / "chip_smoke.py"]
+    return files + [ROOT / "chip_smoke.py", ROOT / "chip_flash_mutants.py"]
 
 
 def _imported_roots(path: Path) -> set:
@@ -45,7 +45,7 @@ def test_no_jax_imports_in_the_port(path):
 
 
 def test_importing_the_port_loads_no_jax():
-    """Import every module of the port and the smoke script in a fresh
+    """Import every module of the port and the chip scripts in a fresh
     interpreter; neither jax nor the JAX package may be loaded after."""
     modules = sorted(
         ".".join(p.relative_to(ROOT).with_suffix("").parts)
@@ -56,7 +56,7 @@ def test_importing_the_port_loads_no_jax():
         f"sys.path.insert(0, {str(ROOT)!r})",
         f"for m in {modules!r}:",
         "    importlib.import_module(m.removesuffix('.__init__'))",
-        "import chip_smoke",
+        "import chip_smoke, chip_flash_mutants",
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]",
         "print(len(sys.modules)); assert not bad, bad",
     ])

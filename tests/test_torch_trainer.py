@@ -1,0 +1,286 @@
+"""The port's training driver — data pipeline, checkpoints, ``fit`` and the
+trainer CLI — against the JAX package's, on the CPU.
+
+Bitwise wherever the reference's contract is bitwise: the token corpus
+and batch addressing (pure NumPy in both packages), the checkpoint file
+format (either package restores the other's files exactly), and resume
+(k straight steps equal j steps, a save, a restore and k - j more).
+"""
+
+import json
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from flextree_tpu import data as jdata
+from flextree_tpu.models import transformer as jt
+from flextree_tpu.parallel import train as jtrain
+from flextree_tpu.utils import checkpoint as jckpt
+from flextree_tpu_torch import data as tdata
+from flextree_tpu_torch import trainer
+from flextree_tpu_torch.convert import train_state_to_numpy
+from flextree_tpu_torch.models.transformer import TransformerConfig
+from flextree_tpu_torch.parallel import loop
+from flextree_tpu_torch.parallel import train as ttrain
+from flextree_tpu_torch.utils import checkpoint as tckpt
+
+DIMS = dict(vocab_size=64, d_model=32, n_heads=4, n_layers=2, d_ff=64)
+
+
+# ------------------------------------------------------------------- data
+
+
+def test_synthetic_tokens_bitwise_equal_to_jax():
+    for n, vocab, seed in ((1000, 64, 0), (5000, 8192, 3)):
+        a = tdata.synthetic_tokens(n, vocab, seed=seed)
+        b = jdata.synthetic_tokens(n, vocab, seed=seed)
+        assert a.dtype == b.dtype == np.int32
+        np.testing.assert_array_equal(a, b)
+
+
+def test_batch_at_bitwise_equal_to_jax_across_epochs():
+    toks = jdata.synthetic_tokens(3000, 64, seed=1)
+    mine = tdata.LMDataset(toks, batch=4, seq_len=32, seed=5)
+    ref = jdata.LMDataset(toks, batch=4, seq_len=32, seed=5)
+    assert mine.batches_per_epoch == ref.batches_per_epoch
+    for step in (0, 1, ref.batches_per_epoch - 1, ref.batches_per_epoch,
+                 3 * ref.batches_per_epoch + 2):
+        for a, b in zip(mine.batch_at(step), ref.batch_at(step)):
+            assert a.dtype == np.int32
+            np.testing.assert_array_equal(a, b)
+    with pytest.raises(ValueError, match="windows"):
+        tdata.LMDataset(toks[:100], batch=8, seq_len=32)
+
+
+def test_prefetch_preserves_order_and_raises():
+    assert list(tdata.prefetch(iter(range(20)), size=3)) == list(range(20))
+
+    def broken():
+        yield 1
+        yield 2
+        raise KeyError("source failed")
+
+    got = []
+    with pytest.raises(KeyError, match="source failed"):
+        for x in tdata.prefetch(broken(), size=2):
+            got.append(x)
+    assert got == [1, 2]
+
+
+# ------------------------------------------------------------ checkpoints
+
+
+@pytest.fixture(scope="module")
+def jax_state():
+    state = jtrain.init_train_state(jax.random.PRNGKey(0),
+                                    jt.TransformerConfig(**DIMS))
+    state["step"] = jnp.int32(7)
+    return state
+
+
+def _leaves(tree):
+    return jax.tree.leaves(jax.tree.map(np.asarray, tree))
+
+
+def test_jax_checkpoint_restores_bitwise_in_the_port(tmp_path, jax_state):
+    jckpt.save_train_state(tmp_path, jax_state)
+    got = tckpt.restore_train_state(tmp_path, device="cpu")
+    assert got["step"].dtype == torch.int32 and int(got["step"]) == 7
+    for a, b in zip(_leaves(jax_state), _leaves(train_state_to_numpy(got))):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert a.tobytes() == b.tobytes()
+    # without a device the port returns NumPy, like the JAX package
+    as_np = tckpt.restore_checkpoint(tckpt.latest_checkpoint(tmp_path))
+    assert isinstance(as_np["params"]["embed"], np.ndarray)
+
+
+def test_port_checkpoint_restores_bitwise_in_jax(tmp_path):
+    state = ttrain.init_train_state(TransformerConfig(**DIMS),
+                                    torch.Generator().manual_seed(3),
+                                    device="cpu")
+    state["step"] = torch.tensor(12, dtype=torch.int32)
+    path = tckpt.save_train_state(tmp_path, state)
+    assert os.path.basename(path) == "ckpt_00000012.npz"
+    got = jckpt.restore_train_state(tmp_path)
+    want = train_state_to_numpy(state)
+    for a, b in zip(_leaves(want), _leaves(got)):
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+    assert jckpt.verify_checkpoint(path) and tckpt.verify_checkpoint(path)
+
+
+def test_bfloat16_leaves_cross_read_bitwise(tmp_path):
+    x = np.random.default_rng(0).standard_normal((3, 5)).astype(np.float32)
+    t = torch.from_numpy(x).to(torch.bfloat16)
+    tckpt.save_checkpoint(tmp_path / "a.npz", {"w": t, "n": [t[0]]})
+    got = jckpt.restore_checkpoint(tmp_path / "a.npz")
+    assert str(got["w"].dtype) == "bfloat16"
+    np.testing.assert_array_equal(np.asarray(got["w"], np.float32),
+                                  t.float().numpy())
+    jckpt.save_checkpoint(tmp_path / "b.npz",
+                          {"w": jnp.asarray(x, jnp.bfloat16)})
+    back = tckpt.restore_checkpoint(tmp_path / "b.npz", device="cpu")
+    assert back["w"].dtype == torch.bfloat16
+    assert torch.equal(back["w"], t)
+
+
+def test_rotation_and_corrupt_newest_falls_back(tmp_path):
+    state = ttrain.init_train_state(TransformerConfig(**DIMS),
+                                    torch.Generator().manual_seed(0),
+                                    device="cpu")
+    for step in (2, 4, 6, 8):
+        state["step"] = torch.tensor(step, dtype=torch.int32)
+        tckpt.save_train_state(tmp_path, state, max_to_keep=3)
+    assert [s for s, _ in tckpt.list_checkpoints(tmp_path)] == [4, 6, 8]
+    newest = tckpt.latest_checkpoint(tmp_path)
+    with open(newest, "r+b") as f:  # truncate: the newest is corrupt
+        f.truncate(os.path.getsize(newest) // 2)
+    assert not tckpt.verify_checkpoint(newest)
+    bad = []
+    got = tckpt.restore_train_state(tmp_path, device="cpu",
+                                    on_fallback=lambda p, e: bad.append(p))
+    assert int(got["step"]) == 6 and bad == [newest]
+    with pytest.raises(tckpt.CheckpointCorrupt):
+        tckpt.restore_train_state(newest)
+    with pytest.raises(FileNotFoundError):
+        tckpt.restore_train_state(tmp_path / "empty")
+
+
+def test_non_string_keys_fail_fast(tmp_path):
+    with pytest.raises(TypeError, match="strings"):
+        tckpt.save_checkpoint(tmp_path / "x.npz", {1: torch.zeros(2)})
+
+
+# ---------------------------------------------------------------- the loop
+
+
+def _setup(attn_impl="flash", seq_len=16):
+    cfg = TransformerConfig(**DIMS, attn_impl=attn_impl)
+    tc = ttrain.TrainConfig(lr=3e-3, grad_clip_norm=1.0)
+    dataset = tdata.LMDataset(tdata.synthetic_tokens(4000, 64, seed=0),
+                              batch=2, seq_len=seq_len, seed=0)
+    state = ttrain.init_train_state(cfg, torch.Generator().manual_seed(0),
+                                    device="cpu")
+    return state, ttrain.make_train_step(cfg, tc, device="cpu"), dataset
+
+
+def _params(state):
+    return [p.numpy() for p in ttrain.tree_leaves(state["params"])]
+
+
+def test_fit_resume_is_bitwise(tmp_path):
+    """k steps straight == j steps, save, restore, k - j steps."""
+    state, step, data = _setup()
+    straight = loop.fit(state, step, data, loop.FitConfig(num_steps=5,
+                                                          log_every=1))
+    assert straight.steps_run == 5 and len(straight.losses) == 5
+    ckpt = str(tmp_path / "ck")
+    first = loop.fit(state, step, data,
+                     loop.FitConfig(num_steps=3, ckpt_dir=ckpt, ckpt_every=3))
+    assert first.steps_run == 3
+    resumed = loop.fit(state, step, data,
+                       loop.FitConfig(num_steps=5, ckpt_dir=ckpt))
+    assert resumed.resumed_from == 3 and resumed.steps_run == 2
+    for a, b in zip(_params(straight.state), _params(resumed.state)):
+        assert a.tobytes() == b.tobytes()
+    report = json.loads((tmp_path / "ck" / "run_report.json").read_text())
+    assert report["resumed_from"] == 3
+    assert report["metrics"]["histograms"]["train.step_ms"]["count"] == 2
+    again = loop.fit(state, step, data, loop.FitConfig(num_steps=5,
+                                                       ckpt_dir=ckpt))
+    assert again.steps_run == 0  # a finished run resumes to a no-op
+
+
+def test_nan_guard_skips_then_diverges():
+    state, step, data = _setup(attn_impl="reference")
+    poisoned = {1}
+
+    def flaky(st, tokens, targets):
+        new, metrics = step(st, tokens, targets)
+        if int(st["step"]) in poisoned:
+            metrics = dict(metrics, loss=torch.tensor(float("nan")))
+        return new, metrics
+
+    res = loop.fit(state, flaky, data, loop.FitConfig(num_steps=4,
+                                                      log_every=1))
+    assert res.report.skipped_steps == [1] and res.report.anomalies == 1
+    assert int(res.state["step"]) == 4 and res.steps_run == 4
+    assert [s for s, _ in res.losses] == [1, 3, 4]
+    poisoned.update({2, 3})
+    with pytest.raises(loop.TrainingDiverged, match="no checkpoint"):
+        loop.fit(state, flaky, data, loop.FitConfig(num_steps=6))
+
+
+def test_nan_guard_rewinds_to_the_checkpoint_then_gives_up(tmp_path):
+    state, step, data = _setup(attn_impl="reference")
+
+    def broken_after_two(st, tokens, targets):
+        new, metrics = step(st, tokens, targets)
+        if int(st["step"]) >= 2:
+            metrics = dict(metrics, loss=torch.tensor(float("inf")))
+        return new, metrics
+
+    ckpt = str(tmp_path / "ck")
+    cfg = loop.FitConfig(num_steps=10, ckpt_dir=ckpt, ckpt_every=2,
+                         max_bad_steps=2, max_rewinds=1)
+    with pytest.raises(loop.TrainingDiverged, match="after 1 rewinds"):
+        loop.fit(state, broken_after_two, data, cfg)
+    report = json.loads((tmp_path / "ck" / "run_report.json").read_text())
+    assert report["rewinds"] == 1 and report["anomalies"] == 4
+    assert report["skipped_steps"] == [2, 3, 2, 3]
+
+
+def test_fit_refuses_supervision_and_arbiter():
+    state, step, data = _setup()
+    for kw in (dict(supervision=object()), dict(arbiter=object())):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            loop.fit(state, step, data, loop.FitConfig(num_steps=1), **kw)
+
+
+# ------------------------------------------------------------- the CLI
+
+
+_SMALL = ["--cpu", "--vocab", "64", "--d-model", "32", "--n-heads", "4",
+          "--n-layers", "2", "--d-ff", "64", "--seq-len", "16", "--batch",
+          "2", "--corpus-tokens", "4000"]
+
+
+def test_trainer_cli_flash_on_cpu(tmp_path, capsys):
+    out = {}
+    ckpt = str(tmp_path / "ck")
+    assert trainer.main(_SMALL + ["--attn-impl", "flash", "--steps", "3",
+                                  "--log-every", "1", "--ckpt-dir", ckpt,
+                                  "--schedule", "warmup_cosine",
+                                  "--warmup-steps", "1", "--grad-clip", "1"],
+                        out=out) == 0
+    last = capsys.readouterr().out.strip().splitlines()[-1]
+    assert last.startswith("dense: 3 steps on mesh {'dp': 1, 'sp': 1, "
+                           "'tp': 1}; loss ")
+    res = out["result"]
+    assert res.steps_run == 3 and out["model_cfg"].attn_impl == "flash"
+    assert out["train_cfg"].total_steps == 3
+    assert tckpt.latest_checkpoint(ckpt).endswith("ckpt_00000003.npz")
+    assert trainer.main(_SMALL + ["--attn-impl", "flash", "--steps", "4",
+                                  "--ckpt-dir", ckpt]) == 0
+    assert "(resumed from 3)" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("flags", [
+    ["--model", "moe"], ["--model", "pipeline"], ["--codec", "int8"],
+    ["--codec", "bf16"], ["--overlap"], ["--shard-optimizer"],
+    ["--autotune"], ["--feedback-every", "2"], ["--heartbeat-dir", "hb"],
+    ["--step-timeout", "5"], ["--obs-dir", "obs"], ["--mesh", "2,1,1"],
+    ["--devices", "4"],
+])
+def test_trainer_cli_refuses_unported_flags(flags):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        trainer.main(_SMALL + flags)
+
+
+def test_trainer_help_names_the_missing_preemption_guard(capsys):
+    with pytest.raises(SystemExit):
+        trainer.main(["--help"])
+    assert "preemption.py" in capsys.readouterr().out
