@@ -50,11 +50,34 @@ failure raises and exits non-zero:
    and beside a witness (reference attention on the batch rows reversed);
 10. flash times — each flash kernel, its plain version and the SDPA
     yardstick at the training shape (CUDA-event medians), beside the
-    least time the card could take.
+    least time the card could take;
+11. fold and copy parity — the fold kernel against its plain version,
+    bitwise, for every op x dtype of the registry, W in {2, 3, 8}, a
+    16-byte-aligned and a ragged L, ``sources_tile`` 1 and 4, NaN rows in
+    float max/min and a misaligned ``out``; the copy kernel against
+    ``clone``, bitwise;
+12. fold times — ``bench.harness.run_reduce_bench`` (the ``--bench
+    reduce`` path) at the heaviest fold of each phase-13 shape: kernel,
+    plain, ``torch.sum``/``amax`` and the copy kernel (with ``clone`` and
+    ``copy_``) at the same bytes, each launch with a cold L2 and started
+    only once enqueued, beside the byte bound;
+13. the FlexTree allreduce — ``bench.harness.run_allreduce_bench`` on an
+    in-process mesh of 8 ranks (7 for ``"3,2+1"``) on the card at the
+    flagship's parameter count (16,781,824 per rank), shapes ``(8,)``,
+    ``(4,2)``, ``(2,2,2)``, the ring and ``"3,2+1"``; f32 and bf16 sum,
+    int32 band and f32 max: correct, and the fold kernel's launch count
+    equal to the count derived from the topology; each case again on
+    seeded random data, every rank identical and bitwise the group-fold
+    oracle (integers also the simulator), nine more op/dtype cases at
+    1,000,003, the tail path at the count + 5; per shape the median ms,
+    bus GB/s and the fold kernel's share under ``torch.profiler``;
+14. distributed — four processes on the card over gloo (host staging),
+    every rank bitwise the in-process mesh; NCCL at world size 1 returns
+    its input bitwise.
 
-Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
-``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
-when no CUDA device is present.
+Prints each phase's seconds, a ``{"kernels": [...]}`` line, the
+``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Exits
+non-zero, printing no result, when no CUDA device is present.
 """
 
 from __future__ import annotations
@@ -842,13 +865,452 @@ def phase_profile(eng, reqs):
     return device_profile(run, "phase 5 profile")
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device is available", file=sys.stderr)
-        return 2
-    sys.path.insert(0, HERE)
+# ------------------------------------------------ the FlexTree collectives
+
+# the flagship model's parameter count (tied embedding): the gradient the
+# train step of phases 8-9 would sync, read from init_params in phase 13
+FOLD_LENGTHS = (1_000_048, 100_003)  # 16-byte rows (vector path); ragged
+FOLD_WIDTHS = (2, 3, 8)
+FOLD_TILES = (1, 4)
+COLLECTIVE_SHAPES = (("8", 8), ("4,2", 8), ("2,2,2", 8), ("1", 8),
+                     ("3,2+1", 7))
+MAIN_CASES = (("sum", "float32"), ("sum", "bfloat16"), ("band", "int32"),
+              ("max", "float32"))
+OTHER_CASES = (("prod", "float32"), ("min", "float32"), ("sum", "int32"),
+               ("bor", "int32"), ("bxor", "int32"), ("min", "uint64"),
+               ("prod", "bfloat16"), ("sum", "float16"), ("max", "int8"))
+OTHER_COUNT = 1_000_003
+DIST_COUNT = 4_194_304
+DIST_SPECS = ("4", "2,2", "1", "3+1")
+
+
+def device_rows(w, length, dtype, gen, dev):
+    """A seeded (w, length) input made on the card: normals for floats,
+    random bits over the whole width for integers, random bools."""
+    if dtype.is_floating_point:
+        return torch.randn((w, length), generator=gen, device=dev).to(dtype)
+    if dtype == torch.bool:
+        return torch.randint(0, 2, (w, length), generator=gen,
+                             device=dev).bool()
+    bits = torch.iinfo(dtype).bits
+    signed = {8: torch.int8, 16: torch.int16, 32: torch.int32,
+              64: torch.int64}[bits]
+    raw = torch.randint(-2 ** 62, 2 ** 62, (w, length), generator=gen,
+                        device=dev, dtype=torch.int64)
+    return raw.to(signed).view(dtype) if bits < 64 else raw.view(dtype)
+
+
+def same_bits(a, b) -> bool:
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+def phase_fold_parity(dev, rs, registry, harness):
+    """Phase 11: the fold kernel against its plain version, bitwise, for
+    every op x dtype of the registry, W in FOLD_WIDTHS, a 16-byte-aligned
+    and a ragged L, sources_tile 1 and 4, with NaNs in the float max/min
+    inputs, and into a misaligned ``out`` view; the copy kernel against
+    ``clone``, bitwise, aligned, ragged and misaligned."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    nan = float("nan")
+    cases = 0
+    for name, rop in registry.SUPPORTED_OPS.items():
+        for dt_name in rop.dtypes:
+            dtype = harness.torch_dtype(dt_name)
+            for w in FOLD_WIDTHS:
+                for length in FOLD_LENGTHS:
+                    x = device_rows(w, length, dtype, gen, dev)
+                    if dtype.is_floating_point and name in ("max", "min"):
+                        x[1, ::7] = nan
+                        x[w - 1, 3::11] = nan
+                    for st in FOLD_TILES:
+                        got = rs.reduce_stacked(x, name, st)
+                        plain = rs.reduce_stacked_plain(x, name, st)
+                        if not same_bits(got, plain):
+                            raise AssertionError(
+                                f"fold kernel != plain: {name} {dt_name} "
+                                f"W={w} L={length} sources_tile={st}")
+                        cases += 1
+                buf = torch.empty(FOLD_LENGTHS[1] + 1, dtype=dtype, device=dev)
+                out = buf[1:]
+                rs.reduce_stacked(x, name, out=out)
+                if not same_bits(out, rs.reduce_stacked_plain(x, name)):
+                    raise AssertionError(f"fold kernel into a misaligned out: "
+                                         f"{name} {dt_name} W={w}")
+                cases += 1
+    torch.cuda.synchronize()
+    raw = device_rows(1, 4 * FOLD_LENGTHS[0] + 8, torch.uint8, gen, dev)[0]
+    for src in (raw[:4 * FOLD_LENGTHS[0]].view(torch.float32),
+                raw[:FOLD_LENGTHS[1]], raw[1:FOLD_LENGTHS[1] + 1]):
+        if not same_bits(harness.hbm_copy(src), harness.hbm_copy_plain(src)):
+            raise AssertionError(f"copy kernel != clone at {src.numel()} "
+                                 f"elements, offset {src.storage_offset()}")
+    log(f"phase 11 fold parity: kernel == plain bitwise in all {cases} cases "
+        f"({len(registry.SUPPORTED_OPS)} ops over the registry's dtypes, "
+        f"W {FOLD_WIDTHS}, L {FOLD_LENGTHS}, sources_tile {FOLD_TILES}, NaN "
+        f"rows for float max/min, a misaligned out); copy kernel == clone "
+        f"bitwise (aligned, ragged, misaligned)")
+    return {"cases": cases, "max_abs_err": 0.0}
+
+
+def fold_shapes(spec, n, count, stages):
+    """The fold kernel's launches in one allreduce call, by ``(W, L)``,
+    derived from the topology alone: a tree stage of width w is one fold of
+    w tiles on every tree rank, a ring step one 2-source fold on every
+    rank, a buddy fold one 2-source fold of the whole head, and a tail one
+    fold of all ranks' tails on every rank."""
+    topo = stages.Topology.resolve(n, spec)
+    lonely = isinstance(topo, stages.LonelyTopology)
+    tree = topo.tree if lonely else topo
+    owners = tree.num_nodes
+    head = count // owners * owners
+    shapes: dict = {}
+
+    def add(key, k):
+        shapes[key] = shapes.get(key, 0) + k
+
+    if head and lonely:
+        add((2, head), topo.lonely)
+    if head and topo.is_ring:
+        add((2, head // n), n * (n - 1))
+    elif head:
+        length = head
+        for w in tree.widths:
+            length //= w
+            add((w, length), owners)
+    if head < count:
+        add((n, count - head), n)
+    return shapes
+
+
+def group_fold_oracle(x, spec, rop, stages):
+    """Phase 13's oracle, in plain PyTorch on the card: per tree stage each
+    group folds its members' rows in group order and every member gets the
+    result; a lonely shape folds rank m+i into buddy i first; the ring
+    walks the reference's 2(N-1) steps on the divisible head; the tail
+    folds over all ranks in rank order."""
+    n, count = x.shape
+    topo = stages.Topology.resolve(n, spec)
+    lonely = isinstance(topo, stages.LonelyTopology)
+    tree = topo.tree if lonely else topo
+    owners = tree.num_nodes
+    head = count // owners * owners
+    out = torch.empty_like(x)
+    if head and topo.is_ring:
+        v = [x[r, :head].clone().view(n, -1) for r in range(n)]
+        for step in range(n - 1):
+            sent = [v[r][(r - step) % n].clone() for r in range(n)]
+            for r in range(n):
+                b = (r - step - 1) % n
+                v[r][b] = rop.fold(v[r][b], sent[(r - 1) % n])
+        for step in range(n - 1):
+            sent = [v[r][(r + 1 - step) % n].clone() for r in range(n)]
+            for r in range(n):
+                v[r][(r - step) % n] = sent[(r - 1) % n]
+        for r in range(n):
+            out[r, :head] = v[r].view(-1)
+    elif head:
+        rows = [x[r, :head] for r in range(n)]
+        for i in range(topo.lonely if lonely else 0):
+            rows[i] = rop.fold(rows[i], rows[owners + i])
+        for i in range(tree.num_stages):
+            for grp in tree.groups(i):
+                acc = rows[grp[0]]
+                for r in grp[1:]:
+                    acc = rop.fold(acc, rows[r])
+                for r in grp:
+                    rows[r] = acc
+        for r in range(n):
+            out[r, :head] = rows[r if r < owners else r - owners]
+    if head < count:
+        acc = x[0, head:]
+        for r in range(1, n):
+            acc = rop.fold(acc, x[r, head:])
+        out[:, head:] = acc
+    return out
+
+
+def phase_fold_times(dev, harness, param_count):
+    """Phase 12: ``bench.harness.run_reduce_bench`` (the ``--bench reduce``
+    path) at the heaviest fold of each phase-13 shape, f32 sum, and f32 max
+    at a ring step, with the copy kernel's launch count set to 0 just
+    before and read just after."""
+    c = param_count
+    shapes = ((8, c // 8), (4, c // 4), (2, c // 2), (2, c // 8))
+    harness.hbm_copy.launches = 0
+    doc = harness.run_reduce_bench(harness.ReduceBenchConfig(
+        shapes=shapes, dtype="float32", op="sum", device=str(dev)))
+    doc_max = harness.run_reduce_bench(harness.ReduceBenchConfig(
+        shapes=((2, c // 8),), dtype="float32", op="max", device=str(dev)))
+    copy_launches = harness.hbm_copy.launches
+    if copy_launches == 0:
+        raise AssertionError("the reduce bench launched no copy kernel")
+    rows = doc["rows"] + doc_max["rows"]
+    for r in rows:
+        log(f"phase 12 fold {r['op']} W={r['W']} L={r['L']} f32 "
+            f"({r['bytes'] / 1e6:.1f} MB): kernel {r['ms']:.4f} ms = "
+            f"{r['GBps']:.0f} GB/s, plain {r['plain_ms']:.4f} ms, library "
+            f"{r['library_ms']:.4f} ms = {r['library_GBps']:.0f} GB/s, bound "
+            f"{r['bound_ms']:.4f} ms (bytes); copy kernel {r['copy_ms']:.4f} "
+            f"ms = {r['copy_GBps']:.0f} GB/s, clone {r['copy_plain_ms']:.4f} "
+            f"ms, copy_ {r['copy_library_ms']:.4f} ms (cold L2)")
+    return rows, copy_launches
+
+
+def check_result(out, x, spec, name, rop, stages, sim):
+    """Every row identical, bitwise the group-fold oracle, and integers
+    bitwise the simulator (on the host); returns a short note."""
+    n = x.shape[0]
+    for r in range(1, n):
+        if not same_bits(out[r], out[0]):
+            raise AssertionError(f"{spec} {name}: rank {r} != rank 0")
+    if not same_bits(out, group_fold_oracle(x, spec, rop, stages)):
+        raise AssertionError(f"{spec} {name}: not the group-fold oracle")
+    if x.dtype.is_floating_point:
+        return "rows identical, == oracle"
+    want = sim.simulate_allreduce(x.cpu().numpy(), spec, rop.name)
+    if not same_bits(out[0].cpu(), torch.from_numpy(want[0])):
+        raise AssertionError(f"{spec} {name}: not the simulator")
+    return "rows identical, == oracle, == simulator"
+
+
+def fold_share(run):
+    """``run()`` under ``torch.profiler``: the fold kernel's device time
+    and the wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        run()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    fold_us = busy_us = 0.0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        busy_us += us
+        if "fold_kernel" in e.key:
+            fold_us += us
+    return fold_us / 1e6, busy_us / 1e6, wall
+
+
+def phase_allreduce(dev, harness, stages, registry, sim, allreduce_over_mesh,
+                    flat_mesh, rs, param_count):
+    """Phase 13: the FlexTree allreduce through
+    ``bench.harness.run_allreduce_bench`` on an in-process mesh on the
+    card, every shape and main case at the flagship's parameter count,
+    with the fold kernel's count set to 0 before and read after each run;
+    then each case on seeded random data held to the contracts."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    launches = 0
+    shape_launches: dict = {}
+    per_shape = {}
+    for spec, n in COLLECTIVE_SHAPES:
+        mesh = flat_mesh(n, dev)
+        per_call = fold_shapes(spec, n, param_count, stages)
+        for name, dt in MAIN_CASES:
+            cfg = harness.BenchConfig(size=param_count, repeat=10, topo=spec,
+                                      devices=n, dtype=dt, op=name,
+                                      device=str(dev))
+            rs.reduce_stacked.launches = 0
+            report = harness.run_allreduce_bench(cfg)
+            got = rs.reduce_stacked.launches
+            want = sum(per_call.values()) * report.calls
+            if not report.correct:
+                raise AssertionError(f"bench {spec} {name} {dt}: incorrect")
+            if got != want:
+                raise AssertionError(f"bench {spec} {name} {dt}: fold launches "
+                                     f"{got} != {want} from the topology")
+            launches += got
+            for key, k in per_call.items():
+                shape_launches[key] = shape_launches.get(key, 0) + k * report.calls
+            if (name, dt) == ("sum", "float32"):
+                per_shape[spec] = report
+            dtype = harness.torch_dtype(dt)
+            x = device_rows(n, param_count, dtype, gen, dev)
+            out = allreduce_over_mesh(x, mesh, spec, name)
+            note = check_result(out, x, spec, f"{name} {dt}",
+                                registry.get_op(name), stages, sim)
+            log(f"phase 13 {spec} on {n} ranks, {name} {dt}, {param_count} "
+                f"per rank: bench median {report.result.median_s * 1e3:.3f} "
+                f"ms, correct; fold launches {got} = {sum(per_call.values())} "
+                f"a call x {report.calls} calls; random data: {note}")
+            del x, out
+        for name, dt in OTHER_CASES:
+            x = device_rows(n, OTHER_COUNT, harness.torch_dtype(dt), gen, dev)
+            check_result(allreduce_over_mesh(x, mesh, spec, name), x, spec,
+                         f"{name} {dt}", registry.get_op(name), stages, sim)
+        log(f"phase 13 {spec}: {len(OTHER_CASES)} more op/dtype cases at "
+            f"{OTHER_COUNT} per rank held to the same contracts")
+        torch.cuda.empty_cache()
+    # the tail path at full size (the parameter count + 5)
+    for name, dt in (("sum", "float32"), ("band", "int32")):
+        x = device_rows(8, param_count + 5, harness.torch_dtype(dt), gen, dev)
+        out = allreduce_over_mesh(x, flat_mesh(8, dev), "4,2", name)
+        note = check_result(out, x, "4,2", f"{name} {dt}",
+                            registry.get_op(name), stages, sim)
+        log(f"phase 13 tail: 4,2 {name} {dt} at {param_count + 5} per rank: "
+            f"{note}")
+        del x, out
+    # per shape: time, fold share and bus bandwidth of the f32 sum
+    summary = {}
+    for spec, n in COLLECTIVE_SHAPES:
+        report = per_shape[spec]
+        mesh = flat_mesh(n, dev)
+        x = device_rows(n, param_count, torch.float32, gen, dev)
+        fold_s, busy_s, wall_s = fold_share(
+            lambda: [allreduce_over_mesh(x, mesh, spec, "sum")
+                     for _ in range(3)])
+        summary[spec] = {
+            "ranks": n, "median_ms": report.result.median_s * 1e3,
+            "min_ms": report.result.min_s * 1e3,
+            "bus_GBps": report.bus_bw_GBps,
+            "fold_share_of_busy": fold_s / busy_s if busy_s else None,
+            "device_busy_share": busy_s / wall_s,
+        }
+        log(f"phase 13 times {spec} on {n} ranks, f32 sum, {param_count} per "
+            f"rank (in-process mesh, HBM copies, not a network): median "
+            f"{summary[spec]['median_ms']:.3f} ms, min "
+            f"{summary[spec]['min_ms']:.3f} ms, bus "
+            f"{report.bus_bw_GBps:.1f} GB/s; fold kernel "
+            f"{fold_s * 1e3 / 3:.3f} ms a call = "
+            f"{100 * (summary[spec]['fold_share_of_busy'] or 0):.1f}% of the "
+            f"device's busy time, busy {100 * busy_s / wall_s:.1f}% of the "
+            f"wall (under the profiler)")
+        del x
+    top = max(shape_launches, key=shape_launches.get)
+    log(f"phase 13 fold launches {launches} over the bench runs; most "
+        f"launched shape W={top[0]} L={top[1]} ({shape_launches[top]})")
+    return launches, top, summary
+
+
+def phase_dist(dev, harness, launch, allreduce_mod, flat_mesh):
+    """Phase 14: four processes on the one card over gloo (host staging),
+    each checking bitwise agreement with the in-process mesh; NCCL at
+    world size 1."""
+    cases = [(spec, DIST_COUNT, name, dt, SEED + k, 1)
+             for k, spec in enumerate(DIST_SPECS)
+             for name, dt in (("sum", "float32"), ("bxor", "int32"))]
+    t0 = time.monotonic()
+    got = launch.spawn(harness.dist_allreduce_cases, 4, (cases, str(dev)),
+                       backend="gloo", timeout=600)
+    spawn_s = time.monotonic() - t0
+    mesh = flat_mesh(4, dev)
+    for k, (spec, count, name, dt, seed, _) in enumerate(cases):
+        x = harness.seeded_rows(4, count, harness.torch_dtype(dt), seed).to(dev)
+        full = allreduce_mod.allreduce(list(x), mesh, spec, name)
+        shards = allreduce_mod.reduce_scatter(list(x), mesh, spec, name)
+        for r in range(4):
+            full_d, shard_d, back_d, launches = got[r][k]
+            if not (full_d == back_d == harness.digest(full[r])
+                    and shard_d == harness.digest(shards[r])):
+                raise AssertionError(f"dist rank {r} {spec} {name} {dt}: "
+                                     f"differs from the in-process mesh")
+            if launches <= 0:
+                raise AssertionError(f"dist rank {r} {spec}: no fold launch")
+    log(f"phase 14 dist: 4 processes on {dev}, gloo with host staging, "
+        f"{len(cases)} cases ({', '.join(DIST_SPECS)} x f32 sum, int32 bxor "
+        f"at {DIST_COUNT} per rank): every rank's allreduce, shard and "
+        f"gathered shard bitwise the in-process mesh's, fold launches > 0 on "
+        f"every rank; {spawn_s:.1f} s with spawn")
+    from flextree_tpu_torch.parallel.launch import ClusterConfig
+
+    launch.init_distributed(
+        ClusterConfig(f"127.0.0.1:{launch.free_port()}", 1, 0),
+        backend="nccl", device=dev, timeout=120, retries=0, merge_env=False)
+    try:
+        x = harness.seeded_row(0, DIST_COUNT, torch.float32, SEED).to(dev)
+        y = allreduce_mod.allreduce(x, None, "1", "sum")
+        back = allreduce_mod.all_gather(
+            allreduce_mod.reduce_scatter(x, None, None, "sum"), None, None,
+            out_shape=(DIST_COUNT,))
+        if not (same_bits(y, x) and same_bits(back, x)):
+            raise AssertionError("NCCL world of one changed its input")
+    finally:
+        launch.shutdown_distributed()
+    log("phase 14 NCCL at world size 1: allreduce and all_gather of "
+        "reduce_scatter return the input bitwise")
+
+
+def collective_phases(dev) -> list:
+    """Phases 11-14 (the FlexTree collectives); returns their rows of the
+    kernels line (``reduce_stacked``, ``copy``)."""
+    from flextree_tpu_torch.backends import simulator as sim
+    from flextree_tpu_torch.bench import harness
+    from flextree_tpu_torch.models.transformer import (
+        TransformerConfig,
+        init_params,
+    )
+    from flextree_tpu_torch.ops import reduce as registry
+    from flextree_tpu_torch.ops import reduce_stacked as rs
+    from flextree_tpu_torch.parallel import allreduce as allreduce_mod
+    from flextree_tpu_torch.parallel import launch
+    from flextree_tpu_torch.parallel.mesh import (
+        allreduce_over_mesh,
+        flat_mesh,
+    )
+    from flextree_tpu_torch.parallel.train import tree_leaves
+    from flextree_tpu_torch.schedule import stages
+
+    params = init_params(TransformerConfig(**MODEL),
+                         torch.Generator().manual_seed(SEED), device=dev)
+    param_count = sum(p.numel() for p in tree_leaves(params))
+    del params
+    log(f"flagship parameter count (the gradient a train step syncs): "
+        f"{param_count}")
+    out = {}
+    for phase, run in (
+        (11, lambda: phase_fold_parity(dev, rs, registry, harness)),
+        (12, lambda: phase_fold_times(dev, harness, param_count)),
+        (13, lambda: phase_allreduce(dev, harness, stages, registry, sim,
+                                     allreduce_over_mesh, flat_mesh, rs,
+                                     param_count)),
+        (14, lambda: phase_dist(dev, harness, launch, allreduce_mod,
+                                flat_mesh)),
+    ):
+        t0 = time.monotonic()
+        out[phase] = run()
+        log(f"phase {phase}: {time.monotonic() - t0:.1f} s")
+        torch.cuda.empty_cache()
+    parity, (times, copy_launches), (launches, top, _) = \
+        out[11], out[12], out[13]
+    row = next(r for r in times if (r["W"], r["L"]) == top and r["op"] == "sum")
+    return [{
+        "name": "reduce_stacked",
+        "route": "cuda",
+        "source": "flextree_tpu_torch/csrc/reduce_stacked.cu",
+        "replaces": "flextree_tpu/ops/pallas_reduce.py:33",
+        "launches": launches,
+        "max_abs_err": parity["max_abs_err"],
+        "ms": row["ms"],
+        "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": row["library_ms"],
+    }, {
+        "name": "copy",
+        "route": "cuda",
+        "source": "flextree_tpu_torch/csrc/copy.cu",
+        "replaces": "tools/roofline_reduce.py:101",
+        "launches": copy_launches,
+        "max_abs_err": 0.0,
+        "ms": row["copy_ms"],
+        "plain_ms": row["copy_plain_ms"],
+        "bound_ms": row["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": row["copy_library_ms"],
+    }]
+
+
+def model_phases(dev, bw, fp32_peak, bf16_peak) -> list:
+    """Phases 2-10 (serving and training); returns their rows of the
+    kernels line."""
     from flextree_tpu_torch import data as data_mod
-    from flextree_tpu_torch import kernels, models, serving, trainer
+    from flextree_tpu_torch import models, serving, trainer
     from flextree_tpu_torch.models.generate import generate
     from flextree_tpu_torch.models.transformer import (
         TransformerConfig,
@@ -859,28 +1321,17 @@ def main() -> int:
     from flextree_tpu_torch.parallel import train as train_mod
     from flextree_tpu_torch.utils import checkpoint as ckpt
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda", 0)
+    clock = [time.monotonic()]
 
-    # ---- phase 1: device and build
-    smi = smi_line()
-    kind = torch.cuda.get_device_name(0)
-    bw, fp32_peak, bf16_peak = card_peaks(kind)
-    log(f"phase 1 device: {kind}; torch {torch.__version__}, CUDA "
-        f"{torch.version.cuda}; nvidia-smi: {smi}")
-    t0 = time.monotonic()
-    kernels.build()
-    build_s = time.monotonic() - t0
-    for name, info in kernels.build_log.items():
-        regs = [ln.strip() for ln in info["ptxas"].splitlines()
-                if "registers" in ln]
-        log(f"phase 1 build {name}: {info['seconds']:.2f} s; "
-            f"{' | '.join(regs)}")
-    log(f"phase 1 build total: {build_s:.2f} s")
+    def lap(phase):
+        now = time.monotonic()
+        log(f"phase {phase}: {now - clock[0]:.1f} s")
+        clock[0] = now
 
     # ---- phase 2: kernel parity at the flagship decode shape
     phase_parity(dev, pa.FUSED_DECODE_ATOL, pa)
+
+    lap(2)
 
     # ---- phase 3: serving at flagship width, bf16, through the kernel
     cfg = TransformerConfig(**MODEL, dtype=torch.bfloat16)
@@ -920,6 +1371,8 @@ def main() -> int:
         f"ms; per-token {serve['per_token_ms_mean']:.3f} ms; kernel launches "
         f"{launches} = {eng.decode_steps} rounds x {MODEL['n_layers']} layers")
 
+    lap(3)
+
     # ---- phase 4: times, on phase 3's inputs
     times = phase_times(dev, pa, eng.pools, rounds, bw, fp32_peak)
     log(f"phase 4 times (lengths {times['lengths']}): kernel "
@@ -927,9 +1380,13 @@ def main() -> int:
         f"{times['library_ms']:.4f} ms, bound {times['bound_ms']:.4f} ms "
         f"({times['bound_by']})")
 
+    lap(4)
+
     # ---- phase 5: where a serving run's time goes
     phase_profile(eng, reqs[:8])
     del eng
+
+    lap(5)
 
     # ---- phase 6: float32 greedy token identity
     cfg32 = TransformerConfig(**MODEL, dtype=torch.float32)
@@ -955,19 +1412,28 @@ def main() -> int:
         f"requests; == generate on 4")
     del params
 
+    lap(6)
+
     # ---- phase 7: each flash kernel against its plain version
     worst = phase_flash_parity(dev, fa)
+
+    lap(7)
 
     # ---- phase 8: the flagship train run through trainer.main
     train = phase_train(dev, fa, trainer, ckpt, train_mod)
 
+    lap(8)
+
     # ---- phase 9: float32 flash vs reference train steps
     phase_f32_train(dev, models, train_mod, data_mod)
 
+    lap(9)
+
     # ---- phase 10: flash kernel times at the training shape
     ftimes = phase_flash_times(dev, fa, bw, bf16_peak)
+    lap(10)
 
-    kline = {"kernels": [{
+    return [{
         "name": "paged_attention",
         "route": "cuda",
         "source": "flextree_tpu_torch/csrc/paged_attention.cu",
@@ -991,8 +1457,41 @@ def main() -> int:
         "bound_ms": ftimes[name]["bound_ms"],
         "bound_by": ftimes[name]["bound_by"],
         "library_ms": ftimes[name]["library_ms"],
-    } for name, replaces in FLASH_REPLACES]}
-    print(json.dumps(kline))
+    } for name, replaces in FLASH_REPLACES]
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    from flextree_tpu_torch import kernels
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+
+    # ---- phase 1: device and build
+    smi = smi_line()
+    kind = torch.cuda.get_device_name(0)
+    bw, fp32_peak, bf16_peak = card_peaks(kind)
+    log(f"phase 1 device: {kind}; torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}; nvidia-smi: {smi}")
+    t0 = time.monotonic()
+    kernels.build()
+    build_s = time.monotonic() - t0
+    for name, info in kernels.build_log.items():
+        regs = [ln.strip() for ln in info["ptxas"].splitlines()
+                if "registers" in ln]
+        log(f"phase 1 build {name}: {info['seconds']:.2f} s; "
+            f"{' | '.join(regs[:4])}{' | ...' if len(regs) > 4 else ''}")
+    log(f"phase 1 build total: {build_s:.2f} s")
+
+    t0 = time.monotonic()
+    rows = model_phases(dev, bw, fp32_peak, bf16_peak)
+    log(f"phases 2-10: {time.monotonic() - t0:.1f} s")
+    rows += collective_phases(dev)
+    print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -8,7 +8,8 @@ wrote a Pallas kernel for the TPU.  It imports ``torch`` and never ``jax``
 nor ``flextree_tpu``: what it needs of the JAX package it keeps as its own
 copy.
 
-Ported so far (the serving path and the dense train step on one card):
+Ported so far (the serving path, the dense train step on one card and
+the FlexTree collectives):
 
 - :mod:`.models` — the dense decoder LM's single-device forward (reference
   or flash attention), its cross-entropy loss, the contiguous KV cache,
@@ -18,8 +19,18 @@ Ported so far (the serving path and the dense train step on one card):
 - :mod:`.ops.flash_attention` — causal flash attention forward and
   backward, the CUDA kernels ``csrc/flash_fwd.cu``, ``flash_bwd_dq.cu``
   and ``flash_bwd_dkv.cu`` beside their plain versions;
-- :mod:`.parallel` — the train step (``train``), the run loop (``loop``)
-  and the local-attention switch (``ring_attention``);
+- :mod:`.ops.reduce` and :mod:`.ops.reduce_stacked` — the op registry
+  and the collectives' local fold, the CUDA kernel
+  ``csrc/reduce_stacked.cu`` beside its plain version;
+- :mod:`.schedule` and :mod:`.backends` — copies of the JAX package's
+  topology, block, plan and validation layer and of its NumPy simulator;
+- :mod:`.parallel` — the FlexTree collectives (``allreduce``) over an
+  in-process mesh of ranks (``mesh``) or ``torch.distributed``
+  (``launch``); the train step (``train``), the run loop (``loop``) and
+  the local-attention switch (``ring_attention``);
+- :mod:`.bench` — the benchmark CLI (``python -m
+  flextree_tpu_torch.bench``): the allreduce, and the fold against the
+  copy kernel ``csrc/copy.cu``; :mod:`.utils.timing` its timing loops;
 - :mod:`.trainer` — the training CLI (``python -m
   flextree_tpu_torch.trainer``); :mod:`.data` the corpus and batching;
   :mod:`.utils.checkpoint` the JAX package's checkpoint format;

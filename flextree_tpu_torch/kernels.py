@@ -32,6 +32,8 @@ SOURCES = {
     "flash_fwd": _PKG / "csrc" / "flash_fwd.cu",
     "flash_bwd_dq": _PKG / "csrc" / "flash_bwd_dq.cu",
     "flash_bwd_dkv": _PKG / "csrc" / "flash_bwd_dkv.cu",
+    "reduce_stacked": _PKG / "csrc" / "reduce_stacked.cu",
+    "copy": _PKG / "csrc" / "copy.cu",
 }
 #: headers the sources include; part of every build's hash
 HEADERS = sorted((_PKG / "csrc").glob("*.cuh"))
@@ -40,7 +42,7 @@ _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # ctypes signature of each entry point: (function name, argtypes)
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _SIGNATURES = {
     "paged_attention": (
         "ft_paged_attention_decode",
@@ -55,6 +57,8 @@ _SIGNATURES = {
         "ft_flash_bwd_dkv",
         [_P] * 9 + [_I] * 5 + [_F] * 2 + [_I] * 4 + [_P],
     ),
+    "reduce_stacked": ("ft_reduce_stacked", [_P, _P, _I, _L, _I, _I, _I, _P]),
+    "copy": ("ft_copy", [_P, _P, _L, _P]),
 }
 
 _loaded: dict = {}

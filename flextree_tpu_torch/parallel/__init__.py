@@ -1,3 +1,4 @@
-"""Training on one card: the train step, the run loop and the attention
-switch (the single-device half of the JAX package's
-``flextree_tpu.parallel``).  Import by module path."""
+"""The train step (``train``), the run loop (``loop``) and the
+local-attention switch (``ring_attention``); the FlexTree collectives
+(``allreduce``), the in-process mesh of ranks (``mesh``) and process
+bring-up on ``torch.distributed`` (``launch``).  Import by module path."""

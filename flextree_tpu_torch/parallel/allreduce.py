@@ -1,0 +1,611 @@
+"""FlexTree collectives on PyTorch: one schedule walker over two transports.
+
+PyTorch counterpart of ``flextree_tpu/parallel/allreduce.py``, and the
+reference's own design (``mpi_mod.hpp:246-660, 953-1163``): each stage is
+a point-to-point exchange between the members of a rank's group, then one
+multi-source local fold.  The JAX package lowered the stages to grouped
+XLA collectives; here a walker posts each stage's messages to a transport
+and folds what arrives with the hand-written fold kernel
+(:func:`~..ops.reduce_stacked.reduce_stacked`).  Two transports:
+
+- **in-process**, over a :class:`~.mesh.Mesh`: this process runs every
+  rank; a message is a device copy into the receiver's staging buffer
+  (ranks may share one device);
+- **torch.distributed**: this process is one rank of a process group; a
+  stage's sends and receives are posted in one ``batch_isend_irecv``, so no
+  rank waits on a peer that waits on it.  gloo's point-to-point takes CPU
+  tensors, so on gloo a CUDA buffer is staged through host memory (the
+  fold still runs on the card); NCCL moves CUDA tensors directly.  Every
+  message moves the bytes of a contiguous buffer, whatever its dtype.
+
+Each collective takes ``comm``, where the JAX function takes ``axis_name``:
+a ``Mesh`` (then ``x`` is a sequence of the N ranks' tensors and the
+result a list), or a process group (``None`` = the default one; then ``x``
+is this rank's tensor).
+
+What it computes follows the JAX package:
+
+- **layout.** The first ``(count // N) * N`` elements (the head) run the
+  schedule; the < N-element tail is reduced by one dense fold over all
+  ranks in rank order and replicated (``_split_main_tail``, JAX
+  ``allreduce.py:130-159``).  Tree stage ``i`` splits each rank's current
+  slice into ``w_i`` contiguous tiles and the rank at group position
+  ``p_i`` keeps tile ``p_i`` (``psum_scatter(tiled=True)`` ownership), so
+  after a standalone :func:`reduce_scatter` rank ``r`` holds block
+  ``schedule.blocks.owned_block(topo, r)``, followed by the tail.  The
+  ring walks the 2(N-1) steps of ``schedule.plan.ring_plan``; lonely
+  shapes (``"3,2+1"``) fold each lonely rank into its buddy, run the tree
+  over the first ``m`` ranks and hand the result back.
+- **arithmetic.** At a tree stage the rank keeping a tile stacks the
+  group's ``w`` partial tiles in the order of ``Topology.group_members``
+  and folds them with one ``reduce_stacked`` call at ``sources_tile=1``
+  (a plain left fold); a ring step and a buddy fold are 2-source folds
+  (own first).  Every op of the registry is commutative, so each
+  element's fold tree is fixed by the schedule alone: every rank's result
+  is bitwise identical to every other rank's, across runs, across the two
+  transports, across ``chunks``, and between ``all_gather(reduce_scatter
+  (x))`` and ``allreduce(x)``.
+
+Not ported (each raises, naming its ROADMAP item): the IR families
+(``"swing"``, ``"gen:…"``) and lossy codecs.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+
+import torch
+
+from ..ops.reduce import ReduceOp, get_op
+from ..ops.reduce_stacked import reduce_stacked
+from ..schedule.stages import FT_TOPO_ENV, LonelyTopology, Topology
+from .mesh import Mesh
+
+__all__ = [
+    "allreduce",
+    "tree_allreduce",
+    "lonely_allreduce",
+    "ring_allreduce",
+    "reduce_scatter",
+    "all_gather",
+    "allgather",
+    "MeshTransport",
+    "DistTransport",
+]
+
+_IR_FAMILIES = "ROADMAP.md, Queue 1: 'IR families and ir_lower'"
+_CODECS = "ROADMAP.md, Queue 1: 'Compressed collectives and error feedback'"
+
+
+# ------------------------------------------------------------- transports
+
+
+@dataclass
+class Msg:
+    """One message of a stage: ``src`` sends ``send`` into ``dst``'s
+    ``recv``.  ``send`` is given where ``src`` runs in this process,
+    ``recv`` where ``dst`` does; both are contiguous and of one size."""
+
+    src: int
+    dst: int
+    send: torch.Tensor | None
+    recv: torch.Tensor | None
+
+
+class MeshTransport:
+    """Every rank of a :class:`Mesh`, in this process.  A message is one
+    device copy from the sender's buffer into the receiver's staging
+    buffer (the stack a fold reads, or the slot of a gather)."""
+
+    def __init__(self, mesh: Mesh):
+        self.size = mesh.size
+        self.local = frozenset(range(mesh.size))
+
+    def run(self, msgs) -> None:
+        for m in msgs:
+            m.recv.copy_(m.send)
+
+
+class DistTransport:
+    """This process as one rank of a ``torch.distributed`` process group
+    (``group=None``: the default group)."""
+
+    def __init__(self, group=None):
+        import torch.distributed as dist
+
+        if not dist.is_initialized():
+            raise RuntimeError("no process group: call parallel.launch."
+                               "init_distributed first, or pass a Mesh")
+        self.dist = dist
+        self.group = group
+        self.size = dist.get_world_size(group)
+        self.rank = dist.get_rank(group)
+        self.local = frozenset((self.rank,))
+        self.host_staged = dist.get_backend(group) == "gloo"
+
+    def _peer(self, rank: int) -> int:
+        if self.group is None:
+            return rank
+        return self.dist.get_global_rank(self.group, rank)
+
+    def run(self, msgs) -> None:
+        dist = self.dist
+        ops, staged = [], []
+        for m in msgs:
+            if m.src == self.rank:
+                t = m.send
+                if self.host_staged and t.is_cuda:
+                    t = t.cpu()  # gloo's send/recv take CPU tensors
+                ops.append(dist.P2POp(dist.isend, t.view(torch.uint8),
+                                      self._peer(m.dst), self.group))
+            if m.dst == self.rank:
+                t = m.recv
+                if self.host_staged and t.is_cuda:
+                    buf = torch.empty(t.shape, dtype=t.dtype)
+                    staged.append((t, buf))
+                    t = buf
+                ops.append(dist.P2POp(dist.irecv, t.view(torch.uint8),
+                                      self._peer(m.src), self.group))
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        for dst, buf in staged:
+            dst.copy_(buf)
+
+
+def _exchange(tr, pairs, send, recv) -> None:
+    """Run one stage: for each ``(src, dst)`` pair that touches a local
+    rank, ``send(src, dst)`` (at a local src) goes into ``recv(dst, src)``
+    (at a local dst)."""
+    local = tr.local
+    tr.run([Msg(s, d, send(s, d) if s in local else None,
+                recv(d, s) if d in local else None)
+            for s, d in pairs if s in local or d in local])
+
+
+# ------------------------------------------------------------ the walker
+
+
+def _tree_rs(bufs: dict, tr, topo: Topology, rop: ReduceOp) -> dict:
+    """Phase 1 (``mpi_mod.hpp:988-1029``): per stage, each rank of the tree
+    sends tile ``p_q`` of its slice to the group member at position
+    ``p_q``, stacks the group's tiles of its own position in group order
+    and folds them.  Returns each tree rank's shard."""
+    for i, w in enumerate(topo.widths):
+        g = topo.gaps[i]
+        local = [r for r in tr.local if r < topo.num_nodes]
+        tiles = {r: bufs[r].view(w, -1) for r in local}
+        stacks = {}
+        for r in local:
+            p = (r // g) % w
+            stacks[r] = torch.empty_like(tiles[r])
+            stacks[r][p].copy_(tiles[r][p])
+        pairs = [(s, d) for grp in topo.groups(i) for s in grp for d in grp
+                 if s != d]
+        _exchange(tr, pairs,
+                  lambda s, d: tiles[s][(d // g) % w],
+                  lambda d, s: stacks[d][(s // g) % w])
+        bufs = {r: reduce_stacked(stacks[r], rop) for r in local}
+    return bufs
+
+
+def _tree_ag(bufs: dict, tr, topo: Topology, dest: dict | None) -> dict:
+    """Phase 2 (``mpi_mod.hpp:1050-1060``): stages unwound in reverse, each
+    rank's tile landing at its group position; the last stage writes into
+    ``dest`` when given."""
+    for i in reversed(range(topo.num_stages)):
+        w, g = topo.widths[i], topo.gaps[i]
+        local = [r for r in tr.local if r < topo.num_nodes]
+        outs = {}
+        for r in local:
+            n_out = w * bufs[r].numel()
+            out = dest[r] if i == 0 and dest is not None else \
+                torch.empty(n_out, dtype=bufs[r].dtype, device=bufs[r].device)
+            outs[r] = out.view(w, -1)
+            outs[r][(r // g) % w].copy_(bufs[r])
+        pairs = [(s, d) for grp in topo.groups(i) for s in grp for d in grp
+                 if s != d]
+        _exchange(tr, pairs, lambda s, d: bufs[s],
+                  lambda d, s: outs[d][(s // g) % w])
+        bufs = {r: outs[r].view(-1) for r in local}
+    return bufs
+
+
+def _ring_pairs(n: int):
+    return [(r, (r + 1) % n) for r in range(n)]
+
+
+def _ring_rs(blocks: dict, tr, rop: ReduceOp) -> None:
+    """The ring's N-1 fold steps on ``(N, B)`` block views, in place
+    (``mpi_mod.hpp:1119-1147``): at step ``s`` rank ``r`` sends block
+    ``(r - s) % N`` right and folds the block ``(r - s - 1) % N`` it gets
+    from the left into its own; afterwards it holds block ``(r + 1) % N``
+    fully reduced."""
+    n = tr.size
+    for step in range(n - 1):
+        stacks = {}
+        for r in tr.local:
+            stacks[r] = torch.empty((2, blocks[r].shape[1]),
+                                    dtype=blocks[r].dtype,
+                                    device=blocks[r].device)
+            stacks[r][0].copy_(blocks[r][(r - step - 1) % n])
+        _exchange(tr, _ring_pairs(n),
+                  lambda s, d: blocks[s][(s - step) % n],
+                  lambda d, s: stacks[d][1])
+        for r in tr.local:
+            reduce_stacked(stacks[r], rop, out=blocks[r][(r - step - 1) % n])
+
+
+def _ring_ag(blocks: dict, tr) -> None:
+    """The ring's N-1 forwarding steps (``mpi_mod.hpp:1149-1159``): at step
+    ``s`` rank ``r`` forwards block ``(r + 1 - s) % N`` right and receives
+    block ``(r - s) % N`` in place — never the block it sends this step."""
+    n = tr.size
+    for step in range(n - 1):
+        _exchange(tr, _ring_pairs(n),
+                  lambda s, d: blocks[s][(s + 1 - step) % n],
+                  lambda d, s: blocks[d][(d - step) % n])
+
+
+def _buddy_fold(heads: dict, tr, topo: LonelyTopology, rop: ReduceOp) -> dict:
+    """Each lonely rank ``m + i`` sends its head to buddy ``i``, which folds
+    it into its own (own first); the tree ranks' slices are returned."""
+    m, lonely = topo.tree.num_nodes, topo.lonely
+    cur = {r: heads[r] for r in tr.local if r < m}
+    stacks = {}
+    for i in range(lonely):
+        if i in tr.local:
+            stacks[i] = torch.empty((2, heads[i].numel()),
+                                    dtype=heads[i].dtype,
+                                    device=heads[i].device)
+            stacks[i][0].copy_(heads[i])
+    _exchange(tr, [(m + i, i) for i in range(lonely)],
+              lambda s, d: heads[s], lambda d, s: stacks[d][1])
+    for i, st in stacks.items():
+        cur[i] = reduce_stacked(st, rop)
+    return cur
+
+
+def _hand_back(bufs: dict, tr, topo: LonelyTopology, into: dict) -> None:
+    """Buddy ``i`` sends its buffer to lonely rank ``m + i``, which receives
+    it into ``into[m + i]``."""
+    m, lonely = topo.tree.num_nodes, topo.lonely
+    _exchange(tr, [(i, m + i) for i in range(lonely)],
+              lambda s, d: bufs[s], lambda d, s: into[d])
+
+
+def _dense_tail(tails: dict, tr, rop: ReduceOp, dest: dict) -> None:
+    """The < N-element tail: every rank gathers all ranks' tails in rank
+    order and folds them (the JAX ``_small_dense_allreduce``), into
+    ``dest``."""
+    n = tr.size
+    stacks = {}
+    for r in tr.local:
+        stacks[r] = torch.empty((n, tails[r].numel()), dtype=tails[r].dtype,
+                                device=tails[r].device)
+        stacks[r][r].copy_(tails[r])
+    _exchange(tr, [(s, d) for s in range(n) for d in range(n) if s != d],
+              lambda s, d: tails[s], lambda d, s: stacks[d][s])
+    for r in tr.local:
+        reduce_stacked(stacks[r], rop, out=dest[r])
+
+
+# ---------------------------------------------------- binding and layout
+
+
+class _Call:
+    """One collective call: the transport, this process's ranks' flat
+    buffers, and how to hand results back in the caller's form."""
+
+    def __init__(self, x, comm):
+        if isinstance(comm, Mesh):
+            self.tr = MeshTransport(comm)
+            xs = list(x)
+            if len(xs) != comm.size:
+                raise ValueError(f"{len(xs)} tensors for a mesh of "
+                                 f"{comm.size} ranks")
+            for r, t in enumerate(xs):
+                if t.device != comm.devices[r]:
+                    raise ValueError(f"rank {r}'s tensor is on {t.device}, "
+                                     f"the mesh puts rank {r} on "
+                                     f"{comm.devices[r]}")
+            self.mesh = True
+        else:
+            self.tr = DistTransport(comm)
+            xs = {self.tr.rank: x}
+            self.mesh = False
+        self.x = dict(enumerate(xs)) if self.mesh else xs
+        first = next(iter(self.x.values()))
+        self.shape, self.dtype = first.shape, first.dtype
+        if any(t.shape != self.shape or t.dtype != self.dtype
+               for t in self.x.values()):
+            raise ValueError("every rank's tensor must have one shape and "
+                             "dtype")
+        self.flat = {r: t.reshape(-1) for r, t in self.x.items()}
+        self.n = self.tr.size
+
+    def out_buffers(self, out):
+        """Flat result buffers: the caller's ``out`` (a list per rank on a
+        mesh, a tensor otherwise), or new ones."""
+        if out is None:
+            return {r: torch.empty_like(t) for r, t in self.flat.items()}
+        outs = dict(enumerate(out)) if self.mesh else {self.tr.rank: out}
+        res = {}
+        for r, t in self.flat.items():
+            o = outs[r]
+            if o.numel() != t.numel() or o.dtype != t.dtype or \
+                    o.device != t.device or not o.is_contiguous():
+                raise ValueError("out must match the input's size, dtype and "
+                                 "device, contiguous")
+            res[r] = o.view(-1)
+        return res
+
+    def give(self, bufs: dict, shape=None):
+        """Results in the caller's form: a list on a mesh, else a tensor."""
+        res = {r: t if shape is None else t.view(shape)
+               for r, t in bufs.items()}
+        return [res[r] for r in range(self.n)] if self.mesh else \
+            res[self.tr.rank]
+
+
+def _resolve(n: int, topo):
+    if topo is None:
+        topo = os.environ.get(FT_TOPO_ENV, "")
+    if isinstance(topo, str):
+        name = topo.strip()
+        if name == "swing" or name.startswith("gen:"):
+            raise NotImplementedError(
+                f"the IR family {name!r} is not ported yet ({_IR_FAMILIES})")
+    return Topology.resolve(n, topo)
+
+
+def _check_codec(codec) -> None:
+    if codec not in (None, "f32", "identity"):
+        raise NotImplementedError(
+            f"codec {codec!r} is not ported yet ({_CODECS})")
+
+
+def _owners(topo) -> int:
+    return topo.tree.num_nodes if isinstance(topo, LonelyTopology) else \
+        topo.num_nodes
+
+
+def _split(count: int, owners: int) -> int:
+    """Elements of the schedule's head: ``(count // owners) * owners``."""
+    return (count // owners) * owners
+
+
+def _scatter(heads: dict, tr, topo, rop: ReduceOp,
+             in_place: bool = False) -> dict:
+    """Phase 1: fold the divisible heads down to shards.  Returns the shard
+    of each local rank that owns a block (every rank, or a lonely shape's
+    tree ranks): block ``owned_block(topo, r)`` of the reduced head.  The
+    ring folds in the heads themselves when ``in_place``, else in a copy."""
+    if isinstance(topo, LonelyTopology):
+        return _tree_rs(_buddy_fold(heads, tr, topo, rop), tr, topo.tree,
+                        rop)
+    if topo.is_ring:
+        n = tr.size
+        blocks = {r: (h if in_place else h.clone()).view(n, -1)
+                  for r, h in heads.items()}
+        _ring_rs(blocks, tr, rop)
+        return {r: blocks[r][(r + 1) % n] for r in tr.local}
+    return _tree_rs(heads, tr, topo, rop)
+
+
+def _gather(shards: dict, tr, topo, dest: dict) -> None:
+    """Phase 2: gather the owners' shards in block order into every local
+    rank's ``dest``; a lonely shape's tree hands its result to the lonely
+    ranks."""
+    if isinstance(topo, LonelyTopology):
+        m = topo.tree.num_nodes
+        got = _tree_ag({r: s for r, s in shards.items() if r < m}, tr,
+                       topo.tree, {r: dest[r] for r in tr.local if r < m})
+        _hand_back(got, tr, topo, {r: dest[r] for r in tr.local if r >= m})
+    elif topo.is_ring:
+        n = tr.size
+        blocks = {r: dest[r].view(n, -1) for r in tr.local}
+        for r in tr.local:
+            own = blocks[r][(r + 1) % n]
+            if own.data_ptr() != shards[r].data_ptr():
+                own.copy_(shards[r])
+        _ring_ag(blocks, tr)
+    else:
+        _tree_ag(shards, tr, topo, dest)
+
+
+def _head_allreduce(heads: dict, tr, topo, rop: ReduceOp, dest: dict,
+                    chunks: int) -> None:
+    """Allreduce the divisible heads into ``dest``: phase 1 then phase 2,
+    on each of a tree's ``chunks`` pieces in turn (the ring and lonely
+    shapes run whole, as in the JAX package).  The ring folds in ``dest``
+    itself, after a copy of the heads."""
+    if topo.is_ring:
+        for r in tr.local:
+            if dest[r].data_ptr() != heads[r].data_ptr():
+                dest[r].copy_(heads[r])
+        heads = dest
+    count = next(iter(heads.values())).numel()
+    whole = topo.is_ring or isinstance(topo, LonelyTopology)
+    off = 0
+    for size in [count] if whole else _chunk_sizes(count, tr.size, chunks):
+        piece = {r: h[off:off + size] for r, h in heads.items()}
+        _gather(_scatter(piece, tr, topo, rop, in_place=topo.is_ring), tr,
+                topo, {r: d[off:off + size] for r, d in dest.items()})
+        off += size
+
+
+def _chunk_sizes(total: int, n: int, chunks: int) -> list[int]:
+    """Split ``total`` (a multiple of ``n``) into at most ``chunks``
+    contiguous pieces, each a multiple of ``n``, sizes as balanced as
+    possible (the JAX ``_chunk_sizes``)."""
+    blocks = total // n
+    c = max(1, min(chunks, blocks))
+    base, rem = divmod(blocks, c)
+    return [(base + (1 if i < rem else 0)) * n for i in range(c)]
+
+
+def _allreduce(call: _Call, topo, rop: ReduceOp, chunks: int, out):
+    dest = call.out_buffers(out)
+    count = next(iter(call.flat.values())).numel()
+    head = _split(count, _owners(topo))
+    if head:
+        _head_allreduce({r: t[:head] for r, t in call.flat.items()}, call.tr,
+                        topo, rop, {r: d[:head] for r, d in dest.items()},
+                        chunks)
+    if head < count:
+        _dense_tail({r: t[head:] for r, t in call.flat.items()}, call.tr,
+                    rop, {r: d[head:] for r, d in dest.items()})
+    return call.give(dest, call.shape)
+
+
+def _world_of_one(call: _Call, x, out):
+    """A world of one rank: ``x`` itself, or a copy of it in ``out``."""
+    if out is None:
+        return x
+    dest = call.out_buffers(out)
+    for r, t in call.flat.items():
+        if dest[r].data_ptr() != t.data_ptr():
+            dest[r].copy_(t)
+    return call.give(dest, call.shape)
+
+
+# ------------------------------------------------------- public entries
+
+
+def allreduce(x, comm=None, topo=None, op="sum", chunks: int = 1, *,
+              out=None):
+    """Topology-parameterized allreduce of ``x`` over ``comm``.
+
+    The counterpart of ``jax.lax.psum(x, axis_name)`` (for ``op='sum'``)
+    and of the reference's ``MPI_Allreduce_FT`` (``mpi_mod.hpp:1167-1221``).
+    ``comm``: a :class:`~.mesh.Mesh` (``x`` is the list of its N ranks'
+    tensors; returns a list) or a process group (``None``: the default
+    group; ``x`` is this rank's tensor).  ``topo`` accepts what
+    ``Topology.resolve`` does (None -> ``FT_TOPO`` or flat; widths; a
+    ``"4,2"`` spec; ``"3,2+1"`` lonely specs; the ring ``"1"``).  A world
+    of one returns ``x`` (copied into ``out`` when given); the ring
+    sentinel runs the ring, a lonely shape
+    the buddy protocol, anything else the k-ary tree, ``chunks > 1``
+    splitting a tree's head into that many pieces run one after another
+    (the bits do not change).  ``out``: where the result goes (per rank on
+    a mesh; it may be ``x`` itself, the ``MPI_IN_PLACE`` path).
+    """
+    call = _Call(x, comm)
+    rop = get_op(op)
+    rop.check_dtype(call.dtype)
+    if call.n <= 1:
+        return _world_of_one(call, x, out)
+    return _allreduce(call, _resolve(call.n, topo), rop, chunks, out)
+
+
+def tree_allreduce(x, comm=None, topo=None, op="sum", chunks: int = 1, *,
+                   out=None):
+    """Hierarchical allreduce with per-stage widths ``topo.widths`` (a
+    lonely shape runs :func:`lonely_allreduce`).  See :func:`allreduce`."""
+    return allreduce(x, comm, topo, op, chunks, out=out)
+
+
+def lonely_allreduce(x, comm=None, topo=None, op="sum", *, out=None):
+    """Allreduce for ``"4,2+1"``-style shapes: the tree over the first ``m``
+    ranks, each lonely rank ``m + i`` folded into buddy ``i`` first and
+    handed the result after (JAX ``allreduce.py:280``); the < m-element
+    tail is one dense fold over all ranks.  A topology without lonely
+    ranks runs the tree."""
+    return allreduce(x, comm, topo, op, out=out)
+
+
+def ring_allreduce(x, comm=None, op="sum", *, out=None):
+    """The classic 2(N-1)-step ring (``mpi_mod.hpp:1113-1163``)."""
+    call = _Call(x, comm)
+    rop = get_op(op)
+    rop.check_dtype(call.dtype)
+    if call.n <= 1:
+        return _world_of_one(call, x, out)
+    return _allreduce(call, Topology.ring(call.n), rop, 1, out)
+
+
+def reduce_scatter(x, comm=None, topo=None, op="sum", codec=None):
+    """Phase 1 alone: this rank's reduced shard of ``x``.
+
+    A 1-D buffer of ``count // N + count % N`` elements: block
+    ``schedule.blocks.owned_block(topo, r)`` of the head (``N`` head
+    blocks), then the < N-element tail, reduced by the dense fold and
+    replicated.  Lonely shapes split the head over the ``m`` tree ranks
+    and lonely rank ``m + i`` holds a bitwise copy of buddy ``i``'s shard.
+    On a mesh, returns the list of the N shards."""
+    _check_codec(codec)
+    call = _Call(x, comm)
+    rop = get_op(op)
+    rop.check_dtype(call.dtype)
+    if call.n <= 1:
+        return call.give(call.flat)
+    topo = _resolve(call.n, topo)
+    tr = call.tr
+    count = next(iter(call.flat.values())).numel()
+    head = _split(count, _owners(topo))
+    tile = head // _owners(topo)
+    shards = {r: torch.empty(tile + count - head, dtype=call.dtype,
+                             device=t.device) for r, t in call.flat.items()}
+    if head:
+        got = _scatter({r: t[:head] for r, t in call.flat.items()}, tr, topo,
+                       rop)
+        for r, g in got.items():
+            shards[r][:tile].copy_(g)
+        if isinstance(topo, LonelyTopology):  # mirror the buddy's shard
+            _hand_back(got, tr, topo, {r: shards[r][:tile] for r in tr.local
+                                       if r >= topo.tree.num_nodes})
+    if head < count:
+        _dense_tail({r: t[head:] for r, t in call.flat.items()}, tr, rop,
+                    {r: s[tile:] for r, s in shards.items()})
+    return call.give(shards)
+
+
+def all_gather(x, comm=None, topo=None, out_shape=None, codec=None):
+    """Phase 2 alone: the inverse of :func:`reduce_scatter` on the same
+    topology.
+
+    ``x`` is a shard in ``reduce_scatter``'s layout (owned head block, then
+    the replicated tail); the head blocks are gathered in block order and
+    the tail appended, so the result is bitwise what :func:`allreduce`
+    gives.  The split of a shard into block and tail is ambiguous from its
+    length alone, so it is derived from ``out_shape`` when given (block =
+    ``count // owners``); without it the shard is taken as a pure block.
+    ``out_shape`` also restores the original shape."""
+    _check_codec(codec)
+    call = _Call(x, comm)
+    count = None if out_shape is None else int(
+        torch.Size(out_shape).numel())
+    if call.n <= 1:
+        res = call.flat
+    else:
+        topo = _resolve(call.n, topo)
+        owners = _owners(topo)
+        shard_len = next(iter(call.flat.values())).numel()
+        if count is None:
+            tile = shard_len
+        else:
+            tile = count // owners
+            if tile + count % owners != shard_len:
+                raise ValueError(
+                    f"shard of {shard_len} elements does not match out_shape "
+                    f"{tuple(out_shape)} over {owners} owners (expected "
+                    f"{tile + count % owners})")
+        tail = shard_len - tile
+        res = {r: torch.empty(owners * tile + tail, dtype=call.dtype,
+                              device=t.device) for r, t in call.flat.items()}
+        head = owners * tile
+        if tile:
+            _gather({r: t[:tile] for r, t in call.flat.items()}, call.tr,
+                    topo, {r: t[:head] for r, t in res.items()})
+        for r, t in call.flat.items():
+            res[r][head:].copy_(t[tile:])
+    if count is not None:
+        res = {r: t[:count] for r, t in res.items()}
+    return call.give(res, None if out_shape is None else tuple(out_shape))
+
+
+def allgather(x, comm=None, topo=None, out_shape=None):
+    """Backward-compatible alias for :func:`all_gather`."""
+    return all_gather(x, comm, topo=topo, out_shape=out_shape)

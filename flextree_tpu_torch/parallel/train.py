@@ -11,13 +11,15 @@ The train state is the JAX package's pytree in the port's types —
 copy (:mod:`..convert`) and checkpoints in the same file format
 (:mod:`..utils.checkpoint`).
 
-The gradient sync is the seam the collectives slice fills:
-:func:`sync_grads` at world size 1 is the identity, as the JAX sync is on
-a mesh of one device (``allreduce`` returns its input for ``n <= 1``).
-What needs an unported module raises, naming its ROADMAP item: a lossy
-``codec``, ``overlap``, ``shard_optimizer`` and ``autotune``, and a sync
-over more than one rank.  ``grad_topo``, ``bucket_bytes`` and
-``grad_chunks`` shape a multi-rank sync only and are inert here.
+The gradient sync is the seam the bucketed data-parallel sync fills, on
+the FlexTree collectives of :mod:`.allreduce`: :func:`sync_grads` at
+world size 1 is the identity, as the JAX sync is on a mesh of one device
+(``allreduce`` returns its input for ``n <= 1``).  What needs an unported
+module raises, naming its ROADMAP item: a lossy ``codec``, ``overlap``,
+``shard_optimizer`` and ``autotune``, and a sync over more than one rank
+(the bucketing of ``flextree_tpu/parallel/bucketing.py``).
+``grad_topo``, ``bucket_bytes`` and ``grad_chunks`` shape a multi-rank
+sync only and are inert here.
 """
 
 from __future__ import annotations
@@ -74,7 +76,8 @@ class TrainConfig:
     shard_optimizer: bool = False
 
 
-_COLLECTIVES = "ROADMAP.md, Queue 1: 'Slice 3, FlexTree collectives'"
+_BUCKETED_SYNC = ("ROADMAP.md, Queue 1: 'Bucketed data-parallel sync on the "
+                  "collectives'")
 
 
 def _refuse_unported(train_cfg: TrainConfig) -> None:
@@ -152,11 +155,12 @@ def init_train_state(cfg: TransformerConfig, generator: torch.Generator,
 def sync_grads(grads, world_size: int = 1):
     """The gradient sync: each leaf summed over the ranks it is
     replicated on.  At world size 1 that sum is the leaf itself, so the
-    grads come back unchanged; more ranks need the collectives."""
+    grads come back unchanged; more ranks need the bucketed sync, which is
+    not ported yet."""
     if world_size > 1:
         raise NotImplementedError(
             f"gradient sync over {world_size} ranks is not ported yet "
-            f"({_COLLECTIVES})"
+            f"({_BUCKETED_SYNC})"
         )
     return grads
 

@@ -126,7 +126,7 @@ def _refuse_unported(args) -> None:
          "'Checkpoint, supervision and feedback plumbing'"),
         ((mesh is not None and any(n != 1 for n in mesh))
          or args.devices not in (None, 1), "more than one device",
-         "'Slice 3, FlexTree collectives'"),
+         "'Bucketed data-parallel sync on the collectives'"),
     )
     for bad, what, item in refusals:
         if bad:

@@ -1,1 +1,2 @@
-"""Utilities: checkpointing (``utils.checkpoint``)."""
+"""Utilities: checkpointing (``utils.checkpoint``) and timing
+(``utils.timing``)."""
