@@ -7,17 +7,26 @@ Phase 7 of ``chip_smoke.py`` holds each flash kernel in bfloat16 to its
 plain version within ``BF16_PEAK`` and ``BF16_RMS``.  This script shows
 that the bar tells kernels that keep the TPU kernels' rounding points from
 kernels that drop one.  It copies ``flextree_tpu_torch/csrc`` into a
-temporary directory once per mutant, removes one rounding point there,
-builds the copy, and runs phase 7's bfloat16 cases through the kernels of
-the checkout and through each mutant:
+temporary directory once per mutant, removes one rounding point there (or,
+for ``dkv_p``, adds one), builds the copy, and runs phase 7's bfloat16
+cases through the kernels of the checkout and through each mutant:
 
-- ``fwd_p``: p not rounded to v's dtype before ``p @ v`` (flash_fwd.cu);
-- ``prescale``: the ``scale * log2(e)`` pre-scale of q (of k in dk/dv) not
-  rounded to the input dtype (flash_common.cuh, all three kernels);
+- ``fwd_p``: p enters ``p @ v`` as two bf16 terms, not rounded to v's
+  dtype (flash_fwd.cu, the tensor-core kernel);
+- ``fwd_prescale``: q not pre-scaled in bf16; the ``scale * log2(e)``
+  factor multiplies the float32 scores instead (flash_fwd.cu);
+- ``dkv_prescale``: the same for k in dk/dv (flash_bwd_dkv.cu);
+- ``dkv_ds``: ds enters ``ds^T @ q`` as two bf16 terms, not rounded to
+  q's dtype (flash_bwd_dkv.cu);
+- ``dkv_p``: p enters ``p^T @ do`` as one bf16 term, where the TPU kernel
+  takes it in float32 (flash_bwd_dkv.cu: the two remainder terms
+  dropped);
 - ``dq_ds``: ds not rounded to k's dtype before ``ds @ k``
-  (flash_bwd_dq.cu);
-- ``dkv_ds``: ds not rounded to q's dtype before ``ds^T @ q``
-  (flash_bwd_dkv.cu).
+  (flash_bwd_dq.cu, whose bfloat16 path is still the float32-core
+  kernel);
+- ``dq_prescale``: the pre-scale of q in dq not rounded to the input
+  dtype (flash_common.cuh's ``load_tile``, which only that kernel's
+  bfloat16 path still uses).
 
 Prints one line per build and case with each comparison's errors, and
 last a JSON summary.  Exits 0 only when the checkout's kernels pass every
@@ -37,13 +46,25 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# mutant: (file under csrc, the rounding as written, the same without it)
+# mutant: (file under csrc, ((text as written, text of the mutant), ...))
 MUTANTS = {
-    "fwd_p": ("flash_fwd.cu", "= round_to<E>(p);", "= p;"),
-    "prescale": ("flash_common.cuh", "x = round_to<E>(x * mul);",
-                 "x = x * mul;"),
-    "dq_ds": ("flash_bwd_dq.cu", "= round_to<E>(ds);", "= ds;"),
-    "dkv_ds": ("flash_bwd_dkv.cu", "= round_to<E>(ds);", "= ds;"),
+    "fwd_p": ("flash_fwd.cu", (("constexpr int kPTerms = 1;",
+                                "constexpr int kPTerms = 2;"),)),
+    "fwd_prescale": ("flash_fwd.cu", (
+        ("prescale_tile<DM>(sq, qmul_b);", "prescale_tile<DM>(sq, 1.f);"),
+        ("    // mask by position (the full tiles below kb_full skip it)\n",
+         "    for (int n = 0; n < NS; ++n)\n"
+         "      for (int e = 0; e < 4; ++e) sc[n][e] *= qmul_b;\n"))),
+    "dkv_prescale": ("flash_bwd_dkv.cu", (
+        ("prescale_tile<DM>(sk, kmul_b);", "prescale_tile<DM>(sk, 1.f);"),
+        ("fast_exp2(st[n][e] - lse2[", "fast_exp2(st[n][e] * kmul_b - lse2["))),
+    "dkv_ds": ("flash_bwd_dkv.cu", (("constexpr int kDsTerms = 1;",
+                                     "constexpr int kDsTerms = 2;"),)),
+    "dkv_p": ("flash_bwd_dkv.cu", (("constexpr int kPTerms = 3;",
+                                    "constexpr int kPTerms = 1;"),)),
+    "dq_ds": ("flash_bwd_dq.cu", (("= round_to<E>(ds);", "= ds;"),)),
+    "dq_prescale": ("flash_common.cuh", (("x = round_to<E>(x * mul);",
+                                          "x = x * mul;"),)),
 }
 FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
@@ -59,14 +80,18 @@ def use_sources(kernels, csrc: Path, build_dir: Path) -> None:
 
 
 def mutate(csrc: Path, dst: Path, mutant: str) -> Path:
-    """A copy of ``csrc`` at ``dst`` with ``mutant``'s rounding removed."""
+    """A copy of ``csrc`` at ``dst`` with ``mutant``'s edits made; each
+    edited text must occur in its file exactly once."""
     shutil.copytree(csrc, dst)
-    name, old, new = MUTANTS[mutant]
+    name, edits = MUTANTS[mutant]
     path = dst / name
     text = path.read_text()
-    if text.count(old) != 1:
-        raise RuntimeError(f"{mutant}: {old!r} is not in {name} exactly once")
-    path.write_text(text.replace(old, new))
+    for old, new in edits:
+        if text.count(old) != 1:
+            raise RuntimeError(f"{mutant}: {old!r} is not in {name} "
+                               f"exactly once")
+        text = text.replace(old, new)
+    path.write_text(text)
     return dst
 
 

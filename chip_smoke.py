@@ -7,7 +7,9 @@ Drives ``flextree_tpu_torch`` (never JAX) on the card, in phases; any
 failure raises and exits non-zero:
 
 1. device and build — the card's name and power limit (``nvidia-smi``),
-   and every CUDA kernel built from ``flextree_tpu_torch/csrc``;
+   and every CUDA kernel built from ``flextree_tpu_torch/csrc``; the bf16
+   flash forward and dk/dv have ``HMMA`` (``mma.sync``) in their SASS and
+   no register spills at head dim 64;
 2. kernel parity — the paged-decode kernel against its plain versions
    (the plain stream and the gather oracle) at the flagship decode shape
    (S=8 slots, H=8, D=64, bs=16, P=64, N=257) on boundary lengths:
@@ -21,8 +23,9 @@ failure raises and exits non-zero:
 4. times — the kernel, its plain stream and
    ``F.scaled_dot_product_attention`` on the pre-gathered view (a
    yardstick only; the port never calls it) on the inputs of the heaviest
-   decode round of phase 3, each launch with a cold L2, beside the
-   least time the card could take (bytes over the memory rate);
+   decode round of phase 3, each launch with a cold L2 and a ~0.5 ms head
+   start (:func:`time_launches`), beside the least time the card could
+   take (bytes over the memory rate);
 5. profile — 8 more requests through the same engine under
    ``torch.profiler``: the device's busy share of the wall time and the
    kernels that take it;
@@ -36,7 +39,9 @@ failure raises and exits non-zero:
    1e-4 in float32; in bfloat16, where both round at the same points,
    each element within 2**-5 of max(|ref|, rms(ref)) and the rms error
    within 2e-4 of rms(ref); the lse within 1e-4; rows that see no key
-   exactly 0; every ``variant`` runs the one forward kernel;
+   exactly 0; every ``variant`` runs the one forward kernel; the bf16
+   forward and dk/dv (tensor-core kernels) refuse an input view that is
+   not 16-byte aligned;
 8. training — ``trainer.main`` at the flagship width (bf16 compute,
    flash attention, batch 8 x 1024 tokens, 30 steps, warmup-cosine,
    clipping, a checkpoint every 10 steps): the loss is finite and falls,
@@ -49,8 +54,10 @@ failure raises and exits non-zero:
    1e-5 printed, each miss beside its step-1 gradient and gradient gap,
    and beside a witness (reference attention on the batch rows reversed);
 10. flash times — each flash kernel, its plain version and the SDPA
-    yardstick at the training shape (CUDA-event medians), beside the
-    least time the card could take;
+    yardstick (forward; backward through ``torch.autograd.grad``) at the
+    training shape, each launch with a cold L2 and a ~0.5 ms head start
+    (CUDA-event medians, :func:`time_launches`), beside the least time
+    the card could take, with TFLOP/s and the ratio to SDPA;
 11. fold and copy parity — the fold kernel against its plain version,
     bitwise, for every op x dtype of the registry, W in {2, 3, 8}, a
     16-byte-aligned and a ragged L, ``sources_tile`` 1 and 4, NaN rows in
@@ -243,19 +250,28 @@ def drive(eng, reqs, pa):
     return makespan, pa.paged_attention.launches
 
 
-def time_launches(fn, n, flush):
-    """Mean ms of ``fn()`` over ``n`` launches, each after an L2 flush."""
+# GPU cycles (~0.5 ms) the card spins before each timed launch, as
+# bench/harness.py's reduce bench does: the launch is enqueued while the
+# card is busy, so its events time the kernel and not the wrapper's Python
+HEAD_START_CYCLES = 1_000_000
+
+
+def time_launches(fn, n, flush, warmup=3):
+    """Median ms of ``fn()`` over ``n`` launches timed with CUDA events,
+    after ``warmup`` untimed ones; each timed launch follows an L2 flush
+    (a cold L2) and a ~0.5 ms spin of the card (the head start)."""
+    for _ in range(warmup):
+        fn()
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
-    for _ in range(3):
-        fn()
     for i in range(n):
         flush.zero_()
+        torch.cuda._sleep(HEAD_START_CYCLES)
         starts[i].record()
         fn()
         ends[i].record()
     torch.cuda.synchronize()
-    return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / n
+    return float(np.median([s.elapsed_time(e) for s, e in zip(starts, ends)]))
 
 
 def phase_times(dev, pa, pools, rounds, bw, fp32_peak):
@@ -503,22 +519,34 @@ def phase_flash_parity(dev, fa):
                 f"{describe_errors(errs)}; {note}")
             del run
             torch.cuda.empty_cache()
+    check_misaligned(fa, dev)
     return worst
 
 
-def median_ms(fn, n=30, warmup=3):
-    """Median ms of ``fn()`` over ``n`` launches timed with CUDA events,
-    after ``warmup`` untimed ones."""
-    for _ in range(warmup):
-        fn()
-    starts = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
-    ends = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
-    for i in range(n):
-        starts[i].record()
-        fn()
-        ends[i].record()
-    torch.cuda.synchronize()
-    return float(np.median([s.elapsed_time(e) for s, e in zip(starts, ends)]))
+def check_misaligned(fa, dev):
+    """The bfloat16 forward and dk/dv kernels read their inputs 16 bytes at
+    a time (``cp.async``): a contiguous view that starts 2 bytes past a
+    16-byte boundary must be refused by the wrapper, not launched."""
+    b, t, h, d = 1, 64, 2, 64
+    n = b * t * h * d
+    buf = torch.zeros(n + 8, dtype=torch.bfloat16, device=dev)
+    ok = buf[:n].view(b, t, h, d)
+    bad = buf[1:n + 1].view(b, t, h, d)
+    lse = torch.zeros((b, h, t), device=dev)
+    kw = dict(causal=True, scale=d ** -0.5)
+    saved = flash_counts(fa)
+    for name, call in (
+            ("flash_fwd", lambda x: fa.flash_fwd(ok, x, ok, **kw)),
+            ("flash_bwd_dkv",
+             lambda x: fa.flash_bwd_dkv(ok, ok, ok, ok, x, lse, **kw))):
+        try:
+            call(bad)
+        except ValueError as err:
+            log(f"phase 7 misaligned {name}: refused ({err})")
+        else:
+            raise AssertionError(f"{name} launched on a misaligned input")
+    if flash_counts(fa) != saved:
+        raise AssertionError("a refused call counted a launch")
 
 
 def flash_work(b, t, h, d, elem):
@@ -540,9 +568,11 @@ def flash_work(b, t, h, d, elem):
 
 def phase_flash_times(dev, fa, bw, bf16_peak):
     """Each flash kernel, its plain version and the SDPA yardstick at the
-    training shape in bf16, causal: CUDA-event medians after warm-up,
-    beside the bound from the data sheet.  SDPA's backward computes dq,
-    dk and dv in one call; both backward rows carry that one time."""
+    training shape in bf16, causal: medians of :func:`time_launches`
+    (each launch with a cold L2 and the head start), beside the bound from
+    the data sheet.  SDPA's backward computes dq, dk and dv in one call;
+    both backward rows carry that one time, and its rate counts the work
+    of both backward kernels."""
     b, t, h, d = FLASH_TRAIN
     gen = torch.Generator().manual_seed(SEED + 3)
     dtype = torch.bfloat16
@@ -568,31 +598,38 @@ def phase_flash_times(dev, fa, bw, bf16_peak):
     if not lib_err.item() <= 0.05:
         raise AssertionError(f"SDPA yardstick disagrees: {lib_err.item()}")
     dot = do.transpose(1, 2)
-    lib_fwd = median_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True))
-    lib_bwd = median_ms(lambda: torch.autograd.grad(
-        sdpa_out, (qt, kt, vt), dot, retain_graph=True))
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    lib_fwd = time_launches(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), 50, flush)
+    lib_bwd = time_launches(lambda: torch.autograd.grad(
+        sdpa_out, (qt, kt, vt), dot, retain_graph=True), 50, flush)
     work = flash_work(b, t, h, d, q.element_size())
+    bwd_flops = work["flash_bwd_dq"][0] + work["flash_bwd_dkv"][0]
+    log(f"phase 10 times SDPA (B={b} T={t} H={h} D={d} bf16 causal): "
+        f"forward {lib_fwd:.4f} ms = "
+        f"{work['flash_fwd'][0] / lib_fwd / 1e9:.1f} TFLOP/s, backward "
+        f"(dq, dk, dv) {lib_bwd:.4f} ms = {bwd_flops / lib_bwd / 1e9:.1f} "
+        f"TFLOP/s")
     out_rows = {}
     for name, (kern, plain) in runs.items():
-        ms = median_ms(kern)
-        plain_ms = median_ms(plain, n=20)
+        ms = time_launches(kern, 50, flush)
+        plain_ms = time_launches(plain, 20, flush)
         flops, n_bytes = work[name]
         t_bytes = n_bytes / bw * 1e3
         t_ops = flops / bf16_peak * 1e3
+        lib = lib_fwd if name == "flash_fwd" else lib_bwd
         out_rows[name] = {
-            "ms": ms, "plain_ms": plain_ms,
-            "library_ms": lib_fwd if name == "flash_fwd" else lib_bwd,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": lib,
             "flops": flops, "bytes": n_bytes,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         }
         log(f"phase 10 times {name} (B={b} T={t} H={h} D={d} bf16 causal): "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
-            f"{out_rows[name]['library_ms']:.4f} ms, bound "
-            f"{out_rows[name]['bound_ms']:.4f} ms ({out_rows[name]['bound_by']}: "
-            f"{flops / 1e9:.2f} GFLOP, {n_bytes / 1e6:.1f} MB); "
-            f"{flops / ms / 1e9:.1f} TFLOP/s")
+            f"kernel {ms:.4f} ms = {flops / ms / 1e9:.1f} TFLOP/s, "
+            f"{ms / lib:.2f}x SDPA's {lib:.4f} ms; plain {plain_ms:.4f} ms; "
+            f"bound {out_rows[name]['bound_ms']:.4f} ms "
+            f"({out_rows[name]['bound_by']}: {flops / 1e9:.2f} GFLOP, "
+            f"{n_bytes / 1e6:.1f} MB)")
     return out_rows
 
 
@@ -1460,6 +1497,44 @@ def model_phases(dev, bw, fp32_peak, bf16_peak) -> list:
     } for name, replaces in FLASH_REPLACES]
 
 
+# the flash kernels whose bf16 path runs on the tensor cores
+MMA_KERNELS = ("flash_fwd", "flash_bwd_dkv")
+
+
+def check_tensor_cores(kernels, paths):
+    """The bf16 forward and dk/dv kernels run their products on the tensor
+    cores: ``HMMA`` (``mma.sync``) in their SASS (``cuobjdump``), and
+    ptxas reports no register spills for their DM=64 instantiation, the
+    training shape's."""
+    cuobjdump = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
+    for name in MMA_KERNELS:
+        sass = subprocess.run([cuobjdump, "-sass", str(paths[name])],
+                              capture_output=True, text=True, check=True,
+                              timeout=300).stdout
+        hmma = sass.count("HMMA")
+        if not hmma:
+            raise AssertionError(f"{name}: no HMMA in its SASS")
+        note = "cached build, no ptxas report in this run"
+        if name in kernels.build_log:
+            lines = kernels.build_log[name]["ptxas"].splitlines()
+            at = [i for i, ln in enumerate(lines)
+                  if "Compiling entry function" in ln
+                  and "mma_kernelILi64E" in ln]
+            if len(at) != 1:
+                raise AssertionError(f"{name}: no DM=64 tensor-core kernel "
+                                     f"in the ptxas report")
+            report = [ln.split(":", 1)[-1].strip()
+                      for ln in lines[at[0] + 1:at[0] + 4]
+                      if "spill" in ln or "registers" in ln]
+            note = "; ".join(report)
+            if not any("0 bytes spill stores, 0 bytes spill loads" in ln
+                       for ln in report):
+                raise AssertionError(f"{name}: DM=64 spills registers "
+                                     f"({note})")
+        log(f"phase 1 tensor cores {name}: {hmma} HMMA in the SASS; "
+            f"bf16 DM=64: {note}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1478,7 +1553,7 @@ def main() -> int:
     log(f"phase 1 device: {kind}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}; nvidia-smi: {smi}")
     t0 = time.monotonic()
-    kernels.build()
+    paths = kernels.build()
     build_s = time.monotonic() - t0
     for name, info in kernels.build_log.items():
         regs = [ln.strip() for ln in info["ptxas"].splitlines()
@@ -1486,6 +1561,7 @@ def main() -> int:
         log(f"phase 1 build {name}: {info['seconds']:.2f} s; "
             f"{' | '.join(regs[:4])}{' | ...' if len(regs) > 4 else ''}")
     log(f"phase 1 build total: {build_s:.2f} s")
+    check_tensor_cores(kernels, paths)
 
     t0 = time.monotonic()
     rows = model_phases(dev, bw, fp32_peak, bf16_peak)

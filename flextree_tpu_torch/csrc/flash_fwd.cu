@@ -11,7 +11,9 @@
 //
 // where j is visible when j < Tk and, causal, q_offset + i >= k_offset + j.
 // Numerics of the TPU kernel: q pre-scaled in its own dtype, an online
-// softmax in float32, p rounded to v's dtype before p.v, a row that sees no
+// softmax in float32 over 64-key tiles (KERNEL_TILE_K in
+// ops/flash_attention.py), p rounded to v's dtype against the running max
+// after its tile before p.v while l sums the unrounded p, a row that sees no
 // key gives exactly 0 and the +1e30 sentinel.  The plain version is
 // flextree_tpu_torch/ops/flash_attention.py::flash_fwd_plain.
 //
@@ -19,21 +21,33 @@
 // work is ~8.6 GFLOP of products over ~34 MB of q, k, v, out and lse: ~250
 // operations per byte, just under the card's ~295, so the least time is
 // the bytes over the memory rate (~0.010 ms), with the bf16 tensor cores
-// nearly as close.  This kernel runs its products on the float32 cores
-// (SIMT), ~15x below the bf16 tensor-core rate, so the float32 pipes and
-// shared-memory bandwidth bound it.
+// (~0.009 ms) nearly as close.
 //
-// Design (simple and right first; mma/wgmma, TMA and warp specialisation are
-// later work):
-// - one CTA per (64 query rows, b*h), 256 threads (flash_common.cuh);
-// - the q tile is loaded once, pre-scaled; the CTA walks the k/v tiles up
-//   to its causal bound kb_hi, and tiles below kb_full (every row sees every
-//   key) skip the mask, as the TPU kernel's full/masked loops do;
-// - m, l and the (4 rows x DM/16 dims) accumulators stay in registers
-//   across the walk; p goes through shared memory for p.v;
-// - the ragged edge is masked by position, never padded.
+// Two kernels behind one entry point, chosen by dtype alone:
+//
+// - bfloat16 (flash_fwd_mma_kernel), FlashAttention-2's shape on the
+//   tensor cores (flash_mma.cuh): one CTA per (64 query rows, b*h), 4 warps
+//   of 16 rows; the causal triangle's long rows launch first.  q arrives by
+//   cp.async, is pre-scaled in shared memory and held as A fragments; k/v
+//   tiles of 64 keys stream through a two-stage cp.async ring, so the next
+//   tile loads while this one computes.  s = q^.k^T by mma with k through
+//   ldmatrix; m, l and the output stay in registers; p goes from the score
+//   accumulators straight into the A fragments of p.v, v through
+//   ldmatrix.trans.  Each tile's p.v is summed by the tensor cores and
+//   added to the output by ordinary float32 arithmetic: the tensor cores'
+//   float32 sums truncate, and a chain of them as long as the sequence
+//   drifts past the bf16 bar at T = 4096.  Out leaves through shared
+//   memory in 16-byte stores.
+// - float32 (flash_fwd_kernel, SIMT, the TPU kernel's float32 bars that
+//   TF32 cannot meet): 256 threads, products on the float32 cores, p
+//   through shared memory (flash_common.cuh).
+//
+// Both walk the k/v tiles up to the causal bound kb_hi, and tiles below
+// kb_full (every row sees every key) skip the mask, as the TPU kernel's
+// full/masked loops do; the ragged edge is masked by position, never
+// padded.
 
-#include "flash_common.cuh"
+#include "flash_mma.cuh"
 
 namespace ftflash {
 namespace {
@@ -193,10 +207,10 @@ cudaError_t run(const void* q, const void* k, const void* v, void* out,
 }
 
 template <typename E>
-cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
-                     float* lse, int B, int H, int Tq, int Tk, int D,
-                     float qmul, int causal, int q_offset, int k_offset,
-                     cudaStream_t st) {
+cudaError_t dispatch_simt(const void* q, const void* k, const void* v,
+                          void* out, float* lse, int B, int H, int Tq,
+                          int Tk, int D, float qmul, int causal,
+                          int q_offset, int k_offset, cudaStream_t st) {
   if (D <= 32)
     return run<E, 32>(q, k, v, out, lse, B, H, Tq, Tk, D, qmul, causal,
                       q_offset, k_offset, st);
@@ -205,6 +219,240 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
                       q_offset, k_offset, st);
   return run<E, 128>(q, k, v, out, lse, B, H, Tq, Tk, D, qmul, causal,
                      q_offset, k_offset, st);
+}
+
+// ---------------------------------------------------------------- bfloat16
+//
+// p enters p.v as one bf16 term, rounded: the TPU kernel's cast of p to
+// v's dtype (c_to_a; the dk/dv kernel's dv takes three, for float32 p).
+constexpr int kPTerms = 1;
+// Keys per k/v tile: where the online softmax rounds p, so the plain
+// version's KERNEL_TILE_K (ops/flash_attention.py) must equal it.
+constexpr int kTileK = 64;
+static_assert(kTileK == kRows, "k/v tiles are 64-row tiles, as q's");
+
+// The register budget asks for 3 CTAs an SM (2 at DM = 128): shared memory
+// allows 4 at DM = 64, but 4 would cap a thread at 128 registers and spill.
+template <int DM>
+__global__ void __launch_bounds__(kMmaThreads, DM == 128 ? 2 : 3)
+    flash_fwd_mma_kernel(const bf16* __restrict__ q,
+                         const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, bf16* __restrict__ out,
+                         float* __restrict__ lse, int H, int Tq, int Tk,
+                         int D, float qmul, int causal, int q_offset,
+                         int k_offset) {
+  constexpr int LD = DM + 8;          // bf16 row stride (flash_mma.cuh)
+  constexpr int TILE = kRows * LD;    // a q, k or v tile
+  constexpr int KC = DM / 16;         // 16-deep chunks of q.k
+  constexpr int NS = kTileK / 8;      // 8-key blocks of a score tile
+  constexpr int NO = DM / 8;          // 8-dim blocks of the output
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sq = reinterpret_cast<bf16*>(smem_raw);  // q tile, pre-scaled
+  bf16* sk = sq + TILE;                          // k tiles, 2 stages
+  bf16* sv = sk + 2 * TILE;                      // v tiles, 2 stages
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  // the causal triangle's longest rows first, so they do not make the tail
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int row_stride = H * D;
+  const bf16* q_bh = q + (static_cast<size_t>(b) * Tq * H + h) * D;
+  const bf16* k_bh = k + (static_cast<size_t>(b) * Tk * H + h) * D;
+  const bf16* v_bh = v + (static_cast<size_t>(b) * Tk * H + h) * D;
+
+  const int n_kb = (Tk + kTileK - 1) / kTileK;
+  int kb_hi = n_kb;
+  int kb_full = n_kb;
+  if (causal) {
+    const int hi = q_offset + q0 + kRows - k_offset;  // exclusive
+    kb_hi = clampi(floor_div(hi + kTileK - 1, kTileK), 0, n_kb);
+    const int lo_vis = q_offset + q0 - k_offset + 1;  // seen by the 1st row
+    kb_full = clampi(floor_div(lo_vis, kTileK), 0, n_kb);
+  }
+  if (Tk % kTileK) kb_full = min(kb_full, Tk / kTileK);
+
+  load_tile_async<DM>(sq, q_bh, q0, Tq, row_stride, D);
+  cp_async_commit();
+  if (kb_hi > 0) {
+    load_tile_async<DM>(sk, k_bh, 0, Tk, row_stride, D);
+    load_tile_async<DM>(sv, v_bh, 0, Tk, row_stride, D);
+  }
+  cp_async_commit();
+  cp_async_wait<1>();  // q has landed
+  __syncthreads();
+  const float qmul_b = round_bf16(qmul);
+  prescale_tile<DM>(sq, qmul_b);
+  __syncthreads();
+  uint32_t qa[KC][4];  // this warp's 16 q rows as A fragments
+#pragma unroll
+  for (int kc = 0; kc < KC; ++kc)
+    ldsm_x4(qa[kc], a_addr(sq, LD, warp * 16, kc * 16, lane));
+
+  // rows g and g + 8 of the warp's 16: running max, sum and output
+  float m_r[2] = {kNegInf, kNegInf};
+  float l_r[2] = {0.f, 0.f};
+  float acc[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  const int qi0 = q_offset + q0 + warp * 16 + g;  // global position, row g
+
+  for (int kb = 0; kb < kb_hi; ++kb) {
+    const int stage = kb & 1;
+    cp_async_wait<0>();
+    __syncthreads();  // tile kb is in; every warp is done with tile kb - 1
+    if (kb + 1 < kb_hi) {  // the next tile loads while this one computes
+      load_tile_async<DM>(sk + (stage ^ 1) * TILE, k_bh, (kb + 1) * kTileK,
+                          Tk, row_stride, D);
+      load_tile_async<DM>(sv + (stage ^ 1) * TILE, v_bh, (kb + 1) * kTileK,
+                          Tk, row_stride, D);
+    }
+    cp_async_commit();
+    const bf16* ks = sk + stage * TILE;
+    const bf16* vs = sv + stage * TILE;
+
+    // s = q^ . k^T: 16 rows x 64 keys, 8 C tiles
+    float sc[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc)
+#pragma unroll
+      for (int n2 = 0; n2 < NS / 2; ++n2) {
+        uint32_t kf[4];
+        ldsm_x4(kf, bn_addr(ks, LD, n2 * 16, kc * 16, lane));
+        mma_bf16(sc[2 * n2], qa[kc], kf[0], kf[1]);
+        mma_bf16(sc[2 * n2 + 1], qa[kc], kf[2], kf[3]);
+      }
+
+    // mask by position (the full tiles below kb_full skip it)
+    if (kb >= kb_full) {
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kj = kb * kTileK + n * 8 + 2 * t4 + (e & 1);
+          if (kj >= Tk || (causal && qi0 + (e >> 1) * 8 < k_offset + kj))
+            sc[n][e] = kNegInf;
+        }
+    }
+
+    // online softmax: p against the running max after this tile; l adds
+    // the unrounded p.  A row that has seen no key yet keeps m == kNegInf
+    // and takes its p against 0 instead, so that every p of it is 0.
+    float m_new[2], m_use[2], corr[2], psum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = m_r[r];
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+        mx = fmaxf(mx, fmaxf(sc[n][2 * r], sc[n][2 * r + 1]));
+      m_new[r] = quad_max(mx);
+      m_use[r] = m_new[r] == kNegInf ? 0.f : m_new[r];
+      corr[r] = fast_exp2(m_r[r] - m_new[r]);
+    }
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = fast_exp2(sc[n][e] - m_use[e >> 1]);
+        sc[n][e] = p;
+        psum[e >> 1] += p;
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l_r[r] = l_r[r] * corr[r] + quad_sum(psum[r]);
+      m_r[r] = m_new[r];
+    }
+    // acc = acc * corr + p . v: p straight from the score tiles into A
+    // fragments, v by ldmatrix.trans.  The tensor cores' float32 sums
+    // truncate, so each tile's p . v is summed by mma (4 steps) and the
+    // running sum by ordinary float32 arithmetic: the error stays that of
+    // one tile, whatever the number of tiles.
+    uint32_t pa[NS / 2][kPTerms][4];
+#pragma unroll
+    for (int kk = 0; kk < NS / 2; ++kk)
+      c_to_a<kPTerms>(sc[2 * kk], sc[2 * kk + 1], pa[kk]);
+#pragma unroll
+    for (int j2 = 0; j2 < NO / 2; ++j2) {
+      float pv[2][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < NS / 2; ++kk) {
+        uint32_t vf[4];
+        ldsm_x4_trans(vf, bt_addr(vs, LD, kk * 16, j2 * 16, lane));
+#pragma unroll
+        for (int t = 0; t < kPTerms; ++t) {
+          mma_bf16(pv[0], pa[kk][t], vf[0], vf[1]);
+          mma_bf16(pv[1], pa[kk][t], vf[2], vf[3]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[2 * j2 + i][e] = fmaf(acc[2 * j2 + i][e], corr[e >> 1],
+                                    pv[i][e]);
+    }
+  }
+
+  // out = acc / l through this warp's own rows of the q tile (only this
+  // warp read them), then 16-byte stores; the lse from the quad's lane 0
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = warp * 16 + g + 8 * r;
+    const float l = l_r[r];
+#pragma unroll
+    for (int j = 0; j < NO; ++j)
+      *reinterpret_cast<uint32_t*>(sq + row * LD + j * 8 + 2 * t4) =
+          pack_bf16(l > 0.f ? acc[j][2 * r] / l : 0.f,
+                    l > 0.f ? acc[j][2 * r + 1] / l : 0.f);
+    if (lse != nullptr && t4 == 0 && q0 + row < Tq)
+      lse[static_cast<size_t>(bh) * Tq + q0 + row] =
+          l > 0.f ? (m_r[r] + log2f(fmaxf(l, 1e-38f))) * kLn2 : kSentinel;
+  }
+  __syncwarp();
+  store_rows<DM>(sq, warp, out + (static_cast<size_t>(b) * Tq * H + h) * D,
+                 q0, Tq, row_stride, D);
+}
+
+template <int DM>
+cudaError_t run_mma(const void* q, const void* k, const void* v, void* out,
+                    float* lse, int B, int H, int Tq, int Tk, int D,
+                    float qmul, int causal, int q_offset, int k_offset,
+                    cudaStream_t stream) {
+  const size_t smem = 5 * kRows * (DM + 8) * sizeof(bf16);
+  auto kernel = flash_fwd_mma_kernel<DM>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * H, (Tq + kRows - 1) / kRows);
+  kernel<<<grid, kMmaThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, H, Tq, Tk,
+      D, qmul, causal, q_offset, k_offset);
+  return cudaGetLastError();
+}
+
+
+cudaError_t dispatch_mma(const void* q, const void* k, const void* v,
+                         void* out, float* lse, int B, int H, int Tq, int Tk,
+                         int D, float qmul, int causal, int q_offset,
+                         int k_offset, cudaStream_t st) {
+  if (D <= 32)
+    return run_mma<32>(q, k, v, out, lse, B, H, Tq, Tk, D, qmul, causal,
+                       q_offset, k_offset, st);
+  if (D <= 64)
+    return run_mma<64>(q, k, v, out, lse, B, H, Tq, Tk, D, qmul, causal,
+                       q_offset, k_offset, st);
+  return run_mma<128>(q, k, v, out, lse, B, H, Tq, Tk, D, qmul, causal,
+                      q_offset, k_offset, st);
 }
 
 }  // namespace
@@ -223,11 +471,11 @@ extern "C" int ft_flash_fwd(const void* q, const void* k, const void* v,
   const auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0)
-    err = dispatch<float>(q, k, v, out, l, B, H, Tq, Tk, D, qmul, causal,
-                          q_offset, k_offset, st);
+    err = dispatch_simt<float>(q, k, v, out, l, B, H, Tq, Tk, D, qmul,
+                               causal, q_offset, k_offset, st);
   else if (dtype == 1)
-    err = dispatch<__nv_bfloat16>(q, k, v, out, l, B, H, Tq, Tk, D, qmul,
-                                  causal, q_offset, k_offset, st);
+    err = dispatch_mma(q, k, v, out, l, B, H, Tq, Tk, D, qmul, causal,
+                       q_offset, k_offset, st);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

@@ -43,8 +43,9 @@ Numerics follow the TPU kernels, which bf16 parity depends on:
 
 ``block_q``/``block_k`` keep the JAX meaning for validation
 (:func:`_blocks`); the CUDA kernels choose their own tiles (64 rows by 64
-keys, 256 threads), and the plain versions use only the forward's key
-tile, :data:`KERNEL_TILE_K`, for where p is rounded.  ``variant`` is
+keys; in bfloat16 the forward and dk/dv run on the tensor cores, in
+float32 on the float32 cores), and the plain versions use only the
+forward's key tile, :data:`KERNEL_TILE_K`, for where p is rounded.  ``variant`` is
 validated as in JAX; its three values are schedules of identical math on
 the TPU, and on Hopper all three run the one forward kernel.
 """
@@ -76,8 +77,9 @@ VARIANTS = ("loop", "pipelined", "kvgrid")
 DEFAULT_FWD_VARIANT = "loop"
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: Keys per tile of the forward kernel's walk (``kRows`` in
-#: ``csrc/flash_common.cuh``): where its online softmax rounds p.
+#: Keys per tile of the forward kernels' walk (``kRows`` in
+#: ``csrc/flash_common.cuh``, the k/v tile of both the float32 and the
+#: bfloat16 kernel): where the online softmax rounds p.
 KERNEL_TILE_K = 64
 #: Largest head dim the kernels take (any multiple of 8 up to it).
 KERNEL_MAX_HEAD_DIM = 128
@@ -256,6 +258,22 @@ def _check_kernel_inputs(name, q, k, v, *rest):
                          f"got {b * h}")
 
 
+def _check_aligned(name, *tensors):
+    """The bfloat16 kernels copy their inputs 16 bytes at a time with
+    ``cp.async``, which needs 16-byte-aligned sources: rows are
+    ``H * D * 2`` bytes apart (a multiple of 16), but a contiguous view
+    may start anywhere."""
+    if tensors[0].dtype != torch.bfloat16:
+        return
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(
+                f"{name} kernel reads bfloat16 inputs 16 bytes at a time; "
+                f"got one that starts at {t.data_ptr() % 16} bytes past a "
+                f"16-byte boundary (copy it with .clone())"
+            )
+
+
 def _check_rows(name, t, q):
     """lse and its cotangent: contiguous float32 (B, H, Tq) on q's
     device."""
@@ -291,10 +309,15 @@ def flash_fwd(q, k, v, *, causal: bool, scale: float, q_offset=0,
     The kernel replaces ``_flash_kernel`` (``pallas_attention.py:79``)
     and ``_flash_kernel_kvgrid`` (``:212``).  Bound: at the training
     shape its least time is its ~34 MB over the memory rate (~0.010 ms on
-    an H100; its 8.6 GFLOP take less at the bf16 tensor-core rate).
+    an H100; its 8.6 GFLOP take ~0.009 ms at the bf16 tensor-core rate).
     Design: one CTA per 64 query rows of one (b, h), the online softmax
-    carried in registers across the k/v tiles up to the causal bound,
-    products on the float32 cores (the source's note)."""
+    carried in registers across 64-key k/v tiles up to the causal bound.
+    In bfloat16 the products run on the tensor cores (``mma.sync`` with
+    ``ldmatrix`` operands, k/v tiles through a two-stage ``cp.async``
+    ring, p passed from the score registers into ``p @ v``); each input
+    must start on a 16-byte boundary, or this raises.  In float32 they run
+    on the float32 cores, which keep the JAX package's float32 bars (the
+    source's note)."""
     if q.device.type == "cpu":
         out, lse = flash_fwd_plain(q, k, v, causal=causal, scale=scale,
                                    q_offset=q_offset, k_offset=k_offset)
@@ -302,6 +325,7 @@ def flash_fwd(q, k, v, *, causal: bool, scale: float, q_offset=0,
     _check_kernel_inputs("flash_fwd", q, k, v)
     if k.shape != v.shape:
         raise ValueError(f"k/v shapes differ: {k.shape} vs {v.shape}")
+    _check_aligned("flash_fwd", q, k, v)
     from ..kernels import load
 
     b, tq, h, d = q.shape
@@ -374,12 +398,18 @@ def flash_bwd_dkv(q, k, v, o, do, lse, glse=None, *, causal: bool,
     (``pallas_attention.py:601``).  Bound: at the training shape ~59 MB
     over the memory rate (~0.018 ms on an H100).  Design: one CTA per 64
     key rows, walking the query tiles from the causal bound, dk and dv in
-    registers (the source's note)."""
+    registers.  In bfloat16 the four products run on the tensor cores
+    (``mma.sync``; q, do, o and the row vectors through a two-stage
+    ``cp.async`` ring), with p entering dv as three bf16 terms, which
+    are float32 p exactly; each input must start on a 16-byte boundary,
+    or this raises.  In float32 they run on the float32 cores (the source's
+    note)."""
     kw = dict(causal=causal, scale=scale, q_offset=q_offset,
               k_offset=k_offset)
     if q.device.type == "cpu":
         return flash_bwd_dkv_plain(q, k, v, o, do, lse, glse, **kw)
     _bwd_checks("flash_bwd_dkv", q, k, v, o, do, lse, glse)
+    _check_aligned("flash_bwd_dkv", q, k, v, o, do)
     from ..kernels import load
 
     b, tk, h, d = k.shape

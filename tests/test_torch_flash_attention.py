@@ -12,6 +12,10 @@ both backward kernels in one ``jax.vjp`` (with random cotangents for the
 output and the lse), so every case exercises the lse-cotangent path.
 """
 
+import importlib.util
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -27,6 +31,20 @@ from flextree_tpu_torch.parallel.ring_attention import (
 
 FWD_ATOL = 2e-5
 GRAD_ATOL = 1e-4
+
+ROOT = Path(__file__).resolve().parents[1]
+CSRC = ROOT / "flextree_tpu_torch" / "csrc"
+
+
+def _script(name):
+    """A top-level chip script of the repository, imported by path."""
+    spec = importlib.util.spec_from_file_location(name, ROOT / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+MUTANTS = _script("chip_flash_mutants").MUTANTS
 
 # name: (B, Tq, Tk, H, D, causal, q_offset, k_offset, block_q, block_k)
 CASES = {
@@ -282,3 +300,63 @@ def test_local_attention_switch():
         local_attention(*t, impl="nope")
     with pytest.raises(NotImplementedError, match="causal"):
         local_attention(*t, causal=False)
+
+
+@pytest.mark.parametrize("mutant", sorted(MUTANTS))
+def test_mutant_edits_occur_once_in_the_sources(mutant):
+    """Each mutant of ``chip_flash_mutants.py`` edits text that its source
+    file holds exactly once, so it mutates the kernel it names (the script
+    refuses to build it otherwise, and only on the card)."""
+    name, edits = MUTANTS[mutant]
+    text = (CSRC / name).read_text()
+    assert edits
+    for old, new in edits:
+        assert old != new
+        assert text.count(old) == 1, (mutant, old)
+
+
+def test_bf16_forward_key_tile_is_the_plain_versions():
+    """The bf16 forward kernel rounds p against the running max after each
+    key tile; the plain version rounds at the same points only if its
+    KERNEL_TILE_K is the kernel's tile, read here from the source."""
+    text = (CSRC / "flash_fwd.cu").read_text()
+    tiles = re.findall(r"constexpr int kTileK = (\d+);", text)
+    assert tiles == [str(tfa.KERNEL_TILE_K)]
+    assert "kb * kTileK" in text and "(kb + 1) * kTileK" in text
+
+
+def test_dv_needs_p_in_three_bf16_terms():
+    """dv takes p in float32 (the TPU kernel casts p to do's float32).  The
+    bf16 dk/dv kernel feeds p to its bf16 tensor-core product as three bf16
+    terms, each the rounded remainder of those before it: together they
+    are float32 p exactly, so dv matches the plain version's to float32
+    summation order.  Two terms match to 2^-14 relative, but leave p
+    ~2^-18 off and dv several times further from the plain version; one
+    bf16 rounding of p misses phase 7's rms bar."""
+    b, t, h, d = 1, 128, 2, 32
+    q, k, v, do, _ = (torch.from_numpy(x).to(torch.bfloat16)
+                      for x in _inputs(b, t, t, h, d, seed=11))
+    kw = dict(causal=True, scale=d ** -0.5)
+    out, lse = tfa.flash_fwd_plain(q, k, v, **kw)
+    # float32 v and do hold the same values; dv then stays float32
+    _, dv_ref = tfa.flash_bwd_dkv_plain(q, k, v.float(), out, do.float(),
+                                        lse, **kw)
+    assert dv_ref.dtype == torch.float32
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                     tfa._prescaled(k, kw["scale"]).float())
+    p = tfa._probs(s, lse, True, 0, 0)
+    terms, rest = [], p
+    for _ in range(3):
+        terms.append(rest.to(torch.bfloat16).float())
+        rest = rest - terms[-1]
+    assert torch.equal(terms[0] + terms[1] + terms[2], p)
+
+    def rel_rms(n):
+        got = sum(torch.einsum("bhqk,bqhd->bkhd", x, do.float())
+                  for x in terms[:n])
+        return ((got - dv_ref).square().mean().sqrt()
+                / dv_ref.square().mean().sqrt()).item()
+
+    assert rel_rms(3) <= 2 ** -20
+    assert 4 * rel_rms(3) < rel_rms(2) <= 2 ** -14
+    assert rel_rms(1) > _script("chip_smoke").BF16_RMS
