@@ -46,7 +46,7 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlon
 _SIGNATURES = {
     "paged_attention": (
         "ft_paged_attention_decode",
-        [_P] * 8 + [_I] * 6 + [_F, _I, _P],
+        [_P] * 9 + [_I] * 6 + [_F, _I, _P],
     ),
     "flash_fwd": ("ft_flash_fwd", [_P] * 5 + [_I] * 5 + [_F] + [_I] * 4 + [_P]),
     "flash_bwd_dq": (

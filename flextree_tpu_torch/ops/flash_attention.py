@@ -43,8 +43,8 @@ Numerics follow the TPU kernels, which bf16 parity depends on:
 
 ``block_q``/``block_k`` keep the JAX meaning for validation
 (:func:`_blocks`); the CUDA kernels choose their own tiles (64 rows by 64
-keys; in bfloat16 the forward and dk/dv run on the tensor cores, in
-float32 on the float32 cores), and the plain versions use only the
+keys; in bfloat16 all three run on the tensor cores, in float32 on the
+float32 cores), and the plain versions use only the
 forward's key tile, :data:`KERNEL_TILE_K`, for where p is rounded.  ``variant`` is
 validated as in JAX; its three values are schedules of identical math on
 the TPU, and on Hopper all three run the one forward kernel.
@@ -366,13 +366,19 @@ def flash_bwd_dq(q, k, v, o, do, lse, glse=None, *, causal: bool,
     The kernel replaces ``_flash_bwd_dq_kernel``
     (``pallas_attention.py:524``).  Bound: at the training shape ~50 MB
     over the memory rate (~0.015 ms on an H100).  Design: one CTA per 64
-    query rows, p recomputed tile by tile from the lse, dq in registers
-    (the source's note)."""
+    query rows, p recomputed tile by tile from the lse, dq in registers.
+    In bfloat16 the three products run on the tensor cores (``mma.sync``;
+    q and do held as fragments, k/v through a two-stage ``cp.async``
+    ring, ds rounded once and multiplied with k through
+    ``ldmatrix.trans``); each input must start on a 16-byte boundary, or
+    this raises.  In float32 they run on the float32 cores (the source's
+    note)."""
     kw = dict(causal=causal, scale=scale, q_offset=q_offset,
               k_offset=k_offset)
     if q.device.type == "cpu":
         return flash_bwd_dq_plain(q, k, v, o, do, lse, glse, **kw)
     _bwd_checks("flash_bwd_dq", q, k, v, o, do, lse, glse)
+    _check_aligned("flash_bwd_dq", q, k, v, o, do)
     from ..kernels import load
 
     b, tq, h, d = q.shape

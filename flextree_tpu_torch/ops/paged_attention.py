@@ -3,7 +3,7 @@
 PyTorch counterpart of ``flextree_tpu/ops/paged_attention.py``.  Per slot
 ``s`` and head ``h`` the function attends the slot's query over the pool
 positions ``< lengths[s]`` (reached through the slot's block-table row)
-plus the new token's K/V at position ``lengths[s]``.  Three versions, one
+plus the new token's K/V at position ``lengths[s]``.  Four versions, one
 contract:
 
 - :func:`paged_attention_gather` — the oracle: gather every table block
@@ -13,15 +13,19 @@ contract:
   module's ``_stream_jnp`` at ``block_chunk=1``: walk the table one block
   at a time with an online softmax, batched over all slots, stopping at
   the batch's causal frontier;
+- :func:`paged_attention_split_plain` — the plain version of the CUDA
+  kernel's split-K: each run of :data:`KERNEL_BLOCKS_PER_SPLIT` table
+  blocks gives a float32 partial, merged in split order, the new token
+  last (for the tests and ``chip_smoke.py``);
 - :func:`paged_attention` — the wrapper the serving path calls.  On a CUDA
   tensor it launches the hand-written kernel ``csrc/paged_attention.cu``
   (which replaces the Pallas ``_paged_kernel``) or raises; on a CPU tensor
   it computes the plain stream, the only reason it ever does.
 
-The streamed versions differ from the oracle only in float summation
-order, so they are held to it within :data:`FUSED_DECODE_ATOL` (float32),
-not bitwise.  Masking follows ``cached_attention``: a position at or past
-a row's length gets score ``-1e30`` before the running max and
+The streamed and split versions differ from the oracle only in float
+summation order, so they are held to it within :data:`FUSED_DECODE_ATOL`
+(float32), not bitwise.  Masking follows ``cached_attention``: a position
+at or past a row's length gets score ``-1e30`` before the running max and
 probability exactly 0.0 after it, so whatever an unwritten or null block
 holds contributes nothing — and the kernel never even loads it.
 """
@@ -39,6 +43,7 @@ __all__ = [
     "FUSED_DECODE_ATOL",
     "paged_attention",
     "paged_attention_gather",
+    "paged_attention_split_plain",
     "paged_attention_stream",
 ]
 
@@ -50,8 +55,14 @@ _NEG_INF = -1e30
 #: moves it by O(1).
 FUSED_DECODE_ATOL = 2e-5
 
-#: Head dims the CUDA kernel is instantiated for (one warp per 32 dims).
+#: Head dims the CUDA kernel is instantiated for (8 dims a thread, D / 8
+#: threads a position).
 KERNEL_HEAD_DIMS = (32, 64, 128, 256)
+#: Table blocks per split of the CUDA kernel (``kBlocksPerSplit`` in
+#: ``csrc/paged_attention.cu``): where its float32 partials are cut.
+KERNEL_BLOCKS_PER_SPLIT = 4
+#: Shared memory a CTA of the kernel may use (the H100's 227 KB).
+_KERNEL_SMEM_BYTES = 232_448
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -138,9 +149,65 @@ def paged_attention_stream(q, k_new, v_new, k_pool, v_pool, tables, lengths,
     return (acc / l[..., None]).to(q.dtype)
 
 
+def paged_attention_split_plain(q, k_new, v_new, k_pool, v_pool, tables,
+                                lengths, scale: float,
+                                blocks_per_split: int = KERNEL_BLOCKS_PER_SPLIT):
+    """The plain version of the CUDA kernel's split-K.  Split ``c`` of a
+    row covers table blocks ``[c*C, (c+1)*C)`` (``C = blocks_per_split``)
+    and, if it holds a position ``< length``, gives a float32 partial: the
+    max ``m_c`` of its scores (compute dtype, then float32, times
+    ``scale``), ``l_c = sum exp(s - m_c)`` and ``acc_c = sum exp(s - m_c)
+    v`` over its positions ``< length``.  The partials merge in split order
+    against their common max ``M``; the new token folds last, as in
+    :func:`paged_attention_stream`."""
+    _check_shapes(q, k_new, v_new, k_pool, v_pool, tables, lengths)
+    if blocks_per_split <= 0:
+        raise ValueError(f"blocks_per_split must be positive, got "
+                         f"{blocks_per_split}")
+    s, h, d = q.shape
+    bs = k_pool.shape[1]
+    width = tables.shape[1]
+    span = blocks_per_split * bs
+    idx = tables.long()
+    lengths_b = lengths.long().clamp(0, width * bs)[:, None]  # (S, 1)
+    n_splits = -(-int(lengths_b.max()) // span) if s else 0
+    parts = []
+    for c in range(n_splits):
+        cols = idx[:, c * blocks_per_split:(c + 1) * blocks_per_split]
+        kb = k_pool[cols].reshape(s, -1, h, d)  # (S, J, H, D)
+        vb = v_pool[cols].reshape(s, -1, h, d)
+        sc = torch.einsum("shd,sjhd->shj", q, kb).float() * scale
+        pos = c * span + torch.arange(kb.shape[1], device=q.device)
+        valid = (pos[None, :] < lengths_b)[:, None, :]  # (S, 1, J)
+        sc = sc.masked_fill(~valid, _NEG_INF)
+        m_c = sc.amax(dim=-1)
+        pr = torch.exp(sc - m_c[..., None]).masked_fill(~valid, 0.0)
+        acc_c = torch.einsum("shj,sjhd->shd", pr, vb.float())
+        has = (c * span < lengths_b)  # (S, 1): the split holds a position
+        parts.append((m_c, pr.sum(dim=-1), acc_c, has))
+    big = torch.full((s, h), _NEG_INF, dtype=torch.float32, device=q.device)
+    for m_c, _, _, has in parts:
+        big = torch.where(has, torch.maximum(big, m_c), big)
+    l = torch.zeros((s, h), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((s, h, d), dtype=torch.float32, device=q.device)
+    for m_c, l_c, acc_c, has in parts:
+        w = torch.where(has, torch.exp(m_c - big), 0.0)
+        l = l + l_c * w
+        acc = acc + acc_c * w[..., None]
+    # the new token's K/V — position `length`, always visible to itself
+    s_new = torch.einsum("shd,shd->sh", q, k_new).float() * scale
+    m_fin = torch.maximum(big, s_new)
+    p_new = torch.exp(s_new - m_fin)
+    corr = torch.exp(big - m_fin)
+    l = l * corr + p_new
+    acc = acc * corr[..., None] + p_new[..., None] * v_new.float()
+    return (acc / l[..., None]).to(q.dtype)
+
+
 def _launch(q, k_new, v_new, k_pool, v_pool, tables, lengths, scale):
-    """Validate what the kernel takes, allocate the output and launch
-    ``csrc/paged_attention.cu`` on the current stream."""
+    """Validate what the kernel takes, allocate the output and the float32
+    workspace of the split partials, and launch ``csrc/paged_attention.cu``
+    (its split and combine kernels) on the current stream."""
     from ..kernels import load
 
     dev = q.device
@@ -164,16 +231,39 @@ def _launch(q, k_new, v_new, k_pool, v_pool, tables, lengths, scale):
             f"paged_attention kernel supports head_dim in "
             f"{KERNEL_HEAD_DIMS}, got {d}"
         )
+    for t in (q, k_new, v_new, k_pool, v_pool):
+        if t.data_ptr() % 16:
+            raise ValueError(
+                f"paged_attention kernel reads q, the new K/V and the pools "
+                f"16 bytes at a time; got one that starts at "
+                f"{t.data_ptr() % 16} bytes past a 16-byte boundary (copy it "
+                f"with .clone())"
+            )
+    width = tables.shape[1]
+    span = KERNEL_BLOCKS_PER_SPLIT * bs
+    # K and V of a split, its scores, the (positions x 8 dims) p.v sums
+    smem = 2 * span * d * q.element_size() + 4 * (span + 128 * 8 + 4)
+    if smem > _KERNEL_SMEM_BYTES:
+        raise ValueError(
+            f"paged_attention kernel keeps {KERNEL_BLOCKS_PER_SPLIT} blocks "
+            f"of K and V in shared memory: block size {bs} at head dim {d} "
+            f"needs {smem} bytes, over {_KERNEL_SMEM_BYTES}"
+        )
     out = torch.empty_like(q)
     if s == 0 or h == 0:
         return out
+    n_split = -(-width // KERNEL_BLOCKS_PER_SPLIT)
+    # float32 partials (acc, then m and l) of every split, written by the
+    # split kernel and read in split order by the combine kernel
+    workspace = torch.empty(s * h * n_split * (d + 2), dtype=torch.float32,
+                            device=dev)
     fn = load("paged_attention").ft_paged_attention_decode
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
                 k_pool.data_ptr(), v_pool.data_ptr(), tables.data_ptr(),
-                lengths.data_ptr(), out.data_ptr(), s, h, d, n, bs,
-                tables.shape[1], ctypes.c_float(scale),
+                lengths.data_ptr(), out.data_ptr(), workspace.data_ptr(), s,
+                h, d, n, bs, width, ctypes.c_float(scale),
                 _KERNEL_DTYPES[q.dtype], stream)
     if rc != 0:
         raise RuntimeError(
@@ -197,8 +287,14 @@ def paged_attention(q, k_new, v_new, k_pool, v_pool, tables, lengths, *,
     :data:`FUSED_DECODE_ATOL` in float32.
 
     ``impl="cuda"`` (the default) launches the CUDA kernel on a CUDA
-    tensor, and counts the launch in ``paged_attention.launches``; on a
-    CPU tensor it computes :func:`paged_attention_stream`.
+    tensor, and counts the launch in ``paged_attention.launches`` (one a
+    call: its split and combine kernels go together); on a CPU tensor it
+    computes :func:`paged_attention_stream`.  The kernel reads q, the new
+    K/V and the pools 16 bytes at a time, so each must start on a 16-byte
+    boundary, or this raises.  Bound: bytes, the K/V rows below each
+    length once (~3.6 MB, ~1 us on an H100 at the flagship decode), under
+    one launch's latency; design: split-K over the sequence, float32
+    partials merged in split order (the source's note).
     ``impl="torch"`` computes :func:`paged_attention_stream` on any
     device.
     """

@@ -360,3 +360,22 @@ def test_dv_needs_p_in_three_bf16_terms():
     assert rel_rms(3) <= 2 ** -20
     assert 4 * rel_rms(3) < rel_rms(2) <= 2 ** -14
     assert rel_rms(1) > _script("chip_smoke").BF16_RMS
+
+
+def test_dq_needs_ds_rounded_once():
+    """dq takes ds rounded once to k's dtype (the TPU kernel's cast before
+    ``ds @ k``); the bf16 dq kernel feeds ds to its tensor-core product as
+    one bf16 term.  Dropping that rounding (ds in float32, the plain
+    version with a float32 k holding the same values) moves dq past phase
+    7's rms bar, so the bar can tell the two apart."""
+    b, t, h, d = 1, 128, 2, 32
+    q, k, v, do, _ = (torch.from_numpy(x).to(torch.bfloat16)
+                      for x in _inputs(b, t, t, h, d, seed=12))
+    kw = dict(causal=True, scale=d ** -0.5)
+    out, lse = tfa.flash_fwd_plain(q, k, v, **kw)
+    rounded = tfa.flash_bwd_dq_plain(q, k, v, out, do, lse, **kw)
+    unrounded = tfa.flash_bwd_dq_plain(q, k.float(), v, out, do, lse, **kw)
+    assert rounded.dtype == unrounded.dtype == torch.bfloat16
+    diff = (rounded.float() - unrounded.float()).square().mean().sqrt()
+    rel_rms = (diff / rounded.float().square().mean().sqrt()).item()
+    assert rel_rms > _script("chip_smoke").BF16_RMS

@@ -10,8 +10,15 @@ versions).  Held here:
   it: within ``FUSED_DECODE_ATOL`` in float32, 0.05 in bfloat16;
 - the poisoned-null-block invariance, bitwise, at boundary lengths;
 - loud shape errors, and no silent fallback off the CPU;
+- the plain version of the kernel's split-K against JAX's Pallas kernel
+  and gather oracle, at lengths on either side of a split's edge, and the
+  kernel's split width read from its source;
 - the paged decode step, fused and gather, against the JAX one.
 """
+
+import re
+from pathlib import Path
+
 
 import jax
 import jax.numpy as jnp
@@ -28,7 +35,9 @@ from flextree_tpu_torch.models.transformer import TransformerConfig as TCfg
 from flextree_tpu_torch.ops.paged_attention import (
     FUSED_DECODE_ATOL,
     paged_attention,
+    KERNEL_BLOCKS_PER_SPLIT,
     paged_attention_gather,
+    paged_attention_split_plain,
     paged_attention_stream,
 )
 from flextree_tpu_torch.serving import kv_cache as tkv
@@ -38,6 +47,11 @@ S, H, D, N, BS, P = 5, 4, 16, 32, 8, 7
 LENGTHS = (0, 3, 8, 17, 41)
 #: the boundary classes: 0, 1, bs-1, bs, bs+1, P*bs-1
 BOUNDARY = (0, 1, BS - 1, BS, BS + 1, P * BS - 1)
+
+#: either side of a split's edge (C blocks of BS), and a full table row
+C = KERNEL_BLOCKS_PER_SPLIT
+SPLIT_EDGES = (0, C * BS - 1, C * BS, C * BS + 1, P * BS - 1)
+CSRC = Path(__file__).resolve().parents[1] / "flextree_tpu_torch" / "csrc"
 
 _TORCH = {"f32": torch.float32, "bf16": torch.bfloat16}
 _JAX = {"f32": jnp.float32, "bf16": jnp.bfloat16}
@@ -182,6 +196,71 @@ def test_no_fallback_off_the_cpu_and_no_cpu_launch_count():
     with pytest.raises(ValueError, match="CUDA"):
         paged_attention(*meta)
     assert paged_attention.launches == 0
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("reference", ["jax_gather", "jax_pallas"])
+def test_split_plain_matches_jax(dtype, reference):
+    """The plain split-K (the kernel's partition and ordered merge) against
+    JAX's gather oracle and its Pallas kernel run interpreted, at length 0,
+    either side of a split's edge and a full table row."""
+    args = _inputs(SPLIT_EDGES, seed=6)
+    jargs = _to_jax(args, _JAX[dtype])
+    if reference == "jax_gather":
+        want = jpa.paged_attention_gather(*jargs)
+    else:
+        want = jpa.paged_attention(*jargs, impl="pallas")
+    got = paged_attention_split_plain(*_to_torch(args, _TORCH[dtype]),
+                                      scale=1.0 / D ** 0.5)
+    assert got.dtype == _TORCH[dtype]
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=_TOL[dtype],
+                               rtol=0)
+
+
+@pytest.mark.parametrize("blocks_per_split", [1, 2, C, P, P + 3])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_split_plain_matches_port_gather(dtype, blocks_per_split):
+    """Any split width gives the oracle's answer up to summation order;
+    one split covering the whole table is the one-pass softmax."""
+    args = _to_torch(_inputs(SPLIT_EDGES, seed=7), _TORCH[dtype])
+    want = paged_attention_gather(*args)
+    got = paged_attention_split_plain(*args, scale=1.0 / D ** 0.5,
+                                      blocks_per_split=blocks_per_split)
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=_TOL[dtype],
+                               rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_split_plain_poisoned_null_block_and_inactive_slot(dtype):
+    """Null-block content changes nothing, bitwise; the inactive slot
+    (length 0, every entry the null block) returns v_new exactly."""
+    q, kn, vn, kp, vp, tables, lengths = _to_torch(
+        _inputs(SPLIT_EDGES, seed=8), _TORCH[dtype])
+    pk, pv = kp.clone(), vp.clone()
+    pk[0] = 1e30
+    pv[0] = 1e30
+    a = paged_attention_split_plain(q, kn, vn, kp, vp, tables, lengths,
+                                    scale=0.25)
+    b = paged_attention_split_plain(q, kn, vn, pk, pv, tables, lengths,
+                                    scale=0.25)
+    assert torch.equal(a, b)
+    assert bool(torch.isfinite(a.float()).all())
+    assert torch.equal(a[0], vn[0])
+
+
+def test_split_plain_refuses_an_empty_split():
+    args = _to_torch(_inputs(), torch.float32)
+    with pytest.raises(ValueError, match="blocks_per_split"):
+        paged_attention_split_plain(*args, scale=0.25, blocks_per_split=0)
+
+
+def test_kernel_split_width_is_the_plain_versions():
+    """The CUDA kernel cuts its float32 partials every kBlocksPerSplit
+    table blocks; the plain split-K mirrors it only if its default is the
+    kernel's constant, read here from the source."""
+    text = (CSRC / "paged_attention.cu").read_text()
+    widths = re.findall(r"constexpr int kBlocksPerSplit = (\d+);", text)
+    assert widths == [str(KERNEL_BLOCKS_PER_SPLIT)]
 
 
 # ------------------------------------------------------------ decode step
