@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --train-ab PARENT   # phase 8, PARENT's checkout and this in turns
+    python3 chip_smoke.py --allreduce-ab PARENT   # phase 13's f32 sums, the same way
 
 Drives ``flextree_tpu_torch`` (never JAX) on the card, in phases; any
 failure raises and exits non-zero:
@@ -65,26 +66,37 @@ failure raises and exits non-zero:
     training shape, each launch with a cold L2 and a ~0.5 ms head start
     (CUDA-event medians, :func:`time_launches`), beside the least time
     the card could take, with TFLOP/s and the ratio to SDPA;
-11. fold and copy parity — the fold kernel against its plain version,
+11. fold and copy parity — the fold kernel against its plain versions,
     bitwise, for every op x dtype of the registry, W in {2, 3, 8}, a
     16-byte-aligned and a ragged L, ``sources_tile`` 1 and 4, NaN rows in
-    float max/min and a misaligned ``out``; the copy kernel against
-    ``clone``, bitwise;
+    float max/min: ``reduce_stacked`` (and into a misaligned ``out``), and
+    ``reduce_sources`` on batches of 1 and 8 folds, in place and with a
+    misaligned source (the kernel's element body; aligned folds run its
+    bulk-copy body), against its plain version and ``reduce_stacked`` on
+    the same sources stacked; the
+    aliasing it refuses; the copy kernel against ``clone``, bitwise;
 12. fold times — ``bench.harness.run_reduce_bench`` (the ``--bench
-    reduce`` path) at the heaviest fold of each phase-13 shape: kernel,
-    plain, ``torch.sum``/``amax`` and the copy kernel (with ``clone`` and
-    ``copy_``) at the same bytes, each launch with a cold L2 and started
-    only once enqueued, beside the byte bound;
+    reduce`` path, the stacked entry) at the heaviest fold of each
+    phase-13 shape: kernel, plain, ``torch.sum``/``amax`` and the copy
+    kernel (with ``clone`` and ``copy_``) at the same bytes; then
+    ``reduce_sources`` at each shape's heaviest stage, every rank's fold in
+    one launch, beside the same folds as stacked launches, the copy kernel at the same bytes and, at W=2,
+    ``torch._foreach_add``; each launch with a cold L2 and started only
+    once enqueued, beside the byte bound;
 13. the FlexTree allreduce — ``bench.harness.run_allreduce_bench`` on an
     in-process mesh of 8 ranks (7 for ``"3,2+1"``) on the card at the
     flagship's parameter count (16,781,824 per rank), shapes ``(8,)``,
     ``(4,2)``, ``(2,2,2)``, the ring and ``"3,2+1"``; f32 and bf16 sum,
     int32 band and f32 max: correct, and the fold kernel's launch count
-    equal to the count derived from the topology; each case again on
+    equal to the count derived from the topology (one launch a fold
+    stage, no stacked fold); each case again on
     seeded random data, every rank identical and bitwise the group-fold
     oracle (integers also the simulator), nine more op/dtype cases at
     1,000,003, the tail path at the count + 5; per shape the median ms,
-    bus GB/s and the fold kernel's share under ``torch.profiler``;
+    bus GB/s, the fold kernel's share and the launches a call by kind
+    under ``torch.profiler`` (the copies must be the gather phase's
+    alone).  ``--allreduce-ab PARENT`` runs only the f32 sums, for the
+    checkout at PARENT and this one in turns, each in its own process;
 14. distributed — four processes on the card over gloo (host staging),
     every rank bitwise the in-process mesh; NCCL at world size 1 returns
     its input bitwise.
@@ -986,9 +998,12 @@ def phase_profile(eng, reqs):
 
 # the flagship model's parameter count (tied embedding): the gradient the
 # train step of phases 8-9 would sync, read from init_params in phase 13
-FOLD_LENGTHS = (1_000_048, 100_003)  # 16-byte rows (vector path); ragged
+FOLD_LENGTHS = (1_000_048, 100_003)  # 16-byte rows (bulk copies); ragged
 FOLD_WIDTHS = (2, 3, 8)
 FOLD_TILES = (1, 4)
+# reduce_sources in phase 11: folds a batch, in place
+FOLD_BATCH = 8
+FOLD_BATCH_CASES = ((1, False), (FOLD_BATCH, False), (FOLD_BATCH, True))
 COLLECTIVE_SHAPES = (("8", 8), ("4,2", 8), ("2,2,2", 8), ("1", 8),
                      ("3,2+1", 7))
 MAIN_CASES = (("sum", "float32"), ("sum", "bfloat16"), ("band", "int32"),
@@ -1022,32 +1037,89 @@ def same_bits(a, b) -> bool:
         a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
 
 
+def check_batch(rs, x, name, st, batch, in_place):
+    """``reduce_sources`` over the first ``batch`` folds of ``x`` (R, W, L),
+    sources in reversed row order, into new outputs or in place (each
+    fold's output its source 0): bitwise ``reduce_sources_plain`` and
+    ``reduce_stacked`` of the same sources stacked; returns the cases."""
+    w = x.shape[1]
+    order = list(reversed(range(w)))
+    src = x[:batch].clone() if in_place else x
+    folds = [([src[f, j] for j in order],
+              src[f, order[0]] if in_place else torch.empty_like(x[f, 0]))
+             for f in range(batch)]
+    want = rs.reduce_sources_plain(
+        [([x[f, j] for j in order], None) for f in range(batch)], name, st)
+    got = rs.reduce_sources(folds, name, st)
+    for f in range(batch):
+        # the sources stacked, gathered as bytes (PyTorch has no CUDA
+        # indexing kernel for uint16/32/64)
+        stacked = x[f].view(torch.uint8)[order].view(x.dtype)
+        if not (same_bits(got[f], want[f]) and same_bits(
+                got[f], rs.reduce_stacked(stacked, name, st))):
+            raise AssertionError(
+                f"reduce_sources != plain or stacked: {name} {x.dtype} "
+                f"W={w} L={x.shape[2]} sources_tile={st} fold {f} of "
+                f"{batch}{', in place' if in_place else ''}")
+    return batch
+
+
+def check_refusals(rs, dev):
+    """The aliasing ``reduce_sources`` must refuse on the card."""
+    a = torch.zeros(4, 1024, device=dev)
+    bad = {
+        "output partly over a source": [([a[0], a[1]],
+                                         a.view(-1)[512:1536])],
+        "output equal to source 1": [([a[0], a[1]], a[1])],
+        "output over another fold's source": [([a[0], a[1]], a[2]),
+                                              ([a[2], a[3]], a[3])],
+        "two outputs overlapping": [([a[0], a[1]], a[2]),
+                                    ([a[0], a[1]], a[2])],
+    }
+    for what, folds in bad.items():
+        try:
+            rs.reduce_sources(folds, "sum")
+        except ValueError:
+            continue
+        raise AssertionError(f"reduce_sources took {what}")
+    return len(bad)
+
+
 def phase_fold_parity(dev, rs, registry, harness):
     """Phase 11: the fold kernel against its plain version, bitwise, for
     every op x dtype of the registry, W in FOLD_WIDTHS, a 16-byte-aligned
     and a ragged L, sources_tile 1 and 4, with NaNs in the float max/min
-    inputs, and into a misaligned ``out`` view; the copy kernel against
-    ``clone``, bitwise, aligned, ragged and misaligned."""
+    inputs: through ``reduce_stacked``, into a misaligned ``out`` view too,
+    and through ``reduce_sources`` (batches of 1 and 8 folds, in place, a
+    misaligned source) against its plain version and
+    ``reduce_stacked`` on the same sources stacked; the refused aliasing;
+    the copy kernel against ``clone``, bitwise, aligned, ragged and
+    misaligned."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 11)
     nan = float("nan")
-    cases = 0
+    cases = sources_cases = 0
     for name, rop in registry.SUPPORTED_OPS.items():
         for dt_name in rop.dtypes:
             dtype = harness.torch_dtype(dt_name)
             for w in FOLD_WIDTHS:
                 for length in FOLD_LENGTHS:
-                    x = device_rows(w, length, dtype, gen, dev)
+                    x = device_rows(FOLD_BATCH * w, length, dtype, gen,
+                                    dev).view(FOLD_BATCH, w, length)
                     if dtype.is_floating_point and name in ("max", "min"):
-                        x[1, ::7] = nan
-                        x[w - 1, 3::11] = nan
+                        x[:, 1, ::7] = nan
+                        x[:, w - 1, 3::11] = nan
                     for st in FOLD_TILES:
-                        got = rs.reduce_stacked(x, name, st)
-                        plain = rs.reduce_stacked_plain(x, name, st)
+                        got = rs.reduce_stacked(x[0], name, st)
+                        plain = rs.reduce_stacked_plain(x[0], name, st)
                         if not same_bits(got, plain):
                             raise AssertionError(
                                 f"fold kernel != plain: {name} {dt_name} "
                                 f"W={w} L={length} sources_tile={st}")
                         cases += 1
+                        for batch, in_place in FOLD_BATCH_CASES:
+                            sources_cases += check_batch(
+                                rs, x, name, st, batch, in_place)
+                x = x[0]
                 buf = torch.empty(FOLD_LENGTHS[1] + 1, dtype=dtype, device=dev)
                 out = buf[1:]
                 rs.reduce_stacked(x, name, out=out)
@@ -1055,6 +1127,15 @@ def phase_fold_parity(dev, rs, registry, harness):
                     raise AssertionError(f"fold kernel into a misaligned out: "
                                          f"{name} {dt_name} W={w}")
                 cases += 1
+                out.view(torch.uint8).copy_(x[1].view(torch.uint8))
+                sources = [x[0], out] + list(x[2:])  # source 1 misaligned
+                got = rs.reduce_sources([(sources, torch.empty_like(x[0]))],
+                                        name)
+                if not same_bits(got[0], rs.reduce_stacked_plain(x, name)):
+                    raise AssertionError(f"reduce_sources with a misaligned "
+                                         f"source: {name} {dt_name} W={w}")
+                sources_cases += 1
+    refused = check_refusals(rs, dev)
     torch.cuda.synchronize()
     raw = device_rows(1, 4 * FOLD_LENGTHS[0] + 8, torch.uint8, gen, dev)[0]
     for src in (raw[:4 * FOLD_LENGTHS[0]].view(torch.float32),
@@ -1062,41 +1143,27 @@ def phase_fold_parity(dev, rs, registry, harness):
         if not same_bits(harness.hbm_copy(src), harness.hbm_copy_plain(src)):
             raise AssertionError(f"copy kernel != clone at {src.numel()} "
                                  f"elements, offset {src.storage_offset()}")
-    log(f"phase 11 fold parity: kernel == plain bitwise in all {cases} cases "
-        f"({len(registry.SUPPORTED_OPS)} ops over the registry's dtypes, "
-        f"W {FOLD_WIDTHS}, L {FOLD_LENGTHS}, sources_tile {FOLD_TILES}, NaN "
-        f"rows for float max/min, a misaligned out); copy kernel == clone "
+    log(f"phase 11 fold parity: reduce_stacked == plain bitwise in all "
+        f"{cases} cases ({len(registry.SUPPORTED_OPS)} ops over the "
+        f"registry's dtypes, W {FOLD_WIDTHS}, L {FOLD_LENGTHS}, sources_tile "
+        f"{FOLD_TILES}, NaN rows for float max/min, a misaligned out); "
+        f"reduce_sources == its plain version == reduce_stacked on the same "
+        f"sources stacked, bitwise, in all {sources_cases} folds (batches of "
+        f"1 and {FOLD_BATCH}, in place, a misaligned source: both kernel "
+        f"bodies); {refused} aliasing cases refused; copy kernel == clone "
         f"bitwise (aligned, ragged, misaligned)")
-    return {"cases": cases, "max_abs_err": 0.0}
+    return {"cases": cases + sources_cases, "max_abs_err": 0.0}
 
 
-def fold_shapes(spec, n, count, stages):
-    """The fold kernel's launches in one allreduce call, by ``(W, L)``,
-    derived from the topology alone: a tree stage of width w is one fold of
-    w tiles on every tree rank, a ring step one 2-source fold on every
-    rank, a buddy fold one 2-source fold of the whole head, and a tail one
-    fold of all ranks' tails on every rank."""
-    topo = stages.Topology.resolve(n, spec)
-    lonely = isinstance(topo, stages.LonelyTopology)
-    tree = topo.tree if lonely else topo
-    owners = tree.num_nodes
-    head = count // owners * owners
+def fold_shapes(spec, n, count, ar, max_pointers):
+    """The fold kernel's launches in one allreduce call, by ``(W, L)``, from
+    the topology (``parallel.allreduce.call_shape``): a stage of R folds is
+    one launch of ``reduce_sources`` for every ``max_pointers // (W + 1)``
+    folds."""
     shapes: dict = {}
-
-    def add(key, k):
-        shapes[key] = shapes.get(key, 0) + k
-
-    if head and lonely:
-        add((2, head), topo.lonely)
-    if head and topo.is_ring:
-        add((2, head // n), n * (n - 1))
-    elif head:
-        length = head
-        for w in tree.widths:
-            length //= w
-            add((w, length), owners)
-    if head < count:
-        add((n, count - head), n)
+    for r, w, length in ar.call_shape(n, spec, count).folds:
+        per = max_pointers // (w + 1)
+        shapes[(w, length)] = shapes.get((w, length), 0) + -(-r // per)
     return shapes
 
 
@@ -1149,19 +1216,22 @@ def group_fold_oracle(x, spec, rop, stages):
 
 def phase_fold_times(dev, harness, param_count):
     """Phase 12: ``bench.harness.run_reduce_bench`` (the ``--bench reduce``
-    path) at the heaviest fold of each phase-13 shape, f32 sum, and f32 max
-    at a ring step, with the copy kernel's launch count set to 0 just
-    before and read just after."""
+    path, the stacked entry) at the heaviest fold of each phase-13 shape,
+    f32 sum, and f32 max at a ring step, with the copy kernel's and the
+    stacked fold's launch counts set to 0 just before and read just
+    after."""
     c = param_count
     shapes = ((8, c // 8), (4, c // 4), (2, c // 2), (2, c // 8))
-    harness.hbm_copy.launches = 0
+    harness.hbm_copy.launches = harness.reduce_stacked.launches = 0
     doc = harness.run_reduce_bench(harness.ReduceBenchConfig(
         shapes=shapes, dtype="float32", op="sum", device=str(dev)))
     doc_max = harness.run_reduce_bench(harness.ReduceBenchConfig(
         shapes=((2, c // 8),), dtype="float32", op="max", device=str(dev)))
     copy_launches = harness.hbm_copy.launches
-    if copy_launches == 0:
-        raise AssertionError("the reduce bench launched no copy kernel")
+    stacked_launches = harness.reduce_stacked.launches
+    if copy_launches == 0 or stacked_launches == 0:
+        raise AssertionError("the reduce bench launched no copy or stacked "
+                             "fold kernel")
     rows = doc["rows"] + doc_max["rows"]
     for r in rows:
         log(f"phase 12 fold {r['op']} W={r['W']} L={r['L']} f32 "
@@ -1171,7 +1241,78 @@ def phase_fold_times(dev, harness, param_count):
             f"{r['bound_ms']:.4f} ms (bytes); copy kernel {r['copy_ms']:.4f} "
             f"ms = {r['copy_GBps']:.0f} GB/s, clone {r['copy_plain_ms']:.4f} "
             f"ms, copy_ {r['copy_library_ms']:.4f} ms (cold L2)")
-    return rows, copy_launches
+    return rows, copy_launches, stacked_launches
+
+
+def stage_times(dev, harness, rs, ar, param_count, bw):
+    """Phase 12, the stage-wide fold: ``reduce_sources`` at the heaviest
+    fold stage of each phase-13 shape (f32 sum), one launch for every
+    rank's fold, beside its byte bound
+    Σ(W+1)·L·4 over the memory rate, the same folds as R launches of
+    ``reduce_stacked`` on stacks, the plain version, the copy kernel at the
+    same bytes and, for W=2, ``torch._foreach_add`` (one PyTorch call for
+    the stage); then one ring-step fold against ``torch.add(a, b,
+    out=o)``.  Each launch with a cold L2 and a head start."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    seen, rows = set(), []
+    for spec, n in COLLECTIVE_SHAPES:
+        r, w, length = max(ar.call_shape(n, spec, param_count).folds,
+                           key=lambda t: t[0] * (t[1] + 1) * t[2])
+        if (r, w, length) in seen:
+            continue
+        seen.add((r, w, length))
+        x = torch.randn((r, w, length), generator=gen, device=dev)
+        outs = torch.empty((r, length), device=dev)
+        folds = [(list(x[f]), outs[f]) for f in range(r)]
+        rs.reduce_sources(folds, "sum")
+        for f in range(r):
+            if not same_bits(outs[f], rs.reduce_stacked(x[f], "sum")):
+                raise AssertionError(f"stage fold {spec} != reduce_stacked")
+        n_bytes = r * (w + 1) * length * 4
+        src = torch.empty(n_bytes // 2, dtype=torch.uint8, device=dev)
+        row = {
+            "shape": spec, "R": r, "W": w, "L": length, "bytes": n_bytes,
+            "ms": time_launches(lambda: rs.reduce_sources(folds, "sum"), 20,
+                                flush),
+            "stacked_ms": time_launches(
+                lambda: [rs.reduce_stacked(x[f], "sum", out=outs[f])
+                         for f in range(r)], 20, flush),
+            "plain_ms": time_launches(
+                lambda: rs.reduce_sources_plain(folds, "sum"), 10, flush),
+            "copy_ms": time_launches(lambda: harness.hbm_copy(src), 20,
+                                     flush),
+            "library_ms": time_launches(
+                lambda: torch._foreach_add(list(x[:, 0]), list(x[:, 1])), 20,
+                flush) if w == 2 else None,
+            "bound_ms": n_bytes / bw * 1e3,
+        }
+        rows.append(row)
+        lib = row["library_ms"]
+        log(f"phase 12 stage fold {spec}: {r} x (W={w}, L={length}) f32 sum "
+            f"({n_bytes / 1e6:.1f} MB), one launch: kernel {row['ms']:.4f} ms"
+            f" = {n_bytes / row['ms'] / 1e6:.0f} GB/s "
+            f"({100 * row['bound_ms'] / row['ms']:.1f}% of the bound "
+            f"{row['bound_ms']:.4f} ms); {r} stacked launches {row['stacked_ms']:.4f} ms; copy kernel "
+            f"{row['copy_ms']:.4f} ms; plain {row['plain_ms']:.4f} ms"
+            + (f"; torch._foreach_add {lib:.4f} ms" if lib is not None
+               else "") + " (cold L2)")
+        del x, outs, folds, src
+        torch.cuda.empty_cache()
+    ring = next(r for r in rows if r["shape"] == "1")
+    length = ring["L"]
+    a, b, o = (torch.randn(length, generator=gen, device=dev)
+               for _ in range(3))
+    one = {
+        "kernel": time_launches(lambda: rs.reduce_sources([([a, b], o)]),
+                                20, flush),
+        "torch.add": time_launches(lambda: torch.add(a, b, out=o), 20, flush),
+        "bound": 3 * length * 4 / bw * 1e3,
+    }
+    log(f"phase 12 one ring-step fold (W=2, L={length}) f32 sum: "
+        f"reduce_sources {one['kernel']:.4f} ms, torch.add(a, b, out=o) "
+        f"{one['torch.add']:.4f} ms, bound {one['bound']:.4f} ms (cold L2)")
+    return rows
 
 
 def check_result(out, x, spec, name, rop, stages, sim):
@@ -1191,32 +1332,50 @@ def check_result(out, x, spec, name, rop, stages, sim):
     return "rows identical, == oracle, == simulator"
 
 
-def fold_share(run):
-    """``run()`` under ``torch.profiler``: the fold kernel's device time
-    and the wall time."""
+def fold_share(run, warm):
+    """``run()`` under ``torch.profiler``, after ``warm()`` in its warm-up
+    step (the tracer misses the first launches after it starts): the fold
+    kernel's device time, the device's busy time, the wall time, and the
+    device's launches by kind (``fold``, ``copy``: ``copy_``'s memcpy and
+    copy kernels, ``other``)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        warm()
+        torch.cuda.synchronize()
+        prof.step()
         t0 = time.monotonic()
         run()
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
+        prof.step()
     fold_us = busy_us = 0.0
+    counts = {"fold": 0, "copy": 0, "other": 0}
     for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
+        # the step's own row spans the whole step: not a launch
+        if e.device_type != DeviceType.CUDA or \
+                e.key.startswith("ProfilerStep"):
             continue
         us = getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0.0))
+        if us <= 0:
+            continue
         busy_us += us
         if "fold_kernel" in e.key:
             fold_us += us
-    return fold_us / 1e6, busy_us / 1e6, wall
+            counts["fold"] += e.count
+        elif "memcpy" in e.key.lower() or "copy" in e.key.lower():
+            counts["copy"] += e.count
+        else:
+            counts["other"] += e.count
+    return fold_us / 1e6, busy_us / 1e6, wall, counts
 
 
-def phase_allreduce(dev, harness, stages, registry, sim, allreduce_over_mesh,
-                    flat_mesh, rs, param_count):
+def phase_allreduce(dev, harness, stages, ar, registry, sim,
+                    allreduce_over_mesh, flat_mesh, rs, param_count):
     """Phase 13: the FlexTree allreduce through
     ``bench.harness.run_allreduce_bench`` on an in-process mesh on the
     card, every shape and main case at the flagship's parameter count,
@@ -1228,20 +1387,22 @@ def phase_allreduce(dev, harness, stages, registry, sim, allreduce_over_mesh,
     per_shape = {}
     for spec, n in COLLECTIVE_SHAPES:
         mesh = flat_mesh(n, dev)
-        per_call = fold_shapes(spec, n, param_count, stages)
+        per_call = fold_shapes(spec, n, param_count, ar, rs.MAX_POINTERS)
         for name, dt in MAIN_CASES:
             cfg = harness.BenchConfig(size=param_count, repeat=10, topo=spec,
                                       devices=n, dtype=dt, op=name,
                                       device=str(dev))
-            rs.reduce_stacked.launches = 0
+            rs.reduce_sources.launches = rs.reduce_stacked.launches = 0
             report = harness.run_allreduce_bench(cfg)
-            got = rs.reduce_stacked.launches
+            got = rs.reduce_sources.launches
             want = sum(per_call.values()) * report.calls
             if not report.correct:
                 raise AssertionError(f"bench {spec} {name} {dt}: incorrect")
-            if got != want:
-                raise AssertionError(f"bench {spec} {name} {dt}: fold launches "
-                                     f"{got} != {want} from the topology")
+            if got != want or rs.reduce_stacked.launches:
+                raise AssertionError(
+                    f"bench {spec} {name} {dt}: fold launches {got} != "
+                    f"{want} from the topology, or a stacked fold "
+                    f"({rs.reduce_stacked.launches})")
             launches += got
             for key, k in per_call.items():
                 shape_launches[key] = shape_launches.get(key, 0) + k * report.calls
@@ -1273,21 +1434,43 @@ def phase_allreduce(dev, harness, stages, registry, sim, allreduce_over_mesh,
         log(f"phase 13 tail: 4,2 {name} {dt} at {param_count + 5} per rank: "
             f"{note}")
         del x, out
-    # per shape: time, fold share and bus bandwidth of the f32 sum
+    # per shape: time, fold share, launches and bus bandwidth of the f32
+    # sum, profiled on the bench's timed path (in place)
     summary = {}
     for spec, n in COLLECTIVE_SHAPES:
         report = per_shape[spec]
         mesh = flat_mesh(n, dev)
         x = device_rows(n, param_count, torch.float32, gen, dev)
-        fold_s, busy_s, wall_s = fold_share(
-            lambda: [allreduce_over_mesh(x, mesh, spec, "sum")
-                     for _ in range(3)])
+        folds = sum(fold_shapes(spec, n, param_count, ar,
+                                rs.MAX_POINTERS).values())
+        copies = ar.call_shape(n, spec, param_count).copies
+        # the tracer can drop launches from a window (on an H100, 65 of
+        # 190 in one window of 25): a window that misses is taken again;
+        # a staging copy would show in every one
+        for attempt in range(1, 4):
+            fold_s, busy_s, wall_s, counts = fold_share(
+                lambda: [allreduce_over_mesh(x, mesh, spec, "sum",
+                                             in_place=True)
+                         for _ in range(3)],
+                lambda: allreduce_over_mesh(x, mesh, spec, "sum",
+                                            in_place=True))
+            if counts["fold"] == 3 * folds and counts["copy"] == 3 * copies:
+                break
+            log(f"phase 13 {spec}: profiled window {attempt} counted "
+                f"{counts} over 3 calls, want {folds} folds and {copies} "
+                f"copies a call")
+        else:
+            raise AssertionError(
+                f"{spec}: {counts} under the profiler over 3 calls, want "
+                f"{folds} folds and {copies} copies (the gather phase and "
+                f"the tail's snapshot) a call")
         summary[spec] = {
             "ranks": n, "median_ms": report.result.median_s * 1e3,
             "min_ms": report.result.min_s * 1e3,
             "bus_GBps": report.bus_bw_GBps,
             "fold_share_of_busy": fold_s / busy_s if busy_s else None,
             "device_busy_share": busy_s / wall_s,
+            "launches_per_call": {k: v / 3 for k, v in counts.items()},
         }
         log(f"phase 13 times {spec} on {n} ranks, f32 sum, {param_count} per "
             f"rank (in-process mesh, HBM copies, not a network): median "
@@ -1297,7 +1480,11 @@ def phase_allreduce(dev, harness, stages, registry, sim, allreduce_over_mesh,
             f"{fold_s * 1e3 / 3:.3f} ms a call = "
             f"{100 * (summary[spec]['fold_share_of_busy'] or 0):.1f}% of the "
             f"device's busy time, busy {100 * busy_s / wall_s:.1f}% of the "
-            f"wall (under the profiler)")
+            f"wall (under the profiler); launches a call "
+            f"{sum(counts.values()) / 3:g}: {counts['fold'] / 3:g} fold, "
+            f"{counts['copy'] / 3:g} copy (the gather phase and any tail "
+            f"snapshot: the fold stages copy nothing), "
+            f"{counts['other'] / 3:g} other")
         del x
     top = max(shape_launches, key=shape_launches.get)
     log(f"phase 13 fold launches {launches} over the bench runs; most "
@@ -1353,9 +1540,10 @@ def phase_dist(dev, harness, launch, allreduce_mod, flat_mesh):
         "reduce_scatter return the input bitwise")
 
 
-def collective_phases(dev) -> list:
+def collective_phases(dev, bw) -> list:
     """Phases 11-14 (the FlexTree collectives); returns their rows of the
-    kernels line (``reduce_stacked``, ``copy``)."""
+    kernels line (``reduce_sources`` and ``reduce_stacked``, the fold
+    kernel's two entry points, and ``copy``)."""
     from flextree_tpu_torch.backends import simulator as sim
     from flextree_tpu_torch.bench import harness
     from flextree_tpu_torch.models.transformer import (
@@ -1382,10 +1570,12 @@ def collective_phases(dev) -> list:
     out = {}
     for phase, run in (
         (11, lambda: phase_fold_parity(dev, rs, registry, harness)),
-        (12, lambda: phase_fold_times(dev, harness, param_count)),
-        (13, lambda: phase_allreduce(dev, harness, stages, registry, sim,
-                                     allreduce_over_mesh, flat_mesh, rs,
-                                     param_count)),
+        (12, lambda: (phase_fold_times(dev, harness, param_count),
+                      stage_times(dev, harness, rs, allreduce_mod,
+                                  param_count, bw))),
+        (13, lambda: phase_allreduce(dev, harness, stages, allreduce_mod,
+                                     registry, sim, allreduce_over_mesh,
+                                     flat_mesh, rs, param_count)),
         (14, lambda: phase_dist(dev, harness, launch, allreduce_mod,
                                 flat_mesh)),
     ):
@@ -1393,15 +1583,28 @@ def collective_phases(dev) -> list:
         out[phase] = run()
         log(f"phase {phase}: {time.monotonic() - t0:.1f} s")
         torch.cuda.empty_cache()
-    parity, (times, copy_launches), (launches, top, _) = \
-        out[11], out[12], out[13]
+    parity, ((times, copy_launches, stacked_launches), stage_rows), \
+        (launches, top, _) = out[11], out[12], out[13]
     row = next(r for r in times if (r["W"], r["L"]) == top and r["op"] == "sum")
+    stage = next(r for r in stage_rows if r["shape"] == "1")
     return [{
-        "name": "reduce_stacked",
+        "name": "reduce_sources",
         "route": "cuda",
         "source": "flextree_tpu_torch/csrc/reduce_stacked.cu",
         "replaces": "flextree_tpu/ops/pallas_reduce.py:33",
         "launches": launches,
+        "max_abs_err": parity["max_abs_err"],
+        "ms": stage["ms"],
+        "plain_ms": stage["plain_ms"],
+        "bound_ms": stage["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": stage["library_ms"],
+    }, {
+        "name": "reduce_stacked",
+        "route": "cuda",
+        "source": "flextree_tpu_torch/csrc/reduce_stacked.cu",
+        "replaces": "flextree_tpu/ops/pallas_reduce.py:33",
+        "launches": stacked_launches,
         "max_abs_err": parity["max_abs_err"],
         "ms": row["ms"],
         "plain_ms": row["plain_ms"],
@@ -1674,17 +1877,111 @@ def train_ab(parent: str) -> int:
     return 0
 
 
+# one checkout's allreduce run for --allreduce-ab: phase 13's f32-sum bench
+# (the bench's in-place timed path) and three in-place calls under
+# torch.profiler, per shape; the same code measures both checkouts
+ALLREDUCE_AB_CODE = """
+import json, sys, time, torch
+sys.path.insert(0, '.')
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile, schedule
+from flextree_tpu_torch.bench import harness
+from flextree_tpu_torch.parallel.mesh import allreduce_over_mesh, flat_mesh
+count, shapes = json.loads(sys.argv[1])
+dev = torch.device('cuda', 0)
+out = {}
+for spec, n in shapes:
+    report = harness.run_allreduce_bench(harness.BenchConfig(
+        size=count, repeat=20, topo=spec, devices=n, dtype='float32',
+        op='sum', device=str(dev)))
+    assert report.correct, spec
+    x = torch.randn((n, count), generator=torch.Generator(device=dev)
+                    .manual_seed(0), device=dev)
+    mesh = flat_mesh(n, dev)
+    # the tracer misses the first launches after it starts: one call in
+    # its warm-up step
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        allreduce_over_mesh(x, mesh, spec, 'sum', in_place=True)
+        torch.cuda.synchronize()
+        prof.step()
+        t0 = time.monotonic()
+        for _ in range(3):
+            allreduce_over_mesh(x, mesh, spec, 'sum', in_place=True)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        prof.step()
+    busy = launches = 0
+    for e in prof.key_averages():
+        us = getattr(e, 'self_device_time_total',
+                     getattr(e, 'self_cuda_time_total', 0.0))
+        if e.device_type == DeviceType.CUDA and us > 0 and \
+                not e.key.startswith('ProfilerStep'):
+            busy += us / 1e6
+            launches += e.count
+    out[spec] = {'median_ms': report.result.median_s * 1e3,
+                 'min_ms': report.result.min_s * 1e3,
+                 'launches_per_call': launches / 3,
+                 'device_ms_per_call': busy * 1e3 / 3,
+                 'busy_share': busy / wall}
+print('allreduce_ab ' + json.dumps(out))
+"""
+
+
+def allreduce_ab(parent: str) -> int:
+    """Phase 13's five f32-sum shapes at the flagship's parameter count, for
+    the checkout at ``parent`` and this one in turns (parent, this, this,
+    parent), each in a process of its own that imports its own checkout's
+    package and builds its kernels: per shape the bench's median ms a call
+    and, over three more calls under ``torch.profiler``, the device's
+    launches a call and its busy share of the wall."""
+    sys.path.insert(0, HERE)
+    from flextree_tpu_torch.models.transformer import (
+        TransformerConfig,
+        init_params,
+    )
+    from flextree_tpu_torch.parallel.train import tree_leaves
+
+    params = init_params(TransformerConfig(**MODEL),
+                         torch.Generator().manual_seed(SEED), device="cpu")
+    count = sum(p.numel() for p in tree_leaves(params))
+    arg = json.dumps([count, COLLECTIVE_SHAPES])
+    runs = []
+    for tag, where in (("parent", parent), ("this", HERE), ("this", HERE),
+                       ("parent", parent)):
+        proc = subprocess.run([sys.executable, "-c", ALLREDUCE_AB_CODE, arg],
+                              cwd=where, capture_output=True, text=True,
+                              timeout=600)
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+            raise AssertionError(f"allreduce run of {tag} ({where}) exited "
+                                 f"{proc.returncode}")
+        line = [ln for ln in proc.stdout.splitlines()
+                if ln.startswith("allreduce_ab ")][-1]
+        res = json.loads(line[len("allreduce_ab "):])
+        runs.append((tag, res))
+        for spec, r in res.items():
+            log(f"phase 13 A/B {tag} {spec}: median {r['median_ms']:.3f} ms "
+                f"(min {r['min_ms']:.3f}), {r['launches_per_call']:g} "
+                f"launches a call, device {r['device_ms_per_call']:.3f} ms a "
+                f"call, busy {100 * r['busy_share']:.1f}% of the wall")
+    print(json.dumps({"allreduce_ab": runs}))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
-    if sys.argv[1:2] == ["--train-ab"]:
+    ab = {"--train-ab": train_ab, "--allreduce-ab": allreduce_ab}
+    if sys.argv[1:2] and sys.argv[1] in ab:
         if len(sys.argv) != 3:
-            print("usage: chip_smoke.py [--train-ab PARENT_CHECKOUT]",
-                  file=sys.stderr)
+            print("usage: chip_smoke.py [--train-ab | --allreduce-ab "
+                  "PARENT_CHECKOUT]", file=sys.stderr)
             return 2
         print(smi_line())
-        return train_ab(os.path.abspath(sys.argv[2]))
+        return ab[sys.argv[1]](os.path.abspath(sys.argv[2]))
     sys.path.insert(0, HERE)
     from flextree_tpu_torch import kernels
 
@@ -1712,7 +2009,7 @@ def main() -> int:
     t0 = time.monotonic()
     rows = model_phases(dev, bw, fp32_peak, bf16_peak)
     log(f"phases 2-10: {time.monotonic() - t0:.1f} s")
-    rows += collective_phases(dev)
+    rows += collective_phases(dev, bw)
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -20,8 +20,9 @@ the FlexTree collectives):
   backward, the CUDA kernels ``csrc/flash_fwd.cu``, ``flash_bwd_dq.cu``
   and ``flash_bwd_dkv.cu`` beside their plain versions;
 - :mod:`.ops.reduce` and :mod:`.ops.reduce_stacked` — the op registry
-  and the collectives' local fold, the CUDA kernel
-  ``csrc/reduce_stacked.cu`` beside its plain version;
+  and the collectives' local fold (a batch of folds over W tensors where
+  they lie, one launch a stage, or one stacked fold), the CUDA kernel
+  ``csrc/reduce_stacked.cu`` beside its plain versions;
 - :mod:`.schedule` and :mod:`.backends` — copies of the JAX package's
   topology, block, plan and validation layer and of its NumPy simulator;
 - :mod:`.parallel` — the FlexTree collectives (``allreduce``) over an

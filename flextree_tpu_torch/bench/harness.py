@@ -43,7 +43,11 @@ import torch
 
 from ..device import resolve_device
 from ..ops.reduce import get_op
-from ..ops.reduce_stacked import reduce_stacked, reduce_stacked_plain
+from ..ops.reduce_stacked import (
+    reduce_sources,
+    reduce_stacked,
+    reduce_stacked_plain,
+)
 from ..parallel.mesh import allreduce_over_mesh, flat_mesh
 from ..schedule.stages import Topology
 from ..utils.timing import BenchResult, time_fn, time_fn_inplace
@@ -369,9 +373,9 @@ def dist_allreduce_cases(rank: int, world: int, cases, device: str = "cpu"):
     out = []
     for topo, count, op, dtype, seed, chunks in cases:
         x = seeded_row(rank, count, torch_dtype(dtype), seed).to(dev)
-        reduce_stacked.launches = 0
+        reduce_sources.launches = 0
         full = allreduce(x, None, topo=topo, op=op, chunks=chunks)
-        launches = reduce_stacked.launches
+        launches = reduce_sources.launches
         shard = reduce_scatter(x, None, topo=topo, op=op)
         back = all_gather(shard, None, topo=topo, out_shape=(count,))
         out.append((digest(full), digest(shard), digest(back), launches))

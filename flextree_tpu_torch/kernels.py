@@ -41,24 +41,27 @@ HEADERS = sorted((_PKG / "csrc").glob("*.cuh"))
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# ctypes signature of each entry point: (function name, argtypes)
+# ctypes signatures of each library's entry points: {function name: argtypes}
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _SIGNATURES = {
-    "paged_attention": (
-        "ft_paged_attention_decode",
-        [_P] * 9 + [_I] * 6 + [_F, _I, _P],
-    ),
-    "flash_fwd": ("ft_flash_fwd", [_P] * 5 + [_I] * 5 + [_F] + [_I] * 4 + [_P]),
-    "flash_bwd_dq": (
-        "ft_flash_bwd_dq",
-        [_P] * 8 + [_I] * 5 + [_F] * 2 + [_I] * 4 + [_P],
-    ),
-    "flash_bwd_dkv": (
-        "ft_flash_bwd_dkv",
-        [_P] * 9 + [_I] * 5 + [_F] * 2 + [_I] * 4 + [_P],
-    ),
-    "reduce_stacked": ("ft_reduce_stacked", [_P, _P, _I, _L, _I, _I, _I, _P]),
-    "copy": ("ft_copy", [_P, _P, _L, _P]),
+    "paged_attention": {
+        "ft_paged_attention_decode": [_P] * 9 + [_I] * 6 + [_F, _I, _P],
+    },
+    "flash_fwd": {
+        "ft_flash_fwd": [_P] * 5 + [_I] * 5 + [_F] + [_I] * 4 + [_P],
+    },
+    "flash_bwd_dq": {
+        "ft_flash_bwd_dq": [_P] * 8 + [_I] * 5 + [_F] * 2 + [_I] * 4 + [_P],
+    },
+    "flash_bwd_dkv": {
+        "ft_flash_bwd_dkv": [_P] * 9 + [_I] * 5 + [_F] * 2 + [_I] * 4 + [_P],
+    },
+    "reduce_stacked": {
+        "ft_reduce_stacked": [_P, _P, _I, _L, _I, _I, _I, _P],
+        # (sources, outs, R, W, L, sources_tile, dtype, op, variant, stream)
+        "ft_reduce_sources": [_P, _P, _I, _I, _L, _I, _I, _I, _P],
+    },
+    "copy": {"ft_copy": [_P, _P, _L, _P]},
 }
 
 _loaded: dict = {}
@@ -120,14 +123,14 @@ def build(names=None) -> dict:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if needed, with
-    its entry point's ``argtypes``/``restype`` declared."""
+    its entry points' ``argtypes``/``restype`` declared."""
     lib = _loaded.get(name)
     if lib is None:
         path = build([name])[name]
         lib = ctypes.CDLL(str(path))
-        fn_name, argtypes = _SIGNATURES[name]
-        fn = getattr(lib, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for fn_name, argtypes in _SIGNATURES[name].items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _loaded[name] = lib
     return lib

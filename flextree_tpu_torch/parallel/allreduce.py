@@ -4,19 +4,27 @@ PyTorch counterpart of ``flextree_tpu/parallel/allreduce.py``, and the
 reference's own design (``mpi_mod.hpp:246-660, 953-1163``): each stage is
 a point-to-point exchange between the members of a rank's group, then one
 multi-source local fold.  The JAX package lowered the stages to grouped
-XLA collectives; here a walker posts each stage's messages to a transport
-and folds what arrives with the hand-written fold kernel
-(:func:`~..ops.reduce_stacked.reduce_stacked`).  Two transports:
+XLA collectives; here a walker hands each fold stage to a transport, which
+finds every source of each local rank's fold where it lies, and folds all
+of them with one call of the hand-written fold kernel
+(:func:`~..ops.reduce_stacked.reduce_sources`), which reads its sources
+through pointers: no stage builds a stack of what it folds.  Two
+transports:
 
 - **in-process**, over a :class:`~.mesh.Mesh`: this process runs every
-  rank; a message is a device copy into the receiver's staging buffer
-  (ranks may share one device);
+  rank.  A fold reads a group member's tile in place when it lies on the
+  folding rank's device (on one card every rank's does), so a fold stage
+  sends no message and is one kernel launch for all ranks; a member on
+  another device is first copied into a receive buffer.  A gather
+  message is a device copy into the receiver's slot;
 - **torch.distributed**: this process is one rank of a process group; a
   stage's sends and receives are posted in one ``batch_isend_irecv``, so no
-  rank waits on a peer that waits on it.  gloo's point-to-point takes CPU
-  tensors, so on gloo a CUDA buffer is staged through host memory (the
-  fold still runs on the card); NCCL moves CUDA tensors directly.  Every
-  message moves the bytes of a contiguous buffer, whatever its dtype.
+  rank waits on a peer that waits on it, and a fold reads the rank's own
+  tile in place and the received ones from their receive buffers.  gloo's
+  point-to-point takes CPU tensors, so on gloo a CUDA buffer is staged
+  through host memory (the fold still runs on the card); NCCL moves CUDA
+  tensors directly.  Every message moves the bytes of a contiguous buffer,
+  whatever its dtype.
 
 Each collective takes ``comm``, where the JAX function takes ``axis_name``:
 a ``Mesh`` (then ``x`` is a sequence of the N ranks' tensors and the
@@ -36,15 +44,14 @@ What it computes follows the JAX package:
   ring walks the 2(N-1) steps of ``schedule.plan.ring_plan``; lonely
   shapes (``"3,2+1"``) fold each lonely rank into its buddy, run the tree
   over the first ``m`` ranks and hand the result back.
-- **arithmetic.** At a tree stage the rank keeping a tile stacks the
+- **arithmetic.** At a tree stage the rank keeping a tile folds the
   group's ``w`` partial tiles in the order of ``Topology.group_members``
-  and folds them with one ``reduce_stacked`` call at ``sources_tile=1``
-  (a plain left fold); a ring step and a buddy fold are 2-source folds
-  (own first).  Every op of the registry is commutative, so each
-  element's fold tree is fixed by the schedule alone: every rank's result
-  is bitwise identical to every other rank's, across runs, across the two
-  transports, across ``chunks``, and between ``all_gather(reduce_scatter
-  (x))`` and ``allreduce(x)``.
+  at ``sources_tile=1`` (a plain left fold); a ring step and a buddy fold
+  are 2-source folds (own first), the ring's in place.  Every op of the
+  registry is commutative, so each element's fold tree is fixed by the
+  schedule alone: every rank's result is bitwise identical to every other
+  rank's, across runs, across the two transports, across ``chunks``, and
+  between ``all_gather(reduce_scatter(x))`` and ``allreduce(x)``.
 
 Not ported (each raises, naming its ROADMAP item): the IR families
 (``"swing"``, ``"gen:…"``) and lossy codecs.
@@ -54,11 +61,12 @@ from __future__ import annotations
 
 import os
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import torch
 
 from ..ops.reduce import ReduceOp, get_op
-from ..ops.reduce_stacked import reduce_stacked
+from ..ops.reduce_stacked import overlaps, reduce_sources
 from ..schedule.stages import FT_TOPO_ENV, LonelyTopology, Topology
 from .mesh import Mesh
 
@@ -72,6 +80,8 @@ __all__ = [
     "allgather",
     "MeshTransport",
     "DistTransport",
+    "CallShape",
+    "call_shape",
 ]
 
 _IR_FAMILIES = "ROADMAP.md, Queue 1: 'IR families and ir_lower'"
@@ -95,16 +105,27 @@ class Msg:
 
 class MeshTransport:
     """Every rank of a :class:`Mesh`, in this process.  A message is one
-    device copy from the sender's buffer into the receiver's staging
-    buffer (the stack a fold reads, or the slot of a gather)."""
+    device copy from the sender's buffer into the receiver's slot of a
+    gather; a fold reads its sources in place (:meth:`sources`)."""
 
     def __init__(self, mesh: Mesh):
         self.size = mesh.size
         self.local = frozenset(range(mesh.size))
+        self.devices = mesh.devices
 
     def run(self, msgs) -> None:
         for m in msgs:
             m.recv.copy_(m.send)
+
+    def sources(self, plan: dict, piece) -> dict:
+        """The sources of each fold of a stage, in fold order: ``plan[d]``
+        lists the ranks whose ``piece(s, d)`` rank ``d`` folds.  A piece on
+        ``d``'s device is read where it lies; one on another device is
+        first copied to ``d``'s (a message)."""
+        return {d: [t if t.device == self.devices[d] else
+                    t.to(self.devices[d])
+                    for t in (piece(s, d) for s in srcs)]
+                for d, srcs in plan.items()}
 
 
 class DistTransport:
@@ -153,6 +174,28 @@ class DistTransport:
         for dst, buf in staged:
             dst.copy_(buf)
 
+    def sources(self, plan: dict, piece) -> dict:
+        """This rank's fold sources of a stage (see
+        :meth:`MeshTransport.sources`): its own piece in place, each
+        other's received into a buffer shaped as its own piece (every rank
+        of a fold is among its sources); the pieces other ranks' folds
+        need from this rank are sent."""
+        me, msgs, got = self.rank, [], {}
+        for d, srcs in plan.items():
+            for s in srcs:
+                if s == d:
+                    continue
+                if s == me:
+                    msgs.append(Msg(s, d, piece(s, d), None))
+                elif d == me:
+                    got[s] = torch.empty_like(piece(d, d))
+                    msgs.append(Msg(s, d, None, got[s]))
+        self.run(msgs)
+        if me not in plan:
+            return {}
+        return {me: [piece(me, me) if s == me else got[s]
+                     for s in plan[me]]}
+
 
 def _exchange(tr, pairs, send, recv) -> None:
     """Run one stage: for each ``(src, dst)`` pair that touches a local
@@ -167,26 +210,34 @@ def _exchange(tr, pairs, send, recv) -> None:
 # ------------------------------------------------------------ the walker
 
 
+def _fold_stage(tr, rop: ReduceOp, plan: dict, piece, out) -> dict:
+    """One fold stage: each rank ``d`` of ``plan`` folds ``piece(s, d)``
+    for ``s`` in ``plan[d]``, in that order, into ``out(d)``.  The local
+    folds go to :func:`reduce_sources` together, one call per device
+    (one launch for a mesh on one card).  Returns ``{d: out(d)}`` for the
+    local ``d``."""
+    got = tr.sources(plan, piece)
+    outs = {d: out(d) for d in got}
+    by_device: dict = {}
+    for d, sources in got.items():
+        by_device.setdefault(outs[d].device, []).append((sources, outs[d]))
+    for folds in by_device.values():
+        reduce_sources(folds, rop)
+    return outs
+
+
 def _tree_rs(bufs: dict, tr, topo: Topology, rop: ReduceOp) -> dict:
     """Phase 1 (``mpi_mod.hpp:988-1029``): per stage, each rank of the tree
-    sends tile ``p_q`` of its slice to the group member at position
-    ``p_q``, stacks the group's tiles of its own position in group order
-    and folds them.  Returns each tree rank's shard."""
+    folds tile ``p_r`` (its group position) of every group member's slice,
+    in group order, into a new shard.  Returns each tree rank's shard."""
     for i, w in enumerate(topo.widths):
         g = topo.gaps[i]
-        local = [r for r in tr.local if r < topo.num_nodes]
-        tiles = {r: bufs[r].view(w, -1) for r in local}
-        stacks = {}
-        for r in local:
-            p = (r // g) % w
-            stacks[r] = torch.empty_like(tiles[r])
-            stacks[r][p].copy_(tiles[r][p])
-        pairs = [(s, d) for grp in topo.groups(i) for s in grp for d in grp
-                 if s != d]
-        _exchange(tr, pairs,
-                  lambda s, d: tiles[s][(d // g) % w],
-                  lambda d, s: stacks[d][(s // g) % w])
-        bufs = {r: reduce_stacked(stacks[r], rop) for r in local}
+        tiles = {r: b.view(w, -1) for r, b in bufs.items()}
+        bufs = _fold_stage(
+            tr, rop, {d: grp for grp in topo.groups(i) for d in grp},
+            lambda s, d: tiles[s][(d // g) % w],
+            lambda d: torch.empty(tiles[d].shape[1], dtype=tiles[d].dtype,
+                                  device=tiles[d].device))
     return bufs
 
 
@@ -218,23 +269,17 @@ def _ring_pairs(n: int):
 
 def _ring_rs(blocks: dict, tr, rop: ReduceOp) -> None:
     """The ring's N-1 fold steps on ``(N, B)`` block views, in place
-    (``mpi_mod.hpp:1119-1147``): at step ``s`` rank ``r`` sends block
-    ``(r - s) % N`` right and folds the block ``(r - s - 1) % N`` it gets
-    from the left into its own; afterwards it holds block ``(r + 1) % N``
-    fully reduced."""
+    (``mpi_mod.hpp:1119-1147``): at step ``s`` rank ``r`` folds block
+    ``k = (r - s - 1) % N`` of its left neighbour into its own block ``k``
+    (own first); afterwards it holds block ``(r + 1) % N`` fully reduced.
+    No rank writes a block that another rank reads in the same step, so a
+    step is one fold stage; step ``s + 1`` reads what step ``s`` wrote."""
     n = tr.size
+    ring = {d: [d, (d - 1) % n] for d in range(n)}
     for step in range(n - 1):
-        stacks = {}
-        for r in tr.local:
-            stacks[r] = torch.empty((2, blocks[r].shape[1]),
-                                    dtype=blocks[r].dtype,
-                                    device=blocks[r].device)
-            stacks[r][0].copy_(blocks[r][(r - step - 1) % n])
-        _exchange(tr, _ring_pairs(n),
-                  lambda s, d: blocks[s][(s - step) % n],
-                  lambda d, s: stacks[d][1])
-        for r in tr.local:
-            reduce_stacked(stacks[r], rop, out=blocks[r][(r - step - 1) % n])
+        _fold_stage(tr, rop, ring,
+                    lambda s, d: blocks[s][(d - step - 1) % n],
+                    lambda d: blocks[d][(d - step - 1) % n])
 
 
 def _ring_ag(blocks: dict, tr) -> None:
@@ -249,21 +294,13 @@ def _ring_ag(blocks: dict, tr) -> None:
 
 
 def _buddy_fold(heads: dict, tr, topo: LonelyTopology, rop: ReduceOp) -> dict:
-    """Each lonely rank ``m + i`` sends its head to buddy ``i``, which folds
-    it into its own (own first); the tree ranks' slices are returned."""
-    m, lonely = topo.tree.num_nodes, topo.lonely
+    """Each buddy ``i`` folds lonely rank ``m + i``'s head into its own
+    (own first); the tree ranks' slices are returned."""
+    m = topo.tree.num_nodes
     cur = {r: heads[r] for r in tr.local if r < m}
-    stacks = {}
-    for i in range(lonely):
-        if i in tr.local:
-            stacks[i] = torch.empty((2, heads[i].numel()),
-                                    dtype=heads[i].dtype,
-                                    device=heads[i].device)
-            stacks[i][0].copy_(heads[i])
-    _exchange(tr, [(m + i, i) for i in range(lonely)],
-              lambda s, d: heads[s], lambda d, s: stacks[d][1])
-    for i, st in stacks.items():
-        cur[i] = reduce_stacked(st, rop)
+    cur.update(_fold_stage(
+        tr, rop, {i: [i, m + i] for i in range(topo.lonely)},
+        lambda s, d: heads[s], lambda d: torch.empty_like(heads[d])))
     return cur
 
 
@@ -276,19 +313,16 @@ def _hand_back(bufs: dict, tr, topo: LonelyTopology, into: dict) -> None:
 
 
 def _dense_tail(tails: dict, tr, rop: ReduceOp, dest: dict) -> None:
-    """The < N-element tail: every rank gathers all ranks' tails in rank
-    order and folds them (the JAX ``_small_dense_allreduce``), into
-    ``dest``."""
+    """The < N-element tail: every rank folds all ranks' tails in rank
+    order (the JAX ``_small_dense_allreduce``) into ``dest``.  In place
+    (``dest[r]`` is ``x[r]``'s tail, which every rank's fold reads) the
+    tails are snapshot first; they are under N elements."""
+    if any(o.device == t.device and overlaps(o, t)
+           for o in dest.values() for t in tails.values()):
+        tails = {r: t.clone() for r, t in tails.items()}
     n = tr.size
-    stacks = {}
-    for r in tr.local:
-        stacks[r] = torch.empty((n, tails[r].numel()), dtype=tails[r].dtype,
-                                device=tails[r].device)
-        stacks[r][r].copy_(tails[r])
-    _exchange(tr, [(s, d) for s in range(n) for d in range(n) if s != d],
-              lambda s, d: tails[s], lambda d, s: stacks[d][s])
-    for r in tr.local:
-        reduce_stacked(stacks[r], rop, out=dest[r])
+    _fold_stage(tr, rop, {d: list(range(n)) for d in range(n)},
+                lambda s, d: tails[s], lambda d: dest[d])
 
 
 # ---------------------------------------------------- binding and layout
@@ -434,6 +468,56 @@ def _head_allreduce(heads: dict, tr, topo, rop: ReduceOp, dest: dict,
         _gather(_scatter(piece, tr, topo, rop, in_place=topo.is_ring), tr,
                 topo, {r: d[off:off + size] for r, d in dest.items()})
         off += size
+
+
+class CallShape(NamedTuple):
+    """What one :func:`allreduce` call (``chunks=1``) does on a mesh whose
+    ranks share one device, from :func:`call_shape`."""
+
+    #: the fold stages in order, each ``(R folds, W sources, L elements)``:
+    #: one :func:`reduce_sources` call of R folds
+    folds: list
+    #: the gather phase's messages (:meth:`MeshTransport.run`'s copies)
+    messages: int
+    #: the device copies of an in-place call: the messages, each tree
+    #: rank's own tile at each gather stage, and one snapshot a rank of
+    #: the tail when there is one
+    copies: int
+
+
+def call_shape(num_nodes: int, topo, count: int) -> CallShape:
+    """Derive, from the topology alone, the fold stages and copies of one
+    allreduce of ``count`` elements a rank over ``num_nodes`` ranks (``topo``
+    as :meth:`Topology.resolve` takes it).  A buddy fold is one 2-source
+    fold of the whole head on every buddy; a tree stage of width w, one
+    fold of w tiles on every tree rank; a ring step, one 2-source fold on
+    every rank; the tail, one fold of all ranks' tails on every rank.  The
+    fold stages copy nothing; the gather sends w - 1 messages to every
+    tree rank a tree stage, one to every rank a ring step, one to every
+    lonely rank."""
+    topo = Topology.resolve(num_nodes, topo)
+    lonely = isinstance(topo, LonelyTopology)
+    tree = topo.tree if lonely else topo
+    owners = tree.num_nodes
+    head = _split(count, owners)
+    folds, messages, own = [], 0, 0
+    if head and lonely:
+        folds.append((topo.lonely, 2, head))
+        messages += topo.lonely
+    if head and topo.is_ring:
+        folds += [(num_nodes, 2, head // num_nodes)] * (num_nodes - 1)
+        messages += num_nodes * (num_nodes - 1)
+    elif head:
+        length = head
+        for w in tree.widths:
+            length //= w
+            folds.append((owners, w, length))
+            messages += owners * (w - 1)
+            own += owners
+    tail = num_nodes if head < count else 0
+    if tail:
+        folds.append((num_nodes, num_nodes, count - head))
+    return CallShape(folds, messages, messages + own + tail)
 
 
 def _chunk_sizes(total: int, n: int, chunks: int) -> list[int]:

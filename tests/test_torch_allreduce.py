@@ -17,6 +17,10 @@ in {2, 3, 4, 6, 7, 8}, ``(2,2)``, ``(3,2)``, ``(4,2)``, ``(2,4)``,
 - every rank's row identical; ``all_gather(reduce_scatter(x))`` bitwise
   ``allreduce(x)``; ``chunks=3`` bitwise ``chunks=1``; in place bitwise;
   shard ``r`` is block ``owned_block(topo, r)`` then the tail;
+- the mesh's fold stages send no message: a reduce-scatter posts none
+  (a lonely shape's only messages mirror the buddies' shards), an
+  allreduce only the gather phase's, and each fold stage is one
+  ``reduce_sources`` call;
 - against the JAX collectives themselves: ``test_torch_allreduce_jax.py``.
 """
 
@@ -254,3 +258,45 @@ def test_mesh_helpers():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             flat_mesh(4)  # entry points default to the card
+
+
+@pytest.mark.parametrize("n,spec,folds,copies", [
+    (8, "8", [(8, 8, 2_097_728)], 64),
+    (8, "4,2", [(8, 4, 4_195_456), (8, 2, 2_097_728)], 48),
+    (8, "2,2,2", [(8, 2, 8_390_912), (8, 2, 4_195_456),
+                  (8, 2, 2_097_728)], 48),
+    (8, "1", [(8, 2, 2_097_728)] * 7, 56),
+    (7, "3,2+1", [(1, 2, 16_781_820), (6, 3, 5_593_940),
+                  (6, 2, 2_796_970), (7, 7, 4)], 38),
+])
+def test_call_shape_at_the_flagship_gradient(n, spec, folds, copies):
+    """The launches a call that PERF.md reports for the flagship's
+    16,781,824-element gradient: one fold a stage, and the gather's
+    copies plus a one-a-rank snapshot of an in-place tail."""
+    got = tar.call_shape(n, spec, 16_781_824)
+    assert got.folds == folds
+    assert got.copies == copies
+
+
+@pytest.mark.parametrize("n,spec", SHAPES)
+def test_the_fold_stages_send_no_message(n, spec, monkeypatch):
+    sent, folds = [], []
+    run, fold = tar.MeshTransport.run, tar.reduce_sources
+    monkeypatch.setattr(tar.MeshTransport, "run", lambda self, msgs: (
+        sent.extend((m.src, m.dst) for m in msgs), run(self, msgs))[1])
+    monkeypatch.setattr(tar, "reduce_sources", lambda fs, rop: (
+        folds.append(len(fs)), fold(fs, rop))[1])
+    mesh = flat_mesh(n, "cpu")
+    topo = Topology.resolve(n, spec)
+    m = topo.tree.num_nodes if isinstance(topo, LonelyTopology) else n
+    for count in (35, 64):
+        rows = list(to_torch(make_rows(n, count, "float32", seed=count)))
+        want = tar.call_shape(n, spec, count)
+        sent.clear(), folds.clear()
+        tar.reduce_scatter(rows, mesh, spec, "sum")
+        assert all(s == d - m for s, d in sent), sent  # the mirror only
+        assert folds == [r for r, _, _ in want.folds]
+        sent.clear(), folds.clear()
+        tar.allreduce(rows, mesh, spec, "sum")
+        assert len(sent) == want.messages
+        assert folds == [r for r, _, _ in want.folds]

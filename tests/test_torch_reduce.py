@@ -12,8 +12,19 @@ plain version bitwise).  Held here, bitwise:
   ``sources_tile``;
 - the fold against the plain-jnp oracle ``reduce_stacked_reference`` for
   every op x dtype over W and L at ``sources_tile=1``;
-- loud errors for what the JAX function rejects.
+- loud errors for what the JAX function rejects;
+- the batch of W-pointer folds (``reduce_sources``, its plain version
+  ``reduce_sources_plain``) on separately made sources against the JAX
+  ``reduce_stacked`` (interpreted) and the oracles on the same sources
+  stacked, for every op x dtype, W in {1, 2, 3, 8} and ``sources_tile``
+  in {1, 2, 4}; a batch against its folds one by one and in place; the
+  refused aliasing; no launch counted on the CPU.
 """
+
+import math
+import re
+from pathlib import Path
+
 
 import jax.numpy as jnp
 import ml_dtypes
@@ -27,7 +38,10 @@ from flextree_tpu.ops.pallas_reduce import (
     reduce_stacked_reference as j_reference,
 )
 from flextree_tpu_torch.ops import reduce as treduce
+from flextree_tpu_torch.ops import reduce_stacked as rs
 from flextree_tpu_torch.ops.reduce_stacked import (
+    reduce_sources,
+    reduce_sources_plain,
     reduce_stacked,
     reduce_stacked_plain,
     reduce_stacked_reference,
@@ -194,3 +208,122 @@ def test_max_min_propagate_nan_and_unsigned_order():
     assert reduce_stacked(u, "max").view(torch.int32).tolist() == \
         torch.tensor([2 ** 31, 2 ** 32 - 1]).to(torch.int32).tolist()
     assert reduce_stacked(u, "min").view(torch.int32).tolist() == [5, 1]
+
+
+# ------------------------------------------ the batch of W-pointer folds
+
+
+def seeded_sources(dtype, w, length, seed):
+    """W sources made one by one (not rows of one stack)."""
+    return [make_input(dtype, (length,), seed * 100 + j) for j in range(w)]
+
+
+#: (W, sources_tile after the clamp) run through the interpreted JAX
+#: kernel: every grouping it has at W in {1, 2, 3, 8}, and a plain left
+#: fold; the other left folds are held to the JAX oracle, which
+#: ``test_fold_bitwise_vs_jax_interpret`` holds to the kernel
+JAX_INTERPRET_RUNS = {(1, 1), (2, 2), (8, 1), (8, 2), (8, 4)}
+
+
+@pytest.mark.parametrize("op,dtype", COMBOS, ids=lambda v: str(v))
+def test_sources_bitwise_vs_jax_on_the_same_sources_stacked(op, dtype):
+    for w in (1, 2, 3, 8):
+        srcs = seeded_sources(dtype, w, 257, seed=w + len(op) + len(dtype))
+        stacked = jnp.asarray(np.stack(srcs))
+        tsrcs = [to_torch(a) for a in srcs]
+        oracle = np.array(j_reference(stacked, op=op))
+        assert same_bits(to_numpy(reduce_stacked_reference(
+            torch.stack(tsrcs), op)), oracle), w
+        for st in (1, 2, 4):
+            clamped = math.gcd(st, w)
+            plain = reduce_sources_plain([(tsrcs, None)], op, st)[0]
+            out = torch.empty_like(tsrcs[0])
+            got = reduce_sources([(tsrcs, out)], op, st)[0]
+            assert got is out
+            assert same_bits(to_numpy(out), to_numpy(plain)), (w, st)
+            if clamped == 1:  # the plain left fold
+                assert same_bits(to_numpy(plain), oracle), w
+            if (w, clamped) in JAX_INTERPRET_RUNS and st == clamped and \
+                    (op, dtype) not in JAX_KERNEL_FAULTS:
+                assert same_bits(to_numpy(plain), np.array(j_reduce_stacked(
+                    stacked, op=op, sources_tile=clamped,
+                    interpret=True))), (w, st)
+            elif clamped > 1:  # order-free ops, or min over uint64
+                assert (op not in ("sum", "prod")) <= same_bits(
+                    to_numpy(plain), oracle), (w, st)
+
+
+@pytest.mark.parametrize("op,dtype", [("sum", "float32"), ("sum", "bfloat16"),
+                                      ("prod", "float16"), ("max", "int8"),
+                                      ("bxor", "uint64"), ("band", "bool")])
+@pytest.mark.parametrize("st", [1, 2])
+def test_a_batch_equals_its_folds_one_by_one_and_in_place(op, dtype, st):
+    folds = [[to_torch(a) for a in seeded_sources(dtype, 4, 100, seed=f)]
+             for f in range(5)]
+    outs = reduce_sources([(srcs, torch.empty_like(srcs[0]))
+                           for srcs in folds], op, st)
+    for srcs, got in zip(folds, outs):
+        one = reduce_sources([(srcs, torch.empty_like(srcs[0]))], op, st)[0]
+        assert torch.equal(got.view(torch.uint8), one.view(torch.uint8))
+        assert torch.equal(got.view(torch.uint8), reduce_stacked(
+            torch.stack(srcs), op, st).view(torch.uint8))
+    copies = [[t.clone() for t in srcs] for srcs in folds]
+    res = reduce_sources([(srcs, srcs[0]) for srcs in copies], op, st)
+    for srcs, got, want in zip(copies, res, outs):
+        assert got is srcs[0]
+        assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+
+
+def _refused():
+    a = torch.zeros(4, 16)
+    flat = a.view(-1)
+    return {
+        "partly over its source 0": [([a[0], a[1]], flat[8:24])],
+        "partly over its source 1": [([a[0], a[1]], flat[24:40])],
+        "equal to its source 1": [([a[0], a[1]], a[1])],
+        "over another fold's source": [([a[0], a[1]], a[2]),
+                                       ([a[2], a[3]], a[3])],
+        "another fold's source 0": [([a[2], a[1]], torch.empty(16)),
+                                    ([a[0], a[3]], a[2])],
+        "two outputs overlapping": [([a[0], a[1]], a[2]),
+                                    ([a[0], a[1]], flat[40:56])],
+        "a source on another device": [([a[0], a[1].to("meta")], a[2])],
+        "a batch of two widths": [([a[0], a[1]], a[2]), ([a[1]], a[3])],
+        "a short source": [([a[0], a[1, :8]], a[2])],
+        "a source of another dtype": [([a[0], a[1].double()], a[2])],
+        "a strided source": [([a[0, :4], a[:, 1]], torch.empty(4))],
+        "no sources": [([], a[2])],
+        "no folds": [],
+    }
+
+
+@pytest.mark.parametrize("case", list(_refused()))
+def test_reduce_sources_refuses(case):
+    with pytest.raises(ValueError):
+        reduce_sources(_refused()[case], "sum")
+
+
+def test_reduce_sources_refuses_an_unknown_op_or_dtype():
+    x = [torch.ones(8), torch.ones(8)]
+    with pytest.raises(TypeError):
+        reduce_sources([(x, torch.empty(8))], "band")
+    with pytest.raises(ValueError):
+        reduce_sources([(x, torch.empty(8))], "mean")
+
+
+def test_a_cpu_call_counts_no_launch():
+    before = (reduce_sources.launches, reduce_stacked.launches)
+    x = torch.ones(3, 40)
+    reduce_sources([(list(x), torch.empty(40))], "sum")
+    reduce_sources([(list(x), x[0])], "max", 2)
+    reduce_stacked(x, "sum")
+    assert (reduce_sources.launches, reduce_stacked.launches) == before
+
+
+def test_kernel_constants_match_the_source():
+    src = (Path(rs.__file__).resolve().parent.parent / "csrc" /
+           "reduce_stacked.cu").read_text()
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+    assert const("kMaxPointers") == rs.MAX_POINTERS
+    assert const("kMaxSourcesTile") == rs.MAX_SOURCES_TILE
