@@ -99,7 +99,21 @@ failure raises and exits non-zero:
     checkout at PARENT and this one in turns, each in its own process;
 14. distributed — four processes on the card over gloo (host staging),
     every rank bitwise the in-process mesh; NCCL at world size 1 returns
-    its input bitwise.
+    its input bitwise;
+15. IR families and the planner — ``swing``, ``gen:4,2@2``, ``gen:8@7``
+    and ``gen:2,2,2@1`` on 8 in-process ranks and ``swing`` on 7 (fold and
+    restore hops, a tail) at the flagship's parameter count: every rank's
+    row identical and bitwise the same executor on a CPU mesh, int32 and
+    integer-valued f32 sums exact, the fold kernel's launches equal to
+    ``call_shape``'s count, each timed in place by
+    ``run_allreduce_bench`` beside phase 13's shapes; a corrupted program
+    refused with ``IRViolationError`` before any fold or copy.  Then the
+    cost model's constants fitted on the card over
+    ``tools.calibrate_host``'s matrix (the card's work, and for the record
+    the wall time), saved, loaded back, refused under another
+    fingerprint, with the Spearman rho of predicted against measured at
+    least 0.8; the planner's winner over every shape and IR family run
+    correct, its time beside the fastest measured (printed, not gated).
 
 Prints each phase's seconds, a ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Exits
@@ -1540,8 +1554,169 @@ def phase_dist(dev, harness, launch, allreduce_mod, flat_mesh):
         "reduce_scatter return the input bitwise")
 
 
+# phase 15: the IR families at the gradient's size (plus a few elements,
+# for a tail), and the planner
+IR_SHAPES = (("swing", 8, 0), ("gen:4,2@2", 8, 0), ("gen:8@7", 8, 0),
+             ("gen:2,2,2@1", 8, 0), ("swing", 7, 3))
+# the JAX package's bar for a fitted model (tests/test_calibration.py)
+SPEARMAN_BAR = 0.8
+
+
+def corrupted_swing(sir, n):
+    """``swing_ir(n)`` with every transfer of its second stage sent to the
+    peer two ranks on (the JAX package's seeded corruption)."""
+    prog = sir.swing_ir(n, count=n * n)
+    st = prog.stages[1]
+    bad = tuple(dataclasses.replace(x, dst=(x.dst + 2) % n) for x in st.xfers)
+    return dataclasses.replace(
+        prog, stages=prog.stages[:1] + (dataclasses.replace(st, xfers=bad),)
+        + prog.stages[2:])
+
+
+def check_ir_family(spec, n, count, gen, dev, flat_mesh,
+                    allreduce_over_mesh):
+    """One IR family on ``n`` ranks at ``count`` a rank: random f32 rows
+    identical and bitwise the same executor on a CPU mesh (the plain fold
+    in the same order), int32 and integer-valued f32 sums bitwise the exact
+    sum."""
+    mesh = flat_mesh(n, dev)
+    x = device_rows(n, count, torch.float32, gen, dev)
+    out = allreduce_over_mesh(x, mesh, spec, "sum")
+    for r in range(1, n):
+        if not same_bits(out[r], out[0]):
+            raise AssertionError(f"{spec} on {n}: rank {r} != rank 0")
+    cpu = allreduce_over_mesh(x.cpu(), flat_mesh(n, "cpu"), spec, "sum")
+    if not same_bits(out.cpu(), cpu):
+        raise AssertionError(f"{spec} on {n}: not its CPU executor")
+    del x, out, cpu
+    xi = device_rows(n, count, torch.int32, gen, dev)
+    if not same_bits(allreduce_over_mesh(xi, mesh, spec, "sum"),
+                     xi.sum(0, dtype=torch.int32).expand(n, -1)):
+        raise AssertionError(f"{spec} on {n}: int32 sum not exact")
+    del xi
+    xf = torch.randint(-8, 8, (n, count), generator=gen, device=dev).float()
+    if not same_bits(allreduce_over_mesh(xf, mesh, spec, "sum"),
+                     xf.sum(0).expand(n, -1)):
+        raise AssertionError(f"{spec} on {n}: integer-valued f32 sum not "
+                             f"exact")
+
+
+def phase_ir_families(dev, harness, ar, rs, flat_mesh, allreduce_over_mesh,
+                      param_count, shape_times):
+    """Phase 15: the IR families (swing, generalized) at the gradient's
+    size, held to their CPU executor and exact sums, their fold launches
+    to ``call_shape``, a corrupted program refused before any launch;
+    then the planner's constants fitted on the card, saved, reloaded and
+    refused under another fingerprint, and the planner's winner run."""
+    from flextree_tpu_torch.planner import calibrate as cal
+    from flextree_tpu_torch.planner import choose_topology
+    from flextree_tpu_torch.schedule import ir as sir
+    from flextree_tpu_torch.tools import calibrate_host
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    launches = 0
+    times = dict(shape_times)
+    for spec, n, extra in IR_SHAPES:
+        count = param_count + extra
+        check_ir_family(spec, n, count, gen, dev, flat_mesh,
+                        allreduce_over_mesh)
+        per_call = sum(fold_shapes(spec, n, count, ar,
+                                   rs.MAX_POINTERS).values())
+        shape = ar.call_shape(n, spec, count)
+        rs.reduce_sources.launches = 0
+        report = harness.run_allreduce_bench(harness.BenchConfig(
+            size=count, repeat=10, topo=spec, devices=n, device=str(dev)))
+        got = rs.reduce_sources.launches
+        if not report.correct or got != per_call * report.calls:
+            raise AssertionError(
+                f"{spec} on {n}: correct={report.correct}, fold launches "
+                f"{got} != {per_call} a call x {report.calls} calls")
+        launches += got
+        times[spec, n] = report.result.median_s * 1e3
+        log(f"phase 15 {spec} on {n} ranks, {count} f32 per rank: "
+            f"rows identical and bitwise its CPU executor, int32 and "
+            f"integer-valued f32 sums exact; bench median "
+            f"{report.result.median_s * 1e3:.3f} ms, bus "
+            f"{report.bus_bw_GBps:.1f} GB/s, correct; fold launches {got} = "
+            f"{per_call} a call x {report.calls} calls ({len(shape.folds)} "
+            f"fold stages, {shape.messages} gather messages a call)")
+    # a corrupted program is refused before anything runs
+    x = device_rows(8, 1 << 12, torch.float32, gen, dev)
+    out = torch.full_like(x, float("nan"))
+    rs.reduce_sources.launches = 0
+    try:
+        ar.allreduce(list(x), flat_mesh(8, dev), corrupted_swing(sir, 8),
+                     out=list(out))
+    except sir.IRViolationError as err:
+        refusal = f"{len(err.violations)} violations"
+    else:
+        raise AssertionError("a corrupted swing program ran")
+    if rs.reduce_sources.launches or not torch.isnan(out).all():
+        raise AssertionError("the corrupted program launched or copied")
+    log(f"phase 15 corrupted swing (stage 1 peers moved by 2): refused with "
+        f"IRViolationError ({refusal}) before any fold or copy")
+    log(f"phase 15 times at {param_count} f32 per rank (swing on 7: + 3; "
+        f"median ms of run_allreduce_bench): " + ", ".join(
+            f"{spec} on {n} {ms:.3f}" for (spec, n), ms in
+            sorted(times.items(), key=lambda kv: kv[1])))
+
+    # the planner's constants, fitted on the card
+    path = os.path.join(os.environ.get("TMPDIR", "/tmp"),
+                        f"ft_calibration_{os.getpid()}.json")
+    try:
+        wall = calibrate_host.calibrate(path, device=str(dev), wall=True)
+        fit = calibrate_host.calibrate(path, device=str(dev))
+        params = cal.load_calibration(path, backend=fit["backend"],
+                                      fingerprint=fit["fingerprint"])
+        other = cal.load_calibration(
+            path, backend=fit["backend"],
+            fingerprint=fit["fingerprint"].replace("|r8|", "|r4|"))
+    finally:
+        if os.path.exists(path):
+            os.remove(path)
+    if params is None or cal._params_to_dict(params) != fit["params"]:
+        raise AssertionError("the saved calibration does not load back")
+    if other is not None:
+        raise AssertionError("a calibration loaded under another fingerprint")
+    for p in fit["points"]:
+        log(f"phase 15 calibration point {'*'.join(map(str, p['widths']))} "
+            f"at {p['nbytes']} bytes: measured {p['measured_us']:.1f} us "
+            f"(noise {p['noise_us']:.1f}), predicted "
+            f"{p['predicted_us']:.1f} us")
+    log(f"phase 15 calibration ({fit['fingerprint']}): "
+        f"{json.dumps(fit['params'])}; Spearman rho {fit['spearman']:.4f} "
+        f"(bar {SPEARMAN_BAR}), over the card's work; the wall-time fit "
+        f"(host dispatch included) has rho {wall['spearman']:.4f}; saved, "
+        f"loaded back equal, a miss under another fingerprint")
+    if not fit["spearman"] >= SPEARMAN_BAR:
+        raise AssertionError(f"Spearman rho {fit['spearman']} < "
+                             f"{SPEARMAN_BAR}")
+
+    # plan with the fitted constants and run the winner
+    plan = choose_topology(8, param_count * 4, params,
+                           ir_families=("swing", "generalized"))
+    log("phase 15 plan:\n" + plan.summary())
+    report = harness.run_allreduce_bench(harness.BenchConfig(
+        size=param_count, repeat=10, topo=plan.to_ft_topo(), devices=8,
+        device=str(dev)))
+    if not report.correct:
+        raise AssertionError(f"the planner's winner {plan.to_ft_topo()} is "
+                             f"not correct")
+    eight = {spec: ms for (spec, n), ms in times.items() if n == 8}
+    best = min(eight, key=eight.get)
+    won = report.result.median_s * 1e3
+    log(f"phase 15 planner winner {plan.to_ft_topo()}: "
+        f"{plan.candidates[0].total_us:.1f} us predicted, measured median "
+        f"{won:.3f} ms, correct; the fastest measured on 8 ranks is {best} "
+        f"at {eight[best]:.3f} ms (gap {won / eight[best]:.3f}x, printed, "
+        f"not gated)")
+    return launches, {"times_ms": times, "fit": fit, "wall_rho":
+                      wall["spearman"], "winner": plan.to_ft_topo(),
+                      "winner_ms": won, "best": best}
+
+
 def collective_phases(dev, bw) -> list:
-    """Phases 11-14 (the FlexTree collectives); returns their rows of the
+    """Phases 11-15 (the FlexTree collectives); returns their rows of the
     kernels line (``reduce_sources`` and ``reduce_stacked``, the fold
     kernel's two entry points, and ``copy``)."""
     from flextree_tpu_torch.backends import simulator as sim
@@ -1578,13 +1753,18 @@ def collective_phases(dev, bw) -> list:
                                      flat_mesh, rs, param_count)),
         (14, lambda: phase_dist(dev, harness, launch, allreduce_mod,
                                 flat_mesh)),
+        (15, lambda: phase_ir_families(
+            dev, harness, allreduce_mod, rs, flat_mesh, allreduce_over_mesh,
+            param_count, {(spec, r["ranks"]): r["median_ms"]
+                          for spec, r in out[13][2].items()})),
     ):
         t0 = time.monotonic()
         out[phase] = run()
         log(f"phase {phase}: {time.monotonic() - t0:.1f} s")
         torch.cuda.empty_cache()
     parity, ((times, copy_launches, stacked_launches), stage_rows), \
-        (launches, top, _) = out[11], out[12], out[13]
+        (launches, top, _), (ir_launches, _) = out[11], out[12], out[13], \
+        out[15]
     row = next(r for r in times if (r["W"], r["L"]) == top and r["op"] == "sum")
     stage = next(r for r in stage_rows if r["shape"] == "1")
     return [{
@@ -1592,7 +1772,7 @@ def collective_phases(dev, bw) -> list:
         "route": "cuda",
         "source": "flextree_tpu_torch/csrc/reduce_stacked.cu",
         "replaces": "flextree_tpu/ops/pallas_reduce.py:33",
-        "launches": launches,
+        "launches": launches + ir_launches,
         "max_abs_err": parity["max_abs_err"],
         "ms": stage["ms"],
         "plain_ms": stage["plain_ms"],

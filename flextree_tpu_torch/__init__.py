@@ -8,8 +8,8 @@ wrote a Pallas kernel for the TPU.  It imports ``torch`` and never ``jax``
 nor ``flextree_tpu``: what it needs of the JAX package it keeps as its own
 copy.
 
-Ported so far (the serving path, the dense train step on one card and
-the FlexTree collectives):
+Ported so far (the serving path, the dense train step on one card, the
+FlexTree collectives and their planner):
 
 - :mod:`.models` — the dense decoder LM's single-device forward (reference
   or flash attention), its cross-entropy loss, the contiguous KV cache,
@@ -24,11 +24,18 @@ the FlexTree collectives):
   they lie, one launch a stage, or one stacked fold), the CUDA kernel
   ``csrc/reduce_stacked.cu`` beside its plain versions;
 - :mod:`.schedule` and :mod:`.backends` — copies of the JAX package's
-  topology, block, plan and validation layer and of its NumPy simulator;
-- :mod:`.parallel` — the FlexTree collectives (``allreduce``) over an
-  in-process mesh of ranks (``mesh``) or ``torch.distributed``
-  (``launch``); the train step (``train``), the run loop (``loop``) and
-  the local-attention switch (``ring_attention``);
+  topology, block, plan and validation layer, of its schedule IR
+  (``schedule.ir``) and of its NumPy simulator; :mod:`.analysis` the
+  IR's model checker;
+- :mod:`.parallel` — the FlexTree collectives (``allreduce``, every
+  schedule model-checked before it runs, the swing and generalized
+  families on the pair-stage executor ``ir_lower``) over an in-process
+  mesh of ranks (``mesh``) or ``torch.distributed`` (``launch``); the
+  train step (``train``), the run loop (``loop``) and the local-attention
+  switch (``ring_attention``);
+- :mod:`.planner` — the cost model, the topology chooser (``python -m
+  flextree_tpu_torch.planner``) and its calibration, fitted on the card
+  by ``python -m flextree_tpu_torch.tools.calibrate_host``;
 - :mod:`.bench` — the benchmark CLI (``python -m
   flextree_tpu_torch.bench``): the allreduce, and the fold against the
   copy kernel ``csrc/copy.cu``; :mod:`.utils.timing` its timing loops;

@@ -36,7 +36,8 @@ def main(argv=None) -> int:
                     help="ranks of the in-process mesh (ignored with --dist)")
     ap.add_argument("--repeat", type=int, default=10)
     ap.add_argument("--topo", type=str, default=None,
-                    help="FT_TOPO-style widths, e.g. 4,2 or 3,2+1 or 1 (ring)")
+                    help="FT_TOPO-style widths, e.g. 4,2 or 3,2+1 or 1 (ring), "
+                    "or an IR family: swing, gen:4,2@2")
     ap.add_argument("--dtype", type=str, default="float32")
     ap.add_argument("--op", type=str, default="sum")
     ap.add_argument("--widths", type=str, default="2,4,8",

@@ -10,8 +10,10 @@ ceiling):
   (``benchmark.cpp:149-159``; CUDA events, :mod:`..utils.timing`), the
   reference's data rule and a hard correctness check
   (``benchmark.cpp:180-189``), bus bandwidth ``2(N-1)/N * S / t``
-  (:func:`bus_bandwidth_GBps`), result files named as the reference names
-  them (``benchmark.cpp:193-213``).  Ranks are an in-process mesh on one
+  (``planner.cost_model.bus_bandwidth_GBps``), result files named as the
+  reference names them (``benchmark.cpp:193-213``).  ``topo`` is any shape
+  ``allreduce`` takes, the IR families (``"swing"``, ``"gen:4,2@2"``)
+  included.  Ranks are an in-process mesh on one
   device (the JAX package's virtual devices), or, with ``dist=True``, the
   processes of the default ``torch.distributed`` group.  Only the FlexTree
   allreduce is timed: the JAX harness's ``xla`` baseline has no
@@ -49,6 +51,8 @@ from ..ops.reduce_stacked import (
     reduce_stacked_plain,
 )
 from ..parallel.mesh import allreduce_over_mesh, flat_mesh
+from ..planner.cost_model import bus_bandwidth_GBps
+from ..schedule.ir import is_ir_family_spec, resolve_collective
 from ..schedule.stages import Topology
 from ..utils.timing import BenchResult, time_fn, time_fn_inplace
 
@@ -68,6 +72,7 @@ __all__ = [
     "dist_allreduce_cases",
     "dist_bench",
     "CARD_MEMORY_RATE",
+    "DEVICE_HEAD_START_CYCLES",
 ]
 
 #: untimed calls after the first and before the timed ones
@@ -85,14 +90,6 @@ def torch_dtype(name: str) -> torch.dtype:
     if not isinstance(dt, torch.dtype):
         raise ValueError(f"unknown dtype {name!r}")
     return dt
-
-
-def bus_bandwidth_GBps(n: int, nbytes: int, time_us: float) -> float:
-    """Algorithmic (bus) bandwidth ``2(N-1)/N * S / t`` — the reporting
-    metric of BASELINE.md (a copy of ``planner/cost_model.py:488``)."""
-    if time_us <= 0 or n < 1:
-        return 0.0
-    return (2 * (n - 1) / n) * nbytes / (time_us * 1e3)
 
 
 def _memory_rate(device: torch.device) -> float | None:
@@ -199,7 +196,7 @@ class BenchConfig:
     size: int = 35  # elements per rank (reference default, benchmark.cpp:36)
     repeat: int = 10
     comm_type: str = "flextree"  # the port times the FlexTree allreduce
-    topo: str | None = None  # FT_TOPO-style spec; None -> env/flat
+    topo: str | None = None  # FT_TOPO-style spec or IR family; None -> env/flat
     devices: int | None = None  # ranks of the in-process mesh (None -> 8)
     dtype: str = "float32"
     op: str = "sum"
@@ -212,6 +209,16 @@ class BenchConfig:
     in_place: bool = True
     device: str | None = None  # None -> cuda; "cpu" to run on the host
     dist: bool = False  # ranks = the default process group's processes
+    # on the card, in-process mesh: each timed call is enqueued while the
+    # card spins (DEVICE_HEAD_START_CYCLES), so its events time the
+    # device's work and not the host's dispatch; a call still enqueueing
+    # when the spin ends raises
+    device_time: bool = False
+
+
+#: GPU cycles (~20 ms on an H100) the card spins before each timed call
+#: of a ``device_time`` run: longer than the host takes to enqueue a call
+DEVICE_HEAD_START_CYCLES = 40_000_000
 
 
 @dataclass(frozen=True)
@@ -290,7 +297,8 @@ def run_allreduce_bench(cfg: BenchConfig) -> BenchReport:
     """Time the FlexTree allreduce of ``cfg.size`` elements per rank and
     check its result: every rank's row bitwise identical, and equal to the
     op folded over the inputs on the host (float sums and products within
-    the fold-order bound of :func:`_matches`)."""
+    the fold-order bound of :func:`_matches`).  With ``cfg.device_time``
+    the times are the card's work alone (see :class:`BenchConfig`)."""
     if cfg.comm_type != "flextree":
         raise ValueError(f"unknown --comm-type {cfg.comm_type!r}: the port "
                          f"times the FlexTree allreduce only (flextree)")
@@ -304,7 +312,9 @@ def run_allreduce_bench(cfg: BenchConfig) -> BenchReport:
         n, rank = dist.get_world_size(), dist.get_rank()
     else:
         n, rank = cfg.devices or 8, None
-    topo = Topology.resolve(n, cfg.topo) if n > 1 else Topology.flat(1)
+    # IR families ("swing", "gen:4,2@2") resolve to their spec, and the
+    # report's topo names them by it
+    topo = resolve_collective(n, cfg.topo) if n > 1 else Topology.flat(1)
     data = _reference_rows(n, cfg.size, dtype)
     expect = _expected(data, rop)
 
@@ -312,18 +322,20 @@ def run_allreduce_bench(cfg: BenchConfig) -> BenchReport:
         from ..parallel.allreduce import allreduce
 
         x = data[rank].to(dev)
-        fn = lambda t: allreduce(t, None, topo=cfg.topo, op=rop)  # noqa: E731
-        timed = (lambda t: allreduce(t, None, topo=cfg.topo, op=rop, out=t)
+        fn = lambda t: allreduce(t, None, topo=topo, op=rop)  # noqa: E731
+        timed = (lambda t: allreduce(t, None, topo=topo, op=rop, out=t)
                  ) if cfg.in_place else fn
         before = dist.barrier
     else:
         mesh = flat_mesh(n, dev)
         x = data.to(dev)
-        fn = lambda t: allreduce_over_mesh(t, mesh, cfg.topo, rop)  # noqa: E731
-        timed = (lambda t: allreduce_over_mesh(t, mesh, cfg.topo, rop,
+        fn = lambda t: allreduce_over_mesh(t, mesh, topo, rop)  # noqa: E731
+        timed = (lambda t: allreduce_over_mesh(t, mesh, topo, rop,
                                                in_place=True)
                  ) if cfg.in_place else fn
         before = None
+        if cfg.device_time and dev.type == "cuda":
+            timed, before = _ahead_of_the_card(timed)
     if cfg.in_place:
         result = time_fn_inplace(timed, x.clone(), repeat=cfg.repeat,
                                  warmup=WARMUP, before=before)
@@ -355,6 +367,29 @@ def run_allreduce_bench(cfg: BenchConfig) -> BenchReport:
     return report
 
 
+def _ahead_of_the_card(fn):
+    """``fn`` and a ``before`` hook that starts the card spinning: each
+    call is enqueued behind the spin, and raises if the spin ended before
+    the host finished enqueueing it (its events would then time the
+    host)."""
+    done = torch.cuda.Event()
+    armed = []
+
+    def before():
+        torch.cuda._sleep(DEVICE_HEAD_START_CYCLES)
+        done.record()
+        armed.append(True)
+
+    def ahead(t):
+        out = fn(t)
+        if armed and armed.pop() and done.query():
+            raise RuntimeError("the card's head start ended before the call "
+                               "was enqueued: raise DEVICE_HEAD_START_CYCLES")
+        return out
+
+    return ahead, before
+
+
 # ------------------------------------------------------- dist test cases
 
 
@@ -363,8 +398,9 @@ def dist_allreduce_cases(rank: int, world: int, cases, device: str = "cpu"):
     (:func:`..parallel.launch.spawn` calls it).  ``cases``: ``(topo, count,
     op, dtype name, seed, chunks)``; this rank's input is :func:`seeded_row`.
     Returns per case the digests of ``allreduce``, of this rank's
-    ``reduce_scatter`` shard and of ``all_gather`` of that shard, and the
-    fold kernel's launches during the allreduce."""
+    ``reduce_scatter`` shard and of ``all_gather`` of that shard (None for
+    an IR family, which has no standalone phases), and the fold kernel's
+    launches during the allreduce."""
     from ..parallel.allreduce import all_gather, allreduce, reduce_scatter
 
     dev = torch.device(device)
@@ -376,6 +412,9 @@ def dist_allreduce_cases(rank: int, world: int, cases, device: str = "cpu"):
         reduce_sources.launches = 0
         full = allreduce(x, None, topo=topo, op=op, chunks=chunks)
         launches = reduce_sources.launches
+        if is_ir_family_spec(topo):
+            out.append((digest(full), None, None, launches))
+            continue
         shard = reduce_scatter(x, None, topo=topo, op=op)
         back = all_gather(shard, None, topo=topo, out_shape=(count,))
         out.append((digest(full), digest(shard), digest(back), launches))

@@ -53,21 +53,38 @@ What it computes follows the JAX package:
   rank's, across runs, across the two transports, across ``chunks``, and
   between ``all_gather(reduce_scatter(x))`` and ``allreduce(x)``.
 
-Not ported (each raises, naming its ROADMAP item): the IR families
-(``"swing"``, ``"gen:…"``) and lossy codecs.
+Every schedule is a verified IR program (``schedule/ir.py``), as in the
+JAX package: ``allreduce`` resolves ``topo`` through
+``schedule.ir.resolve_collective`` and runs it through
+``schedule.ir.compile_ir`` (emit, model-check, lower;
+``parallel/ir_lower.py``).  The tree, ring and lonely shapes lower to the
+walker below, bitwise and launch for launch what they ran before, and skip
+the round trip above ``FT_IR_ROUTE_MAX`` ranks; the IR families
+(``"swing"``, ``"gen:4,2@2"``, an ``IRFamilySpec`` or an ``IRProgram``)
+always take it and run the pair-stage executor, ``op="sum"`` only.
+
+Not ported (raises, naming its ROADMAP item): lossy codecs.
 """
 
 from __future__ import annotations
 
 import os
 from dataclasses import dataclass
+from functools import lru_cache
 from typing import NamedTuple
 
 import torch
 
 from ..ops.reduce import ReduceOp, get_op
 from ..ops.reduce_stacked import overlaps, reduce_sources
-from ..schedule.stages import FT_TOPO_ENV, LonelyTopology, Topology
+from ..schedule.ir import (
+    IRFamilySpec,
+    IRProgram,
+    compile_ir,
+    emit_ir,
+    resolve_collective,
+)
+from ..schedule.stages import LonelyTopology, Topology
 from .mesh import Mesh
 
 __all__ = [
@@ -84,7 +101,6 @@ __all__ = [
     "call_shape",
 ]
 
-_IR_FAMILIES = "ROADMAP.md, Queue 1: 'IR families and ir_lower'"
 _CODECS = "ROADMAP.md, Queue 1: 'Compressed collectives and error feedback'"
 
 
@@ -95,12 +111,20 @@ _CODECS = "ROADMAP.md, Queue 1: 'Compressed collectives and error feedback'"
 class Msg:
     """One message of a stage: ``src`` sends ``send`` into ``dst``'s
     ``recv``.  ``send`` is given where ``src`` runs in this process,
-    ``recv`` where ``dst`` does; both are contiguous and of one size."""
+    ``recv`` where ``dst`` does; both are contiguous and of one size.
+    ``tag`` tells apart a stage's messages between the same two ranks."""
 
     src: int
     dst: int
     send: torch.Tensor | None
     recv: torch.Tensor | None
+    tag: int = 0
+
+
+def _rank(key) -> int:
+    """The rank a fold of a stage's plan runs on: its key, or the key's
+    first item (a pair stage keys its folds by ``(rank, block)``)."""
+    return key if isinstance(key, int) else key[0]
 
 
 class MeshTransport:
@@ -118,14 +142,14 @@ class MeshTransport:
             m.recv.copy_(m.send)
 
     def sources(self, plan: dict, piece) -> dict:
-        """The sources of each fold of a stage, in fold order: ``plan[d]``
-        lists the ranks whose ``piece(s, d)`` rank ``d`` folds.  A piece on
-        ``d``'s device is read where it lies; one on another device is
-        first copied to ``d``'s (a message)."""
-        return {d: [t if t.device == self.devices[d] else
-                    t.to(self.devices[d])
-                    for t in (piece(s, d) for s in srcs)]
-                for d, srcs in plan.items()}
+        """The sources of each fold of a stage, in fold order: ``plan[k]``
+        lists the ranks whose ``piece(s, k)`` fold ``k`` reads, on rank
+        ``_rank(k)``.  A piece on that rank's device is read where it
+        lies; one on another device is first copied to it (a message)."""
+        return {k: [t if t.device == self.devices[_rank(k)] else
+                    t.to(self.devices[_rank(k)])
+                    for t in (piece(s, k) for s in srcs)]
+                for k, srcs in plan.items()}
 
 
 class DistTransport:
@@ -159,7 +183,7 @@ class DistTransport:
                 if self.host_staged and t.is_cuda:
                     t = t.cpu()  # gloo's send/recv take CPU tensors
                 ops.append(dist.P2POp(dist.isend, t.view(torch.uint8),
-                                      self._peer(m.dst), self.group))
+                                      self._peer(m.dst), self.group, m.tag))
             if m.dst == self.rank:
                 t = m.recv
                 if self.host_staged and t.is_cuda:
@@ -167,7 +191,7 @@ class DistTransport:
                     staged.append((t, buf))
                     t = buf
                 ops.append(dist.P2POp(dist.irecv, t.view(torch.uint8),
-                                      self._peer(m.src), self.group))
+                                      self._peer(m.src), self.group, m.tag))
         if ops:
             for req in dist.batch_isend_irecv(ops):
                 req.wait()
@@ -176,25 +200,25 @@ class DistTransport:
 
     def sources(self, plan: dict, piece) -> dict:
         """This rank's fold sources of a stage (see
-        :meth:`MeshTransport.sources`): its own piece in place, each
+        :meth:`MeshTransport.sources`): its own pieces in place, each
         other's received into a buffer shaped as its own piece (every rank
         of a fold is among its sources); the pieces other ranks' folds
         need from this rank are sent."""
-        me, msgs, got = self.rank, [], {}
-        for d, srcs in plan.items():
+        me, msgs, got, tags = self.rank, [], {}, {}
+        for k, srcs in plan.items():
+            d = _rank(k)
             for s in srcs:
-                if s == d:
+                if s == d or me not in (s, d):
                     continue
+                tag = tags[s, d] = tags.get((s, d), -1) + 1
                 if s == me:
-                    msgs.append(Msg(s, d, piece(s, d), None))
-                elif d == me:
-                    got[s] = torch.empty_like(piece(d, d))
-                    msgs.append(Msg(s, d, None, got[s]))
+                    msgs.append(Msg(s, d, piece(s, k), None, tag))
+                else:
+                    got[s, k] = torch.empty_like(piece(d, k))
+                    msgs.append(Msg(s, d, None, got[s, k], tag))
         self.run(msgs)
-        if me not in plan:
-            return {}
-        return {me: [piece(me, me) if s == me else got[s]
-                     for s in plan[me]]}
+        return {k: [piece(me, k) if s == me else got[s, k] for s in srcs]
+                for k, srcs in plan.items() if _rank(k) == me}
 
 
 def _exchange(tr, pairs, send, recv) -> None:
@@ -211,16 +235,16 @@ def _exchange(tr, pairs, send, recv) -> None:
 
 
 def _fold_stage(tr, rop: ReduceOp, plan: dict, piece, out) -> dict:
-    """One fold stage: each rank ``d`` of ``plan`` folds ``piece(s, d)``
-    for ``s`` in ``plan[d]``, in that order, into ``out(d)``.  The local
-    folds go to :func:`reduce_sources` together, one call per device
-    (one launch for a mesh on one card).  Returns ``{d: out(d)}`` for the
-    local ``d``."""
+    """One fold stage: each fold ``k`` of ``plan`` (on rank ``_rank(k)``)
+    folds ``piece(s, k)`` for ``s`` in ``plan[k]``, in that order, into
+    ``out(k)``.  The local folds go to :func:`reduce_sources` together,
+    one call per device (one launch for a mesh on one card).  Returns
+    ``{k: out(k)}`` for the local folds."""
     got = tr.sources(plan, piece)
-    outs = {d: out(d) for d in got}
+    outs = {k: out(k) for k in got}
     by_device: dict = {}
-    for d, sources in got.items():
-        by_device.setdefault(outs[d].device, []).append((sources, outs[d]))
+    for k, sources in got.items():
+        by_device.setdefault(outs[k].device, []).append((sources, outs[k]))
     for folds in by_device.values():
         reduce_sources(folds, rop)
     return outs
@@ -383,15 +407,48 @@ class _Call:
             res[self.tr.rank]
 
 
-def _resolve(n: int, topo):
-    if topo is None:
-        topo = os.environ.get(FT_TOPO_ENV, "")
-    if isinstance(topo, str):
-        name = topo.strip()
-        if name == "swing" or name.startswith("gen:"):
-            raise NotImplementedError(
-                f"the IR family {name!r} is not ported yet ({_IR_FAMILIES})")
-    return Topology.resolve(n, topo)
+#: Above this rank count ``allreduce`` skips the IR emit+verify round trip
+#: for the tree, ring and lonely shapes (emission is O(N^2) pure Python)
+#: and runs the identical walker directly; explicitly requested IR
+#: families (swing/generalized) take the IR route at any size.  Env
+#: override: ``FT_IR_ROUTE_MAX`` (0 disables the implicit IR route).
+IR_ROUTE_MAX_ENV = "FT_IR_ROUTE_MAX"
+
+
+def _ir_route_max() -> int:
+    try:
+        return int(os.environ.get(IR_ROUTE_MAX_ENV, "64"))
+    except ValueError:
+        return 64
+
+
+@lru_cache(maxsize=512)
+def _compile_cached(prog: IRProgram, op_name: str):
+    return compile_ir(prog, op=op_name)
+
+
+@lru_cache(maxsize=512)
+def _compiled(resolved, chunks: int, op_name: str):
+    """The lowered program of a resolved topology, keyed by the topology
+    (cheap to hash) rather than by its program."""
+    n = resolved.num_nodes
+    return compile_ir(emit_ir(resolved, count=n * n * max(1, chunks),
+                              chunks=chunks), op=op_name)
+
+
+def _ir_route(call, resolved, rop: ReduceOp, chunks: int, out):
+    """Verified-before-compiled execution: emit (or accept) the IR
+    program, model-check it, lower it (``schedule.ir.compile_ir``), run
+    it — the checker and the executor derive from the same object.
+    Emission, checks and lowering are memoized per (shape, chunks, op)."""
+    if isinstance(resolved, IRProgram):
+        return _compile_cached(resolved, rop.name).run(call, out)
+    eff_chunks = 1
+    if isinstance(resolved, Topology) and not resolved.is_ring and chunks > 1:
+        n = resolved.num_nodes
+        head = _split(next(iter(call.flat.values())).numel(), n)
+        eff_chunks = len(_chunk_sizes(head, n, chunks)) if head else 1
+    return _compiled(resolved, eff_chunks, rop.name).run(call, out)
 
 
 def _check_codec(codec) -> None:
@@ -488,14 +545,28 @@ class CallShape(NamedTuple):
 def call_shape(num_nodes: int, topo, count: int) -> CallShape:
     """Derive, from the topology alone, the fold stages and copies of one
     allreduce of ``count`` elements a rank over ``num_nodes`` ranks (``topo``
-    as :meth:`Topology.resolve` takes it).  A buddy fold is one 2-source
+    as :func:`allreduce` takes it).  A buddy fold is one 2-source
     fold of the whole head on every buddy; a tree stage of width w, one
     fold of w tiles on every tree rank; a ring step, one 2-source fold on
     every rank; the tail, one fold of all ranks' tails on every rank.  The
     fold stages copy nothing; the gather sends w - 1 messages to every
     tree rank a tree stage, one to every rank a ring step, one to every
-    lonely rank."""
-    topo = Topology.resolve(num_nodes, topo)
+    lonely rank.  An IR family's program (swing, generalized): one fold
+    stage a ``sum`` row, of one fold a receiving rank and block, whose W
+    is one plus the row's senders into that block; the fold hop, one
+    2-source fold of the whole head on every buddy; a message a block of
+    each ``copy`` row and one to every extra rank (the restore hop)."""
+    topo = resolve_collective(num_nodes, topo)
+    if isinstance(topo, IRProgram) and topo.topo is not None:
+        topo = topo.topo  # a tree, ring or lonely program runs the walker
+    if isinstance(topo, (IRFamilySpec, IRProgram)):
+        from .ir_lower import pair_call_shape
+
+        folds, messages, head = pair_call_shape(emit_ir(topo), count)
+        tail = num_nodes if head < count else 0
+        if tail:
+            folds.append((num_nodes, num_nodes, count - head))
+        return CallShape(folds, messages, messages + tail)
     lonely = isinstance(topo, LonelyTopology)
     tree = topo.tree if lonely else topo
     owners = tree.num_nodes
@@ -567,21 +638,29 @@ def allreduce(x, comm=None, topo=None, op="sum", chunks: int = 1, *,
     ``comm``: a :class:`~.mesh.Mesh` (``x`` is the list of its N ranks'
     tensors; returns a list) or a process group (``None``: the default
     group; ``x`` is this rank's tensor).  ``topo`` accepts what
-    ``Topology.resolve`` does (None -> ``FT_TOPO`` or flat; widths; a
-    ``"4,2"`` spec; ``"3,2+1"`` lonely specs; the ring ``"1"``).  A world
-    of one returns ``x`` (copied into ``out`` when given); the ring
-    sentinel runs the ring, a lonely shape
-    the buddy protocol, anything else the k-ary tree, ``chunks > 1``
+    ``schedule.ir.resolve_collective`` does (None -> ``FT_TOPO`` or flat;
+    widths; a ``"4,2"`` spec; ``"3,2+1"`` lonely specs; the ring ``"1"``;
+    the IR families ``"swing"`` and ``"gen:4,2@2"``, an ``IRFamilySpec``
+    or an ``IRProgram``).  A world of one returns ``x`` (copied into
+    ``out`` when given); the ring sentinel runs the ring, a lonely shape
+    the buddy protocol, an IR family its pair stages (``op="sum"`` only;
+    ``chunks`` ignored), anything else the k-ary tree, ``chunks > 1``
     splitting a tree's head into that many pieces run one after another
-    (the bits do not change).  ``out``: where the result goes (per rank on
-    a mesh; it may be ``x`` itself, the ``MPI_IN_PLACE`` path).
+    (the bits do not change).  Every schedule is model-checked before it
+    first runs (``schedule.ir.compile_ir``; above ``FT_IR_ROUTE_MAX``
+    ranks only the IR families are).  ``out``: where the result goes (per
+    rank on a mesh; it may be ``x`` itself, the ``MPI_IN_PLACE`` path).
     """
     call = _Call(x, comm)
     rop = get_op(op)
     rop.check_dtype(call.dtype)
     if call.n <= 1:
         return _world_of_one(call, x, out)
-    return _allreduce(call, _resolve(call.n, topo), rop, chunks, out)
+    resolved = resolve_collective(call.n, topo)
+    if isinstance(resolved, (IRFamilySpec, IRProgram)) or \
+            call.n <= _ir_route_max():
+        return _ir_route(call, resolved, rop, chunks, out)
+    return _allreduce(call, resolved, rop, chunks, out)
 
 
 def tree_allreduce(x, comm=None, topo=None, op="sum", chunks: int = 1, *,
@@ -595,8 +674,8 @@ def lonely_allreduce(x, comm=None, topo=None, op="sum", *, out=None):
     """Allreduce for ``"4,2+1"``-style shapes: the tree over the first ``m``
     ranks, each lonely rank ``m + i`` folded into buddy ``i`` first and
     handed the result after (JAX ``allreduce.py:280``); the < m-element
-    tail is one dense fold over all ranks.  A topology without lonely
-    ranks runs the tree."""
+    tail is one dense fold over all ranks.  Any other topology runs as
+    :func:`allreduce` runs it."""
     return allreduce(x, comm, topo, op, out=out)
 
 
@@ -625,7 +704,7 @@ def reduce_scatter(x, comm=None, topo=None, op="sum", codec=None):
     rop.check_dtype(call.dtype)
     if call.n <= 1:
         return call.give(call.flat)
-    topo = _resolve(call.n, topo)
+    topo = Topology.resolve(call.n, topo)
     tr = call.tr
     count = next(iter(call.flat.values())).numel()
     head = _split(count, _owners(topo))
@@ -664,7 +743,7 @@ def all_gather(x, comm=None, topo=None, out_shape=None, codec=None):
     if call.n <= 1:
         res = call.flat
     else:
-        topo = _resolve(call.n, topo)
+        topo = Topology.resolve(call.n, topo)
         owners = _owners(topo)
         shard_len = next(iter(call.flat.values())).numel()
         if count is None:

@@ -17,8 +17,10 @@ the retry budget raises :class:`BringupTimeout` carrying every attempt's
 error.  :func:`spawn` runs a function on N local processes, each brought
 up by :func:`init_distributed`, with a deadline on the whole world.
 
-Not ported: the degrade-to-survivors path (it needs the planner) and the
-hybrid DCN x ICI meshes, which are TPU-slice concepts.
+Not ported: the degrade-to-survivors path (its planner,
+``planner.choose.replan_for_survivors``, is ported; the bring-up that
+calls it is not) and the hybrid DCN x ICI meshes, which are TPU-slice
+concepts.
 """
 
 from __future__ import annotations

@@ -3,9 +3,11 @@
 The port's copy of the JAX package's ``flextree_tpu/schedule`` (widths,
 stage groups, block layout and the shard contract, per-rank plans and
 their validator), the analog of the reference's L2 layer
-(``mpi_mod.hpp:45-214, 882-929``).  The IR (``schedule/ir.py``) and the
-native planner bridge (``schedule/native.py``) are not ported (ROADMAP.md,
-Queue 1).
+(``mpi_mod.hpp:45-214, 882-929``), and of its declarative schedule IR
+(``ir``: the tree, ring, lonely, swing and generalized programs that
+``compile_ir`` model-checks before it lowers them).  The native planner
+bridge (``schedule/native.py``) is not ported (ROADMAP.md, Queue 1:
+'``schedule/native.py``').
 """
 
 from .stages import (
@@ -28,6 +30,24 @@ from .plan import (
     format_plan,
 )
 from .validate import ScheduleError, ValidationStats, validate, validate_ring, validate_topology
+from .ir import (
+    IR_FAMILIES,
+    IRFamilySpec,
+    IRProgram,
+    IRStage,
+    IRViolationError,
+    IRXfer,
+    compile_ir,
+    emit_ir,
+    generalized_ir,
+    lonely_ir,
+    parse_ir_family_spec,
+    resolve_collective,
+    ring_ir,
+    swing_ir,
+    tree_ir,
+    verify_ir,
+)
 
 __all__ = [
     "ScheduleError",
@@ -52,4 +72,20 @@ __all__ = [
     "owned_blocks",
     "ring_plan",
     "format_plan",
+    "IR_FAMILIES",
+    "IRFamilySpec",
+    "IRProgram",
+    "IRStage",
+    "IRViolationError",
+    "IRXfer",
+    "compile_ir",
+    "emit_ir",
+    "generalized_ir",
+    "lonely_ir",
+    "parse_ir_family_spec",
+    "resolve_collective",
+    "ring_ir",
+    "swing_ir",
+    "tree_ir",
+    "verify_ir",
 ]

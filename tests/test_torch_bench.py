@@ -49,6 +49,15 @@ def test_allreduce_cli_on_the_cpu_is_correct_with_the_jax_keys():
     assert len(payload["times_s"]) == 10
 
 
+@pytest.mark.parametrize("topo", ("swing", "gen:4,2@2"))
+def test_allreduce_cli_runs_an_ir_family_named_by_its_spec(topo):
+    out = cli("--device", "cpu", "--ranks", "8", "--topo", topo,
+              "--size", "1003", "--repeat", "3")
+    assert out.returncode == 0, out.stderr
+    payload = json.loads(out.stdout.strip().splitlines()[-1])
+    assert payload["correct"] is True and payload["topo"] == topo
+
+
 def test_reduce_cli_on_the_cpu_runs():
     out = cli("--bench", "reduce", "--device", "cpu", "--repeat", "3")
     assert out.returncode == 0, out.stderr

@@ -6,7 +6,9 @@ One spawn per world size (2, 4, 7, 8) runs every case inside the workers
 allreduce result, its ``reduce_scatter`` shard and the ``all_gather`` of
 that shard.  Held, bitwise: every rank's result is the in-process mesh's,
 every rank's shard is the mesh's shard of that rank, the gathered shard is
-the allreduce, and integer ops are the simulator's.  Also: the bench in
+the allreduce, and integer ops are the simulator's; the IR families
+(``swing``, ``gen:2,2@1``, sums only) on 4 ranks: every rank's allreduce
+is the mesh's, each sender's block crossing the wire.  Also: the bench in
 ``dist`` mode, and a bring-up against an absent coordinator, which raises
 ``BringupTimeout`` within its budget.  Every spawn has a deadline, kills
 stragglers and destroys its process groups."""
@@ -29,17 +31,21 @@ from flextree_tpu_torch.bench.harness import (
 from flextree_tpu_torch.parallel import allreduce as tar
 from flextree_tpu_torch.parallel import launch
 from flextree_tpu_torch.parallel.mesh import flat_mesh
+from flextree_tpu_torch.schedule.ir import is_ir_family_spec
 
-SPECS = {2: ("2", "1"), 4: ("4", "2,2", "1", "3+1"),
+SPECS = {2: ("2", "1"), 4: ("4", "2,2", "1", "3+1", "swing", "gen:2,2@1"),
          7: ("7", "1", "3,2+1"), 8: ("8", "4,2", "2,4", "2,2,2", "1")}
 OPS = (("sum", "float32"), ("sum", "bfloat16"), ("bxor", "int32"),
        ("max", "float64"), ("sum", "uint16"), ("band", "bool"))
 
 
 def cases(world):
+    """Every spec x count x op x dtype; the IR families (swing,
+    generalized) run ``op="sum"`` only."""
     return [(spec, count, op, dt, 11 * count + world, chunks)
             for spec in SPECS[world] for count in (1, 35, 64)
-            for op, dt in OPS for chunks in ((1, 3) if "," in spec else (1,))]
+            for op, dt in OPS if op == "sum" or not is_ir_family_spec(spec)
+            for chunks in ((1, 3) if "," in spec else (1,))]
 
 
 @pytest.mark.parametrize("world", sorted(SPECS))
@@ -50,8 +56,12 @@ def test_dist_equals_the_mesh_on_every_rank(world):
     for k, (spec, count, op, dt, seed, chunks) in enumerate(todo):
         x = seeded_rows(world, count, torch_dtype(dt), seed)
         full = tar.allreduce(list(x), mesh, spec, op, chunks=chunks)
-        shards = tar.reduce_scatter(list(x), mesh, spec, op)
         want = digest(full[0])
+        if is_ir_family_spec(spec):  # no standalone phases
+            assert all(got[r][k][:3] == (want, None, None)
+                       for r in range(world)), (spec, count, op, dt)
+            continue
+        shards = tar.reduce_scatter(list(x), mesh, spec, op)
         for r in range(world):
             full_d, shard_d, back_d, launches = got[r][k]
             assert full_d == want == back_d == digest(full[r]), (r, spec, count, op, dt)

@@ -19,6 +19,8 @@ FORBIDDEN = ("jax", "jaxlib", "flextree_tpu")
 def _port_sources():
     files = sorted(PKG.rglob("*.py"))
     assert len(files) >= 15, files
+    for sub in ("analysis", "planner", "tools", "schedule", "parallel"):
+        assert PKG / sub / "__init__.py" in files, sub
     return files + [ROOT / "chip_smoke.py", ROOT / "chip_flash_mutants.py"]
 
 
