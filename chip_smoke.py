@@ -39,8 +39,9 @@ failure raises and exits non-zero:
    and the contiguous-cache ``generate`` give the same greedy tokens;
 7. flash parity — each flash kernel (forward, dq, dk/dv) against its
    plain version on the same inputs, float32 and bfloat16, at the
-   training shape (B=8, T=1024, H=8, D=64), at B=4, T=4096, H=16, D=128
-   and on edge cases (ragged Tq, Tq != Tk with offsets, non-causal, rows
+   training shape (B=8, T=1024, H=8, D=64), at one rank's share of
+   phase 16's dp=8 step (B=1), at B=4, T=4096, H=16, D=128 and on edge
+   cases (ragged Tq, Tq != Tk with offsets, non-causal, rows
    that see no key, an lse cotangent): out within 2e-5 and grads within
    1e-4 in float32; in bfloat16, where both round at the same points,
    each element within 2**-5 of max(|ref|, rms(ref)) and the rms error
@@ -113,7 +114,35 @@ failure raises and exits non-zero:
     the wall time), saved, loaded back, refused under another
     fingerprint, with the Spearman rho of predicted against measured at
     least 0.8; the planner's winner over every shape and IR family run
-    correct, its time beside the fastest measured (printed, not gated).
+    correct, its time beside the fastest measured (printed, not gated);
+16. the bucketed DP sync and the DP train step — (a) the flagship's
+    gradient (34 leaves, seeded values) on 8 in-process ranks with
+    ``8``, ``4,2``, ``2,2,2`` and the ring, ``chunks=2`` on ``4,2``, on 7
+    with ``"3,2+1"``, and a small tree of float32 and bfloat16 leaves with
+    tails: every rank's leaves bitwise equal, the bucketed sync bitwise
+    the per-leaf sync, the fold kernel's launches those the plan derives
+    (``parallel.bucketing.sync_fold_stages``), one ``ft_bucket*`` range a
+    bucket under ``torch.profiler`` and the ``SpanLedger``'s bytes the
+    tree's, and the bucketed sync bitwise the same sync on host copies of
+    the trees, where the fold is the kernel's plain version; the plan
+    printed and ``run_grad_sync_bench`` (per-leaf
+    against fused, in turns; printed, not gated); (b) ``trainer.main
+    --mesh 8,1,1`` at the flagship width (bf16, flash, batch 8 x 1024, 20
+    steps, a checkpoint every 10): the loss finite and falling, the
+    checkpoint bitwise the live state, each flash kernel's launches
+    steps x layers x 8, the fold kernel's steps x the plan's; the steady
+    step and tokens/s beside the dp=1 step on the same global batch, in
+    turns (printed, not gated); (c) float32 at full width, one dp=8 step
+    against the dp=1 step on the same batch: the loss within rtol 1e-5 and
+    the synced gradients within atol 1e-5 and 2**-12 of the largest
+    gradient (checked, with the gradients' max and rms printed), the
+    ranks' gradients summed in rank order without the sync within that
+    bar and the same sum with a rank dropped or taken in bfloat16 outside
+    it (checked), the parameters' gap printed.
+
+The kernels line gives each kernel's launches by path
+(``launches_by_path``: serve, train, dp_train, allreduce, ir_families,
+reduce_bench) and their sum (``launches``).
 
 Prints each phase's seconds, a ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Exits
@@ -442,6 +471,8 @@ FLASH_REPLACES = (
 FLASH_TRAIN = (8, 1024, 8, 64)  # B, T, H, D of one layer of the train step
 FLASH_CASES = (
     ("train", 8, 1024, 1024, 8, 64, True, 0, 0, False),
+    # one rank's share of phase 16's dp=8 step
+    ("dp_rank", 1, 1024, 1024, 8, 64, True, 0, 0, False),
     ("long", 4, 4096, 4096, 16, 128, True, 0, 0, False),
     ("ragged", 2, 100, 100, 4, 64, True, 0, 0, False),
     ("cross", 2, 96, 200, 4, 64, True, 104, 0, False),
@@ -1715,6 +1746,376 @@ def phase_ir_families(dev, harness, ar, rs, flat_mesh, allreduce_over_mesh,
                       "winner_ms": won, "best": best}
 
 
+# phase 16: the bucketed DP sync and the DP train step
+SYNC_CASES = (("8", 8, 1), ("4,2", 8, 1), ("2,2,2", 8, 1), ("1", 8, 1),
+              ("4,2", 8, 2), ("3,2+1", 7, 1))  # (topology, ranks, chunks)
+# float32 and bfloat16 leaves, with tails on 8 ranks
+SMALL_TREE = (((1003,), torch.float32), ((7, 9), torch.bfloat16),
+              ((512,), torch.float32), ((5,), torch.bfloat16),
+              ((33, 4), torch.bfloat16), ((1,), torch.float32))
+DP = 8
+DP_STEPS = 20
+DP_ARGV = TRAIN_ARGV + ["--mesh", f"{DP},1,1"]
+DP_ARGV[DP_ARGV.index("--steps") + 1] = str(DP_STEPS)
+DP_TIMED = 6  # steady steps of each of dp=8 and dp=1, in turns
+
+
+def stage_launches(stages, max_pointers) -> int:
+    """Fold-kernel launches of ``(R, W, L)`` fold stages: one
+    ``reduce_sources`` call a stage, one launch for every
+    ``max_pointers // (W + 1)`` folds."""
+    return sum(-(-r // (max_pointers // (w + 1))) for r, w, _ in stages)
+
+
+def trees_identical(a_trees, b_trees, leaves) -> bool:
+    return all(same_bits(x, y) for ta, tb in zip(a_trees, b_trees)
+               for x, y in zip(leaves(ta), leaves(tb)))
+
+
+def check_sync(trees, spec, chunks, dev, flat_mesh, tm, bk, rs, spans):
+    """Phase 16(a), one case: per-leaf and bucketed syncs of the per-rank
+    ``trees``, the fold kernel's count set to 0 before and read after
+    each, the bucketed one under ``torch.profiler`` and a ``SpanLedger``;
+    then the bucketed sync again on CPU copies of the trees with the same
+    plan, where ``reduce_sources`` takes its plain fold, held bitwise.
+    Returns the plan, both launch counts and the tree's bytes a rank."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    n = len(trees)
+    mesh = flat_mesh(n, dev, "dp")
+    axes = ("dp",)
+    topos = tm.resolve_axis_topos(mesh, axes, spec)
+    leaves = tm.tree_leaves(trees[0])
+    nbytes = sum(g.numel() * g.element_size() for g in leaves)
+    buckets = bk.plan_buckets(leaves, [None] * len(leaves), axes,
+                              topos=topos, axis_sizes={"dp": n})
+    numels = [g.numel() for g in leaves]
+    want = (stage_launches(bk.sync_fold_stages(numels, n, topos["dp"]),
+                           rs.MAX_POINTERS),
+            stage_launches(bk.sync_fold_stages(numels, n, topos["dp"],
+                                               buckets, chunks),
+                           rs.MAX_POINTERS))
+    torch.cuda.synchronize()
+    rs.reduce_sources.launches = 0
+    per_leaf = tm.sync_grads(trees, None, axes, topos, bucket_bytes=0,
+                             comm=mesh)
+    torch.cuda.synchronize()
+    got = [rs.reduce_sources.launches]
+    rs.reduce_sources.launches = 0
+    with spans.span_ledger() as ledger, profile(activities=[
+            ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fused = tm.sync_grads(trees, None, axes, topos, bucket_bytes=None,
+                              chunks=chunks, comm=mesh)
+        torch.cuda.synchronize()
+    got.append(rs.reduce_sources.launches)
+    ranges = sum(1 for e in prof.events() if e.name.startswith("ft_bucket")
+                 and e.device_type == DeviceType.CPU)
+    what = f"{spec} on {n} ranks, chunks={chunks}"
+    if not trees_identical(per_leaf, [per_leaf[0]] * n, tm.tree_leaves):
+        raise AssertionError(f"{what}: the per-leaf sync's ranks differ")
+    if not trees_identical(fused, per_leaf, tm.tree_leaves):
+        raise AssertionError(f"{what}: the bucketed sync is not bitwise the "
+                             f"per-leaf sync")
+    if tuple(got) != want:
+        raise AssertionError(f"{what}: fold launches per-leaf and bucketed "
+                             f"{got}, the plan derives {want}")
+    if ranges != len(buckets) or len(ledger.names) != len(buckets) or \
+            ledger.total_bytes("ft_bucket") != nbytes:
+        raise AssertionError(
+            f"{what}: {ranges} ft_bucket ranges and spans {ledger.names} "
+            f"({ledger.total_bytes('ft_bucket')} B) for {len(buckets)} "
+            f"buckets of {nbytes} B")
+    # the kernel against its plain version at the buckets' shapes: the
+    # same sync on the host, the cap set to the card plan's largest bucket
+    # so the greedy packing makes the same plan
+    host = [tm.tree_map(lambda g: g.cpu(), t) for t in trees]
+    cap = max(b.nbytes for b in buckets)
+    if bk.plan_buckets(tm.tree_leaves(host[0]), [None] * len(leaves), axes,
+                       topos=topos, axis_sizes={"dp": n},
+                       bucket_bytes=cap) != buckets:
+        raise AssertionError(f"{what}: the host plan differs from the card's")
+    plain = tm.sync_grads(host, None, axes, topos, bucket_bytes=cap,
+                          chunks=chunks, comm=flat_mesh(n, "cpu", "dp"))
+    if not trees_identical([tm.tree_map(lambda g: g.cpu(), t) for t in fused],
+                           plain, tm.tree_leaves):
+        raise AssertionError(f"{what}: the bucketed sync on the fold kernel "
+                             f"is not bitwise its plain fold on the host")
+    return buckets, got, nbytes
+
+
+def dp_sync_checks(dev, shapes, flat_mesh, tm, bk, rs, spans):
+    """Phase 16(a): every sync case on seeded per-rank copies of the
+    flagship's gradient, then the small two-dtype tree."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+
+    def rank_trees(tree, n):
+        return [tm.tree_map(lambda p: torch.randn(
+            p.shape, generator=gen, device=dev).to(p.dtype), tree)
+            for _ in range(n)]
+
+    plans = {}
+    for spec, n, chunks in SYNC_CASES:
+        trees = rank_trees(shapes, n)
+        buckets, (per, fused), nbytes = check_sync(
+            trees, spec, chunks, dev, flat_mesh, tm, bk, rs, spans)
+        plans[spec, n, chunks] = buckets
+        log(f"phase 16 sync {spec} on {n} ranks, chunks={chunks}, the "
+            f"flagship's gradient ({len(tm.tree_leaves(shapes))} leaves, "
+            f"{nbytes} B a rank): every rank's leaves bitwise equal, "
+            f"bucketed == per-leaf bitwise; plan {len(buckets)} buckets of "
+            f"{[b.nbytes for b in buckets]} B, "
+            f"{[len(b.indices) for b in buckets]} leaves; fold launches "
+            f"per-leaf {per}, bucketed {fused}, as the plan derives; "
+            f"{len(buckets)} ft_bucket ranges under the profiler, the "
+            f"ledger's bytes the tree's; bitwise the same sync's plain fold "
+            f"on the host")
+        del trees
+        torch.cuda.empty_cache()
+    small = {f"leaf{i}": torch.empty(shape, dtype=dt, device=dev)
+             for i, (shape, dt) in enumerate(SMALL_TREE)}
+    buckets, (per, fused), nbytes = check_sync(
+        rank_trees(small, 8), "4,2", 1, dev, flat_mesh, tm, bk, rs, spans)
+    if sorted({b.dtype for b in buckets}) != ["bfloat16", "float32"]:
+        raise AssertionError(f"small tree: buckets {buckets}")
+    log(f"phase 16 sync 4,2 on 8 ranks, a small float32 + bfloat16 tree with "
+        f"tails ({nbytes} B a rank): bitwise as above, and the plain fold "
+        f"on the host; {len(buckets)} "
+        f"buckets by dtype {[(b.dtype, b.indices) for b in buckets]}; fold "
+        f"launches per-leaf {per}, bucketed {fused}")
+    return plans
+
+
+# phase 16(c)'s gradient bar: the JAX bar, or this share of the largest
+# dp=1 gradient where that is smaller; a sum with a rank dropped or taken
+# in bfloat16 must fail it
+GRAD_ATOL = 1e-5
+GRAD_REL = 2.0 ** -12
+
+
+def dp_grad_controls(tm, cfg, tc, dev, params, tokens, targets) -> dict:
+    """The DP step's gradient summed without the sync: each rank's rows
+    through the one-rank step (its loss over its own tokens), scaled by
+    1/dp (a power of two, so exactly its share of the global mean's
+    gradient), then summed leaf by leaf in rank order in float32, with
+    the last rank dropped, and in bfloat16."""
+    one_rank = tm.make_loss_and_grads(cfg, tc, device=dev)
+    rows = tokens.shape[0] // DP
+    shares = []
+    for r in range(DP):
+        cut = slice(r * rows, (r + 1) * rows)
+        _, g = one_rank(params, tokens[cut], targets[cut])
+        shares.append([x / DP for x in tm.tree_leaves(g)])
+        del g
+
+    def rank_sum(parts, dtype):
+        out = []
+        for i in range(len(parts[0])):
+            acc = parts[0][i].to(dtype)
+            for p in parts[1:]:
+                acc = acc + p[i].to(dtype)
+            out.append(acc.float())
+        return out
+
+    return {"plain rank-order sum": rank_sum(shares, torch.float32),
+            "last rank dropped": rank_sum(shares[:-1], torch.float32),
+            "bfloat16 sum": rank_sum(shares, torch.bfloat16)}
+
+
+def phase_dp(dev, fa, trainer, ckpt):
+    """Phase 16: (a) :func:`dp_sync_checks` and the per-leaf/fused bench;
+    (b) the DP train run through ``trainer.main --mesh 8,1,1``, the flash
+    and fold counts set to 0 just before and read just after, then its
+    steady step in turns with the dp=1 step; (c) float32 dp=8 against
+    dp=1, gated on the loss and the synced gradients, with sums that drop
+    a rank or add in bfloat16 shown to fail the gradient bar.  Returns the
+    launches of (b), the main path."""
+    import tempfile
+
+    from flextree_tpu_torch import data as data_mod
+    from flextree_tpu_torch.bench import harness
+    from flextree_tpu_torch.models.transformer import (
+        TransformerConfig,
+        init_params,
+        param_specs,
+    )
+    from flextree_tpu_torch.ops import reduce_stacked as rs
+    from flextree_tpu_torch.parallel import bucketing as bk
+    from flextree_tpu_torch.parallel import train as tm
+    from flextree_tpu_torch.parallel.mesh import flat_mesh
+    from flextree_tpu_torch.utils import profiling as spans
+
+    cfg = TransformerConfig(**MODEL)
+    shapes = init_params(cfg, torch.Generator().manual_seed(SEED),
+                         device=dev)
+    leaf_shapes = tuple(tuple(g.shape) for g in tm.tree_leaves(shapes))
+    dp_sync_checks(dev, shapes, flat_mesh, tm, bk, rs, spans)
+    bench = harness.run_grad_sync_bench(harness.GradSyncBenchConfig(
+        shapes=leaf_shapes, devices=DP, repeat=10, device=str(dev)))
+    rows = bench["rows"]
+    log(f"phase 16 grad-sync bench (flagship gradient, {DP} ranks, "
+        f"{bench['topo']}, {bench['n_buckets']} buckets of "
+        f"{bench['bucket_bytes']} B, in turns, {bench['config']['repeat']} "
+        f"rounds; printed, not gated): " + "; ".join(
+            f"{k} median {r['median_ms']:.3f} ms, min {r['min_ms']:.3f} ms"
+            for k, r in rows.items())
+        + f"; fused {rows['per_leaf']['median_ms'] / rows['ours_fused']['median_ms']:.2f}x "
+        f"per-leaf by the medians; all three bitwise equal")
+    torch.cuda.empty_cache()
+
+    # ---- (b) the DP train run through trainer.main, the main path
+    b, t = FLASH_TRAIN[:2]
+    layers = MODEL["n_layers"]
+    mesh = flat_mesh(DP, dev, "dp")
+    axes = tm.AXIS_NAMES
+    sizes = {"dp": DP, "sp": 1, "tp": 1}
+    topos = tm.resolve_axis_topos(sizes, axes, None)
+    leaves = tm.tree_leaves(shapes)
+    plan = bk.plan_buckets(leaves, bk.spec_leaves(shapes, param_specs(cfg)),
+                           axes, topos=topos, axis_sizes=sizes)
+    per_step = stage_launches(bk.sync_fold_stages(
+        [g.numel() for g in leaves], DP, topos["dp"], plan), rs.MAX_POINTERS)
+    with tempfile.TemporaryDirectory(prefix="ft-dp-") as ckpt_dir:
+        out: dict = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_flash_counts(fa)
+        rs.reduce_sources.launches = 0
+        t0 = time.monotonic()
+        trainer.main(DP_ARGV + ["--ckpt-dir", ckpt_dir], out=out)
+        torch.cuda.synchronize()
+        wall_s = time.monotonic() - t0
+        launches = flash_counts(fa)
+        launches["reduce_sources"] = rs.reduce_sources.launches
+        peak = torch.cuda.max_memory_allocated()
+        res = out["result"]
+        losses = [loss for _, loss in res.losses]
+        if len(losses) != DP_STEPS or not all(np.isfinite(losses)) or \
+                not losses[-1] < losses[0]:
+            raise AssertionError(f"dp train losses not finite and falling: "
+                                 f"{losses}")
+        want = DP_STEPS * layers * DP
+        if any(launches[k] != want for k in flash_counts(fa)):
+            raise AssertionError(f"flash launches {launches} != steps x "
+                                 f"layers x dp = {want}")
+        if launches["reduce_sources"] != DP_STEPS * per_step:
+            raise AssertionError(
+                f"fold launches {launches['reduce_sources']} != {DP_STEPS} "
+                f"steps x {per_step} (the plan's)")
+        saved = ckpt.restore_train_state(ckpt_dir, dev)
+        if not all(a.dtype == b_.dtype and torch.equal(a, b_) for a, b_ in
+                   zip(tm.tree_leaves(res.state), tm.tree_leaves(saved))):
+            raise AssertionError("the DP checkpoint does not restore bitwise")
+    # steady steps of dp=8 and dp=1 on the same global batch, in turns
+    data = np.random.default_rng(SEED).integers(
+        0, MODEL["vocab_size"], (2, b, t)).astype(np.int32)
+    steps = {"dp=8": tm.make_train_step(out["model_cfg"], out["train_cfg"],
+                                        comm=mesh),
+             "dp=1": tm.make_train_step(out["model_cfg"], out["train_cfg"],
+                                        device=dev)}
+    times = {k: [] for k in steps}
+    state = res.state
+    for i in range(DP_TIMED + 2):
+        for name, step in (list(steps.items()) if i % 2 else
+                           list(steps.items())[::-1]):
+            torch.cuda.synchronize()
+            t1 = time.monotonic()
+            _, m = step(state, data[0], data[1])
+            float(m["loss"])
+            times[name].append(time.monotonic() - t1)
+    med = {k: float(np.median(v[2:])) * 1e3 for k, v in times.items()}
+    log(f"phase 16 dp train (flagship, bf16, flash, global batch {b} x {t}, "
+        f"{DP} in-process ranks, {len(plan)} buckets of "
+        f"{[p.nbytes for p in plan]} B, grad_topo {topos['dp']}): "
+        f"{DP_STEPS} steps in {wall_s:.3f} s via trainer.main; loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; flash launches "
+        f"{ {k: launches[k] for k in flash_counts(fa)} } = {DP_STEPS} steps x "
+        f"{layers} layers x {DP} ranks; fold launches "
+        f"{launches['reduce_sources']} = {DP_STEPS} x {per_step} (the "
+        f"plan's); checkpoint restores bitwise; peak memory "
+        f"{peak / 2**30:.3f} GiB; steady step (median of {DP_TIMED}, in "
+        f"turns) dp=8 {med['dp=8']:.3f} ms = "
+        f"{b * t / med['dp=8'] * 1e3:.0f} tokens/s, dp=1 {med['dp=1']:.3f} "
+        f"ms = {b * t / med['dp=1'] * 1e3:.0f} tokens/s (printed, not "
+        f"gated)")
+    # where a dp=8 step's device time goes: the fold kernel, copy kernels
+    # (the gather phase, the buckets' packing and the model's dtype
+    # casts), the rest (the ranks' compute and AdamW)
+    fold_s, busy_s, prof_wall, counts = fold_share(
+        lambda: [steps["dp=8"](state, data[0], data[1])[1]["loss"].item()
+                 for _ in range(2)],
+        lambda: steps["dp=8"](state, data[0], data[1])[1]["loss"].item())
+    log(f"phase 16 dp=8 profile (2 steps, under torch.profiler): device "
+        f"busy {busy_s * 1e3 / 2:.3f} ms a step = "
+        f"{100 * busy_s / prof_wall:.1f}% of the wall; the fold kernel "
+        f"{fold_s * 1e3 / 2:.3f} ms a step ({counts['fold'] / 2:g} "
+        f"launches); launches a step: {counts['copy'] / 2:g} copy (the "
+        f"gather phase, the packing, dtype casts), {counts['other'] / 2:g} "
+        f"other")
+    del state, steps, res, out
+    torch.cuda.empty_cache()
+
+    # ---- (c) float32 at full width: dp=8 against dp=1 on one batch
+    f32 = TransformerConfig(**MODEL, dtype=torch.float32, attn_impl="flash")
+    tc = tm.TrainConfig()
+    dataset = data_mod.LMDataset(
+        data_mod.synthetic_tokens(200_000, MODEL["vocab_size"], seed=SEED),
+        batch=b, seq_len=t, seed=SEED)
+    tokens, targets = dataset.batch_at(0)
+    init = tm.init_train_state(TransformerConfig(**MODEL),
+                               torch.Generator().manual_seed(SEED),
+                               device=dev)
+    got = {}
+    for name, comm in (("dp=8", mesh), ("dp=1", None)):
+        loss, grads = tm.make_loss_and_grads(f32, tc, device=dev, comm=comm)(
+            init["params"], tokens, targets)
+        new, _ = tm.make_train_step(f32, tc, device=dev, comm=comm)(
+            init, tokens, targets)
+        # f32_gaps' layout: (losses, named params, each step's gradients)
+        got[name] = ([float(loss)], named_leaves(new["params"]),
+                     [tm.tree_leaves(grads)])
+        del grads, new
+    loss_rel, grad_abs, param_abs, misses = f32_gaps(got["dp=8"],
+                                                     got["dp=1"])
+    synced, base = got["dp=8"][2][0], got["dp=1"][2][0]
+    gmax = max(g.abs().max().item() for g in base)
+    grms = (sum(g.square().sum().item() for g in base)
+            / sum(g.numel() for g in base)) ** 0.5
+    bar = min(GRAD_ATOL, GRAD_REL * gmax)
+    controls = dp_grad_controls(tm, f32, tc, dev, init["params"], tokens,
+                                targets)
+    ctl_gaps = {k: max((a - b_).abs().max().item()
+                       for a, b_ in zip(c, base))
+                for k, c in controls.items()}
+    plain_bits = all(same_bits(a, b_) for a, b_ in
+                     zip(synced, controls["plain rank-order sum"]))
+    log(f"phase 16 f32 dp=8 vs dp=1 (one step, flash, global batch {b} x "
+        f"{t}, full width): loss {got['dp=8'][0]} vs {got['dp=1'][0]}, rel "
+        f"gap {loss_rel:.3g} (bar 1e-5); synced gradients: dp=1's max |g| "
+        f"{gmax:.4g}, rms {grms:.4g}; max abs gap {grad_abs:.3g} = "
+        f"{grad_abs / gmax:.3g} of max |g| (bar {bar:.3g}: {GRAD_ATOL:g}, "
+        f"the JAX bar, or {GRAD_REL:.3g} x max |g| if smaller); the ranks' "
+        f"gradients summed without the sync: "
+        + ", ".join(f"{k} gap {v:.3g} ({v / gmax:.3g} of max |g|)"
+                    for k, v in ctl_gaps.items())
+        + f"; the dp=8 sync is {'bitwise' if plain_bits else 'NOT bitwise'}"
+        f" the plain rank-order sum; after one AdamW step param max abs gap "
+        f"{param_abs:.3g} (the JAX bar 1e-5, printed: {len(misses)} leaves "
+        f"miss it; AdamW amplifies gaps where |g| is near eps)")
+    for m in misses:
+        log(f"  param over the bar: {m}")
+    if not (loss_rel <= 1e-5 and grad_abs <= bar
+            and ctl_gaps["plain rank-order sum"] <= bar):
+        raise AssertionError(
+            f"f32 dp=8 vs dp=1: loss rel {loss_rel} (bar 1e-5), grad abs "
+            f"{grad_abs}, the plain rank-order sum {ctl_gaps} (bar {bar})")
+    for k in ("last rank dropped", "bfloat16 sum"):
+        if not ctl_gaps[k] > bar:
+            raise AssertionError(f"the gradient bar {bar} passes a wrong "
+                                 f"sum ({k}: gap {ctl_gaps[k]})")
+    return launches
+
+
 def collective_phases(dev, bw) -> list:
     """Phases 11-15 (the FlexTree collectives); returns their rows of the
     kernels line (``reduce_sources`` and ``reduce_stacked``, the fold
@@ -1773,6 +2174,8 @@ def collective_phases(dev, bw) -> list:
         "source": "flextree_tpu_torch/csrc/reduce_stacked.cu",
         "replaces": "flextree_tpu/ops/pallas_reduce.py:33",
         "launches": launches + ir_launches,
+        "launches_by_path": {"allreduce": launches,
+                             "ir_families": ir_launches},
         "max_abs_err": parity["max_abs_err"],
         "ms": stage["ms"],
         "plain_ms": stage["plain_ms"],
@@ -1785,6 +2188,7 @@ def collective_phases(dev, bw) -> list:
         "source": "flextree_tpu_torch/csrc/reduce_stacked.cu",
         "replaces": "flextree_tpu/ops/pallas_reduce.py:33",
         "launches": stacked_launches,
+        "launches_by_path": {"reduce_bench": stacked_launches},
         "max_abs_err": parity["max_abs_err"],
         "ms": row["ms"],
         "plain_ms": row["plain_ms"],
@@ -1797,6 +2201,7 @@ def collective_phases(dev, bw) -> list:
         "source": "flextree_tpu_torch/csrc/copy.cu",
         "replaces": "tools/roofline_reduce.py:101",
         "launches": copy_launches,
+        "launches_by_path": {"reduce_bench": copy_launches},
         "max_abs_err": 0.0,
         "ms": row["copy_ms"],
         "plain_ms": row["copy_plain_ms"],
@@ -1940,6 +2345,7 @@ def model_phases(dev, bw, fp32_peak, bf16_peak) -> list:
         "source": "flextree_tpu_torch/csrc/paged_attention.cu",
         "replaces": "flextree_tpu/ops/paged_attention.py:183",
         "launches": launches,
+        "launches_by_path": {"serve": launches},
         "max_abs_err": times["max_abs_err"],
         "ms": times["ms"],
         "plain_ms": times["plain_ms"],
@@ -1952,6 +2358,7 @@ def model_phases(dev, bw, fp32_peak, bf16_peak) -> list:
         "source": f"flextree_tpu_torch/csrc/{name}.cu",
         "replaces": replaces,
         "launches": train["launches"][name],
+        "launches_by_path": {"train": train["launches"][name]},
         "max_abs_err": worst[name],
         "ms": ftimes[name]["ms"],
         "plain_ms": ftimes[name]["plain_ms"],
@@ -2190,6 +2597,18 @@ def main() -> int:
     rows = model_phases(dev, bw, fp32_peak, bf16_peak)
     log(f"phases 2-10: {time.monotonic() - t0:.1f} s")
     rows += collective_phases(dev, bw)
+    from flextree_tpu_torch import trainer
+    from flextree_tpu_torch.ops import flash_attention as fa
+    from flextree_tpu_torch.utils import checkpoint as ckpt
+
+    t0 = time.monotonic()
+    dp_launches = phase_dp(dev, fa, trainer, ckpt)
+    log(f"phase 16: {time.monotonic() - t0:.1f} s")
+    # each path's launches beside their sum
+    for row in rows:
+        if row["name"] in dp_launches:
+            row["launches_by_path"]["dp_train"] = dp_launches[row["name"]]
+        row["launches"] = sum(row["launches_by_path"].values())
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -13,7 +13,11 @@ set of the reference harness (``benchmark.cpp:67-116``):
   environment (or ``--cluster-config``), one process per rank;
 - ``--bench reduce``: the fold kernel at ``--widths`` sources of
   ``--size`` elements against its plain version, ``torch.sum`` and the
-  copy kernel (``tools/roofline_reduce.py``'s role).
+  copy kernel (``tools/roofline_reduce.py``'s role);
+- ``--bench grad-sync``: the bucketed gradient sync of ``--leaves``
+  leaves of ``--leaf-size`` float32 against the per-leaf sync over
+  ``--ranks`` in-process ranks, timed in turns (exits 1 if the two
+  differ in a bit).
 
 Runs on ``cuda`` unless ``--device cpu``; without a GPU and without
 ``--device cpu`` it raises.  Prints one JSON object; exits 1 when the
@@ -28,7 +32,7 @@ import json
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="flextree_tpu_torch.bench")
-    ap.add_argument("--bench", choices=["allreduce", "reduce"],
+    ap.add_argument("--bench", choices=["allreduce", "reduce", "grad-sync"],
                     default="allreduce")
     ap.add_argument("--size", type=int, default=35,
                     help="elements per rank (reduce: per source)")
@@ -42,6 +46,14 @@ def main(argv=None) -> int:
     ap.add_argument("--op", type=str, default="sum")
     ap.add_argument("--widths", type=str, default="2,4,8",
                     help="reduce: source counts W to time")
+    ap.add_argument("--leaves", type=int, default=48,
+                    help="grad-sync: gradient leaves")
+    ap.add_argument("--leaf-size", type=int, default=16384,
+                    help="grad-sync: float32 elements a leaf")
+    ap.add_argument("--chunks", type=int, default=2,
+                    help="grad-sync: the chunked row's pipelining factor")
+    ap.add_argument("--bucket-bytes", type=int, default=None,
+                    help="grad-sync: bucket cap (default: the planner's)")
     ap.add_argument("--device", type=str, default=None,
                     help="cuda (default) or cpu")
     ap.add_argument("--dist", action="store_true",
@@ -65,6 +77,14 @@ def main(argv=None) -> int:
             shapes=tuple((w, args.size) for w in widths), dtype=args.dtype,
             op=args.op, repeat=args.repeat, device=device)
         print(json.dumps(harness.run_reduce_bench(cfg)))
+        return 0
+    if args.bench == "grad-sync":
+        cfg = harness.GradSyncBenchConfig(
+            n_leaves=args.leaves, leaf_size=args.leaf_size,
+            devices=args.ranks, topo=args.topo, repeat=args.repeat,
+            chunks=args.chunks, bucket_bytes=args.bucket_bytes,
+            device=device)
+        print(json.dumps(harness.run_grad_sync_bench(cfg)))
         return 0
 
     cfg = harness.BenchConfig(

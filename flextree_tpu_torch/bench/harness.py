@@ -23,6 +23,10 @@ ceiling):
   function (``torch.sum(x, 0)``, ``amax``, ``amin``, ``prod``) and the
   copy kernel at the same bytes, each beside the least time the card
   could take.
+- :func:`run_grad_sync_bench` — the bucketed gradient sync against the
+  per-leaf one on an in-process mesh (the JAX harness's A/B of the same
+  name): per-leaf, fused and fused chunk-pipelined, timed in turns, and
+  the three results held bitwise equal;
 - :func:`hbm_copy` — the copy kernel ``csrc/copy.cu``, which replaces the
   Pallas ``copy_kernel`` of ``tools/roofline_reduce.py:101``: the measured
   streaming ceiling the fold is judged against.
@@ -71,6 +75,9 @@ __all__ = [
     "digest",
     "dist_allreduce_cases",
     "dist_bench",
+    "dist_train_steps",
+    "GradSyncBenchConfig",
+    "run_grad_sync_bench",
     "CARD_MEMORY_RATE",
     "DEVICE_HEAD_START_CYCLES",
 ]
@@ -174,7 +181,8 @@ def seeded_rows(n: int, count: int, dtype: torch.dtype,
 def digest(t: torch.Tensor) -> str:
     """sha256 of a tensor's bytes (the bitwise identity of a result)."""
     return hashlib.sha256(
-        t.detach().contiguous().cpu().view(torch.uint8).numpy().tobytes()
+        t.detach().contiguous().cpu().reshape(-1).view(torch.uint8).numpy()
+        .tobytes()
     ).hexdigest()
 
 
@@ -425,6 +433,163 @@ def dist_bench(rank: int, world: int, cfg: BenchConfig) -> dict:
     """:func:`run_allreduce_bench` on this rank of the default process
     group (``cfg.dist`` must be set); returns the report's payload."""
     return run_allreduce_bench(cfg).payload()
+
+
+def dist_train_steps(rank: int, world: int, model: dict, train: dict,
+                     batches, seed: int, device: str = "cpu"):
+    """Data-parallel train steps on this rank of the default process group
+    (:func:`..parallel.launch.spawn` calls it): the state from
+    ``init_train_state`` with a generator seeded by ``seed``,
+    ``TransformerConfig(**model)`` and ``TrainConfig(**train)``, then one
+    step a ``(tokens, targets)`` global batch.  Returns the digests of the
+    state's leaves (``tree_leaves`` order) and the step losses."""
+    import torch.distributed as dist
+
+    from ..models.transformer import TransformerConfig
+    from ..parallel.train import (
+        TrainConfig,
+        init_train_state,
+        make_train_step,
+        tree_leaves,
+    )
+
+    cfg, tc = TransformerConfig(**model), TrainConfig(**train)
+    state = init_train_state(cfg, torch.Generator().manual_seed(seed), tc,
+                             device=device)
+    step = make_train_step(cfg, tc, device=device, comm=dist.group.WORLD)
+    losses = []
+    for tokens, targets in batches:
+        state, metrics = step(state, tokens, targets)
+        losses.append(float(metrics["loss"]))
+    return [digest(t) for t in tree_leaves(state)], losses
+
+
+# ---------------------------------------------------------- gradient sync
+
+
+@dataclass(frozen=True)
+class GradSyncBenchConfig:
+    """The bucketed gradient sync against the per-leaf one.
+
+    ``n_leaves`` leaves of ``leaf_size`` float32 elements (the JAX
+    harness's many-small-leaves regime), or the leaf ``shapes`` given (a
+    model's gradient), on each of ``devices`` ranks (None: 8) of an
+    in-process mesh on ``device`` (None: ``cuda``)."""
+
+    n_leaves: int = 48
+    leaf_size: int = 16384  # float32 elements per leaf
+    shapes: tuple | None = None  # leaf shapes; replaces n_leaves x leaf_size
+    devices: int | None = None
+    topo: str | None = None  # FT_TOPO-style; None -> env/flat
+    repeat: int = 10
+    chunks: int = 2  # the ours_chunked row's pipelining factor
+    bucket_bytes: int | None = None  # None -> planner-derived
+    device: str | None = None
+
+
+def run_grad_sync_bench(cfg: GradSyncBenchConfig) -> dict:
+    """Rows ``per_leaf`` (one allreduce a leaf), ``ours_fused`` (bucketed)
+    and ``ours_chunked`` (bucketed, chunk-pipelined): min, mean and median
+    ms each, timed in turns (:func:`_interleaved_times`), the fused rows'
+    speedup over per-leaf, the bucket plan, and the check that every
+    rank's every leaf is bitwise the same in the three (the sync's
+    contract; raises otherwise)."""
+    from ..parallel.bucketing import plan_buckets
+    from ..parallel.train import resolve_axis_topos, sync_grads, tree_leaves
+
+    dev = resolve_device(cfg.device)
+    n = cfg.devices or 8
+    mesh = flat_mesh(n, dev, "dp")
+    axes = ("dp",)
+    topos = resolve_axis_topos(mesh, axes, cfg.topo)
+    shapes = cfg.shapes or ((cfg.leaf_size,),) * cfg.n_leaves
+    gen = torch.Generator(device=dev).manual_seed(0)
+    trees = [{f"leaf{i}": torch.randn(tuple(s), generator=gen, device=dev)
+              for i, s in enumerate(shapes)} for _ in range(n)]
+
+    def make_fn(bucket_bytes, chunks):
+        return lambda: sync_grads(trees, None, axes, topos,
+                                  bucket_bytes=bucket_bytes, chunks=chunks,
+                                  comm=mesh)
+
+    variants = {
+        "per_leaf": make_fn(0, 1),
+        "ours_fused": make_fn(cfg.bucket_bytes, 1),
+        "ours_chunked": make_fn(cfg.bucket_bytes, cfg.chunks),
+    }
+    outs = {name: [tree_leaves(t) for t in fn()]  # also the warm-up call
+            for name, fn in variants.items()}
+    identical = all(
+        torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+        for name in ("ours_fused", "ours_chunked")
+        for ra, rb in zip(outs["per_leaf"], outs[name])
+        for a, b in zip(ra, rb)
+    ) and all(torch.equal(a, b) for r in outs["per_leaf"][1:]
+              for a, b in zip(outs["per_leaf"][0], r))
+    del outs
+    if not identical:
+        raise RuntimeError("fused sync output diverged from per-leaf "
+                           "(bitwise)")
+    rows = _interleaved_times(variants, cfg.repeat, dev)
+    for name in rows:
+        if name != "per_leaf":
+            rows[name]["vs_per_leaf"] = (rows["per_leaf"]["min_ms"]
+                                         / rows[name]["min_ms"])
+    leaves = tree_leaves(trees[0])
+    buckets = plan_buckets(leaves, [None] * len(leaves), axes, topos=topos,
+                           axis_sizes={"dp": n},
+                           bucket_bytes=cfg.bucket_bytes)
+    return {
+        "config": dataclasses.asdict(cfg),
+        "num_devices": n,
+        "device": _device_info(dev),
+        "topo": str(topos["dp"]),
+        "total_mb": sum(g.numel() * g.element_size() for g in leaves) / 2**20,
+        "n_leaves": len(leaves),
+        "n_buckets": len(buckets),
+        "bucket_bytes": [b.nbytes for b in buckets],
+        "identical": identical,
+        "rows": rows,
+    }
+
+
+def _interleaved_times(calls: dict, repeat: int, device) -> dict:
+    """Each variant's min, mean and median ms over ``repeat`` rounds, one
+    call of every variant a round in a shuffled order (seeded), so that a
+    stretch of contention on a shared host lands on every variant and no
+    variant always follows the same one.  ``calls`` maps a name to a
+    warm, argument-free function; each call is host-timed to the device's
+    end (``torch.cuda.synchronize`` on a card)."""
+    import random
+
+    dev = torch.device(device)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    order = list(calls)
+    shuffler = random.Random(0)
+    times: dict[str, list[float]] = {name: [] for name in calls}
+    for _ in range(repeat):
+        shuffler.shuffle(order)
+        for name in order:
+            sync()
+            t0 = time.perf_counter()
+            calls[name]()
+            sync()
+            times[name].append(time.perf_counter() - t0)
+    return {
+        name: {
+            "min_ms": min(ts) * 1e3,
+            "avg_ms": sum(ts) / len(ts) * 1e3,
+            "median_ms": float(np.median(ts)) * 1e3,
+            # round i of every variant ran in the same shuffled round, so
+            # callers can pair them
+            "times_ms": [t * 1e3 for t in ts],
+        }
+        for name, ts in times.items()
+    }
 
 
 # ------------------------------------------------------------- the fold

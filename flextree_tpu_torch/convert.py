@@ -65,6 +65,6 @@ def train_state_from_numpy(tree: dict, device=None) -> dict:
 def train_state_to_numpy(state: dict) -> dict:
     """The port's train state as the JAX pytree of numpy arrays (host
     copies; ``step`` a 0-d int32 array)."""
-    from .parallel.train import tree_map
+    from .utils.tree import tree_map
 
     return tree_map(lambda t: t.detach().cpu().numpy().copy(), state)

@@ -21,12 +21,14 @@ from .transformer import (
     init_params,
     layer_forward,
     mlp_block,
+    param_specs,
     rms_norm,
 )
 
 __all__ = [
     "TransformerConfig",
     "init_params",
+    "param_specs",
     "cast_params",
     "rms_norm",
     "apply_rope",

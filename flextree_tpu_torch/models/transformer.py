@@ -30,6 +30,7 @@ import torch.nn.functional as F
 __all__ = [
     "TransformerConfig",
     "init_params",
+    "param_specs",
     "cast_params",
     "rms_norm",
     "apply_rope",
@@ -101,6 +102,20 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
             "w2": dense((ff, d), out_scale),
         })
     return params
+
+
+def param_specs(cfg: TransformerConfig, tp_axis: str | None = "tp") -> dict:
+    """The JAX ``param_specs`` in the port's spec form, a tuple of mesh-axis
+    names or ``None`` a dimension (JAX's ``PartitionSpec``), in the params'
+    layout: column-parallel weights name ``tp_axis`` on their output dim,
+    row-parallel ones on their input dim, the rest is replicated.  The
+    gradient sync reads from it which axes each leaf is replicated on."""
+    t = tp_axis
+    layer = {"ln1": (None,), "wq": (None, t), "wk": (None, t),
+             "wv": (None, t), "wo": (t, None), "ln2": (None,),
+             "w1": (None, t), "w2": (t, None)}
+    return {"embed": (None, None), "ln_f": (None,),
+            "layers": [dict(layer) for _ in range(cfg.n_layers)]}
 
 
 def cast_params(params: dict, dtype: torch.dtype, device) -> dict:

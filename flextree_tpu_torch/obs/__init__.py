@@ -1,5 +1,6 @@
-"""Telemetry the serving engine reports through: the metrics registry and
-the flight recorder (the port's copies of ``flextree_tpu.obs``'s)."""
+"""Telemetry the serving engine and the gradient sync report through: the
+metrics registry, the flight recorder and the bucket-plan provenance (the
+port's copies of ``flextree_tpu.obs``'s)."""
 
 from .metrics import (
     Counter,
@@ -8,6 +9,7 @@ from .metrics import (
     MetricsRegistry,
     WindowedHistogram,
 )
+from .provenance import bucket_provenance, topo_spec
 from .recorder import (
     FlightRecorder,
     current_recorder,
@@ -25,4 +27,6 @@ __all__ = [
     "current_recorder",
     "flight_recorder",
     "record_event",
+    "bucket_provenance",
+    "topo_spec",
 ]

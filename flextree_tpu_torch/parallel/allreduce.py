@@ -92,6 +92,7 @@ __all__ = [
     "tree_allreduce",
     "lonely_allreduce",
     "ring_allreduce",
+    "dense_allreduce",
     "reduce_scatter",
     "all_gather",
     "allgather",
@@ -99,6 +100,8 @@ __all__ = [
     "DistTransport",
     "CallShape",
     "call_shape",
+    "check_codec",
+    "chunk_sizes",
 ]
 
 _CODECS = "ROADMAP.md, Queue 1: 'Compressed collectives and error feedback'"
@@ -340,7 +343,7 @@ def _dense_tail(tails: dict, tr, rop: ReduceOp, dest: dict) -> None:
     """The < N-element tail: every rank folds all ranks' tails in rank
     order (the JAX ``_small_dense_allreduce``) into ``dest``.  In place
     (``dest[r]`` is ``x[r]``'s tail, which every rank's fold reads) the
-    tails are snapshot first; they are under N elements."""
+    tails are snapshot first."""
     if any(o.device == t.device and overlaps(o, t)
            for o in dest.values() for t in tails.values()):
         tails = {r: t.clone() for r, t in tails.items()}
@@ -447,11 +450,12 @@ def _ir_route(call, resolved, rop: ReduceOp, chunks: int, out):
     if isinstance(resolved, Topology) and not resolved.is_ring and chunks > 1:
         n = resolved.num_nodes
         head = _split(next(iter(call.flat.values())).numel(), n)
-        eff_chunks = len(_chunk_sizes(head, n, chunks)) if head else 1
+        eff_chunks = len(chunk_sizes(head, n, chunks)) if head else 1
     return _compiled(resolved, eff_chunks, rop.name).run(call, out)
 
 
-def _check_codec(codec) -> None:
+def check_codec(codec) -> None:
+    """Raise for a lossy codec: only the identity (``"f32"``) is ported."""
     if codec not in (None, "f32", "identity"):
         raise NotImplementedError(
             f"codec {codec!r} is not ported yet ({_CODECS})")
@@ -520,7 +524,7 @@ def _head_allreduce(heads: dict, tr, topo, rop: ReduceOp, dest: dict,
     count = next(iter(heads.values())).numel()
     whole = topo.is_ring or isinstance(topo, LonelyTopology)
     off = 0
-    for size in [count] if whole else _chunk_sizes(count, tr.size, chunks):
+    for size in [count] if whole else chunk_sizes(count, tr.size, chunks):
         piece = {r: h[off:off + size] for r, h in heads.items()}
         _gather(_scatter(piece, tr, topo, rop, in_place=topo.is_ring), tr,
                 topo, {r: d[off:off + size] for r, d in dest.items()})
@@ -591,7 +595,7 @@ def call_shape(num_nodes: int, topo, count: int) -> CallShape:
     return CallShape(folds, messages, messages + own + tail)
 
 
-def _chunk_sizes(total: int, n: int, chunks: int) -> list[int]:
+def chunk_sizes(total: int, n: int, chunks: int) -> list[int]:
     """Split ``total`` (a multiple of ``n``) into at most ``chunks``
     contiguous pieces, each a multiple of ``n``, sizes as balanced as
     possible (the JAX ``_chunk_sizes``)."""
@@ -689,6 +693,24 @@ def ring_allreduce(x, comm=None, op="sum", *, out=None):
     return _allreduce(call, Topology.ring(call.n), rop, 1, out)
 
 
+def dense_allreduce(x, comm=None, op="sum", *, out=None):
+    """Every rank folds all ranks' buffers in rank order: one fold of N
+    sources a rank, a stage of one :func:`reduce_sources` call on a mesh.
+    The fold :func:`allreduce` gives a tail, over a whole buffer: the
+    elementwise all-reduce that stands for the JAX package's native
+    ``psum`` (the gradient sync's ``"psum"`` sentinel, a bucket's fused
+    tails), the same bits on a mesh and on a process group.  See
+    :func:`allreduce` for ``comm`` and ``out``."""
+    call = _Call(x, comm)
+    rop = get_op(op)
+    rop.check_dtype(call.dtype)
+    if call.n <= 1:
+        return _world_of_one(call, x, out)
+    dest = call.out_buffers(out)
+    _dense_tail(call.flat, call.tr, rop, dest)
+    return call.give(dest, call.shape)
+
+
 def reduce_scatter(x, comm=None, topo=None, op="sum", codec=None):
     """Phase 1 alone: this rank's reduced shard of ``x``.
 
@@ -698,7 +720,7 @@ def reduce_scatter(x, comm=None, topo=None, op="sum", codec=None):
     replicated.  Lonely shapes split the head over the ``m`` tree ranks
     and lonely rank ``m + i`` holds a bitwise copy of buddy ``i``'s shard.
     On a mesh, returns the list of the N shards."""
-    _check_codec(codec)
+    check_codec(codec)
     call = _Call(x, comm)
     rop = get_op(op)
     rop.check_dtype(call.dtype)
@@ -736,7 +758,7 @@ def all_gather(x, comm=None, topo=None, out_shape=None, codec=None):
     length alone, so it is derived from ``out_shape`` when given (block =
     ``count // owners``); without it the shard is taken as a pure block.
     ``out_shape`` also restores the original shape."""
-    _check_codec(codec)
+    check_codec(codec)
     call = _Call(x, comm)
     count = None if out_shape is None else int(
         torch.Size(out_shape).numel())

@@ -1,0 +1,490 @@
+"""Gradient bucketing: the fused FlexTree gradient sync.
+
+The port's copy of ``flextree_tpu/parallel/bucketing.py``.  A transformer
+gradient hands the sync dozens of leaves, and every leaf synced alone pays
+a whole collective: its fold stages, its gather messages and the host's
+dispatch of each.  The bucketed sync packs the leaves into a few flat
+buffers and runs one FlexTree allreduce a bucket.  The bucket size comes
+from the planner (:func:`..planner.choose.choose_bucket_bytes`, the
+alpha-beta argmin over the cost model's constants), capped by the leaves'
+device: ``DEFAULT_MAX_BUCKET_BYTES`` on a card, ``CPU_MAX_BUCKET_BYTES``
+on the host (the JAX package's caps, chosen there by
+``jax.default_backend()``).
+
+Leaves fuse only when they agree on (replication axes, dtype)
+(:func:`replication_key`): a bucket runs one allreduce an axis, and its
+buffer has one dtype.
+
+**Bitwise identity** with the per-leaf sync is the contract (the per-leaf
+sync, ``bucket_bytes=0`` in ``train.sync_grads``, is its oracle).  It
+holds because every element keeps the fold order it had per leaf:
+
+- *tree stages* fold a group's members in group order at every position
+  of a tile, so packing leaves into one buffer changes no element's fold;
+- *tails*: each leaf's < N-element remainder is decided per leaf as
+  ``allreduce`` decides it, and the bucket's tails go, concatenated, to
+  one dense fold of every rank in rank order
+  (:func:`.allreduce.dense_allreduce`), which is the fold each leaf's
+  tail got alone.  The fused tails can exceed N elements, so handing them
+  to ``allreduce`` would run their head through the tree's order instead;
+- *the ring* folds block ``b`` in an order that depends on ``b``
+  (``allreduce._ring_rs``), so ring buckets pack block-interleaved: fused
+  block ``b`` is every leaf's block ``b``, one after another.
+
+A lonely shape (``"3,2+1"``) folds by position and so syncs per leaf, as
+in the JAX package.  The ``"psum"`` sentinel (a ``None`` topology) is
+the dense fold on both transports.  The sync is sum-only.
+
+The ranks are a :class:`~.mesh.Mesh` (this process runs every rank; the
+gradients are a list of one tree a rank) or a ``torch.distributed``
+process group (this process is one rank; the gradients are its tree), and
+one mesh axis of size above 1 spans them: data parallelism.  The sync is
+lossless: ``train.sync_grads`` refuses a lossy codec before it gets here.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Mapping, Sequence
+
+import torch
+
+from ..schedule.stages import LonelyTopology, Topology
+from ..utils.profiling import comm_span
+from ..utils.tree import tree_leaves, tree_unflatten
+from .allreduce import (
+    allreduce,
+    call_shape,
+    chunk_sizes,
+    dense_allreduce,
+)
+from .mesh import Mesh
+
+__all__ = [
+    "spec_axes",
+    "replication_key",
+    "spec_leaves",
+    "comm_axis_sizes",
+    "Bucket",
+    "plan_buckets",
+    "per_leaf_sync_grads",
+    "bucketed_sync_grads",
+    "sync_fold_stages",
+    "DEFAULT_MAX_BUCKET_BYTES",
+    "CPU_MAX_BUCKET_BYTES",
+    "WIDE_AXES_ITEM",
+]
+
+#: Cap on a planner-sized bucket on a card: a bucket holds one packed copy
+#: of its leaves, so an unbounded one would double the peak gradient memory
+DEFAULT_MAX_BUCKET_BYTES = 64 << 20
+
+#: The cap on the CPU: the JAX package measured 64-128 KiB buckets beating
+#: per-leaf sync inside the train step on a CPU host, one giant bucket
+#: losing (the pack, collective, unpack and AdamW chain must stay in cache)
+CPU_MAX_BUCKET_BYTES = 128 << 10
+
+#: the ROADMAP item a mesh axis other than dp above size 1 waits on
+WIDE_AXES_ITEM = \
+    "ROADMAP.md, Queue 1: 'Sequence, pipeline and expert parallelism'"
+
+
+def _default_max_bucket_bytes(leaves) -> int:
+    """The cap for the leaves' device: a card's, or the host's."""
+    on_card = any(getattr(g, "is_cuda", False) for g in leaves)
+    return DEFAULT_MAX_BUCKET_BYTES if on_card else CPU_MAX_BUCKET_BYTES
+
+
+def spec_axes(spec) -> tuple[str, ...]:
+    """The mesh axes a spec names (sorted): the axes the leaf is sharded
+    over.  A spec is a tuple with one entry a dimension, each ``None``, an
+    axis name or a tuple of names (JAX's ``PartitionSpec``); ``None`` is
+    fully replicated."""
+    names: set[str] = set()
+    for entry in tuple(spec) if spec is not None else ():
+        if entry is None:
+            continue
+        names.update(entry if isinstance(entry, (tuple, list)) else (entry,))
+    return tuple(sorted(names))
+
+
+def replication_key(spec, mesh_axes) -> tuple[str, ...]:
+    """The axes a leaf with ``spec`` is replicated on, in ``mesh_axes``
+    order: the axes its gradient is summed over, and its bucket group."""
+    used = set(spec_axes(spec))
+    return tuple(a for a in mesh_axes if a not in used)
+
+
+def spec_leaves(grads, pspecs) -> list:
+    """The spec of each leaf of ``grads`` in ``tree_leaves`` order, read
+    from ``pspecs`` up to the gradient tree's structure (a spec is itself a
+    tuple); ``pspecs=None``: every leaf replicated."""
+    out: list = []
+
+    def walk(g, s):
+        if isinstance(g, dict):
+            for k, v in g.items():
+                walk(v, s[k])
+        elif isinstance(g, (list, tuple)):
+            if len(g) != len(s):
+                raise ValueError("pspecs do not match the gradient tree")
+            for v, sv in zip(g, s):
+                walk(v, sv)
+        else:
+            out.append(s)
+
+    if pspecs is None:
+        return [None] * len(tree_leaves(grads))
+    walk(grads, pspecs)
+    return out
+
+
+def comm_axis_sizes(comm, mesh_axes) -> dict:
+    """The size of each of ``mesh_axes`` over ``comm``: a :class:`Mesh`
+    (its named axes; others are 1), a process group (the first axis spans
+    it) or ``None`` (one rank).  The axes of size above 1 must span the
+    ranks, and at most one may: data parallelism alone is ported."""
+    mesh_axes = tuple(mesh_axes)
+    if comm is None:
+        return {ax: 1 for ax in mesh_axes}
+    if isinstance(comm, Mesh):
+        named = dict(zip(comm.axis_names, comm.shape))
+        sizes = {ax: int(named.get(ax, 1)) for ax in mesh_axes}
+        ranks = comm.size
+    else:
+        import torch.distributed as dist
+
+        ranks = dist.get_world_size(comm)
+        sizes = {ax: ranks if i == 0 else 1 for i, ax in enumerate(mesh_axes)}
+    wide = [ax for ax in mesh_axes if sizes[ax] > 1]
+    if len(wide) > 1:
+        raise NotImplementedError(
+            f"axes {sizes}: more than one mesh axis above size 1 is not "
+            f"ported yet ({WIDE_AXES_ITEM})")
+    if math.prod(sizes.values()) != ranks:
+        raise ValueError(f"the axes {sizes} of {mesh_axes} do not span the "
+                         f"{ranks} ranks of {comm}")
+    return sizes
+
+
+@dataclasses.dataclass(frozen=True)
+class Bucket:
+    """One fused sync unit: ``indices`` into the flat gradient leaves, all
+    sharing ``axes`` (replication axes, mesh order) and ``dtype`` (the
+    numpy-style name, ``"float32"``, so plans compare across packages)."""
+
+    axes: tuple[str, ...]
+    dtype: str
+    indices: tuple[int, ...]
+    nbytes: int
+
+
+def _dtype_name(t) -> str:
+    return str(t.dtype).removeprefix("torch.")
+
+
+def plan_buckets(
+    leaves: Sequence[Any],
+    specs: Sequence[Any],
+    mesh_axes,
+    topos: Mapping[str, Any] | None = None,
+    axis_sizes: Mapping[str, int] | None = None,
+    bucket_bytes: int | None = None,
+    params=None,
+    max_bucket_bytes: int | None = None,
+) -> tuple[Bucket, ...]:
+    """Partition the flat gradient leaves (tensors; ``meta`` ones do) into
+    fused sync buckets.
+
+    Leaves group by ``(replication_key, dtype)`` in flat order; within a
+    group, consecutive leaves pack greedily until the bucket would pass
+    ``bucket_bytes``.  ``bucket_bytes=None`` derives the size a group from
+    the cost model (:func:`..planner.choose.choose_bucket_bytes` on the
+    group's topologies and bytes, with ``params``), capped at
+    ``max_bucket_bytes`` (None: the leaves' device's cap).  Axes of size 1
+    (``axis_sizes``) drop out of a key; a leaf sharded over every axis is
+    not synced and is in no bucket."""
+    if max_bucket_bytes is None:
+        max_bucket_bytes = _default_max_bucket_bytes(leaves)
+    groups: dict[tuple[tuple[str, ...], str], list[int]] = {}
+    for i, (g, spec) in enumerate(zip(leaves, specs)):
+        axes = replication_key(spec, mesh_axes)
+        if axes and axis_sizes is not None:
+            axes = tuple(a for a in axes if axis_sizes.get(a, 1) > 1)
+        if not axes:
+            continue
+        groups.setdefault((axes, _dtype_name(g)), []).append(i)
+
+    buckets: list[Bucket] = []
+    for (axes, dtype), idxs in groups.items():
+        sizes = [leaves[i].numel() * leaves[i].element_size() for i in idxs]
+        cap = bucket_bytes
+        if cap is None:
+            cap = _derived_bucket_bytes(
+                sum(sizes), len(idxs), axes, topos or {}, axis_sizes or {},
+                params, max_bucket_bytes)
+        cap = max(int(cap), 1)
+        cur: list[int] = []
+        cur_bytes = 0
+        for i, nb in zip(idxs, sizes):
+            if cur and cur_bytes + nb > cap:
+                buckets.append(Bucket(axes, dtype, tuple(cur), cur_bytes))
+                cur, cur_bytes = [], 0
+            cur.append(i)
+            cur_bytes += nb
+        if cur:
+            buckets.append(Bucket(axes, dtype, tuple(cur), cur_bytes))
+    return tuple(buckets)
+
+
+def _derived_bucket_bytes(total_bytes, n_leaves, axes, topos, axis_sizes,
+                          params, max_bucket_bytes):
+    """The planner's bucket size for one (axes, dtype) group: a bucket runs
+    one allreduce an axis, so the fixed cost the chooser amortizes is the
+    sum over the axes; the sentinel axis is priced as the flat tree."""
+    from ..planner.choose import choose_bucket_bytes
+
+    cost_topos = []
+    for ax in axes:
+        n = int(axis_sizes.get(ax, 0)) or None
+        topo = topos.get(ax)
+        if topo is None:
+            if n is None:
+                continue
+            topo = Topology.flat(n)
+        cost_topos.append(Topology.resolve(n or topo.num_nodes, topo))
+    if not cost_topos:
+        return max_bucket_bytes
+    derived = choose_bucket_bytes(total_bytes, cost_topos, n_leaves=n_leaves,
+                                  params=params)
+    return min(derived, max_bucket_bytes)
+
+
+# ------------------------------------------------------------ the sync
+
+
+class _Ranks:
+    """The ranks a sync runs over, as the collectives take them: on a mesh
+    a list of every rank's tensor, on a process group this rank's."""
+
+    def __init__(self, comm):
+        self.comm = comm
+        self.mesh = isinstance(comm, Mesh)
+        if self.mesh:
+            self.size = comm.size
+        else:
+            import torch.distributed as dist
+
+            self.size = dist.get_world_size(comm)
+
+    def run(self, fn, xs: list, **kw) -> list:
+        """``fn`` (a collective) over ``xs``, one tensor a local rank."""
+        got = fn(xs if self.mesh else xs[0], self.comm, **kw)
+        return list(got) if self.mesh else [got]
+
+
+def sync_leaf(ranks: _Ranks, xs: list, topo, chunks: int = 1) -> list:
+    """One leaf's sum over the ranks: the FlexTree ``allreduce`` on
+    ``topo``, or the dense fold for the ``"psum"`` sentinel (None)."""
+    if topo is None:
+        return ranks.run(dense_allreduce, xs)
+    return ranks.run(allreduce, xs, topo=topo, op="sum", chunks=chunks)
+
+
+def _unflatten_ranks(trees: list, flat: list, ranks: _Ranks):
+    """Each local rank's tree with its synced leaves, in the caller's form
+    (a list on a mesh, this rank's tree otherwise)."""
+    out = [tree_unflatten(t, f) for t, f in zip(trees, flat)]
+    return out if ranks.mesh else out[0]
+
+
+def per_leaf_sync_grads(grads, pspecs, mesh_axes, topos: Mapping[str, Any],
+                        chunks: int = 1, *, comm):
+    """The per-leaf sync, the bucketed sync's oracle: for each leaf, one
+    collective an axis it is replicated on, in ``mesh_axes`` order
+    (:func:`sync_leaf`).  Arguments as :func:`bucketed_sync_grads`."""
+    ranks = _Ranks(comm)
+    sizes = comm_axis_sizes(comm, mesh_axes)
+    trees = list(grads) if ranks.mesh else [grads]
+    flat = [tree_leaves(t) for t in trees]
+    for i, spec in enumerate(spec_leaves(trees[0], pspecs)):
+        xs = [f[i] for f in flat]
+        for ax in replication_key(spec, mesh_axes):
+            if sizes[ax] > 1:
+                xs = sync_leaf(ranks, xs, topos[ax], chunks)
+        for f, x in zip(flat, xs):
+            f[i] = x
+    return _unflatten_ranks(trees, flat, ranks)
+
+
+def _fused_native_psum(ranks: _Ranks, leaves: list) -> list:
+    """The sentinel axis on a whole bucket: the leaves packed into one
+    buffer a rank and one dense fold (elementwise, so packing keeps the
+    bits)."""
+    fused = [torch.cat([g.reshape(-1) for g in rl]) for rl in leaves]
+    red = ranks.run(dense_allreduce, fused)
+    del fused
+    sizes = [g.numel() for g in leaves[0]]
+    return [[p.view(g.shape) for p, g in zip(r.split(sizes), rl)]
+            for r, rl in zip(red, leaves)]
+
+
+def _fused_axis_allreduce(ranks: _Ranks, leaves: list, topo,
+                          chunks: int = 1) -> list:
+    """One FlexTree allreduce for a whole bucket: ``leaves[r]`` is local
+    rank r's list of the bucket's leaves.  The leaves' divisible heads go
+    to one scheduled collective (block-interleaved on the ring), their
+    < N-element remainders to one dense fold; see the module docstring for
+    why each packing keeps the bits.  Each buffer is packed fresh a rank
+    and dropped when its collective is done."""
+    n = ranks.size
+    if n <= 1:
+        return leaves
+    topo = Topology.resolve(n, topo)
+    count = len(leaves[0])
+    if isinstance(topo, LonelyTopology) or count == 1:
+        # a lonely shape folds by position: per leaf
+        cols = [sync_leaf(ranks, [rl[i] for rl in leaves], topo, chunks)
+                for i in range(count)]
+        return [[cols[i][r] for i in range(count)] for r in range(len(leaves))]
+
+    numels = [g.numel() for g in leaves[0]]
+    mains = [(s // n) * n for s in numels]
+    head_ids = [i for i, m in enumerate(mains) if m]
+    tail_ids = [i for i, (s, m) in enumerate(zip(numels, mains)) if s > m]
+    flats = [[g.reshape(-1) for g in rl] for rl in leaves]
+    heads: list[dict] = [{} for _ in leaves]
+    tails: list[dict] = [{} for _ in leaves]
+
+    if head_ids:
+        if topo.is_ring:
+            widths = [mains[i] // n for i in head_ids]
+            fused = [torch.cat([f[i][:mains[i]].view(n, -1) for i in head_ids],
+                               dim=1).view(-1) for f in flats]
+            red = ranks.run(allreduce, fused, topo=topo, op="sum")
+            del fused
+            for r, out in enumerate(red):
+                for i, piece in zip(head_ids, out.view(n, -1).split(widths, 1)):
+                    heads[r][i] = piece.reshape(-1)
+        else:
+            fused = [torch.cat([f[i][:mains[i]] for i in head_ids])
+                     for f in flats]
+            red = ranks.run(allreduce, fused, topo=topo, op="sum",
+                            chunks=chunks)
+            del fused
+            for r, out in enumerate(red):
+                pieces = out.split([mains[i] for i in head_ids])
+                heads[r].update(zip(head_ids, pieces))
+    if tail_ids:
+        fused = [torch.cat([f[i][mains[i]:] for i in tail_ids]) for f in flats]
+        red = ranks.run(dense_allreduce, fused)
+        del fused
+        for r, out in enumerate(red):
+            pieces = out.split([numels[i] - mains[i] for i in tail_ids])
+            tails[r].update(zip(tail_ids, pieces))
+
+    out = []
+    for r, rl in enumerate(leaves):
+        row = []
+        for i, g in enumerate(rl):
+            h, t = heads[r].get(i), tails[r].get(i)
+            if h is None and t is None:
+                row.append(g)  # a leaf of no elements
+            elif t is None:
+                row.append(h.view(g.shape))
+            elif h is None:
+                row.append(t.view(g.shape))
+            else:
+                row.append(torch.cat([h, t]).view(g.shape))
+        out.append(row)
+    return out
+
+
+def bucketed_sync_grads(grads, pspecs, mesh_axes, topos: Mapping[str, Any],
+                        bucket_bytes: int | None = None, chunks: int = 1,
+                        *, comm):
+    """The bucketed FlexTree gradient sync, the fused twin of
+    ``train.sync_grads``: each leaf summed over its replication axes,
+    bitwise what the per-leaf sync gives, in buckets x stages collectives
+    instead of leaves x stages.
+
+    ``comm``: a :class:`Mesh` (``grads`` is the list of its ranks' trees;
+    returns a list) or a process group (``grads`` is this rank's tree).
+    ``topos``: each axis' topology (``train.resolve_axis_topos``; None =
+    the ``"psum"`` sentinel).  ``bucket_bytes=None`` sizes the buckets by
+    the planner; ``chunks > 1`` runs each bucket's tree chunk-pipelined.
+    Each bucket's collectives on an axis run under one
+    :func:`~..utils.profiling.comm_span` named
+    ``ft_bucket{i}_{axis}_{k}leaves_{bytes}B``, with the plan's provenance
+    when a flight recorder is installed."""
+    from ..obs import bucket_provenance
+
+    ranks = _Ranks(comm)
+    trees = list(grads) if ranks.mesh else [grads]
+    flat = [tree_leaves(t) for t in trees]
+    specs = spec_leaves(trees[0], pspecs)
+    sizes = comm_axis_sizes(comm, mesh_axes)
+    buckets = plan_buckets(flat[0], specs, mesh_axes, topos=topos,
+                           axis_sizes=sizes, bucket_bytes=bucket_bytes)
+    for bi, b in enumerate(buckets):
+        leaves = [[f[i] for i in b.indices] for f in flat]
+        for ax in b.axes:
+            name = f"ft_bucket{bi}_{ax}_{len(b.indices)}leaves_{b.nbytes}B"
+            prov = bucket_provenance((ax,), topos, b.nbytes,
+                                     n_leaves=len(b.indices), dtype=b.dtype,
+                                     chunks=chunks)
+            with comm_span(name, provenance=prov):
+                if topos[ax] is None:
+                    leaves = _fused_native_psum(ranks, leaves)
+                else:
+                    leaves = _fused_axis_allreduce(ranks, leaves, topos[ax],
+                                                   chunks)
+        for f, rl in zip(flat, leaves):
+            for i, g in zip(b.indices, rl):
+                f[i] = g
+    return _unflatten_ranks(trees, flat, ranks)
+
+
+def _allreduce_folds(n: int, topo, count: int, chunks: int) -> list:
+    """The fold stages of one ``allreduce`` of ``count`` elements a rank:
+    :func:`.allreduce.call_shape`'s, a tree's head once a chunk."""
+    if topo is None:
+        return [(n, n, count)] if count else []
+    if topo.is_ring or isinstance(topo, LonelyTopology) or chunks <= 1:
+        return call_shape(n, topo, count).folds
+    head = (count // n) * n
+    folds = [f for size in (chunk_sizes(head, n, chunks) if head else [])
+             for f in call_shape(n, topo, size).folds]
+    return folds + ([(n, n, count - head)] if count > head else [])
+
+
+def sync_fold_stages(numels: Sequence[int], n: int, topo, buckets=None,
+                     chunks: int = 1) -> list:
+    """The fold stages, in order, of one sync over one axis of ``n`` ranks
+    that share a device, each ``(R folds, W sources, L elements)``: one
+    :func:`~..ops.reduce_stacked.reduce_sources` call (the count
+    ``allreduce.call_shape`` derives for one allreduce, over a sync).
+    ``numels``: the leaves' element counts; ``topo``: the axis' resolved
+    topology (None: the sentinel's dense fold); ``buckets``: a plan of
+    :func:`plan_buckets` (None: the per-leaf sync)."""
+    if n <= 1:
+        return []
+    groups = [[i] for i in range(len(numels))] if buckets is None else \
+        [list(b.indices) for b in buckets]
+    folds: list = []
+    for idxs in groups:
+        sizes = [int(numels[i]) for i in idxs]
+        if topo is None:
+            folds += _allreduce_folds(n, None, sum(sizes), chunks)
+        elif len(sizes) == 1 or isinstance(topo, LonelyTopology):
+            for size in sizes:
+                folds += _allreduce_folds(n, topo, size, chunks)
+        else:
+            heads = sum((s // n) * n for s in sizes)
+            tails = sum(sizes) - heads
+            if heads:
+                folds += _allreduce_folds(n, topo, heads, chunks)
+            if tails:
+                folds.append((n, n, tails))
+    return folds

@@ -1,7 +1,7 @@
-"""The dense train step on one card.
+"""The dense train step, on one card or data-parallel over N ranks.
 
-The single-device branch of ``flextree_tpu/parallel/train.py``'s
-``make_train_step``: forward, the summed cross entropy over the batch's
+The dense branch of ``flextree_tpu/parallel/train.py``'s
+``make_train_step``: forward, the summed cross entropy over the global
 token count, backward, the gradient sync, global-norm clipping and an
 inline AdamW (decoupled weight decay), all in float32 on the state.
 
@@ -11,22 +11,33 @@ The train state is the JAX package's pytree in the port's types —
 copy (:mod:`..convert`) and checkpoints in the same file format
 (:mod:`..utils.checkpoint`).
 
-The gradient sync is the seam the bucketed data-parallel sync fills, on
-the FlexTree collectives of :mod:`.allreduce`: :func:`sync_grads` at
-world size 1 is the identity, as the JAX sync is on a mesh of one device
-(``allreduce`` returns its input for ``n <= 1``).  What needs an unported
-module raises, naming its ROADMAP item: a lossy ``codec``, ``overlap``,
-``shard_optimizer`` and ``autotune``, and a sync over more than one rank
-(the bucketing of ``flextree_tpu/parallel/bucketing.py``).
-``grad_topo``, ``bucket_bytes`` and ``grad_chunks`` shape a multi-rank
-sync only and are inert here.
+Data parallelism: ``comm`` is an in-process :class:`~.mesh.Mesh` with a
+``"dp"`` axis (every rank in this process, on one device) or a
+``torch.distributed`` process group (this process is one rank).  As the
+JAX ``shard_map`` does, the global batch splits into contiguous row blocks
+over dp; each rank runs its own forward and backward with its loss
+divided by the global token count; the global loss is the ranks' losses
+summed in rank order; the ranks' gradient trees go through
+:func:`sync_grads`, the FlexTree sync (bucketed by default,
+:mod:`.bucketing`; every fold on the fold kernel); then clipping and
+AdamW.  On a mesh the synced trees are bitwise equal, so the step applies
+one update; on a process group each rank updates its own replica.  With
+no ``comm`` the step runs on one rank and the sync is the identity, as the
+JAX sync is on a mesh of one device.
+
+What needs an unported module raises, naming its ROADMAP item: a lossy
+``codec``, ``overlap``, ``shard_optimizer``, ``autotune`` and an ``sp`` or
+``tp`` axis above size 1.  An IR-family ``grad_topo`` (swing,
+generalized) raises ``TopologyError``, as the JAX train seam does.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
-from typing import Any
+import operator
+from typing import Any, Mapping
 
 import torch
 
@@ -35,13 +46,28 @@ from ..models.transformer import (
     cross_entropy_loss,
     forward,
     init_params,
+    param_specs,
 )
+from ..schedule.stages import Topology, TopologyError
+from ..utils.tree import tree_leaves, tree_map, tree_unflatten
+from .allreduce import check_codec
+from .bucketing import (
+    WIDE_AXES_ITEM,
+    bucketed_sync_grads,
+    comm_axis_sizes,
+    per_leaf_sync_grads,
+)
+from .mesh import Mesh
 
 __all__ = [
     "TrainConfig",
+    "AXIS_NAMES",
     "make_train_state",
     "init_train_state",
+    "make_loss_and_grads",
     "make_train_step",
+    "factor_devices",
+    "resolve_axis_topos",
     "sync_grads",
     "schedule_lr",
     "global_grad_norm",
@@ -50,7 +76,11 @@ __all__ = [
     "adamw_apply",
     "tree_map",
     "tree_leaves",
+    "tree_unflatten",
 ]
+
+#: the JAX train step's mesh axes: data, sequence and tensor parallelism
+AXIS_NAMES = ("dp", "sp", "tp")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,10 +106,6 @@ class TrainConfig:
     shard_optimizer: bool = False
 
 
-_BUCKETED_SYNC = ("ROADMAP.md, Queue 1: 'Bucketed data-parallel sync on the "
-                  "collectives'")
-
-
 def _refuse_unported(train_cfg: TrainConfig) -> None:
     """Raise for a config that needs a module the port does not have yet,
     naming the ROADMAP item it waits on."""
@@ -97,29 +123,6 @@ def _refuse_unported(train_cfg: TrainConfig) -> None:
                 f"TrainConfig {what} is not ported yet (ROADMAP.md, "
                 f"Queue 1: {item})"
             )
-
-
-# ------------------------------------------------------------- tree helpers
-
-
-def tree_map(fn, tree, *rest):
-    """``fn`` over the tensor leaves of dict/list/tuple trees of one
-    structure (the JAX ``jax.tree.map`` on the train-state layout)."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v, *(r[k] for r in rest))
-                for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        out = [tree_map(fn, v, *(r[i] for r in rest))
-               for i, v in enumerate(tree)]
-        return out if isinstance(tree, list) else tuple(out)
-    return fn(tree, *rest)
-
-
-def tree_leaves(tree) -> list:
-    """The leaves of a dict/list/tuple tree, in ``tree_map`` order."""
-    out: list = []
-    tree_map(out.append, tree)
-    return out
 
 
 # ------------------------------------------------------------------- state
@@ -152,17 +155,79 @@ def init_train_state(cfg: TransformerConfig, generator: torch.Generator,
 # ---------------------------------------------------------------- the step
 
 
-def sync_grads(grads, world_size: int = 1):
-    """The gradient sync: each leaf summed over the ranks it is
-    replicated on.  At world size 1 that sum is the leaf itself, so the
-    grads come back unchanged; more ranks need the bucketed sync, which is
-    not ported yet."""
-    if world_size > 1:
-        raise NotImplementedError(
-            f"gradient sync over {world_size} ranks is not ported yet "
-            f"({_BUCKETED_SYNC})"
-        )
-    return grads
+def factor_devices(n: int) -> tuple[int, int, int]:
+    """Split ``n`` devices into a (dp, sp, tp) shape, the JAX
+    ``factor_devices``: prime factors, largest first, dealt round-robin to
+    dp, sp, tp (8 -> (2, 2, 2), 4 -> (2, 2, 1), 7 -> (7, 1, 1))."""
+    from ..planner.factorize import prime_factors
+
+    dims = [1, 1, 1]
+    for i, f in enumerate(sorted(prime_factors(n), reverse=True)):
+        dims[i % 3] *= f
+    return tuple(dims)
+
+
+def resolve_axis_topos(mesh, mesh_axes, grad_topo) -> dict:
+    """Each axis' FlexTree topology for the gradient sync.
+
+    ``mesh``: a :class:`~.mesh.Mesh`, a process group (see
+    :func:`.bucketing.comm_axis_sizes`) or a mapping of axis sizes.
+    ``grad_topo``: one spec (used on each axis whose size its product
+    matches, flat elsewhere) or a dict ``{axis_name: spec}``; ``"psum"``
+    selects the dense fold of every rank (None in the result).  An IR
+    family raises ``TopologyError``, as the JAX train seam does."""
+    from ..schedule.ir import is_ir_family_spec
+
+    sizes = mesh if isinstance(mesh, Mapping) else \
+        comm_axis_sizes(mesh, mesh_axes)
+
+    def axis_topo(ax):
+        spec = grad_topo.get(ax) if isinstance(grad_topo, dict) else grad_topo
+        if spec == "psum":
+            return None
+        if is_ir_family_spec(spec):
+            raise TopologyError(
+                f"grad_topo {spec!r} on axis {ax!r}: IR families "
+                f"(swing/generalized) are not supported on the train sync "
+                f"seam yet — use a widths-vector spec or 'psum'")
+        n = int(sizes.get(ax, 1))
+        try:
+            return Topology.resolve(n, spec)
+        except TopologyError:
+            return Topology.flat(n)
+
+    return {ax: axis_topo(ax) for ax in mesh_axes}
+
+
+def sync_grads(grads, pspecs=None, mesh_axes=AXIS_NAMES, topos=None,
+               bucket_bytes: int | None = 0, chunks: int = 1, codec="f32",
+               *, comm=None):
+    """The FlexTree gradient sync: each leaf summed over the axes it is
+    replicated on (``pspecs``, the spec tree of :func:`param_specs`; None:
+    every leaf replicated).
+
+    ``comm``: None (one rank: ``grads`` comes back as it is), a
+    :class:`~.mesh.Mesh` (``grads`` is the list of its ranks' trees; returns
+    a list) or a process group (``grads`` is this rank's tree).  ``topos``:
+    each axis' topology (:func:`resolve_axis_topos`; None: resolved from
+    ``FT_TOPO`` or flat).  ``bucket_bytes=0`` syncs leaf by leaf, one
+    ``allreduce`` a leaf and axis (the dense fold for the ``"psum"``
+    sentinel): the oracle.  Any other value runs the bucketed sync
+    (:func:`.bucketing.bucketed_sync_grads`; None sizes the buckets by the
+    planner), bitwise equal to it.  ``chunks > 1`` runs tree collectives
+    chunk-pipelined (the bits do not change).  A lossy ``codec`` raises."""
+    check_codec(codec)
+    if comm is None:
+        return grads
+    sizes = comm_axis_sizes(comm, mesh_axes)
+    if topos is None:
+        topos = resolve_axis_topos(sizes, mesh_axes, None)
+    if bucket_bytes != 0:
+        return bucketed_sync_grads(grads, pspecs, mesh_axes, topos,
+                                   bucket_bytes=bucket_bytes, chunks=chunks,
+                                   comm=comm)
+    return per_leaf_sync_grads(grads, pspecs, mesh_axes, topos, chunks,
+                               comm=comm)
 
 
 def schedule_lr(train_cfg: TrainConfig, step):
@@ -189,10 +254,12 @@ def schedule_lr(train_cfg: TrainConfig, step):
 
 
 def global_grad_norm(grads):
-    """L2 norm over every leaf, in float32 (one device holds every leaf
-    whole, so no partial sums cross ranks)."""
-    total = sum(torch.sum(torch.square(g.float())) for g in tree_leaves(grads))
-    return torch.sqrt(total)
+    """The L2 norm over every leaf, in float32.  Data parallelism
+    replicates every leaf, so after the sync each rank holds every leaf
+    whole and the JAX function's per-axis sums of sharded leaves' squares
+    have nothing to sum."""
+    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                          for g in tree_leaves(grads)))
 
 
 def clip_by_global_norm(grads, norm, clip: float):
@@ -240,37 +307,119 @@ def adamw_apply(state: dict, grads, train_cfg: TrainConfig) -> dict:
             "nu": nu, "step": step}
 
 
-def make_train_step(model_cfg: TransformerConfig,
-                    train_cfg: TrainConfig = TrainConfig(), device=None):
-    """The train step ``(state, tokens, targets) -> (state, metrics)`` on
-    one device (default ``cuda``).
+def _global_loss(losses: list, comm):
+    """The ranks' losses summed in rank order, on every rank (the JAX
+    step's ``psum`` of the loss): on a process group the scalars are
+    gathered first (through host memory on gloo)."""
+    if comm is not None and not isinstance(comm, Mesh):
+        import torch.distributed as dist
 
-    ``tokens``/``targets``: (B, T) integer arrays or tensors.  ``metrics``:
-    ``{"loss"}`` the mean token loss, plus ``{"grad_norm"}`` (pre-clip)
-    when clipping is on, as 0-d float32 tensors on the device.  The step
-    reads ``state`` and returns a new one."""
+        mine = losses[0].reshape(1)
+        sent = mine.cpu() if dist.get_backend(comm) == "gloo" else mine
+        losses = [torch.empty_like(sent)
+                  for _ in range(dist.get_world_size(comm))]
+        dist.all_gather(losses, sent, group=comm)
+        losses = [t.to(mine.device).reshape(()) for t in losses]
+    return functools.reduce(operator.add, losses)
+
+
+def make_loss_and_grads(model_cfg: TransformerConfig,
+                        train_cfg: TrainConfig = TrainConfig(), device=None,
+                        comm=None):
+    """``(params, tokens, targets) -> (loss, grads)``: the global mean
+    token loss and the synced gradient tree, the first half of
+    :func:`make_train_step` (see it for ``comm``).  Each rank's loss
+    divides its summed cross entropy by the global token count, so the
+    synced gradient is the gradient of the global mean."""
     from ..device import resolve_device
 
     _refuse_unported(train_cfg)
     if model_cfg.d_model % model_cfg.n_heads:
         raise ValueError(f"n_heads={model_cfg.n_heads} must divide "
                          f"d_model={model_cfg.d_model}")
-    dev = resolve_device(device)
+    sizes = comm_axis_sizes(comm, AXIS_NAMES)
+    dp_axis, *others = AXIS_NAMES
+    wide = [ax for ax in others if sizes[ax] > 1]
+    if wide:
+        raise NotImplementedError(
+            f"mesh axes {sizes}: {wide} above size 1 is not ported yet "
+            f"({WIDE_AXES_ITEM})")
+    dp = sizes[dp_axis]
+    if isinstance(comm, Mesh):
+        if len(set(comm.devices)) != 1:
+            raise ValueError(f"the ranks of a data-parallel mesh share one "
+                             f"device; got {comm.devices}")
+        dev = comm.devices[0]
+        if device is not None and resolve_device(device) != dev:
+            raise ValueError(f"device={device!r}, but the mesh's ranks are "
+                             f"on {dev}")
+        local = range(dp)
+    else:
+        dev = resolve_device(device)
+        if comm is None:
+            local = [0]
+        else:
+            import torch.distributed as dist
 
-    def step(state, tokens, targets):
+            local = [dist.get_rank(comm)]
+    topos = resolve_axis_topos(sizes, AXIS_NAMES, train_cfg.grad_topo)
+    pspecs = param_specs(model_cfg, AXIS_NAMES[-1])
+
+    def rank_loss_and_grads(params, tokens, targets, n_total):
+        with torch.enable_grad():
+            leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
+            logits = forward(leaves, tokens.long(), model_cfg)
+            loss_sum, _ = cross_entropy_loss(logits, targets)
+            loss = loss_sum / n_total
+            flat = torch.autograd.grad(loss, tree_leaves(leaves))
+        return loss.detach(), tree_unflatten(params, flat)
+
+    def loss_and_grads(params, tokens, targets):
         tokens = torch.as_tensor(tokens, device=dev)
         targets = torch.as_tensor(targets, device=dev)
-        with torch.enable_grad():
-            params = tree_map(lambda p: p.detach().requires_grad_(),
-                              state["params"])
-            logits = forward(params, tokens.long(), model_cfg)
-            loss_sum, _ = cross_entropy_loss(logits, targets)
-            loss = loss_sum / tokens.numel()
-            leaves = tree_leaves(params)
-            flat = torch.autograd.grad(loss, leaves)
-        it = iter(flat)
-        grads = sync_grads(tree_map(lambda _: next(it), params))
-        metrics = {"loss": loss.detach()}
+        if tokens.shape[0] % dp:
+            raise ValueError(f"a batch of {tokens.shape[0]} rows does not "
+                             f"split over dp={dp}")
+        rows = tokens.shape[0] // dp
+        n_total = tokens.numel()  # the global count: local tokens x dp
+        losses, grads = [], []
+        for r in local:
+            cut = slice(r * rows, (r + 1) * rows)
+            loss, g = rank_loss_and_grads(params, tokens[cut], targets[cut],
+                                          n_total)
+            losses.append(loss)
+            grads.append(g)
+        synced = sync_grads(grads if isinstance(comm, Mesh) else grads[0],
+                            pspecs, AXIS_NAMES, topos,
+                            bucket_bytes=train_cfg.bucket_bytes,
+                            chunks=train_cfg.grad_chunks, comm=comm)
+        if isinstance(comm, Mesh):
+            synced = synced[0]  # every rank's tree is bitwise this one
+        return _global_loss(losses, comm), synced
+
+    return loss_and_grads
+
+
+def make_train_step(model_cfg: TransformerConfig,
+                    train_cfg: TrainConfig = TrainConfig(), device=None,
+                    comm=None):
+    """The train step ``(state, tokens, targets) -> (state, metrics)``.
+
+    ``comm``: None (one rank on ``device``, default ``cuda``), a
+    :class:`~.mesh.Mesh` whose ``"dp"`` axis spans its ranks, all on one
+    device (the step runs every rank, and ``device``, if given, must be
+    theirs), or a ``torch.distributed`` process group (this
+    process is one rank on ``device``; each rank passes the same global
+    batch).  ``tokens``/``targets``: the global (B, T) batch, B a multiple
+    of dp, as integer arrays or tensors.  ``metrics``: ``{"loss"}`` the
+    global mean token loss, plus ``{"grad_norm"}`` (pre-clip) when
+    clipping is on, as 0-d float32 tensors on the device.  The step reads
+    ``state`` and returns a new one."""
+    loss_and_grads = make_loss_and_grads(model_cfg, train_cfg, device, comm)
+
+    def step(state, tokens, targets):
+        loss, grads = loss_and_grads(state["params"], tokens, targets)
+        metrics = {"loss": loss}
         grads = maybe_clip_grads(grads, train_cfg, metrics)
         return adamw_apply(state, grads, train_cfg), metrics
 

@@ -293,7 +293,7 @@ def tree_phase_stages(
 
 
 def _chunk_sizes(total: int, n: int, chunks: int) -> list[int]:
-    """Mirror of ``parallel.allreduce._chunk_sizes`` (balanced contiguous
+    """Mirror of ``parallel.allreduce.chunk_sizes`` (balanced contiguous
     pieces, each a multiple of ``n``)."""
     blocks = total // n
     c = max(1, min(chunks, blocks))

@@ -1,24 +1,34 @@
-"""Training entry point on one card: ``python -m flextree_tpu_torch.trainer``.
+"""Training entry point: ``python -m flextree_tpu_torch.trainer``.
 
-The port's counterpart of ``python -m flextree_tpu.trainer --model dense``
-on one device: the dense LM trained on the synthetic corpus, with
-checkpoints and resume.  It takes the JAX trainer's flags with their
-defaults, plus ``--dtype`` for the compute dtype.  Examples::
+The port's counterpart of ``python -m flextree_tpu.trainer --model dense``:
+the dense LM trained on the synthetic corpus, with checkpoints and
+resume, on one rank or data-parallel over N in-process ranks.  It takes
+the JAX trainer's flags with their defaults, plus ``--dtype`` for the
+compute dtype.  Examples::
 
     # on the card (the default), flash attention, bf16 compute
     python -m flextree_tpu_torch.trainer --attn-impl flash --dtype bfloat16
 
-    # on the CPU (the flash kernels' plain versions)
-    python -m flextree_tpu_torch.trainer --cpu --attn-impl flash --steps 3
+    # 8 data-parallel ranks on the one card, the gradient on the bucketed
+    # FlexTree sync (--grad-topo 4,2 picks its shape)
+    python -m flextree_tpu_torch.trainer --mesh 8,1,1 --dtype bfloat16
 
-``--cpu`` is a switch (the port runs one rank).  A flag whose module is
-not ported yet raises ``NotImplementedError`` naming its ROADMAP item.
-The last line printed is the JAX trainer's.
+    # on the CPU (the kernels' plain versions), 2 ranks
+    python -m flextree_tpu_torch.trainer --cpu --mesh 2,1,1 --steps 3
+
+``--mesh dp,sp,tp`` or ``--devices N`` (split as the JAX
+``factor_devices`` splits it) give the ranks, all in this process on the
+one device; sp or tp above 1 is not ported.  ``--cpu`` is a switch.  A
+flag whose module is not ported yet raises ``NotImplementedError`` naming
+its ROADMAP item.  The last line printed is the JAX trainer's.  A
+data-parallel run checkpoints its replicated state, as the JAX trainer
+does.
 """
 
 from __future__ import annotations
 
 import argparse
+import math
 
 import torch
 
@@ -29,7 +39,8 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="flextree_tpu_torch.trainer",
-        description="Train the dense LM on one card.",
+        description="Train the dense LM on one card, on one rank or "
+        "data-parallel over in-process ranks.",
         epilog="The SIGTERM checkpoint guard of the JAX trainer "
         "(runtime/preemption.py) is not ported yet: a terminated run "
         "resumes from its last --ckpt-every checkpoint.",
@@ -67,17 +78,19 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--min-lr-frac", type=float, default=0.1,
                     help="cosine floor as a fraction of --lr")
     ap.add_argument("--grad-topo", type=str, default=None,
-                    help="FT_TOPO-style widths for the gradient allreduce "
-                    "(inert on one rank)")
+                    help="FT_TOPO-style widths for the gradient allreduce, "
+                    "or psum (the dense fold); inert on one rank")
     ap.add_argument("--codec", choices=["f32", "bf16", "int8"], default="f32")
     ap.add_argument("--autotune", action="store_true")
     ap.add_argument("--shard-optimizer", action="store_true")
     ap.add_argument("--overlap", action=argparse.BooleanOptionalAction,
                     default=False)
     ap.add_argument("--mesh", type=str, default=None,
-                    help="mesh shape; only one device (1,1,1) is ported")
+                    help="dp,sp,tp mesh shape of in-process ranks; only dp "
+                    "above 1 is ported (e.g. 8,1,1)")
     ap.add_argument("--devices", type=int, default=None,
-                    help="device count; only 1 is ported")
+                    help="rank count, split into (dp, sp, tp) as the JAX "
+                    "trainer splits it; only (N, 1, 1) is ported")
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU instead of the card")
     ap.add_argument("--corpus-tokens", type=int, default=200_000)
@@ -102,9 +115,25 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
+def _mesh_shape(args) -> tuple[int, int, int]:
+    """The (dp, sp, tp) shape from ``--mesh`` or ``--devices`` (one rank
+    when neither is given)."""
+    from .parallel.train import factor_devices
+
+    if args.mesh:
+        shape = tuple(int(x) for x in args.mesh.split(","))
+        if len(shape) != 3 or min(shape) < 1:
+            raise ValueError(f"--mesh {args.mesh}: want dp,sp,tp")
+        if args.devices is not None and args.devices != math.prod(shape):
+            raise ValueError(f"--mesh {args.mesh} does not cover --devices "
+                             f"{args.devices}")
+        return shape
+    return factor_devices(args.devices or 1)
+
+
 def _refuse_unported(args) -> None:
     """Raise for a flag whose module is not ported, naming its item."""
-    mesh = tuple(int(x) for x in args.mesh.split(",")) if args.mesh else None
+    shape = _mesh_shape(args)
     refusals = (
         (args.model != "dense", f"--model {args.model}",
          "'Sequence, pipeline and expert parallelism'"),
@@ -124,9 +153,8 @@ def _refuse_unported(args) -> None:
         (args.obs_dir is not None or args.flight_recorder,
          "--obs-dir/--flight-recorder",
          "'Checkpoint, supervision and feedback plumbing'"),
-        ((mesh is not None and any(n != 1 for n in mesh))
-         or args.devices not in (None, 1), "more than one device",
-         "'Bucketed data-parallel sync on the collectives'"),
+        (shape[1] > 1 or shape[2] > 1, f"a mesh of shape {shape} (sp or tp "
+         "above 1)", "'Sequence, pipeline and expert parallelism'"),
     )
     for bad, what, item in refusals:
         if bad:
@@ -147,9 +175,12 @@ def main(argv=None, *, out: dict | None = None) -> int:
     from .device import resolve_device
     from .models.transformer import TransformerConfig
     from .parallel.loop import FitConfig, fit
+    from .parallel.mesh import flat_mesh
     from .parallel.train import TrainConfig, init_train_state, make_train_step
 
     dev = resolve_device("cpu" if args.cpu else None)
+    dp = _mesh_shape(args)[0]
+    comm = flat_mesh(dp, dev, "dp") if dp > 1 else None
     cfg = TransformerConfig(
         vocab_size=args.vocab, d_model=args.d_model, n_heads=args.n_heads,
         n_layers=args.n_layers, d_ff=args.d_ff, dtype=_DTYPES[args.dtype],
@@ -171,7 +202,7 @@ def main(argv=None, *, out: dict | None = None) -> int:
         batch=args.batch, seq_len=args.seq_len, seed=args.seed,
     )
     result = fit(
-        state, make_train_step(cfg, tc, device=dev), dataset,
+        state, make_train_step(cfg, tc, device=dev, comm=comm), dataset,
         FitConfig(num_steps=args.steps, ckpt_dir=args.ckpt_dir,
                   ckpt_every=args.ckpt_every, log_every=args.log_every,
                   resume=not args.no_resume),
@@ -180,7 +211,7 @@ def main(argv=None, *, out: dict | None = None) -> int:
         out.update(result=result, model_cfg=cfg, train_cfg=tc)
     first = result.losses[0][1] if result.losses else float("nan")
     last = result.losses[-1][1] if result.losses else float("nan")
-    mesh = {"dp": 1, "sp": 1, "tp": 1}
+    mesh = {"dp": dp, "sp": 1, "tp": 1}
     print(
         f"{args.model}: {result.steps_run} steps on mesh {mesh}; loss "
         f"{first:.4f} -> {last:.4f}"

@@ -1,0 +1,128 @@
+"""Named communication spans and span ledgers.
+
+The port's copy of the part of ``flextree_tpu/utils/profiling.py`` that the
+bucketed gradient sync reaches:
+
+- :func:`comm_span` names one bucket's collectives: a
+  ``torch.profiler.record_function`` range (where JAX has
+  ``jax.named_scope``), so the bucket shows as one range over its fold and
+  copy kernels in a ``torch.profiler`` trace; it feeds every active
+  :class:`SpanLedger` and plan capture and the ambient flight recorder
+  (:func:`..obs.record_event`, a no-op while none is installed);
+- :class:`SpanLedger` / :func:`span_ledger` sum the ``_{n}B`` payload
+  suffixes of the spans entered (:func:`span_bytes`);
+  :func:`plan_capture` collects the spans that carry plan provenance.
+
+One difference from the JAX package: a JAX span fires once, while the
+step is traced, and never again for the compiled step; PyTorch runs
+eagerly, so a span fires and records on every call.  A ledger or
+capture therefore sees every bucket of every step run under it.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import re
+
+import torch
+
+__all__ = [
+    "comm_span",
+    "span_bytes",
+    "SpanLedger",
+    "span_ledger",
+    "plan_capture",
+]
+
+
+class SpanLedger:
+    """The names of the :func:`comm_span` scopes entered while it is active
+    (``with span_ledger() as ledger``).  Bucket-sync span names carry their
+    payload bytes as a ``_{nbytes}B`` suffix (``ft_bucket*``), so the
+    ledger attributes the bytes each bucket carried."""
+
+    def __init__(self):
+        self.spans: list[str] = []
+
+    def record(self, name: str) -> None:
+        self.spans.append(name)
+
+    @property
+    def names(self) -> tuple[str, ...]:
+        return tuple(self.spans)
+
+    def total_bytes(self, prefix: str = "") -> int:
+        """Sum of the ``_{n}B`` suffixes of recorded spans with ``prefix``."""
+        return sum(span_bytes(name) or 0 for name in self.spans
+                   if name.startswith(prefix))
+
+
+#: The byte-attribution suffix: the LAST ``_``-separated token must be
+#: exactly ``{digits}B``.  Anchored, so a name whose final token merely
+#: ends in ``B`` (``..._fooB``, ``..._0xB``) never counts.
+_BYTES_SUFFIX = re.compile(r"_(\d+)B$")
+
+
+def span_bytes(name: str) -> int | None:
+    """The ``_{n}B`` payload suffix of a span name, or None."""
+    m = _BYTES_SUFFIX.search(name)
+    return int(m.group(1)) if m else None
+
+
+_ACTIVE_LEDGERS: list[SpanLedger] = []
+
+#: active plan captures: every ``comm_span`` entered with a provenance
+#: payload appends ``(name, provenance)`` to each
+_ACTIVE_PLAN_CAPTURES: list[list] = []
+
+
+@contextlib.contextmanager
+def span_ledger():
+    """Collect every ``comm_span`` entered in this block into a
+    :class:`SpanLedger` (reentrant: nested ledgers all record)."""
+    ledger = SpanLedger()
+    _ACTIVE_LEDGERS.append(ledger)
+    try:
+        yield ledger
+    finally:
+        _ACTIVE_LEDGERS.remove(ledger)
+
+
+@contextlib.contextmanager
+def plan_capture():
+    """Collect every provenance-carrying ``comm_span`` entered in this
+    block as ``(name, provenance_dict)`` pairs: the bucket plan of the
+    steps run under it, one entry a bucket, axis and call."""
+    cap: list = []
+    _ACTIVE_PLAN_CAPTURES.append(cap)
+    try:
+        yield cap
+    finally:
+        _ACTIVE_PLAN_CAPTURES.remove(cap)
+
+
+@contextlib.contextmanager
+def comm_span(name: str, provenance: dict | None = None):
+    """A named communication span: a ``torch.profiler.record_function``
+    range over the collectives run inside it.
+
+    Each bucket of the fused gradient sync (:mod:`..parallel.bucketing`)
+    runs under an ``ft_bucket{i}_{axis}_{k}leaves_{bytes}B`` span.  The
+    span feeds the active :class:`SpanLedger`\\ s and the flight recorder:
+    ``provenance`` (the plan behind the span,
+    :func:`..obs.provenance.bucket_provenance`) makes the recorded event a
+    ``bucket_planned`` one carrying the plan and its predicted cost, and
+    feeds the active :func:`plan_capture`\\ s; without it the event is a
+    bare ``collective``."""
+    from ..obs import record_event
+
+    for ledger in _ACTIVE_LEDGERS:
+        ledger.record(name)
+    if provenance is not None:
+        for cap in _ACTIVE_PLAN_CAPTURES:
+            cap.append((name, provenance))
+        record_event("bucket_planned", name=name, **provenance)
+    else:
+        record_event("collective", name=name, bytes=span_bytes(name))
+    with torch.profiler.record_function(name):
+        yield

@@ -5,6 +5,7 @@ path matches the plain fold, the bus-bandwidth formula is the JAX
 package's, the timing loops count what they should, and without a GPU the
 CLI refuses to run unless asked for the CPU."""
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -18,6 +19,7 @@ from flextree_tpu.bench import harness as jharness
 from flextree_tpu.planner.cost_model import bus_bandwidth_GBps as j_bus
 from flextree_tpu.utils.timing import BenchResult as JBenchResult
 from flextree_tpu_torch.bench import harness
+from flextree_tpu_torch.schedule.stages import TopologyError
 from flextree_tpu_torch.utils import timing
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -65,6 +67,37 @@ def test_reduce_cli_on_the_cpu_runs():
     assert [r["W"] for r in doc["rows"]] == [2, 4, 8]
     assert all(r["bitwise_vs_plain"] and r["bound_ms"] is None
                for r in doc["rows"])
+
+
+def test_grad_sync_cli_on_the_cpu_has_the_jax_rows():
+    """The ``--bench grad-sync`` mode: the JAX harness's rows and keys,
+    the three syncs bitwise equal, the bucket plan."""
+    out = cli("--bench", "grad-sync", "--device", "cpu", "--ranks", "8",
+              "--topo", "4,2", "--leaves", "12", "--leaf-size", "1003",
+              "--repeat", "3")
+    assert out.returncode == 0, out.stderr
+    doc = json.loads(out.stdout.strip().splitlines()[-1])
+    assert set(doc["rows"]) == {"per_leaf", "ours_fused", "ours_chunked"}
+    assert {"min_ms", "avg_ms", "times_ms"} <= set(doc["rows"]["per_leaf"])
+    assert "vs_per_leaf" in doc["rows"]["ours_fused"]
+    # every JAX field but the lossy codecs' rows, which wait for their
+    # ROADMAP item
+    assert set(dataclasses.asdict(jharness.GradSyncBenchConfig())) - \
+        {"codecs"} <= set(doc["config"])
+    assert doc["identical"] is True and doc["topo"] == "4*2"
+    assert doc["n_buckets"] == len(doc["bucket_bytes"]) >= 1
+    assert sum(doc["bucket_bytes"]) == 12 * 1003 * 4
+
+
+def test_grad_sync_bench_on_leaf_shapes_and_refusals():
+    doc = harness.run_grad_sync_bench(harness.GradSyncBenchConfig(
+        shapes=((5, 7), (13,), (2, 2)), devices=7, topo="3,2+1", repeat=2,
+        bucket_bytes=1 << 20, device="cpu"))
+    assert doc["n_leaves"] == 3 and doc["n_buckets"] == 1
+    assert doc["identical"] and doc["num_devices"] == 7
+    with pytest.raises(TopologyError, match="IR families"):
+        harness.run_grad_sync_bench(harness.GradSyncBenchConfig(
+            topo="swing", device="cpu"))
 
 
 def test_cli_without_a_gpu_refuses_unless_asked_for_the_cpu():

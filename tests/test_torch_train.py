@@ -218,10 +218,18 @@ def test_unported_train_config_features_refuse(field):
 
 
 def test_sync_grads_is_the_identity_on_one_rank_only():
+    """No comm (one rank): the grads themselves; a mesh of two ranks sums
+    every leaf over them (per leaf and bucketed alike)."""
+    from flextree_tpu_torch.parallel.mesh import flat_mesh
+
     grads = {"w": torch.ones(3)}
     assert ttrain.sync_grads(grads) is grads
-    with pytest.raises(NotImplementedError, match="collectives"):
-        ttrain.sync_grads(grads, world_size=2)
+    two = [{"w": torch.arange(3.0)}, {"w": torch.full((3,), 10.0)}]
+    for bucket_bytes in (0, None):
+        synced = ttrain.sync_grads(two, bucket_bytes=bucket_bytes,
+                                   comm=flat_mesh(2, "cpu", "dp"))
+        for tree in synced:
+            assert torch.equal(tree["w"], torch.tensor([10.0, 11.0, 12.0]))
 
 
 def test_model_refuses_parallel_axes_and_stray_attn_opts(jax_state):

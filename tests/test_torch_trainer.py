@@ -272,12 +272,32 @@ def test_trainer_cli_flash_on_cpu(tmp_path, capsys):
     ["--model", "moe"], ["--model", "pipeline"], ["--codec", "int8"],
     ["--codec", "bf16"], ["--overlap"], ["--shard-optimizer"],
     ["--autotune"], ["--feedback-every", "2"], ["--heartbeat-dir", "hb"],
-    ["--step-timeout", "5"], ["--obs-dir", "obs"], ["--mesh", "2,1,1"],
-    ["--devices", "4"],
+    ["--step-timeout", "5"], ["--obs-dir", "obs"], ["--mesh", "1,2,1"],
+    ["--devices", "4"], ["--mesh", "2,1,2"],
 ])
 def test_trainer_cli_refuses_unported_flags(flags):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         trainer.main(_SMALL + flags)
+
+
+def test_trainer_cli_data_parallel_on_cpu(tmp_path, capsys):
+    """``--mesh 2,1,1`` trains on 2 in-process ranks (``--devices 2`` is the
+    same shape) through the bucketed FlexTree sync: the closing line names
+    the mesh, and the checkpoint is the replicated state, which resumes."""
+    ckpt = str(tmp_path / "ck")
+    out: dict = {}
+    assert trainer.main(_SMALL + ["--mesh", "2,1,1", "--steps", "3",
+                                  "--log-every", "1", "--ckpt-dir", ckpt,
+                                  "--grad-topo", "1"], out=out) == 0
+    last = capsys.readouterr().out.strip().splitlines()[-1]
+    assert last.startswith("dense: 3 steps on mesh {'dp': 2, 'sp': 1, "
+                           "'tp': 1}; loss ")
+    saved = tckpt.restore_train_state(ckpt, "cpu")
+    assert all(torch.equal(a, b) for a, b in zip(
+        ttrain.tree_leaves(out["result"].state), ttrain.tree_leaves(saved)))
+    assert trainer.main(_SMALL + ["--devices", "2", "--steps", "4",
+                                  "--ckpt-dir", ckpt]) == 0
+    assert "on mesh {'dp': 2, 'sp': 1, 'tp': 1}" in capsys.readouterr().out
 
 
 def test_trainer_help_names_the_missing_preemption_guard(capsys):
