@@ -138,11 +138,48 @@ failure raises and exits non-zero:
     gradient (checked, with the gradients' max and rms printed), the
     ranks' gradients summed in rank order without the sync within that
     bar and the same sum with a rank dropped or taken in bfloat16 outside
-    it (checked), the parameters' gap printed.
+    it (checked), the parameters' gap printed;
+17. compressed collectives and error feedback — (a) the int8 and bf16
+    ``compressed_allreduce`` of seeded buffers at the gradient's count on
+    8 in-process ranks with ``8``, ``4,2``, ``2,2,2``, the ring,
+    ``chunks=2`` on ``2,2,2``, ``"3,2+1"`` on 7 and a tail at the count
+    + 5: every rank's result bitwise rank 0's, the error against the
+    float64 sum within ``Codec.error_bound``, the fold kernel's launches
+    those ``parallel.bucketing.sync_fold_stages`` derives, and at
+    ``HOST_COUNT`` the same call on host copies bitwise (result and
+    residual: the fold kernel and the encode against their plain
+    versions; every fold there but the tail's takes the kernel's
+    bulk-copy body, as at the gradient's count, and the script prints
+    which body each fold took); on a block-aligned buffer the halves
+    (``compressed_reduce_scatter`` then ``compressed_all_gather``)
+    bitwise the allreduce and the wire residual bitwise
+    ``local_residual``; two controls that must fail: the sum with the
+    last rank dropped outside the bound, and rounding to floor (no
+    stochastic term) outside the bias bar |mean error| <= 6 rms/sqrt(n)
+    that the int8 sync passes; the int8 wire bytes against float32's;
+    (b) ``run_grad_sync_bench`` with the ``ours_fused_bf16`` and
+    ``ours_fused_int8`` rows (each within its bound; printed, not gated),
+    the DP step's int8 and bf16 syncs (its specs, axes and lossy plan) of
+    seeded gradients bitwise the same syncs on host copies with the card's
+    plan, result and residual (the fold kernel against its plain version
+    at the DP codec path's shapes, the body of each fold printed),
+    one ``ftq_bucket*`` range a bucket of an int8 sync under
+    ``torch.profiler``, and the int8 encode and decode alone (GB/s, the
+    cost model's ``codec_bw_GBps``); (c) ``trainer.main --mesh 8,1,1
+    --codec int8`` (20 steps, a checkpoint) and ``--codec bf16`` (4): the
+    loss finite and falling, the checkpoint bitwise the live state with
+    the first rank's ``ef``, every rank's ``ef`` non-zero and each element
+    within one quantization step of its block (the sync's inputs and
+    residuals recorded), flash launches steps x layers x 8, fold launches
+    steps x the lossy plan's; the int8 and f32-codec steps in turns
+    (printed, not gated); (d) the JAX EF test at 2^20 elements on 8
+    ranks: the single-shot error within the bound, the running mean's
+    after 24 steps below 1/8 of step 1's and bound/10.
 
 The kernels line gives each kernel's launches by path
 (``launches_by_path``: serve, train, dp_train, allreduce, ir_families,
-reduce_bench) and their sum (``launches``).
+reduce_bench, codec for phase 17(a) and (d), codec_sync for phase 17(b),
+dp_codec for phase 17(c)'s int8 run) and their sum (``launches``).
 
 Prints each phase's seconds, a ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Exits
@@ -151,6 +188,8 @@ non-zero, printing no result, when no CUDA device is present.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import json
 import os
@@ -1904,7 +1943,7 @@ def dp_grad_controls(tm, cfg, tc, dev, params, tokens, targets) -> dict:
     shares = []
     for r in range(DP):
         cut = slice(r * rows, (r + 1) * rows)
-        _, g = one_rank(params, tokens[cut], targets[cut])
+        _, g, _ = one_rank(params, tokens[cut], targets[cut])
         shares.append([x / DP for x in tm.tree_leaves(g)])
         del g
 
@@ -2067,7 +2106,8 @@ def phase_dp(dev, fa, trainer, ckpt):
                                device=dev)
     got = {}
     for name, comm in (("dp=8", mesh), ("dp=1", None)):
-        loss, grads = tm.make_loss_and_grads(f32, tc, device=dev, comm=comm)(
+        loss, grads, _ = tm.make_loss_and_grads(f32, tc, device=dev,
+                                                comm=comm)(
             init["params"], tokens, targets)
         new, _ = tm.make_train_step(f32, tc, device=dev, comm=comm)(
             init, tokens, targets)
@@ -2114,6 +2154,635 @@ def phase_dp(dev, fa, trainer, ckpt):
             raise AssertionError(f"the gradient bar {bar} passes a wrong "
                                  f"sum ({k}: gap {ctl_gaps[k]})")
     return launches
+
+
+# phase 17: compressed collectives and error feedback
+# (topology, ranks, chunks, elements past the gradient's count: a tail)
+CODEC_CASES = (("8", 8, 1, 0), ("4,2", 8, 1, 0), ("2,2,2", 8, 1, 0),
+               ("1", 8, 1, 0), ("2,2,2", 8, 2, 0), ("3,2+1", 7, 1, 0),
+               ("4,2", 8, 1, 5))
+CODEC_STEP = 7
+# the host check's count a rank: a CPU run at the gradient's count takes
+# tens of seconds a case.  2^20 + 128 = 192 * 5462: every tile and ring
+# block of every case is a whole number of 16-byte packs (the count over
+# 8, 16 and 6 is a multiple of 8), so the fold kernel takes its bulk-copy
+# body there as at the gradient's count, and the tiles are off the block
+# (padding); the case's tail adds to it
+HOST_COUNT = (1 << 20) + 128
+# csrc/reduce_stacked.cu's launch(): the bulk-copy (TMA) body needs the
+# length's bytes and every pointer 16-byte aligned and 16 bytes of each of
+# the W sources in a stage of this size, else it takes the element body
+TMA_STAGE_BYTES = 24 * 1024
+# a block-aligned buffer (2^24 f32 a rank): every tree tile is whole
+# blocks, so the halves compose bitwise and the wire residual is the local
+# map's
+ALIGNED_COUNT = 1 << 24
+# the bias bar: |mean signed error| <= BIAS_SIGMAS * rms error / sqrt(count)
+BIAS_SIGMAS = 6
+EF_COUNT = 1 << 20
+EF_STEPS = 24
+DP_CODEC_STEPS = 20
+DP_BF16_STEPS = 4
+DP_CODEC_ARGV = DP_ARGV + ["--codec", "int8"]
+DP_CODEC_ARGV[DP_CODEC_ARGV.index("--steps") + 1] = str(DP_CODEC_STEPS)
+DP_BF16_ARGV = DP_ARGV + ["--codec", "bf16"]
+DP_BF16_ARGV[DP_BF16_ARGV.index("--steps") + 1] = str(DP_BF16_STEPS)
+
+
+def codec_bound(cm, codec, n, spec, amax) -> float:
+    """``Codec.error_bound`` of one allreduce of data with max |x| = amax
+    over ``spec`` on ``n`` ranks."""
+    from flextree_tpu_torch.schedule.stages import LonelyTopology, Topology
+
+    t = Topology.resolve(n, spec)
+    widths, lonely = (t.tree.widths, t.lonely) \
+        if isinstance(t, LonelyTopology) else (t.widths, 0)
+    return cm.get_codec(codec).error_bound(amax, n, widths, lonely)
+
+
+def exact_sum(xs):
+    """The ranks' buffers summed in float64."""
+    out = torch.zeros(xs[0].shape, dtype=torch.float64, device=xs[0].device)
+    for x in xs:
+        out += x.double()
+    return out
+
+
+def bias_stats(out, exact):
+    """(mean signed error, rms error) of ``out`` against ``exact``."""
+    e = out.double() - exact
+    return float(e.mean()), float(e.square().mean().sqrt())
+
+
+def unbiased(mean, rms, count) -> bool:
+    return abs(mean) <= BIAS_SIGMAS * rms / count ** 0.5
+
+
+def codec_case(spec, n, chunks, count, codec, gen, dev, flat_mesh, cm, bk,
+               rs):
+    """Phase 17(a), one case on the card: the compressed allreduce of
+    seeded buffers, the fold kernel's launches counted, every rank's
+    result bitwise rank 0's, the error against the float64 sum within the
+    bound, and (a control) the sum with the last rank dropped outside it.
+    Returns the numbers."""
+    from flextree_tpu_torch.schedule.stages import Topology
+
+    xs = [torch.randn(count, generator=gen, device=dev) for _ in range(n)]
+    mesh = flat_mesh(n, dev)
+    topo = Topology.resolve(n, spec)
+    want = stage_launches(bk.sync_fold_stages([count], n, topo, None, chunks,
+                                              codec), rs.MAX_POINTERS)
+    torch.cuda.synchronize()
+    before = rs.reduce_sources.launches
+    t0 = time.monotonic()
+    out = cm.compressed_allreduce(xs, mesh, spec, codec, chunks, CODEC_STEP)
+    torch.cuda.synchronize()
+    wall_ms = (time.monotonic() - t0) * 1e3
+    launches = rs.reduce_sources.launches - before
+    what = f"{codec} {spec} on {n} ranks, chunks={chunks}, {count} f32"
+    if not all(torch.equal(out[0], o) for o in out[1:]):
+        raise AssertionError(f"{what}: the ranks' results differ")
+    if launches != want:
+        raise AssertionError(f"{what}: fold launches {launches}, the plan "
+                             f"derives {want}")
+    exact = exact_sum(xs)
+    amax = max(float(x.abs().max()) for x in xs)
+    bound = codec_bound(cm, codec, n, spec, amax)
+    err = float((out[0].double() - exact).abs().max())
+    dropped = float((out[0].double() - exact + xs[-1].double()).abs().max())
+    mean, rms = bias_stats(out[0], exact)
+    if not err <= bound:
+        raise AssertionError(f"{what}: error {err} over the bound {bound}")
+    if not dropped > bound:
+        raise AssertionError(f"{what}: the bound {bound} passes a sum with "
+                             f"the last rank dropped ({dropped})")
+    if codec == "int8" and not unbiased(mean, rms, count):
+        raise AssertionError(f"{what}: biased, mean error {mean}, rms {rms}")
+    return {"launches": launches, "err": err, "bound": bound,
+            "dropped": dropped, "mean": mean, "rms": rms, "wall_ms": wall_ms}
+
+
+@contextlib.contextmanager
+def fold_bodies(rs, *modules):
+    """Count the fold kernel's launches from the ``reduce_sources`` calls
+    of ``modules`` by the body ``csrc/reduce_stacked.cu`` takes for each
+    (its ``launch()`` rule: ``"tma"``, the bulk-copy body, or
+    ``"element"``), W, dtype and length.  Yields the counter; the calls
+    go through unchanged."""
+    seen: collections.Counter = collections.Counter()
+    real = rs.reduce_sources
+
+    def probe(folds, op="sum", sources_tile=1):
+        folds = [(list(sources), out) for sources, out in folds]
+        w, out0 = len(folds[0][0]), folds[0][1]
+        per = rs.MAX_POINTERS // (w + 1)
+        nbytes = out0.numel() * out0.element_size()
+        for b in range(0, len(folds) if out0.is_cuda and nbytes else 0, per):
+            ptrs = [t.data_ptr() for sources, out in folds[b:b + per]
+                    for t in (*sources, out)]
+            tma = nbytes % 16 == 0 and TMA_STAGE_BYTES // w >= 16 and \
+                all(p % 16 == 0 for p in ptrs)
+            seen["tma" if tma else "element", w,
+                 str(out0.dtype).removeprefix("torch."), out0.numel()] += 1
+        return real(folds, op, sources_tile)
+
+    saved = [m.reduce_sources for m in modules]
+    for m in modules:
+        m.reduce_sources = probe
+    try:
+        yield seen
+    finally:
+        for m, fn in zip(modules, saved):
+            m.reduce_sources = fn
+
+
+def describe_bodies(seen) -> str:
+    """The counter of :func:`fold_bodies` as ``body W=.. dtype L=.. xN``."""
+    return ", ".join(f"{body} W={w} {dt} L={length} x{k}" for
+                     (body, w, dt, length), k in sorted(seen.items()))
+
+
+def check_bodies(seen, what, tail) -> None:
+    """Every launch on more than ``tail`` elements took the bulk-copy
+    body (the sub-N tail's fold may take the element one)."""
+    slow = [key for key in seen if key[0] == "element" and key[3] > tail]
+    if slow:
+        raise AssertionError(f"{what}: the fold kernel took its element "
+                             f"body for {slow}")
+
+
+def host_case(spec, n, chunks, count, codec, gen, dev, flat_mesh, cm, rs):
+    """The same allreduce on the card and on host copies of its inputs
+    (``reduce_sources`` there takes its plain fold, the encode runs on the
+    CPU): bitwise, result and residual.  Returns the card run's fold
+    launches by body (:func:`fold_bodies`); every one but the tail's took
+    the bulk-copy body."""
+    from flextree_tpu_torch.parallel import allreduce as ar
+
+    xs = [torch.randn(count, generator=gen, device=dev) for _ in range(n)]
+    with fold_bodies(rs, cm, ar) as seen:
+        got = cm.compressed_allreduce(xs, flat_mesh(n, dev), spec, codec,
+                                      chunks, CODEC_STEP,
+                                      return_residual=True)
+    host = cm.compressed_allreduce([x.cpu() for x in xs],
+                                   flat_mesh(n, "cpu"), spec, codec, chunks,
+                                   CODEC_STEP, return_residual=True)
+    what = f"{codec} {spec} on {n} ranks, chunks={chunks}, {count} f32"
+    if not all(same_bits(a.cpu(), b) for part, hpart in zip(got, host)
+               for a, b in zip(part, hpart)):
+        raise AssertionError(f"{what}: the card is not bitwise the host "
+                             f"copies")
+    check_bodies(seen, what, n)
+    return seen
+
+
+def phase_codec_collectives(dev, param_count, flat_mesh, cm, bk, rs):
+    """Phase 17(a): every case of ``CODEC_CASES`` in both codecs at the
+    gradient's count, the host check at ``HOST_COUNT``, the halves and the
+    wire residual on a block-aligned buffer, and the floor-rounding
+    control."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    for codec in ("int8", "bf16"):
+        for spec, n, chunks, extra in CODEC_CASES:
+            r = codec_case(spec, n, chunks, param_count + extra, codec, gen,
+                           dev, flat_mesh, cm, bk, rs)
+            bodies = host_case(spec, n, chunks, HOST_COUNT + extra, codec,
+                               gen, dev, flat_mesh, cm, rs)
+            log(f"phase 17 {codec} {spec} on {n} ranks, chunks={chunks}, "
+                f"{param_count + extra} f32 a rank: ranks bitwise equal; "
+                f"max error {r['err']:.4g} <= bound {r['bound']:.4g} "
+                f"({r['err'] / r['bound']:.3f} of it); the last rank dropped "
+                f"{r['dropped']:.4g} > bound; mean error {r['mean']:.3g}, "
+                f"rms {r['rms']:.4g}"
+                + (f" (unbiased at {BIAS_SIGMAS} sigma)" if codec == "int8"
+                   else "") + "; fold "
+                f"launches {r['launches']} as derived; wall "
+                f"{r['wall_ms']:.3f} ms (one call, cold); at "
+                f"{HOST_COUNT + extra} f32 bitwise the same call on host "
+                f"copies (result and residual), the card's folds "
+                f"{describe_bodies(bodies)}")
+            torch.cuda.empty_cache()
+    # the halves and the wire residual on a block-aligned buffer
+    mesh = flat_mesh(8, dev)
+    xs = [torch.randn(ALIGNED_COUNT, generator=gen, device=dev)
+          for _ in range(8)]
+    for spec in ("4,2", "8"):
+        full, res = cm.compressed_allreduce(xs, mesh, spec, "int8", 1,
+                                            CODEC_STEP, return_residual=True)
+        shard = cm.compressed_reduce_scatter(xs, mesh, spec, "int8",
+                                             CODEC_STEP)
+        back = cm.compressed_all_gather(shard, mesh, spec, (ALIGNED_COUNT,),
+                                        "int8", CODEC_STEP)
+        if not all(torch.equal(a, b) for a, b in zip(full, back)):
+            raise AssertionError(f"{spec}: all_gather(reduce_scatter(x)) is "
+                                 f"not bitwise the allreduce")
+        if not all(same_bits(r, cm.local_residual(x, "int8", CODEC_STEP))
+                   for r, x in zip(res, xs)):
+            raise AssertionError(f"{spec}: the wire residual is not bitwise "
+                                 f"the local map's")
+        log(f"phase 17 {spec} on 8 ranks, {ALIGNED_COUNT} f32 (block-"
+            f"aligned): compressed_all_gather(compressed_reduce_scatter(x)) "
+            f"bitwise compressed_allreduce(x) on every rank; the wire "
+            f"residual bitwise local_residual(x)")
+        del full, res, shard, back
+    del xs
+    torch.cuda.empty_cache()
+    # the control: rounding to floor (no u) on the flat tree
+    import flextree_tpu_torch.parallel.compressed as cmod
+
+    xs = [torch.randn(param_count, generator=gen, device=dev)
+          for _ in range(8)]
+    exact = exact_sum(xs)
+    real_u = cmod._uniform01
+    stats = {}
+    for name, u in (("stochastic", real_u),
+                    ("floor", lambda n, step, salt, device: torch.zeros(
+                        n, device=device))):
+        cmod._uniform01 = u
+        try:
+            out = cm.compressed_allreduce(xs, mesh, "8", "int8", 1,
+                                          CODEC_STEP)
+        finally:
+            cmod._uniform01 = real_u
+        stats[name] = bias_stats(out[0], exact)
+    if not unbiased(*stats["stochastic"], param_count) or \
+            unbiased(*stats["floor"], param_count):
+        raise AssertionError(f"bias check: {stats}")
+    wire = cm.get_codec("int8").wire_bytes(param_count)
+    f32 = cm.get_codec("f32").wire_bytes(param_count)
+    log(f"phase 17 bias (8 on 8 ranks, {param_count} f32): stochastic "
+        f"rounding mean error {stats['stochastic'][0]:.3g}, rms "
+        f"{stats['stochastic'][1]:.4g}: within {BIAS_SIGMAS} rms/sqrt(count)"
+        f" = {BIAS_SIGMAS * stats['stochastic'][1] / param_count ** 0.5:.3g}"
+        f"; the floor control mean {stats['floor'][0]:.4g}, rms "
+        f"{stats['floor'][1]:.4g}: fails it, as it must; wire bytes a rank "
+        f"int8 {wire} against f32 {f32} (ratio {wire / f32:.4f})")
+
+
+def check_codec_sync(codec, shapes, dev, flat_mesh, tm, bk, cm, rs):
+    """Phase 17(b), one codec: the DP train step's lossy sync (its specs,
+    axes and planned buckets, ``return_residual``) of seeded per-rank
+    gradients on the card, then on host copies with the card's plan (the
+    cap set to its largest bucket), where ``reduce_sources`` takes its
+    plain fold and the encode runs on the CPU: result and residual
+    bitwise.  Returns the plan and the card's fold launches by body."""
+    from flextree_tpu_torch.models.transformer import (
+        TransformerConfig,
+        param_specs,
+    )
+    from flextree_tpu_torch.parallel import allreduce as ar
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 172)
+    pspecs = param_specs(TransformerConfig(**MODEL), tm.AXIS_NAMES[-1])
+    leaves = tm.tree_leaves(shapes)
+    specs = bk.spec_leaves(shapes, pspecs)
+    sizes = {"dp": DP, "sp": 1, "tp": 1}
+    topos = tm.resolve_axis_topos(sizes, tm.AXIS_NAMES, None)
+    plan = bk.plan_buckets(leaves, specs, tm.AXIS_NAMES, topos=topos,
+                           axis_sizes=sizes, codec=codec)
+    trees = [tm.tree_map(lambda p: torch.randn(p.shape, generator=gen,
+                                               device=dev), shapes)
+             for _ in range(DP)]
+    kw = dict(codec=codec, step=CODEC_STEP, return_residual=True)
+    with fold_bodies(rs, cm, ar) as seen:
+        got = tm.sync_grads(trees, pspecs, tm.AXIS_NAMES, topos,
+                            bucket_bytes=None, comm=flat_mesh(DP, dev, "dp"),
+                            **kw)
+    host = [tm.tree_map(lambda g: g.cpu(), t) for t in trees]
+    del trees
+    cap = max(b.nbytes for b in plan)
+    what = f"{codec} sync of the flagship gradient on {DP} ranks"
+    if bk.plan_buckets(tm.tree_leaves(host[0]), specs, tm.AXIS_NAMES,
+                       topos=topos, axis_sizes=sizes, bucket_bytes=cap,
+                       codec=codec) != plan:
+        raise AssertionError(f"{what}: the host plan differs from the card's")
+    plain = tm.sync_grads(host, pspecs, tm.AXIS_NAMES, topos,
+                          bucket_bytes=cap, comm=flat_mesh(DP, "cpu", "dp"),
+                          **kw)
+    if not all(trees_identical([tm.tree_map(lambda g: g.cpu(), t)
+                                for t in part], hpart, tm.tree_leaves)
+               for part, hpart in zip(got, plain)):
+        raise AssertionError(f"{what}: the card is not bitwise the host "
+                             f"copies (result or residual)")
+    check_bodies(seen, what, DP)
+    return plan, seen
+
+
+def phase_codec_sync(dev, shapes, flat_mesh, tm, bk, harness, cm, rs):
+    """Phase 17(b): the grad-sync bench with both codecs' fused rows; the
+    DP step's int8 and bf16 syncs bitwise on host copies; the int8
+    bucketed sync under ``torch.profiler`` (one ``ftq_bucket*`` range a
+    bucket); encode and decode alone on the card."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from flextree_tpu_torch.ops.quantize import decode_int8, encode_int8
+
+    leaves = tm.tree_leaves(shapes)
+    bench = harness.run_grad_sync_bench(harness.GradSyncBenchConfig(
+        shapes=tuple(tuple(g.shape) for g in leaves), devices=DP, repeat=10,
+        device=str(dev), codecs=("bf16", "int8")))
+    rows = bench["rows"]
+    for codec in ("bf16", "int8"):
+        if not rows[f"ours_fused_{codec}"]["err_over_bound"] <= 1:
+            raise AssertionError(f"{codec} fused sync over its bound")
+    log(f"phase 17 grad-sync bench (flagship gradient, {DP} ranks, "
+        f"{bench['topo']}, in turns, {bench['config']['repeat']} rounds; "
+        f"printed, not gated): " + "; ".join(
+            f"{k} median {r['median_ms']:.3f} ms, min {r['min_ms']:.3f} ms"
+            + (f", err/bound {r['err_over_bound']:.3f}"
+               if "err_over_bound" in r else "")
+            for k, r in rows.items()))
+    # the fold kernel against its plain version at the DP codec path's
+    # shapes
+    for codec in ("int8", "bf16"):
+        plan, bodies = check_codec_sync(codec, shapes, dev, flat_mesh, tm,
+                                        bk, cm, rs)
+        log(f"phase 17 {codec} sync as the DP step runs it (flagship "
+            f"gradient, {DP} ranks, {len(plan)} buckets of "
+            f"{[b.nbytes for b in plan]} B): result and residual bitwise "
+            f"the same sync on host copies with the card's plan; the card's "
+            f"folds {describe_bodies(bodies)}")
+        torch.cuda.empty_cache()
+    # one int8 bucketed sync under the profiler
+    gen = torch.Generator(device=dev).manual_seed(SEED + 171)
+    trees = [tm.tree_map(lambda p: torch.randn(p.shape, generator=gen,
+                                               device=dev), shapes)
+             for _ in range(DP)]
+    mesh = flat_mesh(DP, dev, "dp")
+    topos = tm.resolve_axis_topos(mesh, ("dp",), None)
+    plan = bk.plan_buckets(leaves, [None] * len(leaves), ("dp",),
+                           topos=topos, axis_sizes={"dp": DP}, codec="int8")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tm.sync_grads(trees, None, ("dp",), topos, bucket_bytes=None,
+                      codec="int8", step=CODEC_STEP, comm=mesh)
+        torch.cuda.synchronize()
+    ranges = sum(1 for e in prof.events() if e.name.startswith("ftq_bucket")
+                 and e.device_type == DeviceType.CPU)
+    if ranges != len(plan):
+        raise AssertionError(f"{ranges} ftq_bucket ranges for {len(plan)} "
+                             f"buckets")
+    del trees
+    # encode and decode alone, at the gradient's count
+    count = sum(g.numel() for g in leaves)
+    x = torch.randn(count, generator=gen, device=dev)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    q, s = encode_int8(x, CODEC_STEP)
+    enc_ms = time_launches(lambda: encode_int8(x, CODEC_STEP), 10, flush)
+    dec_ms = time_launches(lambda: decode_int8(q, s, count), 10, flush)
+    rt_ms = time_launches(lambda: decode_int8(*encode_int8(x, CODEC_STEP),
+                                              count), 10, flush)
+    rate = 2 * 4 * count / (rt_ms * 1e-3) / 1e9
+    log(f"phase 17 int8 codec alone ({count} f32, a cold L2, CUDA events): "
+        f"encode {enc_ms:.4f} ms, decode {dec_ms:.4f} ms, encode+decode "
+        f"{rt_ms:.4f} ms = {rate:.2f} GB/s a pass over the f32 bytes (two "
+        f"passes, the cost model's codec_bw_GBps); {len(plan)} int8 buckets "
+        f"of {[b.nbytes for b in plan]} B, one ftq_bucket range each under "
+        f"the profiler")
+
+
+def block_steps(x, rows: int, block: int):
+    """One quantization step of each element's block where the wire's
+    stage-0 encode puts it: the head of ``x`` as ``rows`` rows, each
+    padded to whole blocks; ``amax / 127`` of its block."""
+    head = (x.numel() // rows) * rows
+    v = x[:head].view(rows, -1)
+    width = v.shape[1]
+    amax = F.pad(v.abs(), (0, (-width) % block)).view(rows, -1, block) \
+        .amax(-1)
+    return (amax / 127).repeat_interleave(block, 1)[:, :width].reshape(-1)
+
+
+def phase_dp_codec(dev, fa, trainer, ckpt, flat_mesh, tm, bk, rs):
+    """Phase 17(c): the DP train step with the int8 codec through
+    ``trainer.main --mesh 8,1,1 --codec int8`` (then bf16 for a few
+    steps), the flash and fold counts set to 0 just before each run and
+    read just after; each bucket's last inputs and residuals recorded to
+    hold the residuals to one quantization step of their block; then the
+    int8 and f32 steps in turns.  Returns the int8 run's launches."""
+    import tempfile
+
+    from flextree_tpu_torch.models.transformer import (
+        TransformerConfig,
+        init_params,
+        param_specs,
+    )
+
+    cfg = TransformerConfig(**MODEL)
+    shapes = init_params(cfg, torch.Generator().manual_seed(SEED),
+                         device=dev)
+    leaves = tm.tree_leaves(shapes)
+    axes = tm.AXIS_NAMES
+    sizes = {"dp": DP, "sp": 1, "tp": 1}
+    topos = tm.resolve_axis_topos(sizes, axes, None)
+    specs = bk.spec_leaves(shapes, param_specs(cfg))
+    b, t = FLASH_TRAIN[:2]
+    layers = MODEL["n_layers"]
+    out_launches = None
+    for codec, argv, steps in (("int8", DP_CODEC_ARGV, DP_CODEC_STEPS),
+                               ("bf16", DP_BF16_ARGV, DP_BF16_STEPS)):
+        # place a probe on the sync's collective: the last call of each
+        # bucket's input and residual, the step's grad + ef and new ef
+        plan = bk.plan_buckets(leaves, specs, axes, topos=topos,
+                               axis_sizes=sizes, codec=codec)
+        per_step = stage_launches(bk.sync_fold_stages(
+            [g.numel() for g in leaves], DP, topos["dp"], plan, codec=codec),
+            rs.MAX_POINTERS)
+        calls = []
+        real = bk.compressed_allreduce
+
+        def probe(x, comm, **kw):
+            got = real(x, comm, **kw)
+            if kw.get("return_residual"):
+                calls.append((x, got[1]))
+                del calls[:-len(plan)]
+            return got
+
+        with tempfile.TemporaryDirectory(prefix="ft-dpq-") as ckpt_dir:
+            out: dict = {}
+            bk.compressed_allreduce = probe
+            try:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                zero_flash_counts(fa)
+                rs.reduce_sources.launches = 0
+                t0 = time.monotonic()
+                trainer.main(argv + ["--ckpt-dir", ckpt_dir], out=out)
+                torch.cuda.synchronize()
+                wall_s = time.monotonic() - t0
+                launches = flash_counts(fa)
+                launches["reduce_sources"] = rs.reduce_sources.launches
+            finally:
+                bk.compressed_allreduce = real
+            peak = torch.cuda.max_memory_allocated()
+            res = out["result"]
+            losses = [loss for _, loss in res.losses]
+            what = f"dp {codec}"
+            if len(losses) != steps or not all(np.isfinite(losses)) or \
+                    not losses[-1] < losses[0]:
+                raise AssertionError(f"{what}: losses not finite and "
+                                     f"falling: {losses}")
+            want = steps * layers * DP
+            if any(launches[k] != want for k in flash_counts(fa)):
+                raise AssertionError(f"{what}: flash launches {launches} != "
+                                     f"steps x layers x dp = {want}")
+            if launches["reduce_sources"] != steps * per_step:
+                raise AssertionError(
+                    f"{what}: fold launches {launches['reduce_sources']} != "
+                    f"{steps} steps x {per_step} (the lossy plan's)")
+            efs = res.state["ef"]
+            saved = ckpt.restore_train_state(ckpt_dir, dev)
+            live = dict(res.state, ef=efs[0])
+            if set(saved) != set(live) or not all(
+                    a.dtype == b_.dtype and torch.equal(a, b_) for a, b_ in
+                    zip(tm.tree_leaves(live), tm.tree_leaves(saved))):
+                raise AssertionError(f"{what}: the checkpoint is not the live "
+                                     f"state (ef: the first rank's) bitwise")
+            if len(efs) != DP or not all(
+                    any(e.any() for e in tm.tree_leaves(ef)) for ef in efs):
+                raise AssertionError(f"{what}: a rank's residual is zero")
+            if len(calls) != len(plan):
+                raise AssertionError(f"{what}: {len(calls)} recorded bucket "
+                                     f"calls for {len(plan)} buckets")
+            worst = 0.0
+            for xs, rs_ in calls:
+                for x, e in zip(xs, rs_):
+                    # int8: the wire's stage-0 blocks (the tail is exact);
+                    # bf16: the cast's half ulp, every element
+                    bar = block_steps(x, DP, 1024) if codec == "int8" else \
+                        x.abs() * 2.0 ** -8
+                    head = bar.numel()
+                    if not (e[:head].abs() <= bar).all() or e[head:].any():
+                        raise AssertionError(f"{what}: a residual over one "
+                                             f"quantization step")
+                    worst = max(worst, float((e[:head].abs() /
+                                              bar.clamp(min=1e-30)).max()))
+            del calls
+        log(f"phase 17 dp {codec} (flagship, bf16, flash, global batch {b} x "
+            f"{t}, {DP} in-process ranks, {len(plan)} buckets of "
+            f"{[p.nbytes for p in plan]} B, grad_topo {topos['dp']}): {steps} "
+            f"steps in {wall_s:.3f} s via trainer.main; loss "
+            f"{losses[0]:.4f} -> {losses[-1]:.4f}; flash launches "
+            f"{ {k: launches[k] for k in flash_counts(fa)} } = {steps} steps "
+            f"x {layers} layers x {DP} ranks; fold launches "
+            f"{launches['reduce_sources']} = {steps} x {per_step} (the lossy "
+            f"plan's); checkpoint = live state bitwise, ef the first rank's; "
+            f"every rank's ef non-zero, each element within one quantization "
+            f"step of its block (worst {worst:.4f} of it); peak memory "
+            f"{peak / 2**30:.3f} GiB")
+        if codec == "int8":
+            out_launches, state = launches, res.state
+            model_cfg, tc = out["model_cfg"], out["train_cfg"]
+        del res, out, efs, saved, live
+        torch.cuda.empty_cache()
+    # steady steps, int8 and the f32 codec, on the same global batch, in
+    # turns
+    data = np.random.default_rng(SEED).integers(
+        0, MODEL["vocab_size"], (2, b, t)).astype(np.int32)
+    mesh = flat_mesh(DP, dev, "dp")
+    steps = {"int8": tm.make_train_step(model_cfg, tc, comm=mesh),
+             "f32": tm.make_train_step(model_cfg, dataclasses.replace(
+                 tc, codec="f32"), comm=mesh)}
+    states = {"int8": state, "f32": {k: v for k, v in state.items()
+                                     if k != "ef"}}
+    times = {k: [] for k in steps}
+    for i in range(DP_TIMED + 2):
+        for name, step in (list(steps.items()) if i % 2 else
+                           list(steps.items())[::-1]):
+            torch.cuda.synchronize()
+            t1 = time.monotonic()
+            _, m = step(states[name], data[0], data[1])
+            float(m["loss"])
+            times[name].append(time.monotonic() - t1)
+    med = {k: float(np.median(v[2:])) * 1e3 for k, v in times.items()}
+    log(f"phase 17 dp=8 steady step (median of {DP_TIMED}, in turns; printed,"
+        f" not gated): int8 {med['int8']:.3f} ms = "
+        f"{b * t / med['int8'] * 1e3:.0f} tokens/s, f32 codec "
+        f"{med['f32']:.3f} ms = {b * t / med['f32'] * 1e3:.0f} tokens/s")
+    del steps, states, state
+    torch.cuda.empty_cache()
+    return out_launches
+
+
+def phase_ef(dev, flat_mesh, cm):
+    """Phase 17(d): the JAX ``test_constant_gradient_running_mean_converges``
+    on the card, 8 ranks with ``8``, at ``EF_COUNT`` elements."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 173)
+    g = torch.randn(EF_COUNT, generator=gen, device=dev)
+    n = 8
+    exact = n * g.double()
+    bound = codec_bound(cm, "int8", n, "8", float(g.abs().max()))
+    mesh = flat_mesh(n, dev)
+    e = torch.zeros_like(g)
+    acc = torch.zeros_like(exact)
+    errs = {}
+    for step in range(1, EF_STEPS + 1):
+        x = g + e
+        out, res = cm.compressed_allreduce([x] * n, mesh, "8", "int8", 1,
+                                           step, return_residual=True)
+        acc += out[0].double()
+        e = res[0]
+        errs[step] = float((acc / step - exact).abs().max())
+        if not float(e.abs().max()) <= float(x.abs().max()) / 127.0 + 1e-6:
+            raise AssertionError(f"EF step {step}: a residual over one step")
+    if not (errs[1] <= bound + 1e-5 and errs[EF_STEPS] < errs[1] / 8
+            and errs[EF_STEPS] < bound / 10):
+        raise AssertionError(f"EF does not converge: {errs}, bound {bound}")
+    log(f"phase 17 EF ({EF_COUNT} f32, 8 on 8 ranks, {EF_STEPS} steps of a "
+        f"constant gradient): single-shot error {errs[1]:.4g} <= bound "
+        f"{bound:.4g}; the running mean's error {errs[EF_STEPS]:.4g} < "
+        f"1/8 of step 1's and < bound/10")
+
+
+def phase_codec(dev, fa, trainer, ckpt):
+    """Phase 17: (a) the compressed collectives, (b) the sync and the
+    bench, (c) the DP train step with error feedback, (d) EF convergence.
+    Returns the fold kernel's launches by path: ``codec`` over (a) and
+    (d), the compressed collectives; ``codec_sync`` over (b), the bench's
+    rows (float32 and both codecs, in turns) and the lossy bucketed
+    syncs; and (c)'s int8 run's launches by kernel (``dp_codec``)."""
+    from flextree_tpu_torch.bench import harness
+    from flextree_tpu_torch.models.transformer import (
+        TransformerConfig,
+        init_params,
+    )
+    from flextree_tpu_torch.ops import reduce_stacked as rs
+    from flextree_tpu_torch.parallel import bucketing as bk
+    from flextree_tpu_torch.parallel import compressed as cm
+    from flextree_tpu_torch.parallel import train as tm
+    from flextree_tpu_torch.parallel.mesh import flat_mesh
+
+    shapes = init_params(TransformerConfig(**MODEL),
+                         torch.Generator().manual_seed(SEED), device=dev)
+    param_count = sum(g.numel() for g in tm.tree_leaves(shapes))
+    launches = {}
+    torch.cuda.synchronize()
+    rs.reduce_sources.launches = 0
+    clock = time.monotonic()
+    phase_codec_collectives(dev, param_count, flat_mesh, cm, bk, rs)
+    torch.cuda.synchronize()
+    launches["codec"] = rs.reduce_sources.launches
+    log(f"phase 17(a): {time.monotonic() - clock:.1f} s")
+    clock = time.monotonic()
+    rs.reduce_sources.launches = 0
+    phase_codec_sync(dev, shapes, flat_mesh, tm, bk, harness, cm, rs)
+    torch.cuda.synchronize()
+    launches["codec_sync"] = rs.reduce_sources.launches
+    log(f"phase 17(b): {time.monotonic() - clock:.1f} s")
+    clock = time.monotonic()
+    rs.reduce_sources.launches = 0
+    phase_ef(dev, flat_mesh, cm)
+    torch.cuda.synchronize()
+    launches["codec"] += rs.reduce_sources.launches
+    log(f"phase 17(d): {time.monotonic() - clock:.1f} s")
+    del shapes
+    torch.cuda.empty_cache()
+    clock = time.monotonic()
+    dp_launches = phase_dp_codec(dev, fa, trainer, ckpt, flat_mesh, tm, bk,
+                                 rs)
+    log(f"phase 17(c): {time.monotonic() - clock:.1f} s")
+    return launches, dp_launches
 
 
 def collective_phases(dev, bw) -> list:
@@ -2604,10 +3273,18 @@ def main() -> int:
     t0 = time.monotonic()
     dp_launches = phase_dp(dev, fa, trainer, ckpt)
     log(f"phase 16: {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    codec_launches, dp_codec_launches = phase_codec(dev, fa, trainer, ckpt)
+    log(f"phase 17: {time.monotonic() - t0:.1f} s")
     # each path's launches beside their sum
     for row in rows:
         if row["name"] in dp_launches:
             row["launches_by_path"]["dp_train"] = dp_launches[row["name"]]
+        if row["name"] in dp_codec_launches:
+            row["launches_by_path"]["dp_codec"] = \
+                dp_codec_launches[row["name"]]
+        if row["name"] == "reduce_sources":
+            row["launches_by_path"].update(codec_launches)
         row["launches"] = sum(row["launches_by_path"].values())
     print(json.dumps({"kernels": rows}))
     print(smi)

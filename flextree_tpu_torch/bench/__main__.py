@@ -17,7 +17,8 @@ set of the reference harness (``benchmark.cpp:67-116``):
 - ``--bench grad-sync``: the bucketed gradient sync of ``--leaves``
   leaves of ``--leaf-size`` float32 against the per-leaf sync over
   ``--ranks`` in-process ranks, timed in turns (exits 1 if the two
-  differ in a bit).
+  differ in a bit), and with ``--codecs bf16,int8`` a lossy fused row a
+  codec, held to its error bound.
 
 Runs on ``cuda`` unless ``--device cpu``; without a GPU and without
 ``--device cpu`` it raises.  Prints one JSON object; exits 1 when the
@@ -54,6 +55,9 @@ def main(argv=None) -> int:
                     help="grad-sync: the chunked row's pipelining factor")
     ap.add_argument("--bucket-bytes", type=int, default=None,
                     help="grad-sync: bucket cap (default: the planner's)")
+    ap.add_argument("--codecs", type=str, default="",
+                    help="grad-sync: wire codecs of extra fused rows, "
+                    "e.g. bf16,int8")
     ap.add_argument("--device", type=str, default=None,
                     help="cuda (default) or cpu")
     ap.add_argument("--dist", action="store_true",
@@ -83,7 +87,8 @@ def main(argv=None) -> int:
             n_leaves=args.leaves, leaf_size=args.leaf_size,
             devices=args.ranks, topo=args.topo, repeat=args.repeat,
             chunks=args.chunks, bucket_bytes=args.bucket_bytes,
-            device=device)
+            device=device,
+            codecs=tuple(c for c in args.codecs.split(",") if c))
         print(json.dumps(harness.run_grad_sync_bench(cfg)))
         return 0
 

@@ -26,7 +26,8 @@ ceiling):
 - :func:`run_grad_sync_bench` — the bucketed gradient sync against the
   per-leaf one on an in-process mesh (the JAX harness's A/B of the same
   name): per-leaf, fused and fused chunk-pipelined, timed in turns, and
-  the three results held bitwise equal;
+  the three results held bitwise equal; with ``codecs``, a lossy fused
+  row a codec, held to the codec's error bound;
 - :func:`hbm_copy` — the copy kernel ``csrc/copy.cu``, which replaces the
   Pallas ``copy_kernel`` of ``tools/roofline_reduce.py:101``: the measured
   streaming ceiling the fold is judged against.
@@ -429,6 +430,36 @@ def dist_allreduce_cases(rank: int, world: int, cases, device: str = "cpu"):
     return out
 
 
+def dist_compressed_cases(rank: int, world: int, cases,
+                          device: str = "cpu"):
+    """Run seeded compressed-collective cases on this rank of the default
+    process group (:func:`..parallel.launch.spawn` calls it).  ``cases``:
+    ``(topo, count, codec, seed, chunks, step)``; this rank's input is
+    :func:`seeded_row` (float32).  Returns per case the digests of
+    ``compressed_allreduce``'s result and residual, of this rank's
+    ``compressed_reduce_scatter`` shard and of ``compressed_all_gather``
+    of that shard."""
+    from ..parallel.compressed import (
+        compressed_all_gather,
+        compressed_allreduce,
+        compressed_reduce_scatter,
+    )
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    out = []
+    for topo, count, codec, seed, chunks, step in cases:
+        x = seeded_row(rank, count, torch.float32, seed).to(dev)
+        full, res = compressed_allreduce(x, None, topo, codec, chunks, step,
+                                         return_residual=True)
+        shard = compressed_reduce_scatter(x, None, topo, codec, step)
+        back = compressed_all_gather(shard, None, topo, (count,), codec,
+                                     step)
+        out.append(tuple(digest(t) for t in (full, res, shard, back)))
+    return out
+
+
 def dist_bench(rank: int, world: int, cfg: BenchConfig) -> dict:
     """:func:`run_allreduce_bench` on this rank of the default process
     group (``cfg.dist`` must be set); returns the report's payload."""
@@ -485,17 +516,26 @@ class GradSyncBenchConfig:
     chunks: int = 2  # the ours_chunked row's pipelining factor
     bucket_bytes: int | None = None  # None -> planner-derived
     device: str | None = None
+    # wire codecs (ops/quantize.py), e.g. ("bf16", "int8"): each adds an
+    # ``ours_fused_<codec>`` row, held to the codec's error bound against
+    # the per-leaf sync instead of bitwise
+    codecs: tuple = ()
 
 
 def run_grad_sync_bench(cfg: GradSyncBenchConfig) -> dict:
     """Rows ``per_leaf`` (one allreduce a leaf), ``ours_fused`` (bucketed)
-    and ``ours_chunked`` (bucketed, chunk-pipelined): min, mean and median
+    and ``ours_chunked`` (bucketed, chunk-pipelined), and one
+    ``ours_fused_<codec>`` a codec of ``cfg.codecs``: min, mean and median
     ms each, timed in turns (:func:`_interleaved_times`), the fused rows'
     speedup over per-leaf, the bucket plan, and the check that every
-    rank's every leaf is bitwise the same in the three (the sync's
-    contract; raises otherwise)."""
+    rank's every leaf is bitwise the same in the three lossless rows (the
+    sync's contract; raises otherwise).  A codec row's
+    ``err_over_bound`` is its worst leaf's max error against the per-leaf
+    sync over ``Codec.error_bound`` (raises above 1)."""
+    from ..ops.quantize import get_codec
     from ..parallel.bucketing import plan_buckets
     from ..parallel.train import resolve_axis_topos, sync_grads, tree_leaves
+    from ..schedule.stages import LonelyTopology
 
     dev = resolve_device(cfg.device)
     n = cfg.devices or 8
@@ -507,18 +547,39 @@ def run_grad_sync_bench(cfg: GradSyncBenchConfig) -> dict:
     trees = [{f"leaf{i}": torch.randn(tuple(s), generator=gen, device=dev)
               for i, s in enumerate(shapes)} for _ in range(n)]
 
-    def make_fn(bucket_bytes, chunks):
+    def make_fn(bucket_bytes, chunks, codec="f32"):
         return lambda: sync_grads(trees, None, axes, topos,
                                   bucket_bytes=bucket_bytes, chunks=chunks,
-                                  comm=mesh)
+                                  codec=codec, comm=mesh)
 
     variants = {
         "per_leaf": make_fn(0, 1),
         "ours_fused": make_fn(cfg.bucket_bytes, 1),
         "ours_chunked": make_fn(cfg.bucket_bytes, cfg.chunks),
     }
+    for codec in cfg.codecs:
+        variants[f"ours_fused_{codec}"] = make_fn(cfg.bucket_bytes, 1, codec)
     outs = {name: [tree_leaves(t) for t in fn()]  # also the warm-up call
             for name, fn in variants.items()}
+    worst = {}
+    t = topos["dp"]
+    widths, lonely = (t.tree.widths, t.lonely) \
+        if isinstance(t, LonelyTopology) else (t.widths, 0)
+    for codec in cfg.codecs:
+        c = get_codec(codec)
+        worst[codec] = 0.0
+        for i in range(len(shapes)):
+            exact = outs["per_leaf"][0][i].double()
+            amax = max(float(tr[i].abs().max()) for tr in
+                       (tree_leaves(x) for x in trees))
+            bound = c.error_bound(amax, n, widths, lonely) + 1e-5
+            err = max(float((r[i].double() - exact).abs().max())
+                      for r in outs[f"ours_fused_{codec}"])
+            worst[codec] = max(worst[codec], err / bound)
+        if worst[codec] > 1:
+            raise RuntimeError(f"codec {codec} sync error exceeds its "
+                               f"documented bound ({worst[codec]:.3f} of it)")
+        del outs[f"ours_fused_{codec}"]
     identical = all(
         torch.equal(a.view(torch.uint8), b.view(torch.uint8))
         for name in ("ours_fused", "ours_chunked")
@@ -535,6 +596,8 @@ def run_grad_sync_bench(cfg: GradSyncBenchConfig) -> dict:
         if name != "per_leaf":
             rows[name]["vs_per_leaf"] = (rows["per_leaf"]["min_ms"]
                                          / rows[name]["min_ms"])
+    for codec, w in worst.items():
+        rows[f"ours_fused_{codec}"]["err_over_bound"] = w
     leaves = tree_leaves(trees[0])
     buckets = plan_buckets(leaves, [None] * len(leaves), axes, topos=topos,
                            axis_sizes={"dp": n},

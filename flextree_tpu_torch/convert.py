@@ -2,8 +2,9 @@
 
 ``flextree_tpu.models.transformer.init_params`` returns a pytree of
 ``(in, out)``-shaped float32 arrays and ``parallel.train.init_train_state``
-wraps it as ``{"params", "mu", "nu", "step"}``; the port keeps both
-layouts, so the conversion is a copy.  The caller turns the JAX arrays
+wraps it as ``{"params", "mu", "nu", "step"}`` (and ``"ef"``, param-shaped,
+for a lossy codec); the port keeps both layouts, so the conversion is a
+copy.  The caller turns the JAX arrays
 into numpy (``jax.tree.map(np.asarray, tree)``) — this module imports
 neither JAX nor the JAX package.
 """
@@ -44,19 +45,20 @@ def params_from_numpy(tree: dict, device=None) -> dict:
 
 def train_state_from_numpy(tree: dict, device=None) -> dict:
     """The port's train state from the JAX ``init_train_state`` pytree
-    (or any JAX train state of the replicated f32 layout) given as numpy:
-    params and both moments through :func:`params_from_numpy`, ``step`` a
-    0-d int32 tensor.  A state with other entries (the ``"ef"`` residual
-    of a lossy codec, ZeRO shards) raises: the port does not run them."""
+    (or any JAX train state of the replicated layout) given as numpy:
+    params, both moments and a lossy codec's ``"ef"`` residual through
+    :func:`params_from_numpy`, ``step`` a 0-d int32 tensor.  A state with
+    other entries (ZeRO shards) raises: the port does not run them."""
     from .device import resolve_device
 
     dev = resolve_device(device)
-    if set(tree) != {"params", "mu", "nu", "step"}:
+    trees = ("params", "mu", "nu") + (("ef",) if "ef" in tree else ())
+    if set(tree) != {*trees, "step"}:
         raise ValueError(
-            f"expected a replicated f32 train state with keys params, mu, "
-            f"nu, step; got {sorted(tree)}"
+            f"expected a replicated train state with keys params, mu, nu, "
+            f"step (and ef); got {sorted(tree)}"
         )
-    state = {k: params_from_numpy(tree[k], dev) for k in ("params", "mu", "nu")}
+    state = {k: params_from_numpy(tree[k], dev) for k in trees}
     state["step"] = torch.tensor(int(np.asarray(tree["step"])),
                                  dtype=torch.int32, device=dev)
     return state

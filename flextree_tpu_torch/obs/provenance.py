@@ -31,14 +31,15 @@ def topo_spec(topo) -> str:
 
 
 def bucket_provenance(axes, topos, nbytes: int, *, n_leaves: int | None = None,
-                      dtype: str | None = None, chunks: int = 1
+                      dtype: str | None = None, codec=None, chunks: int = 1
                       ) -> dict | None:
     """The plan-provenance payload of one bucket's comm event, or None when
     no recorder is installed.
 
     ``axes``/``topos``: the replication axes the bucket reduces over and
     their resolved topologies (``None`` = the ``"psum"`` sentinel, a dense
-    fold of every rank).  The predicted
+    fold of every rank); ``codec``: the wire codec the bucket ran (a
+    name or a ``Codec``; None is ``"f32"``).  The predicted
     :class:`~..planner.cost_model.CostBreakdown` is computed per scheduled
     axis with :func:`..planner.calibrate.default_params` (the constants
     the bucket size was chosen with) and summed."""
@@ -55,9 +56,10 @@ def bucket_provenance(axes, topos, nbytes: int, *, n_leaves: int | None = None,
                   for ax in axes},
         "nbytes": int(nbytes),
         "chunks": int(chunks),
-        # the JAX payload's fields: the port syncs f32, replicated, after
-        # the backward (no lossy codec, ZeRO or overlap yet)
-        "codec": "f32",
+        # the JAX payload's fields: the port syncs replicated, after the
+        # backward (no ZeRO or overlap yet)
+        "codec": getattr(codec, "name", None) or (str(codec) if codec
+                                                  else "f32"),
         "sharded": False,
         "fired": False,
     }
@@ -79,9 +81,9 @@ def bucket_provenance(axes, topos, nbytes: int, *, n_leaves: int | None = None,
                 continue  # the sentinel: the model has no term for it
             if isinstance(topo, LonelyTopology):
                 cost = lonely_allreduce_cost(topo.tree, topo.lonely,
-                                             int(nbytes), params)
+                                             int(nbytes), params, codec=codec)
             else:
-                cost = allreduce_cost(topo, int(nbytes), params)
+                cost = allreduce_cost(topo, int(nbytes), params, codec=codec)
             total += cost.total_us
             for key, val in dataclasses.asdict(cost).items():
                 breakdown[key] = round(breakdown.get(key, 0.0) + val, 3)

@@ -63,7 +63,9 @@ the round trip above ``FT_IR_ROUTE_MAX`` ranks; the IR families
 (``"swing"``, ``"gen:4,2@2"``, an ``IRFamilySpec`` or an ``IRProgram``)
 always take it and run the pair-stage executor, ``op="sum"`` only.
 
-Not ported (raises, naming its ROADMAP item): lossy codecs.
+:func:`reduce_scatter` and :func:`all_gather` take a wire ``codec``, as
+the JAX functions do: a lossy one (``"bf16"``, ``"int8"``) runs the
+compressed halves of ``parallel/compressed.py``.
 """
 
 from __future__ import annotations
@@ -100,12 +102,8 @@ __all__ = [
     "DistTransport",
     "CallShape",
     "call_shape",
-    "check_codec",
     "chunk_sizes",
 ]
-
-_CODECS = "ROADMAP.md, Queue 1: 'Compressed collectives and error feedback'"
-
 
 # ------------------------------------------------------------- transports
 
@@ -454,13 +452,6 @@ def _ir_route(call, resolved, rop: ReduceOp, chunks: int, out):
     return _compiled(resolved, eff_chunks, rop.name).run(call, out)
 
 
-def check_codec(codec) -> None:
-    """Raise for a lossy codec: only the identity (``"f32"``) is ported."""
-    if codec not in (None, "f32", "identity"):
-        raise NotImplementedError(
-            f"codec {codec!r} is not ported yet ({_CODECS})")
-
-
 def _owners(topo) -> int:
     return topo.tree.num_nodes if isinstance(topo, LonelyTopology) else \
         topo.num_nodes
@@ -711,7 +702,7 @@ def dense_allreduce(x, comm=None, op="sum", *, out=None):
     return call.give(dest, call.shape)
 
 
-def reduce_scatter(x, comm=None, topo=None, op="sum", codec=None):
+def reduce_scatter(x, comm=None, topo=None, op="sum", codec=None, step=0):
     """Phase 1 alone: this rank's reduced shard of ``x``.
 
     A 1-D buffer of ``count // N + count % N`` elements: block
@@ -719,8 +710,17 @@ def reduce_scatter(x, comm=None, topo=None, op="sum", codec=None):
     blocks), then the < N-element tail, reduced by the dense fold and
     replicated.  Lonely shapes split the head over the ``m`` tree ranks
     and lonely rank ``m + i`` holds a bitwise copy of buddy ``i``'s shard.
-    On a mesh, returns the list of the N shards."""
-    check_codec(codec)
+    On a mesh, returns the list of the N shards.
+
+    A lossy ``codec`` compresses the wire hop by hop
+    (:func:`.compressed.compressed_reduce_scatter`, ``step`` keying its
+    rounding; sum only)."""
+    from ..ops.quantize import get_codec
+
+    if get_codec(codec).lossy:
+        from .compressed import compressed_reduce_scatter
+
+        return compressed_reduce_scatter(x, comm, topo, codec, step)
     call = _Call(x, comm)
     rop = get_op(op)
     rop.check_dtype(call.dtype)
@@ -747,7 +747,7 @@ def reduce_scatter(x, comm=None, topo=None, op="sum", codec=None):
     return call.give(shards)
 
 
-def all_gather(x, comm=None, topo=None, out_shape=None, codec=None):
+def all_gather(x, comm=None, topo=None, out_shape=None, codec=None, step=0):
     """Phase 2 alone: the inverse of :func:`reduce_scatter` on the same
     topology.
 
@@ -757,8 +757,15 @@ def all_gather(x, comm=None, topo=None, out_shape=None, codec=None):
     gives.  The split of a shard into block and tail is ambiguous from its
     length alone, so it is derived from ``out_shape`` when given (block =
     ``count // owners``); without it the shard is taken as a pure block.
-    ``out_shape`` also restores the original shape."""
-    check_codec(codec)
+    ``out_shape`` also restores the original shape.  A lossy ``codec``
+    forwards the head block encoded (:func:`.compressed.compressed_all_gather`,
+    ``step`` keying its rounding)."""
+    from ..ops.quantize import get_codec
+
+    if get_codec(codec).lossy:
+        from .compressed import compressed_all_gather
+
+        return compressed_all_gather(x, comm, topo, out_shape, codec, step)
     call = _Call(x, comm)
     count = None if out_shape is None else int(
         torch.Size(out_shape).numel())

@@ -38,8 +38,14 @@ the dense fold on both transports.  The sync is sum-only.
 The ranks are a :class:`~.mesh.Mesh` (this process runs every rank; the
 gradients are a list of one tree a rank) or a ``torch.distributed``
 process group (this process is one rank; the gradients are its tree), and
-one mesh axis of size above 1 spans them: data parallelism.  The sync is
-lossless: ``train.sync_grads`` refuses a lossy codec before it gets here.
+one mesh axis of size above 1 spans them: data parallelism.
+
+A lossy wire ``codec`` (``"bf16"``, ``"int8"``; ``ops/quantize.py``) has
+no bitwise contract: each bucket's leaves are packed into one float32
+buffer and each axis runs one :func:`.compressed.compressed_allreduce`
+on it (lonely shapes too), which folds its own < N-element tail exactly;
+``return_residual=True`` also returns each leaf's error-feedback residual
+(see :func:`bucketed_sync_grads`).
 """
 
 from __future__ import annotations
@@ -54,10 +60,16 @@ from ..schedule.stages import LonelyTopology, Topology
 from ..utils.profiling import comm_span
 from ..utils.tree import tree_leaves, tree_unflatten
 from .allreduce import (
+    _split,
     allreduce,
     call_shape,
     chunk_sizes,
     dense_allreduce,
+)
+from .compressed import (
+    compressed_allreduce,
+    int8_fold_stages,
+    local_residual,
 )
 from .mesh import Mesh
 
@@ -124,8 +136,8 @@ def spec_leaves(grads, pspecs) -> list:
 
     def walk(g, s):
         if isinstance(g, dict):
-            for k, v in g.items():
-                walk(v, s[k])
+            for k in sorted(g):
+                walk(g[k], s[k])
         elif isinstance(g, (list, tuple)):
             if len(g) != len(s):
                 raise ValueError("pspecs do not match the gradient tree")
@@ -193,6 +205,7 @@ def plan_buckets(
     bucket_bytes: int | None = None,
     params=None,
     max_bucket_bytes: int | None = None,
+    codec=None,
 ) -> tuple[Bucket, ...]:
     """Partition the flat gradient leaves (tensors; ``meta`` ones do) into
     fused sync buckets.
@@ -204,7 +217,8 @@ def plan_buckets(
     group's topologies and bytes, with ``params``), capped at
     ``max_bucket_bytes`` (None: the leaves' device's cap).  Axes of size 1
     (``axis_sizes``) drop out of a key; a leaf sharded over every axis is
-    not synced and is in no bucket."""
+    not synced and is in no bucket.  ``codec`` prices the derived size
+    with the codec's wire bytes and hop cost (a lossy sync's buckets)."""
     if max_bucket_bytes is None:
         max_bucket_bytes = _default_max_bucket_bytes(leaves)
     groups: dict[tuple[tuple[str, ...], str], list[int]] = {}
@@ -223,7 +237,7 @@ def plan_buckets(
         if cap is None:
             cap = _derived_bucket_bytes(
                 sum(sizes), len(idxs), axes, topos or {}, axis_sizes or {},
-                params, max_bucket_bytes)
+                params, max_bucket_bytes, codec)
         cap = max(int(cap), 1)
         cur: list[int] = []
         cur_bytes = 0
@@ -239,7 +253,7 @@ def plan_buckets(
 
 
 def _derived_bucket_bytes(total_bytes, n_leaves, axes, topos, axis_sizes,
-                          params, max_bucket_bytes):
+                          params, max_bucket_bytes, codec=None):
     """The planner's bucket size for one (axes, dtype) group: a bucket runs
     one allreduce an axis, so the fixed cost the chooser amortizes is the
     sum over the axes; the sentinel axis is priced as the flat tree."""
@@ -257,7 +271,7 @@ def _derived_bucket_bytes(total_bytes, n_leaves, axes, topos, axis_sizes,
     if not cost_topos:
         return max_bucket_bytes
     derived = choose_bucket_bytes(total_bytes, cost_topos, n_leaves=n_leaves,
-                                  params=params)
+                                  params=params, codec=codec)
     return min(derived, max_bucket_bytes)
 
 
@@ -283,6 +297,12 @@ class _Ranks:
         got = fn(xs if self.mesh else xs[0], self.comm, **kw)
         return list(got) if self.mesh else [got]
 
+    def run_pair(self, fn, xs: list, **kw) -> tuple[list, list]:
+        """As :meth:`run`, for a collective that returns two results a rank
+        (a result and its residual)."""
+        a, b = fn(xs if self.mesh else xs[0], self.comm, **kw)
+        return (list(a), list(b)) if self.mesh else ([a], [b])
+
 
 def sync_leaf(ranks: _Ranks, xs: list, topo, chunks: int = 1) -> list:
     """One leaf's sum over the ranks: the FlexTree ``allreduce`` on
@@ -300,22 +320,53 @@ def _unflatten_ranks(trees: list, flat: list, ranks: _Ranks):
 
 
 def per_leaf_sync_grads(grads, pspecs, mesh_axes, topos: Mapping[str, Any],
-                        chunks: int = 1, *, comm):
+                        chunks: int = 1, *, comm, codec="f32", step=0,
+                        return_residual: bool = False):
     """The per-leaf sync, the bucketed sync's oracle: for each leaf, one
     collective an axis it is replicated on, in ``mesh_axes`` order
-    (:func:`sync_leaf`).  Arguments as :func:`bucketed_sync_grads`."""
+    (:func:`sync_leaf`).  Arguments as :func:`bucketed_sync_grads`.
+
+    A lossy ``codec`` runs :func:`.compressed.compressed_allreduce` on each
+    scheduled axis (the sentinel stays the exact dense fold), as the JAX
+    ``train.sync_grads`` does; ``return_residual=True`` also returns each
+    leaf's residual: the wire's from the leaf's first replication axis
+    (a trivial one gives zeros), the only one that sees this rank's own
+    data, else :func:`.compressed.local_residual` of the leaf."""
+    from ..ops.quantize import get_codec
+
+    codec = get_codec(codec)
     ranks = _Ranks(comm)
     sizes = comm_axis_sizes(comm, mesh_axes)
     trees = list(grads) if ranks.mesh else [grads]
     flat = [tree_leaves(t) for t in trees]
+    res = [[None] * len(f) for f in flat]
     for i, spec in enumerate(spec_leaves(trees[0], pspecs)):
         xs = [f[i] for f in flat]
-        for ax in replication_key(spec, mesh_axes):
-            if sizes[ax] > 1:
-                xs = sync_leaf(ranks, xs, topos[ax], chunks)
-        for f, x in zip(flat, xs):
+        wire = None
+        for k, ax in enumerate(replication_key(spec, mesh_axes)):
+            topo = topos[ax]
+            if not codec.lossy or topo is None:
+                if sizes[ax] > 1:
+                    xs = sync_leaf(ranks, xs, topo, chunks)
+            elif sizes[ax] <= 1:
+                if k == 0:  # the JAX collective's route for one rank
+                    wire = [torch.zeros_like(x) for x in xs]
+            elif k == 0:
+                xs, wire = ranks.run_pair(
+                    compressed_allreduce, xs, topo=topo, codec=codec,
+                    chunks=chunks, step=step, return_residual=True)
+            else:
+                xs = ranks.run(compressed_allreduce, xs, topo=topo,
+                               codec=codec, chunks=chunks, step=step)
+        for r, (f, x) in enumerate(zip(flat, xs)):
+            if return_residual:
+                res[r][i] = wire[r] if wire is not None else \
+                    local_residual(f[i], codec, step)
             f[i] = x
-    return _unflatten_ranks(trees, flat, ranks)
+    out = _unflatten_ranks(trees, flat, ranks)
+    if return_residual:
+        return out, _unflatten_ranks(trees, res, ranks)
+    return out
 
 
 def _fused_native_psum(ranks: _Ranks, leaves: list) -> list:
@@ -401,9 +452,46 @@ def _fused_axis_allreduce(ranks: _Ranks, leaves: list, topo,
     return out
 
 
+def _fused_compressed_bucket(ranks: _Ranks, leaves: list, axes, topos,
+                             codec, chunks: int, step, name: str, prov,
+                             return_residual: bool):
+    """A lossy bucket: each rank's leaves packed into one float32 buffer,
+    one :func:`.compressed.compressed_allreduce` an axis (the sentinel
+    stays the exact dense fold), each under the span ``name(axis)`` with
+    ``prov(axis)``, unpacked to the leaves' shapes and dtypes.  Returns
+    (leaves, residuals): the residual of the first axis' wire when that
+    axis is compressed (the only one that sees this rank's own data), else
+    :func:`.compressed.local_residual` of the packed input (None without
+    ``return_residual``)."""
+    fused = [torch.cat([g.reshape(-1).to(torch.float32) for g in rl])
+             for rl in leaves]
+    packed, res = fused, None
+    for k, ax in enumerate(axes):
+        with comm_span(name(ax), provenance=prov(ax)):
+            if topos[ax] is None:
+                fused = ranks.run(dense_allreduce, fused)
+            elif k == 0 and return_residual:
+                fused, res = ranks.run_pair(
+                    compressed_allreduce, fused, topo=topos[ax], codec=codec,
+                    chunks=chunks, step=step, return_residual=True)
+            else:
+                fused = ranks.run(compressed_allreduce, fused, topo=topos[ax],
+                                  codec=codec, chunks=chunks, step=step)
+    if return_residual and res is None:
+        res = [local_residual(p, codec, step) for p in packed]
+    sizes = [g.numel() for g in leaves[0]]
+
+    def unpack(bufs):
+        return [[p.view(g.shape).to(g.dtype) for p, g in zip(b.split(sizes), rl)]
+                for b, rl in zip(bufs, leaves)]
+
+    return unpack(fused), None if res is None else unpack(res)
+
+
 def bucketed_sync_grads(grads, pspecs, mesh_axes, topos: Mapping[str, Any],
                         bucket_bytes: int | None = None, chunks: int = 1,
-                        *, comm):
+                        *, comm, codec="f32", step=0,
+                        return_residual: bool = False):
     """The bucketed FlexTree gradient sync, the fused twin of
     ``train.sync_grads``: each leaf summed over its replication axes,
     bitwise what the per-leaf sync gives, in buckets x stages collectives
@@ -417,33 +505,62 @@ def bucketed_sync_grads(grads, pspecs, mesh_axes, topos: Mapping[str, Any],
     Each bucket's collectives on an axis run under one
     :func:`~..utils.profiling.comm_span` named
     ``ft_bucket{i}_{axis}_{k}leaves_{bytes}B``, with the plan's provenance
-    when a flight recorder is installed."""
-    from ..obs import bucket_provenance
+    when a flight recorder is installed.
 
+    A lossy ``codec`` runs each bucket through
+    :func:`.compressed.compressed_allreduce` under spans named
+    ``ftq_bucket...`` (no bitwise contract; the planner sizes the buckets
+    with the codec), ``step`` keying the rounding;
+    ``return_residual=True`` then returns ``(synced, residuals)``, each
+    leaf's error-feedback residual (zeros for a leaf no bucket holds)."""
+    from ..obs import bucket_provenance
+    from ..ops.quantize import get_codec
+
+    codec = get_codec(codec)
     ranks = _Ranks(comm)
     trees = list(grads) if ranks.mesh else [grads]
     flat = [tree_leaves(t) for t in trees]
     specs = spec_leaves(trees[0], pspecs)
     sizes = comm_axis_sizes(comm, mesh_axes)
     buckets = plan_buckets(flat[0], specs, mesh_axes, topos=topos,
-                           axis_sizes=sizes, bucket_bytes=bucket_bytes)
+                           axis_sizes=sizes, bucket_bytes=bucket_bytes,
+                           codec=codec if codec.lossy else None)
+    res = [[torch.zeros_like(g) for g in f] for f in flat] \
+        if return_residual else None
     for bi, b in enumerate(buckets):
         leaves = [[f[i] for i in b.indices] for f in flat]
-        for ax in b.axes:
-            name = f"ft_bucket{bi}_{ax}_{len(b.indices)}leaves_{b.nbytes}B"
-            prov = bucket_provenance((ax,), topos, b.nbytes,
+        tag = "ftq" if codec.lossy else "ft"
+
+        def name(ax):
+            return f"{tag}_bucket{bi}_{ax}_{len(b.indices)}leaves_{b.nbytes}B"
+
+        def prov(ax):
+            return bucket_provenance((ax,), topos, b.nbytes,
                                      n_leaves=len(b.indices), dtype=b.dtype,
-                                     chunks=chunks)
-            with comm_span(name, provenance=prov):
-                if topos[ax] is None:
-                    leaves = _fused_native_psum(ranks, leaves)
-                else:
-                    leaves = _fused_axis_allreduce(ranks, leaves, topos[ax],
-                                                   chunks)
+                                     codec=codec, chunks=chunks)
+
+        if codec.lossy:
+            leaves, got = _fused_compressed_bucket(
+                ranks, leaves, b.axes, topos, codec, chunks, step, name,
+                prov, return_residual)
+            for r, rl in enumerate(got or []):
+                for i, g in zip(b.indices, rl):
+                    res[r][i] = g
+        else:
+            for ax in b.axes:
+                with comm_span(name(ax), provenance=prov(ax)):
+                    if topos[ax] is None:
+                        leaves = _fused_native_psum(ranks, leaves)
+                    else:
+                        leaves = _fused_axis_allreduce(ranks, leaves,
+                                                       topos[ax], chunks)
         for f, rl in zip(flat, leaves):
             for i, g in zip(b.indices, rl):
                 f[i] = g
-    return _unflatten_ranks(trees, flat, ranks)
+    out = _unflatten_ranks(trees, flat, ranks)
+    if return_residual:
+        return out, _unflatten_ranks(trees, res, ranks)
+    return out
 
 
 def _allreduce_folds(n: int, topo, count: int, chunks: int) -> list:
@@ -460,14 +577,19 @@ def _allreduce_folds(n: int, topo, count: int, chunks: int) -> list:
 
 
 def sync_fold_stages(numels: Sequence[int], n: int, topo, buckets=None,
-                     chunks: int = 1) -> list:
+                     chunks: int = 1, codec=None) -> list:
     """The fold stages, in order, of one sync over one axis of ``n`` ranks
     that share a device, each ``(R folds, W sources, L elements)``: one
     :func:`~..ops.reduce_stacked.reduce_sources` call (the count
     ``allreduce.call_shape`` derives for one allreduce, over a sync).
     ``numels``: the leaves' element counts; ``topo``: the axis' resolved
     topology (None: the sentinel's dense fold); ``buckets``: a plan of
-    :func:`plan_buckets` (None: the per-leaf sync)."""
+    :func:`plan_buckets` (None: the per-leaf sync); ``codec``: the sync's
+    wire codec (a lossy one folds each bucket, packed, as one
+    :func:`.compressed.compressed_allreduce`)."""
+    from ..ops.quantize import get_codec
+
+    codec = get_codec(codec)
     if n <= 1:
         return []
     groups = [[i] for i in range(len(numels))] if buckets is None else \
@@ -475,8 +597,10 @@ def sync_fold_stages(numels: Sequence[int], n: int, topo, buckets=None,
     folds: list = []
     for idxs in groups:
         sizes = [int(numels[i]) for i in idxs]
-        if topo is None:
-            folds += _allreduce_folds(n, None, sum(sizes), chunks)
+        if codec.name == "int8" and topo is not None:
+            folds += int8_fold_stages(n, topo, sum(sizes), chunks)
+        elif codec.lossy or topo is None:
+            folds += _allreduce_folds(n, topo, sum(sizes), chunks)
         elif len(sizes) == 1 or isinstance(topo, LonelyTopology):
             for size in sizes:
                 folds += _allreduce_folds(n, topo, size, chunks)

@@ -7,8 +7,9 @@ inline AdamW (decoupled weight decay), all in float32 on the state.
 
 The train state is the JAX package's pytree in the port's types —
 ``{"params", "mu", "nu", "step"}``, the moments param-shaped float32,
-``step`` a 0-d int32 tensor — so it converts to and from the JAX state by
-copy (:mod:`..convert`) and checkpoints in the same file format
+``step`` a 0-d int32 tensor, and for a lossy ``codec`` the error-feedback
+residual ``"ef"`` — so it converts to and from the JAX state by copy
+(:mod:`..convert`) and checkpoints in the same file format
 (:mod:`..utils.checkpoint`).
 
 Data parallelism: ``comm`` is an in-process :class:`~.mesh.Mesh` with a
@@ -25,9 +26,18 @@ one update; on a process group each rank updates its own replica.  With
 no ``comm`` the step runs on one rank and the sync is the identity, as the
 JAX sync is on a mesh of one device.
 
-What needs an unported module raises, naming its ROADMAP item: a lossy
-``codec``, ``overlap``, ``shard_optimizer``, ``autotune`` and an ``sp`` or
-``tp`` axis above size 1.  An IR-family ``grad_topo`` (swing,
+A lossy ``codec`` (``"bf16"``, ``"int8"``) syncs ``grad + ef`` on the
+compressed collectives with ``step`` the counter before the update
+(:func:`sync_with_feedback`) and keeps the new residual.  As in the JAX
+step, whose ``shard_map`` gives each device its own ``ef`` buffer, the
+residual is each rank's own: on a mesh ``state["ef"]`` becomes the list
+of the ranks' trees after the first step; one tree (a fresh state, a
+restored checkpoint) stands for every rank's.  A checkpoint holds the
+first rank's tree, what the JAX package's ``device_get`` reads.
+
+What needs an unported module raises, naming its ROADMAP item:
+``overlap``, ``shard_optimizer``, ``autotune`` and an ``sp`` or ``tp``
+axis above size 1.  An IR-family ``grad_topo`` (swing,
 generalized) raises ``TopologyError``, as the JAX train seam does.
 """
 
@@ -48,9 +58,9 @@ from ..models.transformer import (
     init_params,
     param_specs,
 )
+from ..ops.quantize import get_codec
 from ..schedule.stages import Topology, TopologyError
 from ..utils.tree import tree_leaves, tree_map, tree_unflatten
-from .allreduce import check_codec
 from .bucketing import (
     WIDE_AXES_ITEM,
     bucketed_sync_grads,
@@ -69,6 +79,7 @@ __all__ = [
     "factor_devices",
     "resolve_axis_topos",
     "sync_grads",
+    "sync_with_feedback",
     "schedule_lr",
     "global_grad_norm",
     "clip_by_global_norm",
@@ -108,10 +119,10 @@ class TrainConfig:
 
 def _refuse_unported(train_cfg: TrainConfig) -> None:
     """Raise for a config that needs a module the port does not have yet,
-    naming the ROADMAP item it waits on."""
+    naming the ROADMAP item it waits on (and ``ValueError`` for an unknown
+    codec)."""
+    get_codec(train_cfg.codec)
     refusals = (
-        (train_cfg.codec != "f32", f"codec={train_cfg.codec!r}",
-         "'Compressed collectives and error feedback'"),
         (train_cfg.overlap, "overlap=True", "'Overlap'"),
         (train_cfg.shard_optimizer, "shard_optimizer=True", "'ZeRO-1'"),
         (train_cfg.autotune, "autotune=True",
@@ -131,16 +142,20 @@ def _refuse_unported(train_cfg: TrainConfig) -> None:
 def make_train_state(params: dict, train_cfg: TrainConfig | None = None
                      ) -> dict:
     """Fresh AdamW state around ``params``: zero moments and step 0 on
-    the params' device."""
+    the params' device, and a zero ``"ef"`` residual only for a lossy
+    codec (the identity keeps the JAX package's layout)."""
     if train_cfg is not None:
         _refuse_unported(train_cfg)
     dev = params["embed"].device
-    return {
+    state = {
         "params": params,
         "mu": tree_map(torch.zeros_like, params),
         "nu": tree_map(torch.zeros_like, params),
         "step": torch.zeros((), dtype=torch.int32, device=dev),
     }
+    if train_cfg is not None and get_codec(train_cfg.codec).lossy:
+        state["ef"] = tree_map(torch.zeros_like, params)
+    return state
 
 
 def init_train_state(cfg: TransformerConfig, generator: torch.Generator,
@@ -201,7 +216,7 @@ def resolve_axis_topos(mesh, mesh_axes, grad_topo) -> dict:
 
 def sync_grads(grads, pspecs=None, mesh_axes=AXIS_NAMES, topos=None,
                bucket_bytes: int | None = 0, chunks: int = 1, codec="f32",
-               *, comm=None):
+               step=0, return_residual: bool = False, *, comm=None):
     """The FlexTree gradient sync: each leaf summed over the axes it is
     replicated on (``pspecs``, the spec tree of :func:`param_specs`; None:
     every leaf replicated).
@@ -215,19 +230,53 @@ def sync_grads(grads, pspecs=None, mesh_axes=AXIS_NAMES, topos=None,
     sentinel): the oracle.  Any other value runs the bucketed sync
     (:func:`.bucketing.bucketed_sync_grads`; None sizes the buckets by the
     planner), bitwise equal to it.  ``chunks > 1`` runs tree collectives
-    chunk-pipelined (the bits do not change).  A lossy ``codec`` raises."""
-    check_codec(codec)
+    chunk-pipelined (the bits do not change).
+
+    ``codec``: the wire format (``ops/quantize.py``); a lossy one runs the
+    scheduled axes on the compressed collectives, ``step`` keying the
+    rounding (the sentinel stays exact).  ``return_residual=True`` returns
+    ``(synced, residuals)``: each leaf's error-feedback residual, the wire's
+    of its first replication axis when that axis is compressed, else the
+    canonical ``x - C(x)`` (zeros on one rank)."""
+    get_codec(codec)
     if comm is None:
+        if return_residual:
+            return grads, tree_map(torch.zeros_like, grads)
         return grads
     sizes = comm_axis_sizes(comm, mesh_axes)
     if topos is None:
         topos = resolve_axis_topos(sizes, mesh_axes, None)
+    kw = dict(comm=comm, codec=codec, step=step,
+              return_residual=return_residual)
     if bucket_bytes != 0:
         return bucketed_sync_grads(grads, pspecs, mesh_axes, topos,
                                    bucket_bytes=bucket_bytes, chunks=chunks,
-                                   comm=comm)
-    return per_leaf_sync_grads(grads, pspecs, mesh_axes, topos, chunks,
-                               comm=comm)
+                                   **kw)
+    return per_leaf_sync_grads(grads, pspecs, mesh_axes, topos, chunks, **kw)
+
+
+def sync_with_feedback(state: dict, grads, pspecs, mesh_axes, topos,
+                       train_cfg: TrainConfig, *, comm=None):
+    """The train step's gradient sync under ``train_cfg``: the identity
+    codec gives the plain (bitwise) sync and None; a lossy one adds each
+    rank's carried residual ``state["ef"]`` (one tree: every rank's; on a
+    mesh, a list: each rank's own), syncs ``grad + ef`` compressed with
+    ``step=state["step"]`` (the counter before the update) and returns the
+    new residuals too, in ``grads``' form (a list on a mesh)."""
+    codec = get_codec(train_cfg.codec)
+    kw = dict(bucket_bytes=train_cfg.bucket_bytes,
+              chunks=train_cfg.grad_chunks, comm=comm)
+    if not codec.lossy:
+        return sync_grads(grads, pspecs, mesh_axes, topos, **kw), None
+    ef = state["ef"]
+    if isinstance(comm, Mesh):
+        efs = ef if isinstance(ef, list) else [ef] * len(grads)
+        v = [tree_map(lambda g, e: g + e.to(g.dtype), g, e)
+             for g, e in zip(grads, efs)]
+    else:
+        v = tree_map(lambda g, e: g + e.to(g.dtype), grads, ef)
+    return sync_grads(v, pspecs, mesh_axes, topos, codec=codec,
+                      step=int(state["step"]), return_residual=True, **kw)
 
 
 def schedule_lr(train_cfg: TrainConfig, step):
@@ -326,11 +375,14 @@ def _global_loss(losses: list, comm):
 def make_loss_and_grads(model_cfg: TransformerConfig,
                         train_cfg: TrainConfig = TrainConfig(), device=None,
                         comm=None):
-    """``(params, tokens, targets) -> (loss, grads)``: the global mean
-    token loss and the synced gradient tree, the first half of
+    """``(params, tokens, targets, state=None) -> (loss, grads, ef)``: the
+    global mean token loss, the synced gradient tree and the ranks' new
+    residuals (None for the identity codec), the first half of
     :func:`make_train_step` (see it for ``comm``).  Each rank's loss
     divides its summed cross entropy by the global token count, so the
-    synced gradient is the gradient of the global mean."""
+    synced gradient is the gradient of the global mean.  A lossy codec
+    needs the train ``state``: its ``"step"`` keys the rounding and its
+    ``"ef"`` is added before the sync."""
     from ..device import resolve_device
 
     _refuse_unported(train_cfg)
@@ -374,7 +426,8 @@ def make_loss_and_grads(model_cfg: TransformerConfig,
             flat = torch.autograd.grad(loss, tree_leaves(leaves))
         return loss.detach(), tree_unflatten(params, flat)
 
-    def loss_and_grads(params, tokens, targets):
+    def rank_grads(params, tokens, targets):
+        """Each local rank's loss and gradient tree, unsynced."""
         tokens = torch.as_tensor(tokens, device=dev)
         targets = torch.as_tensor(targets, device=dev)
         if tokens.shape[0] % dp:
@@ -389,13 +442,20 @@ def make_loss_and_grads(model_cfg: TransformerConfig,
                                           n_total)
             losses.append(loss)
             grads.append(g)
-        synced = sync_grads(grads if isinstance(comm, Mesh) else grads[0],
-                            pspecs, AXIS_NAMES, topos,
-                            bucket_bytes=train_cfg.bucket_bytes,
-                            chunks=train_cfg.grad_chunks, comm=comm)
+        return losses, grads if isinstance(comm, Mesh) else grads[0]
+
+    lossy = get_codec(train_cfg.codec).lossy
+
+    def loss_and_grads(params, tokens, targets, state=None):
+        if lossy and state is None:
+            raise ValueError(f"codec {train_cfg.codec!r}: the sync needs the "
+                             f"train state (its step and ef)")
+        losses, grads = rank_grads(params, tokens, targets)
+        synced, ef = sync_with_feedback(state, grads, pspecs, AXIS_NAMES,
+                                        topos, train_cfg, comm=comm)
         if isinstance(comm, Mesh):
             synced = synced[0]  # every rank's tree is bitwise this one
-        return _global_loss(losses, comm), synced
+        return _global_loss(losses, comm), synced, ef
 
     return loss_and_grads
 
@@ -414,13 +474,18 @@ def make_train_step(model_cfg: TransformerConfig,
     of dp, as integer arrays or tensors.  ``metrics``: ``{"loss"}`` the
     global mean token loss, plus ``{"grad_norm"}`` (pre-clip) when
     clipping is on, as 0-d float32 tensors on the device.  The step reads
-    ``state`` and returns a new one."""
+    ``state`` and returns a new one; under a lossy codec it carries the
+    ranks' new residuals in ``"ef"``."""
     loss_and_grads = make_loss_and_grads(model_cfg, train_cfg, device, comm)
 
     def step(state, tokens, targets):
-        loss, grads = loss_and_grads(state["params"], tokens, targets)
+        loss, grads, ef = loss_and_grads(state["params"], tokens, targets,
+                                         state)
         metrics = {"loss": loss}
         grads = maybe_clip_grads(grads, train_cfg, metrics)
-        return adamw_apply(state, grads, train_cfg), metrics
+        new = adamw_apply(state, grads, train_cfg)
+        if ef is not None:
+            new["ef"] = ef
+        return new, metrics
 
     return step

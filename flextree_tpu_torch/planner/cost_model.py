@@ -2,9 +2,8 @@
 
 A copy of ``flextree_tpu/planner/cost_model.py`` (the port imports nothing
 of the JAX package), with two differences: the default constants are the
-ones fitted on an H100 (:data:`ICI_DEFAULT`, :class:`TpuCostParams`), and
-the only codecs are the lossless ones the port runs (``None``, ``"f32"``,
-``"identity"``).  The class and field names stay the JAX package's, so
+ones fitted on an H100 (:data:`ICI_DEFAULT`, :class:`TpuCostParams`).
+The class and field names stay the JAX package's, so
 both packages read one calibration file format.  On a GPU, ``ici`` is the
 intra-node link (device copies on the in-process mesh, NVLink across
 cards) and ``dcn`` the network.
@@ -95,10 +94,12 @@ class TpuCostParams:
     control_us_per_width: float = 0.0
     # fixed per-collective launch overhead (the host's dispatch of a stage)
     launch_us: float = 2.6289864287439917
-    # wire-codec encode/decode throughput of a lossy codec's passes; no
-    # ported codec pays a hop cost, so none was measured: the fold's rate,
-    # the pass such a codec would be
-    codec_bw_GBps: float = 352.1983604430778
+    # wire-codec encode/decode throughput, a pass over the f32 bytes: the
+    # int8 encode+decode of 16,781,824 f32 on one NVIDIA H100 80GB HBM3 at
+    # a 700 W power limit, two passes in 2.2673 ms (``chip_smoke.py`` phase
+    # 17(b), CUDA events, a cold L2; a later run read 2.2500 ms, 59.67
+    # GB/s); the fit does not measure it
+    codec_bw_GBps: float = 59.21
     # achievable dense-matmul throughput (GFLOP/s) for the backward-compute
     # estimate the overlap boundary equalizer uses
     # (planner.choose.choose_overlap_boundaries): comm can only hide under
@@ -151,14 +152,14 @@ def _stage_links(topo: Topology, params: TpuCostParams, dcn_stages=()) -> list[L
 
 
 def _codec_props(codec) -> tuple[float, bool]:
-    """(wire_ratio, pays_hop_cost) for ``codec``: ``None``, ``"f32"`` and
-    ``"identity"`` move the bytes as they are, with no hop cost (the JAX
-    ``ops/quantize.py:208``); the lossy codecs are not ported."""
-    if codec is None or codec in ("f32", "identity"):
+    """(wire_ratio, pays_hop_cost) for ``codec`` (None, a name or a
+    ``Codec``; ``ops/quantize.py``)."""
+    if codec is None:
         return 1.0, False
-    raise NotImplementedError(
-        f"codec {codec!r} is not ported yet (ROADMAP.md, Queue 1: "
-        f"'Compressed collectives and error feedback')")
+    from ..ops.quantize import get_codec
+
+    c = get_codec(codec)
+    return c.wire_ratio, c.hop_cost
 
 
 def allreduce_cost(

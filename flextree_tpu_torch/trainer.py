@@ -16,13 +16,17 @@ compute dtype.  Examples::
     # on the CPU (the kernels' plain versions), 2 ranks
     python -m flextree_tpu_torch.trainer --cpu --mesh 2,1,1 --steps 3
 
+    # 8 ranks with the int8 wire codec and error feedback (or --codec bf16)
+    python -m flextree_tpu_torch.trainer --mesh 8,1,1 --codec int8
+
 ``--mesh dp,sp,tp`` or ``--devices N`` (split as the JAX
 ``factor_devices`` splits it) give the ranks, all in this process on the
 one device; sp or tp above 1 is not ported.  ``--cpu`` is a switch.  A
 flag whose module is not ported yet raises ``NotImplementedError`` naming
 its ROADMAP item.  The last line printed is the JAX trainer's.  A
 data-parallel run checkpoints its replicated state, as the JAX trainer
-does.
+does; with a lossy ``--codec`` the state carries the error-feedback
+residual ``"ef"``, the first rank's in the file.
 """
 
 from __future__ import annotations
@@ -80,7 +84,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--grad-topo", type=str, default=None,
                     help="FT_TOPO-style widths for the gradient allreduce, "
                     "or psum (the dense fold); inert on one rank")
-    ap.add_argument("--codec", choices=["f32", "bf16", "int8"], default="f32")
+    ap.add_argument("--codec", choices=["f32", "bf16", "int8"], default="f32",
+                    help="gradient-sync wire codec; bf16 and int8 sync with "
+                    "error feedback")
     ap.add_argument("--autotune", action="store_true")
     ap.add_argument("--shard-optimizer", action="store_true")
     ap.add_argument("--overlap", action=argparse.BooleanOptionalAction,
@@ -137,8 +143,6 @@ def _refuse_unported(args) -> None:
     refusals = (
         (args.model != "dense", f"--model {args.model}",
          "'Sequence, pipeline and expert parallelism'"),
-        (args.codec != "f32", f"--codec {args.codec}",
-         "'Compressed collectives and error feedback'"),
         (args.overlap, "--overlap", "'Overlap'"),
         (args.shard_optimizer, "--shard-optimizer", "'ZeRO-1'"),
         (args.autotune, "--autotune",
@@ -194,6 +198,7 @@ def main(argv=None, *, out: dict | None = None) -> int:
         warmup_steps=args.warmup_steps,
         total_steps=args.steps if args.schedule == "warmup_cosine" else 0,
         min_lr_frac=args.min_lr_frac,
+        codec=args.codec,
     )
     state = init_train_state(cfg, torch.Generator().manual_seed(args.seed),
                              tc, device=dev)

@@ -235,7 +235,12 @@ def save_train_state(ckpt_dir: str | os.PathLike, state: dict, *,
     """Save a train state keyed by its ``state['step']``; prune old ones.
     The just-written file is never pruned, and stale higher-step files (a
     fresh run reusing an old directory) go first, so a later resume finds
-    this state."""
+    this state.  A data-parallel mesh's state holds one error-feedback
+    tree a rank (``state["ef"]`` a list); the file holds the first rank's,
+    what the JAX package's ``device_get`` of its replicated ``ef`` reads,
+    so a resumed run gives that tree to every rank, as the JAX one does."""
+    if isinstance(state.get("ef"), list):
+        state = dict(state, ef=state["ef"][0])
     step = int(state["step"])
     path = os.path.join(os.fspath(ckpt_dir), f"ckpt_{step:08d}.npz")
     save_checkpoint(path, state)

@@ -237,7 +237,9 @@ def test_a_world_of_one_hands_back_its_input(in_place):
 
 def test_unported_routes_raise_naming_their_roadmap_item(monkeypatch):
     """The IR families run now (swing, generalized, and swing through
-    ``FT_TOPO``) and equal the plain sum; a lossy codec still raises."""
+    ``FT_TOPO``) and equal the plain sum; so do the lossy codecs of
+    ``reduce_scatter`` and ``all_gather`` (the compressed halves), and an
+    unknown codec raises."""
     mesh = flat_mesh(4, "cpu")
     data = np.random.default_rng(4).integers(-8, 8, (4, 35)).astype(np.float32)
     rows = list(torch.from_numpy(data))
@@ -248,8 +250,19 @@ def test_unported_routes_raise_naming_their_roadmap_item(monkeypatch):
     monkeypatch.setenv("FT_TOPO", "swing")
     for got in tar.allreduce(rows, mesh):
         assert same_bits(got.numpy(), want)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tar.reduce_scatter(rows, mesh, "2,2", codec="int8")
+    from flextree_tpu_torch.parallel import compressed as tc
+
+    for codec in ("int8", "bf16"):
+        shards = tar.reduce_scatter(rows, mesh, "2,2", codec=codec, step=3)
+        ref = tc.compressed_reduce_scatter(rows, mesh, "2,2", codec, 3)
+        assert all(torch.equal(a, b) for a, b in zip(shards, ref))
+        full = tar.all_gather(shards, mesh, "2,2", (35,), codec=codec, step=3)
+        back = tc.compressed_all_gather(ref, mesh, "2,2", (35,), codec, 3)
+        assert all(torch.equal(a, b) for a, b in zip(full, back))
+        assert np.abs(full[0].numpy() - want).max() <= 1.0
+    for codec in ("fp4", "identity"):
+        with pytest.raises(ValueError, match="unsupported codec"):
+            tar.reduce_scatter(rows, mesh, "2,2", codec=codec)
 
 
 def test_mesh_helpers():

@@ -80,13 +80,30 @@ def test_grad_sync_cli_on_the_cpu_has_the_jax_rows():
     assert set(doc["rows"]) == {"per_leaf", "ours_fused", "ours_chunked"}
     assert {"min_ms", "avg_ms", "times_ms"} <= set(doc["rows"]["per_leaf"])
     assert "vs_per_leaf" in doc["rows"]["ours_fused"]
-    # every JAX field but the lossy codecs' rows, which wait for their
-    # ROADMAP item
-    assert set(dataclasses.asdict(jharness.GradSyncBenchConfig())) - \
-        {"codecs"} <= set(doc["config"])
+    # every JAX field, the lossy codecs' rows included
+    assert set(dataclasses.asdict(jharness.GradSyncBenchConfig())) <= \
+        set(doc["config"])
     assert doc["identical"] is True and doc["topo"] == "4*2"
     assert doc["n_buckets"] == len(doc["bucket_bytes"]) >= 1
     assert sum(doc["bucket_bytes"]) == 12 * 1003 * 4
+
+
+@pytest.mark.parametrize("topo,ranks", [("4,2", 8), ("3,2+1", 7)])
+def test_grad_sync_cli_codec_rows_within_their_bound(topo, ranks):
+    """``--codecs bf16,int8`` adds the JAX harness's ``ours_fused_<codec>``
+    rows, timed in turns with the others, each with its worst leaf's error
+    over ``Codec.error_bound`` (at most 1)."""
+    out = cli("--bench", "grad-sync", "--device", "cpu", "--ranks",
+              str(ranks), "--topo", topo, "--leaves", "6", "--leaf-size",
+              "1003", "--repeat", "2", "--codecs", "bf16,int8")
+    assert out.returncode == 0, out.stderr
+    doc = json.loads(out.stdout.strip().splitlines()[-1])
+    assert doc["config"]["codecs"] == ["bf16", "int8"]
+    for codec in ("bf16", "int8"):
+        row = doc["rows"][f"ours_fused_{codec}"]
+        assert 0 < row["err_over_bound"] <= 1 and len(row["times_ms"]) == 2
+        assert "vs_per_leaf" in row
+    assert doc["identical"] is True
 
 
 def test_grad_sync_bench_on_leaf_shapes_and_refusals():

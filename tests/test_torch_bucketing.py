@@ -31,6 +31,7 @@ import torch
 from jax.sharding import PartitionSpec as P
 
 from flextree_tpu_torch.obs import flight_recorder, topo_spec
+from flextree_tpu_torch.ops import quantize as tq
 from flextree_tpu_torch.obs import provenance as tprov
 from flextree_tpu_torch.parallel import allreduce as tar
 from flextree_tpu_torch.parallel import bucketing as tb
@@ -47,6 +48,7 @@ jtrain = importlib.import_module("flextree_tpu.parallel.train")
 jcost = importlib.import_module("flextree_tpu.planner.cost_model")
 jstages = importlib.import_module("flextree_tpu.schedule.stages")
 jprov = importlib.import_module("flextree_tpu.obs.provenance")
+jq = importlib.import_module("flextree_tpu.ops.quantize")
 jrecorder = importlib.import_module("flextree_tpu.obs.recorder")
 
 AXES = ("dp", "sp", "tp")
@@ -65,7 +67,7 @@ def _params(pkg, launch_us, bw_GBps=45.0):
     return pkg.TpuCostParams(
         ici=pkg.LinkParams(bandwidth_GBps=bw_GBps, latency_us=1.0),
         reduce_bw_GBps=300.0, control_us_per_width=0.05,
-        launch_us=launch_us)
+        launch_us=launch_us, codec_bw_GBps=60.0)
 
 
 def _jspec(spec):
@@ -335,10 +337,15 @@ def test_dense_allreduce_is_the_rank_order_fold():
 
 
 def test_unported_sync_configurations_raise():
+    """The lossy codecs run now (within their bound: the bucketed lossy
+    tests below); an unknown codec raises, as does what is not ported."""
     mesh = flat_mesh(4, "cpu", "dp")
     trees = _trees(4, LEAVES[:2], 8)
     for codec in ("bf16", "int8"):
-        with pytest.raises(NotImplementedError, match="Compressed"):
+        out = ttrain.sync_grads(trees, codec=codec, comm=mesh)
+        assert len(out) == 4 and set(out[0]) == set(trees[0])
+    for codec in ("fp4", "identity"):
+        with pytest.raises(ValueError, match="unsupported codec"):
             ttrain.sync_grads(trees, codec=codec, comm=mesh)
     with pytest.raises(tstages.TopologyError, match="IR families"):
         ttrain.resolve_axis_topos(mesh, AXES, "swing")
@@ -436,3 +443,185 @@ def test_bucketed_sync_spans_and_provenance():
             cost = tcost.allreduce_cost(topo, nb, default_params())
             assert prov["predicted_us"] == round(cost.total_us, 3)
     assert tprov.bucket_provenance(("dp",), {"dp": topo}, 64) is None
+
+
+# ------------------------------------------------------- lossy codecs
+
+
+@pytest.mark.parametrize("launch_us", [1e6, 1e-3, 30.0])
+@pytest.mark.parametrize("grad_topo", [None, "1", "3,2+1"],
+                         ids=["flat", "ring", "lonely"])
+def test_codec_aware_plan_matches_jax(launch_us, grad_topo):
+    """``plan_buckets(codec="int8")`` equals the JAX plan for equal params,
+    and the codec moves the chooser toward fewer, larger buckets (JAX
+    ``test_codec_aware_bucket_sizing``)."""
+    n = 7 if grad_topo == "3,2+1" else 8
+    shapes = [(4096 + 7 * i,) for i in range(40)]
+    tleaves = [torch.empty(s, device="meta") for s in shapes]
+    jleaves = [jax.ShapeDtypeStruct(s, jnp.float32) for s in shapes]
+    kw = dict(axis_sizes={"dp": n}, max_bucket_bytes=64 << 20)
+    for codec in ("int8", "bf16", None):
+        got = tb.plan_buckets(
+            tleaves, [None] * 40, ("dp",),
+            topos={"dp": tstages.Topology.resolve(n, grad_topo)},
+            params=_params(tcost, launch_us), codec=codec, **kw)
+        want = jb.plan_buckets(
+            jleaves, [P()] * 40, ("dp",),
+            topos={"dp": jstages.Topology.resolve(n, grad_topo)},
+            params=_params(jcost, launch_us), codec=codec, **kw)
+        assert [(b.indices, b.nbytes) for b in got] == \
+            [(b.indices, b.nbytes) for b in want], codec
+    # the JAX test's claim holds on the JAX package's default constants
+    # (a TPU's), carried into the port's params; on the port's own (an
+    # H100's, where the wire is a device copy) it need not
+    import dataclasses
+
+    from flextree_tpu.planner.choose import choose_bucket_bytes as j_choose
+    from flextree_tpu_torch.planner.choose import choose_bucket_bytes
+
+    jp = jcost.TpuCostParams()
+    tp = tcost.TpuCostParams(
+        ici=tcost.LinkParams(**dataclasses.asdict(jp.ici)),
+        dcn=tcost.LinkParams(**dataclasses.asdict(jp.dcn)),
+        **{k: v for k, v in dataclasses.asdict(jp).items()
+           if k not in ("ici", "dcn")})
+    t, jt = tstages.Topology(8, (4, 2)), jstages.Topology(8, (4, 2))
+    sizes = {c: choose_bucket_bytes(64 << 20, t, n_leaves=64, params=tp,
+                                    codec=c) for c in (None, "int8")}
+    assert sizes == {c: j_choose(64 << 20, jt, n_leaves=64, params=jp,
+                                 codec=c) for c in (None, "int8")}
+    assert sizes["int8"] >= sizes[None]
+
+
+def _jax_lossy_sync(trees, bucket_bytes, codec, step):
+    """The JAX ``sync_grads`` with ``codec`` and ``return_residual`` on an
+    8-device CPU mesh: each rank's (synced, residual) rows."""
+    mesh = jax.make_mesh((8,), ("dp",), devices=jax.devices()[:8])
+    topos = jtrain.resolve_axis_topos(mesh, ("dp",), None)
+    keys = list(trees[0])
+    stacked = {k: jnp.asarray(np.stack([t[k].numpy() for t in trees]))
+               for k in keys}
+    io = {k: P("dp") for k in keys}
+
+    def f(t):
+        rows = {k: v[0] for k, v in t.items()}
+        out, res = jtrain.sync_grads(rows, {k: P() for k in keys}, ("dp",),
+                                     topos, bucket_bytes=bucket_bytes,
+                                     codec=codec, step=step,
+                                     return_residual=True)
+        return ({k: v[None] for k, v in out.items()},
+                {k: v[None] for k, v in res.items()})
+
+    out, res = jax.jit(jax.shard_map(f, mesh=mesh, in_specs=(io,),
+                                     out_specs=(io, io),
+                                     check_vma=False))(stacked)
+    return ({k: np.array(v) for k, v in out.items()},
+            {k: np.array(v) for k, v in res.items()})
+
+
+@pytest.mark.parametrize("codec", ["int8", "bf16"])
+@pytest.mark.parametrize("bucket_bytes", [0, None], ids=["per-leaf", "bucketed"])
+def test_lossy_sync_within_bound_with_jax_residuals(codec, bucket_bytes):
+    """The JAX ``test_bucketed_lossy_sync_within_bound_with_residuals`` on
+    the port, against the JAX sync on the same rows: every rank's leaves
+    identical and within the codec's bound of the exact sum, the same
+    bucket plan's residuals as JAX's (within one float32 rounding of the
+    decode; see ``test_torch_compressed.py``), each within one
+    quantization step of the blocks it lies in (a packed bucket's blocks
+    straddle leaves, so of the largest leaf's)."""
+    rng = np.random.default_rng(4)
+    leaves = [(1000 + 7 * i,) for i in range(5)]
+    trees = [{f"leaf{i}": torch.from_numpy(
+        rng.standard_normal(s).astype(np.float32)) for i, s in
+        enumerate(leaves)} for _ in range(8)]
+    mesh = flat_mesh(8, "cpu", "dp")
+    topos = ttrain.resolve_axis_topos(mesh, ("dp",), None)
+    got, res = ttrain.sync_grads(trees, None, ("dp",), topos,
+                                 bucket_bytes=bucket_bytes, codec=codec,
+                                 step=3, return_residual=True, comm=mesh)
+    want, want_res = _jax_lossy_sync(trees, bucket_bytes, codec, 3)
+    exact = ttrain.sync_grads(trees, None, ("dp",), topos, comm=mesh)
+    c = tq.get_codec(codec)
+    top = max(float(g.abs().max()) for t in trees for g in t.values())
+    for k in trees[0]:
+        amax = max(float(t[k].abs().max()) for t in trees)
+        bound = c.error_bound(amax, 8, (8,)) + 1e-5
+        for r in range(8):
+            assert torch.equal(got[r][k], got[0][k])
+            err = (got[r][k].double() - exact[r][k].double()).abs().max()
+            assert err <= bound, (k, r, float(err), bound)
+            assert np.abs(want[k][r] - exact[r][k].numpy()).max() <= bound
+            np.testing.assert_allclose(res[r][k].numpy(), want_res[k][r],
+                                       rtol=0, atol=2.0 ** -22 * amax)
+            assert res[r][k].abs().max() <= top / 127.0 + 1e-6
+
+
+@pytest.mark.parametrize("n,topo", [(8, None), (8, "4,2"), (8, "1"),
+                                    (8, "psum"), (7, "3,2+1")])
+@pytest.mark.parametrize("codec", ["int8", "bf16"])
+@pytest.mark.parametrize("bucket_bytes,chunks", [(0, 1), (None, 1), (64, 1),
+                                                 (None, 2)])
+def test_lossy_sync_makes_the_fold_calls_sync_fold_stages_derives(
+        monkeypatch, n, topo, codec, bucket_bytes, chunks):
+    """A lossy sync's ``reduce_sources`` calls, in order, are the stages
+    ``sync_fold_stages(codec=...)`` derives; every rank's leaves are
+    identical, the bucketed sync's within the bound of the per-leaf one's,
+    and the spans are ``ftq_bucket*``."""
+    from flextree_tpu_torch.parallel import compressed as tcomp
+
+    calls = []
+    real = tar.reduce_sources
+
+    def counted(folds, rop):
+        calls.append((len(folds), len(folds[0][0]), folds[0][1].numel()))
+        return real(folds, rop)
+
+    monkeypatch.setattr(tar, "reduce_sources", counted)
+    monkeypatch.setattr(tcomp, "reduce_sources", counted)
+    mesh = flat_mesh(n, "cpu", "dp")
+    trees = _trees(n, [(s, "float32") for s, _ in LEAVES] +
+                   [((3000,), "float32")], 4)
+    topos = ttrain.resolve_axis_topos(mesh, ("dp",), topo)
+    with tprof.span_ledger() as ledger:
+        got = ttrain.sync_grads(trees, None, ("dp",), topos,
+                                bucket_bytes=bucket_bytes, chunks=chunks,
+                                codec=codec, step=2, comm=mesh)
+    leaves = ttrain.tree_leaves(trees[0])
+    buckets = None if bucket_bytes == 0 else tb.plan_buckets(
+        leaves, [None] * len(leaves), ("dp",), topos=topos,
+        axis_sizes={"dp": n}, bucket_bytes=bucket_bytes, codec=codec)
+    assert calls == tb.sync_fold_stages([g.numel() for g in leaves], n,
+                                        topos["dp"], buckets, chunks, codec)
+    if buckets is not None:
+        assert all(name.startswith("ftq_bucket") for name in ledger.names)
+        assert len(ledger.names) == len(buckets)
+    for r in range(1, n):
+        _assert_bitwise([got[r]], [got[0]])
+
+
+@pytest.mark.parametrize("codec", ["int8", "bf16"])
+def test_lossy_bucket_provenance_names_the_codec(codec):
+    """A lossy bucket's ``ftq_bucket*`` span carries the JAX payload's
+    fields with the codec that ran, and its prediction prices the codec."""
+    mesh = flat_mesh(8, "cpu", "dp")
+    trees = _trees(8, [(s, "float32") for s, _ in LEAVES], 9)
+    topos = ttrain.resolve_axis_topos(mesh, ("dp",), "4,2")
+    with flight_recorder(None), tprof.plan_capture() as cap:
+        ttrain.sync_grads(trees, None, ("dp",), topos, bucket_bytes=64,
+                          codec=codec, step=1, comm=mesh)
+    assert cap and all(n.startswith("ftq_bucket") for n, _ in cap)
+    topo = tstages.Topology.resolve(8, "4,2")
+    with jrecorder.flight_recorder(None):
+        for name, prov in cap:
+            nb = tprof.span_bytes(name)
+            want = jprov.bucket_provenance(
+                ("dp",), {"dp": jstages.Topology.resolve(8, "4,2")}, nb,
+                n_leaves=prov["n_leaves"], dtype=prov["dtype"],
+                codec=jq.get_codec(codec))
+            drop = ("predicted", "predicted_us")
+            assert prov["codec"] == codec
+            assert {k: v for k, v in prov.items() if k not in drop} == \
+                {k: v for k, v in want.items() if k not in drop}
+            cost = tcost.allreduce_cost(topo, nb, default_params(),
+                                        codec=codec)
+            assert prov["predicted_us"] == round(cost.total_us, 3)

@@ -99,17 +99,47 @@ def test_every_cost_equals_jax(c, nbytes):
             assert fields(cost_model.swing_cost(n, nbytes, ours, cross)) == \
                 fields(j_cost.swing_cost(n, nbytes, theirs, cross))
     t, jt = Topology(8, (4, 2)), JTopology(8, (4, 2))
-    for codec in ("f32", "identity"):  # JAX calls the identity codec "f32"
+    for codec in (None, "f32", "bf16", "int8"):
         assert fields(cost_model.allreduce_cost(t, nbytes, ours,
                                                 codec=codec)) == \
-            fields(j_cost.allreduce_cost(jt, nbytes, theirs, codec="f32"))
+            fields(j_cost.allreduce_cost(jt, nbytes, theirs, codec=codec))
     assert cost_model.bus_bandwidth_GBps(8, nbytes, 123.0) == \
         j_cost.bus_bandwidth_GBps(8, nbytes, 123.0)
 
 
 def test_a_lossy_codec_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="Compressed collectives"):
-        cost_model.allreduce_cost(Topology(8, (4, 2)), 1 << 20, codec="int8")
+    """The codec term is ported: every cost function prices ``bf16`` and
+    ``int8`` as the JAX one does, field for field, for equal params; an
+    unknown codec raises."""
+    jp = j_cost.TpuCostParams()
+    tp = cost_model.TpuCostParams(
+        ici=cost_model.LinkParams(**dataclasses.asdict(jp.ici)),
+        dcn=cost_model.LinkParams(**dataclasses.asdict(jp.dcn)),
+        **{k: v for k, v in dataclasses.asdict(jp).items()
+           if k not in ("ici", "dcn")})
+    nbytes = 1 << 22
+    for codec in ("bf16", "int8"):
+        for t, jt in ((Topology(8, w), JTopology(8, w))
+                      for w in ((8,), (4, 2), (2, 2, 2))):
+            for name in ("allreduce_cost", "reduce_scatter_cost",
+                         "all_gather_cost", "sharded_sync_cost"):
+                assert fields(getattr(cost_model, name)(
+                    t, nbytes, tp, codec=codec)) == fields(getattr(
+                        j_cost, name)(jt, nbytes, jp, codec=codec)), name
+        assert fields(cost_model.ring_cost(8, nbytes, tp, codec=codec)) == \
+            fields(j_cost.ring_cost(8, nbytes, jp, codec=codec))
+        assert fields(cost_model.lonely_allreduce_cost(
+            Topology(6, (3, 2)), 1, nbytes, tp, codec=codec)) == \
+            fields(j_cost.lonely_allreduce_cost(
+                JTopology(6, (3, 2)), 1, nbytes, jp, codec=codec))
+        assert fields(cost_model.sharded_sync_cost(
+            Topology(4, (4,)), nbytes, tp, codec=codec,
+            secondary_topos=(Topology(2, (2,)),))) == \
+            fields(j_cost.sharded_sync_cost(
+                JTopology(4, (4,)), nbytes, jp, codec=codec,
+                secondary_topos=(JTopology(2, (2,)),)))
+    with pytest.raises(ValueError, match="unsupported codec"):
+        cost_model.allreduce_cost(Topology(8, (4, 2)), 1 << 20, codec="fp4")
 
 
 def plan_view(plan):

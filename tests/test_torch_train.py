@@ -197,8 +197,14 @@ def test_train_state_round_trips_and_refuses_other_layouts(jax_state):
     for a, b in zip(jax.tree.leaves(jax_state), jax.tree.leaves(back)):
         assert a.dtype == b.dtype and a.shape == b.shape
         np.testing.assert_array_equal(a, b)
+    # a lossy codec's residual converts too; other layouts (ZeRO) refuse
+    lossy = train_state_from_numpy(dict(jax_state, ef=jax_state["mu"]),
+                                   device="cpu")
+    for a, b in zip(jax.tree.leaves(jax_state["mu"]),
+                    jax.tree.leaves(train_state_to_numpy(lossy)["ef"])):
+        np.testing.assert_array_equal(a, b)
     with pytest.raises(ValueError, match="ef"):
-        train_state_from_numpy(dict(jax_state, ef=jax_state["mu"]),
+        train_state_from_numpy(dict(jax_state, master=jax_state["mu"]),
                                device="cpu")
 
 
@@ -207,7 +213,37 @@ def test_train_state_round_trips_and_refuses_other_layouts(jax_state):
                                    dict(shard_optimizer=True),
                                    dict(autotune=True)])
 def test_unported_train_config_features_refuse(field):
+    """What waits on its ROADMAP item refuses; a lossy codec runs now: its
+    state carries a zero ``"ef"`` and a step on one rank (no sync, so the
+    residual stays zero) gives the identity codec's update."""
     cfg = ttrain.TrainConfig(**field)
+    if "codec" in field:
+        model = tt.TransformerConfig(**DIMS)
+        state = ttrain.init_train_state(model, torch.Generator().manual_seed(0),
+                                        cfg, device="cpu")
+        plain = ttrain.init_train_state(model, torch.Generator().manual_seed(0),
+                                        device="cpu")
+        assert set(state) == set(plain) | {"ef"}
+        assert not any(e.any() for e in ttrain.tree_leaves(state["ef"]))
+        tokens, targets = _tokens(1)
+        new, _ = ttrain.make_train_step(model, cfg, device="cpu")(
+            state, tokens, targets)
+        want, _ = ttrain.make_train_step(model, device="cpu")(
+            plain, tokens, targets)
+        for a, b in zip(ttrain.tree_leaves(new["params"]),
+                        ttrain.tree_leaves(want["params"])):
+            assert torch.equal(a, b)
+        assert not any(e.any() for e in ttrain.tree_leaves(new["ef"]))
+        loss_and_grads = ttrain.make_loss_and_grads(model, cfg, device="cpu")
+        loss, grads, ef = loss_and_grads(state["params"], tokens, targets,
+                                         state)
+        assert not any(e.any() for e in ttrain.tree_leaves(ef))
+        with pytest.raises(ValueError, match="needs the train state"):
+            loss_and_grads(state["params"], tokens, targets)
+        with pytest.raises(ValueError, match="unsupported codec"):
+            ttrain.make_train_step(model, ttrain.TrainConfig(codec="fp4"),
+                                   device="cpu")
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ttrain.make_train_step(tt.TransformerConfig(**DIMS), cfg,
                                device="cpu")
