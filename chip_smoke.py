@@ -174,12 +174,32 @@ failure raises and exits non-zero:
     steps x the lossy plan's; the int8 and f32-codec steps in turns
     (printed, not gated); (d) the JAX EF test at 2^20 elements on 8
     ranks: the single-shot error within the bound, the running mean's
-    after 24 steps below 1/8 of step 1's and bound/10.
+    after 24 steps below 1/8 of step 1's and bound/10;
+18. readiness-ordered overlap — the plan (``parallel.overlap.plan_overlap``:
+    labels, boundaries, bytes, compute, the predicted total and exposed
+    µs) printed; (a) ``trainer.main --mesh 8,1,1 --overlap`` at the
+    flagship width (bf16, flash, batch 8 x 1024, 20 steps, a checkpoint
+    every 10): the loss finite and falling, the checkpoint bitwise the
+    live state, each flash kernel's launches steps x layers x 8, the fold
+    kernel's steps x the fired buckets' inner plans'; (b) at full width,
+    one float32 step of the overlapped step, its serialized twin and the
+    production step bitwise equal, and two int8 steps of the overlapped
+    step and its twin bitwise equal with every rank's ``ef``, each
+    non-zero; (c) two overlapped steps under ``torch.profiler``: every
+    fold launch on another stream than the flash backward's, and the ms
+    of folds and of the fold's stream that ran under a flash backward
+    kernel (printed, not gated); (d) ``run_train_step_bench`` at the
+    flagship width on 8 ranks, six rows in turns: each row's step, sync,
+    exposed and hidden ms (printed, not gated; every step bitwise the
+    per-leaf one); (e) the backward of one rank's share (B=1, T=1024) in
+    CUDA events behind a head start, its ``segment_flops`` over that time
+    beside ``parallel/overlap.py``'s constant.
 
 The kernels line gives each kernel's launches by path
 (``launches_by_path``: serve, train, dp_train, allreduce, ir_families,
 reduce_bench, codec for phase 17(a) and (d), codec_sync for phase 17(b),
-dp_codec for phase 17(c)'s int8 run) and their sum (``launches``).
+dp_codec for phase 17(c)'s int8 run, dp_overlap for phase 18(a)) and
+their sum (``launches``).
 
 Prints each phase's seconds, a ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Exits
@@ -1118,7 +1138,8 @@ def device_rows(w, length, dtype, gen, dev):
 
 def same_bits(a, b) -> bool:
     return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
-        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+        a.reshape(-1).contiguous().view(torch.uint8),
+        b.reshape(-1).contiguous().view(torch.uint8))
 
 
 def check_batch(rs, x, name, st, batch, in_place):
@@ -2785,6 +2806,476 @@ def phase_codec(dev, fa, trainer, ckpt):
     return launches, dp_launches
 
 
+# phase 18: readiness-ordered backward/comm overlap
+OVL_ARGV = DP_ARGV + ["--overlap"]  # 20 steps, a checkpoint every 10
+OVL_INT8_STEPS = 2
+OVL_BENCH_REPEAT = 5
+OVL_RATE_REPS = 10
+# GPU cycles (~50 ms) the card spins before the timed backward of 18(e):
+# the host enqueues the whole backward while the card is busy, so the
+# events time the card's work and not the host's dispatch
+BWD_HEAD_START_CYCLES = 100_000_000
+
+
+def overlap_fold_launches(ov, bk, tm, rs, plan, params, pspecs, topos,
+                          sizes, codec=None) -> int:
+    """Fold-kernel launches of one overlapped step's sync: over its fired
+    buckets (:func:`fired_payloads`), each bucket's inner plan, planned as
+    ``bucketed_sync_grads`` plans it."""
+    total = 0
+    for tree, specs in zip(ov.fired_payloads(plan, params),
+                           ov.fired_payloads(plan, pspecs)):
+        leaves = tm.tree_leaves(tree)
+        inner = bk.plan_buckets(leaves, bk.spec_leaves(tree, specs),
+                                tm.AXIS_NAMES, topos=topos, axis_sizes=sizes,
+                                codec=codec)
+        total += stage_launches(bk.sync_fold_stages(
+            [g.numel() for g in leaves], DP, topos["dp"], inner,
+            codec=codec), rs.MAX_POINTERS)
+    return total
+
+
+def check_fired_syncs(ov, tm, bk, cm, rs, plan, shapes, pspecs, topos,
+                      sizes, tc, dev, flat_mesh, codec=None):
+    """Phase 18(b), one codec: every fired bucket's sync as the overlapped
+    step runs it (``_sync_fired_bucket`` on the bucket's payload,
+    :func:`fired_payloads`, under the step's train config) on seeded
+    per-rank gradients (and, lossy, residuals) on the card, its folds
+    counted by body (:func:`fold_bodies`); then on host copies with the
+    card's inner plan (the cap set to its largest bucket), where
+    ``reduce_sources`` takes its plain fold and the encode runs on the CPU:
+    result and residual bitwise, and every fold on more than DP elements
+    in the bulk-copy body.  Returns each bucket's bytes, inner plan and
+    folds by body."""
+    from flextree_tpu_torch.parallel import allreduce as ar
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 182)
+
+    def rank_trees(scale):
+        return [tm.tree_map(lambda p: scale * torch.randn(
+            p.shape, generator=gen, device=dev), shapes) for _ in range(DP)]
+
+    tc = dataclasses.replace(tc, codec=codec or "f32")
+    grads = [ov.fired_payloads(plan, g) for g in rank_trees(1.0)]
+    efs = [ov.fired_payloads(plan, e) for e in rank_trees(1e-3)] \
+        if codec else None
+    mesh, host_mesh = flat_mesh(DP, dev, "dp"), flat_mesh(DP, "cpu", "dp")
+    out = []
+    for bi, specs in enumerate(ov.fired_payloads(plan, pspecs)):
+        trees = [g[bi] for g in grads]
+        ef = [e[bi] for e in efs] if codec else None
+        leaves = tm.tree_leaves(trees[0])
+        nbytes = sum(g.numel() * g.element_size() for g in leaves)
+        inner = bk.plan_buckets(leaves, bk.spec_leaves(trees[0], specs),
+                                tm.AXIS_NAMES, topos=topos, axis_sizes=sizes,
+                                bucket_bytes=tc.bucket_bytes, codec=codec)
+        name = f"ft_overlap_bucket{bi}_check_{nbytes}B"
+        what = (f"{codec or 'f32'} fired bucket {bi} "
+                f"({list(plan.boundaries[bi])}, {nbytes} B a rank)")
+        with fold_bodies(rs, cm, ar) as seen:
+            got = ov._sync_fired_bucket(trees, specs, tm.AXIS_NAMES, topos,
+                                        tc, CODEC_STEP, ef, name, comm=mesh)
+        want = stage_launches(bk.sync_fold_stages(
+            [g.numel() for g in leaves], DP, topos["dp"], inner,
+            codec=codec), rs.MAX_POINTERS)
+        if sum(seen.values()) != want:
+            raise AssertionError(f"{what}: {sum(seen.values())} fold "
+                                 f"launches, its inner plan derives {want}")
+        cpu = [tm.tree_map(lambda g: g.cpu(), t) for t in trees]
+        cap = max(b.nbytes for b in inner)
+        if bk.plan_buckets(tm.tree_leaves(cpu[0]),
+                           bk.spec_leaves(cpu[0], specs), tm.AXIS_NAMES,
+                           topos=topos, axis_sizes=sizes, bucket_bytes=cap,
+                           codec=codec) != inner:
+            raise AssertionError(f"{what}: the host plan differs from the "
+                                 f"card's")
+        plain = ov._sync_fired_bucket(
+            cpu, specs, tm.AXIS_NAMES, topos,
+            dataclasses.replace(tc, bucket_bytes=cap), CODEC_STEP,
+            None if ef is None else
+            [tm.tree_map(lambda g: g.cpu(), e) for e in ef],
+            name, comm=host_mesh)
+        parts = [p for p in zip(got, plain) if p[0] is not None]
+        if len(parts) != (2 if codec else 1) or not all(
+                trees_identical([tm.tree_map(lambda g: g.cpu(), t)
+                                 for t in card], host, tm.tree_leaves)
+                for card, host in parts):
+            raise AssertionError(f"{what}: the card is not bitwise the host "
+                                 f"copies (result or residual)")
+        check_bodies(seen, what, DP)
+        out.append((nbytes, inner, seen))
+        del trees, ef, got, cpu, plain, parts
+    return out
+
+
+def describe_plan(plan) -> str:
+    return (f"labels {list(plan.labels)}, boundaries "
+            f"{[list(b) for b in plan.boundaries]}, seg_bytes "
+            f"{list(plan.seg_bytes)}, seg_compute_us "
+            f"{[round(u, 3) for u in plan.seg_compute_us]}, predicted total "
+            f"{plan.predicted_total_us:.3f} us, exposed "
+            f"{plan.predicted_exposed_us:.3f} us")
+
+
+def stream_overlap(trace_path, steps: int):
+    """From a chrome trace of ``steps`` train steps: the streams of the
+    fold kernel's and the flash backward's launches; the ms of fold
+    launches, and of every launch on the fold's streams (the fired
+    buckets' folds, copies and packing), that overlap a flash backward
+    launch in time; and for each step (the launches split evenly in time
+    order) how long its first fold started before its last flash backward
+    launch started (``lead_ms``) and after that launch ended
+    (``after_ms``): an overlapped step fires its first bucket while its
+    backward still runs, the serialized twin after it."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    dev = [e for e in events if e.get("ph") == "X" and e.get("cat") in
+           ("kernel", "gpu_memcpy", "gpu_memset")]
+    bwd = sorted((e["ts"], e["ts"] + e["dur"]) for e in dev
+                 if "flash_bwd" in e["name"])
+    folds = [e for e in dev if "fold_kernel" in e["name"]]
+    fold_streams = {e["args"]["stream"] for e in folds}
+    bwd_streams = {e["args"]["stream"] for e in dev
+                   if "flash_bwd" in e["name"]}
+    merged: list = []
+    for a, b in bwd:  # the union of the flash backward's intervals
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+
+    def under(e):
+        a, b = e["ts"], e["ts"] + e["dur"]
+        return sum(max(0.0, min(b, y) - max(a, x)) for x, y in merged)
+
+    fold_starts = sorted(e["ts"] for e in folds)
+    nb, nf = len(bwd) // steps, len(fold_starts) // steps
+    if nb * steps != len(bwd) or nf * steps != len(fold_starts) or not nb:
+        raise AssertionError(f"{len(bwd)} flash backward and "
+                             f"{len(fold_starts)} fold launches do not split "
+                             f"into {steps} steps")
+    lead = [(bwd[(k + 1) * nb - 1][0] - fold_starts[k * nf]) / 1e3
+            for k in range(steps)]
+    after = [(fold_starts[k * nf] - bwd[(k + 1) * nb - 1][1]) / 1e3
+             for k in range(steps)]
+    side = [e for e in dev if e["args"].get("stream") in fold_streams]
+    return {"folds": len(folds), "fold_streams": sorted(fold_streams),
+            "bwd_streams": sorted(bwd_streams),
+            "fold_ms": sum(e["dur"] for e in folds) / 1e3,
+            "fold_under_ms": sum(under(e) for e in folds) / 1e3,
+            "side_ms": sum(e["dur"] for e in side) / 1e3,
+            "side_under_ms": sum(under(e) for e in side) / 1e3,
+            "lead_ms": lead, "after_ms": after}
+
+
+def phase_overlap(dev, fa, trainer, ckpt, smi):
+    """Phase 18: (a) ``trainer.main --mesh 8,1,1 --overlap``, the flash and
+    fold counts set to 0 just before and read just after; (b) the
+    overlapped step, its twin and the production step bitwise in float32,
+    the int8 overlapped step and its twin bitwise with every rank's ef,
+    and each fired bucket's f32 and int8 sync bitwise its plain fold on
+    host copies; (c) two overlapped steps and two of the twin under
+    ``torch.profiler``: every fold on another stream than the flash
+    backward, the overlapped step's first fold before its backward's last
+    launch and the twin's after its end, and how much runs under it;
+    (d) ``run_train_step_bench`` with its six rows; (e) the backward's
+    rate against ``parallel/overlap.py``'s constant.  Returns (a)'s
+    launches."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from flextree_tpu_torch import data as data_mod
+    from flextree_tpu_torch.bench import harness
+    from flextree_tpu_torch.models import transformer as tt
+    from flextree_tpu_torch.ops import reduce_stacked as rs
+    from flextree_tpu_torch.parallel import bucketing as bk
+    from flextree_tpu_torch.parallel import compressed as cm
+    from flextree_tpu_torch.parallel import overlap as ov
+    from flextree_tpu_torch.parallel import train as tm
+    from flextree_tpu_torch.parallel.mesh import flat_mesh
+
+    cfg = tt.TransformerConfig(**MODEL)
+    pspecs = tt.param_specs(cfg)
+    b, t = FLASH_TRAIN[:2]
+    layers = MODEL["n_layers"]
+    mesh = flat_mesh(DP, dev, "dp")
+    sizes = {"dp": DP, "sp": 1, "tp": 1}
+    topos = tm.resolve_axis_topos(sizes, tm.AXIS_NAMES, None)
+    init = tm.init_train_state(cfg, torch.Generator().manual_seed(SEED),
+                               device=dev)
+    plan = ov.plan_overlap(init["params"], pspecs, tm.AXIS_NAMES, topos,
+                           sizes, n_tokens=b // DP * t, t_local=t,
+                           d_model=cfg.d_model)
+    per_step = overlap_fold_launches(ov, bk, tm, rs, plan, init["params"],
+                                     pspecs, topos, sizes)
+    log(f"phase 18 plan ({DP} ranks, grad_topo {topos['dp']}, bwd_GFLOPs "
+        f"{ov.resolve_bwd_GFLOPs(None, dev):g}): {describe_plan(plan)}; "
+        f"{per_step} fold launches a step")
+
+    # ---- (a) the main path: trainer.main --mesh 8,1,1 --overlap
+    clock = time.monotonic()
+    with tempfile.TemporaryDirectory(prefix="ft-ovl-") as ckpt_dir:
+        out: dict = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_flash_counts(fa)
+        rs.reduce_sources.launches = 0
+        t0 = time.monotonic()
+        trainer.main(OVL_ARGV + ["--ckpt-dir", ckpt_dir], out=out)
+        torch.cuda.synchronize()
+        wall_s = time.monotonic() - t0
+        launches = flash_counts(fa)
+        launches["reduce_sources"] = rs.reduce_sources.launches
+        peak = torch.cuda.max_memory_allocated()
+        res = out["result"]
+        losses = [loss for _, loss in res.losses]
+        if len(losses) != DP_STEPS or not all(np.isfinite(losses)) or \
+                not losses[-1] < losses[0]:
+            raise AssertionError(f"overlap: losses not finite and falling: "
+                                 f"{losses}")
+        if not out["train_cfg"].overlap:
+            raise AssertionError("overlap: the trainer ran without it")
+        want = DP_STEPS * layers * DP
+        if any(launches[k] != want for k in flash_counts(fa)):
+            raise AssertionError(f"overlap: flash launches {launches} != "
+                                 f"steps x layers x dp = {want}")
+        if launches["reduce_sources"] != DP_STEPS * per_step:
+            raise AssertionError(
+                f"overlap: fold launches {launches['reduce_sources']} != "
+                f"{DP_STEPS} steps x {per_step} (the plan's)")
+        saved = ckpt.restore_train_state(ckpt_dir, dev)
+        if not all(a.dtype == b_.dtype and torch.equal(a, b_) for a, b_ in
+                   zip(tm.tree_leaves(res.state), tm.tree_leaves(saved))):
+            raise AssertionError("overlap: the checkpoint does not restore "
+                                 "bitwise")
+    state, model_cfg, tc = res.state, out["model_cfg"], out["train_cfg"]
+    log(f"phase 18(a) overlap train (flagship, bf16, flash, global batch "
+        f"{b} x {t}, {DP} in-process ranks, grad_topo {topos['dp']}): "
+        f"{DP_STEPS} steps in {wall_s:.3f} s via trainer.main --overlap; "
+        f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; flash launches "
+        f"{ {k: launches[k] for k in flash_counts(fa)} } = {DP_STEPS} steps "
+        f"x {layers} layers x {DP} ranks; fold launches "
+        f"{launches['reduce_sources']} = {DP_STEPS} x {per_step} (the "
+        f"plan's {plan.n_buckets} fired buckets); checkpoint restores "
+        f"bitwise; peak memory {peak / 2**30:.3f} GiB; "
+        f"{time.monotonic() - clock:.1f} s")
+    del res, out, saved
+    torch.cuda.empty_cache()
+
+    # ---- (b) bits on the card
+    clock = time.monotonic()
+    dataset = data_mod.LMDataset(
+        data_mod.synthetic_tokens(200_000, MODEL["vocab_size"], seed=SEED),
+        batch=b, seq_len=t, seed=SEED)
+    batches = [dataset.batch_at(i) for i in range(OVL_INT8_STEPS)]
+    f32 = tt.TransformerConfig(**MODEL, dtype=torch.float32,
+                               attn_impl="flash")
+    prod_tc = tm.TrainConfig()
+    ovl_tc = dataclasses.replace(prod_tc, overlap=True)
+    # every fired sync runs where any host synchronization raises: a
+    # blocking read would serialize the comm stream with the backward
+    real_fire, fires = ov._sync_fired_bucket, []
+
+    def no_host_sync(*args, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fires.append(True)
+            return real_fire(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    got = {}
+    ov._sync_fired_bucket = no_host_sync
+    try:
+        for name, tc_, ser in (("production", prod_tc, False),
+                               ("overlapped", ovl_tc, False),
+                               ("twin", ovl_tc, True)):
+            got[name], _ = tm.make_train_step(f32, tc_, comm=mesh,
+                                              serialize_overlap=ser)(
+                init, *batches[0])
+    finally:
+        ov._sync_fired_bucket = real_fire
+    for name in ("overlapped", "twin"):
+        if not trees_identical([got["production"]], [got[name]],
+                               tm.tree_leaves):
+            raise AssertionError(f"f32 {name} step is not the production "
+                                 f"step bitwise")
+    del got
+    int8_tc = dataclasses.replace(tc, codec="int8")
+    lossy = {}
+    ov._sync_fired_bucket = no_host_sync
+    try:
+        for name, ser in (("overlapped", False), ("twin", True)):
+            st = tm.init_train_state(model_cfg, torch.Generator().manual_seed(
+                SEED), int8_tc, device=dev)
+            step = tm.make_train_step(model_cfg, int8_tc, comm=mesh,
+                                      serialize_overlap=ser)
+            for tokens, targets in batches:
+                st, _ = step(st, tokens, targets)
+            lossy[name] = st
+    finally:
+        ov._sync_fired_bucket = real_fire
+    efs = lossy["overlapped"]["ef"]
+    if not trees_identical([lossy["overlapped"]], [lossy["twin"]],
+                           tm.tree_leaves):
+        raise AssertionError("int8 overlapped step and its twin differ "
+                             "(params or a rank's ef)")
+    if len(efs) != DP or not all(any(e.any() for e in tm.tree_leaves(ef))
+                                 for ef in efs):
+        raise AssertionError("int8 overlap: a rank's residual is zero")
+    log(f"phase 18(b) bits (full width, global batch {b} x {t}, {DP} "
+        f"ranks): f32 flash, one step: overlapped = twin = production "
+        f"bitwise (params, moments, step); int8 (bf16 compute, flash, "
+        f"{OVL_INT8_STEPS} steps): overlapped = twin bitwise, every rank's "
+        f"ef included, every rank's ef non-zero; {len(fires)} fired syncs, "
+        f"none synchronized the host (sync debug mode 'error'); "
+        f"{time.monotonic() - clock:.1f} s")
+    del lossy, efs
+    torch.cuda.empty_cache()
+    # the fold kernel against its plain version at the fired buckets' own
+    # shapes: each bucket's sync on the card and on host copies
+    clock = time.monotonic()
+    for codec in (None, "int8"):
+        # the step plans the int8 buckets with the codec's wire prices
+        cplan = plan if codec is None else ov.plan_overlap(
+            init["params"], pspecs, tm.AXIS_NAMES, topos, sizes,
+            n_tokens=b // DP * t, t_local=t, d_model=cfg.d_model,
+            codec=codec)
+        fired = check_fired_syncs(ov, tm, bk, cm, rs, cplan, init["params"],
+                                  pspecs, topos, sizes, tc, dev, flat_mesh,
+                                  codec)
+        log(f"phase 18(b) {codec or 'f32'} fired syncs as the overlapped "
+            f"step runs them (seeded gradients{', residuals' if codec else ''}"
+            f", {DP} ranks, step {CODEC_STEP}): each bucket's result"
+            f"{' and residual' if codec else ''} bitwise the same sync on "
+            f"host copies with the card's inner plan (the plain fold); "
+            + "; ".join(f"bucket {bi} {list(cplan.boundaries[bi])} "
+                        f"({nbytes} B, {len(inner)} inner buckets): "
+                        f"{describe_bodies(seen)}"
+                        for bi, (nbytes, inner, seen) in enumerate(fired))
+            + f"; {time.monotonic() - clock:.1f} s")
+        del fired
+        torch.cuda.empty_cache()
+
+    # ---- (c) streams: two overlapped steps under torch.profiler, then
+    # two of the twin
+    clock = time.monotonic()
+    data = np.random.default_rng(SEED).integers(
+        0, MODEL["vocab_size"], (2, b, t)).astype(np.int32)
+
+    def traced(serialize):
+        step = tm.make_train_step(model_cfg, tc, comm=mesh,
+                                  serialize_overlap=serialize)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            step(state, data[0], data[1])[1]["loss"].item()
+            prof.step()
+            s = state
+            for _ in range(2):
+                s, m = step(s, data[0], data[1])
+            float(m["loss"])
+            torch.cuda.synchronize()
+            prof.step()
+        with tempfile.TemporaryDirectory(prefix="ft-ovl-trace-") as d:
+            path = os.path.join(d, "trace.json")
+            prof.export_chrome_trace(path)
+            return stream_overlap(path, 2)
+
+    so, twin = traced(False), traced(True)
+    for what, got in (("overlapped", so), ("twin", twin)):
+        if got["folds"] != 2 * per_step:
+            raise AssertionError(f"streams, {what}: {got['folds']} fold "
+                                 f"launches traced for 2 steps x {per_step}")
+        if not got["bwd_streams"] or set(got["fold_streams"]) & \
+                set(got["bwd_streams"]):
+            raise AssertionError(f"streams, {what}: folds on "
+                                 f"{got['fold_streams']}, the flash backward "
+                                 f"on {got['bwd_streams']}")
+    if not all(x > 0 for x in so["lead_ms"]):
+        raise AssertionError(f"streams: an overlapped step's first fold did "
+                             f"not start before its last flash backward "
+                             f"launch: leads {so['lead_ms']} ms")
+    if not all(x >= 0 for x in twin["after_ms"]):
+        raise AssertionError(f"streams: the twin's first fold started before "
+                             f"its backward ended: {twin['after_ms']} ms")
+    log(f"phase 18(c) streams (2 overlapped steps, then 2 of the twin, under "
+        f"torch.profiler): {so['folds']} fold launches, all on stream(s) "
+        f"{so['fold_streams']}, the flash backward on {so['bwd_streams']}; "
+        f"each overlapped step's first fold started "
+        f"{[round(x, 3) for x in so['lead_ms']]} ms before its last flash "
+        f"backward launch, each twin step's "
+        f"{[round(x, 3) for x in twin['after_ms']]} ms after its backward's "
+        f"end; overlapped: fold kernels {so['fold_ms']:.3f} ms, of it "
+        f"{so['fold_under_ms']:.3f} ms under a flash backward kernel; "
+        f"everything on the fold's stream (folds, copies, packing) "
+        f"{so['side_ms']:.3f} ms, of it {so['side_under_ms']:.3f} ms under "
+        f"one (a measurement, not a bar); {time.monotonic() - clock:.1f} s")
+    del state
+    torch.cuda.empty_cache()
+
+    # ---- (d) the train-step bench, six rows in turns
+    clock = time.monotonic()
+    bench = harness.run_train_step_bench(harness.TrainStepBenchConfig(
+        n_layers=layers, d_model=MODEL["d_model"], d_ff=MODEL["d_ff"],
+        n_heads=MODEL["n_heads"], vocab_size=MODEL["vocab_size"], batch=b,
+        seq_len=t, devices=DP, repeat=OVL_BENCH_REPEAT, overlap=True,
+        device=str(dev)))
+    rows = bench["rows"]
+    ovl_row = rows["ours_overlapped"]
+    log(f"phase 18(d) train-step bench (flagship, bf16, flash, {DP} ranks, "
+        f"{OVL_BENCH_REPEAT} rounds in turns; {smi}; printed, not gated; "
+        f"all steps bitwise the per-leaf step): " + "; ".join(
+            f"{k} median {r['train_step_median_ms']:.3f} ms (min "
+            f"{r['train_step_ms']:.3f})"
+            + (f", sync {r['sync_ms']:.3f} ms, exposed "
+               f"{r['exposed_comm_ms']:.3f} ms, hidden "
+               f"{r['hidden_comm_ms']:.3f} ms" if "sync_ms" in r else "")
+            for k, r in rows.items())
+        + f"; the twin's exposure {rows['ours_overlap_serialized']['exposed_comm_ms']:.3f}"
+        f" ms = {ovl_row['exposed_vs_serialized']:.3f}x the overlapped "
+        f"row's; {time.monotonic() - clock:.1f} s")
+    torch.cuda.empty_cache()
+
+    # ---- (e) the backward's rate, one rank's share
+    clock = time.monotonic()
+    tokens = torch.as_tensor(data[0][:b // DP], device=dev)
+    targets = torch.as_tensor(data[1][:b // DP], device=dev)
+    params = init["params"]
+    flops = sum(ov.segment_flops(path, params, tokens.numel(),
+                                 MODEL["d_model"], t)
+                for _, path in ov.readiness_segments(params))
+    times = []
+    for i in range(OVL_RATE_REPS + 2):
+        with torch.enable_grad():
+            leaves = tm.tree_map(lambda p: p.detach().requires_grad_(),
+                                 params)
+            loss_sum, _ = tt.cross_entropy_loss(
+                tt.forward(leaves, tokens.long(), model_cfg), targets)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(BWD_HEAD_START_CYCLES)
+        start.record()
+        torch.autograd.grad(loss_sum / (b * t), tm.tree_leaves(leaves))
+        end.record()
+        if start.query():
+            raise AssertionError("18(e): the head start ended before the "
+                                 "backward was enqueued")
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    bwd_ms = float(np.median(times[2:]))
+    rate = flops / (bwd_ms / 1e3) / 1e9
+    log(f"phase 18(e) backward of one rank's share (B={b // DP}, T={t}, "
+        f"bf16, flash; CUDA events, median of {OVL_RATE_REPS}): "
+        f"{bwd_ms:.4f} ms for {flops / 1e9:.3f} GFLOP of segment_flops = "
+        f"{rate:.1f} GFLOP/s; parallel/overlap.py's constant "
+        f"{ov._BWD_GFLOPS_DEFAULTS['cuda']:g} GFLOP/s; {smi}; "
+        f"{time.monotonic() - clock:.1f} s")
+    return launches
+
+
 def collective_phases(dev, bw) -> list:
     """Phases 11-15 (the FlexTree collectives); returns their rows of the
     kernels line (``reduce_sources`` and ``reduce_stacked``, the fold
@@ -3276,10 +3767,15 @@ def main() -> int:
     t0 = time.monotonic()
     codec_launches, dp_codec_launches = phase_codec(dev, fa, trainer, ckpt)
     log(f"phase 17: {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    ovl_launches = phase_overlap(dev, fa, trainer, ckpt, smi)
+    log(f"phase 18: {time.monotonic() - t0:.1f} s")
     # each path's launches beside their sum
     for row in rows:
         if row["name"] in dp_launches:
             row["launches_by_path"]["dp_train"] = dp_launches[row["name"]]
+        if row["name"] in ovl_launches:
+            row["launches_by_path"]["dp_overlap"] = ovl_launches[row["name"]]
         if row["name"] in dp_codec_launches:
             row["launches_by_path"]["dp_codec"] = \
                 dp_codec_launches[row["name"]]

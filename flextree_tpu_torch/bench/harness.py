@@ -28,6 +28,13 @@ ceiling):
   name): per-leaf, fused and fused chunk-pipelined, timed in turns, and
   the three results held bitwise equal; with ``codecs``, a lossy fused
   row a codec, held to the codec's error bound;
+- :func:`run_train_step_bench` — the data-parallel train step under the
+  per-leaf, fused and chunked syncs (the JAX harness's function of the
+  same name), and with ``overlap`` its readiness-ordered step, that
+  step's serialized twin and the sync-free step
+  (:func:`make_nosync_train_step`), timed in turns: each sync row's
+  exposed and hidden sync time (``utils.profiling.exposed_split``), and
+  every step's parameters held bitwise to the per-leaf step's;
 - :func:`hbm_copy` — the copy kernel ``csrc/copy.cu``, which replaces the
   Pallas ``copy_kernel`` of ``tools/roofline_reduce.py:101``: the measured
   streaming ceiling the fold is judged against.
@@ -612,6 +619,230 @@ def run_grad_sync_bench(cfg: GradSyncBenchConfig) -> dict:
         "n_buckets": len(buckets),
         "bucket_bytes": [b.nbytes for b in buckets],
         "identical": identical,
+        "rows": rows,
+    }
+
+
+# ------------------------------------------------------------ train step
+
+
+@dataclass(frozen=True)
+class TrainStepBenchConfig:
+    """The data-parallel train step (forward, backward, sync, AdamW) under
+    each sync: the JAX ``TrainStepBenchConfig``, field for field, plus the
+    ``device``.  The model computes as the flagship does (bfloat16, the
+    flash kernels; float32 parameters).  The default model is the
+    many-small-leaves regime (50 gradient leaves) on ``devices`` in-process
+    ranks (None: 8).
+
+    ``overlap`` adds ``no_sync`` (the same step with the sync left out:
+    the exposure baseline), ``ours_overlapped`` (``TrainConfig(overlap=
+    True)``) and ``ours_overlap_serialized`` (its twin).  ``supervised``,
+    ``sharded`` and ``recorder`` (the JAX rows of the supervision host
+    path, ZeRO-1 and the flight recorder) wait for their modules and
+    raise; ``supervised`` defaults to False here, where JAX's is True."""
+
+    n_layers: int = 6
+    d_model: int = 64
+    d_ff: int = 128
+    n_heads: int = 4
+    vocab_size: int = 256
+    batch: int = 8
+    seq_len: int = 64
+    devices: int | None = None
+    topo: str | None = None  # grad_topo for the sync
+    repeat: int = 5
+    chunks: int = 2
+    supervised: bool = False
+    overlap: bool = False
+    sharded: bool = False
+    recorder: bool = False
+    device: str | None = None
+
+
+def make_nosync_train_step(model_cfg, train_cfg, device=None, comm=None):
+    """The sync-free twin of ``make_train_step``: every rank's forward and
+    backward, clipping and AdamW, with the gradient sync left out (the
+    first local rank's gradient updates the state).  Not a training step
+    (the ranks' gradients are never summed), but the baseline the overlap
+    bench needs: a step's time over this one's is the sync time that
+    extended the step (``utils.profiling.exposed_split``)."""
+    from ..parallel import train as tm
+
+    tm._refuse_unported(train_cfg)
+    dev, dp, local = tm._local_ranks(comm, device)
+
+    def step(state, tokens, targets):
+        toks, tgts, n_total = tm._rank_batches(tokens, targets, dev, dp,
+                                               local)
+        runs = [tm._rank_loss_and_grads(model_cfg, state["params"], t, y,
+                                        n_total) for t, y in zip(toks, tgts)]
+        metrics = {"loss": tm._global_loss([loss for loss, _ in runs],
+                                           comm)}
+        # clipping stays: compute parity with the real step
+        grads = tm.maybe_clip_grads(runs[0][1], train_cfg, metrics)
+        return tm.adamw_apply(state, grads, train_cfg), metrics
+
+    return step
+
+
+def run_train_step_bench(cfg: TrainStepBenchConfig) -> dict:
+    """Rows of the train step's ms (min, mean, median) a sync strategy,
+    timed in turns (:func:`_interleaved_times`), on an in-process mesh of
+    ``cfg.devices`` ranks on ``cfg.device``; ``sync_ms`` is the sync alone
+    on gradient-shaped data, so ``step - sync`` reads as the compute.  With
+    ``cfg.overlap`` the rows ``no_sync``, ``ours_overlapped`` and
+    ``ours_overlap_serialized`` come too, and every sync row carries
+    ``exposed_comm_ms`` and ``hidden_comm_ms`` (:func:`exposed_split` over
+    the ``no_sync`` step; the overlap rows cut the twin's exposure, the
+    JAX bench's comm total, the others their own ``sync_ms``) and
+    ``exposed_vs_serialized`` (the twin's exposure over the row's).
+    Raises unless the fused, chunked and overlap steps update the
+    parameters bitwise as the per-leaf step does."""
+    from ..models.transformer import TransformerConfig, param_specs
+    from ..parallel import overlap as ov
+    from ..parallel.train import (
+        AXIS_NAMES,
+        TrainConfig,
+        init_train_state,
+        make_train_step,
+        resolve_axis_topos,
+        sync_grads,
+        tree_leaves,
+        tree_map,
+    )
+    from ..utils.profiling import exposed_split
+
+    refusals = (
+        (cfg.supervised, "supervised=True",
+         "'Checkpoint, supervision and feedback plumbing'"),
+        (cfg.sharded, "sharded=True", "'ZeRO-1'"),
+        (cfg.recorder, "recorder=True", "'The rest of the serving tier'"),
+    )
+    for bad, what, item in refusals:
+        if bad:
+            raise NotImplementedError(f"TrainStepBenchConfig {what} is not "
+                                      f"ported yet (ROADMAP.md, Queue 1: "
+                                      f"{item})")
+    dev = resolve_device(cfg.device)
+    n = cfg.devices or 8
+    mesh = flat_mesh(n, dev, "dp")
+    model_cfg = TransformerConfig(
+        vocab_size=cfg.vocab_size, d_model=cfg.d_model, n_heads=cfg.n_heads,
+        n_layers=cfg.n_layers, d_ff=cfg.d_ff, dtype=torch.bfloat16,
+        attn_impl="flash")
+    state = init_train_state(model_cfg, torch.Generator().manual_seed(0),
+                             device=dev)
+    n_leaves = len(tree_leaves(state["params"]))
+    rng = np.random.default_rng(1)
+    toks, tgts = (torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (cfg.batch, cfg.seq_len)).astype(np.int32),
+        device=dev) for _ in range(2))
+    train_cfgs = {
+        "per_leaf": TrainConfig(grad_topo=cfg.topo, bucket_bytes=0),
+        "ours_fused": TrainConfig(grad_topo=cfg.topo),
+        "ours_chunked": TrainConfig(grad_topo=cfg.topo,
+                                    grad_chunks=cfg.chunks),
+    }
+    # the sync alone, on gradient-shaped data, one tree a rank
+    pspecs = param_specs(model_cfg)
+    topos = resolve_axis_topos(mesh, AXIS_NAMES, cfg.topo)
+    gen = np.random.default_rng(2)
+    grads = tree_map(lambda p: torch.as_tensor(gen.standard_normal(
+        tuple(p.shape)).astype(np.float32), device=dev), state["params"])
+    trees = [tree_map(torch.clone, grads) for _ in range(n)]
+
+    def make_sync(tc):
+        return lambda: sync_grads(trees, pspecs, AXIS_NAMES, topos,
+                                  bucket_bytes=tc.bucket_bytes,
+                                  chunks=tc.grad_chunks, comm=mesh)
+
+    steps = {name: make_train_step(model_cfg, tc, comm=mesh)
+             for name, tc in train_cfgs.items()}
+    syncs = {name: make_sync(tc) for name, tc in train_cfgs.items()}
+    plan = None
+    if cfg.overlap:
+        tc_ovl = TrainConfig(grad_topo=cfg.topo, overlap=True)
+        steps["ours_overlapped"] = make_train_step(model_cfg, tc_ovl,
+                                                   comm=mesh)
+        steps["ours_overlap_serialized"] = make_train_step(
+            model_cfg, tc_ovl, comm=mesh, serialize_overlap=True)
+        steps["no_sync"] = make_nosync_train_step(model_cfg, tc_ovl,
+                                                  comm=mesh)
+        plan = ov.plan_overlap(
+            state["params"], pspecs, AXIS_NAMES, topos, {"dp": n},
+            n_tokens=cfg.batch // n * cfg.seq_len, t_local=cfg.seq_len,
+            d_model=cfg.d_model)
+        fired = list(zip(ov.fired_payloads(plan, pspecs),
+                         zip(*(ov.fired_payloads(plan, t) for t in trees))))
+
+        def overlap_sync():  # the fired buckets' syncs alone, in order
+            return [sync_grads(list(bt), specs, AXIS_NAMES, topos,
+                               bucket_bytes=tc_ovl.bucket_bytes,
+                               chunks=tc_ovl.grad_chunks, comm=mesh)
+                    for specs, bt in fired]
+
+        syncs["ours_overlapped"] = syncs["ours_overlap_serialized"] = \
+            overlap_sync
+    states_out = {name: step(state, toks, tgts)[0]  # also the warm-up
+                  for name, step in steps.items()}
+    for fn in set(syncs.values()):
+        fn()
+    identical = True
+    for name in states_out:
+        if name in ("per_leaf", "no_sync"):
+            continue
+        same = all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+                   for a, b in zip(tree_leaves(states_out["per_leaf"]
+                                               ["params"]),
+                                   tree_leaves(states_out[name]["params"])))
+        if not same:
+            raise RuntimeError(f"{name} train step diverged from per-leaf "
+                               f"(bitwise)")
+        identical = identical and same
+    del states_out
+    step_times = _interleaved_times(
+        {name: (lambda step=step: step(state, toks, tgts))
+         for name, step in steps.items()}, cfg.repeat, dev)
+    sync_times = _interleaved_times(
+        {name: fn for name, fn in syncs.items()
+         if name != "ours_overlap_serialized"}, cfg.repeat, dev)
+    if cfg.overlap:
+        sync_times["ours_overlap_serialized"] = sync_times["ours_overlapped"]
+    rows = {}
+    for name, t in step_times.items():
+        rows[name] = {"train_step_ms": t["min_ms"],
+                      "train_step_avg_ms": t["avg_ms"],
+                      "train_step_median_ms": t["median_ms"]}
+        if name in syncs:
+            rows[name]["sync_ms"] = sync_times[name]["min_ms"]
+            rows[name]["compute_ms"] = max(
+                t["min_ms"] - sync_times[name]["min_ms"], 0.0)
+            rows[name]["vs_per_leaf"] = (step_times["per_leaf"]["min_ms"]
+                                         / t["min_ms"])
+    if cfg.overlap:
+        nosync_ms = step_times["no_sync"]["min_ms"]
+        # the twin hides nothing, so its exposure is the overlapped step's
+        # sync total (the same buckets, the same payloads)
+        twin_exposed = max(
+            step_times["ours_overlap_serialized"]["min_ms"] - nosync_ms, 0.0)
+        for name in syncs:
+            total = twin_exposed if name.startswith("ours_overlap") else \
+                rows[name]["sync_ms"]
+            exp, hid = exposed_split(rows[name]["train_step_ms"], nosync_ms,
+                                     total)
+            # a zero exposure (fully hidden, or noise crossing zero) must
+            # not put Infinity into the report
+            rows[name].update(exposed_comm_ms=exp, hidden_comm_ms=hid,
+                              exposed_vs_serialized=twin_exposed
+                              / max(exp, 0.1))
+    return {
+        "config": dataclasses.asdict(cfg),
+        "num_devices": n,
+        "device": _device_info(dev),
+        "n_grad_leaves": n_leaves,
+        "identical": identical,
+        "overlap_plan": None if plan is None else dataclasses.asdict(plan),
         "rows": rows,
     }
 

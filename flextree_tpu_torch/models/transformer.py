@@ -38,6 +38,7 @@ __all__ = [
     "layer_forward",
     "mlp_block",
     "final_logits",
+    "global_positions",
     "forward",
     "cross_entropy_loss",
 ]
@@ -220,12 +221,22 @@ def layer_forward(layer, x, positions, cfg: TransformerConfig, *,
     return mlp_block(layer, x, cfg)
 
 
+def global_positions(t_local: int, sp_axis=None, device=None):
+    """(T_local,) global positions of this rank's sequence shard, on
+    ``device``: the whole sequence, as no sequence axis is ported (an
+    ``sp_axis`` raises).  The one definition :func:`forward` and the
+    overlap engine (:mod:`..parallel.overlap`) share."""
+    _single_device(None, sp_axis)
+    return torch.arange(t_local, device=device)
+
+
 def forward(params, tokens, cfg: TransformerConfig, *, tp_axis=None,
             sp_axis=None):
     """Logits (B, T, vocab) float32 for ``tokens`` (B, T) int on one
     device, with causal attention from ``cfg.attn_impl``."""
     _single_device(tp_axis, sp_axis)
-    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    positions = global_positions(tokens.shape[1], sp_axis,
+                                 device=tokens.device)
     x = params["embed"][tokens].to(cfg.dtype)
     for layer in params["layers"]:
         x = layer_forward(layer, x, positions, cfg)

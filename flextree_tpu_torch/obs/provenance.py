@@ -31,7 +31,8 @@ def topo_spec(topo) -> str:
 
 
 def bucket_provenance(axes, topos, nbytes: int, *, n_leaves: int | None = None,
-                      dtype: str | None = None, codec=None, chunks: int = 1
+                      dtype: str | None = None, codec=None, chunks: int = 1,
+                      sharded: bool = False, fired: bool = False
                       ) -> dict | None:
     """The plan-provenance payload of one bucket's comm event, or None when
     no recorder is installed.
@@ -39,7 +40,10 @@ def bucket_provenance(axes, topos, nbytes: int, *, n_leaves: int | None = None,
     ``axes``/``topos``: the replication axes the bucket reduces over and
     their resolved topologies (``None`` = the ``"psum"`` sentinel, a dense
     fold of every rank); ``codec``: the wire codec the bucket ran (a
-    name or a ``Codec``; None is ``"f32"``).  The predicted
+    name or a ``Codec``; None is ``"f32"``); ``sharded``: the bucket
+    reduce-scatters into optimizer shards (ZeRO-1); ``fired``: the overlap
+    engine fired it as its backward segments finished
+    (:mod:`..parallel.overlap`).  The predicted
     :class:`~..planner.cost_model.CostBreakdown` is computed per scheduled
     axis with :func:`..planner.calibrate.default_params` (the constants
     the bucket size was chosen with) and summed."""
@@ -56,12 +60,10 @@ def bucket_provenance(axes, topos, nbytes: int, *, n_leaves: int | None = None,
                   for ax in axes},
         "nbytes": int(nbytes),
         "chunks": int(chunks),
-        # the JAX payload's fields: the port syncs replicated, after the
-        # backward (no ZeRO or overlap yet)
         "codec": getattr(codec, "name", None) or (str(codec) if codec
                                                   else "f32"),
-        "sharded": False,
-        "fired": False,
+        "sharded": bool(sharded),
+        "fired": bool(fired),
     }
     if n_leaves is not None:
         prov["n_leaves"] = int(n_leaves)

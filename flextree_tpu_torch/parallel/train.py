@@ -35,9 +35,16 @@ of the ranks' trees after the first step; one tree (a fresh state, a
 restored checkpoint) stands for every rank's.  A checkpoint holds the
 first rank's tree, what the JAX package's ``device_get`` reads.
 
+With ``overlap`` the step runs :func:`.overlap.dense_overlap_step_grads`
+in place of the whole backward and the sync: each rank's backward split
+into readiness segments, run on every rank in lock-step, each gradient
+bucket synced as its last segment finishes (on a card, on a side stream);
+``serialize_overlap`` builds its serialized twin.  Without it the program
+is the one described above.
+
 What needs an unported module raises, naming its ROADMAP item:
-``overlap``, ``shard_optimizer``, ``autotune`` and an ``sp`` or ``tp``
-axis above size 1.  An IR-family ``grad_topo`` (swing,
+``shard_optimizer`` (with or without ``overlap``), ``autotune`` and an
+``sp`` or ``tp`` axis above size 1.  An IR-family ``grad_topo`` (swing,
 generalized) raises ``TopologyError``, as the JAX train seam does.
 """
 
@@ -123,7 +130,6 @@ def _refuse_unported(train_cfg: TrainConfig) -> None:
     codec)."""
     get_codec(train_cfg.codec)
     refusals = (
-        (train_cfg.overlap, "overlap=True", "'Overlap'"),
         (train_cfg.shard_optimizer, "shard_optimizer=True", "'ZeRO-1'"),
         (train_cfg.autotune, "autotune=True",
          "'Checkpoint, supervision and feedback plumbing' (autotune)"),
@@ -372,23 +378,11 @@ def _global_loss(losses: list, comm):
     return functools.reduce(operator.add, losses)
 
 
-def make_loss_and_grads(model_cfg: TransformerConfig,
-                        train_cfg: TrainConfig = TrainConfig(), device=None,
-                        comm=None):
-    """``(params, tokens, targets, state=None) -> (loss, grads, ef)``: the
-    global mean token loss, the synced gradient tree and the ranks' new
-    residuals (None for the identity codec), the first half of
-    :func:`make_train_step` (see it for ``comm``).  Each rank's loss
-    divides its summed cross entropy by the global token count, so the
-    synced gradient is the gradient of the global mean.  A lossy codec
-    needs the train ``state``: its ``"step"`` keys the rounding and its
-    ``"ef"`` is added before the sync."""
+def _local_ranks(comm, device):
+    """``(device, dp, local ranks)`` of a step over ``comm`` (see
+    :func:`make_train_step`); refuses an axis other than dp above 1."""
     from ..device import resolve_device
 
-    _refuse_unported(train_cfg)
-    if model_cfg.d_model % model_cfg.n_heads:
-        raise ValueError(f"n_heads={model_cfg.n_heads} must divide "
-                         f"d_model={model_cfg.d_model}")
     sizes = comm_axis_sizes(comm, AXIS_NAMES)
     dp_axis, *others = AXIS_NAMES
     wide = [ax for ax in others if sizes[ax] > 1]
@@ -405,56 +399,113 @@ def make_loss_and_grads(model_cfg: TransformerConfig,
         if device is not None and resolve_device(device) != dev:
             raise ValueError(f"device={device!r}, but the mesh's ranks are "
                              f"on {dev}")
-        local = range(dp)
-    else:
-        dev = resolve_device(device)
-        if comm is None:
-            local = [0]
-        else:
-            import torch.distributed as dist
+        return dev, dp, list(range(dp))
+    dev = resolve_device(device)
+    if comm is None:
+        return dev, dp, [0]
+    import torch.distributed as dist
 
-            local = [dist.get_rank(comm)]
-    topos = resolve_axis_topos(sizes, AXIS_NAMES, train_cfg.grad_topo)
+    return dev, dp, [dist.get_rank(comm)]
+
+
+def _rank_batches(tokens, targets, dev, dp: int, local):
+    """Each local rank's rows of the global batch (contiguous row blocks
+    over dp, as the JAX ``shard_map`` splits it) and the global token
+    count."""
+    tokens = torch.as_tensor(tokens, device=dev)
+    targets = torch.as_tensor(targets, device=dev)
+    if tokens.shape[0] % dp:
+        raise ValueError(f"a batch of {tokens.shape[0]} rows does not "
+                         f"split over dp={dp}")
+    rows = tokens.shape[0] // dp
+    cuts = [slice(r * rows, (r + 1) * rows) for r in local]
+    return ([tokens[c] for c in cuts], [targets[c] for c in cuts],
+            tokens.numel())
+
+
+def _rank_loss_and_grads(model_cfg, params, tokens, targets, n_total):
+    """One rank's loss (its summed cross entropy over the global token
+    count) and unsynced gradient tree, in one backward."""
+    with torch.enable_grad():
+        leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
+        logits = forward(leaves, tokens.long(), model_cfg)
+        loss_sum, _ = cross_entropy_loss(logits, targets)
+        loss = loss_sum / n_total
+        flat = torch.autograd.grad(loss, tree_leaves(leaves))
+    return loss.detach(), tree_unflatten(params, flat)
+
+
+def make_loss_and_grads(model_cfg: TransformerConfig,
+                        train_cfg: TrainConfig = TrainConfig(), device=None,
+                        comm=None, serialize_overlap: bool = False):
+    """``(params, tokens, targets, state=None) -> (loss, grads, ef)``: the
+    global mean token loss, the synced gradient tree and the ranks' new
+    residuals (None for the identity codec), the first half of
+    :func:`make_train_step` (see it for ``comm`` and
+    ``serialize_overlap``).  Each rank's loss divides its summed cross
+    entropy by the global token count, so the synced gradient is the
+    gradient of the global mean.  A lossy codec needs the train ``state``:
+    its ``"step"`` keys the rounding and its ``"ef"`` is added before the
+    sync."""
+    _refuse_unported(train_cfg)
+    if model_cfg.d_model % model_cfg.n_heads:
+        raise ValueError(f"n_heads={model_cfg.n_heads} must divide "
+                         f"d_model={model_cfg.d_model}")
+    dev, dp, local = _local_ranks(comm, device)
+    topos = resolve_axis_topos(comm_axis_sizes(comm, AXIS_NAMES),
+                               AXIS_NAMES, train_cfg.grad_topo)
     pspecs = param_specs(model_cfg, AXIS_NAMES[-1])
+    lossy = get_codec(train_cfg.codec).lossy
+    mesh = isinstance(comm, Mesh)
+    # the side stream this step's fired syncs run on, on a card
+    side = torch.cuda.Stream(device=dev) \
+        if train_cfg.overlap and dev.type == "cuda" else None
+    plans: dict = {}  # the overlap plan by one rank's batch shape
 
-    def rank_loss_and_grads(params, tokens, targets, n_total):
-        with torch.enable_grad():
-            leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
-            logits = forward(leaves, tokens.long(), model_cfg)
-            loss_sum, _ = cross_entropy_loss(logits, targets)
-            loss = loss_sum / n_total
-            flat = torch.autograd.grad(loss, tree_leaves(leaves))
-        return loss.detach(), tree_unflatten(params, flat)
+    def overlap_plan(params, tokens):
+        from .overlap import plan_overlap
 
-    def rank_grads(params, tokens, targets):
-        """Each local rank's loss and gradient tree, unsynced."""
-        tokens = torch.as_tensor(tokens, device=dev)
-        targets = torch.as_tensor(targets, device=dev)
-        if tokens.shape[0] % dp:
-            raise ValueError(f"a batch of {tokens.shape[0]} rows does not "
-                             f"split over dp={dp}")
-        rows = tokens.shape[0] // dp
-        n_total = tokens.numel()  # the global count: local tokens x dp
+        if tokens.shape not in plans:
+            plans[tokens.shape] = plan_overlap(
+                params, pspecs, AXIS_NAMES, topos,
+                comm_axis_sizes(comm, AXIS_NAMES), n_tokens=tokens.numel(),
+                t_local=tokens.shape[1], d_model=model_cfg.d_model,
+                codec=train_cfg.codec if lossy else None, device=dev)
+        return plans[tokens.shape]
+
+    def overlapped(params, toks, tgts, n_total, state):
+        from .overlap import dense_overlap_step_grads
+
+        state = dict(state or {}, params=params)
+        if lossy:  # one tree (every rank's), or on a mesh each rank's
+            ef = state["ef"]
+            state["ef"] = ef if isinstance(ef, list) else [ef] * len(toks)
+        losses, synced, ef = dense_overlap_step_grads(
+            state, toks, tgts, model_cfg, train_cfg,
+            overlap_plan(params, toks[0]), pspecs, AXIS_NAMES, topos,
+            n_total, serialize=serialize_overlap, comm=comm, stream=side)
+        return losses, synced[0], ef if mesh or ef is None else ef[0]
+
+    def serialized(params, toks, tgts, n_total, state):
         losses, grads = [], []
-        for r in local:
-            cut = slice(r * rows, (r + 1) * rows)
-            loss, g = rank_loss_and_grads(params, tokens[cut], targets[cut],
-                                          n_total)
+        for t, y in zip(toks, tgts):
+            loss, g = _rank_loss_and_grads(model_cfg, params, t, y, n_total)
             losses.append(loss)
             grads.append(g)
-        return losses, grads if isinstance(comm, Mesh) else grads[0]
+        synced, ef = sync_with_feedback(state, grads if mesh else grads[0],
+                                        pspecs, AXIS_NAMES, topos, train_cfg,
+                                        comm=comm)
+        return losses, synced[0] if mesh else synced, ef
 
-    lossy = get_codec(train_cfg.codec).lossy
+    run = overlapped if train_cfg.overlap else serialized
 
     def loss_and_grads(params, tokens, targets, state=None):
         if lossy and state is None:
             raise ValueError(f"codec {train_cfg.codec!r}: the sync needs the "
                              f"train state (its step and ef)")
-        losses, grads = rank_grads(params, tokens, targets)
-        synced, ef = sync_with_feedback(state, grads, pspecs, AXIS_NAMES,
-                                        topos, train_cfg, comm=comm)
-        if isinstance(comm, Mesh):
-            synced = synced[0]  # every rank's tree is bitwise this one
+        toks, tgts, n_total = _rank_batches(tokens, targets, dev, dp, local)
+        # every rank's synced tree is bitwise the first local rank's
+        losses, synced, ef = run(params, toks, tgts, n_total, state)
         return _global_loss(losses, comm), synced, ef
 
     return loss_and_grads
@@ -462,7 +513,7 @@ def make_loss_and_grads(model_cfg: TransformerConfig,
 
 def make_train_step(model_cfg: TransformerConfig,
                     train_cfg: TrainConfig = TrainConfig(), device=None,
-                    comm=None):
+                    comm=None, serialize_overlap: bool = False):
     """The train step ``(state, tokens, targets) -> (state, metrics)``.
 
     ``comm``: None (one rank on ``device``, default ``cuda``), a
@@ -475,8 +526,16 @@ def make_train_step(model_cfg: TransformerConfig,
     global mean token loss, plus ``{"grad_norm"}`` (pre-clip) when
     clipping is on, as 0-d float32 tensors on the device.  The step reads
     ``state`` and returns a new one; under a lossy codec it carries the
-    ranks' new residuals in ``"ef"``."""
-    loss_and_grads = make_loss_and_grads(model_cfg, train_cfg, device, comm)
+    ranks' new residuals in ``"ef"``.
+
+    With ``train_cfg.overlap`` the gradient comes from
+    :func:`.overlap.dense_overlap_step_grads`: each bucket synced as its
+    backward segments finish; ``serialize_overlap=True`` builds its
+    serialized twin (the whole backward, then the same buckets in the same
+    order), the A/B comparator.  Both give the same bits, and for the
+    identity codec the bits of the step without ``overlap``."""
+    loss_and_grads = make_loss_and_grads(model_cfg, train_cfg, device, comm,
+                                         serialize_overlap)
 
     def step(state, tokens, targets):
         loss, grads, ef = loss_and_grads(state["params"], tokens, targets,

@@ -19,6 +19,10 @@ compute dtype.  Examples::
     # 8 ranks with the int8 wire codec and error feedback (or --codec bf16)
     python -m flextree_tpu_torch.trainer --mesh 8,1,1 --codec int8
 
+    # each gradient bucket synced as its layers' backward finishes, on a
+    # side stream of the card (readiness-ordered overlap)
+    python -m flextree_tpu_torch.trainer --mesh 8,1,1 --overlap
+
 ``--mesh dp,sp,tp`` or ``--devices N`` (split as the JAX
 ``factor_devices`` splits it) give the ranks, all in this process on the
 one device; sp or tp above 1 is not ported.  ``--cpu`` is a switch.  A
@@ -143,7 +147,6 @@ def _refuse_unported(args) -> None:
     refusals = (
         (args.model != "dense", f"--model {args.model}",
          "'Sequence, pipeline and expert parallelism'"),
-        (args.overlap, "--overlap", "'Overlap'"),
         (args.shard_optimizer, "--shard-optimizer", "'ZeRO-1'"),
         (args.autotune, "--autotune",
          "'Checkpoint, supervision and feedback plumbing'"),
@@ -199,6 +202,7 @@ def main(argv=None, *, out: dict | None = None) -> int:
         total_steps=args.steps if args.schedule == "warmup_cosine" else 0,
         min_lr_frac=args.min_lr_frac,
         codec=args.codec,
+        overlap=args.overlap,
     )
     state = init_train_state(cfg, torch.Generator().manual_seed(args.seed),
                              tc, device=dev)

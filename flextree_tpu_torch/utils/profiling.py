@@ -11,7 +11,9 @@ bucketed gradient sync reaches:
   (:func:`..obs.record_event`, a no-op while none is installed);
 - :class:`SpanLedger` / :func:`span_ledger` sum the ``_{n}B`` payload
   suffixes of the spans entered (:func:`span_bytes`);
-  :func:`plan_capture` collects the spans that carry plan provenance.
+  :func:`plan_capture` collects the spans that carry plan provenance;
+- :func:`exposed_split` cuts a train step's sync time into the part that
+  extended the step and the part that ran under the backward.
 
 One difference from the JAX package: a JAX span fires once, while the
 step is traced, and never again for the compiled step; PyTorch runs
@@ -32,6 +34,7 @@ __all__ = [
     "SpanLedger",
     "span_ledger",
     "plan_capture",
+    "exposed_split",
 ]
 
 
@@ -99,6 +102,20 @@ def plan_capture():
         yield cap
     finally:
         _ACTIVE_PLAN_CAPTURES.remove(cap)
+
+
+def exposed_split(step_ms: float, nosync_step_ms: float,
+                  comm_total_ms: float) -> tuple[float, float]:
+    """``(exposed_ms, hidden_ms)`` of a train step's sync time.
+
+    ``exposed`` is the step's time over its sync-free twin's: the sync time
+    that extended the step.  ``hidden`` is the rest of ``comm_total_ms``
+    (the sync's own time): sync time that ran under the backward instead.
+    Both are clamped at 0: on a noisy host the differences can cross zero,
+    and a negative exposure means "fully hidden", not negative time."""
+    exposed = max(float(step_ms) - float(nosync_step_ms), 0.0)
+    hidden = max(float(comm_total_ms) - exposed, 0.0)
+    return exposed, hidden
 
 
 @contextlib.contextmanager

@@ -215,8 +215,23 @@ def test_train_state_round_trips_and_refuses_other_layouts(jax_state):
 def test_unported_train_config_features_refuse(field):
     """What waits on its ROADMAP item refuses; a lossy codec runs now: its
     state carries a zero ``"ef"`` and a step on one rank (no sync, so the
-    residual stays zero) gives the identity codec's update."""
+    residual stays zero) gives the identity codec's update; so does
+    ``overlap``: on one rank its segmented backward gives the plain step's
+    update, bitwise."""
     cfg = ttrain.TrainConfig(**field)
+    if "overlap" in field:
+        model = tt.TransformerConfig(**DIMS)
+        state = ttrain.init_train_state(model, torch.Generator().manual_seed(0),
+                                        cfg, device="cpu")
+        tokens, targets = _tokens(1)
+        new, m = ttrain.make_train_step(model, cfg, device="cpu")(
+            state, tokens, targets)
+        want, wm = ttrain.make_train_step(model, device="cpu")(
+            state, tokens, targets)
+        assert torch.equal(m["loss"], wm["loss"])
+        for a, b in zip(ttrain.tree_leaves(new), ttrain.tree_leaves(want)):
+            assert torch.equal(a, b)
+        return
     if "codec" in field:
         model = tt.TransformerConfig(**DIMS)
         state = ttrain.init_train_state(model, torch.Generator().manual_seed(0),

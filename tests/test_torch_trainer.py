@@ -279,7 +279,26 @@ def test_trainer_cli_flash_on_cpu(tmp_path, capsys):
 def test_trainer_cli_refuses_unported_flags(flags, tmp_path, capsys):
     """Each flag whose module is not ported raises naming its item; the
     lossy codecs run now: 2 ranks train with error feedback, and the
-    checkpoint holds the first rank's residual, which resumes."""
+    checkpoint holds the first rank's residual, which resumes; and so does
+    ``--overlap``: 2 ranks train with readiness-ordered overlap, and the
+    checkpoint, the live state bitwise, resumes."""
+    if flags == ["--overlap"]:
+        ckpt = str(tmp_path / "ck")
+        out: dict = {}
+        assert trainer.main(_SMALL + flags + ["--mesh", "2,1,1", "--steps",
+                                              "3", "--log-every", "1",
+                                              "--ckpt-dir", ckpt],
+                            out=out) == 0
+        res = out["result"]
+        assert out["train_cfg"].overlap and res.steps_run == 3
+        assert all(math.isfinite(loss) for _, loss in res.losses)
+        saved = tckpt.restore_train_state(ckpt, "cpu")
+        assert all(torch.equal(a, b) for a, b in zip(
+            ttrain.tree_leaves(res.state), ttrain.tree_leaves(saved)))
+        assert trainer.main(_SMALL + flags + ["--mesh", "2,1,1", "--steps",
+                                              "4", "--ckpt-dir", ckpt]) == 0
+        assert "(resumed from 3)" in capsys.readouterr().out
+        return
     if flags[0] != "--codec":
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             trainer.main(_SMALL + flags)
