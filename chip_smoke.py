@@ -194,12 +194,35 @@ failure raises and exits non-zero:
     per-leaf one); (e) the backward of one rank's share (B=1, T=1024) in
     CUDA events behind a head start, its ``segment_flops`` over that time
     beside ``parallel/overlap.py``'s constant.
+19. ZeRO-1 on 8 ranks — the sharded plan (``plan_buckets(sharded=True)``,
+    its fold stages and the block permutation) printed; (a)
+    ``trainer.main --mesh 8,1,1 --shard-optimizer`` at the flagship width
+    (bf16, flash, batch 8 x 1024, 20 steps, a checkpoint every 10): the
+    loss finite and falling, each flash kernel's launches steps x layers x
+    8, the fold kernel's steps x ``sync_fold_stages(sharded=True)``'s, the
+    checkpoint bitwise the live state consolidated, a resume from it, the
+    live moment bytes a rank equal to ``zero_shard_bytes``, and the peak
+    memory beside phase 16's; (b) at full width, three float32 steps of
+    the replicated, the sharded and the overlapped sharded step bitwise
+    (losses, params, the consolidated moments), every fired reduce-scatter
+    under the sync debug mode "error", and four steps of ``trainer.main
+    --shard-optimizer --codec int8 --overlap`` with every rank's ``ef``
+    and every master block non-zero; (c) the step's
+    f32 and int8 reduce-scatter of seeded gradients (and the f32 one on
+    ``2,2,2``, whose ranks own their blocks out of order) on the card bitwise
+    the same on host copies with the card's plan (blocks, tails,
+    residual), each fold's body, W and L printed, and the heaviest fold
+    stage timed against its plain version, ``torch.sum`` and its bound;
+    (d) ``run_train_step_bench(sharded=True)`` on 8 ranks in turns, with
+    the optimizer-state ratios (printed, not gated; the live bytes a rank
+    equal to ``zero_shard_bytes``); (e) the shard topology's
+    reduce-scatter and all-gather programs model-checked.
 
 The kernels line gives each kernel's launches by path
 (``launches_by_path``: serve, train, dp_train, allreduce, ir_families,
 reduce_bench, codec for phase 17(a) and (d), codec_sync for phase 17(b),
-dp_codec for phase 17(c)'s int8 run, dp_overlap for phase 18(a)) and
-their sum (``launches``).
+dp_codec for phase 17(c)'s int8 run, dp_overlap for phase 18(a), dp_zero
+for phase 19(a)) and their sum (``launches``).
 
 Prints each phase's seconds, a ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Exits
@@ -1989,7 +2012,7 @@ def phase_dp(dev, fa, trainer, ckpt):
     steady step in turns with the dp=1 step; (c) float32 dp=8 against
     dp=1, gated on the loss and the synced gradients, with sums that drop
     a rank or add in bfloat16 shown to fail the gradient bar.  Returns the
-    launches of (b), the main path."""
+    launches of (b), the main path, and its peak memory."""
     import tempfile
 
     from flextree_tpu_torch import data as data_mod
@@ -2174,7 +2197,7 @@ def phase_dp(dev, fa, trainer, ckpt):
         if not ctl_gaps[k] > bar:
             raise AssertionError(f"the gradient bar {bar} passes a wrong "
                                  f"sum ({k}: gap {ctl_gaps[k]})")
-    return launches
+    return launches, peak
 
 
 # phase 17: compressed collectives and error feedback
@@ -3276,6 +3299,373 @@ def phase_overlap(dev, fa, trainer, ckpt, smi):
     return launches
 
 
+# phase 19: ZeRO-1, the sharded optimizer, on 8 ranks
+ZERO_ARGV = DP_ARGV + ["--shard-optimizer"]  # 20 steps, a checkpoint every 10
+ZERO_BITS_STEPS = 3
+ZERO_INT8_STEPS = 4
+ZERO_BENCH_REPEAT = 3
+
+
+def zero_plan(bk, tm, rs, leaves, specs, topos, sizes, codec=None):
+    """The ZeRO-1 sync's bucket plan (``plan_buckets(sharded=True)``, as
+    ``zero_reduce_scatter_grads`` plans it) and its fold stages and
+    fold-kernel launches a step."""
+    plan = bk.plan_buckets(leaves, specs, tm.AXIS_NAMES, topos=topos,
+                           axis_sizes=sizes, codec=codec, sharded=True)
+    stages = bk.sync_fold_stages([g.numel() for g in leaves], DP,
+                                 topos["dp"], plan, codec=codec,
+                                 sharded=True)
+    return plan, stages, stage_launches(stages, rs.MAX_POINTERS)
+
+
+def shards_identical(a_trees, b_trees, leaves) -> bool:
+    """Every rank's :class:`ZeroShard` trees bitwise: blocks and tails."""
+    return all(same_bits(x.tile.cpu(), y.tile) and same_bits(x.tail.cpu(),
+                                                              y.tail)
+               for ta, tb in zip(a_trees, b_trees)
+               for x, y in zip(leaves(ta), leaves(tb)))
+
+
+def check_zero_syncs(zero, tm, bk, cm, rs, shapes, pspecs, topos, sizes,
+                     dev, flat_mesh, codec=None):
+    """Phase 19(c), one codec: the step's sharded reduce-scatter
+    (``zero_reduce_scatter_grads`` with the step's plan) of seeded per-rank
+    gradients on the card, its folds counted by body
+    (:func:`fold_bodies`) against the plan's launches; then on host copies
+    with the card's plan (the cap set to its largest bucket), where
+    ``reduce_sources`` takes its plain fold and the encode runs on the
+    CPU: every rank's blocks and tails, and under int8 its residual,
+    bitwise.  Returns the plan, its stages and the folds by body."""
+    from flextree_tpu_torch.parallel import allreduce as ar
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+    trees = [tm.tree_map(lambda p: torch.randn(
+        p.shape, generator=gen, device=dev), shapes) for _ in range(DP)]
+    leaves = tm.tree_leaves(trees[0])
+    specs = bk.spec_leaves(trees[0], pspecs)
+    plan, stages, want = zero_plan(bk, tm, rs, leaves, specs, topos, sizes,
+                                   codec)
+    kw = dict(codec=codec or "f32", step=CODEC_STEP,
+              return_residual=codec is not None)
+    with fold_bodies(rs, cm, ar) as seen:
+        got = zero.zero_reduce_scatter_grads(
+            trees, pspecs, tm.AXIS_NAMES, topos,
+            comm=flat_mesh(DP, dev, "dp"), **kw)
+    what = f"{codec or 'f32'} sharded reduce-scatter"
+    if sum(seen.values()) != want:
+        raise AssertionError(f"{what}: {sum(seen.values())} fold launches, "
+                             f"its plan derives {want}")
+    host = [tm.tree_map(lambda g: g.cpu(), t) for t in trees]
+    cap = max(b.nbytes for b in plan)
+    if bk.plan_buckets(tm.tree_leaves(host[0]), specs, tm.AXIS_NAMES,
+                       topos=topos, axis_sizes=sizes, bucket_bytes=cap,
+                       codec=codec, sharded=True) != plan:
+        raise AssertionError(f"{what}: the host plan differs from the card's")
+    plain = zero.zero_reduce_scatter_grads(
+        host, pspecs, tm.AXIS_NAMES, topos, comm=flat_mesh(DP, "cpu", "dp"),
+        bucket_bytes=cap, **kw)
+    if codec is None:
+        got, plain = (got, None), (plain, None)
+    if not shards_identical(got[0], plain[0], tm.tree_leaves) or (
+            codec and not trees_identical(
+                [tm.tree_map(lambda g: g.cpu(), t) for t in got[1]],
+                plain[1], tm.tree_leaves)):
+        raise AssertionError(f"{what}: the card is not bitwise the host "
+                             f"copies (blocks, tails or residual)")
+    return plan, stages, seen
+
+
+def phase_zero(dev, fa, trainer, ckpt, smi, dp_peak, bw):
+    """Phase 19: (a) ``trainer.main --mesh 8,1,1 --shard-optimizer``, the
+    flash and fold counts set to 0 just before and read just after, its
+    consolidated checkpoint against the live state consolidated, a resume,
+    and the live moment buffers' bytes a rank against
+    ``zero_shard_bytes``; (b) float32 at full width, the replicated, the
+    sharded and the overlapped sharded step bitwise (loss, params, the
+    consolidated moments), every fired reduce-scatter under the sync debug
+    mode "error", and ``trainer.main --shard-optimizer --codec int8
+    --overlap`` with a non-zero ``ef`` and master; (c) the step's f32 and int8 reduce-scatter, and the f32 one
+    on ``2,2,2``, on the card against host copies, bitwise, each fold's
+    body printed, and the heaviest fold stage timed; (d)
+    ``run_train_step_bench(sharded=True)``'s rows and the optimizer-state
+    ratios, printed; (e) the phase programs of the shard topology checked.
+    Returns (a)'s launches."""
+    import tempfile
+
+    from flextree_tpu_torch import data as data_mod
+    from flextree_tpu_torch.analysis import schedule_check as sc
+    from flextree_tpu_torch.bench import harness
+    from flextree_tpu_torch.models import transformer as tt
+    from flextree_tpu_torch.ops import reduce_stacked as rs
+    from flextree_tpu_torch.parallel import bucketing as bk
+    from flextree_tpu_torch.parallel import compressed as cm
+    from flextree_tpu_torch.parallel import overlap as ov
+    from flextree_tpu_torch.parallel import train as tm
+    from flextree_tpu_torch.parallel import zero
+    from flextree_tpu_torch.parallel.mesh import flat_mesh
+
+    cfg = tt.TransformerConfig(**MODEL)
+    pspecs = tt.param_specs(cfg)
+    b, t = FLASH_TRAIN[:2]
+    layers = MODEL["n_layers"]
+    mesh = flat_mesh(DP, dev, "dp")
+    sizes = {"dp": DP, "sp": 1, "tp": 1}
+    topos = tm.resolve_axis_topos(sizes, tm.AXIS_NAMES, None)
+    shard_topo = zero.shard_topo(topos["dp"], DP)
+    init = tm.init_train_state(cfg, torch.Generator().manual_seed(SEED),
+                               device=dev)
+    leaves = tm.tree_leaves(init["params"])
+    plan, stages, per_step = zero_plan(
+        bk, tm, rs, leaves, bk.spec_leaves(init["params"], pspecs), topos,
+        sizes)
+    layout = tm.zero_layout_for(mesh, init["params"], pspecs)
+    log(f"phase 19 plan ({DP} ranks, shard topology {shard_topo}, block "
+        f"permutation {layout.perm_for(topos, 'dp')}): {len(plan)} buckets "
+        f"of {[p.nbytes for p in plan]} B, "
+        f"{[len(p.indices) for p in plan]} leaves; fold stages a step "
+        f"{stages} (R folds, W, L) = {per_step} launches")
+
+    # ---- (a) the main path: trainer.main --mesh 8,1,1 --shard-optimizer
+    clock = time.monotonic()
+    with tempfile.TemporaryDirectory(prefix="ft-zero-") as ckpt_dir:
+        out: dict = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_flash_counts(fa)
+        rs.reduce_sources.launches = 0
+        t0 = time.monotonic()
+        trainer.main(ZERO_ARGV + ["--ckpt-dir", ckpt_dir], out=out)
+        torch.cuda.synchronize()
+        wall_s = time.monotonic() - t0
+        launches = flash_counts(fa)
+        launches["reduce_sources"] = rs.reduce_sources.launches
+        peak = torch.cuda.max_memory_allocated()
+        res = out["result"]
+        losses = [loss for _, loss in res.losses]
+        if len(losses) != DP_STEPS or not all(np.isfinite(losses)) or \
+                not losses[-1] < losses[0]:
+            raise AssertionError(f"zero: losses not finite and falling: "
+                                 f"{losses}")
+        if not out["train_cfg"].shard_optimizer:
+            raise AssertionError("zero: the trainer ran without it")
+        want = DP_STEPS * layers * DP
+        if any(launches[k] != want for k in flash_counts(fa)):
+            raise AssertionError(f"zero: flash launches {launches} != "
+                                 f"steps x layers x dp = {want}")
+        if launches["reduce_sources"] != DP_STEPS * per_step:
+            raise AssertionError(
+                f"zero: fold launches {launches['reduce_sources']} != "
+                f"{DP_STEPS} steps x {per_step} (the plan's)")
+        pack, _ = trainer.sharded_hooks(mesh, out["model_cfg"],
+                                        res.state["params"], out["train_cfg"])
+        saved = ckpt.restore_train_state(ckpt_dir, dev)
+        if set(saved) != {"params", "mu", "nu", "step"} or \
+                not trees_identical([pack(res.state)], [saved],
+                                    tm.tree_leaves):
+            raise AssertionError("zero: the checkpoint is not the live state "
+                                 "consolidated, bitwise")
+        again: dict = {}
+        argv = list(ZERO_ARGV)
+        argv[argv.index("--steps") + 1] = str(DP_STEPS + 1)
+        trainer.main(argv + ["--ckpt-dir", ckpt_dir], out=again)
+        if again["result"].resumed_from != DP_STEPS or \
+                again["result"].steps_run != 1:
+            raise AssertionError("zero: the checkpoint did not resume")
+    # the moment buffers a rank holds: its block of each shard buffer and
+    # the whole tails
+    live = sum(x.numel() * 4 // (DP if k.endswith("_shard") else 1)
+               for k in ("mu_shard", "mu_tail", "nu_shard", "nu_tail")
+               for x in tm.tree_leaves(res.state[k]))
+    acct = zero.zero_shard_bytes(layout)
+    if live != acct["sharded_bytes_per_rank"]:
+        raise AssertionError(f"zero: {live} B of moments a rank live, "
+                             f"zero_shard_bytes says {acct}")
+    state, model_cfg, tc = res.state, out["model_cfg"], out["train_cfg"]
+    log(f"phase 19(a) ZeRO-1 train (flagship, bf16, flash, global batch "
+        f"{b} x {t}, {DP} in-process ranks): {DP_STEPS} steps in "
+        f"{wall_s:.3f} s via trainer.main --shard-optimizer; loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; flash launches "
+        f"{ {k: launches[k] for k in flash_counts(fa)} } = {DP_STEPS} steps "
+        f"x {layers} layers x {DP} ranks; fold launches "
+        f"{launches['reduce_sources']} = {DP_STEPS} x {per_step} (the "
+        f"sharded plan's); the checkpoint is the live state consolidated, "
+        f"bitwise, and resumes (1 more step from step {DP_STEPS}); moments "
+        f"a rank {live} B live = zero_shard_bytes' "
+        f"{acct['sharded_bytes_per_rank']} B, against the replicated "
+        f"{acct['replicated_bytes']} B (ratio {acct['ratio']:.4f}); peak "
+        f"memory {peak / 2**30:.3f} GiB against phase 16's replicated "
+        f"run's {dp_peak / 2**30:.3f} GiB (printed, not gated); "
+        f"{time.monotonic() - clock:.1f} s")
+    del res, out, again, saved, state
+    torch.cuda.empty_cache()
+
+    # ---- (b) bits at full width
+    clock = time.monotonic()
+    dataset = data_mod.LMDataset(
+        data_mod.synthetic_tokens(200_000, MODEL["vocab_size"], seed=SEED),
+        batch=b, seq_len=t, seed=SEED)
+    batches = [dataset.batch_at(i) for i in range(ZERO_BITS_STEPS)]
+    f32 = tt.TransformerConfig(**MODEL, dtype=torch.float32,
+                               attn_impl="flash")
+    real_fire, fires = ov._sync_fired_bucket, []
+
+    def no_host_sync(*args, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fires.append(True)
+            return real_fire(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    rep_tc = tm.TrainConfig()
+    sh_tc = dataclasses.replace(rep_tc, shard_optimizer=True)
+    got = {}
+    ov._sync_fired_bucket = no_host_sync
+    try:
+        for name, tc_ in (("replicated", rep_tc), ("sharded", sh_tc),
+                          ("sharded+overlap",
+                           dataclasses.replace(sh_tc, overlap=True))):
+            st = tm.init_train_state(f32, torch.Generator().manual_seed(SEED),
+                                     tc_, device=dev, comm=mesh)
+            step = tm.make_train_step(f32, tc_, comm=mesh)
+            ls = []
+            for tokens, targets in batches:
+                st, m = step(st, tokens, targets)
+                ls.append(m["loss"])
+            got[name] = (st, ls)
+    finally:
+        ov._sync_fired_bucket = real_fire
+    rep, rep_losses = got.pop("replicated")
+    pack, _ = trainer.sharded_hooks(mesh, f32, rep["params"], sh_tc)
+    for name, (st, ls) in got.items():
+        if not all(same_bits(x, y) for x, y in zip(ls, rep_losses)):
+            raise AssertionError(f"f32 {name}: losses are not the replicated "
+                                 f"step's bitwise")
+        if not trees_identical([pack(st)], [rep], tm.tree_leaves):
+            raise AssertionError(f"f32 {name}: params or consolidated "
+                                 f"moments are not the replicated step's "
+                                 f"bitwise")
+    if not fires:
+        raise AssertionError("zero: the overlapped step fired nothing")
+    del got, rep
+    torch.cuda.empty_cache()
+    # the int8 wires with overlap, through the trainer
+    argv = list(ZERO_ARGV)
+    argv[argv.index("--steps") + 1] = str(ZERO_INT8_STEPS)
+    out = {}
+    n_fires = len(fires)
+    ov._sync_fired_bucket = no_host_sync
+    try:
+        trainer.main(argv + ["--codec", "int8", "--overlap"], out=out)
+    finally:
+        ov._sync_fired_bucket = real_fire
+    st = out["result"].state
+    int8_losses = [loss for _, loss in out["result"].losses]
+    efs = st["ef"]
+    if len(int8_losses) != ZERO_INT8_STEPS or len(fires) == n_fires or \
+            not all(np.isfinite(int8_losses)) or len(efs) != DP or not all(
+            any(e.any() for e in tm.tree_leaves(ef)) for ef in efs) or not \
+            all(m_.any() for m_ in tm.tree_leaves(st["master_shard"])):
+        raise AssertionError(f"int8 sharded: losses {int8_losses}, or an "
+                             f"ef or master buffer is zero")
+    log(f"phase 19(b) bits (full width, global batch {b} x {t}, {DP} "
+        f"ranks): f32 flash, {ZERO_BITS_STEPS} steps: sharded = "
+        f"sharded+overlap = replicated bitwise (losses, params, moments "
+        f"consolidated); {n_fires} fired reduce-scatters, none "
+        f"synchronized the host (sync debug mode 'error'); trainer.main "
+        f"--shard-optimizer --codec int8 --overlap (bf16 compute, flash, "
+        f"{ZERO_INT8_STEPS} steps, its {len(fires) - n_fires} fires under "
+        f"the same mode): losses "
+        f"{[round(x, 4) for x in int8_losses]}, every rank's ef and every "
+        f"master block non-zero; {time.monotonic() - clock:.1f} s")
+    del st, efs, out
+    torch.cuda.empty_cache()
+
+    # ---- (c) the fold kernel against its plain version at this path's
+    # lengths, and the heaviest fold stage timed
+    clock = time.monotonic()
+    # the step's topology, and 2,2,2, whose ranks own their blocks out of
+    # order (three W=2 stages)
+    t222 = tm.resolve_axis_topos(sizes, tm.AXIS_NAMES, "2,2,2")
+    for codec, ctopos in ((None, topos), (None, t222), ("int8", topos)):
+        cplan, cstages, seen = check_zero_syncs(
+            zero, tm, bk, cm, rs, init["params"], pspecs, ctopos, sizes, dev,
+            flat_mesh, codec)
+        log(f"phase 19(c) {codec or 'f32'} sharded reduce-scatter as the "
+            f"step runs it on {zero.shard_topo(ctopos['dp'], DP)} (block "
+            f"permutation {layout.perm_for(ctopos, 'dp')}; seeded gradients, "
+            f"{DP} ranks, step {CODEC_STEP},"
+            f" {len(cplan)} buckets of {[p.nbytes for p in cplan]} B): every "
+            f"rank's blocks and tails{' and residual' if codec else ''} "
+            f"bitwise the same sync on host copies with the card's plan (the"
+            f" plain fold); fold stages {cstages}; launches by body: "
+            f"{describe_bodies(seen)}")
+        torch.cuda.empty_cache()
+    r, w, length = max(stages, key=lambda s: s[0] * (s[1] + 1) * s[2])
+    gen = torch.Generator(device=dev).manual_seed(SEED + 191)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    x = torch.randn((r, w, length), generator=gen, device=dev)
+    outs = torch.empty((r, length), device=dev)
+    folds = [(list(x[f]), outs[f]) for f in range(r)]
+    n_bytes = r * (w + 1) * length * 4
+    fold = {
+        "R": r, "W": w, "L": length,
+        "ms": time_launches(lambda: rs.reduce_sources(folds, "sum"), 20,
+                            flush),
+        "plain_ms": time_launches(
+            lambda: rs.reduce_sources_plain(folds, "sum"), 10, flush),
+        "library_ms": time_launches(lambda: torch.sum(x, 1), 20, flush),
+        "bound_ms": n_bytes / bw * 1e3,
+    }
+    log(f"phase 19(c) heaviest sharded fold stage: {r} x (W={w}, L={length})"
+        f" f32 sum ({n_bytes / 1e6:.1f} MB), one launch: kernel "
+        f"{fold['ms']:.4f} ms ({100 * fold['bound_ms'] / fold['ms']:.1f}% "
+        f"of the bound {fold['bound_ms']:.4f} ms); plain "
+        f"{fold['plain_ms']:.4f} ms; torch.sum(x, 1) over the stacked "
+        f"sources {fold['library_ms']:.4f} ms (cold L2); {smi}; "
+        f"{time.monotonic() - clock:.1f} s")
+    del x, outs, folds, flush
+    torch.cuda.empty_cache()
+
+    # ---- (d) the train-step bench's sharded rows, in turns
+    clock = time.monotonic()
+    bench = harness.run_train_step_bench(harness.TrainStepBenchConfig(
+        n_layers=layers, d_model=MODEL["d_model"], d_ff=MODEL["d_ff"],
+        n_heads=MODEL["n_heads"], vocab_size=MODEL["vocab_size"], batch=b,
+        seq_len=t, devices=DP, repeat=ZERO_BENCH_REPEAT, sharded=True,
+        device=str(dev)))
+    for name, acct in bench["opt_state_bytes"].items():
+        if acct["live_bytes_per_rank"] != acct["sharded_bytes_per_rank"]:
+            raise AssertionError(f"{name}: live bytes a rank {acct}")
+    log(f"phase 19(d) train-step bench (flagship, bf16, flash, {DP} ranks, "
+        f"{ZERO_BENCH_REPEAT} rounds in turns; {smi}; printed, not gated; "
+        f"ours_sharded bitwise the per-leaf step): " + "; ".join(
+            f"{k} median {r_['train_step_median_ms']:.3f} ms (min "
+            f"{r_['train_step_ms']:.3f})"
+            + (f", optimizer state a rank {r_['opt_state_bytes_ratio']:.4f} "
+               f"of the replicated" if "opt_state_bytes_ratio" in r_ else "")
+            for k, r_ in bench["rows"].items())
+        + "; live moment (and master) bytes a rank = zero_shard_bytes: "
+        + ", ".join(f"{k} {a['live_bytes_per_rank']} B"
+                    for k, a in bench["opt_state_bytes"].items())
+        + f"; {time.monotonic() - clock:.1f} s")
+    del bench
+    torch.cuda.empty_cache()
+
+    # ---- (e) the phase programs of the shard topology
+    head = sum(leaves[i].numel() for i in plan[0].indices)
+    found = []
+    for phase in ("rs", "ag"):
+        prog = sc.build_phase_program(shard_topo, phase, count=head)
+        found += sc.check_phase_program(prog, shard_topo)
+    if found:
+        raise AssertionError(f"phase programs of {shard_topo}: {found}")
+    log(f"phase 19(e) the reduce-scatter and all-gather programs of the "
+        f"shard topology {shard_topo} (bucket 0's {head} elements): clean "
+        f"(symmetry, deadlock, ownership and closure)")
+    return launches
+
+
 def collective_phases(dev, bw) -> list:
     """Phases 11-15 (the FlexTree collectives); returns their rows of the
     kernels line (``reduce_sources`` and ``reduce_stacked``, the fold
@@ -3762,7 +4152,7 @@ def main() -> int:
     from flextree_tpu_torch.utils import checkpoint as ckpt
 
     t0 = time.monotonic()
-    dp_launches = phase_dp(dev, fa, trainer, ckpt)
+    dp_launches, dp_peak = phase_dp(dev, fa, trainer, ckpt)
     log(f"phase 16: {time.monotonic() - t0:.1f} s")
     t0 = time.monotonic()
     codec_launches, dp_codec_launches = phase_codec(dev, fa, trainer, ckpt)
@@ -3770,12 +4160,17 @@ def main() -> int:
     t0 = time.monotonic()
     ovl_launches = phase_overlap(dev, fa, trainer, ckpt, smi)
     log(f"phase 18: {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    zero_launches = phase_zero(dev, fa, trainer, ckpt, smi, dp_peak, bw)
+    log(f"phase 19: {time.monotonic() - t0:.1f} s")
     # each path's launches beside their sum
     for row in rows:
         if row["name"] in dp_launches:
             row["launches_by_path"]["dp_train"] = dp_launches[row["name"]]
         if row["name"] in ovl_launches:
             row["launches_by_path"]["dp_overlap"] = ovl_launches[row["name"]]
+        if row["name"] in zero_launches:
+            row["launches_by_path"]["dp_zero"] = zero_launches[row["name"]]
         if row["name"] in dp_codec_launches:
             row["launches_by_path"]["dp_codec"] = \
                 dp_codec_launches[row["name"]]

@@ -2,9 +2,10 @@
 deadlock-free and conservation-correct before it touches a device.
 
 A copy of the IR part of ``flextree_tpu/analysis/schedule_check.py`` (the
-port imports nothing of the JAX package); its phase-program checks of the
-standalone reduce-scatter and all-gather are not ported (ROADMAP.md,
-Queue 1: 'JAX-specific static analysis, last').
+port imports nothing of the JAX package) and of its phase-program checks
+of the standalone reduce-scatter and all-gather, the split collectives
+ZeRO-1 (``parallel/zero.py``) runs: :func:`build_phase_program`,
+:func:`check_phase_program` and :func:`check_split_schedules`.
 
 ``schedule/validate.py`` proves invariants of the *plans* (partition,
 send/recv agreement, convergence).  This layer goes one level down: it
@@ -57,7 +58,8 @@ import time
 from dataclasses import dataclass, field
 
 from ..schedule import ir as sir
-from ..schedule.stages import TopologyError
+from ..schedule.plan import ring_plan
+from ..schedule.stages import LonelyTopology, Topology, TopologyError
 from ..schedule.validate import ScheduleError
 from .base import Violation
 
@@ -67,7 +69,11 @@ __all__ = [
     "Program",
     "program_from_ir",
     "check_ir",
+    "build_phase_program",
     "check_program",
+    "check_phase_program",
+    "default_phase_matrix",
+    "check_split_schedules",
     "default_ir_matrix",
     "check_ir_families",
 ]
@@ -122,6 +128,10 @@ class Program:
     # that loses this wrapper is itself a violation ("unbounded-wait"),
     # independent of its message pattern being correct.
     watchdogged: bool = True
+    # "rs" / "ag" marks a standalone reduce-scatter or all-gather program
+    # (one phase of the seam); conservation is then phase-specific, see
+    # check_phase_program
+    phase_only: str | None = None
 
     def postsets(self):
         for rank in sorted(self.posts):
@@ -167,6 +177,13 @@ def _append_ir_stage(prog: Program, st: "sir.IRStage", scheduled: int) -> None:
         prog.posts.setdefault(r, []).append(
             PostSet(r, halves, st.chunk, st.phase, st.index)
         )
+
+
+def _append_tree_chunk(prog: Program, topo: Topology, chunk: int, phase: str):
+    """One tree phase appended from the IR emitter (the split-phase
+    programs below)."""
+    for st in sir.tree_phase_stages(topo, phase, chunk=chunk):
+        _append_ir_stage(prog, st, topo.num_nodes)
 
 
 def program_from_ir(ir_prog: "sir.IRProgram") -> Program:
@@ -676,4 +693,343 @@ def check_ir_families(
         if times is not None:
             times[name] = round((time.perf_counter() - t0) * 1e3, 2)
         checked += 1
+    return violations, checked
+
+
+# ------------------------------------------------------- split phases
+
+
+def build_phase_program(topo, phase: str, count: int | None = None) -> Program:
+    """The message program of ONE standalone phase: ``phase="rs"`` is the
+    reduce-scatter collective (every rank ends owning exactly its
+    ``schedule.blocks.owned_block``; lonely ranks additionally receive a
+    mirror copy of their buddy's block over one extra ship hop),
+    ``phase="ag"`` the all-gather (owned blocks in, the full vector out
+    on every rank; lonely ranks get it over the restore hop)."""
+    if phase not in ("rs", "ag"):
+        raise ValueError(f"phase must be 'rs' or 'ag', got {phase!r}")
+    if not isinstance(topo, (Topology, LonelyTopology)):
+        raise TypeError(f"resolve the topology first, got {type(topo)}")
+    n = topo.num_nodes
+
+    if isinstance(topo, LonelyTopology):
+        tree, m, l = topo.tree, topo.tree.num_nodes, topo.lonely
+        prog = Program(
+            n, "lonely", num_stages=tree.num_stages, phase_only=phase
+        )
+        count = count if count is not None else m * m
+        prog.head_elems = (count // m) * m
+        prog.chunk_spans = [(0, prog.head_elems)]
+        all_blocks = tuple(range(m))
+        if phase == "rs":
+            for i in range(l):
+                prog.posts.setdefault(m + i, []).append(
+                    PostSet(m + i, [Half(SEND, i, all_blocks)], 0, "fold", 0)
+                )
+                prog.posts.setdefault(i, []).append(
+                    PostSet(i, [Half(RECV, m + i, all_blocks)], 0, "fold", 0)
+                )
+            _append_tree_chunk(prog, tree, 0, "rs")
+            for i in range(l):
+                blocks = (_program_owned_block(tree, i),)
+                prog.posts.setdefault(i, []).append(
+                    PostSet(i, [Half(SEND, m + i, blocks)], 0, "ship", 0)
+                )
+                prog.posts.setdefault(m + i, []).append(
+                    PostSet(m + i, [Half(RECV, i, blocks)], 0, "ship", 0)
+                )
+        else:
+            _append_tree_chunk(prog, tree, 0, "ag")
+            for i in range(l):
+                prog.posts.setdefault(i, []).append(
+                    PostSet(i, [Half(SEND, m + i, all_blocks)], 0, "restore", 0)
+                )
+                prog.posts.setdefault(m + i, []).append(
+                    PostSet(m + i, [Half(RECV, i, all_blocks)], 0, "restore", 0)
+                )
+        return prog
+
+    count = count if count is not None else n * n
+    head = (count // n) * n
+    if topo.is_ring:
+        prog = Program(n, "ring", num_stages=1, phase_only=phase)
+        prog.head_elems = head
+        prog.chunk_spans = [(0, head)]
+        plans = [ring_plan(n, r) for r in range(n)]
+        steps = range(n - 1) if phase == "rs" else range(n - 1, 2 * (n - 1))
+        for step in steps:
+            for r in range(n):
+                snd, rcv = plans[r][step]
+                prog.posts.setdefault(r, []).append(
+                    PostSet(
+                        r,
+                        [
+                            Half(SEND, snd.peer, snd.blocks),
+                            Half(RECV, rcv.peer, rcv.blocks),
+                        ],
+                        0,
+                        phase,
+                        step,
+                    )
+                )
+        return prog
+
+    prog = Program(n, "tree", num_stages=topo.num_stages, phase_only=phase)
+    prog.head_elems = head
+    prog.chunk_spans = [(0, head)]
+    _append_tree_chunk(prog, topo, 0, phase)
+    return prog
+
+
+def _program_owned_block(topo, rank: int) -> int:
+    """Contract block per rank in PROGRAM coordinates: the message model
+    names blocks by residue chain, so rank ``r`` owns block ``r`` in a
+    tree and block ``(r+1) % N`` on the ring; lonely rank ``m+i`` mirrors
+    buddy ``i``.  The walker realizes program block ``b`` at contiguous
+    tile offset ``schedule.blocks.owned_block(topo, b)`` —
+    two names for the same residue chain, and the cross-check between
+    them is property-tested against the real collectives in
+    ``tests/test_torch_zero.py``."""
+    if hasattr(topo, "tree"):
+        m = topo.tree.num_nodes
+        return _program_owned_block(topo.tree, rank if rank < m else rank - m)
+    if topo.is_ring:
+        return (rank + 1) % topo.num_nodes
+    return rank
+
+
+def _check_phase_conservation(prog: Program, topo) -> list[Violation]:
+    """Phase-specific conservation: the rs program must leave every rank
+    owning exactly its contract block (the shard layout the ZeRO
+    optimizer state is carved by, in program coordinates —
+    :func:`_program_owned_block`); the ag program, started from that
+    ownership, must close to every rank holding the full vector."""
+    owned_block = _program_owned_block
+    out: list[Violation] = []
+    tree = topo.tree if isinstance(topo, LonelyTopology) else topo
+    lonely = topo.lonely if isinstance(topo, LonelyTopology) else 0
+    m = tree.num_nodes
+    name = f"{prog.kind}/{prog.phase_only}"
+
+    if prog.phase_only == "rs":
+        if prog.kind == "ring":
+            # the fold walk: rank r's final fold lands on its owned block
+            for r in range(m):
+                recvd: list[int] = []
+                for ps in prog.posts.get(r, []):
+                    if ps.phase != "rs":
+                        continue
+                    for h in ps.halves:
+                        if h.kind == RECV:
+                            recvd.extend(h.blocks)
+                want = owned_block(topo, r)
+                if not recvd or recvd[-1] != want:
+                    out.append(
+                        Violation(
+                            "schedule", "shard-ownership", name,
+                            f"ring rank {r}'s final fold lands on block "
+                            f"{recvd[-1] if recvd else None}, but the shard "
+                            f"layout says it owns block {want}",
+                            stage=len(recvd), src=None, dst=r,
+                            block=want,
+                        )
+                    )
+                missing = set(range(m)) - {r} - set(recvd)
+                for b in sorted(missing):
+                    out.append(
+                        Violation(
+                            "schedule", "dropped-block", name,
+                            f"ring rank {r} never folds a partial for block {b}",
+                            stage=None, src=None, dst=r, block=b,
+                        )
+                    )
+            return out
+        # tree (and the lonely prefix tree): replay per-stage ownership
+        owned = {r: set(range(m)) for r in range(m)}
+        for i in range(tree.num_stages):
+            for r in range(m):
+                sent: dict[int, int] = {}
+                kept: set[int] = set()
+                for ps in prog.posts.get(r, []):
+                    if ps.phase != "rs" or ps.stage != i:
+                        continue
+                    for h in ps.halves:
+                        if h.kind == SEND:
+                            for b in h.blocks:
+                                sent[b] = h.peer
+                        else:
+                            kept |= set(h.blocks)
+                missing = owned[r] - set(sent) - kept
+                for b in sorted(missing):
+                    out.append(
+                        Violation(
+                            "schedule", "dropped-block", name,
+                            f"rank {r} owns block {b} but neither sends nor "
+                            f"keeps it at stage {i}",
+                            stage=i, src=r, dst=None, block=b,
+                        )
+                    )
+                extra = set(sent) - owned[r]
+                for b in sorted(extra):
+                    out.append(
+                        Violation(
+                            "schedule", "double-count", name,
+                            f"rank {r} sends block {b} it does not own at "
+                            f"stage {i}",
+                            stage=i, src=r, dst=sent[b], block=b,
+                        )
+                    )
+                owned[r] = kept
+        for r in range(m):
+            want = {owned_block(tree, r)}
+            if owned[r] != want:
+                out.append(
+                    Violation(
+                        "schedule", "shard-ownership", name,
+                        f"rank {r} ends the reduce-scatter owning "
+                        f"{sorted(owned[r])}, but the shard layout says "
+                        f"exactly {sorted(want)}",
+                        stage=tree.num_stages - 1, src=None, dst=r,
+                        block=min(want),
+                    )
+                )
+        if lonely:
+            # the ship hop must hand each lonely rank its buddy's block
+            for i in range(lonely):
+                got: set[int] = set()
+                for ps in prog.posts.get(m + i, []):
+                    if ps.phase == "ship":
+                        for h in ps.halves:
+                            if h.kind == RECV:
+                                got |= set(h.blocks)
+                want = {owned_block(tree, i)}
+                if got != want:
+                    out.append(
+                        Violation(
+                            "schedule", "shard-ownership", name,
+                            f"lonely rank {m + i} ends with mirror blocks "
+                            f"{sorted(got)}, want buddy {i}'s {sorted(want)}",
+                            stage=None, src=i, dst=m + i,
+                            block=min(want),
+                        )
+                    )
+        return out
+
+    # ---- ag: closure from the contract ownership
+    holdings = {r: {owned_block(topo, r)} for r in range(prog.num_nodes)}
+    if prog.kind == "ring":
+        for r in range(m):
+            for ps in prog.posts.get(r, []):
+                for h in ps.halves:
+                    if h.kind == RECV:
+                        holdings[r] |= set(h.blocks)
+    else:
+        for i in reversed(range(tree.num_stages)):
+            new_h = {r: set(h) for r, h in holdings.items()}
+            for r in range(m):
+                for ps in prog.posts.get(r, []):
+                    if ps.phase != "ag" or ps.stage != i:
+                        continue
+                    for h in ps.halves:
+                        if h.kind != RECV:
+                            continue
+                        inbound = set(h.blocks)
+                        if not inbound <= holdings.get(h.peer, set()):
+                            bad = min(inbound - holdings.get(h.peer, set()))
+                            out.append(
+                                Violation(
+                                    "schedule", "dropped-block", name,
+                                    f"rank {h.peer} forwards block {bad} it "
+                                    f"does not hold at stage {i}",
+                                    stage=i, src=h.peer, dst=r, block=bad,
+                                )
+                            )
+                        new_h[r] |= inbound
+            holdings = new_h
+        if lonely:
+            for i in range(lonely):
+                for ps in prog.posts.get(m + i, []):
+                    if ps.phase == "restore":
+                        for h in ps.halves:
+                            if h.kind == RECV:
+                                holdings[m + i] = set(h.blocks)
+    check_ranks = range(prog.num_nodes) if not lonely else range(m + lonely)
+    for r in check_ranks:
+        gaps = set(range(m)) - holdings[r]
+        if gaps:
+            out.append(
+                Violation(
+                    "schedule", "dropped-block", name,
+                    f"all-gather closure fails: rank {r} ends without "
+                    f"blocks {sorted(gaps)}",
+                    stage=0, src=None, dst=r, block=min(gaps),
+                )
+            )
+    return out
+
+
+def check_phase_program(prog: Program, topo) -> list[Violation]:
+    """All checks for one standalone-phase program: watchdog contract,
+    peer symmetry, deadlock-freedom under blocking rendezvous, and the
+    phase-specific ownership/closure conservation."""
+    out = _check_watchdog(prog)
+    out += _check_symmetry(prog)
+    out += _check_deadlock(prog)
+    out += _check_phase_conservation(prog, topo)
+    return out
+
+
+def default_phase_matrix(max_n: int = 16) -> list[tuple]:
+    """(spec, num_nodes, count) rows for the split collectives: the shapes
+    the sharded train path actually rides (flat/two-level/halving trees,
+    ring) plus the lonely mirror contract."""
+    rows = [
+        ("8", 8, 64),
+        ("4,2", 8, 64),
+        ("2,2,2", 8, 64),
+        ("2,4", 8, 96),
+        ("1", 8, 64),
+        ("2", 2, 16),
+        ("3,2+1", 7, 84),
+        ("6+1", 7, 66),
+        ("4,4", 16, 256),
+    ]
+    return [r for r in rows if r[1] <= max_n]
+
+
+def check_split_schedules(
+    max_n: int = 16, programs=None, times: dict | None = None
+) -> tuple[list[Violation], int]:
+    """Model-check the standalone reduce-scatter AND all-gather programs
+    over the default phase matrix; returns (violations, programs).
+    ``programs``/``times`` as in :func:`check_standard_schedules`."""
+    violations: list[Violation] = []
+    checked = 0
+    for spec, n, count in default_phase_matrix(max_n):
+        try:
+            topo = Topology.resolve(n, spec)
+        except (ScheduleError, ValueError) as e:
+            violations.append(
+                Violation("schedule", "invalid-topology", spec, str(e))
+            )
+            continue
+        for phase in ("rs", "ag"):
+            name = f"{spec}@{n}/{phase}"
+            if not _row_selected(name, programs):
+                continue
+            t0 = time.perf_counter()
+            try:
+                prog = build_phase_program(topo, phase, count=count)
+            except (ScheduleError, ValueError, TypeError) as e:
+                violations.append(
+                    Violation(
+                        "schedule", "invalid-topology", name,
+                        f"{type(e).__name__}: {e}",
+                    )
+                )
+                continue
+            violations += check_phase_program(prog, topo)
+            if times is not None:
+                times[name] = round((time.perf_counter() - t0) * 1e3, 2)
+            checked += 1
     return violations, checked

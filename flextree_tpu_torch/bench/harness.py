@@ -493,7 +493,7 @@ def dist_train_steps(rank: int, world: int, model: dict, train: dict,
 
     cfg, tc = TransformerConfig(**model), TrainConfig(**train)
     state = init_train_state(cfg, torch.Generator().manual_seed(seed), tc,
-                             device=device)
+                             device=device, comm=dist.group.WORLD)
     step = make_train_step(cfg, tc, device=device, comm=dist.group.WORLD)
     losses = []
     for tokens, targets in batches:
@@ -637,10 +637,14 @@ class TrainStepBenchConfig:
 
     ``overlap`` adds ``no_sync`` (the same step with the sync left out:
     the exposure baseline), ``ours_overlapped`` (``TrainConfig(overlap=
-    True)``) and ``ours_overlap_serialized`` (its twin).  ``supervised``,
-    ``sharded`` and ``recorder`` (the JAX rows of the supervision host
-    path, ZeRO-1 and the flight recorder) wait for their modules and
-    raise; ``supervised`` defaults to False here, where JAX's is True."""
+    True)``) and ``ours_overlap_serialized`` (its twin).  ``sharded`` adds
+    the ZeRO-1 rows ``ours_sharded`` (float32 wire, held bitwise to the
+    per-leaf step) and ``ours_sharded_int8`` (both wires int8), each with
+    its per-rank optimizer-state ratio
+    (:func:`..parallel.zero.zero_shard_bytes`).  ``supervised`` and
+    ``recorder`` (the JAX rows of the supervision host path and the flight
+    recorder) wait for their modules and raise; ``supervised`` defaults to
+    False here, where JAX's is True."""
 
     n_layers: int = 6
     d_model: int = 64
@@ -696,9 +700,13 @@ def run_train_step_bench(cfg: TrainStepBenchConfig) -> dict:
     ``exposed_comm_ms`` and ``hidden_comm_ms`` (:func:`exposed_split` over
     the ``no_sync`` step; the overlap rows cut the twin's exposure, the
     JAX bench's comm total, the others their own ``sync_ms``) and
-    ``exposed_vs_serialized`` (the twin's exposure over the row's).
-    Raises unless the fused, chunked and overlap steps update the
-    parameters bitwise as the per-leaf step does."""
+    ``exposed_vs_serialized`` (the twin's exposure over the row's).  With
+    ``cfg.sharded`` the rows ``ours_sharded`` and ``ours_sharded_int8``
+    come too (step ms, ``vs_per_leaf`` and ``opt_state_bytes_ratio``), and
+    ``opt_state_bytes`` gives each one's ``zero_shard_bytes`` beside the
+    bytes a rank of the sharded moment (and master) buffers its state
+    holds.  Raises unless the fused, chunked, overlap and ``ours_sharded``
+    steps update the parameters bitwise as the per-leaf step does."""
     from ..models.transformer import TransformerConfig, param_specs
     from ..parallel import overlap as ov
     from ..parallel.train import (
@@ -716,7 +724,6 @@ def run_train_step_bench(cfg: TrainStepBenchConfig) -> dict:
     refusals = (
         (cfg.supervised, "supervised=True",
          "'Checkpoint, supervision and feedback plumbing'"),
-        (cfg.sharded, "sharded=True", "'ZeRO-1'"),
         (cfg.recorder, "recorder=True", "'The rest of the serving tier'"),
     )
     for bad, what, item in refusals:
@@ -784,14 +791,39 @@ def run_train_step_bench(cfg: TrainStepBenchConfig) -> dict:
 
         syncs["ours_overlapped"] = syncs["ours_overlap_serialized"] = \
             overlap_sync
-    states_out = {name: step(state, toks, tgts)[0]  # also the warm-up
+    states_in = {name: state for name in steps}
+    shard_bytes = {}
+    if cfg.sharded:
+        from ..parallel.train import zero_layout_for
+        from ..parallel.zero import zero_shard_bytes
+
+        layout = zero_layout_for(mesh, state["params"], pspecs)
+        tc_sh = TrainConfig(grad_topo=cfg.topo, shard_optimizer=True)
+        for name, tc2 in (("ours_sharded", tc_sh),
+                          ("ours_sharded_int8",
+                           dataclasses.replace(tc_sh, codec="int8"))):
+            steps[name] = make_train_step(model_cfg, tc2, comm=mesh)
+            states_in[name] = init_train_state(
+                model_cfg, torch.Generator().manual_seed(0), tc2,
+                device=dev, comm=mesh)
+            # a rank's bytes: its block of each shard buffer (the mesh's
+            # state holds every rank's) and the whole replicated tails
+            held = sum(t.numel() * t.element_size()
+                       // (n if k.endswith("_shard") else 1)
+                       for k, tree in states_in[name].items()
+                       if k.endswith(("_shard", "_tail"))
+                       for t in tree_leaves(tree))
+            shard_bytes[name] = dict(zero_shard_bytes(layout,
+                                                      tc2.codec != "f32"),
+                                     live_bytes_per_rank=held)
+    states_out = {name: step(states_in[name], toks, tgts)[0]  # warm-up too
                   for name, step in steps.items()}
     for fn in set(syncs.values()):
         fn()
     identical = True
     for name in states_out:
-        if name in ("per_leaf", "no_sync"):
-            continue
+        if name in ("per_leaf", "no_sync", "ours_sharded_int8"):
+            continue  # int8 is lossy: bounded, not bitwise
         same = all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
                    for a, b in zip(tree_leaves(states_out["per_leaf"]
                                                ["params"]),
@@ -802,7 +834,7 @@ def run_train_step_bench(cfg: TrainStepBenchConfig) -> dict:
         identical = identical and same
     del states_out
     step_times = _interleaved_times(
-        {name: (lambda step=step: step(state, toks, tgts))
+        {name: (lambda step=step, st=states_in[name]: step(st, toks, tgts))
          for name, step in steps.items()}, cfg.repeat, dev)
     sync_times = _interleaved_times(
         {name: fn for name, fn in syncs.items()
@@ -818,8 +850,11 @@ def run_train_step_bench(cfg: TrainStepBenchConfig) -> dict:
             rows[name]["sync_ms"] = sync_times[name]["min_ms"]
             rows[name]["compute_ms"] = max(
                 t["min_ms"] - sync_times[name]["min_ms"], 0.0)
+        if name in syncs or name in shard_bytes:
             rows[name]["vs_per_leaf"] = (step_times["per_leaf"]["min_ms"]
                                          / t["min_ms"])
+        if name in shard_bytes:
+            rows[name]["opt_state_bytes_ratio"] = shard_bytes[name]["ratio"]
     if cfg.overlap:
         nosync_ms = step_times["no_sync"]["min_ms"]
         # the twin hides nothing, so its exposure is the overlapped step's
@@ -843,6 +878,7 @@ def run_train_step_bench(cfg: TrainStepBenchConfig) -> dict:
         "n_grad_leaves": n_leaves,
         "identical": identical,
         "overlap_plan": None if plan is None else dataclasses.asdict(plan),
+        "opt_state_bytes": shard_bytes or None,
         "rows": rows,
     }
 

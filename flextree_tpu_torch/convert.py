@@ -3,8 +3,15 @@
 ``flextree_tpu.models.transformer.init_params`` returns a pytree of
 ``(in, out)``-shaped float32 arrays and ``parallel.train.init_train_state``
 wraps it as ``{"params", "mu", "nu", "step"}`` (and ``"ef"``, param-shaped,
-for a lossy codec); the port keeps both layouts, so the conversion is a
-copy.  The caller turns the JAX arrays
+for a lossy codec), or, under ``shard_optimizer`` (ZeRO-1), as
+``{"params", "step", "mu_shard", "mu_tail", "mu_rep", "nu_shard",
+"nu_tail", "nu_rep"}`` (and ``"master_shard"``, ``"master_tail"``, ``"ef"``
+for a lossy codec) in its host-global layout: a ``*_shard`` leaf is
+``(N·tile,)`` float32 with rank ``r``'s block at ``[r·tile, (r+1)·tile)``,
+a ``*_tail`` leaf ``(tail,)``, an empty slot ``(0,)``.  The port keeps
+these layouts (on an in-process mesh the same host-global buffers; on a
+process group each rank holds its own ``(tile,)``, as each JAX device
+does), so the conversion is a copy.  The caller turns the JAX arrays
 into numpy (``jax.tree.map(np.asarray, tree)``) — this module imports
 neither JAX nor the JAX package.
 """
@@ -43,20 +50,30 @@ def params_from_numpy(tree: dict, device=None) -> dict:
             "layers": layers}
 
 
+_SHARDED_KEYS = ("mu_shard", "mu_tail", "mu_rep", "nu_shard", "nu_tail",
+                 "nu_rep")
+_MASTER_KEYS = ("master_shard", "master_tail")
+
+
 def train_state_from_numpy(tree: dict, device=None) -> dict:
-    """The port's train state from the JAX ``init_train_state`` pytree
-    (or any JAX train state of the replicated layout) given as numpy:
-    params, both moments and a lossy codec's ``"ef"`` residual through
-    :func:`params_from_numpy`, ``step`` a 0-d int32 tensor.  A state with
-    other entries (ZeRO shards) raises: the port does not run them."""
+    """The port's train state from a JAX train state pytree given as numpy
+    (``init_train_state``'s, replicated or sharded, see the module
+    docstring): every tree through :func:`params_from_numpy` (a shard
+    leaf keeps its 1-D shape), ``step`` a 0-d int32 tensor.  A state with
+    keys of neither layout raises."""
     from .device import resolve_device
 
     dev = resolve_device(device)
-    trees = ("params", "mu", "nu") + (("ef",) if "ef" in tree else ())
-    if set(tree) != {*trees, "step"}:
+    ef = ("ef",) if "ef" in tree else ()
+    layouts = [("params", "mu", "nu") + ef,
+               ("params",) + _SHARDED_KEYS + ef,
+               ("params",) + _SHARDED_KEYS + _MASTER_KEYS + ef]
+    trees = next((k for k in layouts if set(tree) == {*k, "step"}), None)
+    if trees is None:
         raise ValueError(
-            f"expected a replicated train state with keys params, mu, nu, "
-            f"step (and ef); got {sorted(tree)}"
+            f"expected a train state with keys params, mu, nu, step (and "
+            f"ef), or the sharded params, step, {', '.join(_SHARDED_KEYS)} "
+            f"(and {', '.join(_MASTER_KEYS)}, ef); got {sorted(tree)}"
         )
     state = {k: params_from_numpy(tree[k], dev) for k in trees}
     state["step"] = torch.tensor(int(np.asarray(tree["step"])),

@@ -206,6 +206,7 @@ def plan_buckets(
     params=None,
     max_bucket_bytes: int | None = None,
     codec=None,
+    sharded: bool = False,
 ) -> tuple[Bucket, ...]:
     """Partition the flat gradient leaves (tensors; ``meta`` ones do) into
     fused sync buckets.
@@ -218,7 +219,9 @@ def plan_buckets(
     ``max_bucket_bytes`` (None: the leaves' device's cap).  Axes of size 1
     (``axis_sizes``) drop out of a key; a leaf sharded over every axis is
     not synced and is in no bucket.  ``codec`` prices the derived size
-    with the codec's wire bytes and hop cost (a lossy sync's buckets)."""
+    with the codec's wire bytes and hop cost (a lossy sync's buckets);
+    ``sharded`` prices the ZeRO-1 split schedule instead (the gradient's
+    reduce-scatter and the parameters' all-gather, :mod:`.zero`)."""
     if max_bucket_bytes is None:
         max_bucket_bytes = _default_max_bucket_bytes(leaves)
     groups: dict[tuple[tuple[str, ...], str], list[int]] = {}
@@ -237,7 +240,7 @@ def plan_buckets(
         if cap is None:
             cap = _derived_bucket_bytes(
                 sum(sizes), len(idxs), axes, topos or {}, axis_sizes or {},
-                params, max_bucket_bytes, codec)
+                params, max_bucket_bytes, codec, sharded=sharded)
         cap = max(int(cap), 1)
         cur: list[int] = []
         cur_bytes = 0
@@ -253,10 +256,13 @@ def plan_buckets(
 
 
 def _derived_bucket_bytes(total_bytes, n_leaves, axes, topos, axis_sizes,
-                          params, max_bucket_bytes, codec=None):
+                          params, max_bucket_bytes, codec=None,
+                          sharded: bool = False):
     """The planner's bucket size for one (axes, dtype) group: a bucket runs
     one allreduce an axis, so the fixed cost the chooser amortizes is the
-    sum over the axes; the sentinel axis is priced as the flat tree."""
+    sum over the axes; the sentinel axis is priced as the flat tree.
+    ``sharded`` prices the ZeRO-1 split schedule
+    (``planner.choose.choose_bucket_bytes``)."""
     from ..planner.choose import choose_bucket_bytes
 
     cost_topos = []
@@ -271,7 +277,7 @@ def _derived_bucket_bytes(total_bytes, n_leaves, axes, topos, axis_sizes,
     if not cost_topos:
         return max_bucket_bytes
     derived = choose_bucket_bytes(total_bytes, cost_topos, n_leaves=n_leaves,
-                                  params=params, codec=codec)
+                                  params=params, codec=codec, sharded=sharded)
     return min(derived, max_bucket_bytes)
 
 
@@ -577,7 +583,8 @@ def _allreduce_folds(n: int, topo, count: int, chunks: int) -> list:
 
 
 def sync_fold_stages(numels: Sequence[int], n: int, topo, buckets=None,
-                     chunks: int = 1, codec=None) -> list:
+                     chunks: int = 1, codec=None,
+                     sharded: bool = False) -> list:
     """The fold stages, in order, of one sync over one axis of ``n`` ranks
     that share a device, each ``(R folds, W sources, L elements)``: one
     :func:`~..ops.reduce_stacked.reduce_sources` call (the count
@@ -586,7 +593,13 @@ def sync_fold_stages(numels: Sequence[int], n: int, topo, buckets=None,
     topology (None: the sentinel's dense fold); ``buckets``: a plan of
     :func:`plan_buckets` (None: the per-leaf sync); ``codec``: the sync's
     wire codec (a lossy one folds each bucket, packed, as one
-    :func:`.compressed.compressed_allreduce`)."""
+    :func:`.compressed.compressed_allreduce`).
+
+    ``sharded``: the ZeRO-1 sync (:func:`.zero.zero_reduce_scatter_grads`
+    over a ``plan_buckets(sharded=True)`` plan): each bucket's heads, packed,
+    fold as one reduce-scatter on the shard topology
+    (:func:`.zero.shard_topo`; ``chunks`` does not apply), its tails as one
+    dense fold.  The parameters' all-gather folds nothing."""
     from ..ops.quantize import get_codec
 
     codec = get_codec(codec)
@@ -597,7 +610,9 @@ def sync_fold_stages(numels: Sequence[int], n: int, topo, buckets=None,
     folds: list = []
     for idxs in groups:
         sizes = [int(numels[i]) for i in idxs]
-        if codec.name == "int8" and topo is not None:
+        if sharded:
+            folds += _reduce_scatter_folds(n, topo, sizes, codec)
+        elif codec.name == "int8" and topo is not None:
             folds += int8_fold_stages(n, topo, sum(sizes), chunks)
         elif codec.lossy or topo is None:
             folds += _allreduce_folds(n, topo, sum(sizes), chunks)
@@ -611,4 +626,24 @@ def sync_fold_stages(numels: Sequence[int], n: int, topo, buckets=None,
                 folds += _allreduce_folds(n, topo, heads, chunks)
             if tails:
                 folds.append((n, n, tails))
+    return folds
+
+
+def _reduce_scatter_folds(n: int, topo, sizes, codec) -> list:
+    """The fold stages of one ZeRO-1 bucket's reduce-scatter (leaves of
+    ``sizes`` elements): the block-interleaved heads' phase 1 on the shard
+    topology, then the tails' dense fold."""
+    from .zero import shard_topo
+
+    heads = sum((s // n) * n for s in sizes)
+    tails = sum(sizes) - heads
+    folds: list = []
+    if heads:
+        t = shard_topo(topo, n)
+        if codec.name == "int8":
+            folds += int8_fold_stages(n, t, heads)
+        else:
+            folds += call_shape(n, t, heads).folds
+    if tails:
+        folds.append((n, n, tails))
     return folds

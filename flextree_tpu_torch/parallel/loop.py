@@ -121,12 +121,20 @@ def _stamp_step(state: dict, step: int) -> dict:
 
 
 def fit(state, step_fn: Callable, dataset, cfg: FitConfig = FitConfig(), *,
-        supervision=None, arbiter=None) -> FitResult:
+        supervision=None, arbiter=None, state_pack: Callable | None = None,
+        state_unpack: Callable | None = None) -> FitResult:
     """Run ``step_fn`` for ``cfg.num_steps`` total steps over ``dataset``.
 
     Restores go to the device of ``state['step']``.  The run's metrics
     registry receives ``train.step_ms`` and the run's counters; its
-    snapshot is ``result.report.metrics``."""
+    snapshot is ``result.report.metrics``.
+
+    ``state_pack``/``state_unpack`` convert the live state to and from its
+    checkpoint layout: every save writes ``state_pack(state)`` and every
+    restore returns ``state_unpack(loaded)``.  The ZeRO-1 trainer passes
+    :func:`.zero.make_consolidate_fn` and :func:`.zero.make_reshard_fn`,
+    so its checkpoints are the replicated layout, the same for any world
+    size."""
     if supervision is not None or arbiter is not None:
         raise NotImplementedError(
             "fit(supervision=/arbiter=) is not ported yet (ROADMAP.md, "
@@ -141,7 +149,12 @@ def fit(state, step_fn: Callable, dataset, cfg: FitConfig = FitConfig(), *,
         report.ckpt_fallbacks += 1
 
     def _restore():
-        return restore_train_state(cfg.ckpt_dir, dev, on_fallback=_fallback)
+        loaded = restore_train_state(cfg.ckpt_dir, dev, on_fallback=_fallback)
+        return loaded if state_unpack is None else state_unpack(loaded)
+
+    def _save(state):
+        save_train_state(cfg.ckpt_dir, state if state_pack is None
+                         else state_pack(state), max_to_keep=cfg.max_to_keep)
 
     resumed_from = 0
     if cfg.resume and cfg.ckpt_dir and latest_checkpoint(cfg.ckpt_dir):
@@ -223,10 +236,9 @@ def fit(state, step_fn: Callable, dataset, cfg: FitConfig = FitConfig(), *,
                 rate = (step - start) / (time.perf_counter() - t0)
                 log.info("step %d loss %.4f (%.1f steps/s)", step, loss, rate)
             if cfg.ckpt_dir and cfg.ckpt_every and step % cfg.ckpt_every == 0:
-                save_train_state(cfg.ckpt_dir, state,
-                                 max_to_keep=cfg.max_to_keep)
+                _save(state)
         if cfg.ckpt_dir and step > start:
-            save_train_state(cfg.ckpt_dir, state, max_to_keep=cfg.max_to_keep)
+            _save(state)
     finally:
         reg.counter("train.steps").inc(max(step - start, 0))
         reg.counter("train.anomalies").inc(report.anomalies)

@@ -52,10 +52,19 @@ JAX twin puts an ``optimization_barrier`` over every gradient instead).
 A lossy codec syncs ``grad + ef`` per fired bucket and returns the
 wire's residual per leaf, with ``sync_with_feedback``'s semantics.
 
+**ZeRO-1** (``zero_layout``): a fired bucket reduce-scatters
+(:func:`.zero.zero_reduce_scatter_grads`, ``grad + ef`` under a lossy
+codec, whose residual comes back), and the engine hands back each rank's
+tree of :class:`~.zero.ZeroShard`; the shard update and the parameters'
+all-gather run after the backward, on the current stream, after its wait
+for the side stream.  The shards and residuals a fire makes on the side
+stream are read on the current stream only after that wait, as the fired
+allreduce's results are, and the next step's first fire waits for the
+current stream before its stream reuses their blocks.
+
 Not here yet: ``moe_overlap_step_grads`` and
 ``overlap_sync_with_feedback`` (the pipeline's tail) wait for ROADMAP
-Queue 1 item 8 ('Sequence, pipeline and expert parallelism'); the
-ZeRO-1 fire (a fired bucket reduce-scatters) for item 6 ('ZeRO-1').
+Queue 1 item 8 ('Sequence, pipeline and expert parallelism').
 """
 
 from __future__ import annotations
@@ -253,34 +262,40 @@ def _sync_fired_bucket(bucket_trees, bucket_specs, mesh_axes, topos,
     granularity inside the fired payload follows ``train_cfg.bucket_bytes``
     as the serialized sync's does: the boundary decides when a payload
     fires, the inner plan its collectives.  Returns ``(synced, residuals
-    or None)``, each a list of the local ranks' trees."""
+    or None)``, each a list of the local ranks' trees.
+
+    With ``zero_layout`` (ZeRO-1) the bucket reduce-scatters instead
+    (:func:`.zero.zero_reduce_scatter_grads` on the payload's own layout, a
+    function of its leaves' shapes and specs, so it agrees with the
+    step's): ``synced`` holds :class:`~.zero.ZeroShard` leaves."""
     from ..obs import bucket_provenance
     from ..ops.quantize import get_codec
     from ..utils.profiling import span_bytes
     from .train import sync_grads
 
-    if zero_layout is not None:
-        raise NotImplementedError(
-            "an overlap fire that reduce-scatters into optimizer shards is "
-            "not ported yet (ROADMAP.md, Queue 1: 'ZeRO-1')")
     codec = get_codec(train_cfg.codec)
     prov = bucket_provenance(mesh_axes, topos, span_bytes(name) or 0,
                              codec=codec if codec.lossy else None,
-                             chunks=train_cfg.grad_chunks, fired=True)
-    # sync_grads takes a mesh's list of trees, else the one rank's tree
+                             chunks=train_cfg.grad_chunks,
+                             sharded=zero_layout is not None, fired=True)
+    # the syncs take a mesh's list of trees, else the one rank's tree
     mesh = isinstance(comm, Mesh)
-    kw = dict(bucket_bytes=train_cfg.bucket_bytes,
-              chunks=train_cfg.grad_chunks, comm=comm)
+    kw = dict(bucket_bytes=train_cfg.bucket_bytes, comm=comm)
+    if zero_layout is not None:
+        from .zero import zero_reduce_scatter_grads as sync
+    else:
+        sync = sync_grads
+        kw["chunks"] = train_cfg.grad_chunks
     with comm_span(name, provenance=prov):
         if not codec.lossy:
-            out = sync_grads(bucket_trees if mesh else bucket_trees[0],
-                             bucket_specs, mesh_axes, topos, **kw)
+            out = sync(bucket_trees if mesh else bucket_trees[0],
+                       bucket_specs, mesh_axes, topos, **kw)
             return (out if mesh else [out]), None
         v = [tree_map(lambda g, e: g + e.to(g.dtype), g, e)
              for g, e in zip(bucket_trees, ef_trees)]
-        synced, res = sync_grads(v if mesh else v[0], bucket_specs,
-                                 mesh_axes, topos, codec=codec, step=step,
-                                 return_residual=True, **kw)
+        synced, res = sync(v if mesh else v[0], bucket_specs, mesh_axes,
+                           topos, codec=codec, step=step,
+                           return_residual=True, **kw)
         return (synced, res) if mesh else ([synced], [res])
 
 
@@ -439,8 +454,11 @@ def dense_overlap_step_grads(state, tokens, targets, model_cfg, train_cfg,
     ``"ef"`` (each local rank's tree, in a list).  ``stream``: on a card,
     the side stream the fired syncs run on (None: one from PyTorch's pool;
     a step function keeps one for all its calls, so the caching allocator
-    reuses its blocks).  Returns ``(losses, synced_grads, new_ef or
-    None)``, each a list of the local ranks'."""
+    reuses its blocks).  ``zero_layout`` (the step's
+    :class:`~.zero.ZeroLayout`, or None): each fired bucket
+    reduce-scatters, and ``synced_grads`` holds each rank's
+    :class:`~.zero.ZeroShard` tree.  Returns ``(losses, synced_grads,
+    new_ef or None)``, each a list of the local ranks'."""
     from ..models.transformer import global_positions
     from ..ops.quantize import get_codec
 

@@ -42,10 +42,22 @@ bucket synced as its last segment finishes (on a card, on a side stream);
 ``serialize_overlap`` builds its serialized twin.  Without it the program
 is the one described above.
 
+With ``shard_optimizer`` (ZeRO-1, :mod:`.zero`) the state holds each
+rank's block of the moments (``mu_shard``, ``nu_shard``; the tails in
+``*_tail``; a leaf no axis syncs, every leaf on one rank, in ``*_rep``;
+a lossy codec's float32 master in ``master_*``) and the sync, clipping and
+AdamW become :func:`.zero.zero_sync_and_update`: each gradient bucket
+reduce-scattered on the FlexTree walker, AdamW on the owned blocks, the
+parameters all-gathered; with ``overlap`` each fired bucket
+reduce-scatters and the update and gather follow the backward.  For the
+identity codec with clipping off it is bitwise the replicated step.
+Build its state with :func:`init_train_state` ``(comm=)``, or
+:func:`make_train_state` with :func:`zero_layout_for`'s layout.
+
 What needs an unported module raises, naming its ROADMAP item:
-``shard_optimizer`` (with or without ``overlap``), ``autotune`` and an
-``sp`` or ``tp`` axis above size 1.  An IR-family ``grad_topo`` (swing,
-generalized) raises ``TopologyError``, as the JAX train seam does.
+``autotune`` and an ``sp`` or ``tp`` axis above size 1.  An IR-family
+``grad_topo`` (swing, generalized) raises ``TopologyError``, as the JAX
+train seam does.
 """
 
 from __future__ import annotations
@@ -75,12 +87,22 @@ from .bucketing import (
     per_leaf_sync_grads,
 )
 from .mesh import Mesh
+from .zero import (
+    _adamw_elem,
+    _bias_corrections,
+    build_zero_layout,
+    init_zero_entries,
+    maybe_clip_shards,
+    zero_apply_and_gather,
+    zero_sync_and_update,
+)
 
 __all__ = [
     "TrainConfig",
     "AXIS_NAMES",
     "make_train_state",
     "init_train_state",
+    "zero_layout_for",
     "make_loss_and_grads",
     "make_train_step",
     "factor_devices",
@@ -130,7 +152,6 @@ def _refuse_unported(train_cfg: TrainConfig) -> None:
     codec)."""
     get_codec(train_cfg.codec)
     refusals = (
-        (train_cfg.shard_optimizer, "shard_optimizer=True", "'ZeRO-1'"),
         (train_cfg.autotune, "autotune=True",
          "'Checkpoint, supervision and feedback plumbing' (autotune)"),
     )
@@ -145,32 +166,64 @@ def _refuse_unported(train_cfg: TrainConfig) -> None:
 # ------------------------------------------------------------------- state
 
 
-def make_train_state(params: dict, train_cfg: TrainConfig | None = None
-                     ) -> dict:
+def zero_layout_for(comm, params_shapes, pspecs, axis_names=AXIS_NAMES):
+    """The :class:`~.zero.ZeroLayout` of a parameter tree over ``comm`` (a
+    :class:`~.mesh.Mesh`, a process group, or None: one rank, where every
+    leaf is unsharded): the one plan the state, the step and the
+    checkpoint converters share, so they cannot disagree on who owns which
+    block."""
+    return build_zero_layout(params_shapes, pspecs, tuple(axis_names),
+                             comm_axis_sizes(comm, axis_names))
+
+
+def make_train_state(params: dict, train_cfg: TrainConfig | None = None, *,
+                     layout=None, local: bool = False) -> dict:
     """Fresh AdamW state around ``params``: zero moments and step 0 on
     the params' device, and a zero ``"ef"`` residual only for a lossy
-    codec (the identity keeps the JAX package's layout)."""
+    codec (the identity keeps the JAX package's layout).
+
+    ``train_cfg.shard_optimizer`` puts the sharded entries of
+    :func:`.zero.init_zero_entries` in place of ``mu``/``nu``, under
+    ``layout`` (:func:`zero_layout_for`; None: one rank's, every leaf
+    ``*_rep``); ``local``: each ``*_shard`` leaf is this rank's block
+    alone (a process group) rather than every rank's (a mesh)."""
     if train_cfg is not None:
         _refuse_unported(train_cfg)
     dev = params["embed"].device
-    state = {
-        "params": params,
-        "mu": tree_map(torch.zeros_like, params),
-        "nu": tree_map(torch.zeros_like, params),
-        "step": torch.zeros((), dtype=torch.int32, device=dev),
-    }
-    if train_cfg is not None and get_codec(train_cfg.codec).lossy:
+    lossy = train_cfg is not None and get_codec(train_cfg.codec).lossy
+    step = torch.zeros((), dtype=torch.int32, device=dev)
+    if train_cfg is not None and train_cfg.shard_optimizer:
+        if layout is None:
+            layout = zero_layout_for(None, params, None)
+        state = {"params": params, "step": step}
+        state.update(init_zero_entries(params, layout, lossy, local=local))
+    else:
+        state = {
+            "params": params,
+            "mu": tree_map(torch.zeros_like, params),
+            "nu": tree_map(torch.zeros_like, params),
+            "step": step,
+        }
+    if lossy:
         state["ef"] = tree_map(torch.zeros_like, params)
     return state
 
 
 def init_train_state(cfg: TransformerConfig, generator: torch.Generator,
                      train_cfg: TrainConfig | None = None,
-                     device=None) -> dict:
+                     device=None, comm=None) -> dict:
     """Parameters from ``init_params(cfg, generator, device)`` (default
-    device ``cuda``) in a fresh AdamW state."""
-    return make_train_state(init_params(cfg, generator, device=device),
-                            train_cfg)
+    device ``cuda``) in a fresh AdamW state; under ``shard_optimizer`` its
+    moments are sharded over ``comm``, the step's (the JAX
+    ``init_train_state(mesh=)``; None: one rank, every leaf ``*_rep``)."""
+    params = init_params(cfg, generator, device=device)
+    layout = None
+    if train_cfg is not None and train_cfg.shard_optimizer:
+        layout = zero_layout_for(comm, params,
+                                 param_specs(cfg, AXIS_NAMES[-1]))
+    return make_train_state(params, train_cfg, layout=layout,
+                            local=comm is not None
+                            and not isinstance(comm, Mesh))
 
 
 # ---------------------------------------------------------------- the step
@@ -340,26 +393,22 @@ def maybe_clip_grads(grads, train_cfg: TrainConfig, metrics: dict):
 
 
 def adamw_apply(state: dict, grads, train_cfg: TrainConfig) -> dict:
-    """One AdamW update; returns a new state (the input is not
-    modified)."""
+    """One AdamW update; returns a new state (the input is not modified).
+    The element math is :func:`.zero._adamw_elem`, which the sharded
+    update runs too."""
     step = state["step"] + 1
-    t = step.to(torch.float32)
-    c1 = 1.0 - train_cfg.b1 ** t
-    c2 = 1.0 - train_cfg.b2 ** t
+    c1, c2 = _bias_corrections(train_cfg, step.to(torch.float32))
     lr = schedule_lr(train_cfg, step)
-    b1, b2 = train_cfg.b1, train_cfg.b2
-    mu = tree_map(lambda m, g: b1 * m + (1.0 - b1) * g, state["mu"], grads)
-    nu = tree_map(lambda v, g: b2 * v + (1.0 - b2) * (g * g), state["nu"],
-                  grads)
-
-    def update(p, m, v):
-        delta = (m / c1) / (torch.sqrt(v / c2) + train_cfg.eps)
-        if train_cfg.weight_decay:
-            delta = delta + train_cfg.weight_decay * p
-        return p - lr * delta
-
-    return {"params": tree_map(update, state["params"], mu, nu), "mu": mu,
-            "nu": nu, "step": step}
+    params = state["params"]
+    out = [_adamw_elem(p, g, m, v, c1, c2, train_cfg) for p, g, m, v in
+           zip(*(tree_leaves(t) for t in (params, grads, state["mu"],
+                                          state["nu"])))]
+    return {"params": tree_unflatten(params, [p - lr * d for p, (d, _, _)
+                                              in zip(tree_leaves(params),
+                                                     out)]),
+            "mu": tree_unflatten(params, [m for _, m, _ in out]),
+            "nu": tree_unflatten(params, [v for _, _, v in out]),
+            "step": step}
 
 
 def _global_loss(losses: list, comm):
@@ -446,7 +495,13 @@ def make_loss_and_grads(model_cfg: TransformerConfig,
     entropy by the global token count, so the synced gradient is the
     gradient of the global mean.  A lossy codec needs the train ``state``:
     its ``"step"`` keys the rounding and its ``"ef"`` is added before the
-    sync."""
+    sync.
+
+    Under ``shard_optimizer`` the sync is :mod:`.zero`'s, so ``grads`` is
+    each rank's unsynced gradient in ``comm``'s form (the list of the
+    ranks' trees on a mesh) and ``ef`` None; with ``overlap`` it is the
+    fired buckets' reduce-scatter, a :class:`~.zero.ZeroShard` a leaf, with
+    the ranks' new residuals."""
     _refuse_unported(train_cfg)
     if model_cfg.d_model % model_cfg.n_heads:
         raise ValueError(f"n_heads={model_cfg.n_heads} must divide "
@@ -457,6 +512,8 @@ def make_loss_and_grads(model_cfg: TransformerConfig,
     pspecs = param_specs(model_cfg, AXIS_NAMES[-1])
     lossy = get_codec(train_cfg.codec).lossy
     mesh = isinstance(comm, Mesh)
+    sharded = train_cfg.shard_optimizer
+    layouts: list = []  # the ZeRO layout, from the first call's params
     # the side stream this step's fired syncs run on, on a card
     side = torch.cuda.Stream(device=dev) \
         if train_cfg.overlap and dev.type == "cuda" else None
@@ -480,11 +537,17 @@ def make_loss_and_grads(model_cfg: TransformerConfig,
         if lossy:  # one tree (every rank's), or on a mesh each rank's
             ef = state["ef"]
             state["ef"] = ef if isinstance(ef, list) else [ef] * len(toks)
+        if sharded and not layouts:
+            layouts.append(zero_layout_for(comm, params, pspecs))
         losses, synced, ef = dense_overlap_step_grads(
             state, toks, tgts, model_cfg, train_cfg,
             overlap_plan(params, toks[0]), pspecs, AXIS_NAMES, topos,
-            n_total, serialize=serialize_overlap, comm=comm, stream=side)
-        return losses, synced[0], ef if mesh or ef is None else ef[0]
+            n_total, serialize=serialize_overlap,
+            zero_layout=layouts[0] if sharded else None, comm=comm,
+            stream=side)
+        # every rank's synced tree is bitwise the first's; shards are not
+        return (losses, synced if sharded and mesh else synced[0],
+                ef if mesh or ef is None else ef[0])
 
     def serialized(params, toks, tgts, n_total, state):
         losses, grads = [], []
@@ -492,6 +555,8 @@ def make_loss_and_grads(model_cfg: TransformerConfig,
             loss, g = _rank_loss_and_grads(model_cfg, params, t, y, n_total)
             losses.append(loss)
             grads.append(g)
+        if sharded:  # the step's zero_sync_and_update syncs them
+            return losses, grads if mesh else grads[0], None
         synced, ef = sync_with_feedback(state, grads if mesh else grads[0],
                                         pspecs, AXIS_NAMES, topos, train_cfg,
                                         comm=comm)
@@ -504,7 +569,6 @@ def make_loss_and_grads(model_cfg: TransformerConfig,
             raise ValueError(f"codec {train_cfg.codec!r}: the sync needs the "
                              f"train state (its step and ef)")
         toks, tgts, n_total = _rank_batches(tokens, targets, dev, dp, local)
-        # every rank's synced tree is bitwise the first local rank's
         losses, synced, ef = run(params, toks, tgts, n_total, state)
         return _global_loss(losses, comm), synced, ef
 
@@ -533,9 +597,19 @@ def make_train_step(model_cfg: TransformerConfig,
     backward segments finish; ``serialize_overlap=True`` builds its
     serialized twin (the whole backward, then the same buckets in the same
     order), the A/B comparator.  Both give the same bits, and for the
-    identity codec the bits of the step without ``overlap``."""
+    identity codec the bits of the step without ``overlap``.
+
+    With ``train_cfg.shard_optimizer`` the state is the sharded one
+    (:func:`init_train_state` with the same ``comm``) and the update is
+    ZeRO-1's (:mod:`.zero`): without ``overlap``
+    :func:`.zero.zero_sync_and_update`; with it the fired buckets'
+    reduce-scatter, then :func:`.zero.maybe_clip_shards` and
+    :func:`.zero.zero_apply_and_gather` after the backward, on the current
+    stream."""
     loss_and_grads = make_loss_and_grads(model_cfg, train_cfg, device, comm,
                                          serialize_overlap)
+    if train_cfg.shard_optimizer:
+        return _zero_step(model_cfg, train_cfg, comm, loss_and_grads)
 
     def step(state, tokens, targets):
         loss, grads, ef = loss_and_grads(state["params"], tokens, targets,
@@ -543,6 +617,36 @@ def make_train_step(model_cfg: TransformerConfig,
         metrics = {"loss": loss}
         grads = maybe_clip_grads(grads, train_cfg, metrics)
         new = adamw_apply(state, grads, train_cfg)
+        if ef is not None:
+            new["ef"] = ef
+        return new, metrics
+
+    return step
+
+
+def _zero_step(model_cfg, train_cfg, comm, loss_and_grads):
+    """:func:`make_train_step`'s sharded (ZeRO-1) step."""
+    pspecs = param_specs(model_cfg, AXIS_NAMES[-1])
+    topos = resolve_axis_topos(comm_axis_sizes(comm, AXIS_NAMES),
+                               AXIS_NAMES, train_cfg.grad_topo)
+    layouts: list = []
+
+    def step(state, tokens, targets):
+        if not layouts:
+            layouts.append(zero_layout_for(comm, state["params"], pspecs))
+        layout = layouts[0]
+        loss, grads, ef = loss_and_grads(state["params"], tokens, targets,
+                                         state)
+        metrics = {"loss": loss}
+        if not train_cfg.overlap:
+            return zero_sync_and_update(state, grads, pspecs, AXIS_NAMES,
+                                        topos, train_cfg, layout, metrics,
+                                        comm=comm), metrics
+        # the engine reduce-scattered each fired bucket: ZeroShard trees
+        shards = maybe_clip_shards(grads, pspecs, train_cfg, layout, metrics,
+                                   comm=comm)
+        new = zero_apply_and_gather(state, shards, pspecs, AXIS_NAMES, topos,
+                                    train_cfg, layout, comm=comm)
         if ef is not None:
             new["ef"] = ef
         return new, metrics

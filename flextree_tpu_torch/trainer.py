@@ -23,6 +23,10 @@ compute dtype.  Examples::
     # side stream of the card (readiness-ordered overlap)
     python -m flextree_tpu_torch.trainer --mesh 8,1,1 --overlap
 
+    # ZeRO-1: each bucket reduce-scattered, AdamW on each rank's block,
+    # the parameters all-gathered (with --codec and --overlap too)
+    python -m flextree_tpu_torch.trainer --mesh 8,1,1 --shard-optimizer
+
 ``--mesh dp,sp,tp`` or ``--devices N`` (split as the JAX
 ``factor_devices`` splits it) give the ranks, all in this process on the
 one device; sp or tp above 1 is not ported.  ``--cpu`` is a switch.  A
@@ -30,7 +34,10 @@ flag whose module is not ported yet raises ``NotImplementedError`` naming
 its ROADMAP item.  The last line printed is the JAX trainer's.  A
 data-parallel run checkpoints its replicated state, as the JAX trainer
 does; with a lossy ``--codec`` the state carries the error-feedback
-residual ``"ef"``, the first rank's in the file.
+residual ``"ef"``, the first rank's in the file.  A ``--shard-optimizer``
+run checkpoints consolidated (``parallel.zero.make_consolidate_fn``: the
+replicated layout, which any world size and the replicated step resume
+from) and restores through ``make_reshard_fn``.
 """
 
 from __future__ import annotations
@@ -147,7 +154,6 @@ def _refuse_unported(args) -> None:
     refusals = (
         (args.model != "dense", f"--model {args.model}",
          "'Sequence, pipeline and expert parallelism'"),
-        (args.shard_optimizer, "--shard-optimizer", "'ZeRO-1'"),
         (args.autotune, "--autotune",
          "'Checkpoint, supervision and feedback plumbing'"),
         (args.feedback_every > 0 or args.feedback_band != 0.5
@@ -168,6 +174,27 @@ def _refuse_unported(args) -> None:
             raise NotImplementedError(
                 f"{what} is not ported yet ({_ROADMAP}: {item})"
             )
+
+
+def sharded_hooks(comm, model_cfg, params, train_cfg):
+    """``(pack, unpack)`` for ``fit``: a sharded run checkpoints
+    consolidated (the replicated layout, the same for any world size) and
+    restores by resharding it over ``comm`` (the JAX trainer's
+    ``sharded_hooks``); ``(None, None)`` otherwise."""
+    if not train_cfg.shard_optimizer:
+        return None, None
+    from .models.transformer import param_specs
+    from .ops.quantize import get_codec
+    from .parallel.train import zero_layout_for
+    from .parallel.zero import make_consolidate_fn, make_reshard_fn
+
+    pspecs = param_specs(model_cfg)
+    layout = zero_layout_for(comm, params, pspecs)
+    lossy = get_codec(train_cfg.codec).lossy
+    return (make_consolidate_fn(comm, pspecs, layout, train_cfg.grad_topo,
+                                lossy),
+            make_reshard_fn(comm, pspecs, layout, train_cfg.grad_topo,
+                            lossy))
 
 
 def main(argv=None, *, out: dict | None = None) -> int:
@@ -203,18 +230,21 @@ def main(argv=None, *, out: dict | None = None) -> int:
         min_lr_frac=args.min_lr_frac,
         codec=args.codec,
         overlap=args.overlap,
+        shard_optimizer=args.shard_optimizer,
     )
     state = init_train_state(cfg, torch.Generator().manual_seed(args.seed),
-                             tc, device=dev)
+                             tc, device=dev, comm=comm)
     dataset = LMDataset(
         synthetic_tokens(args.corpus_tokens, args.vocab, seed=args.seed),
         batch=args.batch, seq_len=args.seq_len, seed=args.seed,
     )
+    pack, unpack = sharded_hooks(comm, cfg, state["params"], tc)
     result = fit(
         state, make_train_step(cfg, tc, device=dev, comm=comm), dataset,
         FitConfig(num_steps=args.steps, ckpt_dir=args.ckpt_dir,
                   ckpt_every=args.ckpt_every, log_every=args.log_every,
                   resume=not args.no_resume),
+        state_pack=pack, state_unpack=unpack,
     )
     if out is not None:
         out.update(result=result, model_cfg=cfg, train_cfg=tc)

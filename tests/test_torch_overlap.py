@@ -21,7 +21,9 @@ the JAX package's, and its three steps against each other.
   AdamW's update bound as ``test_torch_train_dp.py`` holds them.
 - Two gloo processes with ``overlap=True`` end in the mesh's state,
   bitwise; the ``ft_overlap_bucket`` spans count every gradient byte
-  once; ``exposed_split``'s cases; ``run_train_step_bench``'s six rows.
+  once; ``exposed_split``'s cases; ``run_train_step_bench``'s six rows,
+  and its ZeRO-1 rows; a ZeRO fire's shards against the serialized
+  reduce-scatter's.
 
 The suite runs JAX with ``jax_enable_x64``: every input is an explicit
 float32 / int32 array.
@@ -283,25 +285,61 @@ def test_lossy_overlap_equals_twin_with_ef(codec):
                for ef in ovl["ef"])
 
 
-def test_overlap_with_zero1_refuses():
+@pytest.mark.parametrize("codec", [None, "int8"])
+def test_zero_fire_shards_equal_the_serialized_reduce_scatter(codec):
+    """With a ZeRO layout each fired bucket reduce-scatters: the engine's
+    shards (and, int8, residuals), assembled over the buckets, are bitwise
+    ``zero_reduce_scatter_grads`` of the whole backward's gradients for
+    the identity codec, and the twin's for int8 (whose buckets quantize as
+    the fired payloads), on 4 ranks of the ring."""
+    from flextree_tpu_torch.parallel import zero as tz
+
     cfg = tt.TransformerConfig(**DIMS)
-    with pytest.raises(NotImplementedError, match="ZeRO-1"):
-        ttrain.make_train_step(cfg, ttrain.TrainConfig(
-            overlap=True, shard_optimizer=True),
-            comm=flat_mesh(2, "cpu", "dp"))
+    n = 4
+    comm = flat_mesh(n, "cpu", "dp")
+    tc = ttrain.TrainConfig(grad_topo="1", overlap=True,
+                            shard_optimizer=True, codec=codec or "f32")
     state = ttrain.init_train_state(cfg, torch.Generator().manual_seed(0),
-                                    device="cpu")
-    tokens, targets = (torch.as_tensor(a) for a in _batch(0, (1, 16)))
+                                    tc, device="cpu", comm=comm)
+    tokens, targets = (torch.as_tensor(a) for a in _batch(0, (n, 16)))
+    toks, tgts = list(tokens.split(1)), list(targets.split(1))
     axes = ttrain.AXIS_NAMES
-    topos = {"dp": None, "sp": None, "tp": None}
-    plan = tov.plan_overlap(state["params"], tt.param_specs(cfg), axes,
-                            topos, {}, n_tokens=tokens.numel(), t_local=16,
-                            d_model=cfg.d_model)
-    with pytest.raises(NotImplementedError, match="ZeRO-1"):
-        tov.dense_overlap_step_grads(
-            state, [tokens], [targets], cfg, ttrain.TrainConfig(overlap=True),
-            plan, tt.param_specs(cfg), axes, topos, tokens.numel(),
-            zero_layout=object())
+    pspecs = tt.param_specs(cfg)
+    sizes = {"dp": n, "sp": 1, "tp": 1}
+    topos = ttrain.resolve_axis_topos(sizes, axes, "1")
+    plan = tov.plan_overlap(state["params"], pspecs, axes, topos, sizes,
+                            n_tokens=16, t_local=16, d_model=cfg.d_model,
+                            codec=codec)
+    plan = dataclasses.replace(plan, boundaries=((0,), (1, 2), (3,)))
+    layout = ttrain.zero_layout_for(comm, state["params"], pspecs)
+    if codec:
+        state = dict(state, ef=[state["ef"]] * n)
+
+    def engine(serialize):
+        return tov.dense_overlap_step_grads(
+            state, toks, tgts, cfg, tc, plan, pspecs, axes, topos,
+            tokens.numel(), serialize=serialize, zero_layout=layout,
+            comm=comm)
+
+    _, shards, res = engine(False)
+    assert all(isinstance(g, tz.ZeroShard) for t in shards
+               for g in ttrain.tree_leaves(t))
+    if codec:
+        _, twin, twin_res = engine(True)
+        want, want_res = twin, twin_res
+        assert len(res) == n and _same(res, want_res)
+    else:
+        assert res is None
+        grads = [ttrain.make_loss_and_grads(cfg, ttrain.TrainConfig(),
+                                            device="cpu")(
+            state["params"], t, y)[1] for t, y in zip(toks, tgts)]
+        # each rank's loss over the global token count, as the step's
+        grads = [ttrain.tree_map(lambda g: g / n, g) for g in grads]
+        want = tz.zero_reduce_scatter_grads(grads, pspecs, axes, topos,
+                                            comm=comm)
+    for a, b in zip(shards, want):
+        for x, y in zip(ttrain.tree_leaves(a), ttrain.tree_leaves(b)):
+            assert torch.equal(x.tile, y.tile) and torch.equal(x.tail, y.tail)
 
 
 # ----------------------------------------------- against the JAX step
@@ -408,7 +446,22 @@ def test_train_step_bench_has_the_six_rows():
     plan = out["overlap_plan"]
     assert [i for b in plan["boundaries"] for i in b] == \
         list(range(len(plan["labels"])))
-    for flag, item in (("supervised", "supervision"), ("sharded", "ZeRO-1"),
+    # the ZeRO-1 rows run now: ours_sharded bitwise the per-leaf step
+    # (``identical``), each with its per-rank optimizer-state ratio, the
+    # live buffers' bytes a rank equal to zero_shard_bytes
+    out = run_train_step_bench(TrainStepBenchConfig(
+        n_layers=1, d_model=32, d_ff=64, vocab_size=64, batch=4, seq_len=16,
+        devices=4, repeat=1, sharded=True, device="cpu"))
+    rows = out["rows"]
+    assert out["identical"]
+    for name, ratio in (("ours_sharded", 0.25), ("ours_sharded_int8", 0.375)):
+        assert set(rows[name]) == {"train_step_ms", "train_step_avg_ms",
+                                   "train_step_median_ms", "vs_per_leaf",
+                                   "opt_state_bytes_ratio"}
+        assert rows[name]["opt_state_bytes_ratio"] == ratio
+        acct = out["opt_state_bytes"][name]
+        assert acct["live_bytes_per_rank"] == acct["sharded_bytes_per_rank"]
+    for flag, item in (("supervised", "supervision"),
                        ("recorder", "serving tier")):
         with pytest.raises(NotImplementedError, match=item):
             run_train_step_bench(TrainStepBenchConfig(**{flag: True},

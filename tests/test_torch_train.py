@@ -197,7 +197,7 @@ def test_train_state_round_trips_and_refuses_other_layouts(jax_state):
     for a, b in zip(jax.tree.leaves(jax_state), jax.tree.leaves(back)):
         assert a.dtype == b.dtype and a.shape == b.shape
         np.testing.assert_array_equal(a, b)
-    # a lossy codec's residual converts too; other layouts (ZeRO) refuse
+    # a lossy codec's residual converts too; keys of no layout refuse
     lossy = train_state_from_numpy(dict(jax_state, ef=jax_state["mu"]),
                                    device="cpu")
     for a, b in zip(jax.tree.leaves(jax_state["mu"]),
@@ -217,8 +217,33 @@ def test_unported_train_config_features_refuse(field):
     state carries a zero ``"ef"`` and a step on one rank (no sync, so the
     residual stays zero) gives the identity codec's update; so does
     ``overlap``: on one rank its segmented backward gives the plain step's
-    update, bitwise."""
+    update, bitwise; and so does ``shard_optimizer``: on one rank no leaf
+    is sharded, its moments are whole in ``*_rep``, and the step and its
+    moments are the plain step's, bitwise."""
     cfg = ttrain.TrainConfig(**field)
+    if "shard_optimizer" in field:
+        model = tt.TransformerConfig(**DIMS)
+        state = ttrain.init_train_state(model, torch.Generator().manual_seed(0),
+                                        cfg, device="cpu")
+        plain = ttrain.init_train_state(model, torch.Generator().manual_seed(0),
+                                        device="cpu")
+        assert set(state) == {"params", "step", "mu_shard", "mu_tail",
+                              "mu_rep", "nu_shard", "nu_tail", "nu_rep"}
+        assert all(t.numel() == 0 for k in ("mu_shard", "mu_tail",
+                                            "nu_shard", "nu_tail")
+                   for t in ttrain.tree_leaves(state[k]))
+        tokens, targets = _tokens(1)
+        new, m = ttrain.make_train_step(model, cfg, device="cpu")(
+            state, tokens, targets)
+        want, wm = ttrain.make_train_step(model, device="cpu")(
+            plain, tokens, targets)
+        assert torch.equal(m["loss"], wm["loss"])
+        for key, ref in (("params", "params"), ("mu_rep", "mu"),
+                         ("nu_rep", "nu"), ("step", "step")):
+            for a, b in zip(ttrain.tree_leaves(new[key]),
+                            ttrain.tree_leaves(want[ref])):
+                assert torch.equal(a, b)
+        return
     if "overlap" in field:
         model = tt.TransformerConfig(**DIMS)
         state = ttrain.init_train_state(model, torch.Generator().manual_seed(0),

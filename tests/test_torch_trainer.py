@@ -281,7 +281,35 @@ def test_trainer_cli_refuses_unported_flags(flags, tmp_path, capsys):
     lossy codecs run now: 2 ranks train with error feedback, and the
     checkpoint holds the first rank's residual, which resumes; and so does
     ``--overlap``: 2 ranks train with readiness-ordered overlap, and the
-    checkpoint, the live state bitwise, resumes."""
+    checkpoint, the live state bitwise, resumes; and so does
+    ``--shard-optimizer``: 2 ranks train ZeRO-1, the checkpoint is the
+    live state consolidated (the replicated layout), and it resumes."""
+    if flags == ["--shard-optimizer"]:
+        from flextree_tpu_torch.parallel.mesh import flat_mesh
+
+        ckpt = str(tmp_path / "ck")
+        out: dict = {}
+        assert trainer.main(_SMALL + flags + ["--mesh", "2,1,1", "--steps",
+                                              "3", "--log-every", "1",
+                                              "--ckpt-dir", ckpt],
+                            out=out) == 0
+        res = out["result"]
+        assert out["train_cfg"].shard_optimizer and res.steps_run == 3
+        assert all(math.isfinite(loss) for _, loss in res.losses)
+        assert res.state["mu_shard"]["embed"].numel() == \
+            res.state["params"]["embed"].numel()  # both ranks' blocks
+        saved = tckpt.restore_train_state(ckpt, "cpu")
+        assert set(saved) == {"params", "mu", "nu", "step"}
+        pack, _ = trainer.sharded_hooks(
+            flat_mesh(2, "cpu", "dp"), out["model_cfg"],
+            res.state["params"], out["train_cfg"])
+        assert all(torch.equal(a, b) for a, b in zip(
+            ttrain.tree_leaves(pack(res.state)),
+            ttrain.tree_leaves(saved)))
+        assert trainer.main(_SMALL + flags + ["--mesh", "2,1,1", "--steps",
+                                              "4", "--ckpt-dir", ckpt]) == 0
+        assert "(resumed from 3)" in capsys.readouterr().out
+        return
     if flags == ["--overlap"]:
         ckpt = str(tmp_path / "ck")
         out: dict = {}
