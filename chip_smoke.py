@@ -216,13 +216,32 @@ failure raises and exits non-zero:
     (d) ``run_train_step_bench(sharded=True)`` on 8 ranks in turns, with
     the optimizer-state ratios (printed, not gated; the live bytes a rank
     equal to ``zero_shard_bytes``); (e) the shard topology's
-    reduce-scatter and all-gather programs model-checked.
+    reduce-scatter and all-gather programs model-checked;
+20. prefill/decode disaggregation — (a) in process, at the flagship width
+    in float32: phase 3's 16 requests prefilled on one kernel engine
+    (``prefill_for_migration``: export, ``pack_kv``) and admitted on
+    another (``admit_migrated``: ``unpack_kv``, ``write_imported``) with
+    the f32 codec, tokens equal to a colocated kernel engine's, the
+    kernel's launches decode rounds x layers, one recorded round's layer-0
+    call held against the plain stream within ``FUSED_DECODE_ATOL``; the
+    int8 codec within ``migration_error_bound`` on every payload, each
+    request's first diverging token printed; ``pack_kv``/``unpack_kv``
+    GB/s; the round feedback's predicted and measured µs; phase 3's bf16
+    run with the feedback off and on in turns; (b) across processes: a
+    ``replica_main --role prefill`` and a ``--role decode`` process on the
+    card behind a ``FrontDoor`` that migrates the longer half of the
+    prompts (the planner's crossover printed): every request completes
+    exactly once with the oracle's tokens, each long prompt migrated or
+    counted as a fallback, the decode replica's kernel launches (from its
+    metrics file) decode rounds x layers, and a SIGTERM drain of both that
+    exits 0 and retires their endpoint files.
 
 The kernels line gives each kernel's launches by path
 (``launches_by_path``: serve, train, dp_train, allreduce, ir_families,
 reduce_bench, codec for phase 17(a) and (d), codec_sync for phase 17(b),
 dp_codec for phase 17(c)'s int8 run, dp_overlap for phase 18(a), dp_zero
-for phase 19(a)) and their sum (``launches``).
+for phase 19(a), disagg for phase 20: the in-process decode engine's f32
+run plus the decode replica process's) and their sum (``launches``).
 
 Prints each phase's seconds, a ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Exits
@@ -3666,6 +3685,456 @@ def phase_zero(dev, fa, trainer, ckpt, smi, dp_peak, bw):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 20: prefill/decode disaggregation
+# ---------------------------------------------------------------------------
+
+# the decode round (0-based) whose layer-0 paged-attention call phase 20(a)
+# records and holds against the plain stream: by then every slot is full
+DISAGG_RECORD_ROUND = 8
+DISAGG_CODEC_REPS = 5
+# phase 3's bf16 run with the per-round cost feedback off and on, in turns
+FEEDBACK_TURNS = (False, True, True, False, False, True, True, False)
+REPLICA_START_S = 120.0
+REPLICA_RUN_S = 180.0
+
+
+def first_divergence(got, want):
+    """Index of the first token where ``got`` differs from ``want``, or
+    None."""
+    n = min(len(got), len(want))
+    diff = np.nonzero(np.asarray(got[:n]) != np.asarray(want[:n]))[0]
+    if diff.size:
+        return int(diff[0])
+    return None if len(got) == len(want) else n
+
+
+def drive_migrated(pre, dec, reqs, codec, on_export=None):
+    """Every request through ``pre.prefill_for_migration`` (its KV packed
+    with ``codec``) and ``dec.admit_migrated`` (unpacked, verified,
+    imported), each export released on the admission, and ``dec`` stepped
+    to idle; a request ``dec`` refuses for capacity waits, its export
+    held, until a round frees a slot.  Returns the wall seconds."""
+    pending = list(reqs)
+    held = None
+    t0 = time.monotonic()
+    while pending or held is not None or not dec.idle:
+        while pending or held is not None:
+            if held is None:
+                r = pending.pop(0)
+                out = pre.prefill_for_migration(r, codec=codec)
+                if out is None:
+                    raise AssertionError(f"request {r.rid}: export blocked")
+                if on_export is not None:
+                    on_export(r, out)
+                held = (r, out)
+            r, out = held
+            if dec.admit_migrated(r, out["first_token"], out["meta"],
+                                  out["blob"]) is None:
+                if dec.idle:
+                    raise AssertionError(f"request {r.rid} refused by an "
+                                         "idle decode engine")
+                break
+            if not pre.release_exported(r.rid, acked=True):
+                raise AssertionError(f"request {r.rid}: no export held")
+            held = None
+        if not dec.idle:
+            dec.step()
+    torch.cuda.synchronize()
+    return time.monotonic() - t0
+
+
+def codec_rates(migration, host_kv, reps):
+    """``pack_kv``/``unpack_kv`` GB/s of each codec on one export (float32
+    bytes of the K/V over the median host time of ``reps`` calls)."""
+    nbytes = sum(a.nbytes for kind in ("k", "v") for a in host_kv[kind])
+    out = {}
+    for codec in ("f32", "int8"):
+        pack, unpack = [], []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            meta, blob = migration.pack_kv(host_kv, codec=codec)
+            t1 = time.perf_counter()
+            migration.unpack_kv(meta, blob)
+            t2 = time.perf_counter()
+            pack.append(t1 - t0)
+            unpack.append(t2 - t1)
+        out[codec] = {
+            "bytes": nbytes, "wire_bytes": len(blob),
+            "pack_GBps": nbytes / float(np.median(pack)) / 1e9,
+            "unpack_GBps": nbytes / float(np.median(unpack)) / 1e9,
+        }
+    return out
+
+
+class RoundRecorder:
+    """Wraps the paged-attention function the decode step calls: at decode
+    round ``round_index`` (counted by layer-0 calls) it keeps clones of
+    layer 0's inputs and the kernel's output, for a check against the
+    plain stream after the run."""
+
+    def __init__(self, inner, n_layers, round_index):
+        self.inner, self.n_layers = inner, n_layers
+        self.round_index, self.calls, self.saved = round_index, 0, None
+
+    def __call__(self, q, k_new, v_new, k_pool, v_pool, tables, lengths,
+                 **kw):
+        take = self.calls == self.round_index * self.n_layers
+        if take:
+            args = [t.clone() for t in (q, k_new, v_new, k_pool, v_pool,
+                                        tables, lengths)]
+        out = self.inner(q, k_new, v_new, k_pool, v_pool, tables, lengths,
+                         **kw)
+        if take:
+            self.saved = (args, out.clone())
+        self.calls += 1
+        return out
+
+
+def replica_flags(pcfg, prompt_lens):
+    return [
+        "--vocab", str(MODEL["vocab_size"]), "--d-model",
+        str(MODEL["d_model"]), "--n-heads", str(MODEL["n_heads"]),
+        "--n-layers", str(MODEL["n_layers"]), "--d-ff", str(MODEL["d_ff"]),
+        "--blocks", str(pcfg.num_blocks), "--block-size",
+        str(pcfg.block_size), "--blocks-per-seq", str(pcfg.blocks_per_seq),
+        "--slots", str(SLOTS), "--seed", str(SEED), "--fused-decode",
+        "--warmup-prompt-lens", ",".join(str(t) for t in prompt_lens),
+        "--warmup-max-new", str(MAX_NEW),
+    ]
+
+
+def disagg_processes(cfg, pcfg, reqs, oracle, dev):
+    """Phase 20(b): a ``--role prefill`` and a ``--role decode`` replica
+    process on the card behind a ``FrontDoor`` that migrates the longer
+    half of the prompts; then a SIGTERM drain of both."""
+    import shutil
+    import signal
+    import tempfile
+
+    from flextree_tpu_torch.runtime import read_control_json
+    from flextree_tpu_torch.serving.costs import migration_crossover_tokens
+    from flextree_tpu_torch.serving.frontdoor import (
+        FrontDoor,
+        FrontDoorConfig,
+    )
+    from flextree_tpu_torch.serving.replica_main import ENDPOINT_FMT
+
+    cross = {codec: migration_crossover_tokens(cfg, pcfg, codec, device=dev)
+             for codec in ("f32", "int8")}
+    lens = sorted(r.prompt_len for r in reqs)
+    threshold = lens[len(lens) // 2]
+    n_long = sum(t >= threshold for t in lens)
+    log(f"phase 20(b) the planner's migrate-vs-recompute crossover on {dev} "
+        f"(the port's default cost constants): f32 {cross['f32']} tokens, "
+        f"int8 {cross['int8']}; migrate_min_prompt_len {threshold} (the "
+        f"median prompt), so {n_long} of {len(reqs)} prompts migrate")
+    ctrl = tempfile.mkdtemp(prefix="ft-disagg-")
+    env = dict(os.environ, PYTHONPATH=HERE)
+    flags = replica_flags(pcfg, sorted(set(lens)))
+    procs, logs, fd = [], [], None
+    t_start = time.monotonic()
+    try:
+        for rank, role in ((0, "prefill"), (1, "decode")):
+            logs.append(open(os.path.join(ctrl, f"replica_{rank}.log"), "w"))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m",
+                 "flextree_tpu_torch.serving.replica_main", "--rank",
+                 str(rank), "--dir", ctrl, "--role", role, *flags],
+                cwd=HERE, env=env, stdout=logs[-1],
+                stderr=subprocess.STDOUT,
+            ))
+        deadline = time.monotonic() + REPLICA_START_S
+        for rank in (0, 1):
+            path = os.path.join(ctrl, ENDPOINT_FMT.format(rank=rank))
+            while read_control_json(path) is None:
+                for p in procs:
+                    if p.poll() is not None:
+                        raise AssertionError(f"a replica exited with "
+                                             f"{p.returncode} at start-up")
+                if time.monotonic() > deadline:
+                    raise AssertionError("replicas did not start in "
+                                         f"{REPLICA_START_S} s")
+                time.sleep(0.05)
+        startup_s = time.monotonic() - t_start
+        fd = FrontDoor(ctrl, FrontDoorConfig(
+            migrate_min_prompt_len=threshold, migrate_codec="f32",
+            max_hedges=0, request_timeout_s=REPLICA_RUN_S,
+            attempt_timeout_s=REPLICA_RUN_S / 2, affinity_span=0,
+            # a dispatcher a decode slot: the replica's batch can fill, and
+            # a migrating request always finds a free slot (the decode side
+            # refuses a handoff it cannot seat, and the request then falls
+            # back to a colocated generate)
+            dispatchers=SLOTS,
+        )).start()
+        t0 = time.monotonic()
+        for r in reqs:
+            if not fd.submit(r.rid, r.prompt, r.max_new_tokens):
+                raise AssertionError(f"request {r.rid} shed at intake")
+        if not fd.wait_idle(timeout_s=REPLICA_RUN_S):
+            raise AssertionError("front door not idle in time")
+        makespan = time.monotonic() - t0
+        counters = fd.metrics.snapshot()["counters"]
+        if fd.failed or sorted(fd.completed) != sorted(r.rid for r in reqs):
+            raise AssertionError(f"front door: failed {fd.failed}, "
+                                 f"completed {sorted(fd.completed)}")
+        if counters.get("serve.duplicate_results", 0):
+            raise AssertionError("a request was delivered twice")
+        migrated = sum(res.migrated for res in fd.completed.values())
+        fallback = int(counters.get("serve.migration_fallback", 0))
+        for r in reqs:
+            res = fd.completed[r.rid]
+            if not np.array_equal(res.tokens, oracle[r.rid]):
+                raise AssertionError(
+                    f"request {r.rid}: replica tokens differ from the "
+                    f"colocated oracle at {first_divergence(res.tokens, oracle[r.rid])}")
+            if res.migrated and r.prompt_len < threshold:
+                raise AssertionError(f"request {r.rid}: a short prompt "
+                                     "migrated")
+        if migrated + fallback != n_long or not migrated or counters.get(
+                "serve.migrations", 0) != migrated:
+            raise AssertionError(
+                f"migrations: {migrated} migrated + {fallback} fallbacks "
+                f"for {n_long} long prompts; counters {counters}")
+        tokens = sum(len(res.tokens) for res in fd.completed.values())
+        ttft = np.array([res.ttft_s for res in fd.completed.values()]) * 1e3
+        fd.close()
+        fd = None
+        # SIGTERM: each drains, exits 0 and retires its endpoint file
+        t0 = time.monotonic()
+        for p in procs:
+            p.send_signal(signal.SIGTERM)
+        for rank, p in enumerate(procs):
+            rc = p.wait(timeout=60)
+            if rc != 0:
+                raise AssertionError(f"replica {rank} exited {rc} on SIGTERM")
+            if os.path.exists(os.path.join(ctrl,
+                                           ENDPOINT_FMT.format(rank=rank))):
+                raise AssertionError(f"replica {rank} left its endpoint")
+        drain_s = time.monotonic() - t0
+        snaps = {}
+        for rank in (0, 1):
+            with open(os.path.join(ctrl, f"metrics_{rank:05d}.json")) as f:
+                snaps[rank] = json.load(f)
+        g = snaps[1]["gauges"]
+        launches = int(g["serve.paged_attention_launches"])
+        rounds = int(g["serve.decode_steps"])
+        if launches != rounds * MODEL["n_layers"] or launches == 0:
+            raise AssertionError(f"decode replica: kernel launches "
+                                 f"{launches} != {rounds} rounds x layers")
+        mig_in = int(snaps[1]["counters"].get("serve.migrations_in", 0))
+        acked = int(snaps[0]["counters"].get("serve.migration_acked", 0))
+        if mig_in != migrated or acked != migrated:
+            raise AssertionError(f"replicas count {mig_in} migrations in, "
+                                 f"{acked} acked; front door {migrated}")
+        if snaps[0]["gauges"]["serve.paged_attention_launches"] != 0:
+            raise AssertionError("the prefill replica ran a decode round")
+        log(f"phase 20(b) replicas: prefill + decode processes up in "
+            f"{startup_s:.1f} s; {len(reqs)} requests "
+            f"completed exactly once, tokens == the colocated oracle; "
+            f"{migrated} migrated ({fallback} fallbacks), "
+            f"{len(reqs) - n_long} colocated on the decode replica; "
+            f"{tokens} tokens in {makespan:.3f} s = "
+            f"{tokens / makespan:.1f} tok/s, TTFT p50 "
+            f"{np.percentile(ttft, 50):.2f} ms p99 "
+            f"{np.percentile(ttft, 99):.2f} ms; the decode replica logged "
+            f"{launches} paged_attention launches = {rounds} rounds x "
+            f"{MODEL['n_layers']} layers; SIGTERM drain: both exited 0, "
+            f"endpoints retired, in {drain_s:.2f} s")
+        return {"launches": launches, "migrated": migrated,
+                "tok_per_s": tokens / makespan, "startup_s": startup_s}
+    finally:
+        if fd is not None:
+            fd.close()
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait(timeout=30)
+        for f in logs:
+            f.close()
+        for rank in range(len(procs)):
+            path = os.path.join(ctrl, f"replica_{rank}.log")
+            with open(path) as f:
+                tail = f.read()[-1500:]
+            log(f"phase 20(b) replica {rank} log tail:\n{tail}")
+        shutil.rmtree(ctrl, ignore_errors=True)
+
+
+def phase_disagg(dev, smi) -> int:
+    """Phase 20: prefill/decode disaggregation.  Returns the paged
+    kernel's launches on the disaggregated path (the in-process decode
+    engine's plus the decode replica process's)."""
+    from flextree_tpu_torch import serving
+    from flextree_tpu_torch.models.transformer import (
+        TransformerConfig,
+        init_params,
+    )
+    from flextree_tpu_torch.obs import flight_recorder
+    from flextree_tpu_torch.ops import paged_attention as pa
+    from flextree_tpu_torch.serving import kv_cache, migration
+
+    log(f"phase 20 on {smi}")
+    cfg = TransformerConfig(**MODEL, dtype=torch.float32)
+    pcfg = serving.PagedCacheConfig(**CACHE)
+    params = init_params(cfg, torch.Generator().manual_seed(SEED),
+                         device=dev)
+    reqs = make_requests(serving.Request)
+
+    # ---- (a) in process, float32: the colocated oracle
+    col = run_engine(serving, params, cfg, pcfg, True, dev)
+    drive(col, reqs, pa)
+    oracle = {rid: d.tokens for rid, d in col.completed.items()}
+    del col
+
+    def engine():
+        e = serving.ServingEngine(
+            params, cfg, pcfg, serving.BatcherConfig(slots=SLOTS),
+            fused=True, decode_impl="cuda", device=dev,
+        )
+        e.warmup()
+        return e
+
+    # f32 migration, the decode engine's launches counted and one round's
+    # layer-0 call recorded
+    pre, dec = engine(), engine()
+    rec = RoundRecorder(kv_cache.paged_attention, MODEL["n_layers"],
+                        DISAGG_RECORD_ROUND)
+    kv_cache.paged_attention = rec
+    sample = {}
+
+    def keep_largest(r, out):
+        if r.prompt_len > sample.get("len", 0):
+            layers = MODEL["n_layers"]
+            kv = kv_cache.export_blocks(pre.pools, pre._exported[r.rid])
+            host = torch.stack(kv["k"] + kv["v"]).float().cpu().numpy()
+            sample.update(len=r.prompt_len, kv={"k": list(host[:layers]),
+                                                "v": list(host[layers:])})
+
+    try:
+        with flight_recorder(None, source="serve") as flight:
+            pa.paged_attention.launches = 0
+            torch.cuda.synchronize()
+            wall = drive_migrated(pre, dec, reqs, "f32",
+                                  keep_largest)
+            launches = pa.paged_attention.launches
+    finally:
+        kv_cache.paged_attention = pa.paged_attention
+    done = dec.completed
+    if sorted(done) != sorted(r.rid for r in reqs):
+        raise AssertionError(f"migrated: {len(done)}/{len(reqs)} completed")
+    diverged = {r.rid: first_divergence(done[r.rid].tokens, oracle[r.rid])
+                for r in reqs}
+    bad = {rid: i for rid, i in diverged.items() if i is not None}
+    if bad:
+        raise AssertionError(f"f32 migrated tokens differ from the colocated "
+                             f"engine's (rid: first token): {bad}")
+    want = dec.decode_steps * MODEL["n_layers"]
+    if launches != want:
+        raise AssertionError(f"migrated decode: kernel launches {launches} "
+                             f"!= {dec.decode_steps} rounds x layers")
+    if rec.saved is None:
+        raise AssertionError("no decode round was recorded")
+    args, got = rec.saved
+    plain = pa.paged_attention(*args, impl="torch")
+    err = (got.float() - plain.float()).abs().max().item()
+    if not err <= pa.FUSED_DECODE_ATOL:
+        raise AssertionError(f"recorded round: kernel vs plain stream {err}")
+    active = int((args[6] > 0).sum().item())
+    tokens = sum(d.n_tokens for d in done.values())
+    log(f"phase 20(a) f32 migration (flagship, float32, kernel decode): "
+        f"{len(reqs)}/{len(reqs)} requests prefilled on one engine, packed, "
+        f"unpacked and admitted on another; tokens == the colocated kernel "
+        f"engine's on all {len(reqs)}; {tokens} tokens in {wall:.3f} s; "
+        f"kernel launches {launches} = {dec.decode_steps} decode rounds x "
+        f"{MODEL['n_layers']} layers; round {DISAGG_RECORD_ROUND} layer 0 "
+        f"({active} active slots, lengths up to "
+        f"{int(args[6].max().item())}): kernel vs plain stream max abs "
+        f"{err:.3g} (bar {pa.FUSED_DECODE_ATOL})")
+    measured = np.array([e["measured_us"] for e in flight.events
+                         if e["kind"] == "serve_round_measured"])
+    predicted = np.array([e["predicted_us"] for e in flight.events
+                          if e["kind"] == "serve_round_measured"])
+    if len(measured) != dec.decode_steps:
+        raise AssertionError(f"{len(measured)} round samples for "
+                             f"{dec.decode_steps} decode rounds")
+    resid = np.abs(predicted - measured) / measured
+    hist = dec.report()["histograms"]["serve.round_residual"]
+    log(f"phase 20(a) round feedback ({dec.decode_steps} decode rounds): "
+        f"measured median {np.median(measured):.1f} us p90 "
+        f"{np.percentile(measured, 90):.1f}; predicted median "
+        f"{np.median(predicted):.1f} us p90 "
+        f"{np.percentile(predicted, 90):.1f}; |pred - meas| / meas median "
+        f"{np.median(resid):.4f} p90 {np.percentile(resid, 90):.4f} "
+        f"(serve.round_residual: {hist['count']} samples, bucket p50 "
+        f"{hist['p50']:.3g})")
+    del pre, dec
+
+    # int8: the round trip within its bound at the flagship geometry, and
+    # each request's first token that differs from the oracle's, if any
+    pre, dec = engine(), engine()
+    worst = {"err": 0.0, "ratio": 0.0}
+
+    def check_int8(r, out):
+        kv = kv_cache.export_blocks(pre.pools, pre._exported[r.rid])
+        exact = torch.stack(kv["k"] + kv["v"]).float().cpu().numpy()
+        back = migration.unpack_kv(out["meta"], out["blob"])
+        got = np.stack(back["k"] + back["v"])
+        err = float(np.abs(got - exact).max())
+        bound = migration.migration_error_bound(out["meta"])
+        if not err <= bound:
+            raise AssertionError(f"request {r.rid}: int8 error {err} over "
+                                 f"its bound {bound}")
+        worst["err"] = max(worst["err"], err)
+        worst["ratio"] = max(worst["ratio"], err / bound)
+
+    pa.paged_attention.launches = 0
+    wall8 = drive_migrated(pre, dec, reqs, "int8", check_int8)
+    launches8 = pa.paged_attention.launches
+    if launches8 != dec.decode_steps * MODEL["n_layers"]:
+        raise AssertionError(f"int8 migrated decode: launches {launches8}")
+    div8 = {r.rid: first_divergence(dec.completed[r.rid].tokens,
+                                    oracle[r.rid]) for r in reqs}
+    same8 = sum(i is None for i in div8.values())
+    log(f"phase 20(a) int8 migration: every payload within "
+        f"migration_error_bound (worst {worst['err']:.4g}, "
+        f"{worst['ratio']:.3f} of its bound); {same8}/{len(reqs)} requests "
+        f"token-identical to the oracle; first diverging token by rid "
+        f"(None = identical): {div8}; {wall8:.3f} s; kernel launches "
+        f"{launches8}")
+    del pre, dec
+
+    rates = codec_rates(migration, sample["kv"], DISAGG_CODEC_REPS)
+    for codec, r in rates.items():
+        log(f"phase 20(a) {codec} codec on the {sample['len']}-token "
+            f"prompt's export ({r['bytes']} float32 bytes, {r['wire_bytes']}"
+            f" on the wire): pack_kv {r['pack_GBps']:.3f} GB/s, unpack_kv "
+            f"{r['unpack_GBps']:.3f} GB/s (host)")
+
+    # phase 3's bf16 run, the round feedback off and on in turns
+    cfg16 = TransformerConfig(**MODEL, dtype=torch.bfloat16)
+    rate = {False: [], True: []}
+    for on in FEEDBACK_TURNS:
+        e = run_engine(serving, params, cfg16, pcfg, True, dev)
+        if not on:
+            e._round_feedback = lambda *a: None
+        makespan, _ = drive(e, reqs, pa)
+        rate[on].append(sum(d.n_tokens for d in e.completed.values())
+                        / makespan)
+        del e
+    log(f"phase 20(a) phase 3's bf16 serving in turns "
+        f"{'/'.join('on' if on else 'off' for on in FEEDBACK_TURNS)}: "
+        f"round feedback off {', '.join(f'{x:.1f}' for x in rate[False])} "
+        f"tok/s, on {', '.join(f'{x:.1f}' for x in rate[True])} tok/s")
+    del params
+
+    # ---- (b) across processes
+    procs = disagg_processes(cfg, pcfg, reqs, oracle, dev)
+    log(f"phase 20 paged_attention launches on the disaggregated path: "
+        f"{launches} in process (f32 run) + {procs['launches']} in the decode "
+        f"replica")
+    return launches + procs["launches"]
+
+
 def collective_phases(dev, bw) -> list:
     """Phases 11-15 (the FlexTree collectives); returns their rows of the
     kernels line (``reduce_sources`` and ``reduce_stacked``, the fold
@@ -4163,6 +4632,9 @@ def main() -> int:
     t0 = time.monotonic()
     zero_launches = phase_zero(dev, fa, trainer, ckpt, smi, dp_peak, bw)
     log(f"phase 19: {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    disagg_launches = phase_disagg(dev, smi)
+    log(f"phase 20: {time.monotonic() - t0:.1f} s")
     # each path's launches beside their sum
     for row in rows:
         if row["name"] in dp_launches:
@@ -4176,6 +4648,8 @@ def main() -> int:
                 dp_codec_launches[row["name"]]
         if row["name"] == "reduce_sources":
             row["launches_by_path"].update(codec_launches)
+        if row["name"] == "paged_attention":
+            row["launches_by_path"]["disagg"] = disagg_launches
         row["launches"] = sum(row["launches_by_path"].values())
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -8,8 +8,8 @@ wrote a Pallas kernel for the TPU.  It imports ``torch`` and never ``jax``
 nor ``flextree_tpu``: what it needs of the JAX package it keeps as its own
 copy.
 
-Ported so far (the serving path, the dense train step on one card, the
-FlexTree collectives and their planner):
+Ported so far (the serving path and its replica tier, the dense train
+step, the FlexTree collectives and their planner):
 
 - :mod:`.models` — the dense decoder LM's single-device forward (reference
   or flash attention), its cross-entropy loss, the contiguous KV cache,
@@ -44,8 +44,13 @@ FlexTree collectives and their planner):
   :mod:`.utils.checkpoint` the JAX package's checkpoint format;
 - :mod:`.serving` — the paged KV cache, the continuous batcher, the
   prefix index and the serving engine (``python -m
-  flextree_tpu_torch.serving``);
-- :mod:`.obs` — the metrics registry and the flight recorder;
+  flextree_tpu_torch.serving``); prefill/decode disaggregation over
+  replica processes (``python -m flextree_tpu_torch.serving.replica_main
+  --role prefill|decode``) behind a front door (``serving.frontdoor``),
+  the KV shipped on the wire codecs over the JAX package's frames;
+- :mod:`.runtime` — CRC-trailered control files and heartbeat membership;
+- :mod:`.obs` — the metrics registry, its Prometheus exposition and the
+  flight recorder;
 - :mod:`.convert` — the JAX parameter pytree and train state (as numpy)
   to and from the port's.
 

@@ -2,8 +2,8 @@
 
 The port's own copy of ``flextree_tpu/serving/batcher.py`` (which imports
 no JAX, but the port imports nothing of the JAX package), less the
-migration and replica-pool entry points (``admit_migrated``,
-``inflight_requests``) whose callers are not ported yet.
+replica pool's ``inflight_requests``, whose caller (``serving/pool.py``)
+is not ported yet.
 
 The batcher is a pure host-side state machine — no tensors in this
 module — so every transition is unit-testable without a device.  State:
@@ -368,6 +368,47 @@ class ContinuousBatcher:
             self.slots[slot] = state
             admitted.append((slot, state))
         return admitted
+
+    def admit_migrated(self, request: Request, first_token: int,
+                       now_s: float = 0.0):
+        """Admit a sequence whose PREFILL ran on another replica: its KV
+        blocks arrive over the wire, its first token is already emitted.
+
+        Mirrors ``try_admit``'s discipline — resume-first (a migrated
+        arrival must not take the blocks a half-done preempted sequence
+        is waiting for), all-or-nothing allocation, ``admit_blocked`` set
+        on block pressure — but skips the queue: migration is an
+        admit-or-refuse handshake, so a sequence that cannot land NOW is
+        refused back to the prefill side rather than parked.  Returns
+        ``(slot_idx, SeqState)`` with the state resident (length =
+        prompt_len, first token recorded) and the block ids ready for
+        the engine's import scatter, or ``None`` to refuse.  The caller
+        still owes the decode-token recording from the next step on."""
+        if self.preempted:
+            return None
+        free_slots = [i for i, s in enumerate(self.slots) if s is None]
+        if not free_slots:
+            return None
+        try:
+            blocks = self._alloc_with_evict(self.blocks_needed(request))
+        except CacheExhausted as e:
+            self.admit_blocked = (request.rid, e.want, e.free)
+            return None
+        state = SeqState(
+            request=request,
+            block_ids=blocks,
+            length=request.prompt_len,
+            pending_token=int(first_token),
+            generated=[int(first_token)],
+            admitted_s=now_s,
+            first_token_s=now_s,
+            admit_seq=self._next_admit_seq(),
+        )
+        state.token_times.append(now_s)
+        self._maybe_finish(state, now_s)
+        slot = free_slots[0]
+        self.slots[slot] = state
+        return slot, state
 
     # ---- on-demand growth / preemption / resume ----------------------------
 

@@ -31,14 +31,26 @@ whatever else shares the batch and across preemption.  (``jax.random``'s
 bits cannot be reproduced, so sampled tokens differ from the JAX
 engine's; greedy tokens are the same.)
 
-Not ported yet: prefill/decode migration, the prefix drain handoff and
-the per-round cost-model feedback of the JAX engine.
+Prefill/decode disaggregation (the JAX engine's migration half): a
+prefill replica's :meth:`ServingEngine.prefill_for_migration` runs the
+prompt, exports its blocks (``kv_cache.export_blocks``, moved to the
+host once as float32) and packs them for the wire
+(``migration.pack_kv``), holding the blocks until
+:meth:`~ServingEngine.release_exported`; a decode replica's
+:meth:`~ServingEngine.admit_migrated` verifies the payload, lands it
+(``batcher.admit_migrated``, ``kv_cache.write_imported``) and decodes
+from there on the same kernel.  Each decode round's time is held
+against the cost model's prediction (``serve.round_residual``,
+``costs.predict_decode_round_us``); the prefix index drains to a handoff
+document (:meth:`~ServingEngine.export_prefix_handoff`) that a successor
+prewarms from.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
+import zlib
 from collections import deque
 
 import numpy as np
@@ -50,19 +62,34 @@ from ..models.transformer import TransformerConfig, cast_params
 from ..obs import MetricsRegistry, record_event
 from .batcher import BatcherConfig, ContinuousBatcher, Request, SeqState
 from .kv_cache import (
+    NULL_BLOCK,
     CacheExhausted,
     PagedCacheConfig,
+    export_blocks,
     gather_seq,
     init_pools,
     make_paged_decode_fn,
+    write_imported,
     write_prefill,
     write_prefill_at,
     write_swapped,
 )
+from .migration import MigrationError, pack_kv, unpack_kv
 
 # cache-occupancy histogram buckets: fractions of the allocatable pool in
 # use, observed once per scheduling round
 _OCCUPANCY_BUCKETS = tuple(round(0.1 * i, 1) for i in range(1, 11))
+
+# relative-residual buckets for the serving feedback loop: |predicted -
+# measured| / measured of each decode round vs the paged-decode cost
+# estimate (serving/costs.py) — ratio-scaled, not ms-scaled
+_RESIDUAL_BUCKETS = (0.05, 0.1, 0.2, 0.5, 1.0, 2.0, 5.0, 10.0)
+
+# migration payload size buckets (bytes on the wire): small models ship
+# KB, production shapes MB — one histogram covers both
+_MIGRATION_BYTES_BUCKETS = (
+    1 << 10, 1 << 12, 1 << 14, 1 << 16, 1 << 18, 1 << 20, 1 << 22, 1 << 24,
+)
 
 __all__ = ["CompletedRequest", "ServingEngine"]
 
@@ -88,11 +115,20 @@ class CompletedRequest:
     admitted_s: float
     first_token_s: float
     done_s: float
+    # per-token ``_now`` stamps (first token included): consecutive
+    # differences are the inter-token latency samples
     token_times: tuple = ()
 
     @property
     def n_tokens(self) -> int:
         return int(self.tokens.shape[0])
+
+    @property
+    def intervals_s(self) -> tuple:
+        """Inter-token gaps (seconds), one per decode token."""
+        return tuple(
+            b - a for a, b in zip(self.token_times, self.token_times[1:])
+        )
 
     @property
     def ttft_s(self) -> float:
@@ -139,6 +175,15 @@ class ServingEngine:
         self.pools = init_pools(cfg, pcfg, self.device)
         self._decode = make_paged_decode_fn(cfg, fused=self.fused,
                                             impl=decode_impl)
+        # rid -> blocks held for an in-flight migration export; released
+        # on the decode side's ack (or the abort path), never before: the
+        # bytes on the wire are the only other copy of this state until
+        # the receiver confirms it owns one
+        self._exported: dict = {}
+        # stretches every prefill by this many seconds per computed prompt
+        # token (set by replica_main from FT_RPC_PREFILL_SLEEP; 0 = off)
+        self.chaos_prefill_sleep_s = 0.0
+        self._cost_params_cache = None
         self.completed: dict = {}
         self.steps = 0
         self.decode_steps = 0
@@ -193,7 +238,11 @@ class ServingEngine:
         active = self.batcher.active_slots()
         if active:
             tables, lengths, tokens, _ = self.batcher.batch_arrays()
+            # the batch frontier from the host's own lengths: the round
+            # never reads a length back from the device
+            max_len = int(lengths.max())
             dev = self.device
+            t_dec = _now()
             logits = self._decode(
                 self.params, self.pools,
                 torch.from_numpy(tables).to(dev),
@@ -201,6 +250,7 @@ class ServingEngine:
                 torch.from_numpy(tokens).to(dev),
             )
             logits = logits.cpu().numpy()  # host fetch = the step boundary
+            decode_s = _now() - t_dec
             now = _now()
             for slot in active:
                 tok = self._pick(slot, logits[slot])
@@ -208,6 +258,7 @@ class ServingEngine:
             self.decode_steps += 1
             self.metrics.counter("serve.decode_tokens").inc(len(active))
             record_event("serve_decode", n_active=len(active))
+            self._round_feedback(len(active), max_len, decode_s)
         finished = self.batcher.retire_ready()
         for _, state in finished:
             self._complete(state)
@@ -322,6 +373,52 @@ class ServingEngine:
     def _tokens(self, ids) -> torch.Tensor:
         return torch.as_tensor(np.asarray(ids, np.int64)).to(self.device)
 
+    def _round_feedback(
+        self, n_active: int, max_len: int, measured_s: float
+    ) -> None:
+        """One decode round's measured time (the host clock around the
+        round, which ends in the logits fetch) against the paged-decode
+        cost estimate (``costs.predict_decode_round_us`` on this engine's
+        device), observed into the ``serve.round_residual`` histogram and
+        emitted as a ``serve_round_measured`` event."""
+        from .costs import predict_decode_round_us
+
+        pred = predict_decode_round_us(
+            self.cfg, self.pcfg, n_active, max_len, self._cost_params(),
+            device=self.device,
+        )
+        measured_us = float(measured_s) * 1e6
+        predicted_us = pred["predicted_us"]
+        rel = abs(predicted_us - measured_us) / max(measured_us, 1e-9)
+        self.metrics.histogram(
+            "serve.round_residual", buckets=_RESIDUAL_BUCKETS
+        ).observe(rel)
+        record_event(
+            "serve_round_measured",
+            round=self.decode_steps,
+            n_active=int(n_active),
+            max_len=int(max_len),
+            measured_us=round(measured_us, 3),
+            predicted_us=round(predicted_us, 3),
+            compute_us=round(pred["compute_us"], 3),
+            bytes_us=round(pred["bytes_us"], 3),
+        )
+
+    def _cost_params(self):
+        if self._cost_params_cache is None:
+            from ..planner.calibrate import default_params
+
+            self._cost_params_cache = default_params()
+        return self._cost_params_cache
+
+    def _predict_prefill_us(self, prompt_len: int, cached: int = 0) -> float:
+        from .costs import predict_prefill_us
+
+        return round(predict_prefill_us(
+            self.cfg, prompt_len, self._cost_params(), cached_tokens=cached,
+            device=self.device,
+        ), 3)
+
     def _on_prefix_evict(self, block: int) -> None:
         self.metrics.counter("serve.prefix_evictions").inc()
         record_event("serve_prefix_evict", block=int(block))
@@ -342,6 +439,289 @@ class ServingEngine:
         entries were released."""
         idx = self.batcher.prefix_index
         return idx.clear() if idx is not None else 0
+
+    # ---- prefill/decode disaggregation -------------------------------------
+
+    def prefill_for_migration(self, request: Request, codec: str = "f32"):
+        """The prefill replica's half of a migration: run the prompt's
+        prefill, emit the first token (greedy — the RPC tier carries no
+        sampling knobs), and pack the sequence's KV blocks for the wire.
+
+        The blocks stay allocated under ``_exported[rid]`` until
+        :meth:`release_exported` — releasing before the decode side
+        confirms admission would let a concurrent prefill recycle them
+        while their bytes are the only copy of this sequence's state.
+        The export moves to the host once, as float32 (exact for a
+        bfloat16 pool).  Returns ``None`` when the pool cannot hold the
+        prompt right now; raises :class:`MigrationError` for a request
+        that could never migrate (oversized, sampled)."""
+        req = request
+        if req.temperature > 0:
+            raise MigrationError(
+                f"request {req.rid}: migration is greedy-only "
+                f"(temperature={req.temperature})"
+            )
+        if req.prompt_len < 1 or req.prompt_len >= self.pcfg.max_len:
+            raise MigrationError(
+                f"request {req.rid}: prompt_len {req.prompt_len} outside "
+                f"(0, max_len={self.pcfg.max_len})"
+            )
+        if req.rid in self._exported:
+            raise MigrationError(
+                f"request {req.rid}: migration already in flight"
+            )
+        n = self.pcfg.blocks_for(req.prompt_len)
+        t0 = _now()
+        try:
+            blocks = self.batcher._alloc_with_evict(n)
+        except CacheExhausted:
+            self.metrics.counter("serve.migration_export_blocked").inc()
+            return None
+        record_event(
+            "serve_admit", rid=req.rid, slot=-1,
+            prompt_len=req.prompt_len, blocks=n, migration=True,
+        )
+        logits, cache = prefill(self.params, self._tokens(req.prompt)[None],
+                                self.cfg, self.pcfg.max_len)
+        write_prefill(self.pools, cache, blocks)
+        if self.chaos_prefill_sleep_s > 0:
+            time.sleep(self.chaos_prefill_sleep_s * req.prompt_len)
+        first_token = int(np.argmax(logits[0].cpu().numpy()))
+        kv = export_blocks(self.pools, blocks)
+        layers = self.cfg.n_layers
+        host = torch.stack(kv["k"] + kv["v"]).float().cpu().numpy()
+        meta, blob = pack_kv({"k": list(host[:layers]),
+                              "v": list(host[layers:])}, codec=codec)
+        self._exported[req.rid] = blocks
+        now = _now()
+        self.metrics.counter("serve.migration_exports").inc()
+        self.metrics.histogram(
+            "serve.migration_bytes", buckets=_MIGRATION_BYTES_BUCKETS
+        ).observe(len(blob))
+        self.metrics.histogram("serve.ttft_ms").observe(
+            (now - req.arrival_s) * 1e3
+        )
+        record_event(
+            "serve_prefill", rid=req.rid, slot=-1,
+            prompt_len=req.prompt_len, cached_tokens=0,
+            measured_us=round((now - t0) * 1e6, 3),
+            predicted_us=self._predict_prefill_us(req.prompt_len),
+        )
+        return {
+            "first_token": first_token,
+            "meta": meta,
+            "blob": blob,
+            "ttft_s": now - req.arrival_s,
+            "prefill_s": now - t0,
+        }
+
+    def release_exported(self, rid: int, acked: bool) -> bool:
+        """Drop the blocks held for ``rid``'s migration export — on the
+        decode side's ack (the receiver owns a copy) or on the abort path
+        (refused, timed out, receiver gone; the front door retries).
+        Exactly one release per export, counted either way."""
+        blocks = self._exported.pop(rid, None)
+        if blocks is None:
+            return False
+        self.batcher.allocator.free(blocks)
+        self.metrics.counter(
+            "serve.migration_acked" if acked else "serve.migration_aborted"
+        ).inc()
+        if not acked:
+            record_event("serve_migration_abort", rid=rid,
+                         blocks=len(blocks))
+        return True
+
+    def admit_migrated(self, request: Request, first_token: int,
+                       meta: dict, blob: bytes):
+        """The decode replica's half: verify the payload, land the
+        sequence.  :class:`MigrationError` for any integrity or geometry
+        violation (CRC, shapes, a block count that does not match the
+        prompt), ``None`` for a clean capacity refusal (no slot, no
+        blocks, a resume backlog; the prefill side aborts and the front
+        door retries).  On success the sequence is resident as if its
+        prefill had run here — length = prompt_len, first token recorded
+        — and decode continues from the imported blocks on the next
+        :meth:`step`.  Returns the slot."""
+        req = request
+        total = req.prompt_len + req.max_new_tokens
+        if req.prompt_len < 1 or total > self.pcfg.max_len:
+            raise MigrationError(
+                f"request {req.rid}: prompt+max_new {total} exceeds "
+                f"max_len {self.pcfg.max_len}"
+            )
+        if self.pcfg.blocks_for(total) > self.pcfg.num_blocks - 1:
+            raise MigrationError(
+                f"request {req.rid}: needs {self.pcfg.blocks_for(total)} "
+                f"blocks, pool holds {self.pcfg.num_blocks - 1}"
+            )
+        kv = unpack_kv(meta, blob)  # CRC + per-tensor verification
+        if (
+            int(meta["block_size"]) != self.pcfg.block_size
+            or int(meta["n_heads"]) != self.cfg.n_heads
+            or int(meta["head_dim"]) != self.cfg.head_dim
+            or int(meta["n_layers"]) != self.cfg.n_layers
+        ):
+            raise MigrationError(
+                f"request {req.rid}: payload geometry "
+                f"(bs={meta['block_size']}, H={meta['n_heads']}, "
+                f"Dh={meta['head_dim']}, L={meta['n_layers']}) does not "
+                f"match this replica's model"
+            )
+        n_mig = int(meta["n_blocks"])
+        if n_mig != self.pcfg.blocks_for(req.prompt_len):
+            raise MigrationError(
+                f"request {req.rid}: {n_mig} migrated blocks for a "
+                f"{req.prompt_len}-token prompt "
+                f"(expected {self.pcfg.blocks_for(req.prompt_len)})"
+            )
+        now = _now()
+        admit = self.batcher.admit_migrated(req, first_token, now)
+        if admit is None:
+            self.metrics.counter("serve.migration_refused").inc()
+            record_event(
+                "serve_migration_refuse", rid=req.rid, reason="capacity"
+            )
+            return None
+        slot, state = admit
+        # one host-to-device copy of the whole payload; write_imported
+        # casts each tensor to the pool's dtype
+        layers = self.cfg.n_layers
+        payload = torch.from_numpy(np.stack(kv["k"] + kv["v"])).to(
+            self.device)
+        write_imported(self.pools, {"k": list(payload[:layers]),
+                                    "v": list(payload[layers:])},
+                       state.block_ids[:n_mig])
+        if self.batcher.prefix_index is not None:
+            # the prompt's full blocks are shareable the moment they land:
+            # the index adopts them at admission (the retirement insert
+            # walks the same chain idempotently)
+            full = req.prompt_len // self.pcfg.block_size
+            self.batcher.prefix_index.insert(
+                np.asarray(req.prompt), state.block_ids[:full]
+            )
+        self.metrics.counter("serve.migrations_in").inc()
+        self.metrics.histogram(
+            "serve.migration_bytes", buckets=_MIGRATION_BYTES_BUCKETS
+        ).observe(len(blob))
+        record_event(
+            "serve_migration_recv", rid=req.rid, slot=slot,
+            bytes=len(blob), codec=str(meta.get("codec")), blocks=n_mig,
+        )
+        return slot
+
+    # ---- prefix-warm drain handoff -----------------------------------------
+
+    def _block_hash(self, block: int) -> str:
+        """CRC32 over a block's K and V bytes across every layer — the
+        content witness a handoff successor checks its recomputed block
+        against.  It holds within one package, device and dtype only:
+        another matmul library gives other bits for the same prefix."""
+        crc = 0
+        for kind in ("k", "v"):
+            for layer in self.pools[kind]:
+                raw = layer[block].contiguous().view(torch.uint8)
+                crc = zlib.crc32(raw.cpu().numpy().tobytes(), crc)
+        return f"{crc & 0xFFFFFFFF:08x}"
+
+    def export_prefix_handoff(self) -> dict | None:
+        """Serialize the prefix index for a drain handoff: every node as
+        its root-to-node token prefix plus the content hash of its block.
+        Token ids and hashes travel; block ids and raw K/V never do — the
+        successor recomputes each block from the prefix and uses the hash
+        to prove it rebuilt the same bytes.  ``None`` when the prefix
+        cache is disabled."""
+        idx = self.batcher.prefix_index
+        if idx is None:
+            return None
+        entries = [
+            {
+                "prefix": [int(t) for key in path for t in key],
+                "hash": self._block_hash(block),
+            }
+            for path, block in idx.node_paths()
+        ]
+        self.metrics.counter("serve.handoff_exported_blocks").inc(
+            len(entries)
+        )
+        record_event("serve_handoff_export", entries=len(entries))
+        return {
+            "version": 1,
+            "block_size": self.pcfg.block_size,
+            "entries": entries,
+        }
+
+    def prewarm_prefix_from_handoff(self, doc) -> dict:
+        """Rebuild a predecessor's prefix cache from its handoff export:
+        recompute each prefix's last block via prefill, verify the bytes
+        against the recorded content hash, and adopt verified blocks into
+        this replica's index before traffic arrives.  A hash mismatch
+        refuses that entry (and, since children need their parent chain,
+        its whole subtree) — a corrupt handoff degrades to a cold start,
+        never to serving wrong K/V.  Returns stats counters."""
+        stats = {"inserted": 0, "skipped": 0, "hash_mismatches": 0,
+                 "refused": None}
+        idx = self.batcher.prefix_index
+        if idx is None:
+            stats["refused"] = "prefix cache disabled"
+            return stats
+        bs = self.pcfg.block_size
+        if (
+            not isinstance(doc, dict)
+            or doc.get("version") != 1
+            or int(doc.get("block_size", -1)) != bs
+            or not isinstance(doc.get("entries"), list)
+        ):
+            stats["refused"] = "incompatible handoff payload"
+            self.metrics.counter("serve.handoff_refused").inc()
+            record_event("serve_handoff_refused",
+                         reason=stats["refused"])
+            return stats
+        alloc = self.batcher.allocator
+        # parents sort before their children (tuple-prefix order), so one
+        # pass builds chains bottom-up; keep one sequence's worth of
+        # blocks free so prewarming can never starve first admission
+        reserve = self.pcfg.blocks_per_seq
+        for e in sorted(doc["entries"], key=lambda e: len(e["prefix"])):
+            prefix = e.get("prefix")
+            if (
+                not isinstance(prefix, list) or not prefix
+                or len(prefix) % bs != 0
+            ):
+                stats["skipped"] += 1
+                continue
+            tokens = np.asarray(prefix, np.int32)
+            n = len(prefix) // bs
+            matched = idx.match(tokens)
+            if len(matched) >= n:
+                continue  # already warm (shared parent of two subtrees)
+            if len(matched) < n - 1:
+                stats["skipped"] += 1  # parent refused/missing upstream
+                continue
+            if alloc.num_free <= reserve:
+                stats["skipped"] += 1
+                continue
+            [b] = alloc.alloc(1)
+            _, cache = prefill(self.params, self._tokens(tokens)[None],
+                               self.cfg, self.pcfg.max_len)
+            write_prefill_at(self.pools, cache, [b], n - 1)
+            want = e.get("hash")
+            if want is not None and self._block_hash(b) != want:
+                alloc.release([b])
+                stats["hash_mismatches"] += 1
+                self.metrics.counter("serve.handoff_hash_mismatch").inc()
+                record_event(
+                    "serve_handoff_hash_mismatch", prefix_len=len(prefix)
+                )
+                continue
+            idx.insert(tokens, matched + [b])
+            alloc.release([b])  # the index's retain is now the holder
+            stats["inserted"] += 1
+        self.metrics.counter("serve.handoff_prewarmed_blocks").inc(
+            stats["inserted"]
+        )
+        record_event("serve_handoff_prewarm", **stats)
+        return stats
 
     def _prefill_slot(self, slot: int, state: SeqState) -> None:
         t0 = _now()
@@ -388,6 +768,9 @@ class ServingEngine:
                 self.metrics.counter("serve.prefix_misses").inc()
         if self.batcher.prefix_index is not None:
             self._note_prefix_admission(c > 0, t0)
+        if self.chaos_prefill_sleep_s > 0:
+            # per computed token: a prefix-cache hit only pays its suffix
+            time.sleep(self.chaos_prefill_sleep_s * (req.prompt_len - c))
         tok = self._pick(slot, logits[0].cpu().numpy())
         now = _now()
         self.batcher.record_first_token(slot, tok, now)
@@ -398,6 +781,7 @@ class ServingEngine:
             "serve_prefill", rid=req.rid, slot=slot,
             prompt_len=req.prompt_len, cached_tokens=c,
             measured_us=round((now - t0) * 1e6, 3),
+            predicted_us=self._predict_prefill_us(req.prompt_len, c),
         )
 
     def _pick(self, slot: int, logits_row: np.ndarray) -> int:
@@ -442,17 +826,59 @@ class ServingEngine:
             **self.metrics.snapshot(),
         }
 
-    def warmup(self) -> None:
-        """Launch one decode round over all-inactive slots before a timed
-        run, so first-call set-up (kernel build and load, library handles)
-        lands outside the first requests' latency.  Its writes go to the
-        null block only, as every inactive slot's do."""
+    def warmup(self, prompt_lens=(), block_counts=(), suffix_buckets=(),
+               import_counts=()) -> None:
+        """Launch, before a timed run, the work the requests will launch,
+        so first-call set-up (kernel build and load, library handles,
+        allocator growth) lands outside the first requests' latency: one
+        decode round over all-inactive slots, one prefill for each
+        distinct prompt length, one suffix prefill for each ``(cached_len,
+        suffix_len)`` pair, and one pool write for each distinct block
+        count (prefill reservations ``block_counts``, migrated imports
+        ``import_counts``).  The JAX engine's signature; the model runs
+        eagerly, so nothing compiles and each piece only launches.  Every
+        write goes to the null block, as every inactive slot's does."""
         S, P = self.bcfg.slots, self.pcfg.blocks_per_seq
-        zeros = torch.zeros(S, dtype=torch.int32, device=self.device)
+        dev = self.device
+        zeros = torch.zeros(S, dtype=torch.int32, device=dev)
         self._decode(
             self.params, self.pools,
-            torch.zeros((S, P), dtype=torch.int32, device=self.device),
+            torch.zeros((S, P), dtype=torch.int32, device=dev),
             zeros, zeros,
         )
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        cache = None
+        for t in sorted({int(t) for t in prompt_lens}):
+            _, cache = prefill(self.params,
+                               torch.zeros((1, t), dtype=torch.long,
+                                           device=dev),
+                               self.cfg, self.pcfg.max_len)
+        for n in sorted({int(n) for n in block_counts}):
+            if cache is None:
+                _, cache = prefill(self.params,
+                                   torch.zeros((1, 1), dtype=torch.long,
+                                               device=dev),
+                                   self.cfg, self.pcfg.max_len)
+            write_prefill(self.pools, cache, [NULL_BLOCK] * n)
+        shape = (self.pcfg.block_size, self.cfg.n_heads, self.cfg.head_dim)
+        for n in sorted({int(n) for n in import_counts}):
+            blank = [torch.zeros((n, *shape), dtype=self.cfg.dtype,
+                                 device=dev)] * self.cfg.n_layers
+            write_imported(self.pools, {"k": blank, "v": blank},
+                           [NULL_BLOCK] * n)
+        bs = self.pcfg.block_size
+        for c, t in sorted({(int(c), int(t)) for c, t in suffix_buckets}):
+            if c < 1 or t < 1:
+                raise ValueError(
+                    f"suffix bucket ({c}, {t}): cached_len and "
+                    f"suffix_len must both be >= 1"
+                )
+            view = gather_seq(self.pools, [NULL_BLOCK] * -(-c // bs),
+                              length=c)
+            prefill_suffix(
+                self.params,
+                torch.zeros((1, t), dtype=torch.long, device=dev),
+                {kind: [x[None] for x in view[kind]] for kind in ("k", "v")},
+                self.cfg, self.pcfg.max_len,
+            )
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)

@@ -53,6 +53,8 @@ __all__ = [
     "write_prefill",
     "write_prefill_at",
     "write_swapped",
+    "export_blocks",
+    "write_imported",
     "paged_decode_step",
     "make_paged_decode_fn",
     "gather_seq",
@@ -276,6 +278,48 @@ def write_swapped(pools: dict, kv: dict, block_ids) -> dict:
         idx = _block_index(block_ids, pk.device)
         pk[idx] = k.reshape(n, bs, *pk.shape[2:]).to(pk.device, pk.dtype)
         pv[idx] = v.reshape(n, bs, *pv.shape[2:]).to(pv.device, pv.dtype)
+    return pools
+
+
+def export_blocks(pools: dict, block_ids) -> dict:
+    """Pull a sequence's blocks out of the pool at block granularity —
+    per layer ``(n, bs, H, Dh)`` — for migration to another replica.
+
+    Not :func:`gather_seq`: no ``(n*bs, H, Dh)`` row is made.  The wire
+    payload ships blocks exactly as the pool stores them, and the
+    importing side scatters the same block-shaped tensors straight back
+    with :func:`write_imported`, so the f32 codec moves the pool's bytes
+    verbatim.  A copy on the pools' device, never a view of them."""
+    out = {"k": [], "v": []}
+    for pk, pv in zip(pools["k"], pools["v"]):
+        idx = _block_index(block_ids, pk.device)
+        out["k"].append(pk[idx])
+        out["v"].append(pv[idx])
+    return out
+
+
+def write_imported(pools: dict, kv: dict, block_ids) -> dict:
+    """Scatter migrated block-shaped K/V into newly assigned blocks, in
+    place — the receiving half of :func:`export_blocks`.
+
+    ``kv`` is per layer ``{"k": [(n, bs, H, Dh)], "v": [...]}`` with
+    exactly ``len(block_ids)`` blocks, on any device and in any float
+    dtype: each tensor is cast to the pool's dtype on the pool's device
+    (a float32 payload of a bfloat16 pool casts back losslessly).
+    Positions in the final block past the migrated sequence's length lie
+    at or beyond its causal bound, invisible until decode writes
+    overwrite them.  Blocks not named are untouched."""
+    n = len(block_ids)
+    for pk, k in zip(pools["k"] + pools["v"], kv["k"] + kv["v"]):
+        if k.shape[0] != n or tuple(k.shape[1:]) != tuple(pk.shape[1:]):
+            raise ValueError(
+                f"imported K/V shaped {tuple(k.shape)}, "
+                f"{n} blocks of {tuple(pk.shape[1:])} expected"
+            )
+    for pk, pv, k, v in zip(pools["k"], pools["v"], kv["k"], kv["v"]):
+        idx = _block_index(block_ids, pk.device)
+        pk[idx] = k.to(pk.device, pk.dtype)
+        pv[idx] = v.to(pv.device, pv.dtype)
     return pools
 
 

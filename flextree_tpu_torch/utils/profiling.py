@@ -13,7 +13,9 @@ bucketed gradient sync reaches:
   suffixes of the spans entered (:func:`span_bytes`);
   :func:`plan_capture` collects the spans that carry plan provenance;
 - :func:`exposed_split` cuts a train step's sync time into the part that
-  extended the step and the part that ran under the backward.
+  extended the step and the part that ran under the backward;
+- :class:`Ewma` is the step-duration average the runtime supervisor
+  publishes in each heartbeat.
 
 One difference from the JAX package: a JAX span fires once, while the
 step is traced, and never again for the compiled step; PyTorch runs
@@ -35,6 +37,7 @@ __all__ = [
     "span_ledger",
     "plan_capture",
     "exposed_split",
+    "Ewma",
 ]
 
 
@@ -143,3 +146,32 @@ def comm_span(name: str, provenance: dict | None = None):
         record_event("collective", name=name, bytes=span_bytes(name))
     with torch.profiler.record_function(name):
         yield
+
+
+class Ewma:
+    """Exponentially-weighted moving average — the per-rank step-duration
+    signal the runtime supervision layer classifies stragglers from.
+
+    Each rank folds its step wall-times into an EWMA (``alpha`` weights
+    the newest sample) and publishes it in its heartbeat
+    (``runtime.supervisor.Supervisor``); the reader's
+    ``MembershipView`` flags ranks whose EWMA is an outlier against the
+    peer median.  An EWMA rather than the last sample so one noisy step
+    (GC pause, page fault) doesn't flap the classification.
+    """
+
+    def __init__(self, alpha: float = 0.2):
+        if not 0.0 < alpha <= 1.0:
+            raise ValueError(f"alpha must be in (0, 1], got {alpha}")
+        self.alpha = alpha
+        self.value: float | None = None
+        self.count = 0
+
+    def update(self, sample: float) -> float:
+        self.value = (
+            sample
+            if self.value is None
+            else self.alpha * sample + (1.0 - self.alpha) * self.value
+        )
+        self.count += 1
+        return self.value
