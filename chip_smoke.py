@@ -235,13 +235,30 @@ failure raises and exits non-zero:
     counted as a fallback, the decode replica's kernel launches (from its
     metrics file) decode rounds x layers, and a SIGTERM drain of both that
     exits 0 and retires their endpoint files.
+21. the in-process replica pool — (a) two kernel engines at the flagship
+    width in float32 under a ``ReplicaPool`` with a 1 s step watchdog, fed
+    ``build_spike_workload``'s open-loop spike (62 requests), replica 1
+    killed in ``"hang"`` mode mid-spike: every request completes exactly
+    once, at least one is re-routed, every request's tokens equal the
+    single-engine kernel oracle's, the kernel's launches equal both
+    replicas' decode rounds x layers, and one of the survivor's rounds
+    holds the kernel against the plain stream within
+    ``FUSED_DECODE_ATOL``; then the same pool and traffic in bf16 with
+    ``parallel_rounds`` off and on in turns (tok/s, TTFT, not gated); (b)
+    ``tools/bench_serving``'s A/B at ``--smoke`` size: its bitwise and
+    degrade floors, its throughput ratio printed; (c) (a)'s run recorded
+    with each replica on a track of its own: the merged timeline valid, a
+    re-routed request's flow spanning both replica tracks, ``python -m
+    flextree_tpu_torch.obs metrics DIR --prom`` printing the TTFT window's
+    p99 gauge; (d) the protocol models clean, each mutation caught.
 
 The kernels line gives each kernel's launches by path
 (``launches_by_path``: serve, train, dp_train, allreduce, ir_families,
 reduce_bench, codec for phase 17(a) and (d), codec_sync for phase 17(b),
 dp_codec for phase 17(c)'s int8 run, dp_overlap for phase 18(a), dp_zero
 for phase 19(a), disagg for phase 20: the in-process decode engine's f32
-run plus the decode replica process's) and their sum (``launches``).
+run plus the decode replica process's, pool for phase 21(a)'s f32 run)
+and their sum (``launches``).
 
 Prints each phase's seconds, a ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Exits
@@ -4135,6 +4152,318 @@ def phase_disagg(dev, smi) -> int:
     return launches + procs["launches"]
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the in-process replica pool
+# ---------------------------------------------------------------------------
+
+# the open-loop spike (serving/workload.py): 20 rps for 0.5 s, 100 rps for
+# 0.4 s, 20 rps for 0.5 s; the generator's prompt lengths (4, 6, 8) x 16 and
+# outputs (16, 32, 48) x 2, so a request's 64-224 tokens sit inside the
+# flagship's 1024-token table row as the generator's sit inside its model's
+POOL_SEED = 21
+POOL_RATES = (20.0, 100.0)
+POOL_PHASES_S = (0.5, 0.4, 0.5)
+POOL_PROMPT_LENS = (64, 96, 128)
+POOL_OUT_LENS = (32, 64, 96)
+POOL_STEP_TIMEOUT_S = 1.0
+# the bf16 pool with parallel_rounds off and on, in turns (no kill)
+POOL_TURNS = (False, True, True, False)
+
+
+def pool_engines(serving, params, cfg, pcfg, dev, recorders=()):
+    """Two kernel engines; with ``recorders``, each engine's rounds record
+    under its own (``use_recorder`` on the thread that steps it), as a
+    replica process records under its own rank."""
+    from flextree_tpu_torch.obs import use_recorder
+
+    engines = [serving.ServingEngine(
+        params, cfg, pcfg, serving.BatcherConfig(slots=SLOTS), fused=True,
+        decode_impl="cuda", device=dev) for _ in range(2)]
+    for eng, rec in zip(engines, recorders):
+        inner = eng.step
+
+        def step(inner=inner, rec=rec):
+            with use_recorder(rec):
+                return inner()
+
+        eng.step = step
+    return engines
+
+
+def drive_pool(pool, reqs, kill_at=None, on_round=None):
+    """Submit ``reqs`` at their open-loop arrival offsets and step the pool
+    until every request is done; replica 1 is killed in ``"hang"`` mode at
+    ``kill_at`` seconds.  Returns ``(wall seconds, kill monotonic time)``."""
+    pending = collections.deque(sorted(reqs, key=lambda r: r.arrival_s))
+    t0 = time.monotonic()
+    killed = None
+    while pending or not pool.idle:
+        now = time.monotonic() - t0
+        while pending and pending[0].arrival_s <= now:
+            r = pending.popleft()
+            pool.submit(dataclasses.replace(r, arrival_s=t0 + r.arrival_s))
+        if kill_at is not None and killed is None and now >= kill_at:
+            pool.kill(1, mode="hang")
+            killed = time.monotonic()
+        if pool.idle and pending:
+            time.sleep(min(1e-3, pending[0].arrival_s - now))
+            continue
+        pool.step()
+        if on_round is not None:
+            on_round()
+    torch.cuda.synchronize()
+    return time.monotonic() - t0, killed
+
+
+def pool_rates(completed, wall):
+    ttft = np.array([d.ttft_s * 1e3 for d in completed.values()])
+    tokens = sum(d.n_tokens for d in completed.values())
+    return (tokens / wall, float(np.percentile(ttft, 50)),
+            float(np.percentile(ttft, 99)))
+
+
+def pool_timeline(obs_dir, rerouted, timeline):
+    """Phase 21(c): the merged trace is valid, a re-routed request's flow
+    goes from replica 1's track to replica 0's, and the obs CLI renders
+    the replicas' metrics with the TTFT window's p99 gauge."""
+    doc = timeline.merge_dir(obs_dir)
+    bad = timeline.validate_trace(doc)
+    if bad:
+        raise AssertionError(f"phase 21(c): merged trace invalid: {bad[:5]}")
+    spans = {}
+    for e in doc["traceEvents"]:
+        if e.get("cat") == "request" and e["id"] in rerouted:
+            spans.setdefault(e["id"], []).append((e["ph"], e["pid"]))
+    both = sorted(rid for rid, pts in spans.items()
+                  if {p for _, p in pts} >= {0, 1})
+    if not both:
+        raise AssertionError(f"phase 21(c): no re-routed request's flow "
+                             f"spans both replica tracks: {spans}")
+    out = subprocess.run(
+        [sys.executable, "-m", "flextree_tpu_torch.obs", "metrics", obs_dir,
+         "--prom"], capture_output=True, text=True, timeout=120, cwd=HERE)
+    gauges = [ln for ln in out.stdout.splitlines()
+              if "_window_p99{" in ln]
+    if out.returncode != 0 or not gauges:
+        raise AssertionError(f"phase 21(c): obs metrics --prom rc "
+                             f"{out.returncode}: {out.stderr[-2000:]}")
+    log(f"phase 21(c) timeline: {doc['otherData']['events']} events on "
+        f"tracks {doc['otherData']['ranks']} (replicas 0, 1; the pool 2), "
+        f"{len(doc['traceEvents'])} trace events, validate_trace clean; "
+        f"{len(both)} of {len(rerouted)} re-routed requests' flows span "
+        f"both replica tracks (rid {both[0]}: "
+        f"{' '.join(f'{ph}@{pid}' for ph, pid in spans[both[0]])}); "
+        f"`python -m flextree_tpu_torch.obs metrics --prom` rc 0, "
+        f"{gauges[0]}")
+
+
+def phase_pool(dev, smi) -> int:
+    """Phase 21: the in-process replica pool.  Returns the paged kernel's
+    launches on the pool's path (phase 21(a)'s float32 run)."""
+    import tempfile
+
+    from flextree_tpu_torch import serving
+    from flextree_tpu_torch.analysis import run_protocol_check
+    from flextree_tpu_torch.analysis.protocol_check import explore
+    from flextree_tpu_torch.models.transformer import (
+        TransformerConfig,
+        init_params,
+    )
+    from flextree_tpu_torch.obs import FlightRecorder, flight_recorder
+    from flextree_tpu_torch.obs import timeline
+    from flextree_tpu_torch.ops import paged_attention as pa
+    from flextree_tpu_torch.serving import kv_cache, rpc_model
+    from flextree_tpu_torch.serving.workload import build_spike_workload
+    from flextree_tpu_torch.tools import bench_serving
+
+    log(f"phase 21 on {smi}")
+    cfg = TransformerConfig(**MODEL, dtype=torch.float32)
+    pcfg = serving.PagedCacheConfig(**CACHE)
+    params = init_params(cfg, torch.Generator().manual_seed(SEED),
+                         device=dev)
+    reqs, spike_start, spike_end = build_spike_workload(
+        POOL_SEED, POOL_RATES[0], POOL_RATES[1], *POOL_PHASES_S,
+        prompt_lens=POOL_PROMPT_LENS, out_lens=POOL_OUT_LENS,
+        vocab=MODEL["vocab_size"])
+    kill_at = (spike_start + spike_end) / 2
+    warm = (sorted({r.prompt_len for r in reqs}),
+            {pcfg.blocks_for(r.prompt_len + r.max_new_tokens) for r in reqs})
+    tokens_in = sum(r.max_new_tokens for r in reqs)
+    log(f"phase 21 traffic: build_spike_workload(seed {POOL_SEED}, "
+        f"{POOL_RATES[0]} rps for {POOL_PHASES_S[0]} s, {POOL_RATES[1]} rps "
+        f"for {POOL_PHASES_S[1]} s, {POOL_RATES[0]} rps for "
+        f"{POOL_PHASES_S[2]} s; prompts {POOL_PROMPT_LENS}, outputs "
+        f"{POOL_OUT_LENS}): {len(reqs)} requests, {tokens_in} tokens to "
+        f"generate; spike {spike_start:.2f}-{spike_end:.2f} s, replica 1 "
+        f"killed (hang) at {kill_at:.2f} s")
+
+    # ---- (a) float32: the single-engine kernel oracle, then the pool
+    oracle_eng = run_engine(serving, params, cfg, pcfg, True, dev)
+    drive(oracle_eng, [dataclasses.replace(r, arrival_s=0.0) for r in reqs],
+          pa)
+    oracle = {rid: d.tokens for rid, d in oracle_eng.completed.items()}
+    del oracle_eng
+
+    with tempfile.TemporaryDirectory(prefix="ft-pool-") as tmp:
+        obs_dir = os.path.join(tmp, "obs")
+        rec = RoundRecorder(kv_cache.paged_attention, MODEL["n_layers"], -1)
+        kv_cache.paged_attention = rec
+        try:
+            with flight_recorder(obs_dir, rank=2, source="pool") as prec:
+                recs = [FlightRecorder(obs_dir, rank, source="serve")
+                        for rank in range(2)]
+                engines = pool_engines(serving, params, cfg, pcfg, dev, recs)
+                pool = serving.ReplicaPool(engines, serving.PoolConfig(
+                    heartbeat_dir=os.path.join(tmp, "hb"),
+                    step_timeout_s=POOL_STEP_TIMEOUT_S, lease_s=5.0,
+                    interval_s=0.05, max_suspect_strikes=3))
+                with pool:
+                    pool.warmup(*warm)
+
+                    def arm():
+                        # after the drain only the survivor steps: record
+                        # its layer-0 call two rounds on
+                        if rec.round_index < 0 and not pool.replicas[1].alive:
+                            rec.round_index = rec.calls // MODEL["n_layers"] + 2
+
+                    pa.paged_attention.launches = 0
+                    torch.cuda.synchronize()
+                    wall, killed = drive_pool(pool, reqs, kill_at, arm)
+                    launches = pa.paged_attention.launches
+                    report = pool.report()
+                    rounds = [e.decode_steps for e in engines]
+                for r, eng in enumerate(engines):
+                    with open(os.path.join(obs_dir,
+                                           f"metrics_{r:05d}.json"), "w") as f:
+                        json.dump(eng.metrics.snapshot(), f)
+                for r in recs:
+                    r.close()
+            pool_events = list(prec.events)
+        finally:
+            kv_cache.paged_attention = pa.paged_attention
+        drains = [e for e in pool_events if e["kind"] == "drain"]
+        done = pool.completed
+        if sorted(done) != sorted(r.rid for r in reqs) or not (
+                report["completed"] == report["submitted"] == len(reqs)):
+            raise AssertionError(f"phase 21(a): {report['completed']}/"
+                                 f"{report['submitted']} completed of "
+                                 f"{len(reqs)}")
+        if report["reroutes"] < 1 or len(drains) != 1:
+            raise AssertionError(f"phase 21(a): reroutes "
+                                 f"{report['reroutes']}, drains {drains}")
+        diverged = {r.rid: first_divergence(done[r.rid].tokens,
+                                            oracle[r.rid]) for r in reqs}
+        bad = {rid: i for rid, i in diverged.items() if i is not None}
+        if bad:
+            raise AssertionError(f"phase 21(a): f32 pool tokens differ from "
+                                 f"the single-engine oracle's (rid: first "
+                                 f"token): {bad}")
+        if launches != sum(rounds) * MODEL["n_layers"]:
+            raise AssertionError(f"phase 21(a): kernel launches {launches} "
+                                 f"!= rounds {rounds} x layers")
+        if rec.saved is None:
+            raise AssertionError("phase 21(a): no survivor round recorded")
+        args, got = rec.saved
+        plain = pa.paged_attention(*args, impl="torch")
+        err = (got.float() - plain.float()).abs().max().item()
+        if not err <= pa.FUSED_DECODE_ATOL:
+            raise AssertionError(f"phase 21(a): recorded round: kernel vs "
+                                 f"plain stream {err}")
+        rerouted = drains[0]["rerouted"]
+        drain_s = drains[0]["ts"] - next(e["ts"] for e in pool_events
+                                         if e["kind"] == "kill")
+        rate, p50, p99 = pool_rates(done, wall)
+        log(f"phase 21(a) f32 pool (2 kernel engines, step_timeout_s "
+            f"{POOL_STEP_TIMEOUT_S}): {len(done)}/{len(reqs)} completed "
+            f"exactly once; replica 1 drained ({drains[0]['why']}) "
+            f"{drain_s:.3f} s after its kill, {len(rerouted)} requests "
+            f"re-routed to the survivor; tokens == the single-engine kernel "
+            f"oracle's on all {len(reqs)}; kernel launches {launches} = "
+            f"decode rounds {rounds[0]} + {rounds[1]} x {MODEL['n_layers']} "
+            f"layers; the survivor's round {rec.round_index} layer 0 "
+            f"({int((args[6] > 0).sum().item())} active slots, lengths up "
+            f"to {int(args[6].max().item())}): kernel vs plain stream max "
+            f"abs {err:.3g} (bar {pa.FUSED_DECODE_ATOL}); {rate:.1f} tok/s "
+            f"over {wall:.3f} s, TTFT p50 {p50:.2f} ms p99 {p99:.2f} ms")
+        del engines, pool
+
+        # ---- (c) the timeline of (a)
+        pool_timeline(obs_dir, set(rerouted), timeline)
+
+    # ---- (a) bf16, parallel_rounds off and on in turns, no kill
+    cfg16 = TransformerConfig(**MODEL, dtype=torch.bfloat16)
+    seen = {False: [], True: []}
+    with tempfile.TemporaryDirectory(prefix="ft-pool16-") as tmp:
+        for i, par in enumerate(POOL_TURNS):
+            engines = pool_engines(serving, params, cfg16, pcfg, dev)
+            pool = serving.ReplicaPool(engines, serving.PoolConfig(
+                heartbeat_dir=os.path.join(tmp, f"hb{i}"),
+                step_timeout_s=POOL_STEP_TIMEOUT_S, lease_s=5.0,
+                interval_s=0.05, parallel_rounds=par))
+            with pool:
+                pool.warmup(*warm)
+                pa.paged_attention.launches = 0
+                wall, _ = drive_pool(pool, reqs)
+                n = pa.paged_attention.launches
+                rounds = sum(e.decode_steps for e in engines)
+                if len(pool.completed) != len(reqs):
+                    raise AssertionError(f"phase 21(a) bf16: "
+                                         f"{len(pool.completed)} completed")
+            seen[par].append(pool_rates(pool.completed, wall)
+                             + (n == rounds * MODEL["n_layers"],))
+            del engines, pool
+    for par, runs in seen.items():
+        log(f"phase 21(a) bf16 pool, parallel_rounds {'on' if par else 'off'}"
+            f" (turns {'/'.join('on' if p else 'off' for p in POOL_TURNS)}):"
+            f" " + "; ".join(f"{r:.1f} tok/s, TTFT p50 {a:.2f} ms p99 "
+                             f"{b:.2f} ms, launches == rounds x layers {ok}"
+                             for r, a, b, ok in runs))
+    del params
+
+    # ---- (b) the port's serving bench at --smoke size
+    doc = bench_serving.run_bench(smoke=True, seed=SEED, width="flagship",
+                                  device=dev,
+                                  log=lambda m: log(f"phase 21(b) {m}"))
+    floors = doc["floors"]
+    if not (floors["bitwise_ok"] and floors["replica_kill"]["ok"]):
+        raise AssertionError(f"phase 21(b): bench floors failed: "
+                             f"bitwise {floors['bitwise_ok']}, degrade "
+                             f"{floors['replica_kill']['ok']}")
+    log(f"phase 21(b) bench_serving --smoke (flagship, float32, gather "
+        f"path): bitwise {floors['bitwise_checked']} checked, "
+        f"{floors['paged_bitwise_violations']} violations; degrade ok "
+        f"({floors['replica_kill']['completed']}/"
+        f"{floors['replica_kill']['submitted']}, "
+        f"{floors['replica_kill']['reroutes']} re-routed); continuous "
+        f"{doc['continuous']['throughput_tok_s']} tok/s vs static "
+        f"{doc['static']['throughput_tok_s']} tok/s: ratio "
+        f"{floors['throughput_ratio']} (floor "
+        f"{floors['min_throughput_ratio']} not enforced at --smoke); p99 "
+        f"TTFT ratio {floors['p99_ttft_ratio']}; {doc['elapsed_s']} s")
+
+    # ---- (d) the protocol models
+    violations, detail = run_protocol_check()
+    truncated = [n for n, m in detail["models"].items() if m["truncated"]]
+    if violations or truncated:
+        raise AssertionError(f"phase 21(d): {violations} {truncated}")
+    caught = {}
+    for model, kind in (
+            (rpc_model.RpcModel(mutation="replay_miss"),
+             "completed-rid-reexecuted"),
+            (rpc_model.MigrationModel(mutation="skip_release"),
+             "migration-block-leak")):
+        found = explore(model).violations
+        if kind not in found:
+            raise AssertionError(f"phase 21(d): {model.name} reached "
+                                 f"{sorted(found)}, not {kind}")
+        caught[model.name] = kind
+    log(f"phase 21(d) protocol check: " + "; ".join(
+        f"{n} {m['states']} states, {m['transitions']} transitions"
+        for n, m in detail["models"].items())
+        + f", 0 violations, none truncated; mutations caught: {caught}")
+    return launches
+
+
 def collective_phases(dev, bw) -> list:
     """Phases 11-15 (the FlexTree collectives); returns their rows of the
     kernels line (``reduce_sources`` and ``reduce_stacked``, the fold
@@ -4635,6 +4964,9 @@ def main() -> int:
     t0 = time.monotonic()
     disagg_launches = phase_disagg(dev, smi)
     log(f"phase 20: {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    pool_launches = phase_pool(dev, smi)
+    log(f"phase 21: {time.monotonic() - t0:.1f} s")
     # each path's launches beside their sum
     for row in rows:
         if row["name"] in dp_launches:
@@ -4650,6 +4982,7 @@ def main() -> int:
             row["launches_by_path"].update(codec_launches)
         if row["name"] == "paged_attention":
             row["launches_by_path"]["disagg"] = disagg_launches
+            row["launches_by_path"]["pool"] = pool_launches
         row["launches"] = sum(row["launches_by_path"].values())
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -1,15 +1,18 @@
-"""Static analysis: the schedule model checker.
+"""Static analysis: the schedule model checker and the protocol checker.
 
-The port's copy of the IR part of ``flextree_tpu/analysis``: the
+The port's copy of part of ``flextree_tpu/analysis``: the
 :class:`~.base.Violation` record, the message-program checks of
 ``schedule_check`` that ``schedule.ir.compile_ir`` runs before it lowers a
-program, and the phase-program checks of the standalone reduce-scatter
-and all-gather that ZeRO-1 runs.  The JAX package's HLO, jit-hygiene,
-protocol and concurrency lints are not ported (ROADMAP.md, Queue 1:
-'JAX-specific static analysis, last').
+program, the phase-program checks of the standalone reduce-scatter and
+all-gather that ZeRO-1 runs, and ``protocol_check``'s exhaustive
+exploration of the RPC and KV-migration models.  The JAX package's HLO
+and jit-hygiene lints are not ported (ROADMAP.md, Queue 1: 'JAX-specific
+static analysis, last'); its concurrency lint and the coordination and
+lease models come with item 9.
 """
 
 from .base import Violation, violations_to_json
+from .protocol_check import default_models, explore, run_protocol_check
 from .schedule_check import (
     build_phase_program,
     check_ir,
@@ -34,4 +37,7 @@ __all__ = [
     "default_ir_matrix",
     "default_phase_matrix",
     "program_from_ir",
+    "default_models",
+    "explore",
+    "run_protocol_check",
 ]

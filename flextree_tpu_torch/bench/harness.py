@@ -721,16 +721,14 @@ def run_train_step_bench(cfg: TrainStepBenchConfig) -> dict:
     )
     from ..utils.profiling import exposed_split
 
-    refusals = (
-        (cfg.supervised, "supervised=True",
-         "'Checkpoint, supervision and feedback plumbing'"),
-        (cfg.recorder, "recorder=True", "'The rest of the serving tier'"),
-    )
-    for bad, what, item in refusals:
+    refusals = ((cfg.supervised, "supervised=True"),
+                (cfg.recorder, "recorder=True"))
+    for bad, what in refusals:
         if bad:
             raise NotImplementedError(f"TrainStepBenchConfig {what} is not "
                                       f"ported yet (ROADMAP.md, Queue 1: "
-                                      f"{item})")
+                                      f"'Checkpoint, supervision and "
+                                      f"feedback plumbing')")
     dev = resolve_device(cfg.device)
     n = cfg.devices or 8
     mesh = flat_mesh(n, dev, "dp")

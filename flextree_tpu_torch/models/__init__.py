@@ -7,6 +7,7 @@ from .generate import (
     generate,
     init_kv_cache,
     prefill,
+    prefill_ragged,
     prefill_suffix,
     sample_token,
 )
@@ -42,6 +43,7 @@ __all__ = [
     "cached_attention",
     "prefill",
     "prefill_suffix",
+    "prefill_ragged",
     "decode_step",
     "sample_token",
     "generate",

@@ -34,6 +34,7 @@ __all__ = [
     "init_kv_cache",
     "prefill",
     "prefill_suffix",
+    "prefill_ragged",
     "decode_step",
     "generate",
     "sample_token",
@@ -164,6 +165,29 @@ def prefill_suffix(params, tokens, prefix_kv, cfg: TransformerConfig,
         vc[:, :c] = pv
     logits, cache = _forward_cached(params, tokens, cache, c, cfg)
     return logits[:, -1], cache
+
+
+def prefill_ragged(params, tokens, lengths, cfg: TransformerConfig,
+                   max_len: int):
+    """Right-padded batched prefill: row ``b`` of ``tokens`` (B, T) is
+    real up to ``lengths[b]`` and padding after.  Returns ``(logits,
+    cache)`` with ``logits[b]`` taken at row ``b``'s LAST REAL token and
+    ``cache["length"] = lengths`` — so the first decode write lands at
+    each row's own length, progressively overwriting the pad K/V, and
+    the causal mask keeps not-yet-overwritten pad entries invisible
+    (every attended position <= q_pos has been written by then).  Decoded
+    continuations are therefore exactly what each row would produce
+    alone."""
+    b, t = tokens.shape
+    if t > max_len:
+        raise ValueError(f"padded prompt length {t} exceeds max_len {max_len}")
+    cache = init_kv_cache(cfg, b, max_len, tokens.device)
+    logits, cache = _forward_cached(params, tokens, cache, 0, cfg)
+    lengths = torch.as_tensor(lengths, dtype=torch.int32,
+                              device=tokens.device)
+    last = logits[torch.arange(b, device=tokens.device), lengths.long() - 1]
+    cache["length"] = lengths
+    return last, cache
 
 
 def decode_step(params, cache, token, cfg: TransformerConfig):

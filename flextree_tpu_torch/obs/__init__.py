@@ -1,13 +1,19 @@
 """Telemetry the serving tier and the gradient sync report through: the
-metrics registry and its Prometheus exposition, the flight recorder and
-the bucket-plan provenance (the port's copies of ``flextree_tpu.obs``'s)."""
+metrics registry, its cross-process window readers and its Prometheus
+exposition, the flight recorder, the bucket-plan provenance, and the
+cross-rank timeline (:mod:`.timeline`; ``python -m flextree_tpu_torch.obs``
+merges, validates and summarizes a run's obs directory) — the port's
+copies of ``flextree_tpu.obs``'s."""
 
 from .metrics import (
     Counter,
+    FrozenWindow,
     Gauge,
     Histogram,
     MetricsRegistry,
     WindowedHistogram,
+    load_window,
+    merged_window_percentile,
     prometheus_exposition,
 )
 from .provenance import bucket_provenance, topo_spec
@@ -19,6 +25,7 @@ from .recorder import (
     get_registry,
     install_signal_dump,
     record_event,
+    use_recorder,
 )
 
 __all__ = [
@@ -27,6 +34,9 @@ __all__ = [
     "Histogram",
     "WindowedHistogram",
     "MetricsRegistry",
+    "FrozenWindow",
+    "load_window",
+    "merged_window_percentile",
     "prometheus_exposition",
     "FlightRecorder",
     "current_recorder",
@@ -35,6 +45,7 @@ __all__ = [
     "get_registry",
     "install_signal_dump",
     "record_event",
+    "use_recorder",
     "bucket_provenance",
     "topo_spec",
 ]

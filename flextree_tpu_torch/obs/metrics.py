@@ -1,10 +1,11 @@
 """Metrics registry: counters / gauges / fixed-bucket histograms.
 
-The port's own copy of the instruments of ``flextree_tpu/obs/metrics.py``
-that the serving engine uses, and of its Prometheus text exposition
-(:func:`prometheus_exposition`, what the serving front door exports).
-The cross-process window readers (``FrozenWindow``, ``load_window``,
-``merged_window_percentile``) are not ported yet.
+The port's own copy of ``flextree_tpu/obs/metrics.py``: the
+instruments, the cross-process window readers (:class:`FrozenWindow`,
+:func:`load_window`, :func:`merged_window_percentile`) and the
+Prometheus text exposition (:func:`prometheus_exposition`, what the
+serving front door and ``python -m flextree_tpu_torch.obs metrics
+--prom`` export).
 
 The registry replaces the ad-hoc accounting that accreted around the
 runtime and serving layers (per-request stamp lists, scattered EWMA
@@ -37,8 +38,11 @@ __all__ = [
     "Gauge",
     "Histogram",
     "WindowedHistogram",
+    "FrozenWindow",
     "MetricsRegistry",
     "DEFAULT_MS_BUCKETS",
+    "load_window",
+    "merged_window_percentile",
     "prometheus_exposition",
 ]
 
@@ -374,6 +378,136 @@ class WindowedHistogram(Histogram):
         return p
 
 
+class FrozenWindow:
+    """A :class:`WindowedHistogram`'s rolling window reconstructed from a
+    serialized payload — the read side of the cross-process round-trip.
+
+    Quacks like the live histogram where it matters (``edges``,
+    ``window_s``, ``window_counts``/``window_percentile``), so
+    :func:`merged_window_percentile` merges frozen and live windows with
+    one code path.  The clock, though, is WALL time anchored at the
+    payload's ``wall`` stamp: a slot that was ``age`` intervals old when
+    serialized expires once ``age + elapsed_intervals >= intervals``, so
+    a stale metrics file decays to an empty window instead of asserting
+    its last breach forever (exactly the lazy-expiry rule the live ring
+    applies to its own slots)."""
+
+    def __init__(self, edges, *, interval_s, intervals, wall, slots):
+        self.edges = tuple(float(e) for e in edges)
+        self.interval_s = float(interval_s)
+        self.intervals = int(intervals)
+        self.wall = float(wall)
+        self._slots = [
+            {
+                "age": int(s["age"]),
+                "counts": [int(c) for c in s["counts"]],
+                "count": int(s["count"]),
+                "sum": float(s.get("sum") or 0.0),
+                "min": s.get("min"),
+                "max": s.get("max"),
+            }
+            for s in slots
+        ]
+
+    @property
+    def window_s(self) -> float:
+        return self.interval_s * self.intervals
+
+    def age_s(self, now: float | None = None) -> float:
+        """Seconds of wall clock since the payload was serialized."""
+        now = time.time() if now is None else now
+        return max(0.0, now - self.wall)
+
+    def window_counts(self, now: float | None = None):
+        """Merged ``(counts, count, sum, min, max)`` over the slots still
+        inside the window at wall time ``now`` (default: right now)."""
+        elapsed = int(self.age_s(now) // self.interval_s)
+        counts = [0] * (len(self.edges) + 1)
+        count, total = 0, 0.0
+        minv: float | None = None
+        maxv: float | None = None
+        for slot in self._slots:
+            if slot["age"] + elapsed >= self.intervals:
+                continue
+            for i, c in enumerate(slot["counts"]):
+                counts[i] += c
+            count += slot["count"]
+            total += slot["sum"]
+            if slot["min"] is not None:
+                minv = (
+                    slot["min"] if minv is None else min(minv, slot["min"])
+                )
+            if slot["max"] is not None:
+                maxv = (
+                    slot["max"] if maxv is None else max(maxv, slot["max"])
+                )
+        return counts, count, total, minv, maxv
+
+    def window_percentile(self, q: float, now: float | None = None) -> float:
+        if not 0.0 <= q <= 100.0:
+            raise ValueError(f"percentile must be in [0, 100], got {q}")
+        counts, count, _, minv, maxv = self.window_counts(now)
+        return _bucket_percentile(q, self.edges, counts, count, minv, maxv)
+
+    def window_count(self, now: float | None = None) -> int:
+        return self.window_counts(now)[1]
+
+
+def load_window(payload: dict) -> FrozenWindow | None:
+    """Reconstruct the rolling window from one histogram payload (the
+    dict under ``snapshot()["histograms"][name]``).  ``None`` when the
+    payload carries no windowed series — a plain histogram, or a file
+    written before the series existed (absent ≠ empty window: the caller
+    must treat it as "no windowed evidence", not "all clear")."""
+    window = payload.get("window") if isinstance(payload, dict) else None
+    if not isinstance(window, dict) or "slots" not in window:
+        return None
+    try:
+        return FrozenWindow(
+            window["edges"],
+            interval_s=window["interval_s"],
+            intervals=window["intervals"],
+            wall=window["wall"],
+            slots=window["slots"],
+        )
+    except (KeyError, TypeError, ValueError):
+        return None
+
+
+def merged_window_percentile(
+    hists, q: float, now: float | None = None
+) -> tuple[float, int]:
+    """``(percentile, sample_count)`` over the union of several
+    :class:`WindowedHistogram` windows — the arbiter's cross-replica SLO
+    reading (each serving replica owns its registry; the SLO is a
+    property of the POOL).  Histograms must share bucket edges; NaN with
+    count 0 when every window is empty."""
+    hists = [h for h in hists if h is not None]
+    if not hists:
+        return math.nan, 0
+    edges = hists[0].edges
+    for h in hists[1:]:
+        if h.edges != edges:
+            raise ValueError(
+                "merged_window_percentile needs identical bucket edges: "
+                f"{h.edges} vs {edges}"
+            )
+    counts = [0] * (len(edges) + 1)
+    count = 0
+    minv: float | None = None
+    maxv: float | None = None
+    for h in hists:
+        c, n, _, lo, hi = h.window_counts(now)
+        for i, v in enumerate(c):
+            counts[i] += v
+        count += n
+        if lo is not None:
+            minv = lo if minv is None else min(minv, lo)
+        if hi is not None:
+            maxv = hi if maxv is None else max(maxv, hi)
+    return _bucket_percentile(q, edges, counts, count, minv, maxv), count
+
+
 def _prom_name(name: str, prefix: str = "flextree_") -> str:
     """Sanitize a registry metric name into the Prometheus grammar
     (``[a-zA-Z_:][a-zA-Z0-9_:]*``): dots/dashes become underscores,
@@ -401,15 +535,11 @@ def prometheus_exposition(snapshots: dict, prefix: str = "flextree_") -> str:
     convention (cumulative ``_bucket{le=...}`` series from the snapshot's
     per-bucket counts, plus ``_sum``/``_count``); a windowed histogram
     additionally exposes its rolling-window view as ``_window_p99`` /
-    ``_window_count`` gauges — the exact numbers the JAX arbiter's SLO
-    breach check reads, so an external scraper alerts on the same
-    quantity.
-
-    One difference from the JAX package: a windowed histogram's gauges
-    are the payload's own ``window`` summary, as of its snapshot.  The
-    JAX exposition re-ages a payload's window off its wall stamp at read
-    time (``load_window``), which matters for a stale metrics file; for
-    a live snapshot, as the front door renders, the two agree.
+    ``_window_count`` gauges — the exact numbers an SLO breach check
+    reads, so an external scraper alerts on the same quantity.  A payload
+    that carries the windowed series is re-aged off its wall stamp at
+    read time (:func:`load_window`): a scrape of a stale metrics file
+    sees the window drain.
     """
     types: dict[str, str] = {}
     lines_by_name: dict[str, list[str]] = {}
@@ -452,6 +582,15 @@ def prometheus_exposition(snapshots: dict, prefix: str = "flextree_") -> str:
             if isinstance(window, dict):
                 p99 = window.get("p99")
                 count = window.get("count", 0)
+                # a payload carrying the windowed series re-answers at
+                # READ time, aged off the wall stamp — a scrape of a
+                # stale metrics file must see the window drain, not the
+                # last write's summary frozen forever
+                frozen = load_window(h)
+                if frozen is not None:
+                    v = frozen.window_percentile(99.0)
+                    p99 = None if math.isnan(v) else round(v, 6)
+                    count = frozen.window_count()
                 wn = n + "_window_p99"
                 if p99 is not None:
                     emit(wn, "gauge", f"{wn}{lbl} {p99}")

@@ -2,11 +2,13 @@
 
 The port's copy of ``flextree_tpu/obs/recorder.py``.  Events carry the
 same fields as the JAX package's (``ts``, ``rank``, ``src``, ``seq``,
-``kind``), so its timeline tools read the port's files.
+``kind``), so either package's timeline tools read the other's files.
+One addition: :func:`use_recorder` gives a thread a recorder of its own,
+so in-process replicas record on tracks of their own.
 
 1. **Cheap when off.**  :func:`record_event` is the library-wide
-   instrumentation call; with no recorder installed it is one module
-   attribute read and a ``None`` check.
+   instrumentation call; with no recorder installed it is a thread-local
+   and a module attribute read and a ``None`` check.
 2. **Cheap when on.**  ``record`` appends a small dict to a
    ``deque(maxlen=capacity)`` and stages the serialized line into a
    write buffer.  The file is touched only when the buffer reaches
@@ -46,6 +48,7 @@ __all__ = [
     "FlightRecorder",
     "flight_recorder",
     "current_recorder",
+    "use_recorder",
     "record_event",
     "dump_current",
     "get_registry",
@@ -260,10 +263,29 @@ class FlightRecorder:
 
 _CURRENT: FlightRecorder | None = None
 _CURRENT_REGISTRY: MetricsRegistry | None = None
+# a thread's own recorder, set by use_recorder: it wins over _CURRENT for
+# the events that thread records
+_THREAD = threading.local()
 
 
 def current_recorder() -> FlightRecorder | None:
-    return _CURRENT
+    return getattr(_THREAD, "recorder", None) or _CURRENT
+
+
+@contextlib.contextmanager
+def use_recorder(recorder: FlightRecorder | None):
+    """Send the events THIS thread records in the enclosed block to
+    ``recorder`` (``None``: back to the ambient one); other threads keep
+    theirs.  Nests.  In-process replicas use it to record on tracks of
+    their own, as replica processes do: each replica's rounds run under a
+    recorder of its own rank, and the merged timeline draws a re-routed
+    request's flow from one replica's track to the other's."""
+    prev = getattr(_THREAD, "recorder", None)
+    _THREAD.recorder = recorder
+    try:
+        yield recorder
+    finally:
+        _THREAD.recorder = prev
 
 
 def get_registry() -> MetricsRegistry | None:
@@ -274,14 +296,14 @@ def get_registry() -> MetricsRegistry | None:
 def record_event(kind: str, **fields) -> None:
     """Record into the ambient recorder; no-op (one ``None`` check) when
     no recorder is installed."""
-    rec = _CURRENT
+    rec = getattr(_THREAD, "recorder", None) or _CURRENT
     if rec is not None:
         rec.record(kind, **fields)
 
 
 def dump_current(reason: str, **fields) -> str | None:
     """Dump the ambient recorder (no-op when none installed)."""
-    rec = _CURRENT
+    rec = getattr(_THREAD, "recorder", None) or _CURRENT
     if rec is not None:
         return rec.dump(reason, **fields)
     return None

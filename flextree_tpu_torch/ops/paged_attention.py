@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 
 import torch
 
@@ -269,7 +270,8 @@ def _launch(q, k_new, v_new, k_pool, v_pool, tables, lengths, scale):
         raise RuntimeError(
             f"paged_attention kernel launch failed: CUDA error {rc}"
         )
-    paged_attention.launches += 1
+    with _COUNT_LOCK:  # replicas may launch from threads of their own
+        paged_attention.launches += 1
     return out
 
 
@@ -318,3 +320,4 @@ def paged_attention(q, k_new, v_new, k_pool, v_pool, tables, lengths, *,
 
 #: Kernel launches since the count was last reset (set it to 0 to reset).
 paged_attention.launches = 0
+_COUNT_LOCK = threading.Lock()

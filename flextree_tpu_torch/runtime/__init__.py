@@ -5,10 +5,12 @@ JAX-free parts that the serving tier needs):
   files, heartbeats, handoff documents), the same format as the JAX
   package's;
 - :mod:`.supervisor` — heartbeat/lease membership: HEALTHY / STRAGGLER /
-  DEAD.
+  DEAD;
+- :mod:`.watchdog` — the step deadline: a hung call becomes a typed
+  ``StepTimeout`` and its worker thread is abandoned.
 
-The watchdog, leases, coordination and preemption guard of the JAX
-package come with the port's supervision slice (ROADMAP Queue 1 item 9).
+The leases, coordination and preemption guard of the JAX package come
+with the port's supervision slice (ROADMAP Queue 1 item 9).
 """
 
 from .ctrlfile import control_trailer, read_control_json, write_control_json
@@ -20,6 +22,12 @@ from .supervisor import (
     PeerStatus,
     Supervisor,
     SupervisorConfig,
+)
+from .watchdog import (
+    FT_STEP_TIMEOUT_ENV,
+    StepTimeout,
+    StepWatchdog,
+    step_timeout_from_env,
 )
 
 __all__ = [
@@ -33,4 +41,8 @@ __all__ = [
     "Supervisor",
     "PeerStatus",
     "MembershipView",
+    "FT_STEP_TIMEOUT_ENV",
+    "StepTimeout",
+    "StepWatchdog",
+    "step_timeout_from_env",
 ]

@@ -17,11 +17,14 @@
   flextree_tpu_torch.serving.replica_main --role prefill|decode|both``,
   heartbeat-registered, SIGTERM-drainable), and the front door that
   routes, retries, hedges, sheds and sends long prompts through a
-  prefill replica to a decode replica, with exactly-once results.
-
-Not ported yet: the in-process replica pool (``serving/pool.py``), the
-load generator (``workload.py``) and the protocol model (``rpc_model.py``)
-— ROADMAP Queue 1 item 7.
+  prefill replica to a decode replica, with exactly-once results;
+- :mod:`.pool` — the in-process elastic replica pool: engines under
+  heartbeat supervision and a step watchdog, a dead replica's requests
+  drained and re-routed to the survivors, exactly once (the reference
+  semantics the real-process tier is held to);
+- :mod:`.workload` — the open-loop spike load generator;
+- :mod:`.rpc_model` — the RPC and KV-migration protocols as explicit
+  transition models (``analysis.protocol_check`` explores them).
 """
 
 from .batcher import (
@@ -59,6 +62,7 @@ from .migration import (
     pack_kv,
     unpack_kv,
 )
+from .pool import PoolConfig, ReplicaFailed, ReplicaPool
 from .prefix_index import PrefixIndex, PrefixIndexError
 from .rpc import (
     RpcConnection,
@@ -92,6 +96,9 @@ __all__ = [
     "write_swapped",
     "PrefixIndex",
     "PrefixIndexError",
+    "PoolConfig",
+    "ReplicaFailed",
+    "ReplicaPool",
     "MigrationError",
     "pack_kv",
     "unpack_kv",

@@ -1,9 +1,7 @@
 """Continuous batcher: request queue, admission by token budget, slots.
 
 The port's own copy of ``flextree_tpu/serving/batcher.py`` (which imports
-no JAX, but the port imports nothing of the JAX package), less the
-replica pool's ``inflight_requests``, whose caller (``serving/pool.py``)
-is not ported yet.
+no JAX, but the port imports nothing of the JAX package).
 
 The batcher is a pure host-side state machine — no tensors in this
 module — so every transition is unit-testable without a device.  State:
@@ -595,3 +593,13 @@ class ContinuousBatcher:
             and not self.preempted
             and all(s is None for s in self.slots)
         )
+
+    def inflight_requests(self) -> list:
+        """Every submitted-but-unfinished request — queued, resident, or
+        preempted.  The replica pool drains this to re-route off a dead
+        replica; a preempted sequence missing here would be the silently
+        lost request the exactly-once contract forbids."""
+        out = [s.request for s in self.slots if s is not None]
+        out.extend(p.state.request for p in self.preempted)
+        out.extend(self.queue)
+        return out

@@ -633,7 +633,8 @@ class ReplicaServer:
             return
         # idempotent re-send (the prefill side retried after a lost ack):
         # the sequence is already ours — ack again, never double-admit
-        if rid in self.engine.completed or rid in self._resident_rids():
+        inflight = {r.rid for r in self.engine.batcher.inflight_requests()}
+        if rid in self.engine.completed or rid in inflight:
             self.engine.metrics.counter("serve.dedup_hits").inc()
             record_event("serve_dedup", rid=rid, stage="migrated")
             self._respond(conn, corr,
@@ -676,16 +677,6 @@ class ReplicaServer:
         self._recv_stamp[rid] = recv_mono
         self._respond(conn, corr,
                       {"ok": True, "admitted": True, "rid": rid})
-
-    def _resident_rids(self) -> set:
-        """Rids the engine holds right now: queued, in a slot, or
-        preempted (the batcher's ``inflight_requests``, which only the
-        replica pool calls in the JAX package)."""
-        b = self.engine.batcher
-        rids = {r.rid for r in b.queue}
-        rids.update(s.rid for s in b.slots if s is not None)
-        rids.update(p.state.rid for p in b.preempted)
-        return rids
 
     def _flush_completions(self) -> None:
         if not self._waiters:

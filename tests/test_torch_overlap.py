@@ -361,26 +361,38 @@ def test_overlapped_step_matches_jax(jax_state):
                                    comm=flat_mesh(4, "cpu", "dp"))
     jstate = jax.tree.map(jnp.asarray, jax_state)
     tstate = train_state_from_numpy(jax_state, device="cpu")
-    tokens, targets = _batch(20, (4, 16))
     cfg = jt.TransformerConfig(**DIMS)
 
-    def loss(p):
-        total, _ = jt.cross_entropy_loss(jt.forward(p, tokens, cfg), targets)
-        return total / tokens.size
+    def grads(params, tokens, targets):
+        """The JAX gradient of the step's loss, on host copies."""
+        def loss(p):
+            total, _ = jt.cross_entropy_loss(jt.forward(p, tokens, cfg),
+                                             targets)
+            return total / tokens.size
 
-    g1 = jax.tree.leaves(_np(jax.grad(loss)(jstate["params"])))
-    steps = 2
+        params = jax.tree.map(lambda x: jnp.asarray(np.asarray(x)), params)
+        return jax.tree.leaves(_np(jax.grad(loss)(params)))
+
+    steps, gs = 2, []
     for i in range(steps):
         tokens, targets = _batch(20 + i, (4, 16))
+        gs.append(grads(jstate["params"], tokens, targets))
         jstate, jm = jstep(jstate, jnp.asarray(tokens), jnp.asarray(targets))
         tstate, tm = tstep(tstate, tokens, targets)
         _close(tm["loss"].item(), float(jm["loss"]), 0, rtol=1e-6)
     want = _np(jstate)
     got = train_state_to_numpy(tstate)
     assert int(got["step"]) == int(want["step"]) == steps
-    for a, b, g in zip(jax.tree.leaves(want["params"]),
-                       jax.tree.leaves(got["params"]), g1):
-        tiny = np.abs(g) < 1e-7
+    for a, b, g1, g2 in zip(jax.tree.leaves(want["params"]),
+                            jax.tree.leaves(got["params"]), *gs):
+        # AdamW divides step 1's update by |g1| + eps and step 2's by its
+        # second moment's root, ~|(g1, g2)| / sqrt(2).  The JAX and port
+        # gradients differ by up to ~1e-7 here (their summation orders),
+        # which moves an update by up to lr * eps * gap / (|g1| + eps)**2
+        # on step 1 and ~lr * gap / |(g1, g2)| on step 2: past the 1e-5
+        # bar where |g1| < 1e-6 or |(g1, g2)| < 1e-5.  Those elements are
+        # held to the most two updates can move a parameter apart.
+        tiny = (np.abs(g1) < 1e-6) | (np.hypot(g1, g2) < 1e-5)
         _close(b[~tiny], a[~tiny], 1e-5)
         _close(b[tiny], a[tiny], 2 * KW["lr"] * steps)
 
@@ -462,7 +474,7 @@ def test_train_step_bench_has_the_six_rows():
         acct = out["opt_state_bytes"][name]
         assert acct["live_bytes_per_rank"] == acct["sharded_bytes_per_rank"]
     for flag, item in (("supervised", "supervision"),
-                       ("recorder", "serving tier")):
+                       ("recorder", "supervision")):
         with pytest.raises(NotImplementedError, match=item):
             run_train_step_bench(TrainStepBenchConfig(**{flag: True},
                                                       device="cpu"))
