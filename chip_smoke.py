@@ -251,14 +251,35 @@ failure raises and exits non-zero:
     re-routed request's flow spanning both replica tracks, ``python -m
     flextree_tpu_torch.obs metrics DIR --prom`` printing the TTFT window's
     p99 gauge; (d) the protocol models clean, each mutation caught.
+22. sequence and tensor parallelism on a (2, 2, 2) dp/sp/tp mesh — (a)
+    each flash kernel against its plain version at the path's shapes
+    (phase 7's bars): a ring hop (B=4, T=512, H=4, D=64; the resident
+    block causal, a past block not, both with an lse cotangent), the
+    zigzag's half-shard chunks (T=256) the same way, the Ulysses inner
+    attention (T=1024, H=2); the fold kernel at the tensor-parallel
+    combine (bf16, W=2, 4 x 512 x 512, forward and backward) and at the
+    bucketed sync of seeded slices, each bitwise the same on host copies
+    (the sync: the per-leaf sync's plain folds), its bodies printed; (b)
+    ``trainer.main --mesh 2,2,2 --sp-impl {ring, zigzag, ulysses}`` and
+    ``--mesh 8,1,1`` at the flagship width (bf16, flash, batch 8 x 1024,
+    10 steps): the loss finite and falling, each flash kernel's and the
+    fold kernel's launches the counts the code gives, then the steady step
+    of each in turns, its device time and busy share under
+    ``torch.profiler`` and the peak memory (printed, not gated); (c)
+    float32 at full width, each sp_impl on (2, 2, 2) against one rank, 3
+    steps on the same batches: losses within rtol 1e-5, the step-1 synced
+    gradient within 1e-5, the parameters within 1e-5 except on AdamW's
+    ill-conditioned elements (picked as ``tests/test_torch_overlap.py``
+    picks them), which are held to 2 lr a step.
 
 The kernels line gives each kernel's launches by path
 (``launches_by_path``: serve, train, dp_train, allreduce, ir_families,
 reduce_bench, codec for phase 17(a) and (d), codec_sync for phase 17(b),
 dp_codec for phase 17(c)'s int8 run, dp_overlap for phase 18(a), dp_zero
 for phase 19(a), disagg for phase 20: the in-process decode engine's f32
-run plus the decode replica process's, pool for phase 21(a)'s f32 run)
-and their sum (``launches``).
+run plus the decode replica process's, pool for phase 21(a)'s f32 run,
+sp_ring, sp_zigzag and sp_ulysses for phase 22(b)'s three runs) and their
+sum (``launches``).
 
 Prints each phase's seconds, a ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Exits
@@ -271,6 +292,7 @@ import collections
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -4464,6 +4486,394 @@ def phase_pool(dev, smi) -> int:
     return launches
 
 
+SP_MESH = (2, 2, 2)  # (dp, sp, tp), the JAX trainer's --devices 8
+SP_IMPLS = ("ring", "zigzag", "ulysses")
+SP_STEPS = 10
+SP_ARGV = TRAIN_ARGV + ["--mesh", ",".join(map(str, SP_MESH))]
+SP_ARGV[SP_ARGV.index("--steps") + 1] = str(SP_STEPS)
+SP_DP_ARGV = TRAIN_ARGV + ["--mesh", f"{DP},1,1"]
+SP_DP_ARGV[SP_DP_ARGV.index("--steps") + 1] = str(SP_STEPS)
+SP_F32_STEPS = 3
+SP_F32_BATCH = 2
+SP_TIMED = 4  # steady steps of each run, in turns
+
+
+def sp_flash_cases():
+    """The flash parity cases of the sp/tp path's shapes at the flagship on
+    ``SP_MESH``: one rank's ring hop (its T/sp shard, H/tp heads; the
+    resident block causal, a past block not, both with an lse
+    cotangent), the zigzag's half-shard chunks the same way, and the
+    Ulysses inner attention (the whole sequence, H/(tp sp) heads)."""
+    dp, sp, tp = SP_MESH
+    b, t, h, d = FLASH_TRAIN
+    bl, tl, hl = b // dp, t // sp, h // tp
+    return (
+        ("ring_diag", bl, tl, tl, hl, d, True, 0, 0, True),
+        ("ring_past", bl, tl, tl, hl, d, False, 0, 0, True),
+        ("zigzag_diag", bl, tl // 2, tl // 2, hl, d, True, 0, 0, True),
+        ("zigzag_past", bl, tl // 2, tl // 2, hl, d, False, 0, 0, True),
+        ("ulysses", bl, t, t, hl // sp, d, True, 0, 0, False),
+    )
+
+
+def sp_flash_launches(impl: str, shape, layers: int) -> int:
+    """Each flash kernel's launches a step, from the code: each forward
+    call has one dq and one dk/dv.  The causal ring calls the kernel on
+    the resident block and on each block from an earlier rank of its sp
+    group (``n + n(n-1)/2`` a group and layer; a future block launches
+    nothing); the zigzag on both chunk pairs at the first hop plus the
+    late-vs-early pair, then one visible pair and the late-vs-early pair
+    a hop (``2n + 1`` a rank); Ulysses once a rank."""
+    dp, sp, tp = shape
+    world = dp * sp * tp
+    if sp == 1 or impl == "ulysses":
+        per_layer = world
+    elif impl == "ring":
+        per_layer = world // sp * (sp + sp * (sp - 1) // 2)
+    else:
+        per_layer = world * (2 * sp + 1)
+    return layers * per_layer
+
+
+def sp_fold_launches(shape, leaves, specs, ar, bk, tm, rs):
+    """The fold kernel's launches a step on ``shape``, from the code: the
+    tensor-parallel combine (two a layer, forward and backward, on every
+    tp group; each one allreduce of B/dp x T/sp x d elements) and the
+    bucketed sync (each bucket on each of its axes, once a group along the
+    axis; ``sync_fold_stages``).  ``leaves``/``specs``: a rank's slices
+    and their specs."""
+    dp, sp, tp = shape
+    world = dp * sp * tp
+    sizes = dict(zip(tm.AXIS_NAMES, shape))
+    b, t = FLASH_TRAIN[:2]
+    combine = 0
+    if tp > 1:
+        count = b // dp * (t // sp) * MODEL["d_model"]
+        combine = 2 * 2 * MODEL["n_layers"] * (world // tp) * stage_launches(
+            ar.call_shape(tp, None, count).folds, rs.MAX_POINTERS)
+    topos = tm.resolve_axis_topos(sizes, tm.AXIS_NAMES, None)
+    plan = bk.plan_buckets(leaves, specs, tm.AXIS_NAMES, topos=topos,
+                           axis_sizes=sizes)
+    numels = [g.numel() for g in leaves]
+    sync = sum(world // sizes[ax] * stage_launches(
+        bk.sync_fold_stages(numels, sizes[ax], topos[ax], [bkt]),
+        rs.MAX_POINTERS) for bkt in plan for ax in bkt.axes)
+    return combine, sync, plan
+
+
+def sp_fold_checks(dev, tm, bk, ar, rs, spmd, cm, shards, pspecs):
+    """Phase 22(a), the fold kernel: the tensor-parallel combine (forward
+    and its backward, bf16, the combine's length, W=2) on the card bitwise
+    the same on host copies, where the fold is its plain version; the
+    bucketed sync of seeded slices on ``SP_MESH`` bitwise the per-leaf
+    sync on the card and on host copies (whose bits no bucket plan moves);
+    the bodies the kernel took are printed."""
+    from flextree_tpu_torch.parallel.mesh import Mesh
+
+    world = math.prod(SP_MESH)
+    mesh = Mesh((dev,) * world, tm.AXIS_NAMES, SP_MESH)
+    host = Mesh(("cpu",) * world, tm.AXIS_NAMES, SP_MESH)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    dp, sp, tp = SP_MESH
+    b, t = FLASH_TRAIN[:2]
+    shape = (b // dp, t // sp, MODEL["d_model"])
+
+    def combine(xs, gs, m):
+        xs = [x.detach().requires_grad_() for x in xs]
+        ys = spmd.axis(m, "tp").allreduce(xs)
+        return ys, torch.autograd.grad(ys, xs, grad_outputs=gs)
+
+    xs = [torch.randn(shape, generator=gen, device=dev).bfloat16()
+          for _ in range(world)]
+    gs = [torch.randn(shape, generator=gen, device=dev).bfloat16()
+          for _ in range(world)]
+    with fold_bodies(rs, cm, ar) as seen:
+        ys, dxs = combine(xs, gs, mesh)
+        torch.cuda.synchronize()
+    hys, hdxs = combine([x.cpu() for x in xs], [g.cpu() for g in gs], host)
+    if not all(same_bits(a.cpu(), b_) for a, b_ in zip(ys + list(dxs),
+                                                       hys + list(hdxs))):
+        raise AssertionError("phase 22(a): the combine on the fold kernel is "
+                             "not bitwise its plain fold on the host")
+    check_bodies(seen, "phase 22(a) combine", 0)
+    log(f"phase 22(a) tp combine {tuple(shape)} bf16 on {world} ranks "
+        f"({len(spmd.axis(mesh, 'tp').groups)} groups of {tp}), forward and "
+        f"backward: bitwise the plain fold on host copies; bodies "
+        f"{describe_bodies(seen)}")
+    trees = [tm.tree_map(lambda p: torch.randn(
+        p.shape, generator=gen, device=dev), s) for s in shards]
+    sizes = dict(zip(tm.AXIS_NAMES, SP_MESH))
+    topos = tm.resolve_axis_topos(sizes, tm.AXIS_NAMES, None)
+    leaves = tm.tree_leaves(trees[0])
+    specs = bk.spec_leaves(trees[0], pspecs)
+    plan = bk.plan_buckets(leaves, specs, tm.AXIS_NAMES, topos=topos,
+                           axis_sizes=sizes)
+    with fold_bodies(rs, cm, ar) as seen:
+        fused = tm.sync_grads(trees, pspecs, tm.AXIS_NAMES, topos,
+                              bucket_bytes=None, comm=mesh)
+        torch.cuda.synchronize()
+    per_leaf = tm.sync_grads(trees, pspecs, tm.AXIS_NAMES, topos,
+                             bucket_bytes=0, comm=mesh)
+    if not trees_identical(fused, per_leaf, tm.tree_leaves):
+        raise AssertionError("phase 22(a): the bucketed sync is not bitwise "
+                             "the per-leaf sync on the mesh")
+    # the host's per-leaf sync (plain folds) is the oracle: the plan of
+    # the bucketed sync has no bearing on its bits
+    plain = tm.sync_grads([tm.tree_map(lambda g: g.cpu(), tr) for tr in trees],
+                          pspecs, tm.AXIS_NAMES, topos, bucket_bytes=0,
+                          comm=host)
+    if not trees_identical([tm.tree_map(lambda g: g.cpu(), tr)
+                            for tr in fused], plain, tm.tree_leaves):
+        raise AssertionError("phase 22(a): the sync on the fold kernel is "
+                             "not bitwise the per-leaf sync's plain folds on "
+                             "the host")
+    log(f"phase 22(a) sync of seeded slices on {SP_MESH}: plan "
+        f"{[(bkt.axes, len(bkt.indices), bkt.nbytes) for bkt in plan]}; "
+        f"bucketed == per-leaf bitwise, == the host's per-leaf plain folds "
+        f"bitwise; "
+        f"bodies {describe_bodies(seen)}")
+
+
+def sp_train_run(trainer, argv, fa, rs):
+    """One ``trainer.main`` run, every count set to 0 just before and read
+    just after: ``(out, launches, peak bytes, wall s)``."""
+    out: dict = {}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_flash_counts(fa)
+    rs.reduce_sources.launches = 0
+    t0 = time.monotonic()
+    trainer.main(argv, out=out)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = dict(flash_counts(fa), reduce_sources=rs.reduce_sources.launches)
+    return out, launches, torch.cuda.max_memory_allocated(), wall
+
+
+def phase_sp_tp(dev, smi):
+    """Phase 22: sequence and tensor parallelism over a (2, 2, 2) mesh.
+    (a) the flash kernels at the path's hop shapes against their plain
+    versions (phase 7's bars), the fold at the combine's and the sync's
+    shapes bitwise its plain fold on the host; (b) ``trainer.main --mesh
+    2,2,2 --sp-impl {ring, zigzag, ulysses}`` at the flagship width (bf16,
+    flash, batch 8 x 1024, 10 steps) beside ``--mesh 8,1,1``: the loss
+    finite and falling, each kernel's launches the code's count, then the
+    steady step of each in turns, the busy share and the peak memory
+    (printed, not gated); (c) float32 at full width, each sp_impl on (2, 2,
+    2) against one rank, 3 steps on the same batches
+    (:func:`sp_f32_equivalence`).  Returns each kernel's launches by
+    path."""
+    from flextree_tpu_torch import trainer
+    from flextree_tpu_torch.models.transformer import (
+        TransformerConfig,
+        init_params,
+        param_specs,
+    )
+    from flextree_tpu_torch.ops import flash_attention as fa
+    from flextree_tpu_torch.ops import reduce_stacked as rs
+    from flextree_tpu_torch.parallel import allreduce as ar
+    from flextree_tpu_torch.parallel import bucketing as bk
+    from flextree_tpu_torch.parallel import compressed as cm
+    from flextree_tpu_torch.parallel import spmd
+    from flextree_tpu_torch.parallel import train as tm
+    from flextree_tpu_torch.parallel.mesh import Mesh, flat_mesh
+
+    # ---- (a) the kernels at this path's shapes
+    gen = torch.Generator().manual_seed(SEED + 22)
+    for case in sp_flash_cases():
+        for tname, dtype in (("f32", torch.float32),
+                             ("bf16", torch.bfloat16)):
+            errs, failures, note, _ = flash_compare(fa, case, dtype, dev, gen)
+            if failures:
+                raise AssertionError(f"phase 22(a) flash "
+                                     f"{describe_case(case, tname)}: "
+                                     + "; ".join(failures))
+            log(f"phase 22(a) flash {describe_case(case, tname)}: "
+                f"{describe_errors(errs)}; {note}")
+    torch.cuda.empty_cache()
+    cfg = TransformerConfig(**MODEL)
+    pspecs = param_specs(cfg)
+    world = math.prod(SP_MESH)
+    full = init_params(cfg, torch.Generator().manual_seed(SEED), device=dev)
+    shards = spmd.shard_tree(full, pspecs, Mesh((dev,) * world,
+                                                tm.AXIS_NAMES, SP_MESH))
+    sp_fold_checks(dev, tm, bk, ar, rs, spmd, cm, shards, pspecs)
+    leaves = tm.tree_leaves(shards[0])
+    specs = bk.spec_leaves(shards[0], pspecs)
+    dp_leaves, dp_specs = tm.tree_leaves(full), bk.spec_leaves(full, pspecs)
+    del shards
+    torch.cuda.empty_cache()
+
+    # ---- (b) the trainer on (2, 2, 2) by sp_impl, and dp=8 beside it
+    layers = MODEL["n_layers"]
+    runs, by_path = {}, {}
+    for impl in SP_IMPLS + ("dp8",):
+        argv = SP_DP_ARGV if impl == "dp8" else SP_ARGV + ["--sp-impl", impl]
+        shape = (DP, 1, 1) if impl == "dp8" else SP_MESH
+        out, launches, peak, wall = sp_train_run(trainer, argv, fa, rs)
+        res = out["result"]
+        losses = [loss for _, loss in res.losses]
+        if len(losses) != SP_STEPS or not all(np.isfinite(losses)) or \
+                not losses[-1] < losses[0]:
+            raise AssertionError(f"phase 22(b) {impl}: losses not finite "
+                                 f"and falling: {losses}")
+        flash_want = SP_STEPS * sp_flash_launches(
+            "ring" if impl == "dp8" else impl, shape, layers)
+        combine, sync, plan = sp_fold_launches(
+            shape, *((dp_leaves, dp_specs) if impl == "dp8" else
+                     (leaves, specs)), ar, bk, tm, rs)
+        fold_want = SP_STEPS * (combine + sync)
+        if any(launches[k] != flash_want for k in flash_counts(fa)) or \
+                launches["reduce_sources"] != fold_want:
+            raise AssertionError(
+                f"phase 22(b) {impl}: launches {launches}; the code gives "
+                f"flash {flash_want} each and folds {fold_want} ({SP_STEPS} "
+                f"steps x (combine {combine} + sync {sync}))")
+        hist = res.report.metrics["histograms"]["train.step_ms"]
+        runs[impl] = dict(out=out, shape=shape, peak=peak, wall=wall,
+                          losses=losses, launches=launches, p50=hist["p50"])
+        if impl != "dp8":
+            by_path[f"sp_{impl}"] = launches
+        log(f"phase 22(b) {impl} on mesh {dict(zip(tm.AXIS_NAMES, shape))} "
+            f"(flagship, bf16, flash, B=8 T=1024, {SP_STEPS} steps via "
+            f"trainer.main): loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+            f"launches {launches} = the code's (flash {flash_want}; folds "
+            f"{SP_STEPS} x (combine {combine} + sync {sync}), sync plan "
+            f"{[(bkt.axes, len(bkt.indices)) for bkt in plan]}); registry "
+            f"step_ms p50 {hist['p50']}; peak memory {peak / 2**30:.3f} GiB; "
+            f"{wall:.1f} s")
+        torch.cuda.empty_cache()
+    # steady steps of every run from its trained state, in turns
+    b, t = FLASH_TRAIN[:2]
+    data = np.random.default_rng(SEED).integers(
+        0, MODEL["vocab_size"], (2, b, t)).astype(np.int32)
+    steps = {}
+    for impl, r in runs.items():
+        comm = flat_mesh(DP, dev, "dp") if impl == "dp8" else \
+            Mesh((dev,) * world, tm.AXIS_NAMES, SP_MESH)
+        steps[impl] = (tm.make_train_step(r["out"]["model_cfg"],
+                                          r["out"]["train_cfg"], comm=comm),
+                       r["out"]["result"].state)
+    times = {k: [] for k in steps}
+    order = list(steps)
+    for i in range(SP_TIMED + 1):
+        for impl in (order if i % 2 else order[::-1]):
+            step, state = steps[impl]
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            state, m = step(state, data[0], data[1])
+            float(m["loss"])
+            if i:  # the first round warms each step up
+                times[impl].append(time.monotonic() - t0)
+            steps[impl] = (step, state)
+    for impl in order:
+        step, state = steps[impl]
+
+        def two_steps(step=step, state=state):
+            s = state
+            for _ in range(2):
+                s, m = step(s, data[0], data[1])
+            float(m["loss"])
+
+        prof = device_profile(two_steps, f"phase 22(b) profile {impl} "
+                              f"(2 steps)")
+        r = runs[impl]
+        r["step_ms"] = float(np.median(times[impl])) * 1e3
+        r["busy_share"] = prof["device_busy_share"]
+        r["device_ms"] = None if prof["device_busy_s"] is None else \
+            prof["device_busy_s"] * 1e3 / 2
+    base = runs["dp8"]["step_ms"]
+    for impl in order:
+        r = runs[impl]
+        log(f"phase 22(b) steady {impl}: median step {r['step_ms']:.3f} ms "
+            f"({SP_TIMED} steps in turns; {r['step_ms'] / base:.2f}x dp=8's "
+            f"{base:.3f}), {b * t / r['step_ms'] * 1e3:.0f} tokens/s; device "
+            + ("not measured" if r["device_ms"] is None else
+               f"{r['device_ms']:.3f} ms a step, busy "
+               f"{100 * r['busy_share']:.1f}% of the wall (torch.profiler)")
+            + f"; peak memory {r['peak'] / 2**30:.3f} GiB; {smi}")
+    del steps, runs, full, dp_leaves
+    torch.cuda.empty_cache()
+
+    sp_f32_equivalence(dev, cfg, tm)
+    return by_path
+
+
+def sp_f32_equivalence(dev, cfg, tm):
+    """Phase 22(c): float32 at full width, each sp_impl on ``SP_MESH``
+    against one rank, ``SP_F32_STEPS`` steps from one state on the same
+    batches, flash attention: the losses within rtol 1e-5 and the step-1
+    synced gradient within atol 1e-5, checked; the parameters within atol
+    1e-5 except on the elements where AdamW's update is ill-conditioned,
+    picked from the one-rank run's gradients as
+    ``tests/test_torch_overlap.py`` picks them (|g1| < 1e-6 or |(g1, g2)|
+    < 1e-5), which are held to the most the updates can move a parameter,
+    2 lr a step."""
+    from flextree_tpu_torch.data import LMDataset, synthetic_tokens
+    from flextree_tpu_torch.models.transformer import TransformerConfig
+    from flextree_tpu_torch.parallel.mesh import Mesh
+
+    t = FLASH_TRAIN[1]
+    world = math.prod(SP_MESH)
+    dataset = LMDataset(synthetic_tokens(200_000, MODEL["vocab_size"],
+                                         seed=SEED),
+                        batch=SP_F32_BATCH, seq_len=t, seed=SEED)
+    batches = [dataset.batch_at(i) for i in range(SP_F32_STEPS)]
+    init = tm.init_train_state(cfg, torch.Generator().manual_seed(SEED),
+                               device=dev)
+    lr = tm.TrainConfig().lr
+    mesh = Mesh((dev,) * world, tm.AXIS_NAMES, SP_MESH)
+
+    def f32_steps(impl, comm):
+        c = TransformerConfig(**MODEL, attn_impl="flash", sp_impl=impl)
+        step = tm.make_train_step(c, tm.TrainConfig(), device=dev, comm=comm)
+        grads = tm.make_loss_and_grads(c, tm.TrainConfig(), device=dev,
+                                       comm=comm)
+        state, losses, gs = init, [], []
+        for tokens, targets in batches:
+            gs.append([g.cpu() for g in tm.tree_leaves(
+                grads(state["params"], tokens, targets)[1])])
+            state, m = step(state, tokens, targets)
+            losses.append(float(m["loss"]))
+        return losses, [p.cpu() for p in tm.tree_leaves(state["params"])], gs
+
+    want = f32_steps("ring", None)
+    tiny_masks = [(g1.abs() < 1e-6) | (torch.hypot(g1, g2) < 1e-5)
+                  for g1, g2 in zip(want[2][0], want[2][1])]
+    bound = 2 * lr * SP_F32_STEPS
+    for impl in SP_IMPLS:
+        losses, params, gs = f32_steps(impl, mesh)
+        loss_rel = max(abs(a - b_) / abs(b_) for a, b_ in zip(losses,
+                                                              want[0]))
+        grad_abs = max((a - b_).abs().max().item()
+                       for a, b_ in zip(gs[0], want[2][0]))
+        plain_abs, tiny_abs, n_tiny, worst = 0.0, 0.0, 0, None
+        for i, (a, b_, tiny) in enumerate(zip(params, want[1], tiny_masks)):
+            gap = (a - b_).abs()
+            n_tiny += int(tiny.sum())
+            if (~tiny).any() and gap[~tiny].max().item() > plain_abs:
+                plain_abs = gap[~tiny].max().item()
+                j = torch.where(~tiny, gap, 0).argmax()
+                worst = (i, [g[i].reshape(-1)[j].item() for g in want[2]],
+                         [(g[i] - h[i]).reshape(-1)[j].item()
+                          for g, h in zip(gs, want[2])])
+            if tiny.any():
+                tiny_abs = max(tiny_abs, gap[tiny].max().item())
+        log(f"phase 22(c) f32 {impl} on {SP_MESH} vs one rank ({SP_F32_STEPS} "
+            f"steps, B={SP_F32_BATCH} T={t}, full width, flash): losses "
+            f"{losses} vs {want[0]}, max rel gap {loss_rel:.3g} (bar 1e-5); "
+            f"step-1 synced grad max abs gap {grad_abs:.3g} (bar 1e-5); "
+            f"params max abs gap {plain_abs:.3g} (bar 1e-5; the worst at leaf "
+            f"{worst and worst[0]}, one-rank grads {worst and worst[1]}, the "
+            f"mesh's gaps {worst and worst[2]}) and, on the {n_tiny} "
+            f"ill-conditioned elements, {tiny_abs:.3g} (AdamW's bound "
+            f"{bound:g})")
+        if not (loss_rel <= 1e-5 and grad_abs <= 1e-5 and plain_abs <= 1e-5
+                and tiny_abs <= bound):
+            raise AssertionError(f"phase 22(c) f32 {impl}: out of the bars")
+
+
 def collective_phases(dev, bw) -> list:
     """Phases 11-15 (the FlexTree collectives); returns their rows of the
     kernels line (``reduce_sources`` and ``reduce_stacked``, the fold
@@ -4967,6 +5377,9 @@ def main() -> int:
     t0 = time.monotonic()
     pool_launches = phase_pool(dev, smi)
     log(f"phase 21: {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    sp_launches = phase_sp_tp(dev, smi)
+    log(f"phase 22: {time.monotonic() - t0:.1f} s")
     # each path's launches beside their sum
     for row in rows:
         if row["name"] in dp_launches:
@@ -4980,6 +5393,9 @@ def main() -> int:
                 dp_codec_launches[row["name"]]
         if row["name"] == "reduce_sources":
             row["launches_by_path"].update(codec_launches)
+        for path, counts in sp_launches.items():
+            if row["name"] in counts:
+                row["launches_by_path"][path] = counts[row["name"]]
         if row["name"] == "paged_attention":
             row["launches_by_path"]["disagg"] = disagg_launches
             row["launches_by_path"]["pool"] = pool_launches

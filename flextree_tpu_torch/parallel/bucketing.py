@@ -37,8 +37,13 @@ the dense fold on both transports.  The sync is sum-only.
 
 The ranks are a :class:`~.mesh.Mesh` (this process runs every rank; the
 gradients are a list of one tree a rank) or a ``torch.distributed``
-process group (this process is one rank; the gradients are its tree), and
-one mesh axis of size above 1 spans them: data parallelism.
+process group (this process is one rank; the gradients are its tree,
+and one axis, data parallelism, spans the group).  On a mesh of several
+axes above size 1 (``dp``, ``sp``, ``tp``) a leaf syncs over each of its
+replication axes in turn, in the mesh order, one walk an axis over each
+group of ranks that differ only along it (:class:`~.spmd.Axis`), as the
+JAX collective acts on each such group; the bucketed sync does the same a
+bucket and axis, so it stays bitwise the per-leaf sync.
 
 A lossy wire ``codec`` (``"bf16"``, ``"int8"``; ``ops/quantize.py``) has
 no bitwise contract: each bucket's leaves are packed into one float32
@@ -97,7 +102,8 @@ DEFAULT_MAX_BUCKET_BYTES = 64 << 20
 #: losing (the pack, collective, unpack and AdamW chain must stay in cache)
 CPU_MAX_BUCKET_BYTES = 128 << 10
 
-#: the ROADMAP item a mesh axis other than dp above size 1 waits on
+#: the ROADMAP item that overlap, ZeRO-1 and the lossy codecs with an sp or
+#: tp axis above size 1 wait on
 WIDE_AXES_ITEM = \
     "ROADMAP.md, Queue 1: 'Sequence, pipeline and expert parallelism'"
 
@@ -155,8 +161,8 @@ def spec_leaves(grads, pspecs) -> list:
 def comm_axis_sizes(comm, mesh_axes) -> dict:
     """The size of each of ``mesh_axes`` over ``comm``: a :class:`Mesh`
     (its named axes; others are 1), a process group (the first axis spans
-    it) or ``None`` (one rank).  The axes of size above 1 must span the
-    ranks, and at most one may: data parallelism alone is ported."""
+    it: a process of a group is one data-parallel rank) or ``None`` (one
+    rank).  The axes must span the ranks."""
     mesh_axes = tuple(mesh_axes)
     if comm is None:
         return {ax: 1 for ax in mesh_axes}
@@ -169,11 +175,6 @@ def comm_axis_sizes(comm, mesh_axes) -> dict:
 
         ranks = dist.get_world_size(comm)
         sizes = {ax: ranks if i == 0 else 1 for i, ax in enumerate(mesh_axes)}
-    wide = [ax for ax in mesh_axes if sizes[ax] > 1]
-    if len(wide) > 1:
-        raise NotImplementedError(
-            f"axes {sizes}: more than one mesh axis above size 1 is not "
-            f"ported yet ({WIDE_AXES_ITEM})")
     if math.prod(sizes.values()) != ranks:
         raise ValueError(f"the axes {sizes} of {mesh_axes} do not span the "
                          f"{ranks} ranks of {comm}")
@@ -286,26 +287,49 @@ def _derived_bucket_bytes(total_bytes, n_leaves, axes, topos, axis_sizes,
 
 class _Ranks:
     """The ranks a sync runs over, as the collectives take them: on a mesh
-    a list of every rank's tensor, on a process group this rank's."""
+    a list of every rank's tensor, on a process group this rank's.
+    :meth:`along` narrows a mesh to the groups of one of its axes."""
 
-    def __init__(self, comm):
+    def __init__(self, comm, axis=None):
         self.comm = comm
         self.mesh = isinstance(comm, Mesh)
-        if self.mesh:
+        self.axis = axis
+        if axis is not None:
+            self.size = axis.size
+        elif self.mesh:
             self.size = comm.size
         else:
             import torch.distributed as dist
 
             self.size = dist.get_world_size(comm)
 
+    def along(self, ax: str) -> "_Ranks":
+        """The ranks as groups along mesh axis ``ax`` (each collective then
+        runs once a group); itself where ``ax`` spans every rank (a
+        one-axis mesh, a process group) or the mesh has no such axis (the
+        callers sync no axis of size 1)."""
+        size = dict(zip(self.comm.axis_names, self.comm.shape)).get(ax) \
+            if self.mesh else None
+        if size is None or size == self.size:
+            return self
+        from .spmd import axis
+
+        return _Ranks(self.comm, axis(self.comm, ax))
+
     def run(self, fn, xs: list, **kw) -> list:
         """``fn`` (a collective) over ``xs``, one tensor a local rank."""
+        if self.axis is not None:
+            return self.axis.run(fn, xs, **kw)
         got = fn(xs if self.mesh else xs[0], self.comm, **kw)
         return list(got) if self.mesh else [got]
 
     def run_pair(self, fn, xs: list, **kw) -> tuple[list, list]:
         """As :meth:`run`, for a collective that returns two results a rank
         (a result and its residual)."""
+        if self.axis is not None:
+            pairs = self.axis.run(lambda x, m, **k: list(zip(*fn(x, m, **k))),
+                                  xs, **kw)
+            return [a for a, _ in pairs], [b for _, b in pairs]
         a, b = fn(xs if self.mesh else xs[0], self.comm, **kw)
         return (list(a), list(b)) if self.mesh else ([a], [b])
 
@@ -351,19 +375,20 @@ def per_leaf_sync_grads(grads, pspecs, mesh_axes, topos: Mapping[str, Any],
         wire = None
         for k, ax in enumerate(replication_key(spec, mesh_axes)):
             topo = topos[ax]
+            on = ranks.along(ax)
             if not codec.lossy or topo is None:
                 if sizes[ax] > 1:
-                    xs = sync_leaf(ranks, xs, topo, chunks)
+                    xs = sync_leaf(on, xs, topo, chunks)
             elif sizes[ax] <= 1:
                 if k == 0:  # the JAX collective's route for one rank
                     wire = [torch.zeros_like(x) for x in xs]
             elif k == 0:
-                xs, wire = ranks.run_pair(
+                xs, wire = on.run_pair(
                     compressed_allreduce, xs, topo=topo, codec=codec,
                     chunks=chunks, step=step, return_residual=True)
             else:
-                xs = ranks.run(compressed_allreduce, xs, topo=topo,
-                               codec=codec, chunks=chunks, step=step)
+                xs = on.run(compressed_allreduce, xs, topo=topo,
+                            codec=codec, chunks=chunks, step=step)
         for r, (f, x) in enumerate(zip(flat, xs)):
             if return_residual:
                 res[r][i] = wire[r] if wire is not None else \
@@ -473,16 +498,17 @@ def _fused_compressed_bucket(ranks: _Ranks, leaves: list, axes, topos,
              for rl in leaves]
     packed, res = fused, None
     for k, ax in enumerate(axes):
+        on = ranks.along(ax)
         with comm_span(name(ax), provenance=prov(ax)):
             if topos[ax] is None:
-                fused = ranks.run(dense_allreduce, fused)
+                fused = on.run(dense_allreduce, fused)
             elif k == 0 and return_residual:
-                fused, res = ranks.run_pair(
+                fused, res = on.run_pair(
                     compressed_allreduce, fused, topo=topos[ax], codec=codec,
                     chunks=chunks, step=step, return_residual=True)
             else:
-                fused = ranks.run(compressed_allreduce, fused, topo=topos[ax],
-                                  codec=codec, chunks=chunks, step=step)
+                fused = on.run(compressed_allreduce, fused, topo=topos[ax],
+                               codec=codec, chunks=chunks, step=step)
     if return_residual and res is None:
         res = [local_residual(p, codec, step) for p in packed]
     sizes = [g.numel() for g in leaves[0]]
@@ -554,11 +580,12 @@ def bucketed_sync_grads(grads, pspecs, mesh_axes, topos: Mapping[str, Any],
                     res[r][i] = g
         else:
             for ax in b.axes:
+                on = ranks.along(ax)
                 with comm_span(name(ax), provenance=prov(ax)):
                     if topos[ax] is None:
-                        leaves = _fused_native_psum(ranks, leaves)
+                        leaves = _fused_native_psum(on, leaves)
                     else:
-                        leaves = _fused_axis_allreduce(ranks, leaves,
+                        leaves = _fused_axis_allreduce(on, leaves,
                                                        topos[ax], chunks)
         for f, rl in zip(flat, leaves):
             for i, g in zip(b.indices, rl):

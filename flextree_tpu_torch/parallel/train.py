@@ -54,8 +54,28 @@ identity codec with clipping off it is bitwise the replicated step.
 Build its state with :func:`init_train_state` ``(comm=)``, or
 :func:`make_train_state` with :func:`zero_layout_for`'s layout.
 
+Sequence and tensor parallelism: ``comm`` a :class:`~.mesh.Mesh` whose
+``"sp"`` or ``"tp"`` axis is above size 1 runs the JAX step over the full
+``(dp, sp, tp)`` mesh (:func:`make_train_step`).  The global batch splits
+into rows over dp and columns over sp (JAX's ``P(dp, sp)``); each rank
+gets its slices of the tp-sharded leaves (:func:`..models.transformer.
+param_specs`, :func:`.spmd.shard_tree`), each a leaf of its own; every
+rank's forward runs in lock-step, layer by layer, with the ring, zigzag
+or Ulysses attention over its sp group and the row-parallel partials
+summed over its tp group by the FlexTree allreduce (:mod:`.spmd`); one
+``torch.autograd.grad`` over every rank's loss (its cross entropy over
+the global token count times tp, the tp-fold redundancy JAX counts) gives
+each rank's copy its gradient; each leaf is synced over its replication
+axes, one walk an axis over each group of the mesh (:func:`sync_grads`);
+clipping takes the norm by axis group (:func:`global_grad_norm`); the
+synced tp slices go back into the state's full tree
+(:func:`.spmd.gather_tree`), and AdamW, elementwise, updates it as on one
+rank.  The state and its checkpoints are the same at every mesh shape.
+
 What needs an unported module raises, naming its ROADMAP item:
-``autotune`` and an ``sp`` or ``tp`` axis above size 1.  An IR-family
+``autotune``, and ``overlap``, ``shard_optimizer`` or a lossy ``codec``
+with an sp or tp axis above size 1.  A process group is one
+data-parallel axis (:func:`.bucketing.comm_axis_sizes`).  An IR-family
 ``grad_topo`` (swing, generalized) raises ``TopologyError``, as the JAX
 train seam does.
 """
@@ -87,6 +107,7 @@ from .bucketing import (
     per_leaf_sync_grads,
 )
 from .mesh import Mesh
+from .spmd import axis, coords, gather_tree, shard_tree
 from .zero import (
     _adamw_elem,
     _bias_corrections,
@@ -106,6 +127,7 @@ __all__ = [
     "make_loss_and_grads",
     "make_train_step",
     "factor_devices",
+    "validate_tp",
     "resolve_axis_topos",
     "sync_grads",
     "sync_with_feedback",
@@ -241,6 +263,20 @@ def factor_devices(n: int) -> tuple[int, int, int]:
     return tuple(dims)
 
 
+def validate_tp(model_cfg: TransformerConfig, tp_size: int) -> None:
+    """The JAX ``validate_tp``: ``n_heads`` divides ``d_model`` and is
+    divisible by tp, and so is ``d_ff``."""
+    if model_cfg.d_model % model_cfg.n_heads or model_cfg.n_heads % tp_size:
+        raise ValueError(
+            f"n_heads={model_cfg.n_heads} must divide d_model="
+            f"{model_cfg.d_model} and be divisible by tp={tp_size}"
+        )
+    if model_cfg.d_ff % tp_size:
+        raise ValueError(
+            f"d_ff={model_cfg.d_ff} must be divisible by tp={tp_size}"
+        )
+
+
 def resolve_axis_topos(mesh, mesh_axes, grad_topo) -> dict:
     """Each axis' FlexTree topology for the gradient sync.
 
@@ -361,13 +397,41 @@ def schedule_lr(train_cfg: TrainConfig, step):
     return train_cfg.lr * ramp * torch.where(t <= warm, one, cos)
 
 
-def global_grad_norm(grads):
-    """The L2 norm over every leaf, in float32.  Data parallelism
-    replicates every leaf, so after the sync each rank holds every leaf
-    whole and the JAX function's per-axis sums of sharded leaves' squares
-    have nothing to sum."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in tree_leaves(grads)))
+def global_grad_norm(grads, pspecs=None, *, comm=None):
+    """The L2 norm of the gradient, in float32.
+
+    ``comm`` None: ``grads`` is one tree of whole leaves (one rank, or
+    data parallelism, which replicates every leaf), and the norm is the
+    sum over its leaves.  ``comm`` a :class:`~.mesh.Mesh`: ``grads`` is
+    every rank's synced tree of its slices, and the norm is the JAX
+    function's: each rank's leaves grouped by the axes their spec names,
+    each group's square-sums added in leaf order, then summed over those
+    axes' groups in rank order (:meth:`.spmd.Axis.psum`), the groups'
+    totals added.  Every rank gets the same bits; rank 0's is returned."""
+    if comm is None:
+        return torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                              for g in tree_leaves(grads)))
+    from .bucketing import spec_axes, spec_leaves
+
+    specs = spec_leaves(grads[0], pspecs)
+    by_axes: list[dict] = []
+    for tree in grads:
+        groups: dict = {}
+        for g, spec in zip(tree_leaves(tree), specs):
+            key = spec_axes(spec)
+            zero = torch.zeros((), dtype=torch.float32, device=g.device)
+            groups[key] = groups.get(key, zero) + torch.sum(
+                torch.square(g.float()))
+        by_axes.append(groups)
+    total = [torch.zeros((), dtype=torch.float32,
+                         device=tree_leaves(t)[0].device) for t in grads]
+    for key in by_axes[0]:
+        sq = [groups[key] for groups in by_axes]
+        for name in key:
+            if name in comm.axis_names:
+                sq = axis(comm, name).psum(sq)
+        total = [t + s_ for t, s_ in zip(total, sq)]
+    return torch.sqrt(total[0])
 
 
 def clip_by_global_norm(grads, norm, clip: float):
@@ -378,17 +442,23 @@ def clip_by_global_norm(grads, norm, clip: float):
     return tree_map(lambda g: g * scale.to(g.dtype), grads)
 
 
-def maybe_clip_grads(grads, train_cfg: TrainConfig, metrics: dict):
+def maybe_clip_grads(grads, train_cfg: TrainConfig, metrics: dict,
+                     pspecs=None, comm=None):
     """When ``grad_clip_norm`` is set (must be positive), clip ``grads``
-    to it and record the pre-clip norm in ``metrics['grad_norm']``."""
+    to it and record the pre-clip norm in ``metrics['grad_norm']``.  With
+    a mesh ``comm``, ``grads`` is every rank's tree of its slices and the
+    norm :func:`global_grad_norm`'s over them (``pspecs``)."""
     if not train_cfg.grad_clip_norm:
         return grads
     if train_cfg.grad_clip_norm < 0:
         raise ValueError(
             f"grad_clip_norm must be positive, got {train_cfg.grad_clip_norm}"
         )
-    norm = global_grad_norm(grads)
+    norm = global_grad_norm(grads, pspecs, comm=comm)
     metrics["grad_norm"] = norm
+    if comm is not None:
+        return [clip_by_global_norm(g, norm, train_cfg.grad_clip_norm)
+                for g in grads]
     return clip_by_global_norm(grads, norm, train_cfg.grad_clip_norm)
 
 
@@ -427,23 +497,23 @@ def _global_loss(losses: list, comm):
     return functools.reduce(operator.add, losses)
 
 
+def _spmd(comm) -> bool:
+    """Whether a step over ``comm`` runs sequence or tensor parallelism:
+    a mesh whose sp or tp axis is above size 1."""
+    sizes = comm_axis_sizes(comm, AXIS_NAMES)
+    return any(sizes[ax] > 1 for ax in AXIS_NAMES[1:])
+
+
 def _local_ranks(comm, device):
     """``(device, dp, local ranks)`` of a step over ``comm`` (see
-    :func:`make_train_step`); refuses an axis other than dp above 1."""
+    :func:`make_train_step`)."""
     from ..device import resolve_device
 
-    sizes = comm_axis_sizes(comm, AXIS_NAMES)
-    dp_axis, *others = AXIS_NAMES
-    wide = [ax for ax in others if sizes[ax] > 1]
-    if wide:
-        raise NotImplementedError(
-            f"mesh axes {sizes}: {wide} above size 1 is not ported yet "
-            f"({WIDE_AXES_ITEM})")
-    dp = sizes[dp_axis]
+    dp = comm_axis_sizes(comm, AXIS_NAMES)[AXIS_NAMES[0]]
     if isinstance(comm, Mesh):
         if len(set(comm.devices)) != 1:
-            raise ValueError(f"the ranks of a data-parallel mesh share one "
-                             f"device; got {comm.devices}")
+            raise ValueError(f"the ranks of a mesh share one device; got "
+                             f"{comm.devices}")
         dev = comm.devices[0]
         if device is not None and resolve_device(device) != dev:
             raise ValueError(f"device={device!r}, but the mesh's ranks are "
@@ -484,6 +554,77 @@ def _rank_loss_and_grads(model_cfg, params, tokens, targets, n_total):
     return loss.detach(), tree_unflatten(params, flat)
 
 
+def _refuse_wide(train_cfg: TrainConfig, comm) -> None:
+    """What does not run with an sp or tp axis above size 1 yet."""
+    sizes = comm_axis_sizes(comm, AXIS_NAMES)
+    for bad, what in ((train_cfg.overlap, "overlap=True"),
+                      (train_cfg.shard_optimizer, "shard_optimizer=True"),
+                      (get_codec(train_cfg.codec).lossy,
+                       f"codec={train_cfg.codec!r}")):
+        if bad:
+            raise NotImplementedError(
+                f"TrainConfig {what} on mesh axes {sizes} (sp or tp above "
+                f"size 1) is not ported yet ({WIDE_AXES_ITEM})")
+
+
+def _spmd_grads(model_cfg: TransformerConfig, train_cfg: TrainConfig,
+                comm: Mesh, dev):
+    """``(params, tokens, targets) -> (loss, shards)`` of a step over a mesh
+    with sp or tp above 1: the global mean token loss and every rank's
+    synced tree of its parameter slices (see the module docstring)."""
+    _refuse_wide(train_cfg, comm)
+    sizes = comm_axis_sizes(comm, AXIS_NAMES)
+    dp, sp, tp = (sizes[ax] for ax in AXIS_NAMES)
+    validate_tp(model_cfg, tp)
+    topos = resolve_axis_topos(sizes, AXIS_NAMES, train_cfg.grad_topo)
+    pspecs = param_specs(model_cfg, AXIS_NAMES[-1])
+    sp_axis, tp_axis = (axis(comm, ax) if ax in comm.axis_names else None
+                        for ax in AXIS_NAMES[1:])
+    d_idx, s_idx = (coords(comm, ax) for ax in AXIS_NAMES[:2])
+
+    def grads_fn(params, tokens, targets):
+        tokens = torch.as_tensor(tokens, device=dev)
+        targets = torch.as_tensor(targets, device=dev)
+        b, t = tokens.shape
+        if b % dp or t % sp:
+            raise ValueError(f"a batch of {tuple(tokens.shape)} does not "
+                             f"split over dp={dp} rows and sp={sp} columns")
+        rows, cols = b // dp, t // sp
+
+        def block(x, r):
+            return x[d_idx[r] * rows:(d_idx[r] + 1) * rows,
+                     s_idx[r] * cols:(s_idx[r] + 1) * cols]
+
+        # the JAX normalisation counts the tp-fold redundancy: every tp
+        # rank computes its group's whole loss
+        n_total = tokens.numel() * tp
+        with torch.enable_grad():
+            leaves = [tree_map(lambda p: p.detach().requires_grad_(), tr)
+                      for tr in shard_tree(params, pspecs, comm)]
+            logits = forward(leaves, [block(tokens, r).long()
+                                      for r in range(comm.size)],
+                             model_cfg, tp_axis=tp_axis, sp_axis=sp_axis)
+            losses = [cross_entropy_loss(lg, block(targets, r))[0] / n_total
+                      for r, lg in enumerate(logits)]
+            del logits
+            flat = torch.autograd.grad(
+                losses, [x for tr in leaves for x in tree_leaves(tr)],
+                grad_outputs=[torch.ones_like(x) for x in losses])
+        n = len(flat) // comm.size
+        grads = [tree_unflatten(tr, flat[r * n:(r + 1) * n])
+                 for r, tr in enumerate(leaves)]
+        loss = [x.detach() for x in losses]
+        for ax in AXIS_NAMES:  # the JAX step's psum over dp, sp, tp
+            if ax in comm.axis_names:
+                loss = axis(comm, ax).psum(loss)
+        synced = sync_grads(grads, pspecs, AXIS_NAMES, topos,
+                            bucket_bytes=train_cfg.bucket_bytes,
+                            chunks=train_cfg.grad_chunks, comm=comm)
+        return loss[0], synced
+
+    return grads_fn, pspecs
+
+
 def make_loss_and_grads(model_cfg: TransformerConfig,
                         train_cfg: TrainConfig = TrainConfig(), device=None,
                         comm=None, serialize_overlap: bool = False):
@@ -507,6 +648,14 @@ def make_loss_and_grads(model_cfg: TransformerConfig,
         raise ValueError(f"n_heads={model_cfg.n_heads} must divide "
                          f"d_model={model_cfg.d_model}")
     dev, dp, local = _local_ranks(comm, device)
+    if _spmd(comm):
+        grads_fn, pspecs = _spmd_grads(model_cfg, train_cfg, comm, dev)
+
+        def sharded_loss_and_grads(params, tokens, targets, state=None):
+            loss, shards = grads_fn(params, tokens, targets)
+            return loss, gather_tree(shards, pspecs, comm), None
+
+        return sharded_loss_and_grads
     topos = resolve_axis_topos(comm_axis_sizes(comm, AXIS_NAMES),
                                AXIS_NAMES, train_cfg.grad_topo)
     pspecs = param_specs(model_cfg, AXIS_NAMES[-1])
@@ -606,6 +755,8 @@ def make_train_step(model_cfg: TransformerConfig,
     reduce-scatter, then :func:`.zero.maybe_clip_shards` and
     :func:`.zero.zero_apply_and_gather` after the backward, on the current
     stream."""
+    if _spmd(comm):
+        return _spmd_step(model_cfg, train_cfg, device, comm)
     loss_and_grads = make_loss_and_grads(model_cfg, train_cfg, device, comm,
                                          serialize_overlap)
     if train_cfg.shard_optimizer:
@@ -620,6 +771,24 @@ def make_train_step(model_cfg: TransformerConfig,
         if ef is not None:
             new["ef"] = ef
         return new, metrics
+
+    return step
+
+
+def _spmd_step(model_cfg, train_cfg, device, comm):
+    """:func:`make_train_step`'s step over a mesh with sp or tp above 1:
+    clipping by the norm of every rank's slices, then AdamW on the full
+    tree the synced slices make."""
+    _refuse_unported(train_cfg)
+    dev, _, _ = _local_ranks(comm, device)
+    grads_fn, pspecs = _spmd_grads(model_cfg, train_cfg, comm, dev)
+
+    def step(state, tokens, targets):
+        loss, shards = grads_fn(state["params"], tokens, targets)
+        metrics = {"loss": loss}
+        shards = maybe_clip_grads(shards, train_cfg, metrics, pspecs, comm)
+        return adamw_apply(state, gather_tree(shards, pspecs, comm),
+                           train_cfg), metrics
 
     return step
 

@@ -2,7 +2,7 @@
 
 The port's counterpart of ``python -m flextree_tpu.trainer --model dense``:
 the dense LM trained on the synthetic corpus, with checkpoints and
-resume, on one rank or data-parallel over N in-process ranks.  It takes
+resume, on one rank or over a (dp, sp, tp) mesh of in-process ranks.  It takes
 the JAX trainer's flags with their defaults, plus ``--dtype`` for the
 compute dtype.  Examples::
 
@@ -27,9 +27,16 @@ compute dtype.  Examples::
     # the parameters all-gathered (with --codec and --overlap too)
     python -m flextree_tpu_torch.trainer --mesh 8,1,1 --shard-optimizer
 
+    # sequence and tensor parallelism over a (2, 2, 2) dp/sp/tp mesh: the
+    # ring, zigzag or Ulysses attention over sp, the row-parallel partials
+    # combined over tp by the FlexTree allreduce (--devices 8 is the same)
+    python -m flextree_tpu_torch.trainer --mesh 2,2,2 --sp-impl zigzag \
+        --dtype bfloat16 --attn-impl flash
+
 ``--mesh dp,sp,tp`` or ``--devices N`` (split as the JAX
 ``factor_devices`` splits it) give the ranks, all in this process on the
-one device; sp or tp above 1 is not ported.  ``--cpu`` is a switch.  A
+one device; with sp or tp above 1, ``--overlap``, ``--shard-optimizer``
+and a lossy ``--codec`` are not ported yet.  ``--cpu`` is a switch.  A
 flag whose module is not ported yet raises ``NotImplementedError`` naming
 its ROADMAP item.  The last line printed is the JAX trainer's.  A
 data-parallel run checkpoints its replicated state, as the JAX trainer
@@ -54,8 +61,8 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="flextree_tpu_torch.trainer",
-        description="Train the dense LM on one card, on one rank or "
-        "data-parallel over in-process ranks.",
+        description="Train the dense LM on one card, on one rank or over a "
+        "dp x sp x tp mesh of in-process ranks.",
         epilog="The SIGTERM checkpoint guard of the JAX trainer "
         "(runtime/preemption.py) is not ported yet: a terminated run "
         "resumes from its last --ckpt-every checkpoint.",
@@ -76,8 +83,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--microbatches", type=int, default=2)
     ap.add_argument("--sp-impl", choices=["ring", "zigzag", "ulysses"],
                     default="ring",
-                    help="sequence-parallel attention; with one device the "
-                    "whole sequence is local and this has no effect")
+                    help="sequence-parallel attention over the sp axis "
+                    "(with sp and tp 1 the whole sequence is local and it "
+                    "has no effect)")
     ap.add_argument("--attn-impl", choices=["reference", "flash"],
                     default="reference")
     ap.add_argument("--dtype", choices=sorted(_DTYPES), default="float32",
@@ -103,11 +111,11 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--overlap", action=argparse.BooleanOptionalAction,
                     default=False)
     ap.add_argument("--mesh", type=str, default=None,
-                    help="dp,sp,tp mesh shape of in-process ranks; only dp "
-                    "above 1 is ported (e.g. 8,1,1)")
+                    help="dp,sp,tp mesh shape of in-process ranks (e.g. "
+                    "8,1,1 or 2,2,2)")
     ap.add_argument("--devices", type=int, default=None,
                     help="rank count, split into (dp, sp, tp) as the JAX "
-                    "trainer splits it; only (N, 1, 1) is ported")
+                    "trainer splits it (8 -> 2,2,2)")
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU instead of the card")
     ap.add_argument("--corpus-tokens", type=int, default=200_000)
@@ -166,8 +174,11 @@ def _refuse_unported(args) -> None:
         (args.obs_dir is not None or args.flight_recorder,
          "--obs-dir/--flight-recorder",
          "'Checkpoint, supervision and feedback plumbing'"),
-        (shape[1] > 1 or shape[2] > 1, f"a mesh of shape {shape} (sp or tp "
-         "above 1)", "'Sequence, pipeline and expert parallelism'"),
+        ((shape[1] > 1 or shape[2] > 1) and (
+            args.overlap or args.shard_optimizer or args.codec != "f32"),
+         f"--overlap, --shard-optimizer or a lossy --codec on a mesh of "
+         f"shape {shape} (sp or tp above 1)",
+         "'Sequence, pipeline and expert parallelism'"),
     )
     for bad, what, item in refusals:
         if bad:
@@ -209,16 +220,25 @@ def main(argv=None, *, out: dict | None = None) -> int:
     from .device import resolve_device
     from .models.transformer import TransformerConfig
     from .parallel.loop import FitConfig, fit
-    from .parallel.mesh import flat_mesh
-    from .parallel.train import TrainConfig, init_train_state, make_train_step
+    from .parallel.mesh import Mesh, flat_mesh
+    from .parallel.train import (
+        AXIS_NAMES,
+        TrainConfig,
+        init_train_state,
+        make_train_step,
+    )
 
     dev = resolve_device("cpu" if args.cpu else None)
-    dp = _mesh_shape(args)[0]
-    comm = flat_mesh(dp, dev, "dp") if dp > 1 else None
+    shape = _mesh_shape(args)
+    dp = shape[0]
+    if math.prod(shape) > dp:
+        comm = Mesh((dev,) * math.prod(shape), AXIS_NAMES, shape)
+    else:
+        comm = flat_mesh(dp, dev, "dp") if dp > 1 else None
     cfg = TransformerConfig(
         vocab_size=args.vocab, d_model=args.d_model, n_heads=args.n_heads,
         n_layers=args.n_layers, d_ff=args.d_ff, dtype=_DTYPES[args.dtype],
-        attn_impl=args.attn_impl,
+        sp_impl=args.sp_impl, attn_impl=args.attn_impl,
     )
     tc = TrainConfig(
         lr=args.lr,
@@ -250,7 +270,7 @@ def main(argv=None, *, out: dict | None = None) -> int:
         out.update(result=result, model_cfg=cfg, train_cfg=tc)
     first = result.losses[0][1] if result.losses else float("nan")
     last = result.losses[-1][1] if result.losses else float("nan")
-    mesh = {"dp": dp, "sp": 1, "tp": 1}
+    mesh = dict(zip(AXIS_NAMES, shape))
     print(
         f"{args.model}: {result.steps_run} steps on mesh {mesh}; loss "
         f"{first:.4f} -> {last:.4f}"

@@ -338,7 +338,8 @@ def test_dense_allreduce_is_the_rank_order_fold():
 
 def test_unported_sync_configurations_raise():
     """The lossy codecs run now (within their bound: the bucketed lossy
-    tests below); an unknown codec raises, as does what is not ported."""
+    tests below); an unknown codec raises, as does an IR family; a mesh of
+    two axes above size 1 syncs now."""
     mesh = flat_mesh(4, "cpu", "dp")
     trees = _trees(4, LEAVES[:2], 8)
     for codec in ("bf16", "int8"):
@@ -351,8 +352,18 @@ def test_unported_sync_configurations_raise():
         ttrain.resolve_axis_topos(mesh, AXES, "swing")
     with pytest.raises(tstages.TopologyError, match="IR families"):
         ttrain.resolve_axis_topos(mesh, AXES, {"dp": "gen:2,2@1"})
-    with pytest.raises(NotImplementedError, match="Sequence, pipeline"):
-        ttrain.sync_grads(trees, comm=Mesh(("cpu",) * 4, AXES, (2, 2, 1)))
+    # two axes above size 1 sync now, one walk an axis over its groups:
+    # bucketed bitwise per-leaf, every rank the sum of all four
+    two = Mesh(("cpu",) * 4, AXES, (2, 2, 1))
+    per_leaf = ttrain.sync_grads(trees, bucket_bytes=0, comm=two)
+    for a, b in zip(ttrain.sync_grads(trees, comm=two), per_leaf):
+        assert all(torch.equal(x, y) for x, y in zip(
+            ttrain.tree_leaves(a), ttrain.tree_leaves(b)))
+    for k in trees[0]:
+        want = sum(t[k].double() for t in trees)
+        for out in per_leaf:
+            assert torch.allclose(out[k].double(), want, rtol=1e-2,
+                                  atol=1e-2)
     with pytest.raises(ValueError, match="do not span"):
         ttrain.sync_grads(trees, comm=flat_mesh(4, "cpu"))  # axis "ft"
 

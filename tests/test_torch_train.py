@@ -312,8 +312,11 @@ def test_model_refuses_parallel_axes_and_stray_attn_opts(jax_state):
     params = params_from_numpy(jax_state["params"], device="cpu")
     tokens = torch.zeros((1, 4), dtype=torch.long)
     cfg = tt.TransformerConfig(**DIMS)
+    # an axis is a parallel.spmd.Axis of an in-process mesh (the sharded
+    # forward is test_torch_model_parallel.py's); a bare JAX axis name
+    # binds nothing in the port
     for axes in (dict(tp_axis="tp"), dict(sp_axis="sp")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(TypeError, match="spmd.Axis"):
             tt.forward(params, tokens, cfg, **axes)
     with pytest.raises(ValueError, match="attn_opts"):
         tt.forward(params, tokens,

@@ -193,9 +193,15 @@ def test_gloo_int8_ranks_end_in_the_mesh_state():
 
 def test_dp_step_refuses_what_is_not_ported():
     cfg = tt.TransformerConfig(**DIMS)
-    with pytest.raises(NotImplementedError, match="Sequence, pipeline"):
-        ttrain.make_train_step(cfg, comm=Mesh(("cpu",) * 2, ("dp", "sp", "tp"),
-                                              (1, 2, 1)))
+    # an sp axis above 1 runs now (test_torch_model_parallel*.py); overlap,
+    # ZeRO-1 and a lossy codec on it still wait on their item
+    sp2 = Mesh(("cpu",) * 2, ("dp", "sp", "tp"), (1, 2, 1))
+    ttrain.make_train_step(cfg, comm=sp2)
+    for field in (dict(overlap=True), dict(shard_optimizer=True),
+                  dict(codec="int8")):
+        with pytest.raises(NotImplementedError, match="Sequence, pipeline"):
+            ttrain.make_train_step(cfg, ttrain.TrainConfig(**field),
+                                   comm=sp2)
     # a lossy codec runs now (see the int8 tests below); an unknown one
     # raises
     for codec in ("int8", "bf16"):
@@ -218,8 +224,8 @@ def test_dp_step_refuses_what_is_not_ported():
 def test_global_grad_norm_with_specs_matches_jax(jax_state):
     """The port's norm (every leaf whole, as data parallelism leaves it)
     equals the JAX norm grouped by the axes the specs name, on a (1, 1, 1)
-    mesh; the step refuses a tp axis above 1, where the JAX norm would sum
-    the sharded leaves' squares over tp."""
+    mesh; on a (1, 1, 2) mesh, where the JAX norm sums the sharded leaves'
+    squares over tp, so does the port's over the two ranks' slices."""
     rng = np.random.default_rng(3)
     grads = jax.tree.map(
         lambda a: rng.standard_normal(a.shape).astype(np.float32),
@@ -235,11 +241,17 @@ def test_global_grad_norm_with_specs_matches_jax(jax_state):
         device="cpu")["params"]
     _close(ttrain.global_grad_norm(tgrads).item(), float(want), 0,
            rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="Sequence"):
-        ttrain.make_train_step(
-            tt.TransformerConfig(**DIMS),
-            ttrain.TrainConfig(grad_clip_norm=1.0),
-            comm=Mesh(("cpu",) * 2, ("dp", "sp", "tp"), (1, 1, 2)))
+    from flextree_tpu_torch.parallel.spmd import shard_tree
+
+    tp2 = Mesh(("cpu",) * 2, ("dp", "sp", "tp"), (1, 1, 2))
+    want2 = jax.jit(jax.shard_map(
+        lambda g: jtrain.global_grad_norm(g, jspecs),
+        mesh=jtrain.make_mesh_3d(2, (1, 1, 2)), in_specs=(jspecs,),
+        out_specs=P(), check_vma=False))(jax.tree.map(jnp.asarray, grads))
+    tspecs = tt.param_specs(tt.TransformerConfig(**DIMS))
+    _close(ttrain.global_grad_norm(shard_tree(tgrads, tspecs, tp2), tspecs,
+                                   comm=tp2).item(), float(want2), 0,
+           rtol=1e-6)
 
 
 # ------------------------------------------------- lossy codec, EF

@@ -277,8 +277,8 @@ def test_trainer_cli_flash_on_cpu(tmp_path, capsys):
     ["--devices", "4"], ["--mesh", "2,1,2"],
 ])
 def test_trainer_cli_refuses_unported_flags(flags, tmp_path, capsys):
-    """Each flag whose module is not ported raises naming its item; the
-    lossy codecs run now: 2 ranks train with error feedback, and the
+    """Each flag whose module is not ported raises naming its item; a mesh
+    with sp or tp above 1 trains now; the lossy codecs run now: 2 ranks train with error feedback, and the
     checkpoint holds the first rank's residual, which resumes; and so does
     ``--overlap``: 2 ranks train with readiness-ordered overlap, and the
     checkpoint, the live state bitwise, resumes; and so does
@@ -326,6 +326,18 @@ def test_trainer_cli_refuses_unported_flags(flags, tmp_path, capsys):
         assert trainer.main(_SMALL + flags + ["--mesh", "2,1,1", "--steps",
                                               "4", "--ckpt-dir", ckpt]) == 0
         assert "(resumed from 3)" in capsys.readouterr().out
+        return
+    if flags[0] in ("--mesh", "--devices"):
+        # sp or tp above 1 runs now (test_torch_trainer_mesh.py): two
+        # steps, and the last line names the mesh
+        out: dict = {}
+        assert trainer.main(_SMALL + flags + ["--steps", "2"], out=out) == 0
+        shape = {"1,2,1": (1, 2, 1), "4": (2, 2, 1), "2,1,2": (2, 1, 2)}[
+            flags[1]]
+        mesh = dict(zip(("dp", "sp", "tp"), shape))
+        last = capsys.readouterr().out.strip().splitlines()[-1]
+        assert last.startswith(f"dense: 2 steps on mesh {mesh}; loss ")
+        assert all(math.isfinite(loss) for _, loss in out["result"].losses)
         return
     if flags[0] != "--codec":
         with pytest.raises(NotImplementedError, match="ROADMAP"):
