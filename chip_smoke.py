@@ -271,6 +271,25 @@ failure raises and exits non-zero:
     gradient within 1e-5, the parameters within 1e-5 except on AdamW's
     ill-conditioned elements (picked as ``tests/test_torch_overlap.py``
     picks them), which are held to 2 lr a step.
+23. pipeline and expert parallelism on (1, 2, 2, 2) meshes — (a) the
+    flash kernels at this path's hop (a pipeline microbatch and an MoE
+    block: B=4, T=512, H=4, D=64, asserted to be phase 22(a)'s ring
+    case, held there); the fold kernel at the expert combine (bf16, W=2,
+    4 x 2048 x 512, forward and backward) and at each model's bucketed
+    sync of seeded slices, bitwise the same on host copies (the sync: the
+    per-leaf sync's plain folds), its bodies printed; (b) ``trainer.main
+    --model pipeline --microbatches 2`` and ``--model moe --n-experts 8
+    --top-k 2 --capacity-factor 2.0`` at the flagship width (bf16, flash,
+    batch 8 x 1024, 10 steps): the loss finite and falling, each flash
+    kernel's and the fold kernel's launches the counts the code gives
+    (``pm_flash_launches``, ``pm_fold_launches``), the checkpoint bitwise
+    the live state; then the steady step of both and of phase 22's dense
+    ring step in turns, device time and busy share under
+    ``torch.profiler``, peak memory and MoE's aux (printed, not gated);
+    (c) float32 at full width, 3 steps on the same batches: the pipeline
+    against one rank's dense step from the same parameters, MoE
+    (capacity factor n_experts / top_k, no aux) against the MoE step on
+    one rank, to phase 22(c)'s bars.
 
 The kernels line gives each kernel's launches by path
 (``launches_by_path``: serve, train, dp_train, allreduce, ir_families,
@@ -278,8 +297,8 @@ reduce_bench, codec for phase 17(a) and (d), codec_sync for phase 17(b),
 dp_codec for phase 17(c)'s int8 run, dp_overlap for phase 18(a), dp_zero
 for phase 19(a), disagg for phase 20: the in-process decode engine's f32
 run plus the decode replica process's, pool for phase 21(a)'s f32 run,
-sp_ring, sp_zigzag and sp_ulysses for phase 22(b)'s three runs) and their
-sum (``launches``).
+sp_ring, sp_zigzag and sp_ulysses for phase 22(b)'s three runs, pp_train
+and moe_train for phase 23(b)'s two) and their sum (``launches``).
 
 Prints each phase's seconds, a ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Exits
@@ -4188,6 +4207,11 @@ POOL_PHASES_S = (0.5, 0.4, 0.5)
 POOL_PROMPT_LENS = (64, 96, 128)
 POOL_OUT_LENS = (32, 64, 96)
 POOL_STEP_TIMEOUT_S = 1.0
+# the engines' TTFT SLO window: (c) reads the dumped metrics files in a
+# fresh process after (a)'s checks, and the window must still hold the
+# run's samples then; with the engine's 10 s default a loaded host read
+# the files more than 10 s after the last sample and saw it drained
+POOL_SLO_WINDOW_S = 120.0
 # the bf16 pool with parallel_rounds off and on, in turns (no kill)
 POOL_TURNS = (False, True, True, False)
 
@@ -4200,7 +4224,8 @@ def pool_engines(serving, params, cfg, pcfg, dev, recorders=()):
 
     engines = [serving.ServingEngine(
         params, cfg, pcfg, serving.BatcherConfig(slots=SLOTS), fused=True,
-        decode_impl="cuda", device=dev) for _ in range(2)]
+        decode_impl="cuda", device=dev, slo_window_s=POOL_SLO_WINDOW_S)
+        for _ in range(2)]
     for eng, rec in zip(engines, recorders):
         inner = eng.step
 
@@ -4267,8 +4292,12 @@ def pool_timeline(obs_dir, rerouted, timeline):
     gauges = [ln for ln in out.stdout.splitlines()
               if "_window_p99{" in ln]
     if out.returncode != 0 or not gauges:
+        counts = [ln for ln in out.stdout.splitlines()
+                  if "_window_count{" in ln]
         raise AssertionError(f"phase 21(c): obs metrics --prom rc "
-                             f"{out.returncode}: {out.stderr[-2000:]}")
+                             f"{out.returncode}, no window p99 gauge "
+                             f"(window counts {counts}): "
+                             f"{out.stderr[-2000:]}")
     log(f"phase 21(c) timeline: {doc['otherData']['events']} events on "
         f"tracks {doc['otherData']['ranks']} (replicas 0, 1; the pool 2), "
         f"{len(doc['traceEvents'])} trace events, validate_trace clean; "
@@ -4561,6 +4590,79 @@ def sp_fold_launches(shape, leaves, specs, ar, bk, tm, rs):
     return combine, sync, plan
 
 
+def combine_check(dev, rs, cm, ar, spmd, mesh, host, shape, tag):
+    """The tensor-parallel combine (the FlexTree allreduce over each tp
+    group of ``mesh``, forward and its backward, bf16) of seeded tensors of
+    ``shape`` on the card, bitwise the same on host copies (``host``: the
+    mesh's shape on the CPU), where the fold is its plain version; every
+    fold on the bulk-copy body.  Returns the bodies' counter."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+
+    def combine(xs, gs, m):
+        xs = [x.detach().requires_grad_() for x in xs]
+        ys = spmd.axis(m, "tp").allreduce(xs)
+        return ys, torch.autograd.grad(ys, xs, grad_outputs=gs)
+
+    xs = [torch.randn(shape, generator=gen, device=dev).bfloat16()
+          for _ in range(mesh.size)]
+    gs = [torch.randn(shape, generator=gen, device=dev).bfloat16()
+          for _ in range(mesh.size)]
+    with fold_bodies(rs, cm, ar) as seen:
+        ys, dxs = combine(xs, gs, mesh)
+        torch.cuda.synchronize()
+    hys, hdxs = combine([x.cpu() for x in xs], [g.cpu() for g in gs], host)
+    if not all(same_bits(a.cpu(), b_) for a, b_ in zip(ys + list(dxs),
+                                                       hys + list(hdxs))):
+        raise AssertionError(f"{tag}: the combine on the fold kernel is "
+                             f"not bitwise its plain fold on the host")
+    check_bodies(seen, f"{tag} combine", 0)
+    return seen
+
+
+def mesh_sync_check(dev, tm, bk, ar, rs, cm, mesh, host, shards, pspecs,
+                    tag):
+    """The bucketed sync of seeded slices shaped like ``shards`` (every
+    rank's tree) over ``mesh`` bitwise the per-leaf sync on the card and
+    the host's per-leaf sync on ``host`` (plain folds); the bodies the
+    kernel took printed.  Returns the bucket plan."""
+    axes = mesh.axis_names
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    trees = [tm.tree_map(lambda p: torch.randn(
+        p.shape, generator=gen, device=dev), s) for s in shards]
+    sizes = dict(zip(axes, mesh.shape))
+    topos = tm.resolve_axis_topos(sizes, axes, None)
+    leaves = tm.tree_leaves(trees[0])
+    specs = bk.spec_leaves(trees[0], pspecs)
+    plan = bk.plan_buckets(leaves, specs, axes, topos=topos,
+                           axis_sizes=sizes)
+    with fold_bodies(rs, cm, ar) as seen:
+        fused = tm.sync_grads(trees, pspecs, axes, topos, bucket_bytes=None,
+                              comm=mesh)
+        torch.cuda.synchronize()
+    per_leaf = tm.sync_grads(trees, pspecs, axes, topos, bucket_bytes=0,
+                             comm=mesh)
+    if not trees_identical(fused, per_leaf, tm.tree_leaves):
+        raise AssertionError(f"{tag}: the bucketed sync is not bitwise the "
+                             f"per-leaf sync on the mesh")
+    # the host's per-leaf sync (plain folds) is the oracle: the plan of
+    # the bucketed sync has no bearing on its bits
+    cpu = [tm.tree_map(lambda g: g.cpu(), tr) for tr in trees]
+    del trees, per_leaf
+    plain = tm.sync_grads(cpu, pspecs, axes, topos, bucket_bytes=0,
+                          comm=host)
+    if not trees_identical([tm.tree_map(lambda g: g.cpu(), tr)
+                            for tr in fused], plain, tm.tree_leaves):
+        raise AssertionError(f"{tag}: the sync on the fold kernel is not "
+                             f"bitwise the per-leaf sync's plain folds on "
+                             f"the host")
+    log(f"{tag} sync of seeded slices on "
+        f"{dict(zip(axes, mesh.shape))}: plan "
+        f"{[(bkt.axes, len(bkt.indices), bkt.nbytes) for bkt in plan]}; "
+        f"bucketed == per-leaf bitwise, == the host's per-leaf plain folds "
+        f"bitwise; bodies {describe_bodies(seen)}")
+    return plan
+
+
 def sp_fold_checks(dev, tm, bk, ar, rs, spmd, cm, shards, pspecs):
     """Phase 22(a), the fold kernel: the tensor-parallel combine (forward
     and its backward, bf16, the combine's length, W=2) on the card bitwise
@@ -4573,65 +4675,17 @@ def sp_fold_checks(dev, tm, bk, ar, rs, spmd, cm, shards, pspecs):
     world = math.prod(SP_MESH)
     mesh = Mesh((dev,) * world, tm.AXIS_NAMES, SP_MESH)
     host = Mesh(("cpu",) * world, tm.AXIS_NAMES, SP_MESH)
-    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
     dp, sp, tp = SP_MESH
     b, t = FLASH_TRAIN[:2]
     shape = (b // dp, t // sp, MODEL["d_model"])
-
-    def combine(xs, gs, m):
-        xs = [x.detach().requires_grad_() for x in xs]
-        ys = spmd.axis(m, "tp").allreduce(xs)
-        return ys, torch.autograd.grad(ys, xs, grad_outputs=gs)
-
-    xs = [torch.randn(shape, generator=gen, device=dev).bfloat16()
-          for _ in range(world)]
-    gs = [torch.randn(shape, generator=gen, device=dev).bfloat16()
-          for _ in range(world)]
-    with fold_bodies(rs, cm, ar) as seen:
-        ys, dxs = combine(xs, gs, mesh)
-        torch.cuda.synchronize()
-    hys, hdxs = combine([x.cpu() for x in xs], [g.cpu() for g in gs], host)
-    if not all(same_bits(a.cpu(), b_) for a, b_ in zip(ys + list(dxs),
-                                                       hys + list(hdxs))):
-        raise AssertionError("phase 22(a): the combine on the fold kernel is "
-                             "not bitwise its plain fold on the host")
-    check_bodies(seen, "phase 22(a) combine", 0)
+    seen = combine_check(dev, rs, cm, ar, spmd, mesh, host, shape,
+                         "phase 22(a)")
     log(f"phase 22(a) tp combine {tuple(shape)} bf16 on {world} ranks "
         f"({len(spmd.axis(mesh, 'tp').groups)} groups of {tp}), forward and "
         f"backward: bitwise the plain fold on host copies; bodies "
         f"{describe_bodies(seen)}")
-    trees = [tm.tree_map(lambda p: torch.randn(
-        p.shape, generator=gen, device=dev), s) for s in shards]
-    sizes = dict(zip(tm.AXIS_NAMES, SP_MESH))
-    topos = tm.resolve_axis_topos(sizes, tm.AXIS_NAMES, None)
-    leaves = tm.tree_leaves(trees[0])
-    specs = bk.spec_leaves(trees[0], pspecs)
-    plan = bk.plan_buckets(leaves, specs, tm.AXIS_NAMES, topos=topos,
-                           axis_sizes=sizes)
-    with fold_bodies(rs, cm, ar) as seen:
-        fused = tm.sync_grads(trees, pspecs, tm.AXIS_NAMES, topos,
-                              bucket_bytes=None, comm=mesh)
-        torch.cuda.synchronize()
-    per_leaf = tm.sync_grads(trees, pspecs, tm.AXIS_NAMES, topos,
-                             bucket_bytes=0, comm=mesh)
-    if not trees_identical(fused, per_leaf, tm.tree_leaves):
-        raise AssertionError("phase 22(a): the bucketed sync is not bitwise "
-                             "the per-leaf sync on the mesh")
-    # the host's per-leaf sync (plain folds) is the oracle: the plan of
-    # the bucketed sync has no bearing on its bits
-    plain = tm.sync_grads([tm.tree_map(lambda g: g.cpu(), tr) for tr in trees],
-                          pspecs, tm.AXIS_NAMES, topos, bucket_bytes=0,
-                          comm=host)
-    if not trees_identical([tm.tree_map(lambda g: g.cpu(), tr)
-                            for tr in fused], plain, tm.tree_leaves):
-        raise AssertionError("phase 22(a): the sync on the fold kernel is "
-                             "not bitwise the per-leaf sync's plain folds on "
-                             "the host")
-    log(f"phase 22(a) sync of seeded slices on {SP_MESH}: plan "
-        f"{[(bkt.axes, len(bkt.indices), bkt.nbytes) for bkt in plan]}; "
-        f"bucketed == per-leaf bitwise, == the host's per-leaf plain folds "
-        f"bitwise; "
-        f"bodies {describe_bodies(seen)}")
+    mesh_sync_check(dev, tm, bk, ar, rs, cm, mesh, host, shards, pspecs,
+                    "phase 22(a)")
 
 
 def sp_train_run(trainer, argv, fa, rs):
@@ -4803,13 +4857,7 @@ def phase_sp_tp(dev, smi):
 def sp_f32_equivalence(dev, cfg, tm):
     """Phase 22(c): float32 at full width, each sp_impl on ``SP_MESH``
     against one rank, ``SP_F32_STEPS`` steps from one state on the same
-    batches, flash attention: the losses within rtol 1e-5 and the step-1
-    synced gradient within atol 1e-5, checked; the parameters within atol
-    1e-5 except on the elements where AdamW's update is ill-conditioned,
-    picked from the one-rank run's gradients as
-    ``tests/test_torch_overlap.py`` picks them (|g1| < 1e-6 or |(g1, g2)|
-    < 1e-5), which are held to the most the updates can move a parameter,
-    2 lr a step."""
+    batches, flash attention, held to :func:`f32_equivalent`'s bars."""
     from flextree_tpu_torch.data import LMDataset, synthetic_tokens
     from flextree_tpu_torch.models.transformer import TransformerConfig
     from flextree_tpu_torch.parallel.mesh import Mesh
@@ -4839,39 +4887,471 @@ def sp_f32_equivalence(dev, cfg, tm):
         return losses, [p.cpu() for p in tm.tree_leaves(state["params"])], gs
 
     want = f32_steps("ring", None)
+    for impl in SP_IMPLS:
+        f32_equivalent(f"phase 22(c) f32 {impl} on {SP_MESH} vs one rank "
+                       f"({SP_F32_STEPS} steps, B={SP_F32_BATCH} T={t}, full "
+                       f"width, flash)", f32_steps(impl, mesh), want, lr,
+                       SP_F32_STEPS)
+
+
+def f32_equivalent(tag, got, want, lr, steps, every_step=False):
+    """``got`` against ``want``, each ``(losses, parameter leaves, each
+    step's synced gradient leaves)`` of float32 runs from one state on the
+    same batches: the losses within rtol 1e-5 and the step-1 gradient
+    (``every_step``: every step's) within atol 1e-5, checked; the
+    parameters within atol 1e-5 except on
+    the elements where AdamW's update is ill-conditioned, picked from
+    ``want``'s gradients as ``tests/test_torch_overlap.py`` picks them
+    (|g1| < 1e-6 or |(g1, g2)| < 1e-5), which are held to the most the
+    updates can move a parameter, 2 lr a step."""
+    losses, params, gs = got
     tiny_masks = [(g1.abs() < 1e-6) | (torch.hypot(g1, g2) < 1e-5)
                   for g1, g2 in zip(want[2][0], want[2][1])]
-    bound = 2 * lr * SP_F32_STEPS
-    for impl in SP_IMPLS:
-        losses, params, gs = f32_steps(impl, mesh)
-        loss_rel = max(abs(a - b_) / abs(b_) for a, b_ in zip(losses,
-                                                              want[0]))
-        grad_abs = max((a - b_).abs().max().item()
-                       for a, b_ in zip(gs[0], want[2][0]))
-        plain_abs, tiny_abs, n_tiny, worst = 0.0, 0.0, 0, None
-        for i, (a, b_, tiny) in enumerate(zip(params, want[1], tiny_masks)):
-            gap = (a - b_).abs()
-            n_tiny += int(tiny.sum())
-            if (~tiny).any() and gap[~tiny].max().item() > plain_abs:
-                plain_abs = gap[~tiny].max().item()
-                j = torch.where(~tiny, gap, 0).argmax()
-                worst = (i, [g[i].reshape(-1)[j].item() for g in want[2]],
-                         [(g[i] - h[i]).reshape(-1)[j].item()
-                          for g, h in zip(gs, want[2])])
-            if tiny.any():
-                tiny_abs = max(tiny_abs, gap[tiny].max().item())
-        log(f"phase 22(c) f32 {impl} on {SP_MESH} vs one rank ({SP_F32_STEPS} "
-            f"steps, B={SP_F32_BATCH} T={t}, full width, flash): losses "
-            f"{losses} vs {want[0]}, max rel gap {loss_rel:.3g} (bar 1e-5); "
-            f"step-1 synced grad max abs gap {grad_abs:.3g} (bar 1e-5); "
-            f"params max abs gap {plain_abs:.3g} (bar 1e-5; the worst at leaf "
-            f"{worst and worst[0]}, one-rank grads {worst and worst[1]}, the "
-            f"mesh's gaps {worst and worst[2]}) and, on the {n_tiny} "
-            f"ill-conditioned elements, {tiny_abs:.3g} (AdamW's bound "
-            f"{bound:g})")
-        if not (loss_rel <= 1e-5 and grad_abs <= 1e-5 and plain_abs <= 1e-5
-                and tiny_abs <= bound):
-            raise AssertionError(f"phase 22(c) f32 {impl}: out of the bars")
+    bound = 2 * lr * steps
+    loss_rel = max(abs(a - b_) / abs(b_) for a, b_ in zip(losses, want[0]))
+    grad_abs = max((a - b_).abs().max().item()
+                   for g, w in list(zip(gs, want[2]))[
+                       :steps if every_step else 1]
+                   for a, b_ in zip(g, w))
+    plain_abs, tiny_abs, n_tiny, worst = 0.0, 0.0, 0, None
+    for i, (a, b_, tiny) in enumerate(zip(params, want[1], tiny_masks)):
+        gap = (a - b_).abs()
+        n_tiny += int(tiny.sum())
+        if (~tiny).any() and gap[~tiny].max().item() > plain_abs:
+            plain_abs = gap[~tiny].max().item()
+            j = torch.where(~tiny, gap, 0).argmax()
+            worst = (i, [g[i].reshape(-1)[j].item() for g in want[2]],
+                     [(g[i] - h[i]).reshape(-1)[j].item()
+                      for g, h in zip(gs, want[2])])
+        if tiny.any():
+            tiny_abs = max(tiny_abs, gap[tiny].max().item())
+    log(f"{tag}: losses {losses} vs {want[0]}, max rel gap {loss_rel:.3g} "
+        f"(bar 1e-5); {'every step' if every_step else 'step-1'} synced "
+        f"grad max abs gap {grad_abs:.3g} (bar 1e-5); params max abs gap {plain_abs:.3g} (bar 1e-5; the worst at "
+        f"leaf {worst and worst[0]}, the reference's grads "
+        f"{worst and worst[1]}, the gaps {worst and worst[2]}) and, on the "
+        f"{n_tiny} ill-conditioned elements, {tiny_abs:.3g} (AdamW's bound "
+        f"{bound:g})")
+    if not (loss_rel <= 1e-5 and grad_abs <= 1e-5 and plain_abs <= 1e-5
+            and tiny_abs <= bound):
+        raise AssertionError(f"{tag}: out of the bars")
+
+
+# ---------------------------------------------------------------------------
+# phase 23: pipeline and expert parallelism
+
+PM_MESH = (1, 2, 2, 2)  # (dp, pp|ep, sp, tp), the JAX trainer's examples
+PM_MICRO = 2  # GPipe microbatches a rank
+# MoEConfig's defaults: 4 local experts a rank on ep=2, router_aux_weight 1e-2
+PM_MOE = dict(n_experts=8, top_k=2, capacity_factor=2.0)
+PM_STEPS = 10
+PM_F32_STEPS = 3
+PM_F32_BATCH = 2
+
+
+def pm_argv(model: str) -> list:
+    """``trainer.main``'s flags for phase 23(b): phase 22's run with
+    ``--model pipeline|moe`` on ``PM_MESH``."""
+    argv = TRAIN_ARGV + ["--mesh", ",".join(map(str, PM_MESH))]
+    argv[argv.index("--model") + 1] = model
+    argv[argv.index("--steps") + 1] = str(PM_STEPS)
+    if model == "pipeline":
+        return argv + ["--microbatches", str(PM_MICRO)]
+    return argv + ["--n-experts", str(PM_MOE["n_experts"]), "--top-k",
+                   str(PM_MOE["top_k"]), "--capacity-factor",
+                   str(PM_MOE["capacity_factor"])]
+
+
+def pm_hop(model, shape, batch, seq, heads, micro):
+    """``(rows, T_local, heads)`` of one rank's attention: a pipeline
+    microbatch (the local rows over ``micro``), or an MoE rank's block
+    (the rows over dp x ep)."""
+    dp, second, sp, tp = shape
+    rows = batch // dp // micro if model == "pipeline" else \
+        batch // (dp * second)
+    return rows, seq // sp, heads // tp
+
+
+def pm_flash_launches(model, shape, layers, micro) -> dict:
+    """Each flash kernel's launches a step, from the code.  Every rank's
+    attention is the causal ring over its sp group
+    (:func:`sp_flash_launches`' count a layer).  MoE: every layer once.
+    Pipeline: each of the ``micro + pp - 1`` ticks runs every rank's
+    ``layers / pp`` stage layers forward, bubbles included; only a stage's
+    ``micro`` valid ticks reach a loss, so only they run backward (a
+    bubble's output has no cotangent and autograd never reaches it)."""
+    dp, second, sp, tp = shape
+    per_layer = sp_flash_launches(
+        "ring", (math.prod(shape) // (sp * tp), sp, tp), 1)
+    if model == "moe":
+        return dict.fromkeys(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+                             layers * per_layer)
+    stage = layers // second
+    fwd = (micro + second - 1) * stage * per_layer
+    bwd = micro * stage * per_layer
+    return {"flash_fwd": fwd, "flash_bwd_dq": bwd, "flash_bwd_dkv": bwd}
+
+
+def pm_fold_launches(model, cfg, shape, batch, seq, micro, leaves, specs,
+                     axes, ar, bk, tm, rs):
+    """The fold kernel's launches a step, from the code: ``(combine, sync,
+    plan)``.  The combine: each tp group's allreduce of a block's
+    attention and FFN partials, forward and backward (a pipeline stage
+    forward at every tick, backward at its ``micro`` valid ones; an MoE
+    layer's expert partials ``(E/ep, ep C, d)``); the sync: each bucket on
+    each of its axes, once a group along the axis
+    (``sync_fold_stages``)."""
+    from flextree_tpu_torch.models.moe import expert_capacity
+
+    dp, second, sp, tp = shape
+    world = math.prod(shape)
+    sizes = dict(zip(axes, shape))
+    d = cfg.d_model
+
+    def folds(count):
+        if tp == 1:
+            return 0
+        return stage_launches(ar.call_shape(tp, None, count).folds,
+                              rs.MAX_POINTERS)
+
+    rows, t_local, _ = pm_hop(model, shape, batch, seq, cfg.n_heads, micro)
+    block = folds(rows * t_local * d)
+    if model == "pipeline":
+        ticks = micro + second - 1
+        combine = (ticks + micro) * (cfg.n_layers // second) * 2 * \
+            (world // tp) * block
+    else:
+        cap = expert_capacity(rows * t_local, cfg)
+        expert = folds(cfg.n_experts // second * second * cap * d)
+        combine = 2 * (world // tp) * sum(
+            block + (expert if cfg.is_moe_layer(i) else block)
+            for i in range(cfg.n_layers))
+    topos = tm.resolve_axis_topos(sizes, axes, None)
+    plan = bk.plan_buckets(leaves, specs, axes, topos=topos,
+                           axis_sizes=sizes)
+    numels = [g.numel() for g in leaves]
+    sync = sum(world // sizes[ax] * stage_launches(
+        bk.sync_fold_stages(numels, sizes[ax], topos[ax], [bkt]),
+        rs.MAX_POINTERS) for bkt in plan for ax in bkt.axes)
+    return combine, sync, plan
+
+
+def pm_models(dev):
+    """Phase 23's model configs, meshes and parameter specs: ``{model:
+    (cfg, mesh, host mesh, pspecs, full params)}`` at the flagship width
+    (bf16, flash), the params from seed ``SEED``."""
+    from flextree_tpu_torch.models.moe import MoEConfig, moe_param_specs
+    from flextree_tpu_torch.models.transformer import TransformerConfig
+    from flextree_tpu_torch.parallel import moe_train, pipeline
+    from flextree_tpu_torch.parallel.mesh import Mesh
+
+    out = {}
+    for model, axes in (("pipeline", pipeline.PIPELINE_AXES),
+                        ("moe", moe_train.MOE_AXES)):
+        common = dict(MODEL, dtype=torch.bfloat16, attn_impl="flash")
+        gen = torch.Generator().manual_seed(SEED)
+        if model == "pipeline":
+            cfg = TransformerConfig(**common)
+            params = pipeline.init_pipeline_train_state(
+                cfg, gen, device=dev)["params"]
+            pspecs = pipeline.pipeline_param_specs(cfg)
+        else:
+            cfg = MoEConfig(**common, **PM_MOE)
+            params = moe_train.init_moe_train_state(
+                cfg, gen, device=dev)["params"]
+            pspecs = moe_param_specs(cfg)
+        mesh = pipeline.make_mesh_4d(shape=PM_MESH, axis_names=axes,
+                                     device=dev)
+        host = Mesh(("cpu",) * mesh.size, axes, PM_MESH)
+        out[model] = (cfg, mesh, host, pspecs, params)
+    return out
+
+
+def pm_kernel_checks(dev, models, tm, bk, ar, rs, spmd, cm) -> dict:
+    """Phase 23(a): the flash kernels at this path's hop shapes (phase
+    22(a)'s ring case, asserted the same), the fold at the expert
+    combine's shape (bf16, W=2, forward and backward) bitwise its host
+    copies, and each model's bucketed sync of seeded slices on
+    ``PM_MESH`` bitwise the per-leaf sync and the host's plain folds.
+    Returns each model's ``(leaves, specs)`` of one rank's slices."""
+    b, t, h, _ = FLASH_TRAIN
+    ring = next(c for c in sp_flash_cases() if c[0] == "ring_diag")
+    for model in models:
+        hop = pm_hop(model, PM_MESH, b, t, h, PM_MICRO)
+        if hop != (ring[1], ring[2], ring[4]):
+            raise AssertionError(f"phase 23(a): the {model} hop {hop} is "
+                                 f"not phase 22(a)'s ring case {ring}")
+    log(f"phase 23(a) flash: the pipeline microbatch's and the MoE block's "
+        f"ring hop (B={ring[1]} T={ring[2]} H={ring[4]} D={ring[5]}, causal "
+        f"resident and past blocks with an lse cotangent) is phase 22(a)'s "
+        f"ring case, held there to phase 7's bars")
+    from flextree_tpu_torch.models.moe import expert_capacity
+
+    cfg, mesh, host, _, _ = models["moe"]
+    rows, t_local, _ = pm_hop("moe", PM_MESH, b, t, h, PM_MICRO)
+    ep = PM_MESH[1]
+    cap = expert_capacity(rows * t_local, cfg)
+    shape = (cfg.n_experts // ep, ep * cap, cfg.d_model)
+    seen = combine_check(dev, rs, cm, ar, spmd, mesh, host, shape,
+                         "phase 23(a)")
+    log(f"phase 23(a) expert combine {shape} bf16 on {mesh.size} ranks "
+        f"({len(spmd.axis(mesh, 'tp').groups)} groups of {PM_MESH[3]}; C = "
+        f"{cap}), forward and backward: bitwise the plain fold on host "
+        f"copies; bodies {describe_bodies(seen)}")
+    torch.cuda.empty_cache()
+    slices = {}
+    for model, (cfg, mesh, host, pspecs, params) in models.items():
+        shards = spmd.shard_tree(params, pspecs, mesh)
+        mesh_sync_check(dev, tm, bk, ar, rs, cm, mesh, host, shards, pspecs,
+                        f"phase 23(a) {model}")
+        slices[model] = (tm.tree_leaves(shards[0]),
+                         bk.spec_leaves(shards[0], pspecs))
+        del shards
+        torch.cuda.empty_cache()
+    return slices
+
+
+def pm_train_runs(dev, smi, models, slices, trainer, ckpt, fa, rs, ar, bk,
+                  tm):
+    """Phase 23(b): ``trainer.main --model pipeline|moe --mesh 1,2,2,2`` at
+    the flagship width (bf16, flash, batch 8 x 1024, ``PM_STEPS`` steps,
+    warmup-cosine, clipping): the loss finite and falling, each kernel's
+    launches the code's count, the checkpoint bitwise the live state;
+    then the steady step of both and of phase 22's dense ring run on (2,
+    2, 2) in turns, device ms and busy share under ``torch.profiler``,
+    peak memory and MoE's aux (printed, not gated).  Returns the launches
+    by path."""
+    import tempfile
+
+    from flextree_tpu_torch.models.transformer import TransformerConfig
+    from flextree_tpu_torch.parallel import moe_train, pipeline
+    from flextree_tpu_torch.parallel.mesh import Mesh
+
+    b, t = FLASH_TRAIN[:2]
+    runs, by_path = {}, {}
+    for model, (cfg, mesh, _, _, _) in models.items():
+        with tempfile.TemporaryDirectory(prefix=f"ft-{model}-") as ckpt_dir:
+            out, launches, peak, wall = sp_train_run(
+                trainer, pm_argv(model) + ["--ckpt-dir", ckpt_dir], fa, rs)
+            res = out["result"]
+            saved = ckpt.restore_train_state(ckpt_dir, dev)
+            live, back = tm.tree_leaves(res.state), tm.tree_leaves(saved)
+            if len(live) != len(back) or not all(
+                    a.dtype == b_.dtype and torch.equal(a, b_)
+                    for a, b_ in zip(live, back)):
+                raise AssertionError(f"phase 23(b) {model}: the checkpoint "
+                                     f"does not restore bitwise to the live "
+                                     f"state")
+        losses = [loss for _, loss in res.losses]
+        if len(losses) != PM_STEPS or not all(np.isfinite(losses)) or \
+                not losses[-1] < losses[0] or res.report.skipped_steps:
+            raise AssertionError(f"phase 23(b) {model}: losses not finite "
+                                 f"and falling: {losses}")
+        if out["model_cfg"] != cfg or out["comm"] != mesh:
+            raise AssertionError(f"phase 23(b) {model}: the trainer built "
+                                 f"{out['model_cfg']} on {out['comm']}")
+        flash_want = {k: PM_STEPS * n for k, n in pm_flash_launches(
+            model, PM_MESH, cfg.n_layers, PM_MICRO).items()}
+        combine, sync, plan = pm_fold_launches(
+            model, cfg, PM_MESH, b, t, PM_MICRO, *slices[model],
+            mesh.axis_names, ar, bk, tm, rs)
+        fold_want = PM_STEPS * (combine + sync)
+        if {k: launches[k] for k in flash_want} != flash_want or \
+                launches["reduce_sources"] != fold_want:
+            raise AssertionError(
+                f"phase 23(b) {model}: launches {launches}; the code gives "
+                f"flash {flash_want} and folds {fold_want} ({PM_STEPS} steps "
+                f"x (combine {combine} + sync {sync}))")
+        hist = res.report.metrics["histograms"]["train.step_ms"]
+        runs[model] = dict(out=out, peak=peak, p50=hist["p50"])
+        by_path["pp_train" if model == "pipeline" else "moe_train"] = \
+            launches
+        log(f"phase 23(b) {model} on mesh "
+            f"{dict(zip(mesh.axis_names, PM_MESH))} (flagship, bf16, flash, "
+            f"B={b} T={t}, {PM_STEPS} steps via trainer.main): loss "
+            f"{losses[0]:.4f} -> {losses[-1]:.4f}; launches {launches} = the "
+            f"code's (flash {flash_want}; folds {PM_STEPS} x (combine "
+            f"{combine} + sync {sync}), sync plan "
+            f"{[(bkt.axes, len(bkt.indices)) for bkt in plan]}); checkpoint "
+            f"restores bitwise; registry step_ms p50 {hist['p50']}; peak "
+            f"memory {peak / 2**30:.3f} GiB; {wall:.1f} s")
+        torch.cuda.empty_cache()
+    # steady steps of both runs from their trained states and of phase
+    # 22's dense ring step from a fresh state, in turns
+    data = np.random.default_rng(SEED).integers(
+        0, MODEL["vocab_size"], (2, b, t)).astype(np.int32)
+    steps = {}
+    for model, r in runs.items():
+        o = r["out"]
+        make = pipeline.make_pipeline_train_step if model == "pipeline" \
+            else moe_train.make_moe_train_step
+        kw = dict(n_microbatches=PM_MICRO) if model == "pipeline" else {}
+        steps[model] = (make(o["model_cfg"], o["train_cfg"], comm=o["comm"],
+                             **kw), o["result"].state)
+    dense = TransformerConfig(**MODEL, dtype=torch.bfloat16,
+                              attn_impl="flash", sp_impl="ring")
+    tc = runs["pipeline"]["out"]["train_cfg"]
+    steps["dense_ring"] = (
+        tm.make_train_step(dense, tc, comm=Mesh(
+            (dev,) * math.prod(SP_MESH), tm.AXIS_NAMES, SP_MESH)),
+        tm.init_train_state(dense, torch.Generator().manual_seed(SEED),
+                            device=dev))
+    times = {k: [] for k in steps}
+    aux = []
+    order = list(steps)
+    for i in range(SP_TIMED + 1):
+        for name in (order if i % 2 else order[::-1]):
+            step, state = steps[name]
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            state, m = step(state, data[0], data[1])
+            float(m["loss"])
+            if i:  # the first round warms each step up
+                times[name].append(time.monotonic() - t0)
+            if "aux" in m:
+                aux.append(float(m["aux"]))
+            steps[name] = (step, state)
+    for name in order:
+        step, state = steps[name]
+
+        def two_steps(step=step, state=state):
+            s = state
+            for _ in range(2):
+                s, m = step(s, data[0], data[1])
+            float(m["loss"])
+
+        prof = device_profile(two_steps, f"phase 23(b) profile {name} "
+                              f"(2 steps)")
+        ms = float(np.median(times[name])) * 1e3
+        dev_ms = None if prof["device_busy_s"] is None else \
+            prof["device_busy_s"] * 1e3 / 2
+        peak = runs[name]["peak"] if name in runs else None
+        log(f"phase 23(b) steady {name}: median step {ms:.3f} ms "
+            f"({SP_TIMED} steps in turns), {b * t / ms * 1e3:.0f} tokens/s; "
+            f"device "
+            + ("not measured" if dev_ms is None else
+               f"{dev_ms:.3f} ms a step, busy "
+               f"{100 * prof['device_busy_share']:.1f}% of the wall "
+               f"(torch.profiler)")
+            + ("" if peak is None else
+               f"; trainer run's peak memory {peak / 2**30:.3f} GiB")
+            + f"; {smi}")
+    log(f"phase 23(b) moe aux (router balance, 1.0 = even) over the timed "
+        f"steps: {aux}")
+    del steps, runs
+    torch.cuda.empty_cache()
+    return by_path
+
+
+def pm_f32_equivalence(dev, tm):
+    """Phase 23(c): float32 at full width, ``PM_F32_STEPS`` steps from one
+    state on the same batches (B=2, T=1024, flash), held to
+    :func:`f32_equivalent`'s bars: the pipeline on ``PM_MESH`` against
+    one rank's dense step from the same (unstacked) parameters; MoE on
+    ``PM_MESH`` against the MoE step on one rank, with ``capacity_factor
+    = n_experts / top_k`` (C is a shard's token count, so no shard drops a
+    token: the JAX module's condition for the sharded run to equal the
+    oracle), ``router_aux_weight = 0`` (the aux is a per-rank mean) and
+    AdamW's eps 1e-3.  Both also hold every step's synced gradient to
+    atol 1e-5."""
+    from flextree_tpu_torch.data import LMDataset, synthetic_tokens
+    from flextree_tpu_torch.models.moe import MoEConfig
+    from flextree_tpu_torch.models.transformer import TransformerConfig
+    from flextree_tpu_torch.parallel import moe_train, pipeline
+
+    t = FLASH_TRAIN[1]
+    dataset = LMDataset(synthetic_tokens(200_000, MODEL["vocab_size"],
+                                         seed=SEED),
+                        batch=PM_F32_BATCH, seq_len=t, seed=SEED)
+    batches = [dataset.batch_at(i) for i in range(PM_F32_STEPS)]
+    tc = tm.TrainConfig()
+
+    def run(step, grads, init, leaves):
+        state, losses, gs = init, [], []
+        for tokens, targets in batches:
+            gs.append([g.cpu() for g in leaves(
+                grads(state["params"], tokens, targets)[1])])
+            state, m = step(state, tokens, targets)
+            losses.append(float(m["loss"]))
+        return losses, [p.cpu() for p in leaves(state["params"])], gs
+
+    cfg = TransformerConfig(**MODEL, attn_impl="flash")
+    init = tm.init_train_state(cfg, torch.Generator().manual_seed(SEED),
+                               device=dev)
+    want = run(tm.make_train_step(cfg, tc, device=dev),
+               tm.make_loss_and_grads(cfg, tc, device=dev), init,
+               tm.tree_leaves)
+    mesh = pipeline.make_mesh_4d(shape=PM_MESH, device=dev)
+    stacked = dict(init, **{k: pipeline.stack_layer_params(init[k])
+                            for k in ("params", "mu", "nu")})
+    got = run(pipeline.make_pipeline_train_step(cfg, tc, PM_MICRO,
+                                                comm=mesh),
+              pipeline.make_pipeline_loss_and_grads(cfg, tc, PM_MICRO,
+                                                    comm=mesh),
+              stacked,
+              lambda tree: tm.tree_leaves(pipeline.unstack_layer_params(tree)))
+    f32_equivalent(f"phase 23(c) f32 pipeline on {PM_MESH} (M={PM_MICRO}) "
+                   f"vs one rank's dense step ({PM_F32_STEPS} steps, "
+                   f"B={PM_F32_BATCH} T={t}, full width, flash)", got, want,
+                   tc.lr, PM_F32_STEPS, every_step=True)
+    del want, got, init, stacked
+    torch.cuda.empty_cache()
+    mcfg = MoEConfig(**MODEL, attn_impl="flash", n_experts=PM_MOE["n_experts"],
+                     top_k=PM_MOE["top_k"],
+                     capacity_factor=PM_MOE["n_experts"] / PM_MOE["top_k"],
+                     router_aux_weight=0.0)
+    init = moe_train.init_moe_train_state(
+        mcfg, torch.Generator().manual_seed(SEED), device=dev)
+    # AdamW's eps as the JAX package's MoE equivalence test sets it
+    # (tests/test_train_features.py:189-193): the experts' many tiny
+    # gradients sit in AdamW's g / (|g| + eps) sign regime at eps 1e-8,
+    # where it magnifies float reordering's ~1e-7 gradient gaps ~10^4-fold;
+    # at 1e-3 the update is Lipschitz in the gradient, so the parameter
+    # bar holds steps 2-3's gradients as the gradient bar holds step 1's
+    tc = tm.TrainConfig(eps=1e-3)
+    want, got = (run(moe_train.make_moe_train_step(mcfg, tc, device=dev,
+                                                   comm=comm),
+                     moe_train.make_moe_loss_and_grads(mcfg, tc, device=dev,
+                                                       comm=comm),
+                     init, tm.tree_leaves)
+                 for comm in (None, moe_train.make_mesh_moe(
+                     shape=PM_MESH, device=dev)))
+    f32_equivalent(f"phase 23(c) f32 moe on {PM_MESH} vs one rank "
+                   f"({PM_F32_STEPS} steps, B={PM_F32_BATCH} T={t}, full "
+                   f"width, flash, capacity_factor "
+                   f"{mcfg.capacity_factor}, no aux, AdamW eps {tc.eps:g})",
+                   got, want, tc.lr, PM_F32_STEPS, every_step=True)
+
+
+def phase_pp_moe(dev, smi):
+    """Phase 23: pipeline and expert parallelism on (1, 2, 2, 2) meshes,
+    (a) :func:`pm_kernel_checks`, (b) :func:`pm_train_runs`, (c)
+    :func:`pm_f32_equivalence`.  Returns each kernel's launches by
+    path."""
+    from flextree_tpu_torch import trainer
+    from flextree_tpu_torch.ops import flash_attention as fa
+    from flextree_tpu_torch.ops import reduce_stacked as rs
+    from flextree_tpu_torch.parallel import allreduce as ar
+    from flextree_tpu_torch.parallel import bucketing as bk
+    from flextree_tpu_torch.parallel import compressed as cm
+    from flextree_tpu_torch.parallel import spmd
+    from flextree_tpu_torch.parallel import train as tm
+    from flextree_tpu_torch.utils import checkpoint as ckpt
+
+    clock = time.monotonic()
+    models = pm_models(dev)
+    slices = pm_kernel_checks(dev, models, tm, bk, ar, rs, spmd, cm)
+    log(f"phase 23(a): {time.monotonic() - clock:.1f} s")
+    clock = time.monotonic()
+    by_path = pm_train_runs(dev, smi, models, slices, trainer, ckpt, fa, rs,
+                            ar, bk, tm)
+    del models
+    torch.cuda.empty_cache()
+    log(f"phase 23(b): {time.monotonic() - clock:.1f} s")
+    clock = time.monotonic()
+    pm_f32_equivalence(dev, tm)
+    log(f"phase 23(c): {time.monotonic() - clock:.1f} s")
+    return by_path
 
 
 def collective_phases(dev, bw) -> list:
@@ -5380,6 +5860,9 @@ def main() -> int:
     t0 = time.monotonic()
     sp_launches = phase_sp_tp(dev, smi)
     log(f"phase 22: {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    sp_launches.update(phase_pp_moe(dev, smi))
+    log(f"phase 23: {time.monotonic() - t0:.1f} s")
     # each path's launches beside their sum
     for row in rows:
         if row["name"] in dp_launches:

@@ -3,7 +3,8 @@
 ``flextree_tpu.models.transformer.init_params`` returns a pytree of
 ``(in, out)``-shaped float32 arrays and ``parallel.train.init_train_state``
 wraps it as ``{"params", "mu", "nu", "step"}`` (and ``"ef"``, param-shaped,
-for a lossy codec), or, under ``shard_optimizer`` (ZeRO-1), as
+for a lossy codec; the MoE and pipeline steps' states are the same around
+their own parameter trees), or, under ``shard_optimizer`` (ZeRO-1), as
 ``{"params", "step", "mu_shard", "mu_tail", "mu_rep", "nu_shard",
 "nu_tail", "nu_rep"}`` (and ``"master_shard"``, ``"master_tail"``, ``"ef"``
 for a lossy codec) in its host-global layout: a ``*_shard`` leaf is
@@ -24,14 +25,20 @@ import torch
 __all__ = ["params_from_numpy", "train_state_from_numpy",
            "train_state_to_numpy"]
 
-_LAYER_KEYS = ("ln1", "wq", "wk", "wv", "wo", "ln2", "w1", "w2")
+_ATTENTION_KEYS = ("ln1", "wq", "wk", "wv", "wo", "ln2")
+_LAYER_KEYS = _ATTENTION_KEYS + ("w1", "w2")
+_MOE_LAYER_KEYS = _ATTENTION_KEYS + ("router", "w1e", "w2e")
 
 
 def params_from_numpy(tree: dict, device=None) -> dict:
-    """The port's parameter dict from the JAX ``init_params`` pytree given
-    as numpy arrays, as float32 tensors on ``device`` (default ``cuda``).
-    Loud on a missing or extra key: a silently dropped weight would give a
-    model that runs and computes something else."""
+    """The port's parameter dict from a JAX parameter pytree given as
+    numpy arrays, as float32 tensors on ``device`` (default ``cuda``): the
+    dense ``init_params`` tree, the MoE ``init_moe_params`` tree (a layer
+    has the dense FFN's ``w1``/``w2`` or the MoE FFN's ``router``, ``w1e``
+    and ``w2e``), or the pipeline's stacked tree (``layers`` one dict of
+    ``(L, ...)`` leaves, ``stack_layer_params``).  Loud on a missing or
+    extra key: a silently dropped weight would give a model that runs and
+    computes something else."""
     from .device import resolve_device
 
     dev = resolve_device(device)
@@ -39,13 +46,22 @@ def params_from_numpy(tree: dict, device=None) -> dict:
     def t(a):
         return torch.from_numpy(np.array(a, np.float32)).to(dev)  # a copy
 
+    def layer_of(i, layer):
+        keys = next((k for k in (_LAYER_KEYS, _MOE_LAYER_KEYS)
+                     if set(layer) == set(k)), None)
+        if keys is None:
+            raise ValueError(f"layer {i}: unexpected keys {sorted(layer)}; "
+                             f"want {list(_LAYER_KEYS)} or "
+                             f"{list(_MOE_LAYER_KEYS)}")
+        return {k: t(layer[k]) for k in keys}
+
     if set(tree) != {"embed", "ln_f", "layers"}:
         raise ValueError(f"unexpected top-level keys {sorted(tree)}")
-    layers = []
-    for i, layer in enumerate(tree["layers"]):
-        if set(layer) != set(_LAYER_KEYS):
-            raise ValueError(f"layer {i}: unexpected keys {sorted(layer)}")
-        layers.append({k: t(layer[k]) for k in _LAYER_KEYS})
+    layers = tree["layers"]
+    if isinstance(layers, dict):  # the stacked pipeline layout
+        layers = layer_of("stack", layers)
+    else:
+        layers = [layer_of(i, layer) for i, layer in enumerate(layers)]
     return {"embed": t(tree["embed"]), "ln_f": t(tree["ln_f"]),
             "layers": layers}
 

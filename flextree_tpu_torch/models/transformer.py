@@ -196,22 +196,22 @@ def _check_axis(a) -> None:
             f"port's counterpart of a shard_map axis name), got {a!r}")
 
 
-def _sharded(x, tp_axis, sp_axis) -> bool:
+def _sharded(x, *axes) -> bool:
     """Whether a call runs every rank of a mesh: an axis is given.  Each
-    axis must be a :class:`..parallel.spmd.Axis`, and ``x`` then a list
-    with one entry a rank of its mesh."""
-    axes = [a for a in (tp_axis, sp_axis) if a is not None]
-    for a in axes:
+    axis must be a :class:`..parallel.spmd.Axis`, all of one mesh, and
+    ``x`` then a list with one entry a rank of it."""
+    given = [a for a in axes if a is not None]
+    for a in given:
         _check_axis(a)
-    if axes:
-        if len({a.mesh.size for a in axes}) != 1 or \
-                not isinstance(x, (list, tuple)) or len(x) != axes[0].mesh.size:
+    if given:
+        if len({a.mesh for a in given}) != 1 or \
+                not isinstance(x, (list, tuple)) or len(x) != given[0].mesh.size:
             raise ValueError(
-                f"with tp_axis={tp_axis} / sp_axis={sp_axis} the inputs are "
-                f"one entry a rank of the axes' mesh")
+                f"with axes {given} the inputs are one entry a rank of the "
+                f"axes' mesh")
         return True
     if isinstance(x, (list, tuple)):
-        raise ValueError("per-rank lists need a tp_axis or an sp_axis")
+        raise ValueError("per-rank lists need an axis")
     return False
 
 

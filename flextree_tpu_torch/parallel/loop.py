@@ -10,7 +10,8 @@ with the same contract as the JAX loop:
   thread), checkpoints are named by it, and resume reads it back, so a
   run interrupted at any step and resumed gives the same parameters as a
   straight-through run;
-- a NaN/Inf guard skips a step whose loss (or grad norm) is non-finite,
+- a NaN/Inf guard skips a step whose loss (or grad norm, or the MoE
+  step's ``aux`` or ``total``) is non-finite,
   rewinds to the last verified checkpoint after ``max_bad_steps``
   consecutive skips, and raises :class:`TrainingDiverged` once
   ``max_rewinds`` rewinds have not cured it; restores fall back past a
@@ -105,8 +106,9 @@ class FitResult:
 
 
 def _metrics_finite(metrics) -> bool:
-    """Host-side finiteness of the guard metrics (loss + grad norm)."""
-    for key in ("loss", "grad_norm"):
+    """Host-side finiteness of the guard metrics: the loss, the grad norm,
+    and the MoE step's router ``aux`` and optimized ``total``."""
+    for key in ("loss", "grad_norm", "aux", "total"):
         if key in metrics and not math.isfinite(float(metrics[key])):
             return False
     return True
@@ -234,7 +236,10 @@ def fit(state, step_fn: Callable, dataset, cfg: FitConfig = FitConfig(), *,
                 loss = float(metrics["loss"])
                 losses.append((step, loss))
                 rate = (step - start) / (time.perf_counter() - t0)
-                log.info("step %d loss %.4f (%.1f steps/s)", step, loss, rate)
+                log.info("step %d loss %.4f%s (%.1f steps/s)", step, loss,
+                         "".join(f" {k} {float(metrics[k]):.4f}"
+                                 for k in ("aux", "total") if k in metrics),
+                         rate)
             if cfg.ckpt_dir and cfg.ckpt_every and step % cfg.ckpt_every == 0:
                 _save(state)
         if cfg.ckpt_dir and step > start:

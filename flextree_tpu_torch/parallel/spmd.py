@@ -34,7 +34,7 @@ import torch
 from .mesh import Mesh
 
 __all__ = ["Axis", "axis", "coords", "rank_coords", "shard_tree",
-           "gather_tree"]
+           "gather_tree", "shard_batch"]
 
 
 def rank_coords(mesh: Mesh) -> list[tuple[int, ...]]:
@@ -226,32 +226,60 @@ def shard_tree(tree, pspecs, mesh: Mesh) -> list:
     return out
 
 
+def shard_batch(x, spec, mesh: Mesh) -> list:
+    """Every rank's block of a batch tensor laid out by ``spec`` (a spec
+    as :func:`shard_tree` reads it, e.g. ``(("dp", "ep"), "sp")``: the rows
+    over dp and ep jointly, row-major as ``PartitionSpec`` lays them, the
+    columns over sp), as views of ``x``, in rank order."""
+    out = []
+    for r in range(mesh.size):
+        block = x
+        for d, entry in enumerate(spec):
+            idx, count = _block(mesh, _spec_names(entry), r)
+            if x.shape[d] % count:
+                raise ValueError(f"dimension {d} of {tuple(x.shape)} does "
+                                 f"not split over {entry} ({count} blocks)")
+            w = x.shape[d] // count
+            block = block.narrow(d, idx * w, w)
+        out.append(block)
+    return out
+
+
 def gather_tree(trees, pspecs, mesh: Mesh):
     """The inverse of :func:`shard_tree` for trees that agree across the
-    axes a leaf is replicated on: each leaf's blocks concatenated, in axis
-    order, along the one dimension its spec names (a replicated leaf is
-    the first rank's)."""
+    axes a leaf is replicated on: each leaf's blocks put back in place
+    along every dimension its spec shards (a stacked pipeline leaf ``(pp,
+    None, tp)`` or an expert leaf ``(ep, None, tp)`` along two), each
+    block the first rank's that holds it; a replicated leaf is the first
+    rank's."""
     from ..utils.tree import tree_leaves, tree_unflatten
     from .bucketing import spec_leaves
 
     flat = [tree_leaves(t) for t in trees]
     specs = spec_leaves(trees[0], pspecs)
-    coords = rank_coords(mesh)
     out = []
     for i, spec in enumerate(specs):
         dims = [(d, _spec_names(e)) for d, e in
                 enumerate(tuple(spec) if spec is not None else ())
-                if any(_block(mesh, (n,), 0)[1] > 1 for n in _spec_names(e))]
+                if _block(mesh, _spec_names(e), 0)[1] > 1]
         if not dims:
             out.append(flat[0][i])
             continue
-        if len(dims) > 1:
-            raise ValueError(f"leaf {i}: spec {spec} shards more than one "
-                             f"dimension")
-        d, names = dims[0]
-        keep = [k for k, n in enumerate(mesh.axis_names) if n not in names]
-        members = [r for r in range(mesh.size)
-                   if all(coords[r][k] == 0 for k in keep)]
-        members.sort(key=lambda r: _block(mesh, names, r)[0])
-        out.append(torch.cat([flat[r][i] for r in members], dim=d))
+        first = flat[0][i]
+        shape = list(first.shape)
+        for d, names in dims:
+            shape[d] *= _block(mesh, names, 0)[1]
+        full = first.new_empty(shape)
+        placed = set()
+        for r in range(mesh.size):
+            at = tuple(_block(mesh, names, r)[0] for _, names in dims)
+            if at in placed:
+                continue
+            placed.add(at)
+            view = full
+            for (d, _), idx in zip(dims, at):
+                w = first.shape[d]
+                view = view.narrow(d, idx * w, w)
+            view.copy_(flat[r][i])
+        out.append(full)
     return tree_unflatten(trees[0], out)

@@ -72,9 +72,14 @@ synced tp slices go back into the state's full tree
 (:func:`.spmd.gather_tree`), and AdamW, elementwise, updates it as on one
 rank.  The state and its checkpoints are the same at every mesh shape.
 
+The pipeline and MoE steps (:mod:`.pipeline`, :mod:`.moe_train`) share
+this path's lock-step backward and sync (:func:`spmd_grads`) and its
+clipping and update (:func:`spmd_update`) over their 4-axis meshes.
+
 What needs an unported module raises, naming its ROADMAP item:
 ``autotune``, and ``overlap``, ``shard_optimizer`` or a lossy ``codec``
-with an sp or tp axis above size 1.  A process group is one
+with an sp or tp axis above size 1 or on a pipeline or MoE mesh
+(:func:`refuse_wide`).  A process group is one
 data-parallel axis (:func:`.bucketing.comm_axis_sizes`).  An IR-family
 ``grad_topo`` (swing, generalized) raises ``TopologyError``, as the JAX
 train seam does.
@@ -107,7 +112,7 @@ from .bucketing import (
     per_leaf_sync_grads,
 )
 from .mesh import Mesh
-from .spmd import axis, coords, gather_tree, shard_tree
+from .spmd import axis, gather_tree, shard_batch, shard_tree
 from .zero import (
     _adamw_elem,
     _bias_corrections,
@@ -127,7 +132,13 @@ __all__ = [
     "make_loss_and_grads",
     "make_train_step",
     "factor_devices",
+    "spread_factors",
+    "make_mesh_nd",
     "validate_tp",
+    "refuse_wide",
+    "spmd_grads",
+    "spmd_update",
+    "psum_all",
     "resolve_axis_topos",
     "sync_grads",
     "sync_with_feedback",
@@ -251,16 +262,40 @@ def init_train_state(cfg: TransformerConfig, generator: torch.Generator,
 # ---------------------------------------------------------------- the step
 
 
+def spread_factors(n: int, n_dims: int, order=None) -> tuple:
+    """The JAX ``spread_factors``: ``n``'s prime factors, largest first,
+    dealt round-robin over the dimensions in ``order`` (default 0 ..
+    n_dims - 1)."""
+    from ..planner.factorize import prime_factors
+
+    order = list(range(n_dims)) if order is None else list(order)
+    dims = [1] * n_dims
+    for i, f in enumerate(sorted(prime_factors(n), reverse=True)):
+        dims[order[i % n_dims]] *= f
+    return tuple(dims)
+
+
 def factor_devices(n: int) -> tuple[int, int, int]:
     """Split ``n`` devices into a (dp, sp, tp) shape, the JAX
     ``factor_devices``: prime factors, largest first, dealt round-robin to
     dp, sp, tp (8 -> (2, 2, 2), 4 -> (2, 2, 1), 7 -> (7, 1, 1))."""
-    from ..planner.factorize import prime_factors
+    return spread_factors(n, 3)
 
-    dims = [1, 1, 1]
-    for i, f in enumerate(sorted(prime_factors(n), reverse=True)):
-        dims[i % 3] *= f
-    return tuple(dims)
+
+def make_mesh_nd(n_devices: int | None, shape, axis_names,
+                 device=None) -> Mesh:
+    """The JAX ``make_mesh_nd`` on one device: a :class:`~.mesh.Mesh` of
+    ``shape`` x ``axis_names`` whose ranks all run on ``device`` (default
+    ``cuda``) in this process; ``n_devices`` (None: the shape's product)
+    must be the shape's product."""
+    from ..device import resolve_device
+
+    n = math.prod(shape) if n_devices is None else n_devices
+    if math.prod(shape) != n:
+        raise ValueError(f"mesh shape {tuple(shape)} does not cover {n} "
+                         f"devices")
+    return Mesh((resolve_device(device),) * n, tuple(axis_names),
+                tuple(shape))
 
 
 def validate_tp(model_cfg: TransformerConfig, tp_size: int) -> None:
@@ -554,17 +589,62 @@ def _rank_loss_and_grads(model_cfg, params, tokens, targets, n_total):
     return loss.detach(), tree_unflatten(params, flat)
 
 
-def _refuse_wide(train_cfg: TrainConfig, comm) -> None:
-    """What does not run with an sp or tp axis above size 1 yet."""
-    sizes = comm_axis_sizes(comm, AXIS_NAMES)
-    for bad, what in ((train_cfg.overlap, "overlap=True"),
+def refuse_wide(train_cfg: TrainConfig, comm, axis_names=AXIS_NAMES,
+                what: str = "sp or tp above size 1") -> None:
+    """What does not run over a mesh of ``axis_names`` yet: ``overlap``,
+    ``shard_optimizer`` and a lossy codec, on the dense step with an sp or
+    tp axis above size 1 and on the pipeline and MoE steps."""
+    sizes = comm_axis_sizes(comm, axis_names)
+    for bad, flag in ((train_cfg.overlap, "overlap=True"),
                       (train_cfg.shard_optimizer, "shard_optimizer=True"),
                       (get_codec(train_cfg.codec).lossy,
                        f"codec={train_cfg.codec!r}")):
         if bad:
             raise NotImplementedError(
-                f"TrainConfig {what} on mesh axes {sizes} (sp or tp above "
-                f"size 1) is not ported yet ({WIDE_AXES_ITEM})")
+                f"TrainConfig {flag} on mesh axes {sizes} ({what}) is not "
+                f"ported yet ({WIDE_AXES_ITEM})")
+
+
+def psum_all(xs: list, comm: Mesh, axis_names) -> list:
+    """Every rank's value summed over each of ``axis_names`` in turn (the
+    JAX steps' ``psum`` of the loss over every mesh axis)."""
+    for ax in axis_names:
+        if ax in comm.axis_names:
+            xs = axis(comm, ax).psum(xs)
+    return xs
+
+
+def spmd_grads(params, pspecs, comm: Mesh, axis_names, topos,
+               train_cfg: TrainConfig, rank_losses):
+    """The backward and the sync of every step over a mesh of in-process
+    ranks (dense with sp or tp, pipeline, MoE): ``params`` (the full tree)
+    cut into every rank's slices by ``pspecs``, each a leaf of its own;
+    ``rank_losses(leaves) -> (losses, extra)`` runs every rank's forward
+    in lock-step and gives each rank's loss term (None for a rank whose
+    loss is 0, as off a pipeline's last stage); one ``torch.autograd.grad``
+    over their sum gives each rank's copy its gradient (zeros for a slice
+    no loss reads); each leaf is synced over its replication axes
+    (:func:`sync_grads`).  Returns ``(losses, synced, extra)``: every rank's
+    loss term detached (0 for None) and every rank's synced tree."""
+    with torch.enable_grad():
+        leaves = [tree_map(lambda p: p.detach().requires_grad_(), tr)
+                  for tr in shard_tree(params, pspecs, comm)]
+        losses, extra = rank_losses(leaves)
+        live = [x for x in losses if x is not None]
+        flat = torch.autograd.grad(
+            live, [x for tr in leaves for x in tree_leaves(tr)],
+            grad_outputs=[torch.ones_like(x) for x in live],
+            materialize_grads=True)
+    n = len(flat) // comm.size
+    grads = [tree_unflatten(tr, flat[r * n:(r + 1) * n])
+             for r, tr in enumerate(leaves)]
+    losses = [torch.zeros((), dtype=torch.float32, device=dev)
+              if x is None else x.detach()
+              for x, dev in zip(losses, comm.devices)]
+    synced = sync_grads(grads, pspecs, axis_names, topos,
+                        bucket_bytes=train_cfg.bucket_bytes,
+                        chunks=train_cfg.grad_chunks, comm=comm)
+    return losses, synced, extra
 
 
 def _spmd_grads(model_cfg: TransformerConfig, train_cfg: TrainConfig,
@@ -572,7 +652,7 @@ def _spmd_grads(model_cfg: TransformerConfig, train_cfg: TrainConfig,
     """``(params, tokens, targets) -> (loss, shards)`` of a step over a mesh
     with sp or tp above 1: the global mean token loss and every rank's
     synced tree of its parameter slices (see the module docstring)."""
-    _refuse_wide(train_cfg, comm)
+    refuse_wide(train_cfg, comm)
     sizes = comm_axis_sizes(comm, AXIS_NAMES)
     dp, sp, tp = (sizes[ax] for ax in AXIS_NAMES)
     validate_tp(model_cfg, tp)
@@ -580,7 +660,6 @@ def _spmd_grads(model_cfg: TransformerConfig, train_cfg: TrainConfig,
     pspecs = param_specs(model_cfg, AXIS_NAMES[-1])
     sp_axis, tp_axis = (axis(comm, ax) if ax in comm.axis_names else None
                         for ax in AXIS_NAMES[1:])
-    d_idx, s_idx = (coords(comm, ax) for ax in AXIS_NAMES[:2])
 
     def grads_fn(params, tokens, targets):
         tokens = torch.as_tensor(tokens, device=dev)
@@ -589,38 +668,22 @@ def _spmd_grads(model_cfg: TransformerConfig, train_cfg: TrainConfig,
         if b % dp or t % sp:
             raise ValueError(f"a batch of {tuple(tokens.shape)} does not "
                              f"split over dp={dp} rows and sp={sp} columns")
-        rows, cols = b // dp, t // sp
-
-        def block(x, r):
-            return x[d_idx[r] * rows:(d_idx[r] + 1) * rows,
-                     s_idx[r] * cols:(s_idx[r] + 1) * cols]
-
+        toks, tgts = (shard_batch(x, AXIS_NAMES[:2], comm)
+                      for x in (tokens, targets))
         # the JAX normalisation counts the tp-fold redundancy: every tp
         # rank computes its group's whole loss
         n_total = tokens.numel() * tp
-        with torch.enable_grad():
-            leaves = [tree_map(lambda p: p.detach().requires_grad_(), tr)
-                      for tr in shard_tree(params, pspecs, comm)]
-            logits = forward(leaves, [block(tokens, r).long()
-                                      for r in range(comm.size)],
-                             model_cfg, tp_axis=tp_axis, sp_axis=sp_axis)
-            losses = [cross_entropy_loss(lg, block(targets, r))[0] / n_total
-                      for r, lg in enumerate(logits)]
-            del logits
-            flat = torch.autograd.grad(
-                losses, [x for tr in leaves for x in tree_leaves(tr)],
-                grad_outputs=[torch.ones_like(x) for x in losses])
-        n = len(flat) // comm.size
-        grads = [tree_unflatten(tr, flat[r * n:(r + 1) * n])
-                 for r, tr in enumerate(leaves)]
-        loss = [x.detach() for x in losses]
-        for ax in AXIS_NAMES:  # the JAX step's psum over dp, sp, tp
-            if ax in comm.axis_names:
-                loss = axis(comm, ax).psum(loss)
-        synced = sync_grads(grads, pspecs, AXIS_NAMES, topos,
-                            bucket_bytes=train_cfg.bucket_bytes,
-                            chunks=train_cfg.grad_chunks, comm=comm)
-        return loss[0], synced
+
+        def rank_losses(leaves):
+            logits = forward(leaves, [x.long() for x in toks], model_cfg,
+                             tp_axis=tp_axis, sp_axis=sp_axis)
+            return [cross_entropy_loss(lg, y)[0] / n_total
+                    for lg, y in zip(logits, tgts)], None
+
+        loss, synced, _ = spmd_grads(params, pspecs, comm, AXIS_NAMES, topos,
+                                     train_cfg, rank_losses)
+        # the JAX step's psum over dp, sp, tp
+        return psum_all(loss, comm, AXIS_NAMES)[0], synced
 
     return grads_fn, pspecs
 
@@ -786,11 +849,20 @@ def _spmd_step(model_cfg, train_cfg, device, comm):
     def step(state, tokens, targets):
         loss, shards = grads_fn(state["params"], tokens, targets)
         metrics = {"loss": loss}
-        shards = maybe_clip_grads(shards, train_cfg, metrics, pspecs, comm)
-        return adamw_apply(state, gather_tree(shards, pspecs, comm),
-                           train_cfg), metrics
+        return spmd_update(state, shards, pspecs, comm, train_cfg,
+                           metrics), metrics
 
     return step
+
+
+def spmd_update(state: dict, shards: list, pspecs, comm: Mesh,
+                train_cfg: TrainConfig, metrics: dict) -> dict:
+    """The tail of every step over a mesh: every rank's synced slices
+    clipped by their global norm (recorded in ``metrics``), put back into
+    the full tree (:func:`.spmd.gather_tree`), and AdamW on it, as on one
+    rank."""
+    shards = maybe_clip_grads(shards, train_cfg, metrics, pspecs, comm)
+    return adamw_apply(state, gather_tree(shards, pspecs, comm), train_cfg)
 
 
 def _zero_step(model_cfg, train_cfg, comm, loss_and_grads):

@@ -1,10 +1,11 @@
 """Training entry point: ``python -m flextree_tpu_torch.trainer``.
 
-The port's counterpart of ``python -m flextree_tpu.trainer --model dense``:
-the dense LM trained on the synthetic corpus, with checkpoints and
-resume, on one rank or over a (dp, sp, tp) mesh of in-process ranks.  It takes
-the JAX trainer's flags with their defaults, plus ``--dtype`` for the
-compute dtype.  Examples::
+The port's counterpart of ``python -m flextree_tpu.trainer``: the dense LM
+trained on the synthetic corpus, with checkpoints and resume, on one rank
+or over a (dp, sp, tp) mesh of in-process ranks; the pipeline-parallel LM
+over (dp, pp, sp, tp) and the mixture-of-experts LM over (dp, ep, sp,
+tp).  It takes the JAX trainer's flags with their defaults, plus
+``--dtype`` for the compute dtype.  Examples::
 
     # on the card (the default), flash attention, bf16 compute
     python -m flextree_tpu_torch.trainer --attn-impl flash --dtype bfloat16
@@ -33,15 +34,26 @@ compute dtype.  Examples::
     python -m flextree_tpu_torch.trainer --mesh 2,2,2 --sp-impl zigzag \
         --dtype bfloat16 --attn-impl flash
 
-``--mesh dp,sp,tp`` or ``--devices N`` (split as the JAX
-``factor_devices`` splits it) give the ranks, all in this process on the
-one device; with sp or tp above 1, ``--overlap``, ``--shard-optimizer``
-and a lossy ``--codec`` are not ported yet.  ``--cpu`` is a switch.  A
+    # GPipe over a (1, 2, 2, 2) dp/pp/sp/tp mesh, 2 microbatches a rank
+    python -m flextree_tpu_torch.trainer --model pipeline --mesh 1,2,2,2 \
+        --n-layers 4 --microbatches 2
+
+    # mixture of experts over a (1, 2, 2, 2) dp/ep/sp/tp mesh
+    python -m flextree_tpu_torch.trainer --model moe --mesh 1,2,2,2 \
+        --n-experts 8 --top-k 2 --capacity-factor 2.0
+
+``--mesh`` (dp,sp,tp for the dense model; dp,pp,sp,tp or dp,ep,sp,tp for
+the pipeline and MoE models) or ``--devices N`` (split as the JAX
+``factor_devices`` or ``factor_devices_4d`` splits it) give the ranks, all
+in this process on the one device; with sp or tp above 1, and on any
+pipeline or MoE mesh, ``--overlap``, ``--shard-optimizer`` and a lossy
+``--codec`` are not ported yet.  ``--cpu`` is a switch.  A
 flag whose module is not ported yet raises ``NotImplementedError`` naming
 its ROADMAP item.  The last line printed is the JAX trainer's.  A
 data-parallel run checkpoints its replicated state, as the JAX trainer
 does; with a lossy ``--codec`` the state carries the error-feedback
-residual ``"ef"``, the first rank's in the file.  A ``--shard-optimizer``
+residual ``"ef"``, the first rank's in the file; a pipeline run
+checkpoints the stacked tree, as the JAX trainer does.  A ``--shard-optimizer
 run checkpoints consolidated (``parallel.zero.make_consolidate_fn``: the
 replicated layout, which any world size and the replicated step resume
 from) and restores through ``make_reshard_fn``.
@@ -61,8 +73,8 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="flextree_tpu_torch.trainer",
-        description="Train the dense LM on one card, on one rank or over a "
-        "dp x sp x tp mesh of in-process ranks.",
+        description="Train the dense, pipeline or MoE LM on one card, on "
+        "one rank or over a mesh of in-process ranks.",
         epilog="The SIGTERM checkpoint guard of the JAX trainer "
         "(runtime/preemption.py) is not ported yet: a terminated run "
         "resumes from its last --ckpt-every checkpoint.",
@@ -111,11 +123,12 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--overlap", action=argparse.BooleanOptionalAction,
                     default=False)
     ap.add_argument("--mesh", type=str, default=None,
-                    help="dp,sp,tp mesh shape of in-process ranks (e.g. "
-                    "8,1,1 or 2,2,2)")
+                    help="mesh shape of in-process ranks: dp,sp,tp (e.g. "
+                    "8,1,1 or 2,2,2), or for --model pipeline|moe "
+                    "dp,pp,sp,tp or dp,ep,sp,tp (e.g. 1,2,2,2)")
     ap.add_argument("--devices", type=int, default=None,
-                    help="rank count, split into (dp, sp, tp) as the JAX "
-                    "trainer splits it (8 -> 2,2,2)")
+                    help="rank count, split as the JAX trainer splits it "
+                    "(8 -> 2,2,2; pipeline and moe: 8 -> 1,2,2,2)")
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU instead of the card")
     ap.add_argument("--corpus-tokens", type=int, default=200_000)
@@ -140,28 +153,36 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
-def _mesh_shape(args) -> tuple[int, int, int]:
-    """The (dp, sp, tp) shape from ``--mesh`` or ``--devices`` (one rank
-    when neither is given)."""
+#: each model's mesh axes
+_AXES = {"dense": ("dp", "sp", "tp"), "pipeline": ("dp", "pp", "sp", "tp"),
+         "moe": ("dp", "ep", "sp", "tp")}
+
+
+def _mesh_shape(args) -> tuple:
+    """The mesh shape from ``--mesh`` or ``--devices`` (one rank when
+    neither is given): (dp, sp, tp) for the dense model, four axes for the
+    pipeline and MoE models."""
+    from .parallel.pipeline import factor_devices_4d
     from .parallel.train import factor_devices
 
+    names = _AXES[args.model]
     if args.mesh:
         shape = tuple(int(x) for x in args.mesh.split(","))
-        if len(shape) != 3 or min(shape) < 1:
-            raise ValueError(f"--mesh {args.mesh}: want dp,sp,tp")
+        if len(shape) != len(names) or min(shape) < 1:
+            raise ValueError(f"--mesh {args.mesh}: want {','.join(names)}")
         if args.devices is not None and args.devices != math.prod(shape):
             raise ValueError(f"--mesh {args.mesh} does not cover --devices "
                              f"{args.devices}")
         return shape
-    return factor_devices(args.devices or 1)
+    factor = factor_devices if args.model == "dense" else factor_devices_4d
+    return factor(args.devices or 1)
 
 
 def _refuse_unported(args) -> None:
     """Raise for a flag whose module is not ported, naming its item."""
     shape = _mesh_shape(args)
+    wide = args.overlap or args.shard_optimizer or args.codec != "f32"
     refusals = (
-        (args.model != "dense", f"--model {args.model}",
-         "'Sequence, pipeline and expert parallelism'"),
         (args.autotune, "--autotune",
          "'Checkpoint, supervision and feedback plumbing'"),
         (args.feedback_every > 0 or args.feedback_band != 0.5
@@ -174,11 +195,13 @@ def _refuse_unported(args) -> None:
         (args.obs_dir is not None or args.flight_recorder,
          "--obs-dir/--flight-recorder",
          "'Checkpoint, supervision and feedback plumbing'"),
-        ((shape[1] > 1 or shape[2] > 1) and (
-            args.overlap or args.shard_optimizer or args.codec != "f32"),
+        (args.model == "dense" and (shape[1] > 1 or shape[2] > 1) and wide,
          f"--overlap, --shard-optimizer or a lossy --codec on a mesh of "
          f"shape {shape} (sp or tp above 1)",
          "'Sequence, pipeline and expert parallelism'"),
+        (args.model != "dense" and wide,
+         f"--overlap, --shard-optimizer or a lossy --codec with --model "
+         f"{args.model}", "'Sequence, pipeline and expert parallelism'"),
     )
     for bad, what, item in refusals:
         if bad:
@@ -210,36 +233,20 @@ def sharded_hooks(comm, model_cfg, params, train_cfg):
 
 def main(argv=None, *, out: dict | None = None) -> int:
     """Run the trainer; ``out``, when given, receives the run's
-    ``FitResult``, model and train configs under ``"result"``,
-    ``"model_cfg"`` and ``"train_cfg"`` (for in-process callers that
-    check the run, such as ``chip_smoke.py``)."""
+    ``FitResult``, model and train configs and the ranks' mesh (None: one
+    rank) under ``"result"``, ``"model_cfg"``, ``"train_cfg"`` and
+    ``"comm"`` (for in-process callers that check the run, such as
+    ``chip_smoke.py``)."""
     args = _parser().parse_args(argv)
     _refuse_unported(args)
 
     from .data import LMDataset, synthetic_tokens
     from .device import resolve_device
-    from .models.transformer import TransformerConfig
     from .parallel.loop import FitConfig, fit
-    from .parallel.mesh import Mesh, flat_mesh
-    from .parallel.train import (
-        AXIS_NAMES,
-        TrainConfig,
-        init_train_state,
-        make_train_step,
-    )
+    from .parallel.train import TrainConfig
 
     dev = resolve_device("cpu" if args.cpu else None)
     shape = _mesh_shape(args)
-    dp = shape[0]
-    if math.prod(shape) > dp:
-        comm = Mesh((dev,) * math.prod(shape), AXIS_NAMES, shape)
-    else:
-        comm = flat_mesh(dp, dev, "dp") if dp > 1 else None
-    cfg = TransformerConfig(
-        vocab_size=args.vocab, d_model=args.d_model, n_heads=args.n_heads,
-        n_layers=args.n_layers, d_ff=args.d_ff, dtype=_DTYPES[args.dtype],
-        sp_impl=args.sp_impl, attn_impl=args.attn_impl,
-    )
     tc = TrainConfig(
         lr=args.lr,
         grad_topo=args.grad_topo,
@@ -252,25 +259,25 @@ def main(argv=None, *, out: dict | None = None) -> int:
         overlap=args.overlap,
         shard_optimizer=args.shard_optimizer,
     )
-    state = init_train_state(cfg, torch.Generator().manual_seed(args.seed),
-                             tc, device=dev, comm=comm)
+    gen = torch.Generator().manual_seed(args.seed)
+    cfg, state, step, comm = _build(args, tc, shape, dev, gen)
     dataset = LMDataset(
         synthetic_tokens(args.corpus_tokens, args.vocab, seed=args.seed),
         batch=args.batch, seq_len=args.seq_len, seed=args.seed,
     )
     pack, unpack = sharded_hooks(comm, cfg, state["params"], tc)
     result = fit(
-        state, make_train_step(cfg, tc, device=dev, comm=comm), dataset,
+        state, step, dataset,
         FitConfig(num_steps=args.steps, ckpt_dir=args.ckpt_dir,
                   ckpt_every=args.ckpt_every, log_every=args.log_every,
                   resume=not args.no_resume),
         state_pack=pack, state_unpack=unpack,
     )
     if out is not None:
-        out.update(result=result, model_cfg=cfg, train_cfg=tc)
+        out.update(result=result, model_cfg=cfg, train_cfg=tc, comm=comm)
     first = result.losses[0][1] if result.losses else float("nan")
     last = result.losses[-1][1] if result.losses else float("nan")
-    mesh = dict(zip(AXIS_NAMES, shape))
+    mesh = dict(zip(_AXES[args.model], shape))
     print(
         f"{args.model}: {result.steps_run} steps on mesh {mesh}; loss "
         f"{first:.4f} -> {last:.4f}"
@@ -278,6 +285,53 @@ def main(argv=None, *, out: dict | None = None) -> int:
            if result.resumed_from else "")
     )
     return 0
+
+
+def _build(args, tc, shape, dev, gen):
+    """``(model config, train state, step, comm)`` for ``--model``."""
+    from .models.transformer import TransformerConfig
+    from .parallel.mesh import Mesh, flat_mesh
+
+    common = dict(
+        vocab_size=args.vocab, d_model=args.d_model, n_heads=args.n_heads,
+        n_layers=args.n_layers, d_ff=args.d_ff, dtype=_DTYPES[args.dtype],
+        sp_impl=args.sp_impl, attn_impl=args.attn_impl,
+    )
+    if args.model == "pipeline":
+        from .parallel.pipeline import (
+            init_pipeline_train_state,
+            make_mesh_4d,
+            make_pipeline_train_step,
+        )
+
+        cfg = TransformerConfig(**common)
+        comm = make_mesh_4d(shape=shape, device=dev)
+        return (cfg, init_pipeline_train_state(cfg, gen, tc, device=dev),
+                make_pipeline_train_step(cfg, tc, args.microbatches,
+                                         comm=comm), comm)
+    if args.model == "moe":
+        from .models.moe import MoEConfig
+        from .parallel.moe_train import (
+            init_moe_train_state,
+            make_mesh_moe,
+            make_moe_train_step,
+        )
+
+        cfg = MoEConfig(**common, n_experts=args.n_experts, top_k=args.top_k,
+                        capacity_factor=args.capacity_factor)
+        comm = make_mesh_moe(shape=shape, device=dev)
+        return (cfg, init_moe_train_state(cfg, gen, tc, device=dev),
+                make_moe_train_step(cfg, tc, comm=comm), comm)
+    from .parallel.train import AXIS_NAMES, init_train_state, make_train_step
+
+    cfg = TransformerConfig(**common)
+    dp = shape[0]
+    if math.prod(shape) > dp:
+        comm = Mesh((dev,) * math.prod(shape), AXIS_NAMES, shape)
+    else:
+        comm = flat_mesh(dp, dev, "dp") if dp > 1 else None
+    return (cfg, init_train_state(cfg, gen, tc, device=dev, comm=comm),
+            make_train_step(cfg, tc, device=dev, comm=comm), comm)
 
 
 if __name__ == "__main__":

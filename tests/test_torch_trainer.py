@@ -277,7 +277,8 @@ def test_trainer_cli_flash_on_cpu(tmp_path, capsys):
     ["--devices", "4"], ["--mesh", "2,1,2"],
 ])
 def test_trainer_cli_refuses_unported_flags(flags, tmp_path, capsys):
-    """Each flag whose module is not ported raises naming its item; a mesh
+    """Each flag whose module is not ported raises naming its item; the
+    pipeline and MoE models train now; a mesh
     with sp or tp above 1 trains now; the lossy codecs run now: 2 ranks train with error feedback, and the
     checkpoint holds the first rank's residual, which resumes; and so does
     ``--overlap``: 2 ranks train with readiness-ordered overlap, and the
@@ -326,6 +327,21 @@ def test_trainer_cli_refuses_unported_flags(flags, tmp_path, capsys):
         assert trainer.main(_SMALL + flags + ["--mesh", "2,1,1", "--steps",
                                               "4", "--ckpt-dir", ckpt]) == 0
         assert "(resumed from 3)" in capsys.readouterr().out
+        return
+    if flags[0] == "--model":
+        # the pipeline and MoE models train now
+        # (test_torch_trainer_models.py): two steps on one rank, and the
+        # last line names the model and its mesh; their unported flags
+        # still refuse
+        out: dict = {}
+        assert trainer.main(_SMALL + flags + ["--steps", "2"], out=out) == 0
+        second = {"moe": "ep", "pipeline": "pp"}[flags[1]]
+        mesh = dict(zip(("dp", second, "sp", "tp"), (1, 1, 1, 1)))
+        last = capsys.readouterr().out.strip().splitlines()[-1]
+        assert last.startswith(f"{flags[1]}: 2 steps on mesh {mesh}; loss ")
+        assert all(math.isfinite(loss) for _, loss in out["result"].losses)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            trainer.main(_SMALL + flags + ["--codec", "int8"])
         return
     if flags[0] in ("--mesh", "--devices"):
         # sp or tp above 1 runs now (test_torch_trainer_mesh.py): two
