@@ -262,7 +262,7 @@ failure raises and exits non-zero:
     (the sync: the per-leaf sync's plain folds), its bodies printed; (b)
     ``trainer.main --mesh 2,2,2 --sp-impl {ring, zigzag, ulysses}`` and
     ``--mesh 8,1,1`` at the flagship width (bf16, flash, batch 8 x 1024,
-    10 steps): the loss finite and falling, each flash kernel's and the
+    6 steps): the loss finite and falling, each flash kernel's and the
     fold kernel's launches the counts the code gives, then the steady step
     of each in turns, its device time and busy share under
     ``torch.profiler`` and the peak memory (printed, not gated); (c)
@@ -280,7 +280,7 @@ failure raises and exits non-zero:
     per-leaf sync's plain folds), its bodies printed; (b) ``trainer.main
     --model pipeline --microbatches 2`` and ``--model moe --n-experts 8
     --top-k 2 --capacity-factor 2.0`` at the flagship width (bf16, flash,
-    batch 8 x 1024, 10 steps): the loss finite and falling, each flash
+    batch 8 x 1024, 6 steps): the loss finite and falling, each flash
     kernel's and the fold kernel's launches the counts the code gives
     (``pm_flash_launches``, ``pm_fold_launches``), the checkpoint bitwise
     the live state; then the steady step of both and of phase 22's dense
@@ -290,6 +290,29 @@ failure raises and exits non-zero:
     against one rank's dense step from the same parameters, MoE
     (capacity factor n_experts / top_k, no aux) against the MoE step on
     one rank, to phase 22(c)'s bars.
+24. lossy codecs, ZeRO-1 and overlap on the wide meshes (dense (2, 2,
+    2), pipeline and MoE (1, 2, 2, 2)) — (a) the fold kernel at this
+    path's new lengths: the ZeRO-1 reduce-scatter with its secondary-axis
+    block allreduces (float32 on each mesh, int8 on the dense one) and the
+    compressed walks over the tp, sp, pp and ep groups (int8 on the dense
+    and pipeline meshes, bf16 on MoE's) of seeded slices, each bitwise the
+    same on host copies (blocks, tails, residuals), its launches the
+    code's count (``bucketing.mesh_fold_launches``) and its bodies
+    checked; the heaviest secondary-axis fold stage timed beside its
+    bound and ``torch.sum(x, 1)``; (b) ``trainer.main`` at the flagship
+    width (bf16, flash, batch 8 x 1024, 4 steps, warmup-cosine, clipping)
+    with ``--codec int8``, ``--shard-optimizer``, ``--overlap`` (and, on
+    the dense mesh, both) on each family: the loss finite and falling,
+    the flash and fold launches the code's count, the checkpoint bitwise
+    the live state as the trainer packs it, a sharded run's optimizer
+    bytes a rank ``zero_shard_bytes``'; then each family's runs and its
+    replicated step in turns (steady step), each run's device time and
+    busy share under ``torch.profiler`` and its peak memory (printed, not
+    gated); (c) float32 at full width (B=2, 3 steps) on each family: the
+    sharded step, clipping off, bitwise the replicated one (the
+    consolidated moments too), the overlapped step bitwise the replicated
+    one, the int8 overlapped step bitwise its serialized twin, ``ef``
+    included.
 
 The kernels line gives each kernel's launches by path
 (``launches_by_path``: serve, train, dp_train, allreduce, ir_families,
@@ -298,7 +321,9 @@ dp_codec for phase 17(c)'s int8 run, dp_overlap for phase 18(a), dp_zero
 for phase 19(a), disagg for phase 20: the in-process decode engine's f32
 run plus the decode replica process's, pool for phase 21(a)'s f32 run,
 sp_ring, sp_zigzag and sp_ulysses for phase 22(b)'s three runs, pp_train
-and moe_train for phase 23(b)'s two) and their sum (``launches``).
+and moe_train for phase 23(b)'s two, and ``wide_<option>_<family>`` for
+each of phase 24(b)'s ten runs, e.g. wide_int8_dense or wide_zero_moe)
+and their sum (``launches``).
 
 Prints each phase's seconds, a ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Exits
@@ -941,15 +966,21 @@ TRAIN_ARGV = [
 ]
 
 
-def device_profile(run, tag):
+def device_profile(run, tag, top: bool = True):
     """``run()`` under ``torch.profiler``: the wall time, the device's busy
-    share of it (kernel time summed; one stream, so no overlap) and the
-    kernels that take the most."""
+    share of it (kernel and copy time summed; one stream, so no overlap;
+    the ``comm_span`` ranges the profiler also lays on the device's
+    timeline are user annotations over those kernels, not work, and are
+    left out) and, with ``top``, the kernels that take the most.  Without
+    ``top`` only the card is traced, which reads back in a fraction of the
+    time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if top:
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.monotonic()
         run()
         torch.cuda.synchronize()
@@ -962,15 +993,16 @@ def device_profile(run, tag):
     # the device's own rows (kernels, copies): operator rows carry their
     # kernels' time too, and counting both would count it twice
     rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and device_us(e) > 0]
+            if e.device_type == DeviceType.CUDA and device_us(e) > 0
+            and not getattr(e, "is_user_annotation", False)]
     busy_us = sum(device_us(e) for e in rows)
-    top = sorted(rows, key=device_us, reverse=True)[:10]
     out = {
         "wall_s": wall_s,
         "device_busy_s": busy_us / 1e6 if rows else None,
         "device_busy_share": busy_us / 1e6 / wall_s if rows else None,
         "top": [{"name": e.key[:80], "count": e.count,
-                 "device_ms": device_us(e) / 1e3} for e in top],
+                 "device_ms": device_us(e) / 1e3} for e in
+                sorted(rows, key=device_us, reverse=True)[:10 if top else 0]],
     }
     if rows:
         log(f"{tag}: wall {wall_s:.3f} s, device busy "
@@ -4517,7 +4549,7 @@ def phase_pool(dev, smi) -> int:
 
 SP_MESH = (2, 2, 2)  # (dp, sp, tp), the JAX trainer's --devices 8
 SP_IMPLS = ("ring", "zigzag", "ulysses")
-SP_STEPS = 10
+SP_STEPS = 6  # 10 before phase 24 needed the time
 SP_ARGV = TRAIN_ARGV + ["--mesh", ",".join(map(str, SP_MESH))]
 SP_ARGV[SP_ARGV.index("--steps") + 1] = str(SP_STEPS)
 SP_DP_ARGV = TRAIN_ARGV + ["--mesh", f"{DP},1,1"]
@@ -4711,7 +4743,7 @@ def phase_sp_tp(dev, smi):
     versions (phase 7's bars), the fold at the combine's and the sync's
     shapes bitwise its plain fold on the host; (b) ``trainer.main --mesh
     2,2,2 --sp-impl {ring, zigzag, ulysses}`` at the flagship width (bf16,
-    flash, batch 8 x 1024, 10 steps) beside ``--mesh 8,1,1``: the loss
+    flash, batch 8 x 1024, 6 steps) beside ``--mesh 8,1,1``: the loss
     finite and falling, each kernel's launches the code's count, then the
     steady step of each in turns, the busy share and the peak memory
     (printed, not gated); (c) float32 at full width, each sp_impl on (2, 2,
@@ -4944,7 +4976,7 @@ PM_MESH = (1, 2, 2, 2)  # (dp, pp|ep, sp, tp), the JAX trainer's examples
 PM_MICRO = 2  # GPipe microbatches a rank
 # MoEConfig's defaults: 4 local experts a rank on ep=2, router_aux_weight 1e-2
 PM_MOE = dict(n_experts=8, top_k=2, capacity_factor=2.0)
-PM_STEPS = 10
+PM_STEPS = 6  # as SP_STEPS
 PM_F32_STEPS = 3
 PM_F32_BATCH = 2
 
@@ -5352,6 +5384,616 @@ def phase_pp_moe(dev, smi):
     pm_f32_equivalence(dev, tm)
     log(f"phase 23(c): {time.monotonic() - clock:.1f} s")
     return by_path
+
+
+# ---------------------------------------------------------------------------
+# phase 24: lossy codecs, ZeRO-1 and overlap on the wide meshes
+
+WIDE_STEPS = 4  # trainer steps a run: warmup-cosine over them, clipping
+WIDE_TIMED = 3  # steady steps of each run, in turns with the replicated
+WIDE_F32_STEPS = 3
+WIDE_F32_BATCH = 2
+# 24(b)'s runs: (family, option, trainer flags)
+WIDE_RUNS = (
+    ("dense", "int8", ["--codec", "int8"]),
+    ("dense", "zero", ["--shard-optimizer"]),
+    ("dense", "overlap", ["--overlap"]),
+    ("dense", "zero_overlap", ["--shard-optimizer", "--overlap"]),
+    ("pipeline", "int8", ["--codec", "int8"]),
+    ("pipeline", "zero", ["--shard-optimizer"]),
+    ("pipeline", "overlap", ["--overlap"]),
+    ("moe", "int8", ["--codec", "int8"]),
+    ("moe", "zero", ["--shard-optimizer"]),
+    ("moe", "overlap", ["--overlap"]),
+)
+# 24(a)'s syncs of seeded slices on the card against host copies:
+# (family, "zero" (the sharded reduce-scatter) or "sync" (the replicated
+# sync), codec)
+WIDE_SYNC_CHECKS = (
+    ("dense", "zero", None), ("dense", "zero", "int8"),
+    ("pipeline", "zero", None), ("moe", "zero", None),
+    ("dense", "sync", "int8"), ("pipeline", "sync", "int8"),
+    ("moe", "sync", "bf16"),
+)
+
+
+def wide_argv(family: str, flags: list) -> list:
+    """``trainer.main``'s flags for a 24(b) run: phase 22's ring run on
+    ``SP_MESH`` or phase 23's run on ``PM_MESH``, ``WIDE_STEPS`` steps
+    (the warmup one step: the cosine then decays over the rest), plus
+    ``flags``."""
+    argv = list(SP_ARGV + ["--sp-impl", "ring"] if family == "dense"
+                else pm_argv(family))
+    argv[argv.index("--steps") + 1] = str(WIDE_STEPS)
+    argv[argv.index("--warmup-steps") + 1] = "1"
+    return argv + flags
+
+
+def wide_models(dev) -> dict:
+    """Phase 24's families at the flagship width (bf16, flash): ``{family:
+    (cfg, mesh, host mesh, pspecs, full params)}``, phase 23's two models
+    and phase 22's dense ring model on ``SP_MESH``."""
+    from flextree_tpu_torch.models.transformer import (
+        TransformerConfig,
+        init_params,
+        param_specs,
+    )
+    from flextree_tpu_torch.parallel import train as tm
+    from flextree_tpu_torch.parallel.mesh import Mesh
+
+    cfg = TransformerConfig(**MODEL, dtype=torch.bfloat16, attn_impl="flash",
+                            sp_impl="ring")
+    world = math.prod(SP_MESH)
+    out = {"dense": (cfg, Mesh((dev,) * world, tm.AXIS_NAMES, SP_MESH),
+                     Mesh(("cpu",) * world, tm.AXIS_NAMES, SP_MESH),
+                     param_specs(cfg),
+                     init_params(cfg, torch.Generator().manual_seed(SEED),
+                                 device=dev))}
+    out.update(pm_models(dev))
+    return out
+
+
+def wide_sizes(mesh, tm):
+    axes = mesh.axis_names
+    sizes = dict(zip(axes, mesh.shape))
+    return axes, sizes, tm.resolve_axis_topos(sizes, axes, None)
+
+
+@contextlib.contextmanager
+def card_plan(plan, *modules):
+    """Every ``plan_buckets`` of ``modules`` returns ``plan``: the host
+    copies of a sync run the card's buckets (a lossy codec's packing sets
+    its block scales, so the host must pack as the card did)."""
+    saved = [m.plan_buckets for m in modules]
+    for m in modules:
+        m.plan_buckets = lambda *a, **k: plan
+    try:
+        yield
+    finally:
+        for m, fn in zip(modules, saved):
+            m.plan_buckets = fn
+
+
+def wide_sync_check(dev, family, kind, codec, models, tm, bk, ar, rs, cm,
+                    spmd, zero):
+    """One 24(a) case: the sync of seeded slices shaped like one step's
+    gradient on ``family``'s mesh on the card (the ZeRO-1 reduce-scatter
+    with its secondary-axis block allreduces, or the replicated sync's
+    compressed walks), its fold launches counted by body
+    (:func:`fold_bodies`) against ``bucketing.mesh_fold_launches``; then
+    the same on host copies with the card's plan (:func:`card_plan`), where
+    ``reduce_sources``
+    takes its plain fold: every rank's result (blocks and tails) and, under
+    a codec, residual bitwise; every fold past the tails on the bulk-copy
+    body.  Returns the heaviest secondary-axis fold stage ``(R, W, L)`` of
+    a ZeRO case (None otherwise)."""
+    cfg, mesh, host, pspecs, params = models[family]
+    axes, sizes, topos = wide_sizes(mesh, tm)
+    shards = spmd.shard_tree(params, pspecs, mesh)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 24)
+    trees = [tm.tree_map(lambda p: torch.randn(
+        p.shape, generator=gen, device=dev), s) for s in shards]
+    del shards
+    leaves = tm.tree_leaves(trees[0])
+    specs = bk.spec_leaves(trees[0], pspecs)
+    sharded = kind == "zero"
+    plan = bk.plan_buckets(leaves, specs, axes, topos=topos,
+                           axis_sizes=sizes, codec=codec, sharded=sharded)
+    want = bk.mesh_fold_launches(leaves, specs, axes, sizes, topos,
+                                 codec=codec, sharded=sharded)
+    kw = dict(codec=codec or "f32", step=CODEC_STEP,
+              return_residual=codec is not None)
+
+    def run(xs, comm, cap):
+        if sharded:
+            return zero.zero_reduce_scatter_grads(
+                xs, pspecs, axes, topos, comm=comm, bucket_bytes=cap, **kw)
+        return tm.sync_grads(xs, pspecs, axes, topos, bucket_bytes=cap,
+                             comm=comm, **kw)
+
+    what = (f"phase 24(a) {family} {codec or 'f32'} "
+            f"{'sharded reduce-scatter' if sharded else 'sync'} on "
+            f"{dict(sizes)}")
+    t0 = time.monotonic()
+    with fold_bodies(rs, cm, ar) as seen:
+        got = run(trees, mesh, None)
+        torch.cuda.synchronize()
+    card_s = time.monotonic() - t0
+    if sum(seen.values()) != want:
+        raise AssertionError(f"{what}: {sum(seen.values())} fold launches, "
+                             f"the code derives {want}")
+    cpu = [tm.tree_map(lambda g: g.cpu(), t) for t in trees]
+    del trees
+    t0 = time.monotonic()
+    with card_plan(plan, bk, zero):  # the host's cap would plan otherwise
+        plain = run(cpu, host, None)
+    host_s = time.monotonic() - t0
+    del cpu
+    got, plain = (got, plain) if codec else ((got, None), (plain, None))
+    if sharded:
+        same = shards_identical(got[0], plain[0], tm.tree_leaves)
+    else:
+        same = trees_identical([tm.tree_map(lambda g: g.cpu(), t)
+                                for t in got[0]], plain[0], tm.tree_leaves)
+    if not same or (codec and not trees_identical(
+            [tm.tree_map(lambda g: g.cpu(), t) for t in got[1]], plain[1],
+            tm.tree_leaves)):
+        raise AssertionError(f"{what}: the card is not bitwise the host "
+                             f"copies (result or residual)")
+    tail = len(leaves) * max(sizes.values())
+    check_bodies(seen, what, tail)
+    heaviest = None
+    if sharded:
+        numels = [g.numel() for g in leaves]
+        for b in plan:
+            for ax in b.axes[1:]:
+                for st in bk.sync_fold_stages(
+                        numels, sizes[ax], topos[ax], [b], codec=codec,
+                        shard_n=sizes[b.axes[0]]):
+                    if heaviest is None or st[2] > heaviest[2]:
+                        heaviest = st
+    log(f"{what}: plan {[(b.axes, len(b.indices), b.nbytes) for b in plan]}"
+        f"; {want} fold launches = the code's; every rank's "
+        f"{'blocks and tails' if sharded else 'result'}"
+        f"{' and residual' if codec else ''} bitwise the host copies' plain "
+        f"folds; bodies {describe_bodies(seen)}; card {card_s:.2f} s, host "
+        f"{host_s:.2f} s")
+    del got, plain
+    torch.cuda.empty_cache()
+    return heaviest
+
+
+def wide_stage_time(dev, rs, stage, bw, flush, smi) -> dict:
+    """The fold stage ``(R, W, L)`` (float32 sum) timed as phase 19(c)
+    times the reduce-scatter's: the kernel (one launch), its plain version
+    and ``torch.sum(x, 1)`` over the stacked sources, beside the bound
+    (each source read once, each fold written once, over the memory
+    rate)."""
+    r, w, length = stage
+    gen = torch.Generator(device=dev).manual_seed(SEED + 241)
+    x = torch.randn((r, w, length), generator=gen, device=dev)
+    outs = torch.empty((r, length), device=dev)
+    folds = [(list(x[f]), outs[f]) for f in range(r)]
+    n_bytes = r * (w + 1) * length * 4
+    row = {
+        "R": r, "W": w, "L": length,
+        "ms": time_launches(lambda: rs.reduce_sources(folds, "sum"), 20,
+                            flush),
+        "plain_ms": time_launches(
+            lambda: rs.reduce_sources_plain(folds, "sum"), 10, flush),
+        "library_ms": time_launches(lambda: torch.sum(x, 1), 20, flush),
+        "bound_ms": n_bytes / bw * 1e3,
+    }
+    log(f"phase 24(a) heaviest secondary-axis fold stage (the ZeRO-1 "
+        f"block allreduce): {r} x (W={w}, L={length}) f32 sum "
+        f"({n_bytes / 1e6:.1f} MB), one launch: kernel {row['ms']:.4f} ms "
+        f"({100 * row['bound_ms'] / row['ms']:.1f}% of the bound "
+        f"{row['bound_ms']:.4f} ms); plain {row['plain_ms']:.4f} ms; "
+        f"torch.sum(x, 1) {row['library_ms']:.4f} ms (cold L2); {smi}")
+    return row
+
+
+def wide_fold_launches(family, option, models, tm, bk, ov, ar, rs):
+    """``(combine, sync)``: the fold kernel's launches a step of a 24(b)
+    run, from the code.  The combine is the replicated step's (phase 22's
+    or 23's count); the sync is ``bucketing.mesh_fold_launches`` over what
+    the option syncs: the whole tree (the lossy sync, or ZeRO-1's
+    reduce-scatter), or each fired bucket's payload (overlap: the readiness
+    plan on one rank's slices, :func:`..overlap.fired_payloads`; the
+    pipeline's three tail buckets)."""
+    cfg, mesh, _, pspecs, params = models[family]
+    axes, sizes, topos = wide_sizes(mesh, tm)
+    b, t = FLASH_TRAIN[:2]
+    slices = spmd_slices(params, pspecs, mesh)
+    leaves = tm.tree_leaves(slices)
+    specs = bk.spec_leaves(slices, pspecs)
+    if family == "dense":
+        combine = sp_fold_launches(SP_MESH, leaves, specs, ar, bk, tm, rs)[0]
+    else:
+        combine = pm_fold_launches(family, cfg, PM_MESH, b, t, PM_MICRO,
+                                   leaves, specs, axes, ar, bk, tm, rs)[0]
+    codec = "int8" if option == "int8" else None
+    sharded = option.startswith("zero")
+    tc = tm.TrainConfig(codec=codec or "f32", shard_optimizer=sharded,
+                        overlap=option.endswith("overlap"))
+    if not tc.overlap or (family == "pipeline" and sharded):
+        payloads = [(slices, pspecs)]
+    elif family == "pipeline":
+        payloads = [({k: slices[k]}, {k: pspecs[k]})
+                    for k in ("ln_f", "layers", "embed")]
+    else:
+        rows = b // sizes["dp"] // (sizes.get("ep", 1))
+        local = torch.zeros((rows, t // sizes["sp"]), dtype=torch.long,
+                            device=mesh.devices[0])
+        plan, _ = tm.mesh_overlap_plan({}, params, pspecs, mesh, axes, topos,
+                                       tc, cfg, local, mesh.devices[0])
+        payloads = list(zip(ov.fired_payloads(plan, slices),
+                            ov.fired_payloads(plan, pspecs)))
+    sync = sum(bk.mesh_fold_launches(
+        tm.tree_leaves(tree), bk.spec_leaves(tree, sp), axes, sizes, topos,
+        codec=codec, sharded=sharded) for tree, sp in payloads)
+    return combine, sync
+
+
+def spmd_slices(params, pspecs, mesh):
+    """Rank 0's slices of ``params`` on ``mesh``."""
+    from flextree_tpu_torch.parallel import spmd
+
+    return spmd.shard_tree(params, pspecs, mesh)[0]
+
+
+def wide_state_bytes(state, layout, zero) -> int:
+    """The optimizer-state bytes one rank holds in a sharded state: its
+    slot of each ``*_shard`` buffer, its model position's tails, the
+    local slice of each unsharded leaf's ``*_rep`` (and the master's
+    slots); what ``zero_shard_bytes`` accounts."""
+    total = 0
+    keys = [k for k in ("mu", "nu", "master") if f"{k}_shard" in state]
+    for plan in layout.leaves:
+        m = zero._n_model(layout, plan)
+        for k in keys:
+            if plan.sharded:
+                sh = tm_leaves(state[f"{k}_shard"])[plan.index].numel()
+                tl = tm_leaves(state[f"{k}_tail"])[plan.index].numel()
+                total += 4 * (sh // (plan.n * m) + tl // m)
+            elif k != "master":
+                total += 4 * plan.size
+    return total
+
+
+def tm_leaves(tree):
+    from flextree_tpu_torch.utils.tree import tree_leaves
+
+    return tree_leaves(tree)
+
+
+def wide_train_runs(dev, smi, models, trainer, ckpt, fa, rs, ar, bk, tm,
+                    ov, zero):
+    """Phase 24(b): each of ``WIDE_RUNS`` through ``trainer.main`` at the
+    flagship width (bf16, flash, batch 8 x 1024, ``WIDE_STEPS`` steps,
+    warmup-cosine, clipping) with a checkpoint: the loss finite and
+    falling, each flash kernel's and the fold kernel's launches the code's
+    count, the checkpoint bitwise the live state (packed as the trainer
+    packs it); the optimizer-state bytes a rank of the sharded runs
+    against ``zero_shard_bytes`` and the replicated state's; then, per
+    family, the steady step of each run and of the replicated step in
+    turns, and each run's device time and busy share under
+    ``torch.profiler``, and the peak memory (printed, not gated).
+    Returns the launches by path."""
+    import tempfile
+
+    from flextree_tpu_torch.parallel import moe_train, pipeline
+
+    b, t = FLASH_TRAIN[:2]
+    runs, by_path = {}, {}
+    for family, option, flags in WIDE_RUNS:
+        cfg, mesh, _, pspecs, _ = models[family]
+        name = f"wide_{option}_{family}"
+        with tempfile.TemporaryDirectory(prefix=f"ft-{name}-") as ckpt_dir:
+            out, launches, peak, wall = sp_train_run(
+                trainer, wide_argv(family, flags) + ["--ckpt-dir", ckpt_dir],
+                fa, rs)
+            res = out["result"]
+            pack, _ = trainer.sharded_hooks(out["comm"], out["model_cfg"],
+                                            res.state["params"],
+                                            out["train_cfg"], family)
+            live = pack(res.state) if pack else res.state
+            saved = ckpt.restore_train_state(ckpt_dir, dev)
+            if set(saved) != set(live) or not trees_identical(
+                    [live], [saved], tm.tree_leaves):
+                raise AssertionError(f"phase 24(b) {name}: the checkpoint "
+                                     f"is not the live state (packed), "
+                                     f"bitwise")
+            del saved, live
+        losses = [loss for _, loss in res.losses]
+        if len(losses) != WIDE_STEPS or not all(np.isfinite(losses)) or \
+                not losses[-1] < losses[0] or res.report.skipped_steps:
+            raise AssertionError(f"phase 24(b) {name}: losses not finite "
+                                 f"and falling: {losses}")
+        tc = out["train_cfg"]
+        if (tc.codec, tc.shard_optimizer, tc.overlap) != (
+                "int8" if option == "int8" else "f32",
+                option.startswith("zero"), option.endswith("overlap")):
+            raise AssertionError(f"phase 24(b) {name}: the trainer ran {tc}")
+        if family == "dense":
+            flash = sp_flash_launches("ring", SP_MESH, cfg.n_layers)
+            flash_want = dict.fromkeys(flash_counts(fa), WIDE_STEPS * flash)
+        else:
+            flash_want = {k: WIDE_STEPS * n for k, n in pm_flash_launches(
+                family, PM_MESH, cfg.n_layers, PM_MICRO).items()}
+        combine, sync = wide_fold_launches(family, option, models, tm, bk,
+                                           ov, ar, rs)
+        fold_want = WIDE_STEPS * (combine + sync)
+        if {k: launches[k] for k in flash_want} != flash_want or \
+                launches["reduce_sources"] != fold_want:
+            raise AssertionError(
+                f"phase 24(b) {name}: launches {launches}; the code gives "
+                f"flash {flash_want} and folds {fold_want} ({WIDE_STEPS} "
+                f"steps x (combine {combine} + sync {sync}))")
+        state_note = ""
+        if tc.shard_optimizer:
+            layout = tm.zero_layout_for(out["comm"], res.state["params"],
+                                        pspecs, out["comm"].axis_names)
+            acct = zero.zero_shard_bytes(layout)
+            live_b = wide_state_bytes(res.state, layout, zero)
+            if live_b != acct["sharded_bytes_per_rank"]:
+                raise AssertionError(f"phase 24(b) {name}: {live_b} B of "
+                                     f"moments a rank live, zero_shard_bytes "
+                                     f"says {acct}")
+            state_note = (f"; optimizer state a rank {live_b} B = "
+                          f"zero_shard_bytes', against the replicated "
+                          f"{acct['replicated_bytes']} B (ratio "
+                          f"{acct['ratio']:.4f})")
+        hist = res.report.metrics["histograms"]["train.step_ms"]
+        runs[name] = dict(out=out, family=family, peak=peak,
+                          p50=hist["p50"])
+        by_path[name] = launches
+        log(f"phase 24(b) {name} on mesh "
+            f"{dict(zip(mesh.axis_names, mesh.shape))} (flagship, bf16, "
+            f"flash, B={b} T={t}, {WIDE_STEPS} steps via trainer.main "
+            f"{' '.join(flags)}): loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+            f"launches {launches} = the code's (flash {flash_want}; folds "
+            f"{WIDE_STEPS} x (combine {combine} + sync {sync})); checkpoint "
+            f"bitwise the live state{state_note}; registry step_ms p50 "
+            f"{hist['p50']}; peak memory {peak / 2**30:.3f} GiB; "
+            f"{wall:.1f} s")
+        del res
+        torch.cuda.empty_cache()
+    # steady steps, per family: each run's step from its trained state and
+    # the replicated step from a fresh state, in turns
+    data = np.random.default_rng(SEED).integers(
+        0, MODEL["vocab_size"], (2, b, t)).astype(np.int32)
+    for family in ("dense", "pipeline", "moe"):
+        cfg, mesh, _, pspecs, _ = models[family]
+        names = [n for n, r in runs.items() if r["family"] == family]
+        rep_tc = dataclasses.replace(runs[names[0]]["out"]["train_cfg"],
+                                     codec="f32", shard_optimizer=False,
+                                     overlap=False)
+        gen = torch.Generator().manual_seed(SEED)
+
+        def make(tc_, family=family, cfg=cfg, mesh=mesh):
+            if family == "pipeline":
+                return pipeline.make_pipeline_train_step(
+                    cfg, tc_, PM_MICRO, comm=mesh)
+            if family == "moe":
+                return moe_train.make_moe_train_step(cfg, tc_, comm=mesh)
+            return tm.make_train_step(cfg, tc_, comm=mesh)
+
+        if family == "pipeline":
+            rep_state = pipeline.init_pipeline_train_state(cfg, gen,
+                                                           device=dev)
+        elif family == "moe":
+            rep_state = moe_train.init_moe_train_state(cfg, gen, device=dev)
+        else:
+            rep_state = tm.init_train_state(cfg, gen, device=dev)
+        steps = {"replicated": (make(rep_tc), rep_state)}
+        for n in names:
+            o = runs[n]["out"]
+            steps[n] = (make(o["train_cfg"]), o["result"].state)
+        times = {k: [] for k in steps}
+        order = list(steps)
+        for i in range(WIDE_TIMED + 1):
+            for k in (order if i % 2 else order[::-1]):
+                step, state = steps[k]
+                torch.cuda.synchronize()
+                t0 = time.monotonic()
+                state, m = step(state, data[0], data[1])
+                float(m["loss"])
+                if i:  # the first round warms each step up
+                    times[k].append(time.monotonic() - t0)
+                steps[k] = (step, state)
+        base = float(np.median(times["replicated"])) * 1e3
+        for k in order:
+            ms = float(np.median(times[k])) * 1e3
+            prof = {"device_busy_s": None}
+            if k != "replicated":
+                step, state = steps[k]
+
+                def one_step(step=step, state=state):
+                    float(step(state, data[0], data[1])[1]["loss"])
+
+                prof = device_profile(one_step, f"phase 24(b) profile {k} "
+                                      f"(1 step)", top=False)
+            dev_ms = None if prof["device_busy_s"] is None else \
+                prof["device_busy_s"] * 1e3
+            log(f"phase 24(b) steady {family} {k}: median step {ms:.3f} ms "
+                f"({WIDE_TIMED} steps in turns; {ms / base:.3f}x the "
+                f"replicated step's {base:.3f}), {b * t / ms * 1e3:.0f} "
+                f"tokens/s; device "
+                + ("not measured" if dev_ms is None else
+                   f"{dev_ms:.3f} ms a step, busy "
+                   f"{100 * prof['device_busy_share']:.1f}% of the wall "
+                   f"(torch.profiler)")
+                + ("" if k == "replicated" else
+                   f"; trainer run's peak memory "
+                   f"{runs[k]['peak'] / 2**30:.3f} GiB")
+                + f"; {smi}")
+        del steps
+        torch.cuda.empty_cache()
+    del runs
+    torch.cuda.empty_cache()
+    return by_path
+
+
+def wide_f32_bits(dev, tm):
+    """Phase 24(c): float32 at full width (flash, B=2, T=1024),
+    ``WIDE_F32_STEPS`` steps from one state on the same batches, for each
+    family on its mesh: the sharded step bitwise the replicated one
+    (clipping off: the loss, the parameters, and the consolidated moments
+    the replicated ``mu``/``nu``); the overlapped step bitwise the
+    replicated one; the int8 overlapped step bitwise its serialized twin,
+    every rank's ``ef`` included."""
+    from flextree_tpu_torch.data import LMDataset, synthetic_tokens
+    from flextree_tpu_torch.models.moe import MoEConfig, moe_param_specs
+    from flextree_tpu_torch.models.transformer import (
+        TransformerConfig,
+        param_specs,
+    )
+    from flextree_tpu_torch.parallel import moe_train, pipeline, zero
+    from flextree_tpu_torch.parallel.mesh import Mesh
+
+    t = FLASH_TRAIN[1]
+    dataset = LMDataset(synthetic_tokens(200_000, MODEL["vocab_size"],
+                                         seed=SEED),
+                        batch=WIDE_F32_BATCH, seq_len=t, seed=SEED)
+    batches = [dataset.batch_at(i) for i in range(WIDE_F32_STEPS)]
+    for family in ("dense", "pipeline", "moe"):
+        clock = time.monotonic()
+        if family == "moe":
+            cfg = MoEConfig(**MODEL, attn_impl="flash", **PM_MOE)
+            mesh = moe_train.make_mesh_moe(shape=PM_MESH, device=dev)
+            pspecs, axes = moe_param_specs(cfg), moe_train.MOE_AXES
+
+            def init(tc_, cfg=cfg, mesh=mesh):
+                return moe_train.init_moe_train_state(
+                    cfg, torch.Generator().manual_seed(SEED), tc_,
+                    device=dev, comm=mesh)
+
+            def make(tc_, serialize=False, cfg=cfg, mesh=mesh):
+                return moe_train.make_moe_train_step(
+                    cfg, tc_, comm=mesh, serialize_overlap=serialize)
+        elif family == "pipeline":
+            cfg = TransformerConfig(**MODEL, attn_impl="flash")
+            mesh = pipeline.make_mesh_4d(shape=PM_MESH, device=dev)
+            pspecs = pipeline.pipeline_param_specs(cfg)
+            axes = pipeline.PIPELINE_AXES
+
+            def init(tc_, cfg=cfg, mesh=mesh):
+                return pipeline.init_pipeline_train_state(
+                    cfg, torch.Generator().manual_seed(SEED), tc_,
+                    device=dev, comm=mesh)
+
+            def make(tc_, serialize=False, cfg=cfg, mesh=mesh):
+                return pipeline.make_pipeline_train_step(
+                    cfg, tc_, PM_MICRO, comm=mesh,
+                    serialize_overlap=serialize)
+        else:
+            cfg = TransformerConfig(**MODEL, attn_impl="flash",
+                                    sp_impl="ring")
+            mesh = Mesh((dev,) * math.prod(SP_MESH), tm.AXIS_NAMES, SP_MESH)
+            pspecs, axes = param_specs(cfg), tm.AXIS_NAMES
+
+            def init(tc_, cfg=cfg, mesh=mesh):
+                return tm.init_train_state(
+                    cfg, torch.Generator().manual_seed(SEED), tc_,
+                    device=dev, comm=mesh)
+
+            def make(tc_, serialize=False, cfg=cfg, mesh=mesh):
+                return tm.make_train_step(cfg, tc_, comm=mesh,
+                                          serialize_overlap=serialize)
+
+        def run(tc_, serialize=False):
+            state, losses, step = init(tc_), [], make(tc_, serialize)
+            for tokens, targets in batches:
+                state, m = step(state, tokens, targets)
+                losses.append(float(m["loss"]))
+            return state, losses
+
+        def same(a, b_):
+            return trees_identical([a], [b_], tm.tree_leaves)
+
+        base = tm.TrainConfig()
+        rep, rep_losses = run(base)
+        sh, sh_losses = run(dataclasses.replace(base, shard_optimizer=True))
+        cons = zero.make_consolidate_fn(
+            mesh, pspecs, tm.zero_layout_for(mesh, sh["params"], pspecs,
+                                             axes), None, False)(sh)
+        if sh_losses != rep_losses or not same(sh["params"], rep["params"]) \
+                or not same(cons["mu"], rep["mu"]) or \
+                not same(cons["nu"], rep["nu"]):
+            raise AssertionError(f"phase 24(c) {family}: the sharded step is "
+                                 f"not the replicated step bitwise")
+        del sh, cons
+        ovl, ovl_losses = run(dataclasses.replace(base, overlap=True))
+        if ovl_losses != rep_losses or not same(ovl, rep):
+            raise AssertionError(f"phase 24(c) {family}: the overlapped step "
+                                 f"is not the replicated step bitwise")
+        del ovl, rep
+        int8 = dataclasses.replace(base, codec="int8", overlap=True)
+        a, _ = run(int8)
+        twin, _ = run(int8, serialize=True)
+        if not same({k: v for k, v in a.items() if k != "ef"},
+                    {k: v for k, v in twin.items() if k != "ef"}) or \
+                not trees_identical(a["ef"], twin["ef"], tm.tree_leaves):
+            raise AssertionError(f"phase 24(c) {family}: the int8 overlapped "
+                                 f"step is not its serialized twin bitwise")
+        nonzero = sum(int((x != 0).sum()) for e in a["ef"]
+                      for x in tm.tree_leaves(e))
+        del a, twin
+        torch.cuda.empty_cache()
+        log(f"phase 24(c) f32 {family} on {dict(zip(axes, mesh.shape))} "
+            f"({WIDE_F32_STEPS} steps, B={WIDE_F32_BATCH} T={t}, full width, "
+            f"flash): sharded = replicated bitwise (losses {rep_losses}, "
+            f"params, consolidated moments); overlapped = replicated "
+            f"bitwise; int8 overlapped = its serialized twin bitwise, "
+            f"{nonzero} non-zero ef elements over the ranks included; "
+            f"{time.monotonic() - clock:.1f} s")
+
+
+def phase_wide(dev, smi, bw):
+    """Phase 24: lossy codecs, ZeRO-1 and overlap on the wide meshes
+    (dense (2, 2, 2), pipeline and MoE (1, 2, 2, 2)): (a)
+    :func:`wide_sync_check` on each of ``WIDE_SYNC_CHECKS`` and the
+    heaviest secondary-axis fold stage timed (:func:`wide_stage_time`);
+    (b) :func:`wide_train_runs`; (c) :func:`wide_f32_bits`.  Returns
+    ``(launches by path, the stage's times)``."""
+    from flextree_tpu_torch import trainer
+    from flextree_tpu_torch.ops import flash_attention as fa
+    from flextree_tpu_torch.ops import reduce_stacked as rs
+    from flextree_tpu_torch.parallel import allreduce as ar
+    from flextree_tpu_torch.parallel import bucketing as bk
+    from flextree_tpu_torch.parallel import compressed as cm
+    from flextree_tpu_torch.parallel import overlap as ov
+    from flextree_tpu_torch.parallel import spmd
+    from flextree_tpu_torch.parallel import train as tm
+    from flextree_tpu_torch.parallel import zero
+    from flextree_tpu_torch.utils import checkpoint as ckpt
+
+    clock = time.monotonic()
+    models = wide_models(dev)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    heaviest = None
+    for family, kind, codec in WIDE_SYNC_CHECKS:
+        st = wide_sync_check(dev, family, kind, codec, models, tm, bk, ar,
+                             rs, cm, spmd, zero)
+        if st is not None and codec is None and (
+                heaviest is None or st[0] * (st[1] + 1) * st[2] >
+                heaviest[0] * (heaviest[1] + 1) * heaviest[2]):
+            heaviest = st
+    stage = wide_stage_time(dev, rs, heaviest, bw, flush, smi)
+    del flush
+    torch.cuda.empty_cache()
+    log(f"phase 24(a): {time.monotonic() - clock:.1f} s")
+    clock = time.monotonic()
+    by_path = wide_train_runs(dev, smi, models, trainer, ckpt, fa, rs, ar,
+                              bk, tm, ov, zero)
+    del models
+    torch.cuda.empty_cache()
+    log(f"phase 24(b): {time.monotonic() - clock:.1f} s")
+    clock = time.monotonic()
+    wide_f32_bits(dev, tm)
+    log(f"phase 24(c): {time.monotonic() - clock:.1f} s")
+    return by_path, stage
 
 
 def collective_phases(dev, bw) -> list:
@@ -5863,6 +6505,10 @@ def main() -> int:
     t0 = time.monotonic()
     sp_launches.update(phase_pp_moe(dev, smi))
     log(f"phase 23: {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    wide_launches, _ = phase_wide(dev, smi, bw)
+    sp_launches.update(wide_launches)
+    log(f"phase 24: {time.monotonic() - t0:.1f} s")
     # each path's launches beside their sum
     for row in rows:
         if row["name"] in dp_launches:

@@ -8,13 +8,20 @@ their own parameter trees), or, under ``shard_optimizer`` (ZeRO-1), as
 ``{"params", "step", "mu_shard", "mu_tail", "mu_rep", "nu_shard",
 "nu_tail", "nu_rep"}`` (and ``"master_shard"``, ``"master_tail"``, ``"ef"``
 for a lossy codec) in its host-global layout: a ``*_shard`` leaf is
-``(N·tile,)`` float32 with rank ``r``'s block at ``[r·tile, (r+1)·tile)``,
-a ``*_tail`` leaf ``(tail,)``, an empty slot ``(0,)``.  The port keeps
-these layouts (on an in-process mesh the same host-global buffers; on a
-process group each rank holds its own ``(tile,)``, as each JAX device
-does), so the conversion is a copy.  The caller turns the JAX arrays
-into numpy (``jax.tree.map(np.asarray, tree)``) — this module imports
-neither JAX nor the JAX package.
+``(N·M·tile,)`` float32, the block of shard position ``s`` and model
+position ``m`` at slot ``s·M + m`` (``M`` the product of the sizes of the
+mesh axes the leaf's own spec names; 1 on a data-parallel mesh, where rank
+``r``'s block is at ``[r·tile, (r+1)·tile)``), a ``*_tail`` leaf
+``(M·tail,)``, an empty slot ``(0,)``.  The port keeps these layouts (on
+an in-process mesh the same host-global buffers; on a process group each
+rank holds its own ``(tile,)``, as each JAX device does), so the
+conversion is a copy.  A JAX state read with ``device_get`` holds each
+device's per-rank buffer (``ef``, a wide mesh's shard slots) as the first
+device that holds it; the port's state, after a step on a mesh, holds
+``ef`` as the ranks' list, which :func:`train_state_to_numpy` assembles
+the same way.  The caller turns the JAX arrays into numpy
+(``jax.tree.map(np.asarray, tree)``) — this module imports neither JAX
+nor the JAX package.
 """
 
 from __future__ import annotations
@@ -97,9 +104,16 @@ def train_state_from_numpy(tree: dict, device=None) -> dict:
     return state
 
 
-def train_state_to_numpy(state: dict) -> dict:
+def train_state_to_numpy(state: dict, pspecs=None, comm=None) -> dict:
     """The port's train state as the JAX pytree of numpy arrays (host
-    copies; ``step`` a 0-d int32 array)."""
+    copies; ``step`` a 0-d int32 array).  A residual held as the ranks'
+    list (after a step on a mesh) becomes one tree, each slice from the
+    first rank that holds it, as the JAX ``device_get`` reads it: give the
+    step's ``pspecs`` and mesh ``comm`` for a mesh whose ranks hold
+    slices (:func:`.parallel.zero.checkpoint_ef`)."""
+    from .parallel.zero import checkpoint_ef
     from .utils.tree import tree_map
 
+    if isinstance(state.get("ef"), list):
+        state = dict(state, ef=checkpoint_ef(state["ef"], pspecs, comm))
     return tree_map(lambda t: t.detach().cpu().numpy().copy(), state)

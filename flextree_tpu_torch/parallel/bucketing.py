@@ -88,6 +88,7 @@ __all__ = [
     "per_leaf_sync_grads",
     "bucketed_sync_grads",
     "sync_fold_stages",
+    "mesh_fold_launches",
     "DEFAULT_MAX_BUCKET_BYTES",
     "CPU_MAX_BUCKET_BYTES",
     "WIDE_AXES_ITEM",
@@ -102,8 +103,9 @@ DEFAULT_MAX_BUCKET_BYTES = 64 << 20
 #: losing (the pack, collective, unpack and AdamW chain must stay in cache)
 CPU_MAX_BUCKET_BYTES = 128 << 10
 
-#: the ROADMAP item that overlap, ZeRO-1 and the lossy codecs with an sp or
-#: tp axis above size 1 wait on
+#: the ROADMAP item that the pipeline and MoE steps over a
+#: ``torch.distributed`` group wait on (a process group is one data-parallel
+#: axis, :func:`comm_axis_sizes`)
 WIDE_AXES_ITEM = \
     "ROADMAP.md, Queue 1: 'Sequence, pipeline and expert parallelism'"
 
@@ -610,8 +612,8 @@ def _allreduce_folds(n: int, topo, count: int, chunks: int) -> list:
 
 
 def sync_fold_stages(numels: Sequence[int], n: int, topo, buckets=None,
-                     chunks: int = 1, codec=None,
-                     sharded: bool = False) -> list:
+                     chunks: int = 1, codec=None, sharded: bool = False,
+                     shard_n: int | None = None) -> list:
     """The fold stages, in order, of one sync over one axis of ``n`` ranks
     that share a device, each ``(R folds, W sources, L elements)``: one
     :func:`~..ops.reduce_stacked.reduce_sources` call (the count
@@ -626,7 +628,13 @@ def sync_fold_stages(numels: Sequence[int], n: int, topo, buckets=None,
     over a ``plan_buckets(sharded=True)`` plan): each bucket's heads, packed,
     fold as one reduce-scatter on the shard topology
     (:func:`.zero.shard_topo`; ``chunks`` does not apply), its tails as one
-    dense fold.  The parameters' all-gather folds nothing."""
+    dense fold.  The parameters' all-gather folds nothing.
+
+    ``shard_n``: one secondary axis of that sync (``n`` its ranks), whose
+    buckets are sharded over an axis of ``shard_n`` ranks: each bucket's
+    owned blocks, packed, fold as one allreduce on ``topo`` (the
+    compressed one under a lossy codec; the dense fold for the sentinel),
+    its tails as one dense fold."""
     from ..ops.quantize import get_codec
 
     codec = get_codec(codec)
@@ -637,7 +645,9 @@ def sync_fold_stages(numels: Sequence[int], n: int, topo, buckets=None,
     folds: list = []
     for idxs in groups:
         sizes = [int(numels[i]) for i in idxs]
-        if sharded:
+        if shard_n is not None:
+            folds += _secondary_folds(n, topo, sizes, shard_n, codec)
+        elif sharded:
             folds += _reduce_scatter_folds(n, topo, sizes, codec)
         elif codec.name == "int8" and topo is not None:
             folds += int8_fold_stages(n, topo, sum(sizes), chunks)
@@ -674,3 +684,59 @@ def _reduce_scatter_folds(n: int, topo, sizes, codec) -> list:
     if tails:
         folds.append((n, n, tails))
     return folds
+
+
+def _secondary_folds(n: int, topo, sizes, shard_n: int, codec) -> list:
+    """The fold stages of one ZeRO-1 bucket on a secondary axis of ``n``
+    ranks (:func:`.zero._secondary_sync`): its owned blocks (``size //
+    shard_n`` of each leaf), packed, allreduced on ``topo``, and its tails
+    in one dense fold."""
+    tile = sum(s // shard_n for s in sizes)
+    tails = sum(s - (s // shard_n) * shard_n for s in sizes)
+    folds: list = []
+    if tile:
+        if topo is None:
+            folds.append((n, n, tile))
+        elif codec.name == "int8":
+            folds += int8_fold_stages(n, Topology.resolve(n, topo), tile)
+        else:
+            folds += _allreduce_folds(n, Topology.resolve(n, topo), tile, 1)
+    if tails:
+        folds.append((n, n, tails))
+    return folds
+
+
+def mesh_fold_launches(leaves, specs, mesh_axes, axis_sizes, topos,
+                       bucket_bytes: int | None = None, codec=None,
+                       sharded: bool = False) -> int:
+    """The fold kernel's launches of one sync over an in-process mesh of
+    ``axis_sizes``, from the code: each bucket of :func:`plan_buckets` (on
+    one rank's ``leaves``) on each of its axes, once a group along the
+    axis (:func:`sync_fold_stages`, one launch a ``MAX_POINTERS // (W +
+    1)`` folds of a stage); ``sharded``, ZeRO-1's: the shard axis'
+    reduce-scatter and each secondary axis' allreduce of the owned blocks
+    (``sync_fold_stages(sharded=True)`` and ``(shard_n=)``).  The count a
+    run on the card is held to."""
+    from ..ops.quantize import get_codec
+    from ..ops.reduce_stacked import MAX_POINTERS
+
+    codec = get_codec(codec)
+    world = math.prod(int(axis_sizes.get(a, 1)) for a in mesh_axes)
+    plan = plan_buckets(leaves, specs, mesh_axes, topos=topos,
+                        axis_sizes=axis_sizes, bucket_bytes=bucket_bytes,
+                        codec=codec if codec.lossy else None,
+                        sharded=sharded)
+    numels = [g.numel() for g in leaves]
+    total = 0
+    for b in plan:
+        for k, ax in enumerate(b.axes):
+            n = int(axis_sizes[ax])
+            kw = {}
+            if sharded:
+                kw = dict(sharded=True) if k == 0 else \
+                    dict(shard_n=int(axis_sizes[b.axes[0]]))
+            stages = sync_fold_stages(numels, n, topos.get(ax), [b],
+                                      codec=codec, **kw)
+            total += world // n * sum(-(-r // (MAX_POINTERS // (w + 1)))
+                                      for r, w, _ in stages)
+    return total

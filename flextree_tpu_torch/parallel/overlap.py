@@ -25,10 +25,15 @@ to hide it.
 
 **Ranks in lock-step.**  On an in-process :class:`~.mesh.Mesh` a bucket
 needs every rank's segment, so the engine runs every rank's forward
-first (each rank holds its segment graphs), then, segment by segment in
-readiness order, every rank's backward of that segment, then the buckets
-that segment closes.  On a ``torch.distributed`` group this process is
-one rank and walks the same order.
+first, then, segment by segment in readiness order, every rank's
+backward of that segment, then the buckets that segment closes.  The cut
+runs across every rank at once: each layer's input is a fresh leaf on
+every rank, the layer runs over all ranks (on a wide mesh the ring hops'
+``ppermute`` and the tensor-parallel combine couple them), and one
+``torch.autograd.grad`` a segment covers every rank's outputs, so a
+cotangent hop inside a segment stays on the current stream.  On a
+``torch.distributed`` group this process is one rank and walks the same
+order.
 
 **The comm stream.**  On a card each fired bucket's sync runs on a side
 stream of the device (each step function keeps its own), so the card can
@@ -52,6 +57,16 @@ JAX twin puts an ``optimization_barrier`` over every gradient instead).
 A lossy codec syncs ``grad + ef`` per fired bucket and returns the
 wire's residual per leaf, with ``sync_with_feedback``'s semantics.
 
+**The MoE engine** (:func:`moe_overlap_step_grads`) cuts the MoE model
+the same way; a MoE layer's segment has a second output, the router's
+balance term, whose cotangent is the constant the loss gives it
+(``router_aux_weight / (n_moe · n_devices)``, computed by autograd from
+the step's own expression, so the composed gradient is bitwise the
+whole backward's).  **The pipeline's tail** (:func:`overlap_sync_with_
+feedback`): the GPipe backward yields every gradient at once, so overlap
+there fires three buckets (``ln_f``, the layer stack, ``embed``) after
+it, on the side stream.
+
 **ZeRO-1** (``zero_layout``): a fired bucket reduce-scatters
 (:func:`.zero.zero_reduce_scatter_grads`, ``grad + ef`` under a lossy
 codec, whose residual comes back), and the engine hands back each rank's
@@ -61,10 +76,6 @@ for the side stream.  The shards and residuals a fire makes on the side
 stream are read on the current stream only after that wait, as the fired
 allreduce's results are, and the next step's first fire waits for the
 current stream before its stream reuses their blocks.
-
-Not here yet: ``moe_overlap_step_grads`` and
-``overlap_sync_with_feedback`` (the pipeline's tail) wait for ROADMAP
-Queue 1 item 8 ('Sequence, pipeline and expert parallelism').
 """
 
 from __future__ import annotations
@@ -88,6 +99,8 @@ __all__ = [
     "plan_overlap",
     "fired_payloads",
     "dense_overlap_step_grads",
+    "moe_overlap_step_grads",
+    "overlap_sync_with_feedback",
 ]
 
 #: The boundary equalizer's backward throughput (GFLOP/s) by device type
@@ -397,43 +410,120 @@ def _run_overlap_engine(params, efs, step, pspecs, mesh_axes, topos,
     return grads, new_ef
 
 
-def _segment_graphs(params, tokens, targets, model_cfg, positions,
-                    n_total_tokens, tp_axis, sp_axis):
-    """One rank's forward, cut at every segment: each layer's input is a
-    fresh leaf.  Returns the backward as a generator of the segments'
-    gradients in readiness order, and the rank's loss."""
-    from ..models.transformer import (
-        cross_entropy_loss,
-        final_logits,
-        layer_forward,
-    )
+def _segment_graphs(slices, tokens, targets, model_cfg, n_total_tokens,
+                    apply_layer, d_aux=None):
+    """Every local rank's forward, cut at every segment: each layer's
+    input a fresh leaf on every rank.  ``slices``: each rank's parameter
+    tree; ``apply_layer(i, layers, xs) -> (outs, auxes or None)`` runs
+    layer ``i`` over every rank (lists), ``d_aux`` the auxes' cotangent.
+    Returns the backward, a generator of each segment's gradients (a list
+    of the ranks' trees) in readiness order, and every rank's loss."""
+    from ..models.transformer import cross_entropy_loss, final_logits
 
     with torch.enable_grad():
-        leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
-        embed = leaves["embed"]
-        x0 = embed[tokens.long()].to(model_cfg.dtype)
-        ins, outs = [x0.detach().requires_grad_()], []
-        for layer in leaves["layers"]:
-            outs.append(layer_forward(layer, ins[-1], positions, model_cfg,
-                                      tp_axis=tp_axis, sp_axis=sp_axis))
-            ins.append(outs[-1].detach().requires_grad_())
-        loss_sum, _ = cross_entropy_loss(
-            final_logits(embed, leaves["ln_f"], ins[-1]), targets)
-        loss = loss_sum / n_total_tokens
+        leaves = [tree_map(lambda p: p.detach().requires_grad_(), t)
+                  for t in slices]
+        embeds = [lv["embed"] for lv in leaves]
+        x0 = [e[t.long()].to(model_cfg.dtype) for e, t in zip(embeds, tokens)]
+        ins = [[x.detach().requires_grad_() for x in x0]]
+        outs, auxes = [], []
+        for i in range(len(leaves[0]["layers"])):
+            y, aux = apply_layer(i, [lv["layers"][i] for lv in leaves],
+                                 ins[-1])
+            outs.append(y)
+            auxes.append(aux)
+            ins.append([x.detach().requires_grad_() for x in y])
+        losses = [cross_entropy_loss(final_logits(lv["embed"], lv["ln_f"], h),
+                                     y)[0] / n_total_tokens
+                  for lv, h, y in zip(leaves, ins[-1], targets)]
+    k = len(leaves)
 
     def backward():
-        d_embed_head, d_ln_f, dx = torch.autograd.grad(
-            loss, [embed, leaves["ln_f"], ins[-1]])
-        yield d_ln_f  # segment 0: the loss head
+        got = torch.autograd.grad(
+            losses, embeds + [lv["ln_f"] for lv in leaves] + ins[-1])
+        d_embed_head, dx = got[:k], list(got[2 * k:])
+        yield list(got[k:2 * k])  # segment 0: the loss head
         for i in reversed(range(len(outs))):
-            layer = leaves["layers"][i]
-            *d_layer, dx = torch.autograd.grad(
-                outs[i], tree_leaves(layer) + [ins[i]], grad_outputs=dx)
-            yield tree_unflatten(layer, d_layer)
-        (d_embed_in,) = torch.autograd.grad(x0, [embed], grad_outputs=dx)
-        yield d_embed_head + d_embed_in  # last: the embedding
+            layers = [lv["layers"][i] for lv in leaves]
+            flat = [tree_leaves(layer) for layer in layers]
+            roots, cots = list(outs[i]), dx
+            if auxes[i] is not None:
+                roots += auxes[i]
+                cots = dx + [torch.full_like(a, d_aux) for a in auxes[i]]
+            got = torch.autograd.grad(roots, [x for f in flat for x in f]
+                                      + ins[i], grad_outputs=cots,
+                                      materialize_grads=True)
+            n = len(flat[0])
+            yield [tree_unflatten(layer, got[r * n:(r + 1) * n])
+                   for r, layer in enumerate(layers)]
+            dx = list(got[k * n:])
+        d_embed_in = torch.autograd.grad(x0, embeds, grad_outputs=dx)
+        # last: the embedding
+        yield [a + b for a, b in zip(d_embed_head, d_embed_in)]
 
-    return backward(), loss.detach()
+    return backward(), [x.detach() for x in losses]
+
+
+def _rank_slices(params, pspecs, comm, n: int) -> list:
+    """Each local rank's parameter tree: its slices on a mesh, the params
+    themselves for each of ``n`` local ranks otherwise."""
+    from .spmd import shard_tree
+
+    if isinstance(comm, Mesh):
+        return shard_tree(params, pspecs, comm)
+    return [params] * n
+
+
+def _rank_efs(state, pspecs, comm, n: int):
+    """The ranks' residual trees a lossy step syncs with (None for the
+    identity codec): a mesh's list (one tree cut for every rank), a
+    process group's own tree."""
+    from .spmd import rank_trees
+
+    if "ef" not in state:
+        return None
+    ef = state["ef"]
+    if isinstance(comm, Mesh):
+        return rank_trees(ef, pspecs, comm)
+    return ef if isinstance(ef, list) else [ef] * n
+
+
+def _engine(state, tokens, targets, model_cfg, train_cfg, plan, pspecs,
+            mesh_axes, topos, n_total_tokens, apply_layer, serialize,
+            zero_layout, comm, stream, d_aux=None):
+    """The shared body of the dense and MoE engines: every rank's cut
+    forward (:func:`_segment_graphs`), then the readiness walk
+    (:func:`_run_overlap_engine`) on the side stream on a card."""
+    from ..ops.quantize import get_codec
+
+    params = state["params"]
+    dev = params["embed"].device
+    lossy = get_codec(train_cfg.codec).lossy
+    efs = _rank_efs(state, pspecs, comm, len(tokens)) if lossy else None
+    step = int(state["step"]) if lossy else 0
+    slices = _rank_slices(params, pspecs, comm, len(tokens))
+    segs, losses = _segment_graphs(slices, tokens, targets, model_cfg,
+                                   n_total_tokens, apply_layer, d_aux)
+    seg_paths = [path for _, path in readiness_segments(params)]
+    grads, new_ef = _run_overlap_engine(
+        params, efs, step, pspecs, mesh_axes, topos, train_cfg, plan,
+        seg_paths, lambda: segs, serialize, zero_layout, comm=comm,
+        side=None if dev.type != "cuda" else
+        stream or torch.cuda.Stream(device=dev))
+    return losses, grads, new_ef
+
+
+def _positions(tokens, sp_axis, lock: bool):
+    """Every rank's global positions (a list) in lock-step, else the one
+    rank-local position vector."""
+    from ..models.transformer import global_positions
+
+    t_local = tokens[0].shape[1]
+    if sp_axis is not None:
+        return global_positions(t_local, sp_axis)
+    if lock:
+        return [torch.arange(t_local, device=t.device) for t in tokens]
+    return global_positions(t_local, device=tokens[0].device)
 
 
 def dense_overlap_step_grads(state, tokens, targets, model_cfg, train_cfg,
@@ -445,44 +535,151 @@ def dense_overlap_step_grads(state, tokens, targets, model_cfg, train_cfg,
     dense train step: the overlap twin of the local backward plus
     ``sync_with_feedback``, bitwise the same for the identity codec.
 
-    ``tokens``/``targets``: each local rank's batch rows, in a list (every
-    rank's on a :class:`~.mesh.Mesh`, else the one rank's).  ``plan``: the
-    buckets (:func:`plan_overlap`, a function of the shapes only, so a step
-    function plans once).  ``comm``: None (one rank), a mesh or a process
-    group.  ``state``: its ``"params"``, and for a lossy codec its
+    ``tokens``/``targets``: each local rank's batch block, in a list
+    (every rank's on a :class:`~.mesh.Mesh`, else the one rank's).
+    ``tp_axis``/``sp_axis``: the mesh's :class:`~.spmd.Axis` handles on a
+    wide mesh (each rank then holds its slices of ``state["params"]``, cut
+    by ``pspecs``, and every layer runs over all ranks); None on the
+    data-parallel mesh.  ``plan``: the buckets (:func:`plan_overlap` on one
+    rank's slices, a function of the shapes only, so a step function plans
+    once).  ``comm``: None (one rank), a mesh or a process group.
+    ``state``: its ``"params"`` (the full tree), and for a lossy codec its
     ``"step"`` (the counter before the update, keying the rounding) and
-    ``"ef"`` (each local rank's tree, in a list).  ``stream``: on a card,
-    the side stream the fired syncs run on (None: one from PyTorch's pool;
-    a step function keeps one for all its calls, so the caching allocator
-    reuses its blocks).  ``zero_layout`` (the step's
-    :class:`~.zero.ZeroLayout`, or None): each fired bucket
+    ``"ef"`` (one tree for every rank, or each local rank's, in a list).
+    ``stream``: on a card, the side stream the fired syncs run on (None:
+    one from PyTorch's pool; a step function keeps one for all its calls,
+    so the caching allocator reuses its blocks).  ``zero_layout`` (the
+    step's :class:`~.zero.ZeroLayout`, or None): each fired bucket
     reduce-scatters, and ``synced_grads`` holds each rank's
     :class:`~.zero.ZeroShard` tree.  Returns ``(losses, synced_grads,
     new_ef or None)``, each a list of the local ranks'."""
-    from ..models.transformer import global_positions
+    from ..models.transformer import layer_forward
+
+    lock = tp_axis is not None or sp_axis is not None
+    positions = _positions(tokens, sp_axis, lock)
+
+    def apply_layer(i, layers, xs):
+        if lock:
+            return layer_forward(layers, xs, positions, model_cfg,
+                                 tp_axis=tp_axis, sp_axis=sp_axis), None
+        return [layer_forward(layer, x, positions, model_cfg)
+                for layer, x in zip(layers, xs)], None
+
+    return _engine(state, tokens, targets, model_cfg, train_cfg, plan,
+                   pspecs, mesh_axes, topos, n_total_tokens, apply_layer,
+                   serialize, zero_layout, comm, stream)
+
+
+def aux_cotangent(model_cfg, n_devices: int) -> float:
+    """The cotangent of each MoE layer's balance term in the optimized
+    loss ``ce + router_aux_weight · (Σ aux_i / n_moe) / n_devices``:
+    autograd's own value of that expression's derivative (bitwise what
+    the whole backward hands each layer), ``router_aux_weight / (n_moe ·
+    n_devices)`` up to rounding."""
+    n_moe = sum(1 for i in range(model_cfg.n_layers)
+                if model_cfg.is_moe_layer(i))
+    with torch.enable_grad():
+        a = torch.zeros((), dtype=torch.float32, requires_grad=True)
+        total = torch.zeros((), dtype=torch.float32) + a
+        term = model_cfg.router_aux_weight * (total / max(n_moe, 1)) \
+            / n_devices
+        (d,) = torch.autograd.grad(term, a)
+    return float(d)
+
+
+def moe_overlap_step_grads(state, tokens, targets, model_cfg, train_cfg,
+                           plan: OverlapPlan, pspecs, mesh_axes, topos,
+                           n_total_tokens, n_devices: int, tp_axis, sp_axis,
+                           ep_axis, serialize: bool = False,
+                           zero_layout=None, *, comm, stream=None):
+    """The MoE twin of :func:`dense_overlap_step_grads` (the JAX
+    ``moe_overlap_step_grads``) over a (dp, ep, sp, tp) mesh: each MoE
+    layer's segment carries the router's balance term, whose cotangent is
+    :func:`aux_cotangent`'s constant, so the composed gradient is the
+    whole backward's.  Returns ``(ce, aux_mean, synced_grads, new_ef or
+    None)``, each a list of the ranks'."""
+    from ..models.moe import moe_layer
+    from ..models.transformer import attention_block, mlp_block, rms_norm
+
+    positions = _positions(tokens, sp_axis, True)
+    n_moe = sum(1 for i in range(model_cfg.n_layers)
+                if model_cfg.is_moe_layer(i))
+    auxes: list = []  # each MoE layer's, every rank's
+
+    def apply_layer(i, layers, xs):
+        h = attention_block(layers, xs, positions, model_cfg,
+                            tp_axis=tp_axis, sp_axis=sp_axis)
+        if not model_cfg.is_moe_layer(i):
+            return mlp_block(layers, h, model_cfg, tp_axis=tp_axis), None
+        y, aux = moe_layer(layers, [rms_norm(x, lr["ln2"]) for x, lr in
+                                    zip(h, layers)], model_cfg,
+                           tp_axis=tp_axis, ep_axis=ep_axis)
+        auxes.append([a.detach() for a in aux])
+        return [a + b for a, b in zip(h, y)], aux
+
+    ce, grads, new_ef = _engine(state, tokens, targets, model_cfg, train_cfg,
+                                plan, pspecs, mesh_axes, topos,
+                                n_total_tokens, apply_layer, serialize,
+                                zero_layout, comm, stream,
+                                aux_cotangent(model_cfg, n_devices))
+    aux_mean = []
+    for r in range(len(tokens)):
+        total = torch.zeros((), dtype=torch.float32, device=ce[r].device)
+        for layer_aux in auxes:
+            total = total + layer_aux[r]
+        aux_mean.append(total / max(n_moe, 1))
+    return ce, aux_mean, grads, new_ef
+
+
+# ------------------------------------------------- whole-tree (pipeline)
+
+
+def overlap_sync_with_feedback(state, grads, pspecs, mesh_axes, topos,
+                               train_cfg, serialize: bool = False, *, comm,
+                               stream=None):
+    """The pipeline step's overlapped sync of whole gradient trees (the
+    JAX ``overlap_sync_with_feedback``): its GPipe backward yields every
+    gradient at once, so the buckets fire after it, one a readiness part
+    (``ln_f``, the layer stack, ``embed``), each with
+    ``sync_with_feedback``'s semantics, on the side stream on a card
+    (``serialize``: on the current one, the twin).  ``grads``: every
+    rank's tree (a mesh's list).  Returns ``(synced, new_ef or None)``,
+    lists of the ranks' trees."""
     from ..ops.quantize import get_codec
 
-    params = state["params"]
-    dev = params["embed"].device
-    t_local = tokens[0].shape[1]
-    seg_paths = [path for _, path in readiness_segments(params)]
-    positions = global_positions(t_local, sp_axis, device=dev)
-    efs, step = None, 0
-    if get_codec(train_cfg.codec).lossy:
-        efs, step = state["ef"], int(state["step"])
-    # lock-step: every local rank's forward, then each segment's backward
-    # on every rank
-    runs = [_segment_graphs(params, t, y, model_cfg, positions,
-                            n_total_tokens, tp_axis, sp_axis)
-            for t, y in zip(tokens, targets)]
-
-    def backward_segments():
-        for gs in zip(*(seg for seg, _ in runs)):
-            yield list(gs)
-
-    grads, new_ef = _run_overlap_engine(
-        params, efs, step, pspecs, mesh_axes, topos, train_cfg, plan,
-        seg_paths, backward_segments, serialize, zero_layout, comm=comm,
-        side=None if dev.type != "cuda" else
-        stream or torch.cuda.Stream(device=dev))
-    return [loss for _, loss in runs], grads, new_ef
+    mesh = isinstance(comm, Mesh)
+    trees = grads if mesh else [grads]
+    lossy = get_codec(train_cfg.codec).lossy
+    efs = _rank_efs(state, pspecs, comm, len(trees)) if lossy else None
+    step = int(state["step"]) if lossy else 0
+    dev = tree_leaves(trees[0])[0].device
+    side = None if serialize or dev.type != "cuda" else \
+        stream or torch.cuda.Stream(device=dev)
+    main = torch.cuda.current_stream(dev) if side is not None else None
+    synced: dict = {}
+    ef_out: dict = {}
+    for key in ("ln_f", "layers", "embed"):
+        subs = [t[key] for t in trees]
+        nbytes = sum(x.numel() * x.element_size()
+                     for x in tree_leaves(subs[0]))
+        args = ([{key: s} for s in subs], {key: pspecs[key]}, mesh_axes,
+                topos, train_cfg, step,
+                None if efs is None else [{key: e[key]} for e in efs],
+                f"ft_overlap_tail_{key}_{nbytes}B")
+        if side is None:
+            got, res = _sync_fired_bucket(*args, comm=comm)
+        else:
+            side.wait_stream(main)  # the backward's gradients exist
+            with torch.cuda.stream(side):
+                got, res = _sync_fired_bucket(*args, comm=comm)
+        synced[key] = [g[key] for g in got]
+        if res is not None:
+            ef_out[key] = [e[key] for e in res]
+    if side is not None:
+        main.wait_stream(side)  # before anything reads the synced trees
+    out = [{k: synced[k][r] for k in trees[0]} for r in range(len(trees))]
+    new_ef = [{k: ef_out[k][r] for k in trees[0]}
+              for r in range(len(trees))] if ef_out else None
+    if mesh:
+        return out, new_ef
+    return out[0], None if new_ef is None else new_ef[0]

@@ -24,11 +24,18 @@ that finish a microbatch (a host branch): the loss and gradient of JAX's
 The gradient sync composes as in :mod:`.train`: the stacked layers are
 sharded over ``pp`` (no sync there) and the embedding and final norm are
 replicated over it, so they are summed over ``pp`` too, with the other
-replication axes.
+replication axes.  The options compose as in the JAX step: a lossy codec
+syncs each rank's ``grad + ef`` (:func:`.train.sync_with_feedback`);
+``shard_optimizer`` shards each leaf's moments over its first
+replication axis above size 1 (pp for the embedding and the final norm,
+sp for the stacked layers on a ``(1, 2, 2, 2)`` mesh) and ignores
+``overlap``, as the JAX step does (the scan's backward yields every
+gradient at once, so the sharded sync's buckets are already free to run
+after it); ``overlap`` alone fires three buckets after the backward
+(:func:`.overlap.overlap_sync_with_feedback`).
 
 Not ported yet (ROADMAP.md, Queue 1: 'Sequence, pipeline and expert
-parallelism'): ``overlap``, ``shard_optimizer`` and lossy codecs on a
-pipeline mesh, and the step over a ``torch.distributed`` group.
+parallelism'): the step over a ``torch.distributed`` group.
 """
 
 from __future__ import annotations
@@ -42,7 +49,7 @@ from ..models.transformer import (
     layer_forward,
     param_specs,
 )
-from .bucketing import comm_axis_sizes
+from .bucketing import WIDE_AXES_ITEM, comm_axis_sizes
 from .mesh import Mesh
 from .spmd import axis, gather_tree, shard_batch
 from .train import (
@@ -50,13 +57,14 @@ from .train import (
     _refuse_unported,
     make_mesh_nd,
     make_train_state,
+    overlap_stream,
     psum_all,
-    refuse_wide,
     resolve_axis_topos,
     spmd_grads,
     spmd_update,
     spread_factors,
     validate_tp,
+    zero_layout_for,
 )
 
 __all__ = [
@@ -121,12 +129,18 @@ def pipeline_state_specs(cfg: TransformerConfig, pp_axis: str | None = "pp",
 
 def init_pipeline_train_state(cfg: TransformerConfig, generator,
                               train_cfg: TrainConfig | None = None,
-                              device=None) -> dict:
+                              device=None, comm=None,
+                              axis_names=PIPELINE_AXES) -> dict:
     """A fresh AdamW state around ``init_params(cfg, generator, device)``
-    in the stacked layout (the JAX ``init_pipeline_train_state``)."""
-    return make_train_state(
-        stack_layer_params(init_params(cfg, generator, device=device)),
-        train_cfg)
+    in the stacked layout (the JAX ``init_pipeline_train_state``); under
+    ``shard_optimizer`` its moments are sharded over ``comm``, the step's
+    mesh (the JAX ``mesh=``; None: one rank, every leaf ``*_rep``)."""
+    params = stack_layer_params(init_params(cfg, generator, device=device))
+    layout = None
+    if train_cfg is not None and train_cfg.shard_optimizer:
+        layout = zero_layout_for(comm, params, pipeline_param_specs(
+            cfg, axis_names[1], axis_names[3]), axis_names)
+    return make_train_state(params, train_cfg, layout=layout)
 
 
 # ------------------------------------------------------------- mesh helper
@@ -158,9 +172,8 @@ def step_mesh(comm, device, axis_names) -> Mesh:
         return make_mesh_nd(1, (1,) * len(axis_names), axis_names, device)
     if not isinstance(comm, Mesh):
         raise NotImplementedError(
-            "a pipeline or MoE step over a torch.distributed group is not "
-            "ported yet (ROADMAP.md, Queue 1: 'Sequence, pipeline and "
-            "expert parallelism')")
+            f"a pipeline or MoE step over a torch.distributed group is not "
+            f"ported yet ({WIDE_AXES_ITEM})")
     for a in axis_names:
         if a not in comm.axis_names:
             raise ValueError(f"mesh is missing axis {a!r}; has "
@@ -217,16 +230,17 @@ def pipeline_losses(leaves, toks, tgts, cfg: TransformerConfig, pp_axis,
 
 
 def _pipeline_grads(model_cfg, train_cfg, n_microbatches, device, comm,
-                    axis_names):
-    """``(grads_fn, pspecs, mesh)``: ``grads_fn(params, tokens, targets) ->
-    (loss, shards)``, the global mean token loss and every rank's synced
-    slices of the stacked tree (see :func:`make_pipeline_train_step`)."""
+                    axis_names, serialize_overlap=False):
+    """``(grads_fn, pspecs, mesh, topos)``: ``grads_fn(state, tokens,
+    targets) -> (loss, grads, ef)``, the global mean token loss, every
+    rank's synced slices of the stacked tree (under ``shard_optimizer``
+    unsynced) and the ranks' new residuals (see
+    :func:`make_pipeline_train_step`)."""
     import torch
 
     _refuse_unported(train_cfg)
     comm = step_mesh(comm, device, axis_names)
     dp, pp, sp, tp = axis_names
-    refuse_wide(train_cfg, comm, axis_names, "a pipeline mesh")
     sizes = comm_axis_sizes(comm, axis_names)
     if model_cfg.n_layers % sizes[pp]:
         raise ValueError(f"n_layers={model_cfg.n_layers} must be divisible "
@@ -238,8 +252,18 @@ def _pipeline_grads(model_cfg, train_cfg, n_microbatches, device, comm,
     topos = resolve_axis_topos(sizes, axis_names, train_cfg.grad_topo)
     pp_axis, sp_axis, tp_axis = (axis(comm, a) for a in (pp, sp, tp))
     dev = comm.devices[0]
+    tail = None
+    if train_cfg.overlap and not train_cfg.shard_optimizer:
+        from .overlap import overlap_sync_with_feedback
 
-    def grads_fn(params, tokens, targets):
+        side = overlap_stream(train_cfg, dev)
+
+        def tail(state, grads):
+            return overlap_sync_with_feedback(
+                state, grads, pspecs, axis_names, topos, train_cfg,
+                serialize=serialize_overlap, comm=comm, stream=side)
+
+    def grads_fn(state, tokens, targets):
         tokens = torch.as_tensor(tokens, device=dev)
         targets = torch.as_tensor(targets, device=dev)
         b, t = tokens.shape
@@ -264,26 +288,32 @@ def _pipeline_grads(model_cfg, train_cfg, n_microbatches, device, comm,
             return pipeline_losses(leaves, toks, tgts, model_cfg, pp_axis,
                                    sp_axis, tp_axis, n_total), None
 
-        losses, shards, _ = spmd_grads(params, pspecs, comm, axis_names,
-                                       topos, train_cfg, rank_losses)
-        return psum_all(losses, comm, axis_names)[0], shards
+        losses, grads, ef, _ = spmd_grads(state, pspecs, comm, axis_names,
+                                          topos, train_cfg, rank_losses,
+                                          tail)
+        return psum_all(losses, comm, axis_names)[0], grads, ef
 
-    return grads_fn, pspecs, comm
+    return grads_fn, pspecs, comm, topos
 
 
 def make_pipeline_loss_and_grads(model_cfg: TransformerConfig,
                                  train_cfg: TrainConfig = TrainConfig(),
                                  n_microbatches: int = 2, device=None,
                                  comm=None, axis_names=PIPELINE_AXES):
-    """``(params, tokens, targets) -> (loss, grads)``: the global mean
-    token loss and the synced gradient of the full stacked tree, the first
-    half of :func:`make_pipeline_train_step` (same arguments)."""
-    grads_fn, pspecs, comm = _pipeline_grads(
+    """``(params, tokens, targets, state=None) -> (loss, grads)``: the
+    global mean token loss and the synced gradient of the full stacked
+    tree, the first half of :func:`make_pipeline_train_step` (same
+    arguments); under ``shard_optimizer`` every rank's unsynced tree.  A
+    lossy codec needs the train ``state`` (its ``step`` and ``ef``)."""
+    grads_fn, pspecs, comm, _ = _pipeline_grads(
         model_cfg, train_cfg, n_microbatches, device, comm, axis_names)
 
-    def loss_and_grads(params, tokens, targets):
-        loss, shards = grads_fn(params, tokens, targets)
-        return loss, gather_tree(shards, pspecs, comm)
+    def loss_and_grads(params, tokens, targets, state=None):
+        loss, grads, _ = grads_fn(dict(state or {}, params=params), tokens,
+                                  targets)
+        if train_cfg.shard_optimizer:
+            return loss, grads
+        return loss, gather_tree(grads, pspecs, comm)
 
     return loss_and_grads
 
@@ -291,27 +321,37 @@ def make_pipeline_loss_and_grads(model_cfg: TransformerConfig,
 def make_pipeline_train_step(model_cfg: TransformerConfig,
                              train_cfg: TrainConfig = TrainConfig(),
                              n_microbatches: int = 2, device=None,
-                             comm=None, axis_names=PIPELINE_AXES):
+                             comm=None, axis_names=PIPELINE_AXES,
+                             serialize_overlap: bool = False):
     """The GPipe train step ``(state, tokens, targets) -> (state,
     metrics)`` over ``comm``, a :class:`~.mesh.Mesh` with the axes
     ``axis_names`` (dp, pp, sp, tp), every rank in this process on one
     device (None: one rank on ``device``, default ``cuda``).
 
-    ``state`` is the stacked layout (:func:`init_pipeline_train_state`);
+    ``state`` is the stacked layout (:func:`init_pipeline_train_state`,
+    with the same ``comm`` under ``shard_optimizer``);
     ``tokens``/``targets`` the global (B, T) batch, rows over dp and
     columns over sp; each rank's rows must split into ``n_microbatches``.
     ``metrics``: ``{"loss"}`` the global mean token loss and, with
     clipping, ``{"grad_norm"}``.  Each rank's loss divides by the global
     token count times tp, as the JAX step does; the synced slices are
-    clipped by their global norm and AdamW updates the full stacked tree.
-    """
-    grads_fn, pspecs, comm = _pipeline_grads(
-        model_cfg, train_cfg, n_microbatches, device, comm, axis_names)
+    clipped by their global norm and AdamW updates the full stacked tree
+    (:func:`.train.spmd_update`, ZeRO-1's under ``shard_optimizer``).
+    ``serialize_overlap``: the overlapped tail's twin, its three buckets
+    on the current stream."""
+    grads_fn, pspecs, comm, topos = _pipeline_grads(
+        model_cfg, train_cfg, n_microbatches, device, comm, axis_names,
+        serialize_overlap)
+    layouts: list = []
 
     def step(state, tokens, targets):
-        loss, shards = grads_fn(state["params"], tokens, targets)
+        if train_cfg.shard_optimizer and not layouts:
+            layouts.append(zero_layout_for(comm, state["params"], pspecs,
+                                           axis_names))
+        loss, grads, ef = grads_fn(state, tokens, targets)
         metrics = {"loss": loss}
-        return spmd_update(state, shards, pspecs, comm, train_cfg,
-                           metrics), metrics
+        return spmd_update(state, grads, ef, pspecs, comm, axis_names, topos,
+                           train_cfg, metrics,
+                           layouts[0] if layouts else None), metrics
 
     return step

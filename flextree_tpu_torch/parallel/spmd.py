@@ -33,8 +33,9 @@ import torch
 
 from .mesh import Mesh
 
-__all__ = ["Axis", "axis", "coords", "rank_coords", "shard_tree",
-           "gather_tree", "shard_batch"]
+__all__ = ["Axis", "axis", "coords", "rank_coords", "block_index",
+           "shard_tree", "rank_trees", "gather_leaf", "gather_tree",
+           "shard_batch"]
 
 
 def rank_coords(mesh: Mesh) -> list[tuple[int, ...]]:
@@ -185,7 +186,7 @@ def coords(mesh: Mesh, name: str) -> tuple:
     return (0,) * mesh.size
 
 
-def _block(mesh: Mesh, names, r: int) -> tuple[int, int]:
+def block_index(mesh: Mesh, names, r: int) -> tuple[int, int]:
     """``(index, count)`` of rank ``r``'s block along the mesh axes
     ``names`` (row-major over them, as ``PartitionSpec`` lays a dimension
     over several axes); axes the mesh lacks have size 1."""
@@ -194,6 +195,9 @@ def _block(mesh: Mesh, names, r: int) -> tuple[int, int]:
         size = dict(zip(mesh.axis_names, mesh.shape)).get(name, 1)
         idx, count = idx * size + coords(mesh, name)[r], count * size
     return idx, count
+
+
+_block = block_index
 
 
 def _spec_names(entry) -> tuple:
@@ -245,41 +249,57 @@ def shard_batch(x, spec, mesh: Mesh) -> list:
     return out
 
 
+def rank_trees(tree, pspecs, mesh: Mesh) -> list:
+    """Every rank's tree: ``tree`` itself when it is already the list of
+    the ranks' trees, else one full tree cut for every rank
+    (:func:`shard_tree`), as a fresh or restored state carries a per-rank
+    buffer such as the error-feedback residual."""
+    if isinstance(tree, list):
+        return tree
+    return shard_tree(tree, pspecs, mesh)
+
+
+def gather_leaf(xs: list, spec, mesh: Mesh):
+    """One leaf of :func:`gather_tree`: every rank's block ``xs`` (in rank
+    order) put back in place along each dimension ``spec`` shards, each
+    block the first rank's that holds it; a replicated leaf is the first
+    rank's."""
+    dims = [(d, _spec_names(e)) for d, e in
+            enumerate(tuple(spec) if spec is not None else ())
+            if _block(mesh, _spec_names(e), 0)[1] > 1]
+    if not dims:
+        return xs[0]
+    first = xs[0]
+    shape = list(first.shape)
+    for d, names in dims:
+        shape[d] *= _block(mesh, names, 0)[1]
+    full = first.new_empty(shape)
+    placed = set()
+    for r in range(mesh.size):
+        at = tuple(_block(mesh, names, r)[0] for _, names in dims)
+        if at in placed:
+            continue
+        placed.add(at)
+        view = full
+        for (d, _), idx in zip(dims, at):
+            w = first.shape[d]
+            view = view.narrow(d, idx * w, w)
+        view.copy_(xs[r])
+    return full
+
+
 def gather_tree(trees, pspecs, mesh: Mesh):
     """The inverse of :func:`shard_tree` for trees that agree across the
     axes a leaf is replicated on: each leaf's blocks put back in place
     along every dimension its spec shards (a stacked pipeline leaf ``(pp,
     None, tp)`` or an expert leaf ``(ep, None, tp)`` along two), each
-    block the first rank's that holds it; a replicated leaf is the first
-    rank's."""
+    block the first rank's that holds it (:func:`gather_leaf`); a
+    replicated leaf is the first rank's."""
     from ..utils.tree import tree_leaves, tree_unflatten
     from .bucketing import spec_leaves
 
     flat = [tree_leaves(t) for t in trees]
     specs = spec_leaves(trees[0], pspecs)
-    out = []
-    for i, spec in enumerate(specs):
-        dims = [(d, _spec_names(e)) for d, e in
-                enumerate(tuple(spec) if spec is not None else ())
-                if _block(mesh, _spec_names(e), 0)[1] > 1]
-        if not dims:
-            out.append(flat[0][i])
-            continue
-        first = flat[0][i]
-        shape = list(first.shape)
-        for d, names in dims:
-            shape[d] *= _block(mesh, names, 0)[1]
-        full = first.new_empty(shape)
-        placed = set()
-        for r in range(mesh.size):
-            at = tuple(_block(mesh, names, r)[0] for _, names in dims)
-            if at in placed:
-                continue
-            placed.add(at)
-            view = full
-            for (d, _), idx in zip(dims, at):
-                w = first.shape[d]
-                view = view.narrow(d, idx * w, w)
-            view.copy_(flat[r][i])
-        out.append(full)
-    return tree_unflatten(trees[0], out)
+    return tree_unflatten(trees[0], [gather_leaf([f[i] for f in flat], spec,
+                                                 mesh)
+                                     for i, spec in enumerate(specs)])

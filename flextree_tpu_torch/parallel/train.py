@@ -76,13 +76,24 @@ The pipeline and MoE steps (:mod:`.pipeline`, :mod:`.moe_train`) share
 this path's lock-step backward and sync (:func:`spmd_grads`) and its
 clipping and update (:func:`spmd_update`) over their 4-axis meshes.
 
+The wide meshes take every option the data-parallel one does.  A lossy
+``codec`` syncs each rank's ``grad + ef`` over each replication axis
+(:func:`sync_with_feedback`); the residual is each rank's tree of its own
+slices (one tree, fresh or restored, is cut for every rank by
+:func:`.spmd.rank_trees`), the wire's of the leaf's first replication
+axis above size 1; a checkpoint holds, slice by slice, the first rank's
+(:func:`.zero.checkpoint_ef`).  ``shard_optimizer`` reduce-scatters each
+bucket over its shard axis and allreduces the owned block over the
+secondary axes (:mod:`.zero`); ``overlap`` cuts every rank's backward into
+readiness segments at once, across the ranks the ring hops and the
+combine couple (:func:`.overlap.dense_overlap_step_grads`).
+
 What needs an unported module raises, naming its ROADMAP item:
-``autotune``, and ``overlap``, ``shard_optimizer`` or a lossy ``codec``
-with an sp or tp axis above size 1 or on a pipeline or MoE mesh
-(:func:`refuse_wide`).  A process group is one
-data-parallel axis (:func:`.bucketing.comm_axis_sizes`).  An IR-family
-``grad_topo`` (swing, generalized) raises ``TopologyError``, as the JAX
-train seam does.
+``autotune``, and a pipeline or MoE step over a ``torch.distributed``
+group (:func:`.pipeline.step_mesh`): a process group is one data-parallel
+axis (:func:`.bucketing.comm_axis_sizes`).  An IR-family ``grad_topo``
+(swing, generalized) raises ``TopologyError``, as the JAX train seam
+does.
 """
 
 from __future__ import annotations
@@ -106,13 +117,12 @@ from ..ops.quantize import get_codec
 from ..schedule.stages import Topology, TopologyError
 from ..utils.tree import tree_leaves, tree_map, tree_unflatten
 from .bucketing import (
-    WIDE_AXES_ITEM,
     bucketed_sync_grads,
     comm_axis_sizes,
     per_leaf_sync_grads,
 )
 from .mesh import Mesh
-from .spmd import axis, gather_tree, shard_batch, shard_tree
+from .spmd import axis, gather_tree, rank_trees, shard_batch, shard_tree
 from .zero import (
     _adamw_elem,
     _bias_corrections,
@@ -135,9 +145,10 @@ __all__ = [
     "spread_factors",
     "make_mesh_nd",
     "validate_tp",
-    "refuse_wide",
     "spmd_grads",
     "spmd_update",
+    "mesh_overlap_plan",
+    "overlap_stream",
     "psum_all",
     "resolve_axis_topos",
     "sync_grads",
@@ -392,7 +403,9 @@ def sync_with_feedback(state: dict, grads, pspecs, mesh_axes, topos,
     rank's carried residual ``state["ef"]`` (one tree: every rank's; on a
     mesh, a list: each rank's own), syncs ``grad + ef`` compressed with
     ``step=state["step"]`` (the counter before the update) and returns the
-    new residuals too, in ``grads``' form (a list on a mesh)."""
+    new residuals too, in ``grads``' form (a list on a mesh).  On a wide
+    mesh ``grads`` are the ranks' slice trees, and one ``ef`` tree is cut
+    for every rank (:func:`.spmd.rank_trees`)."""
     codec = get_codec(train_cfg.codec)
     kw = dict(bucket_bytes=train_cfg.bucket_bytes,
               chunks=train_cfg.grad_chunks, comm=comm)
@@ -400,9 +413,8 @@ def sync_with_feedback(state: dict, grads, pspecs, mesh_axes, topos,
         return sync_grads(grads, pspecs, mesh_axes, topos, **kw), None
     ef = state["ef"]
     if isinstance(comm, Mesh):
-        efs = ef if isinstance(ef, list) else [ef] * len(grads)
         v = [tree_map(lambda g, e: g + e.to(g.dtype), g, e)
-             for g, e in zip(grads, efs)]
+             for g, e in zip(grads, rank_trees(ef, pspecs, comm))]
     else:
         v = tree_map(lambda g, e: g + e.to(g.dtype), grads, ef)
     return sync_grads(v, pspecs, mesh_axes, topos, codec=codec,
@@ -589,22 +601,6 @@ def _rank_loss_and_grads(model_cfg, params, tokens, targets, n_total):
     return loss.detach(), tree_unflatten(params, flat)
 
 
-def refuse_wide(train_cfg: TrainConfig, comm, axis_names=AXIS_NAMES,
-                what: str = "sp or tp above size 1") -> None:
-    """What does not run over a mesh of ``axis_names`` yet: ``overlap``,
-    ``shard_optimizer`` and a lossy codec, on the dense step with an sp or
-    tp axis above size 1 and on the pipeline and MoE steps."""
-    sizes = comm_axis_sizes(comm, axis_names)
-    for bad, flag in ((train_cfg.overlap, "overlap=True"),
-                      (train_cfg.shard_optimizer, "shard_optimizer=True"),
-                      (get_codec(train_cfg.codec).lossy,
-                       f"codec={train_cfg.codec!r}")):
-        if bad:
-            raise NotImplementedError(
-                f"TrainConfig {flag} on mesh axes {sizes} ({what}) is not "
-                f"ported yet ({WIDE_AXES_ITEM})")
-
-
 def psum_all(xs: list, comm: Mesh, axis_names) -> list:
     """Every rank's value summed over each of ``axis_names`` in turn (the
     JAX steps' ``psum`` of the loss over every mesh axis)."""
@@ -614,21 +610,26 @@ def psum_all(xs: list, comm: Mesh, axis_names) -> list:
     return xs
 
 
-def spmd_grads(params, pspecs, comm: Mesh, axis_names, topos,
-               train_cfg: TrainConfig, rank_losses):
+def spmd_grads(state: dict, pspecs, comm: Mesh, axis_names, topos,
+               train_cfg: TrainConfig, rank_losses, tail=None):
     """The backward and the sync of every step over a mesh of in-process
-    ranks (dense with sp or tp, pipeline, MoE): ``params`` (the full tree)
-    cut into every rank's slices by ``pspecs``, each a leaf of its own;
-    ``rank_losses(leaves) -> (losses, extra)`` runs every rank's forward
-    in lock-step and gives each rank's loss term (None for a rank whose
-    loss is 0, as off a pipeline's last stage); one ``torch.autograd.grad``
-    over their sum gives each rank's copy its gradient (zeros for a slice
-    no loss reads); each leaf is synced over its replication axes
-    (:func:`sync_grads`).  Returns ``(losses, synced, extra)``: every rank's
-    loss term detached (0 for None) and every rank's synced tree."""
+    ranks (dense with sp or tp, pipeline, MoE): ``state["params"]`` (the
+    full tree) cut into every rank's slices by ``pspecs``, each a leaf of
+    its own; ``rank_losses(leaves) -> (losses, extra)`` runs every rank's
+    forward in lock-step and gives each rank's loss term (None for a rank
+    whose loss is 0, as off a pipeline's last stage); one
+    ``torch.autograd.grad`` over their sum gives each rank's copy its
+    gradient (zeros for a slice no loss reads); then the sync:
+    :func:`sync_with_feedback` over each leaf's replication axes, or
+    ``tail(state, grads) -> (synced, ef)`` in its place (the pipeline's
+    overlapped tail); under ``shard_optimizer`` none, the update
+    reduce-scatters (:func:`spmd_update`).  Returns ``(losses, grads,
+    ef, extra)``: every rank's loss term detached (0 for None), every
+    rank's synced (or, sharded, unsynced) tree, the ranks' new residuals
+    (None for the identity codec or when sharded)."""
     with torch.enable_grad():
         leaves = [tree_map(lambda p: p.detach().requires_grad_(), tr)
-                  for tr in shard_tree(params, pspecs, comm)]
+                  for tr in shard_tree(state["params"], pspecs, comm)]
         losses, extra = rank_losses(leaves)
         live = [x for x in losses if x is not None]
         flat = torch.autograd.grad(
@@ -641,18 +642,32 @@ def spmd_grads(params, pspecs, comm: Mesh, axis_names, topos,
     losses = [torch.zeros((), dtype=torch.float32, device=dev)
               if x is None else x.detach()
               for x, dev in zip(losses, comm.devices)]
-    synced = sync_grads(grads, pspecs, axis_names, topos,
-                        bucket_bytes=train_cfg.bucket_bytes,
-                        chunks=train_cfg.grad_chunks, comm=comm)
-    return losses, synced, extra
+    if train_cfg.shard_optimizer:
+        return losses, grads, None, extra
+    if tail is not None:
+        synced, ef = tail(state, grads)
+    else:
+        synced, ef = sync_with_feedback(state, grads, pspecs, axis_names,
+                                        topos, train_cfg, comm=comm)
+    return losses, synced, ef, extra
+
+
+def overlap_stream(train_cfg: TrainConfig, dev):
+    """The side stream a step's fired syncs run on: one a step function,
+    on a card with ``overlap``, else None."""
+    if train_cfg.overlap and dev.type == "cuda":
+        return torch.cuda.Stream(device=dev)
+    return None
 
 
 def _spmd_grads(model_cfg: TransformerConfig, train_cfg: TrainConfig,
-                comm: Mesh, dev):
-    """``(params, tokens, targets) -> (loss, shards)`` of a step over a mesh
-    with sp or tp above 1: the global mean token loss and every rank's
-    synced tree of its parameter slices (see the module docstring)."""
-    refuse_wide(train_cfg, comm)
+                comm: Mesh, dev, serialize_overlap: bool = False):
+    """``(grads_fn, pspecs, topos)``: ``grads_fn(state, tokens, targets) ->
+    (loss, grads, ef)`` of a step over a mesh with sp or tp above 1: the
+    global mean token loss, every rank's tree (synced slices; under
+    ``shard_optimizer`` unsynced, or with ``overlap`` the fired buckets'
+    :class:`~.zero.ZeroShard` trees) and the ranks' new residuals (see the
+    module docstring)."""
     sizes = comm_axis_sizes(comm, AXIS_NAMES)
     dp, sp, tp = (sizes[ax] for ax in AXIS_NAMES)
     validate_tp(model_cfg, tp)
@@ -660,8 +675,14 @@ def _spmd_grads(model_cfg: TransformerConfig, train_cfg: TrainConfig,
     pspecs = param_specs(model_cfg, AXIS_NAMES[-1])
     sp_axis, tp_axis = (axis(comm, ax) if ax in comm.axis_names else None
                         for ax in AXIS_NAMES[1:])
+    lossy = get_codec(train_cfg.codec).lossy
+    side = overlap_stream(train_cfg, dev)
+    plans: dict = {}  # the overlap plan and layout by one rank's shape
 
-    def grads_fn(params, tokens, targets):
+    def grads_fn(state, tokens, targets):
+        if lossy and "ef" not in state:
+            raise ValueError(f"codec {train_cfg.codec!r}: the sync needs the "
+                             f"train state (its step and ef)")
         tokens = torch.as_tensor(tokens, device=dev)
         targets = torch.as_tensor(targets, device=dev)
         b, t = tokens.shape
@@ -673,19 +694,54 @@ def _spmd_grads(model_cfg: TransformerConfig, train_cfg: TrainConfig,
         # the JAX normalisation counts the tp-fold redundancy: every tp
         # rank computes its group's whole loss
         n_total = tokens.numel() * tp
+        if train_cfg.overlap:
+            from .overlap import dense_overlap_step_grads
 
-        def rank_losses(leaves):
-            logits = forward(leaves, [x.long() for x in toks], model_cfg,
-                             tp_axis=tp_axis, sp_axis=sp_axis)
-            return [cross_entropy_loss(lg, y)[0] / n_total
-                    for lg, y in zip(logits, tgts)], None
+            plan, layout = mesh_overlap_plan(
+                plans, state["params"], pspecs, comm, AXIS_NAMES, topos,
+                train_cfg, model_cfg, toks[0], dev)
+            losses, grads, ef = dense_overlap_step_grads(
+                state, [x.long() for x in toks], tgts, model_cfg, train_cfg,
+                plan, pspecs, AXIS_NAMES, topos, n_total, tp_axis=tp_axis,
+                sp_axis=sp_axis, serialize=serialize_overlap,
+                zero_layout=layout, comm=comm, stream=side)
+        else:
+            def rank_losses(leaves):
+                logits = forward(leaves, [x.long() for x in toks], model_cfg,
+                                 tp_axis=tp_axis, sp_axis=sp_axis)
+                return [cross_entropy_loss(lg, y)[0] / n_total
+                        for lg, y in zip(logits, tgts)], None
 
-        loss, synced, _ = spmd_grads(params, pspecs, comm, AXIS_NAMES, topos,
-                                     train_cfg, rank_losses)
+            losses, grads, ef, _ = spmd_grads(state, pspecs, comm,
+                                              AXIS_NAMES, topos, train_cfg,
+                                              rank_losses)
         # the JAX step's psum over dp, sp, tp
-        return psum_all(loss, comm, AXIS_NAMES)[0], synced
+        return psum_all(losses, comm, AXIS_NAMES)[0], grads, ef
 
-    return grads_fn, pspecs
+    return grads_fn, pspecs, topos
+
+
+def mesh_overlap_plan(cache: dict, params, pspecs, comm, axis_names, topos,
+                 train_cfg: TrainConfig, model_cfg, tokens, dev):
+    """``(plan, zero layout or None)`` of an overlapped step over a mesh,
+    planned once a rank's batch shape, as the JAX step plans inside
+    ``shard_map``: on one rank's slices and tokens
+    (:func:`.overlap.plan_overlap`)."""
+    from .overlap import plan_overlap
+
+    if tokens.shape not in cache:
+        slices = shard_tree(params, pspecs, comm)[0]
+        lossy = get_codec(train_cfg.codec).lossy
+        cache[tokens.shape] = (
+            plan_overlap(slices, pspecs, axis_names, topos,
+                         comm_axis_sizes(comm, axis_names),
+                         n_tokens=tokens.numel(), t_local=tokens.shape[1],
+                         d_model=model_cfg.d_model,
+                         codec=train_cfg.codec if lossy else None,
+                         device=dev),
+            zero_layout_for(comm, params, pspecs, axis_names)
+            if train_cfg.shard_optimizer else None)
+    return cache[tokens.shape]
 
 
 def make_loss_and_grads(model_cfg: TransformerConfig,
@@ -712,11 +768,15 @@ def make_loss_and_grads(model_cfg: TransformerConfig,
                          f"d_model={model_cfg.d_model}")
     dev, dp, local = _local_ranks(comm, device)
     if _spmd(comm):
-        grads_fn, pspecs = _spmd_grads(model_cfg, train_cfg, comm, dev)
+        grads_fn, pspecs, _ = _spmd_grads(model_cfg, train_cfg, comm, dev,
+                                          serialize_overlap)
 
         def sharded_loss_and_grads(params, tokens, targets, state=None):
-            loss, shards = grads_fn(params, tokens, targets)
-            return loss, gather_tree(shards, pspecs, comm), None
+            loss, grads, ef = grads_fn(dict(state or {}, params=params),
+                                       tokens, targets)
+            if train_cfg.shard_optimizer:  # every rank's own tree
+                return loss, grads, ef
+            return loss, gather_tree(grads, pspecs, comm), ef
 
         return sharded_loss_and_grads
     topos = resolve_axis_topos(comm_axis_sizes(comm, AXIS_NAMES),
@@ -727,8 +787,7 @@ def make_loss_and_grads(model_cfg: TransformerConfig,
     sharded = train_cfg.shard_optimizer
     layouts: list = []  # the ZeRO layout, from the first call's params
     # the side stream this step's fired syncs run on, on a card
-    side = torch.cuda.Stream(device=dev) \
-        if train_cfg.overlap and dev.type == "cuda" else None
+    side = overlap_stream(train_cfg, dev)
     plans: dict = {}  # the overlap plan by one rank's batch shape
 
     def overlap_plan(params, tokens):
@@ -746,9 +805,6 @@ def make_loss_and_grads(model_cfg: TransformerConfig,
         from .overlap import dense_overlap_step_grads
 
         state = dict(state or {}, params=params)
-        if lossy:  # one tree (every rank's), or on a mesh each rank's
-            ef = state["ef"]
-            state["ef"] = ef if isinstance(ef, list) else [ef] * len(toks)
         if sharded and not layouts:
             layouts.append(zero_layout_for(comm, params, pspecs))
         losses, synced, ef = dense_overlap_step_grads(
@@ -819,7 +875,8 @@ def make_train_step(model_cfg: TransformerConfig,
     :func:`.zero.zero_apply_and_gather` after the backward, on the current
     stream."""
     if _spmd(comm):
-        return _spmd_step(model_cfg, train_cfg, device, comm)
+        return _spmd_step(model_cfg, train_cfg, device, comm,
+                          serialize_overlap)
     loss_and_grads = make_loss_and_grads(model_cfg, train_cfg, device, comm,
                                          serialize_overlap)
     if train_cfg.shard_optimizer:
@@ -838,31 +895,58 @@ def make_train_step(model_cfg: TransformerConfig,
     return step
 
 
-def _spmd_step(model_cfg, train_cfg, device, comm):
+def _spmd_step(model_cfg, train_cfg, device, comm, serialize_overlap):
     """:func:`make_train_step`'s step over a mesh with sp or tp above 1:
-    clipping by the norm of every rank's slices, then AdamW on the full
-    tree the synced slices make."""
+    the backward and sync of :func:`_spmd_grads`, then
+    :func:`spmd_update`."""
     _refuse_unported(train_cfg)
     dev, _, _ = _local_ranks(comm, device)
-    grads_fn, pspecs = _spmd_grads(model_cfg, train_cfg, comm, dev)
+    grads_fn, pspecs, topos = _spmd_grads(model_cfg, train_cfg, comm, dev,
+                                          serialize_overlap)
+    layouts: list = []
 
     def step(state, tokens, targets):
-        loss, shards = grads_fn(state["params"], tokens, targets)
+        if train_cfg.shard_optimizer and not layouts:
+            layouts.append(zero_layout_for(comm, state["params"], pspecs))
+        loss, grads, ef = grads_fn(state, tokens, targets)
         metrics = {"loss": loss}
-        return spmd_update(state, shards, pspecs, comm, train_cfg,
-                           metrics), metrics
+        return spmd_update(state, grads, ef, pspecs, comm, AXIS_NAMES, topos,
+                           train_cfg, metrics,
+                           layouts[0] if layouts else None,
+                           fired=train_cfg.overlap), metrics
 
     return step
 
 
-def spmd_update(state: dict, shards: list, pspecs, comm: Mesh,
-                train_cfg: TrainConfig, metrics: dict) -> dict:
-    """The tail of every step over a mesh: every rank's synced slices
-    clipped by their global norm (recorded in ``metrics``), put back into
-    the full tree (:func:`.spmd.gather_tree`), and AdamW on it, as on one
-    rank."""
-    shards = maybe_clip_grads(shards, train_cfg, metrics, pspecs, comm)
-    return adamw_apply(state, gather_tree(shards, pspecs, comm), train_cfg)
+def spmd_update(state: dict, grads: list, ef, pspecs, comm: Mesh,
+                axis_names, topos, train_cfg: TrainConfig, metrics: dict,
+                layout=None, fired: bool = False) -> dict:
+    """The tail of every step over a mesh, ``grads`` every rank's tree.
+    Replicated: the synced slices clipped by their global norm (recorded
+    in ``metrics``), put back into the full tree
+    (:func:`.spmd.gather_tree`), and AdamW on it, as on one rank.  Under
+    ``shard_optimizer`` (``layout`` the step's
+    :class:`~.zero.ZeroLayout`): :func:`.zero.zero_sync_and_update` on the
+    unsynced trees, or, ``fired`` (the overlap engine reduce-scattered each
+    bucket: :class:`~.zero.ZeroShard` trees), clipping from the shards and
+    :func:`.zero.zero_apply_and_gather`.  ``ef``, the ranks' new
+    residuals, goes into the new state."""
+    if train_cfg.shard_optimizer:
+        if not fired:
+            return zero_sync_and_update(state, grads, pspecs, axis_names,
+                                        topos, train_cfg, layout, metrics,
+                                        comm=comm)
+        shards = maybe_clip_shards(grads, pspecs, train_cfg, layout, metrics,
+                                   comm=comm)
+        new = zero_apply_and_gather(state, shards, pspecs, axis_names, topos,
+                                    train_cfg, layout, comm=comm)
+    else:
+        shards = maybe_clip_grads(grads, train_cfg, metrics, pspecs, comm)
+        new = adamw_apply(state, gather_tree(shards, pspecs, comm),
+                          train_cfg)
+    if ef is not None:
+        new["ef"] = ef
+    return new
 
 
 def _zero_step(model_cfg, train_cfg, comm, loss_and_grads):

@@ -8,12 +8,20 @@ reduce-scatter and its phase 2 an all-gather
 (:func:`.allreduce.reduce_scatter`, :func:`.allreduce.all_gather`), so the
 step splits at that seam:
 
-1. each gradient bucket **reduce-scatters** over the shard axis (dp), its
-   folds on the fold kernel, compressed hop by hop under a lossy codec;
-2. AdamW runs on the block each rank **owns**, against moments of that
+1. each gradient bucket **reduce-scatters** over its shard axis, the
+   first of its replication axes above size 1 (dp on the data-parallel
+   and dense meshes; pp or ep for the embedding of the pipeline and MoE
+   meshes, sp for their layers), its folds on the fold kernel, compressed
+   hop by hop under a lossy codec;
+2. each further replication axis (a **secondary** axis) allreduces only
+   the owned block (the FlexTree allreduce, compressed under a lossy
+   codec) and the tails (a dense fold), so every rank of a secondary
+   group holds the same block;
+3. AdamW runs on the block each rank **owns**, against moments of that
    block alone;
-3. the updated blocks are **all-gathered** back into the parameters, one
-   gather a bucket.
+4. the updated blocks are **all-gathered** back into the parameters over
+   the shard axis alone (the secondary axes already hold the same block),
+   one gather a bucket.
 
 Shard layout (the JAX package's contract): each leaf's divisible head
 splits into ``N`` blocks, and the rank at shard-axis position ``r`` owns
@@ -27,7 +35,8 @@ rank.  A bucket packs its leaves' heads **block-interleaved** (fused block
 leaf's shard and every element keeps the ring block it has in the
 replicated fused sync: the sharded step is **bitwise** the replicated one
 for the identity codec, with clipping off, on flat, tree and ring shard
-topologies.  Lonely shapes and the ``"psum"`` sentinel shard over the flat
+topologies (and, on a wide mesh, where the secondary axes fold each
+element in the order the replicated sync does).  Lonely shapes and the ``"psum"`` sentinel shard over the flat
 tree (:func:`shard_topo`).
 
 State: ``mu_shard``/``nu_shard`` hold the owned blocks, ``*_tail`` the
@@ -36,9 +45,16 @@ leaf on one rank); a lossy codec adds the float32 master copy
 ``master_shard``/``master_tail``, zeros until the first update, when the
 (still exact) working parameters stand in for it.  On an in-process
 :class:`~.mesh.Mesh` a ``*_shard`` leaf is the JAX package's host-global
-buffer, ``(N·tile,)`` float32 with rank ``r``'s block at ``[r·tile,
-(r+1)·tile)``; on a ``torch.distributed`` group each rank holds its own
-``(tile,)``, as each JAX device does.
+buffer: ``(N·M·tile,)`` float32 laid out as ``P((shard_ax, *model
+axes))``, the block of the rank at shard position ``s`` and model
+position ``m`` (its row-major index over the leaf's own spec axes, ``M``
+of them) at slot ``s·M + m``; a ``*_tail`` leaf is ``(M·tail,)``, slot
+``m``.  On the data-parallel mesh ``M`` is 1 and rank ``r``'s block sits
+at ``[r·tile, (r+1)·tile)``.  Ranks that differ only along a secondary
+axis hold the same block; the buffer keeps the first's, as the JAX
+package's ``device_get`` reads it.  On a ``torch.distributed`` group (one
+data-parallel axis) each rank holds its own ``(tile,)``, as each JAX
+device does.
 
 Checkpoints are consolidated (:func:`make_consolidate_fn`): every leaf's
 moment shards are all-gathered back to the replicated layout
@@ -48,11 +64,10 @@ world size, which the replicated step resumes from and which
 residual is written as it stands: the first rank's tree, as the JAX
 package's ``device_get`` reads the first device's.
 
-The port keeps one wide mesh axis (dp; ROADMAP.md, Queue 1: 'Sequence,
-pipeline and expert parallelism'), so a bucket's shard axis is its only
-replication axis and the JAX package's shard allreduce over secondary
-axes has nothing to do.  ``zero_state_specs`` has no counterpart: the port
-keeps no PartitionSpecs of state.
+On a wide mesh the error-feedback residual is each rank's tree of its
+own slices; the checkpoint holds, slice by slice, the first rank's that
+holds it (:func:`..spmd.gather_tree`).  ``zero_state_specs`` has no
+counterpart: the port keeps no PartitionSpecs of state.
 """
 
 from __future__ import annotations
@@ -66,7 +81,7 @@ from ..schedule.blocks import shard_layout
 from ..schedule.stages import LonelyTopology, Topology
 from ..utils.profiling import comm_span
 from ..utils.tree import tree_leaves, tree_map, tree_unflatten
-from .allreduce import all_gather, dense_allreduce, reduce_scatter
+from .allreduce import all_gather, allreduce, dense_allreduce, reduce_scatter
 from .bucketing import (
     _Ranks,
     comm_axis_sizes,
@@ -75,8 +90,9 @@ from .bucketing import (
     spec_axes,
     spec_leaves,
 )
-from .compressed import compressed_reduce_scatter
+from .compressed import compressed_allreduce, compressed_reduce_scatter
 from .mesh import Mesh
+from .spmd import axis, block_index, gather_leaf, rank_trees, shard_tree
 
 __all__ = [
     "ZeroShard",
@@ -90,6 +106,7 @@ __all__ = [
     "zero_sync_and_update",
     "sharded_grad_norm",
     "maybe_clip_shards",
+    "checkpoint_ef",
     "make_consolidate_fn",
     "make_reshard_fn",
     "zero_shard_bytes",
@@ -215,7 +232,9 @@ def init_zero_entries(params, layout: ZeroLayout, lossy: bool, *,
     slots are ``(0,)`` float32, so every entry has the params' structure.
     ``local=False``: a ``*_shard`` leaf holds every rank's block, the JAX
     package's host-global ``(N·tile,)`` (an in-process mesh); ``True``:
-    this rank's own ``(tile,)`` (a process group)."""
+    this rank's own ``(tile,)`` (a process group).  On a wide mesh the
+    global buffers have a slot for each model position too (the module
+    docstring)."""
     flat_p = tree_leaves(params)
     dev = flat_p[0].device
 
@@ -231,9 +250,11 @@ def init_zero_entries(params, layout: ZeroLayout, lossy: bool, *,
             elif not plan.sharded:
                 out.append(zeros(0))
             elif part == "shard":
-                out.append(zeros(plan.tile * (1 if local else plan.n)))
+                out.append(zeros(plan.tile * (1 if local else plan.n *
+                                              _n_model(layout, plan))))
             else:
-                out.append(zeros(plan.tail))
+                out.append(zeros(plan.tail * (1 if local else
+                                              _n_model(layout, plan))))
         return tree_unflatten(params, out)
 
     entries = {}
@@ -242,6 +263,45 @@ def init_zero_entries(params, layout: ZeroLayout, lossy: bool, *,
             if key != "master" or part != "rep":
                 entries[f"{key}_{part}"] = build(part)
     return entries
+
+
+def _n_model(layout: ZeroLayout, plan: ZeroLeafPlan) -> int:
+    """``M``, the model positions of a leaf: the product of the sizes of
+    the mesh axes its own spec names."""
+    m = 1
+    for a in plan.model_axes:
+        m *= int(layout.axis_sizes.get(a, 1))
+    return m
+
+
+class _Slots:
+    """Where a leaf's blocks sit, for the local ranks of ``comm``:
+    ``slot[r]`` is local rank ``r``'s slot of the ``*_shard`` buffer,
+    ``model[r]`` its model position (its slot of ``*_tail``, and which
+    slice of the parameter it holds), ``holder[c]`` the first local rank
+    of slot ``c`` and ``model_holder[m]`` of model position ``m``.  On a
+    process group the buffer has one slot, this rank's."""
+
+    def __init__(self, comm, plan: ZeroLeafPlan):
+        if isinstance(comm, Mesh):
+            ranks = range(comm.size)
+            self.slot = [block_index(comm, (plan.shard_ax,) + plan.model_axes,
+                                     r)[0] for r in ranks]
+            self.model = [block_index(comm, plan.model_axes, r)[0]
+                          for r in ranks]
+            self.n_model = block_index(comm, plan.model_axes, 0)[1]
+        else:
+            self.slot, self.model, self.n_model = [0], [0], 1
+        self.holder = _firsts(self.slot)
+        self.model_holder = _firsts(self.model)
+
+
+def _firsts(keys: list) -> list:
+    """The first index holding each of the values ``0 .. max(keys)``."""
+    first: dict = {}
+    for r, k in enumerate(keys):
+        first.setdefault(k, r)
+    return [first[k] for k in range(len(first))]
 
 
 def _local_ranks(comm) -> list[int]:
@@ -300,7 +360,11 @@ def zero_reduce_scatter_grads(grads, pspecs, mesh_axes,
     """The sharded gradient sync, phase 1: one reduce-scatter a bucket of
     ``plan_buckets(sharded=True)`` over the shard axis (block-interleaved,
     compressed under a lossy ``codec``, ``step`` keying its rounding) and
-    one dense fold a bucket for the tails.
+    one dense fold a bucket for the tails; then, over each secondary
+    replication axis of the bucket, the owned block allreduced (the
+    FlexTree allreduce on the axis' topology, compressed under a lossy
+    codec; the dense fold for the ``"psum"`` sentinel) and the tails
+    folded dense (the JAX package's shard allreduce).
 
     ``comm``: a :class:`~.mesh.Mesh` (``grads`` is the list of its ranks'
     trees; returns a list) or a process group (``grads`` is this rank's
@@ -310,8 +374,10 @@ def zero_reduce_scatter_grads(grads, pspecs, mesh_axes,
     rank).  Each bucket runs under the span
     ``ftz_rs_bucket{i}_{axis}_{k}leaves_{bytes}B``.
     ``return_residual=True`` returns ``(shards, residuals)``: each leaf's
-    error-feedback residual, the wire's first-hop loss on its head and
-    zeros on its exact tail (zeros for a leaf no bucket holds)."""
+    error-feedback residual, the wire's first-hop loss on its head (the
+    shard axis' reduce-scatter, the only one that sees this rank's own
+    data) and zeros on its exact tail (zeros for a leaf no bucket
+    holds)."""
     from ..ops.quantize import get_codec
 
     codec = get_codec(codec)
@@ -335,6 +401,7 @@ def zero_reduce_scatter_grads(grads, pspecs, mesh_axes,
         shard_ax = b.axes[0]
         n = int(sizes[shard_ax])
         topo = shard_topo(topos.get(shard_ax), n)
+        on = ranks.along(shard_ax)
         heads = [p for p in plans if p.tile]
         tails = [p for p in plans if p.tail]
         widths = [p.tile for p in heads]
@@ -346,7 +413,7 @@ def zero_reduce_scatter_grads(grads, pspecs, mesh_axes,
                 fused = [_interleave_pack(
                     [f[p.index].reshape(-1).to(torch.float32)[:p.head]
                      for p in heads], n) for f in flat]
-                tiles, wire = _rs_wire(ranks, fused, topo, codec, step)
+                tiles, wire = _rs_wire(on, fused, topo, codec, step)
                 del fused
                 for r, w in enumerate(wire if return_residual and wire
                                       else []):
@@ -357,9 +424,13 @@ def zero_reduce_scatter_grads(grads, pspecs, mesh_axes,
                         full[:p.head] = piece
                         res[r][p.index] = full.view(g.shape).to(g.dtype)
             if tails:
-                red_tails = ranks.run(dense_allreduce, [torch.cat(
+                red_tails = on.run(dense_allreduce, [torch.cat(
                     [f[p.index].reshape(-1).to(torch.float32)[p.head:]
                      for p in tails]) for f in flat])
+            for ax in b.axes[1:]:
+                tiles, red_tails = _secondary_sync(
+                    ranks.along(ax), tiles, red_tails, topos.get(ax),
+                    int(sizes[ax]), codec, step)
         for r, f in enumerate(flat):
             by_tile = dict(zip([p.index for p in heads],
                                tiles[r].split(widths))) if heads else {}
@@ -374,6 +445,27 @@ def zero_reduce_scatter_grads(grads, pspecs, mesh_axes,
         return got
     back = [tree_unflatten(t, o) for t, o in zip(trees, res)]
     return got, back if mesh else back[0]
+
+
+def _secondary_sync(on: _Ranks, tiles, tails, topo, n: int, codec, step):
+    """One secondary replication axis of a sharded bucket: every rank's
+    owned block summed over its group on the axis (the FlexTree allreduce
+    on ``topo``, compressed under a lossy codec; the dense fold for the
+    ``"psum"`` sentinel, None) and its tails by the dense fold.  Either
+    may be None (no heads, no tails)."""
+    if tiles is not None:
+        if topo is None:
+            tiles = on.run(dense_allreduce, tiles)
+        elif codec.lossy:
+            tiles = on.run(compressed_allreduce, tiles,
+                           topo=Topology.resolve(n, topo), codec=codec,
+                           step=step)
+        else:
+            tiles = on.run(allreduce, tiles, topo=Topology.resolve(n, topo),
+                           op="sum")
+    if tails is not None:
+        tails = on.run(dense_allreduce, tails)
+    return tiles, tails
 
 
 # ----------------------------------------------------------- update + AG
@@ -401,49 +493,58 @@ def _adamw_elem(p, g, mu, nu, c1, c2, train_cfg):
 
 def _rank_sum(parts: list, comm):
     """Per-rank partial sums summed in rank order, on every rank (the JAX
-    ``psum`` of a scalar over the shard axis)."""
+    ``psum`` of a scalar over a process group's one data-parallel
+    axis)."""
     from .train import _global_loss
 
     return _global_loss(parts, comm)
 
 
+def _square_sum(x) -> torch.Tensor:
+    return torch.sum(torch.square(x.float()))
+
+
 def sharded_grad_norm(shard_trees, pspecs, layout: ZeroLayout, *, comm):
     """The true global L2 norm of a sharded gradient (``shard_trees`` in
-    :func:`zero_reduce_scatter_grads`' form): the owned blocks partition
-    each head over the shard axis, so their squares are summed over the
-    ranks once; the tails and the unsharded leaves are whole on every
-    rank and join without that sum.  The squares are grouped as the JAX
-    package groups them, by the shard axis and the axes of the leaf's
-    spec (each of size 1 here), in the order the groups first appear."""
-    trees = list(shard_trees) if isinstance(comm, Mesh) else [shard_trees]
+    :func:`zero_reduce_scatter_grads`' form), the JAX function's: each
+    rank's squares grouped by the axes they are summed over, an owned
+    block's by the shard axis and the axes of the leaf's spec (the blocks
+    partition the head over the shard axis), a tail's and an unsharded
+    leaf's by the leaf's spec axes alone (whole on every rank of the shard
+    axis); each group summed over its axes in turn
+    (:meth:`.spmd.Axis.psum` on a mesh; a process group's partials in rank
+    order) and the groups added in the order they first appear.  A tensor
+    parallel slice joins once: its group sums over tp."""
+    mesh = isinstance(comm, Mesh)
+    trees = list(shard_trees) if mesh else [shard_trees]
     flat = [tree_leaves(t) for t in trees]
     specs = spec_leaves(trees[0], pspecs)
-    by_key: dict = {}
+    by_key: list[dict] = [{} for _ in flat]
 
-    def add(key, vals):
-        old = by_key.get(key)
-        by_key[key] = vals if old is None else [a + v for a, v in
-                                                zip(old, vals)]
+    def add(groups, key, val):
+        groups[key] = val if key not in groups else groups[key] + val
 
-    for plan, spec in zip(layout.leaves, specs):
-        gs = [f[plan.index] for f in flat]
-        leaf_axes = spec_axes(spec)
-        if isinstance(gs[0], ZeroShard):
-            if plan.tile:
-                add((plan.shard_ax,) + leaf_axes,
-                    [torch.sum(torch.square(g.tile.float())) for g in gs])
-            if plan.tail:
-                add(leaf_axes, [torch.sum(torch.square(gs[0].tail.float()))])
-        else:
-            add(leaf_axes, [torch.sum(torch.square(gs[0].float()))])
+    for f, groups in zip(flat, by_key):
+        for plan, spec in zip(layout.leaves, specs):
+            g, leaf_axes = f[plan.index], spec_axes(spec)
+            if isinstance(g, ZeroShard):
+                if plan.tile:
+                    add(groups, (plan.shard_ax,) + leaf_axes,
+                        _square_sum(g.tile))
+                if plan.tail:
+                    add(groups, leaf_axes, _square_sum(g.tail))
+            else:
+                add(groups, leaf_axes, _square_sum(g))
     total = None
-    for key, vals in by_key.items():
-        # the only axis above size 1 is the shard axis: its key sums the
-        # ranks' partials, every other key is whole on each rank
-        wide = bool(key) and int(layout.axis_sizes.get(key[0], 1)) > 1
-        sq = _rank_sum(vals, comm) if wide else vals[0]
-        total = sq if total is None else total + sq
-    return torch.sqrt(total)
+    for key in by_key[0]:
+        sq = [groups[key] for groups in by_key]
+        for ax in key:
+            if mesh and ax in comm.axis_names:
+                sq = axis(comm, ax).psum(sq)
+            elif not mesh and int(layout.axis_sizes.get(ax, 1)) > 1:
+                sq = [_rank_sum(sq, comm)]
+        total = sq if total is None else [t + s_ for t, s_ in zip(total, sq)]
+    return torch.sqrt(total[0])
 
 
 def maybe_clip_shards(shard_trees, pspecs, train_cfg, layout: ZeroLayout,
@@ -478,21 +579,48 @@ _MOMENT_KEYS = ("mu_shard", "mu_tail", "mu_rep", "nu_shard", "nu_tail",
                 "nu_rep")
 
 
+def _rank_slices(tree, pspecs, comm) -> list:
+    """Each local rank's flat leaves of a full tree: its slices on a mesh
+    (:func:`..spmd.shard_tree`), the tree itself otherwise."""
+    if isinstance(comm, Mesh):
+        return [tree_leaves(t) for t in shard_tree(tree, pspecs, comm)]
+    return [tree_leaves(tree)]
+
+
+def _own_blocks(by_model: list, plan: ZeroLeafPlan, perm, comm):
+    """A leaf's ``*_shard`` buffer from its flat float32 slices by model
+    position: each slot's owned block (the block ``perm`` gives its shard
+    position), in the buffer's order."""
+    n, tile = plan.n, plan.tile
+    if isinstance(comm, Mesh):
+        rows = [p[:plan.head].view(n, tile)[list(perm)] for p in by_model]
+        return torch.stack(rows, 1).reshape(-1)
+    own = [perm[r] for r in _local_ranks(comm)]
+    return by_model[0][:plan.head].view(n, tile)[own].reshape(-1)
+
+
+def _part(buf, k: int, width: int):
+    """Slot ``k`` of a buffer of ``width``-element slots."""
+    return buf[k * width:(k + 1) * width]
+
+
 def zero_apply_and_gather(state, shard_trees, pspecs, mesh_axes,
                           topos: Mapping[str, Any], train_cfg,
                           layout: ZeroLayout, *, comm):
-    """Phase 2 of the sharded step: AdamW on each local rank's owned
-    blocks and the tails, then one parameter all-gather a bucket (the
+    """Phase 2 of the sharded step: AdamW on the owned blocks and the
+    tails, then one parameter all-gather a bucket over its shard axis (the
     gradient's buckets, compressed under the step's codec with rounding
     key ``step + 1``; every rank decodes the same bytes, and a lossy codec
     updates the float32 master, which takes the working params while
     ``state["step"]`` is 0).  Returns the new state, the params whole.
 
-    On a mesh every rank's blocks update as one ``(N·tile,)`` buffer (the
-    state's own layout; elementwise, so the bits are each rank's) and the
-    gather's ``N`` bitwise-equal results are kept as one tree, the others
-    dropped as each bucket is unpacked.  The update reads no scalar on the
-    host, except a lossy codec's rounding key."""
+    On a mesh every slot's block updates as one buffer (the state's own
+    layout; elementwise, so the bits are each rank's), each slot from the
+    first rank that holds it (the ranks of a secondary group hold the same
+    block); the gather's results of one model position are bitwise equal,
+    and the first's is put back into the parameter
+    (:func:`..spmd.gather_leaf`).  The update reads no scalar on the host,
+    except a lossy codec's rounding key."""
     from ..ops.quantize import get_codec
     from .train import schedule_lr
 
@@ -506,6 +634,7 @@ def zero_apply_and_gather(state, shard_trees, pspecs, mesh_axes,
     bootstrap = state["step"] == 0  # the master holds zeros before step 1
     params = state["params"]
     flat_p = tree_leaves(params)
+    slices = _rank_slices(params, pspecs, comm)
     flat_g = [tree_leaves(t) for t in (shard_trees if mesh
                                        else [shard_trees])]
     specs = spec_leaves(params, pspecs)
@@ -514,20 +643,22 @@ def zero_apply_and_gather(state, shard_trees, pspecs, mesh_axes,
            + (("master_shard", "master_tail") if lossy else ())}
     new = {k: list(v) for k, v in old.items()}
     new_p: list = list(flat_p)
-    buckets = plan_buckets(flat_p, specs, mesh_axes, topos=topos,
+    buckets = plan_buckets(slices[0], specs, mesh_axes, topos=topos,
                            axis_sizes=sizes,
                            bucket_bytes=train_cfg.bucket_bytes,
                            codec=codec if lossy else None, sharded=True)
     bucketed = {i for b in buckets for i in b.indices}
 
-    # leaves no axis syncs (every leaf on one rank): the replicated update
+    # leaves no axis syncs: the replicated update on the whole leaf
     for i in range(len(flat_p)):
         if i in bucketed:
             continue
         p = flat_p[i]
+        g = gather_leaf([f[i] for f in flat_g], specs[i], comm) if mesh \
+            else flat_g[0][i]
         d, new["mu_rep"][i], new["nu_rep"][i] = _adamw_elem(
-            p, flat_g[0][i].to(p.dtype), old["mu_rep"][i], old["nu_rep"][i],
-            c1, c2, train_cfg)
+            p, g.to(p.dtype), old["mu_rep"][i], old["nu_rep"][i], c1, c2,
+            train_cfg)
         new_p[i] = p - lr * d
 
     ag_step = int(state["step"]) + 1 if lossy else 0
@@ -537,19 +668,19 @@ def zero_apply_and_gather(state, shard_trees, pspecs, mesh_axes,
         n = int(sizes[shard_ax])
         topo = shard_topo(topos.get(shard_ax), n)
         perm = layout.perm_for(topos, shard_ax)
-        own = [perm[r] for r in local]
-        heads, new_tiles, new_tails = [], {}, {}
+        heads, new_tiles, new_tails, slots = [], {}, {}, {}
         for i in b.indices:
             plan = layout.leaves[i]
-            p_flat = flat_p[i].reshape(-1).to(torch.float32)
+            at = slots[i] = _Slots(comm, plan)
+            by_model = [slices[r][i].reshape(-1).to(torch.float32)
+                        for r in at.model_holder]
             if plan.tile:
-                own_block = p_flat[:plan.head].view(n, plan.tile)[own] \
-                    .reshape(-1)
+                own_block = _own_blocks(by_model, plan, perm, comm)
                 p_tile = torch.where(bootstrap, own_block,
                                      old["master_shard"][i]) \
                     if lossy else own_block
-                g_tile = torch.cat([g[i].tile for g in flat_g]) \
-                    if len(flat_g) > 1 else flat_g[0][i].tile
+                g_tile = torch.cat([flat_g[r][i].tile for r in at.holder]) \
+                    if len(at.holder) > 1 else flat_g[at.holder[0]][i].tile
                 d, new["mu_shard"][i], new["nu_shard"][i] = _adamw_elem(
                     p_tile, g_tile, old["mu_shard"][i], old["nu_shard"][i],
                     c1, c2, train_cfg)
@@ -558,38 +689,48 @@ def zero_apply_and_gather(state, shard_trees, pspecs, mesh_axes,
                     new["master_shard"][i] = new_tiles[i]
                 heads.append(plan)
             if plan.tail:
-                p_tail = p_flat[plan.head:]
+                p_tail = torch.cat([p[plan.head:] for p in by_model])
                 if lossy:
                     p_tail = torch.where(bootstrap, p_tail,
                                          old["master_tail"][i])
+                g_tail = torch.cat([flat_g[r][i].tail
+                                    for r in at.model_holder])
                 d, new["mu_tail"][i], new["nu_tail"][i] = _adamw_elem(
-                    p_tail, flat_g[0][i].tail, old["mu_tail"][i],
-                    old["nu_tail"][i], c1, c2, train_cfg)
+                    p_tail, g_tail, old["mu_tail"][i], old["nu_tail"][i],
+                    c1, c2, train_cfg)
                 # every rank computed the same exact tail: it needs no wire
                 new_tails[i] = p_tail - lr * d
                 if lossy:
                     new["master_tail"][i] = new_tails[i]
-        full_by_idx = {}
+        full_by = {}
         if heads:
-            packed = [torch.cat([new_tiles[p.index][k * p.tile:
-                                                    (k + 1) * p.tile]
-                                 for p in heads])
-                      for k in range(len(local))]
+            at = slots[heads[0].index]
+            packed = [torch.cat([_part(new_tiles[p.index], at.slot[r],
+                                       p.tile) for p in heads])
+                      for r in range(len(local))]
             name = f"ftz_ag_bucket{bi}_{shard_ax}_{len(b.indices)}leaves_" \
                    f"{b.nbytes}B"
             with comm_span(name):  # compressed under a lossy codec
-                full = ranks.run(all_gather, packed, topo=topo, codec=codec,
-                                 step=ag_step)[0]
+                full = ranks.along(shard_ax).run(
+                    all_gather, packed, topo=topo, codec=codec, step=ag_step)
             del packed
-            full_by_idx = dict(zip([p.index for p in heads], _uninterleave(
-                full, n, [p.tile for p in heads])))
+            for m, r in enumerate(at.model_holder):
+                for p, piece in zip(heads, _uninterleave(
+                        full[r], n, [p.tile for p in heads])):
+                    full_by[p.index, m] = piece
             del full
         for i in b.indices:
-            parts = [x for x in (full_by_idx.get(i), new_tails.get(i))
-                     if x is not None]
-            p = flat_p[i]
-            new_p[i] = (parts[0] if len(parts) == 1 else torch.cat(parts)) \
-                .view(p.shape).to(p.dtype)
+            plan, at = layout.leaves[i], slots[i]
+            pieces = []
+            for m, r in enumerate(at.model_holder):
+                parts = [x for x in (full_by.get((i, m)), _part(
+                    new_tails[i], m, plan.tail) if plan.tail else None)
+                    if x is not None]
+                pieces.append((parts[0] if len(parts) == 1 else
+                               torch.cat(parts)).view(slices[r][i].shape))
+            whole = gather_leaf([pieces[m] for m in at.model], specs[i],
+                                comm) if mesh else pieces[0]
+            new_p[i] = whole.view(flat_p[i].shape).to(flat_p[i].dtype)
     out = {"params": tree_unflatten(params, new_p), "step": step}
     for k, vals in new.items():
         out[k] = tree_unflatten(params, vals)
@@ -606,7 +747,8 @@ def zero_sync_and_update(state, grads, pspecs, mesh_axes, topos, train_cfg,
     ``adamw_apply``, bitwise for the identity codec with clipping off.
     ``grads`` in ``comm``'s form (a list of the ranks' trees on a mesh).
     A lossy codec syncs ``grad + ef`` keyed by ``state["step"]`` and keeps
-    each rank's residual in ``"ef"`` (a list on a mesh)."""
+    each rank's residual in ``"ef"`` (on a mesh the list of the ranks'
+    trees; one tree, fresh or restored, is cut for every rank)."""
     from ..ops.quantize import get_codec
 
     codec = get_codec(train_cfg.codec)
@@ -615,9 +757,8 @@ def zero_sync_and_update(state, grads, pspecs, mesh_axes, topos, train_cfg,
     if codec.lossy:
         ef = state["ef"]
         if isinstance(comm, Mesh):
-            efs = ef if isinstance(ef, list) else [ef] * len(grads)
             v = [tree_map(lambda g, e: g + e.to(g.dtype), g, e)
-                 for g, e in zip(grads, efs)]
+                 for g, e in zip(grads, rank_trees(ef, pspecs, comm))]
         else:
             v = tree_map(lambda g, e: g + e.to(g.dtype), grads, ef)
         shards, new_ef = zero_reduce_scatter_grads(
@@ -638,45 +779,65 @@ def zero_sync_and_update(state, grads, pspecs, mesh_axes, topos, train_cfg,
 # -------------------------------------------------- consolidate / reshard
 
 
+def checkpoint_ef(ef, pspecs, comm):
+    """The residual a checkpoint holds: one tree as it stands; on a mesh
+    the ranks' list assembled slice by slice from the first rank that
+    holds each (:func:`..spmd.gather_tree`), what the JAX package's
+    ``device_get`` reads."""
+    from .spmd import gather_tree
+
+    if isinstance(ef, list):
+        return gather_tree(ef, pspecs, comm) if isinstance(comm, Mesh) \
+            else ef[0]
+    return ef
+
+
 def make_consolidate_fn(comm, pspecs, layout: ZeroLayout, grad_topo,
                         lossy: bool):
     """``sharded state -> consolidated checkpoint state``.
 
     Each leaf's moment (and master) shards are all-gathered back to the
     replicated layout through the step's own ``all_gather`` on the shard
-    topology: ``{"params", "mu", "nu", "step"[, "ef"]}``, the same for any
-    world size and what the replicated step resumes from.  Under a lossy
-    codec ``params`` are the float32 master (the authoritative copy),
-    except at step 0, when the master still holds zeros and the working
-    params stand in; ``ef`` is written as it stands, the first rank's tree
-    on a mesh (the JAX package's ``device_get`` of the first device's)."""
+    topology, over the shard axis (each model position's slice, put back
+    into the whole leaf on a wide mesh): ``{"params", "mu", "nu",
+    "step"[, "ef"]}``, the same for any world size and what the replicated
+    step resumes from.  Under a lossy codec ``params`` are the float32
+    master (the authoritative copy), except at step 0, when the master
+    still holds zeros and the working params stand in; ``ef`` is
+    :func:`checkpoint_ef`'s."""
     from .train import resolve_axis_topos
 
     topos = resolve_axis_topos(comm_axis_sizes(comm, layout.mesh_axes),
                                layout.mesh_axes, grad_topo)
+    mesh = isinstance(comm, Mesh)
     local = _local_ranks(comm)
 
     def consolidate(state):
         params = state["params"]
         flat_p = tree_leaves(params)
+        specs = spec_leaves(params, pspecs)
+        slices = _rank_slices(params, pspecs, comm)
         ranks = _Ranks(comm) if layout.n_sharded else None
 
         def gather(shard_key, tail_key, rep_key):
             sh, tl, rp = (tree_leaves(state[k]) for k in
                           (shard_key, tail_key, rep_key))
             out = []
-            for plan, base in zip(layout.leaves, flat_p):
+            for plan, base, spec in zip(layout.leaves, flat_p, specs):
                 i = plan.index
                 if not plan.sharded:
                     out.append(rp[i].to(base.dtype))
                     continue
-                topo = shard_topo(topos.get(plan.shard_ax), plan.n)
-                t = plan.tile
-                shards = [torch.cat([sh[i][k * t:(k + 1) * t], tl[i]])
-                          for k in range(len(local))]
-                full = ranks.run(all_gather, shards, topo=topo,
-                                 out_shape=base.shape)[0]
-                out.append(full.to(base.dtype))
+                at = _Slots(comm, plan)
+                shards = [torch.cat([_part(sh[i], at.slot[r], plan.tile),
+                                     _part(tl[i], at.model[r], plan.tail)])
+                          for r in range(len(local))]
+                full = ranks.along(plan.shard_ax).run(
+                    all_gather, shards,
+                    topo=shard_topo(topos.get(plan.shard_ax), plan.n),
+                    out_shape=slices[0][i].shape)
+                whole = gather_leaf(full, spec, comm) if mesh else full[0]
+                out.append(whole.to(base.dtype))
             return tree_unflatten(params, out)
 
         out = {"params": params,
@@ -688,8 +849,7 @@ def make_consolidate_fn(comm, pspecs, layout: ZeroLayout, grad_topo,
             out["params"] = tree_map(
                 lambda m, p: torch.where(first, p, m),
                 gather("master_shard", "master_tail", "params"), params)
-            ef = state["ef"]
-            out["ef"] = ef[0] if isinstance(ef, list) else ef
+            out["ef"] = checkpoint_ef(state["ef"], pspecs, comm)
         return out
 
     return consolidate
@@ -698,19 +858,19 @@ def make_consolidate_fn(comm, pspecs, layout: ZeroLayout, grad_topo,
 def make_reshard_fn(comm, pspecs, layout: ZeroLayout, grad_topo,
                     lossy: bool):
     """``consolidated state -> sharded state`` for ``layout``'s world (any
-    world size): each local rank takes its owned blocks of every leaf's
-    moments (and, lossy, of the params as the master), and the tails whole
-    (:func:`make_consolidate_fn`'s inverse)."""
+    world size): each slot takes its owned blocks of every leaf's moments
+    (and, lossy, of the params as the master), and each model position
+    its tails whole (:func:`make_consolidate_fn`'s inverse)."""
     from .train import resolve_axis_topos
 
     topos = resolve_axis_topos(comm_axis_sizes(comm, layout.mesh_axes),
                                layout.mesh_axes, grad_topo)
-    local = _local_ranks(comm)
 
     def reshard(state):
         params = state["params"]
 
         def split(tree):
+            sl = _rank_slices(tree, pspecs, comm)
             shards, tails, reps = [], [], []
             for plan, v in zip(layout.leaves, tree_leaves(tree)):
                 if not plan.sharded:
@@ -718,13 +878,12 @@ def make_reshard_fn(comm, pspecs, layout: ZeroLayout, grad_topo,
                     tails.append(_empty(v))
                     reps.append(v)
                     continue
-                perm = layout.perm_for(topos, plan.shard_ax)
-                fv = v.reshape(-1).to(torch.float32)
-                shards.append(
-                    fv[:plan.head].view(plan.n, plan.tile)[
-                        [perm[r] for r in local]].reshape(-1)
-                    if plan.tile else _empty(v))
-                tails.append(fv[plan.head:].clone())
+                by_model = [sl[r][plan.index].reshape(-1).to(torch.float32)
+                            for r in _Slots(comm, plan).model_holder]
+                shards.append(_own_blocks(
+                    by_model, plan, layout.perm_for(topos, plan.shard_ax),
+                    comm) if plan.tile else _empty(v))
+                tails.append(torch.cat([p[plan.head:] for p in by_model]))
                 reps.append(_empty(v))
             return tuple(tree_unflatten(params, x)
                          for x in (shards, tails, reps))

@@ -42,21 +42,30 @@ tp).  It takes the JAX trainer's flags with their defaults, plus
     python -m flextree_tpu_torch.trainer --model moe --mesh 1,2,2,2 \
         --n-experts 8 --top-k 2 --capacity-factor 2.0
 
+    # the wide meshes take every option: ZeRO-1 with the int8 codec on
+    # a (2, 2, 2) mesh, overlap on the pipeline and MoE meshes
+    python -m flextree_tpu_torch.trainer --mesh 2,2,2 --shard-optimizer \
+        --codec int8
+    python -m flextree_tpu_torch.trainer --model moe --mesh 1,2,2,2 \
+        --overlap --shard-optimizer
+
 ``--mesh`` (dp,sp,tp for the dense model; dp,pp,sp,tp or dp,ep,sp,tp for
 the pipeline and MoE models) or ``--devices N`` (split as the JAX
 ``factor_devices`` or ``factor_devices_4d`` splits it) give the ranks, all
-in this process on the one device; with sp or tp above 1, and on any
-pipeline or MoE mesh, ``--overlap``, ``--shard-optimizer`` and a lossy
-``--codec`` are not ported yet.  ``--cpu`` is a switch.  A
-flag whose module is not ported yet raises ``NotImplementedError`` naming
-its ROADMAP item.  The last line printed is the JAX trainer's.  A
-data-parallel run checkpoints its replicated state, as the JAX trainer
-does; with a lossy ``--codec`` the state carries the error-feedback
-residual ``"ef"``, the first rank's in the file; a pipeline run
-checkpoints the stacked tree, as the JAX trainer does.  A ``--shard-optimizer
-run checkpoints consolidated (``parallel.zero.make_consolidate_fn``: the
-replicated layout, which any world size and the replicated step resume
-from) and restores through ``make_reshard_fn``.
+in this process on the one device; ``--overlap``, ``--shard-optimizer``
+and a lossy ``--codec`` run on every mesh of every model, alone and
+combined (the pipeline ignores ``--overlap`` under ``--shard-optimizer``,
+as the JAX step does).  ``--cpu`` is a switch.  A flag whose module is
+not ported yet raises ``NotImplementedError`` naming its ROADMAP item.
+The last line printed is the JAX trainer's.  A run checkpoints its
+replicated state, as the JAX trainer does (a pipeline run the stacked
+tree); with a lossy ``--codec`` the state carries the error-feedback
+residual ``"ef"``, each rank's, and the file holds slice by slice the
+first rank's that holds it (``parallel.zero.checkpoint_ef``).  A
+``--shard-optimizer`` run checkpoints consolidated
+(``parallel.zero.make_consolidate_fn``: the replicated layout, which any
+world size and the replicated step resume from) and restores through
+``make_reshard_fn``.
 """
 
 from __future__ import annotations
@@ -180,8 +189,6 @@ def _mesh_shape(args) -> tuple:
 
 def _refuse_unported(args) -> None:
     """Raise for a flag whose module is not ported, naming its item."""
-    shape = _mesh_shape(args)
-    wide = args.overlap or args.shard_optimizer or args.codec != "f32"
     refusals = (
         (args.autotune, "--autotune",
          "'Checkpoint, supervision and feedback plumbing'"),
@@ -195,13 +202,6 @@ def _refuse_unported(args) -> None:
         (args.obs_dir is not None or args.flight_recorder,
          "--obs-dir/--flight-recorder",
          "'Checkpoint, supervision and feedback plumbing'"),
-        (args.model == "dense" and (shape[1] > 1 or shape[2] > 1) and wide,
-         f"--overlap, --shard-optimizer or a lossy --codec on a mesh of "
-         f"shape {shape} (sp or tp above 1)",
-         "'Sequence, pipeline and expert parallelism'"),
-        (args.model != "dense" and wide,
-         f"--overlap, --shard-optimizer or a lossy --codec with --model "
-         f"{args.model}", "'Sequence, pipeline and expert parallelism'"),
     )
     for bad, what, item in refusals:
         if bad:
@@ -210,21 +210,46 @@ def _refuse_unported(args) -> None:
             )
 
 
-def sharded_hooks(comm, model_cfg, params, train_cfg):
+def model_specs(model: str, cfg) -> dict:
+    """The parameter specs of ``--model``'s tree."""
+    if model == "pipeline":
+        from .parallel.pipeline import pipeline_param_specs
+
+        return pipeline_param_specs(cfg)
+    if model == "moe":
+        from .models.moe import moe_param_specs
+
+        return moe_param_specs(cfg)
+    from .models.transformer import param_specs
+
+    return param_specs(cfg)
+
+
+def sharded_hooks(comm, model_cfg, params, train_cfg, model: str = "dense"):
     """``(pack, unpack)`` for ``fit``: a sharded run checkpoints
     consolidated (the replicated layout, the same for any world size) and
     restores by resharding it over ``comm`` (the JAX trainer's
-    ``sharded_hooks``); ``(None, None)`` otherwise."""
-    if not train_cfg.shard_optimizer:
-        return None, None
-    from .models.transformer import param_specs
+    ``sharded_hooks``, with the mesh's layout for each ``model``); a
+    lossy run on a mesh writes each slice's residual from the first rank
+    that holds it (:func:`.parallel.zero.checkpoint_ef`); ``(None,
+    None)`` otherwise."""
     from .ops.quantize import get_codec
+    from .parallel.mesh import Mesh
     from .parallel.train import zero_layout_for
-    from .parallel.zero import make_consolidate_fn, make_reshard_fn
+    from .parallel.zero import (
+        checkpoint_ef,
+        make_consolidate_fn,
+        make_reshard_fn,
+    )
 
-    pspecs = param_specs(model_cfg)
-    layout = zero_layout_for(comm, params, pspecs)
     lossy = get_codec(train_cfg.codec).lossy
+    pspecs = model_specs(model, model_cfg)
+    if not train_cfg.shard_optimizer:
+        if not (lossy and isinstance(comm, Mesh)):
+            return None, None
+        return (lambda state: dict(state, ef=checkpoint_ef(
+            state["ef"], pspecs, comm))), None
+    layout = zero_layout_for(comm, params, pspecs, _AXES[model])
     return (make_consolidate_fn(comm, pspecs, layout, train_cfg.grad_topo,
                                 lossy),
             make_reshard_fn(comm, pspecs, layout, train_cfg.grad_topo,
@@ -265,7 +290,7 @@ def main(argv=None, *, out: dict | None = None) -> int:
         synthetic_tokens(args.corpus_tokens, args.vocab, seed=args.seed),
         batch=args.batch, seq_len=args.seq_len, seed=args.seed,
     )
-    pack, unpack = sharded_hooks(comm, cfg, state["params"], tc)
+    pack, unpack = sharded_hooks(comm, cfg, state["params"], tc, args.model)
     result = fit(
         state, step, dataset,
         FitConfig(num_steps=args.steps, ckpt_dir=args.ckpt_dir,
@@ -306,7 +331,8 @@ def _build(args, tc, shape, dev, gen):
 
         cfg = TransformerConfig(**common)
         comm = make_mesh_4d(shape=shape, device=dev)
-        return (cfg, init_pipeline_train_state(cfg, gen, tc, device=dev),
+        return (cfg, init_pipeline_train_state(cfg, gen, tc, device=dev,
+                                               comm=comm),
                 make_pipeline_train_step(cfg, tc, args.microbatches,
                                          comm=comm), comm)
     if args.model == "moe":
@@ -320,7 +346,8 @@ def _build(args, tc, shape, dev, gen):
         cfg = MoEConfig(**common, n_experts=args.n_experts, top_k=args.top_k,
                         capacity_factor=args.capacity_factor)
         comm = make_mesh_moe(shape=shape, device=dev)
-        return (cfg, init_moe_train_state(cfg, gen, tc, device=dev),
+        return (cfg, init_moe_train_state(cfg, gen, tc, device=dev,
+                                          comm=comm),
                 make_moe_train_step(cfg, tc, comm=comm), comm)
     from .parallel.train import AXIS_NAMES, init_train_state, make_train_step
 

@@ -238,7 +238,10 @@ def save_train_state(ckpt_dir: str | os.PathLike, state: dict, *,
     this state.  A data-parallel mesh's state holds one error-feedback
     tree a rank (``state["ef"]`` a list); the file holds the first rank's,
     what the JAX package's ``device_get`` of its replicated ``ef`` reads,
-    so a resumed run gives that tree to every rank, as the JAX one does."""
+    so a resumed run gives that tree to every rank, as the JAX one does.
+    On a mesh whose ranks hold slices the list is assembled first, slice
+    by slice from the first rank that holds it
+    (:func:`..parallel.zero.checkpoint_ef`, the trainer's ``state_pack``)."""
     if isinstance(state.get("ef"), list):
         state = dict(state, ef=state["ef"][0])
     step = int(state["step"])

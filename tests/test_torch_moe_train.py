@@ -136,13 +136,22 @@ def test_moe_step_validation_and_refusals():
                                 comm=ttrain.make_mesh_nd(
                                     None, (2, 2, 2), ttrain.AXIS_NAMES,
                                     "cpu"))
+    # the options once refused here train a step on the mesh now
+    mesh = _mesh((1, 2, 2, 2))
+    tokens = np.random.default_rng(3).integers(
+        0, DIMS["vocab_size"], (4, 16)).astype(np.int32)
     for kw in (dict(overlap=True), dict(shard_optimizer=True),
                dict(codec="int8"), dict(codec="bf16")):
-        with pytest.raises(NotImplementedError,
-                           match="Sequence, pipeline and expert"):
-            tmt.make_moe_train_step(tm.MoEConfig(**DIMS),
-                                    ttrain.TrainConfig(**kw),
-                                    comm=_mesh((1, 2, 2, 2)))
+        tc = ttrain.TrainConfig(**kw)
+        cfg = tm.MoEConfig(**DIMS)
+        state = tmt.init_moe_train_state(
+            cfg, torch.Generator().manual_seed(0), tc, device="cpu",
+            comm=mesh)
+        new, m = tmt.make_moe_train_step(cfg, tc, comm=mesh)(
+            state, tokens, tokens)
+        assert np.isfinite(m["total"].item()) and int(new["step"]) == 1
+        assert ("mu_shard" in new) == tc.shard_optimizer
+        assert isinstance(new.get("ef"), list) == (tc.codec != "f32")
 
 
 def test_factor_devices_moe_matches_jax():

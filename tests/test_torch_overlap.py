@@ -210,7 +210,9 @@ def test_buckets_fire_as_their_last_segment_finishes(monkeypatch,
     """The overlapped step fires bucket ``b`` after every rank has run
     segment ``b[-1]``'s backward and before any rank starts segment
     ``b[-1] + 1``'s; its twin fires every bucket after the whole
-    backward.  Both run every rank's forward first (lock-step)."""
+    backward.  Both run every rank's forward first (lock-step): the cut
+    graphs cover every rank at once, so one forward runs them all and
+    each segment's backward runs on every rank in one call."""
     events, plans = [], []
     real_plan, real_graphs = tov.plan_overlap, tov._segment_graphs
     real_fire = tov._sync_fired_bucket
@@ -252,7 +254,9 @@ def test_buckets_fire_as_their_last_segment_finishes(monkeypatch,
     (plan,) = plans
     assert plan.n_buckets >= 2
     kinds = [k for k, _ in events]
-    assert kinds[:n] == ["forward"] * n and kinds.count("forward") == n
+    assert kinds[:1] == ["forward"] and kinds.count("forward") == 1
+    assert [e for e in events if e[0] == "done"] == [
+        ("done", i) for i in range(len(plans[0].labels))]
     fires = [(pos, bi) for pos, (k, bi) in enumerate(events) if k == "fire"]
     assert [bi for _, bi in fires] == list(range(plan.n_buckets))
     last = len(plan.labels) - 1
@@ -265,7 +269,7 @@ def test_buckets_fire_as_their_last_segment_finishes(monkeypatch,
         if serialize:
             assert pos > max(at("done", last))
             continue
-        assert len(at("done", closing)) == n and pos > max(at("done",
+        assert len(at("done", closing)) == 1 and pos > max(at("done",
                                                               closing))
         if closing < last:
             assert pos < min(at("start", closing + 1))

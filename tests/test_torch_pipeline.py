@@ -7,7 +7,9 @@ batch: the loss (and, clipped, the norm) within rtol 1e-5 and the
 parameters within atol 1e-5 (the JAX pipeline tests' bars).  Beside it:
 the stacked layout and its specs, pp=1 as gradient accumulation against
 the port's one-rank dense step, a 2,2 gradient topology, the schedule's
-refusals, and ``factor_devices_4d`` against JAX's.
+refusals and the options that train on the mesh (their JAX comparison is
+``test_torch_wide_jax_pipeline.py``), and ``factor_devices_4d`` against
+JAX's.
 """
 
 import importlib
@@ -159,12 +161,19 @@ def test_pipeline_refusals():
                                         comm=_mesh((1, 2, 2, 2)))
     with pytest.raises(ValueError, match="microbatch"):
         step(state, *_batch(b=6))
+    # the options once refused here train a step on the mesh now
+    mesh = _mesh((1, 2, 2, 2))
     for kw in (dict(overlap=True), dict(shard_optimizer=True),
                dict(codec="int8"), dict(codec="bf16")):
-        with pytest.raises(NotImplementedError,
-                           match="Sequence, pipeline and expert"):
-            tpp.make_pipeline_train_step(cfg, ttrain.TrainConfig(**kw),
-                                         comm=_mesh((1, 2, 2, 2)))
+        tc = ttrain.TrainConfig(**kw)
+        state = tpp.init_pipeline_train_state(
+            cfg, torch.Generator().manual_seed(0), tc, device="cpu",
+            comm=mesh)
+        new, m = tpp.make_pipeline_train_step(cfg, tc, comm=mesh)(
+            state, *_batch())
+        assert np.isfinite(m["loss"].item()) and int(new["step"]) == 1
+        assert ("mu_shard" in new) == tc.shard_optimizer
+        assert isinstance(new.get("ef"), list) == (tc.codec != "f32")
 
 
 def test_factor_devices_4d_matches_jax():

@@ -193,15 +193,19 @@ def test_gloo_int8_ranks_end_in_the_mesh_state():
 
 def test_dp_step_refuses_what_is_not_ported():
     cfg = tt.TransformerConfig(**DIMS)
-    # an sp axis above 1 runs now (test_torch_model_parallel*.py); overlap,
-    # ZeRO-1 and a lossy codec on it still wait on their item
+    # an sp axis above 1 runs now (test_torch_model_parallel*.py), and so
+    # do overlap, ZeRO-1 and a lossy codec on it (test_torch_wide*.py)
     sp2 = Mesh(("cpu",) * 2, ("dp", "sp", "tp"), (1, 2, 1))
     ttrain.make_train_step(cfg, comm=sp2)
     for field in (dict(overlap=True), dict(shard_optimizer=True),
                   dict(codec="int8")):
-        with pytest.raises(NotImplementedError, match="Sequence, pipeline"):
-            ttrain.make_train_step(cfg, ttrain.TrainConfig(**field),
-                                   comm=sp2)
+        tc = ttrain.TrainConfig(**field)
+        state = ttrain.init_train_state(
+            cfg, torch.Generator().manual_seed(0), tc, device="cpu",
+            comm=sp2)
+        new, m = ttrain.make_train_step(cfg, tc, comm=sp2)(state,
+                                                          *_batch(0))
+        assert np.isfinite(m["loss"].item()) and int(new["step"]) == 1
     # a lossy codec runs now (see the int8 tests below); an unknown one
     # raises
     for codec in ("int8", "bf16"):

@@ -331,8 +331,8 @@ def test_trainer_cli_refuses_unported_flags(flags, tmp_path, capsys):
     if flags[0] == "--model":
         # the pipeline and MoE models train now
         # (test_torch_trainer_models.py): two steps on one rank, and the
-        # last line names the model and its mesh; their unported flags
-        # still refuse
+        # last line names the model and its mesh; and so do their lossy
+        # codecs (test_torch_wide*.py)
         out: dict = {}
         assert trainer.main(_SMALL + flags + ["--steps", "2"], out=out) == 0
         second = {"moe": "ep", "pipeline": "pp"}[flags[1]]
@@ -340,8 +340,10 @@ def test_trainer_cli_refuses_unported_flags(flags, tmp_path, capsys):
         last = capsys.readouterr().out.strip().splitlines()[-1]
         assert last.startswith(f"{flags[1]}: 2 steps on mesh {mesh}; loss ")
         assert all(math.isfinite(loss) for _, loss in out["result"].losses)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            trainer.main(_SMALL + flags + ["--codec", "int8"])
+        out = {}
+        assert trainer.main(_SMALL + flags + ["--codec", "int8", "--steps",
+                                              "1"], out=out) == 0
+        assert len(out["result"].state["ef"]) == 1
         return
     if flags[0] in ("--mesh", "--devices"):
         # sp or tp above 1 runs now (test_torch_trainer_mesh.py): two

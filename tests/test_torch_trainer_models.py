@@ -7,8 +7,10 @@
   reader loads it into the tree the JAX trainer's state has (the stacked
   tree for the pipeline), and a run resumes from it.
 - ``--devices 8`` splits as the JAX trainer splits it, (1, 2, 2, 2).
-- ``--overlap``, ``--shard-optimizer`` and a lossy ``--codec`` refuse on
-  both models, naming their ROADMAP item.
+- ``--overlap``, ``--shard-optimizer`` and a lossy ``--codec`` train on
+  both models for a step: a finite loss, the last line's form, the state
+  the option gives (each rank's residual, the sharded moments) and, with
+  ``--ckpt-dir``, a checkpoint in the replicated layout.
 """
 
 import importlib
@@ -115,8 +117,26 @@ def test_trainer_model_devices_split(model, capsys):
 @pytest.mark.parametrize("flag", [["--overlap"], ["--shard-optimizer"],
                                   ["--codec", "int8"], ["--codec", "bf16"]])
 @pytest.mark.parametrize("model", ["pipeline", "moe"])
-def test_trainer_model_refusals(model, flag):
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.*Sequence, pipeline and expert"):
-        trainer.main(["--cpu"] + _SMALL + _MODEL[model]
-                     + ["--mesh", "1,2,2,2"] + flag)
+def test_trainer_model_refusals(model, flag, tmp_path, capsys):
+    """Each option that was refused on the (1, 2, 2, 2) meshes trains a
+    step there now; its checkpoint is the replicated layout the JAX
+    trainer's state has."""
+    ckpt = str(tmp_path / "ck")
+    out: dict = {}
+    assert trainer.main(["--cpu"] + _SMALL + _MODEL[model]
+                        + ["--mesh", "1,2,2,2", "--steps", "1",
+                           "--ckpt-dir", ckpt] + flag, out=out) == 0
+    assert re.fullmatch(rf"{model}: 1 steps on mesh \{{.*\}}; loss "
+                        r"\d+\.\d{4} -> \d+\.\d{4}", _last(capsys))
+    res = out["result"]
+    assert res.steps_run == 1 and math.isfinite(res.losses[-1][1])
+    state = res.state
+    if "--shard-optimizer" in flag:
+        assert "mu_shard" in state and "mu" not in state
+    if "--codec" in flag:
+        assert isinstance(state["ef"], list) and len(state["ef"]) == 8
+    saved = tckpt.restore_train_state(ckpt, "cpu")
+    assert {"params", "mu", "nu", "step"} <= set(saved)
+    assert ("ef" in saved) == ("--codec" in flag)
+    assert tree_leaves(saved["params"])[0].shape == \
+        tree_leaves(state["params"])[0].shape

@@ -1,0 +1,14 @@
+"""The moe step on the (1, 2, 2, 2) dp/ep/sp/tp mesh under
+``shard_optimizer``, ``overlap`` and both against the JAX package's step
+under ``shard_map`` on its 8 virtual CPU devices, two steps from one
+state: :func:`test_torch_wide.check_against_jax` (its bars are stated
+there)."""
+
+import pytest
+
+from test_torch_wide import check_against_jax
+
+
+@pytest.mark.parametrize("option", ["zero", "overlap", "zero_overlap"])
+def test_moe_sharded_or_overlapped_matches_jax(option):
+    check_against_jax("moe", option)
