@@ -5593,18 +5593,15 @@ def wide_stage_time(dev, rs, stage, bw, flush, smi) -> dict:
     return row
 
 
-def wide_fold_launches(family, option, models, tm, bk, ov, ar, rs):
+def wide_fold_launches(family, option, models, tm, bk, ar, rs):
     """``(combine, sync)``: the fold kernel's launches a step of a 24(b)
     run, from the code.  The combine is the replicated step's (phase 22's
-    or 23's count); the sync is ``bucketing.mesh_fold_launches`` over what
-    the option syncs: the whole tree (the lossy sync, or ZeRO-1's
-    reduce-scatter), or each fired bucket's payload (overlap: the readiness
-    plan on one rank's slices, :func:`..overlap.fired_payloads`; the
-    pipeline's three tail buckets)."""
+    or 23's count); the sync is ``train.step_sync_fold_launches`` under
+    the option."""
     cfg, mesh, _, pspecs, params = models[family]
-    axes, sizes, topos = wide_sizes(mesh, tm)
+    axes = mesh.axis_names
     b, t = FLASH_TRAIN[:2]
-    slices = spmd_slices(params, pspecs, mesh)
+    slices = tm.shard_tree(params, pspecs, mesh)[0]
     leaves = tm.tree_leaves(slices)
     specs = bk.spec_leaves(slices, pspecs)
     if family == "dense":
@@ -5612,34 +5609,12 @@ def wide_fold_launches(family, option, models, tm, bk, ov, ar, rs):
     else:
         combine = pm_fold_launches(family, cfg, PM_MESH, b, t, PM_MICRO,
                                    leaves, specs, axes, ar, bk, tm, rs)[0]
-    codec = "int8" if option == "int8" else None
-    sharded = option.startswith("zero")
-    tc = tm.TrainConfig(codec=codec or "f32", shard_optimizer=sharded,
+    tc = tm.TrainConfig(codec="int8" if option == "int8" else "f32",
+                        shard_optimizer=option.startswith("zero"),
                         overlap=option.endswith("overlap"))
-    if not tc.overlap or (family == "pipeline" and sharded):
-        payloads = [(slices, pspecs)]
-    elif family == "pipeline":
-        payloads = [({k: slices[k]}, {k: pspecs[k]})
-                    for k in ("ln_f", "layers", "embed")]
-    else:
-        rows = b // sizes["dp"] // (sizes.get("ep", 1))
-        local = torch.zeros((rows, t // sizes["sp"]), dtype=torch.long,
-                            device=mesh.devices[0])
-        plan, _ = tm.mesh_overlap_plan({}, params, pspecs, mesh, axes, topos,
-                                       tc, cfg, local, mesh.devices[0])
-        payloads = list(zip(ov.fired_payloads(plan, slices),
-                            ov.fired_payloads(plan, pspecs)))
-    sync = sum(bk.mesh_fold_launches(
-        tm.tree_leaves(tree), bk.spec_leaves(tree, sp), axes, sizes, topos,
-        codec=codec, sharded=sharded) for tree, sp in payloads)
+    sync = tm.step_sync_fold_launches(cfg, tc, params, pspecs, mesh, axes,
+                                      (b, t), pipeline=family == "pipeline")
     return combine, sync
-
-
-def spmd_slices(params, pspecs, mesh):
-    """Rank 0's slices of ``params`` on ``mesh``."""
-    from flextree_tpu_torch.parallel import spmd
-
-    return spmd.shard_tree(params, pspecs, mesh)[0]
 
 
 def wide_state_bytes(state, layout, zero) -> int:
@@ -5653,22 +5628,16 @@ def wide_state_bytes(state, layout, zero) -> int:
         m = zero._n_model(layout, plan)
         for k in keys:
             if plan.sharded:
-                sh = tm_leaves(state[f"{k}_shard"])[plan.index].numel()
-                tl = tm_leaves(state[f"{k}_tail"])[plan.index].numel()
+                sh = zero.tree_leaves(state[f"{k}_shard"])[plan.index].numel()
+                tl = zero.tree_leaves(state[f"{k}_tail"])[plan.index].numel()
                 total += 4 * (sh // (plan.n * m) + tl // m)
             elif k != "master":
                 total += 4 * plan.size
     return total
 
 
-def tm_leaves(tree):
-    from flextree_tpu_torch.utils.tree import tree_leaves
-
-    return tree_leaves(tree)
-
-
 def wide_train_runs(dev, smi, models, trainer, ckpt, fa, rs, ar, bk, tm,
-                    ov, zero):
+                    zero):
     """Phase 24(b): each of ``WIDE_RUNS`` through ``trainer.main`` at the
     flagship width (bf16, flash, batch 8 x 1024, ``WIDE_STEPS`` steps,
     warmup-cosine, clipping) with a checkpoint: the loss finite and
@@ -5722,7 +5691,7 @@ def wide_train_runs(dev, smi, models, trainer, ckpt, fa, rs, ar, bk, tm,
             flash_want = {k: WIDE_STEPS * n for k, n in pm_flash_launches(
                 family, PM_MESH, cfg.n_layers, PM_MICRO).items()}
         combine, sync = wide_fold_launches(family, option, models, tm, bk,
-                                           ov, ar, rs)
+                                           ar, rs)
         fold_want = WIDE_STEPS * (combine + sync)
         if {k: launches[k] for k in flash_want} != flash_want or \
                 launches["reduce_sources"] != fold_want:
@@ -5963,7 +5932,6 @@ def phase_wide(dev, smi, bw):
     from flextree_tpu_torch.parallel import allreduce as ar
     from flextree_tpu_torch.parallel import bucketing as bk
     from flextree_tpu_torch.parallel import compressed as cm
-    from flextree_tpu_torch.parallel import overlap as ov
     from flextree_tpu_torch.parallel import spmd
     from flextree_tpu_torch.parallel import train as tm
     from flextree_tpu_torch.parallel import zero
@@ -5986,7 +5954,7 @@ def phase_wide(dev, smi, bw):
     log(f"phase 24(a): {time.monotonic() - clock:.1f} s")
     clock = time.monotonic()
     by_path = wide_train_runs(dev, smi, models, trainer, ckpt, fa, rs, ar,
-                              bk, tm, ov, zero)
+                              bk, tm, zero)
     del models
     torch.cuda.empty_cache()
     log(f"phase 24(b): {time.monotonic() - clock:.1f} s")

@@ -47,7 +47,7 @@ from .train import (
     psum_all,
     resolve_axis_topos,
     spmd_grads,
-    spmd_update,
+    spmd_step,
     validate_tp,
     zero_layout_for,
 )
@@ -103,13 +103,14 @@ def make_mesh_moe(n_devices: int | None = None, shape=None,
 
 
 def _moe_grads(model_cfg, train_cfg, device, comm, axis_names,
-               serialize_overlap=False):
+               serialize_overlap=False, cache=None):
     """``(grads_fn, pspecs, mesh, topos)``: ``grads_fn(state, tokens,
     targets) -> (metrics, grads, ef)``, the global ``loss``, ``aux`` and
     ``total``, every rank's tree (synced slices; under
     ``shard_optimizer`` unsynced, or with ``overlap`` the fired buckets'
     shards) and the ranks' new residuals (see
-    :func:`make_moe_train_step`)."""
+    :func:`make_moe_train_step`); ``cache`` the step's
+    (:func:`.train.spmd_step`)."""
     _refuse_unported(train_cfg)
     comm = step_mesh(comm, device, axis_names)
     dp, ep, sp, tp = axis_names
@@ -127,7 +128,7 @@ def _moe_grads(model_cfg, train_cfg, device, comm, axis_names,
     weight = model_cfg.router_aux_weight
     dev = comm.devices[0]
     side = overlap_stream(train_cfg, dev)
-    plans: dict = {}
+    plans = {} if cache is None else cache
 
     def grads_fn(state, tokens, targets):
         tokens = torch.as_tensor(tokens, device=dev)
@@ -214,18 +215,10 @@ def make_moe_train_step(model_cfg: MoEConfig,
     ``shard_optimizer`` the state is :func:`init_moe_train_state`'s with
     the same ``comm``.  ``serialize_overlap``: the overlapped step's twin
     (the whole backward, then the same buckets in the same order)."""
+    cache: dict = {}
     grads_fn, pspecs, comm, topos = _moe_grads(
-        model_cfg, train_cfg, device, comm, axis_names, serialize_overlap)
-    layouts: list = []
-
-    def step(state, tokens, targets):
-        if train_cfg.shard_optimizer and not layouts:
-            layouts.append(zero_layout_for(comm, state["params"], pspecs,
-                                           axis_names))
-        metrics, grads, ef = grads_fn(state, tokens, targets)
-        return spmd_update(state, grads, ef, pspecs, comm, axis_names, topos,
-                           train_cfg, metrics,
-                           layouts[0] if layouts else None,
-                           fired=train_cfg.overlap), metrics
-
-    return step
+        model_cfg, train_cfg, device, comm, axis_names, serialize_overlap,
+        cache)
+    return spmd_step(grads_fn, cache, pspecs, comm, axis_names, topos,
+                     train_cfg, fired=train_cfg.overlap,
+                     metrics_of=lambda metrics: metrics)

@@ -90,6 +90,7 @@ from ..schedule.stages import Topology
 from ..utils.profiling import comm_span
 from ..utils.tree import tree_leaves, tree_map, tree_unflatten
 from .mesh import Mesh
+from .spmd import rank_slices
 
 __all__ = [
     "OverlapPlan",
@@ -464,16 +465,6 @@ def _segment_graphs(slices, tokens, targets, model_cfg, n_total_tokens,
     return backward(), [x.detach() for x in losses]
 
 
-def _rank_slices(params, pspecs, comm, n: int) -> list:
-    """Each local rank's parameter tree: its slices on a mesh, the params
-    themselves for each of ``n`` local ranks otherwise."""
-    from .spmd import shard_tree
-
-    if isinstance(comm, Mesh):
-        return shard_tree(params, pspecs, comm)
-    return [params] * n
-
-
 def _rank_efs(state, pspecs, comm, n: int):
     """The ranks' residual trees a lossy step syncs with (None for the
     identity codec): a mesh's list (one tree cut for every rank), a
@@ -501,7 +492,7 @@ def _engine(state, tokens, targets, model_cfg, train_cfg, plan, pspecs,
     lossy = get_codec(train_cfg.codec).lossy
     efs = _rank_efs(state, pspecs, comm, len(tokens)) if lossy else None
     step = int(state["step"]) if lossy else 0
-    slices = _rank_slices(params, pspecs, comm, len(tokens))
+    slices = rank_slices(params, pspecs, comm, len(tokens))
     segs, losses = _segment_graphs(slices, tokens, targets, model_cfg,
                                    n_total_tokens, apply_layer, d_aux)
     seg_paths = [path for _, path in readiness_segments(params)]
@@ -634,6 +625,11 @@ def moe_overlap_step_grads(state, tokens, targets, model_cfg, train_cfg,
 # ------------------------------------------------- whole-tree (pipeline)
 
 
+# the pipeline's overlapped tail: one bucket a readiness part, in firing
+# order (the JAX ``overlap_sync_with_feedback``)
+PIPELINE_TAIL = ("ln_f", "layers", "embed")
+
+
 def overlap_sync_with_feedback(state, grads, pspecs, mesh_axes, topos,
                                train_cfg, serialize: bool = False, *, comm,
                                stream=None):
@@ -658,7 +654,7 @@ def overlap_sync_with_feedback(state, grads, pspecs, mesh_axes, topos,
     main = torch.cuda.current_stream(dev) if side is not None else None
     synced: dict = {}
     ef_out: dict = {}
-    for key in ("ln_f", "layers", "embed"):
+    for key in PIPELINE_TAIL:
         subs = [t[key] for t in trees]
         nbytes = sum(x.numel() * x.element_size()
                      for x in tree_leaves(subs[0]))

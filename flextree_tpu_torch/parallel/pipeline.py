@@ -61,7 +61,7 @@ from .train import (
     psum_all,
     resolve_axis_topos,
     spmd_grads,
-    spmd_update,
+    spmd_step,
     spread_factors,
     validate_tp,
     zero_layout_for,
@@ -342,16 +342,6 @@ def make_pipeline_train_step(model_cfg: TransformerConfig,
     grads_fn, pspecs, comm, topos = _pipeline_grads(
         model_cfg, train_cfg, n_microbatches, device, comm, axis_names,
         serialize_overlap)
-    layouts: list = []
-
-    def step(state, tokens, targets):
-        if train_cfg.shard_optimizer and not layouts:
-            layouts.append(zero_layout_for(comm, state["params"], pspecs,
-                                           axis_names))
-        loss, grads, ef = grads_fn(state, tokens, targets)
-        metrics = {"loss": loss}
-        return spmd_update(state, grads, ef, pspecs, comm, axis_names, topos,
-                           train_cfg, metrics,
-                           layouts[0] if layouts else None), metrics
-
-    return step
+    # the tail syncs whole trees: never the engine's fired shards
+    return spmd_step(grads_fn, {}, pspecs, comm, axis_names, topos,
+                     train_cfg, fired=False)

@@ -34,8 +34,8 @@ import torch
 from .mesh import Mesh
 
 __all__ = ["Axis", "axis", "coords", "rank_coords", "block_index",
-           "shard_tree", "rank_trees", "gather_leaf", "gather_tree",
-           "shard_batch"]
+           "shard_tree", "rank_slices", "rank_trees", "gather_leaf",
+           "gather_tree", "shard_batch"]
 
 
 def rank_coords(mesh: Mesh) -> list[tuple[int, ...]]:
@@ -197,9 +197,6 @@ def block_index(mesh: Mesh, names, r: int) -> tuple[int, int]:
     return idx, count
 
 
-_block = block_index
-
-
 def _spec_names(entry) -> tuple:
     if entry is None:
         return ()
@@ -221,7 +218,7 @@ def shard_tree(tree, pspecs, mesh: Mesh) -> list:
         mine = []
         for leaf, spec in zip(leaves, specs):
             for d, entry in enumerate(tuple(spec) if spec is not None else ()):
-                idx, count = _block(mesh, _spec_names(entry), r)
+                idx, count = block_index(mesh, _spec_names(entry), r)
                 if count > 1:
                     w = leaf.shape[d] // count
                     leaf = leaf.narrow(d, idx * w, w).contiguous()
@@ -239,7 +236,7 @@ def shard_batch(x, spec, mesh: Mesh) -> list:
     for r in range(mesh.size):
         block = x
         for d, entry in enumerate(spec):
-            idx, count = _block(mesh, _spec_names(entry), r)
+            idx, count = block_index(mesh, _spec_names(entry), r)
             if x.shape[d] % count:
                 raise ValueError(f"dimension {d} of {tuple(x.shape)} does "
                                  f"not split over {entry} ({count} blocks)")
@@ -247,6 +244,15 @@ def shard_batch(x, spec, mesh: Mesh) -> list:
             block = block.narrow(d, idx * w, w)
         out.append(block)
     return out
+
+
+def rank_slices(tree, pspecs, comm, n: int = 1) -> list:
+    """Each local rank's tree of a full tree: its slices on a mesh
+    (:func:`shard_tree`), the tree itself for each of ``n`` local ranks
+    otherwise (a process group's rank, or a DP mesh's)."""
+    if isinstance(comm, Mesh):
+        return shard_tree(tree, pspecs, comm)
+    return [tree] * n
 
 
 def rank_trees(tree, pspecs, mesh: Mesh) -> list:
@@ -266,17 +272,17 @@ def gather_leaf(xs: list, spec, mesh: Mesh):
     rank's."""
     dims = [(d, _spec_names(e)) for d, e in
             enumerate(tuple(spec) if spec is not None else ())
-            if _block(mesh, _spec_names(e), 0)[1] > 1]
+            if block_index(mesh, _spec_names(e), 0)[1] > 1]
     if not dims:
         return xs[0]
     first = xs[0]
     shape = list(first.shape)
     for d, names in dims:
-        shape[d] *= _block(mesh, names, 0)[1]
+        shape[d] *= block_index(mesh, names, 0)[1]
     full = first.new_empty(shape)
     placed = set()
     for r in range(mesh.size):
-        at = tuple(_block(mesh, names, r)[0] for _, names in dims)
+        at = tuple(block_index(mesh, names, r)[0] for _, names in dims)
         if at in placed:
             continue
         placed.add(at)

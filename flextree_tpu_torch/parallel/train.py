@@ -147,7 +147,10 @@ __all__ = [
     "validate_tp",
     "spmd_grads",
     "spmd_update",
+    "spmd_step",
+    "step_layout",
     "mesh_overlap_plan",
+    "step_sync_fold_launches",
     "overlap_stream",
     "psum_all",
     "resolve_axis_topos",
@@ -661,13 +664,15 @@ def overlap_stream(train_cfg: TrainConfig, dev):
 
 
 def _spmd_grads(model_cfg: TransformerConfig, train_cfg: TrainConfig,
-                comm: Mesh, dev, serialize_overlap: bool = False):
+                comm: Mesh, dev, serialize_overlap: bool = False,
+                cache: dict | None = None):
     """``(grads_fn, pspecs, topos)``: ``grads_fn(state, tokens, targets) ->
     (loss, grads, ef)`` of a step over a mesh with sp or tp above 1: the
     global mean token loss, every rank's tree (synced slices; under
     ``shard_optimizer`` unsynced, or with ``overlap`` the fired buckets'
     :class:`~.zero.ZeroShard` trees) and the ranks' new residuals (see the
-    module docstring)."""
+    module docstring).  ``cache``: the step's (:func:`spmd_step`), which
+    keeps the overlap plan and the ZeRO layout."""
     sizes = comm_axis_sizes(comm, AXIS_NAMES)
     dp, sp, tp = (sizes[ax] for ax in AXIS_NAMES)
     validate_tp(model_cfg, tp)
@@ -677,7 +682,7 @@ def _spmd_grads(model_cfg: TransformerConfig, train_cfg: TrainConfig,
                         for ax in AXIS_NAMES[1:])
     lossy = get_codec(train_cfg.codec).lossy
     side = overlap_stream(train_cfg, dev)
-    plans: dict = {}  # the overlap plan and layout by one rank's shape
+    plans = {} if cache is None else cache
 
     def grads_fn(state, tokens, targets):
         if lossy and "ef" not in state:
@@ -721,27 +726,96 @@ def _spmd_grads(model_cfg: TransformerConfig, train_cfg: TrainConfig,
     return grads_fn, pspecs, topos
 
 
+def step_layout(cache: dict, train_cfg: TrainConfig, comm, params, pspecs,
+                axis_names):
+    """A step's ZeRO layout (None without ``shard_optimizer``), built from
+    its first call's params and kept in the step's ``cache``, which
+    :func:`mesh_overlap_plan` shares."""
+    if not train_cfg.shard_optimizer:
+        return None
+    if "layout" not in cache:
+        cache["layout"] = zero_layout_for(comm, params, pspecs, axis_names)
+    return cache["layout"]
+
+
 def mesh_overlap_plan(cache: dict, params, pspecs, comm, axis_names, topos,
-                 train_cfg: TrainConfig, model_cfg, tokens, dev):
+                      train_cfg: TrainConfig, model_cfg, tokens, dev):
     """``(plan, zero layout or None)`` of an overlapped step over a mesh,
     planned once a rank's batch shape, as the JAX step plans inside
     ``shard_map``: on one rank's slices and tokens
-    (:func:`.overlap.plan_overlap`)."""
+    (:func:`.overlap.plan_overlap`); the layout is :func:`step_layout`'s
+    from the same ``cache``."""
     from .overlap import plan_overlap
 
     if tokens.shape not in cache:
         slices = shard_tree(params, pspecs, comm)[0]
         lossy = get_codec(train_cfg.codec).lossy
-        cache[tokens.shape] = (
-            plan_overlap(slices, pspecs, axis_names, topos,
-                         comm_axis_sizes(comm, axis_names),
-                         n_tokens=tokens.numel(), t_local=tokens.shape[1],
-                         d_model=model_cfg.d_model,
-                         codec=train_cfg.codec if lossy else None,
-                         device=dev),
-            zero_layout_for(comm, params, pspecs, axis_names)
-            if train_cfg.shard_optimizer else None)
-    return cache[tokens.shape]
+        cache[tokens.shape] = plan_overlap(
+            slices, pspecs, axis_names, topos,
+            comm_axis_sizes(comm, axis_names), n_tokens=tokens.numel(),
+            t_local=tokens.shape[1], d_model=model_cfg.d_model,
+            codec=train_cfg.codec if lossy else None, device=dev)
+    return cache[tokens.shape], step_layout(cache, train_cfg, comm, params,
+                                            pspecs, axis_names)
+
+
+def spmd_step(grads_fn, cache: dict, pspecs, comm: Mesh, axis_names, topos,
+              train_cfg: TrainConfig, fired: bool, metrics_of=None):
+    """The train step of every family over a mesh: ``grads_fn(state,
+    tokens, targets) -> (out, grads, ef)`` (the family's backward and
+    sync; ``metrics_of(out)`` its metrics, default ``{"loss": out}``),
+    then :func:`spmd_update` with :func:`step_layout`'s layout from
+    ``cache`` (the one ``grads_fn``'s overlap plan shares); ``fired``: the
+    overlap engine reduce-scattered each bucket."""
+    def step(state, tokens, targets):
+        layout = step_layout(cache, train_cfg, comm, state["params"], pspecs,
+                             axis_names)
+        out, grads, ef = grads_fn(state, tokens, targets)
+        metrics = metrics_of(out) if metrics_of else {"loss": out}
+        return spmd_update(state, grads, ef, pspecs, comm, axis_names, topos,
+                           train_cfg, metrics, layout, fired=fired), metrics
+
+    return step
+
+
+def step_sync_fold_launches(model_cfg, train_cfg: TrainConfig, params,
+                            pspecs, comm: Mesh, axis_names, batch_shape,
+                            pipeline: bool = False) -> int:
+    """The fold kernel's launches of one step's gradient sync over the
+    in-process mesh ``comm``, from the code: :func:`.bucketing.
+    mesh_fold_launches` on one rank's slices of each payload the step
+    syncs.  That is the whole tree (the replicated or lossy sync, ZeRO-1's
+    reduce-scatter), or under ``overlap`` each fired bucket's: the
+    readiness plan's (:func:`mesh_overlap_plan` on one rank's block of the
+    global ``batch_shape``; the rows over every axis but the last two,
+    the columns over the second last), or the pipeline's three tail
+    buckets (:data:`.overlap.PIPELINE_TAIL`; under ZeRO-1 the pipeline
+    step runs without overlap, as the JAX step does).  The bf16 codec
+    folds as the lossless sync."""
+    from .bucketing import mesh_fold_launches, spec_leaves
+    from .overlap import PIPELINE_TAIL, fired_payloads
+
+    sizes = comm_axis_sizes(comm, axis_names)
+    topos = resolve_axis_topos(sizes, axis_names, train_cfg.grad_topo)
+    slices = shard_tree(params, pspecs, comm)[0]
+    codec = "int8" if train_cfg.codec == "int8" else None
+    if not train_cfg.overlap or (pipeline and train_cfg.shard_optimizer):
+        payloads = [(slices, pspecs)]
+    elif pipeline:
+        payloads = [({k: slices[k]}, {k: pspecs[k]}) for k in PIPELINE_TAIL]
+    else:
+        rows = batch_shape[0] // math.prod(sizes[a] for a in axis_names[:-2])
+        local = torch.zeros((rows, batch_shape[1] // sizes[axis_names[-2]]),
+                            dtype=torch.long, device=comm.devices[0])
+        plan, _ = mesh_overlap_plan({}, params, pspecs, comm, axis_names,
+                                    topos, train_cfg, model_cfg, local,
+                                    comm.devices[0])
+        payloads = list(zip(fired_payloads(plan, slices),
+                            fired_payloads(plan, pspecs)))
+    return sum(mesh_fold_launches(
+        tree_leaves(tree), spec_leaves(tree, sp), axis_names, sizes, topos,
+        codec=codec, sharded=train_cfg.shard_optimizer)
+        for tree, sp in payloads)
 
 
 def make_loss_and_grads(model_cfg: TransformerConfig,
@@ -901,21 +975,11 @@ def _spmd_step(model_cfg, train_cfg, device, comm, serialize_overlap):
     :func:`spmd_update`."""
     _refuse_unported(train_cfg)
     dev, _, _ = _local_ranks(comm, device)
+    cache: dict = {}
     grads_fn, pspecs, topos = _spmd_grads(model_cfg, train_cfg, comm, dev,
-                                          serialize_overlap)
-    layouts: list = []
-
-    def step(state, tokens, targets):
-        if train_cfg.shard_optimizer and not layouts:
-            layouts.append(zero_layout_for(comm, state["params"], pspecs))
-        loss, grads, ef = grads_fn(state, tokens, targets)
-        metrics = {"loss": loss}
-        return spmd_update(state, grads, ef, pspecs, comm, AXIS_NAMES, topos,
-                           train_cfg, metrics,
-                           layouts[0] if layouts else None,
-                           fired=train_cfg.overlap), metrics
-
-    return step
+                                          serialize_overlap, cache)
+    return spmd_step(grads_fn, cache, pspecs, comm, AXIS_NAMES, topos,
+                     train_cfg, fired=train_cfg.overlap)
 
 
 def spmd_update(state: dict, grads: list, ef, pspecs, comm: Mesh,

@@ -92,7 +92,7 @@ from .bucketing import (
 )
 from .compressed import compressed_allreduce, compressed_reduce_scatter
 from .mesh import Mesh
-from .spmd import axis, block_index, gather_leaf, rank_trees, shard_tree
+from .spmd import axis, block_index, gather_leaf, rank_slices, rank_trees
 
 __all__ = [
     "ZeroShard",
@@ -579,14 +579,6 @@ _MOMENT_KEYS = ("mu_shard", "mu_tail", "mu_rep", "nu_shard", "nu_tail",
                 "nu_rep")
 
 
-def _rank_slices(tree, pspecs, comm) -> list:
-    """Each local rank's flat leaves of a full tree: its slices on a mesh
-    (:func:`..spmd.shard_tree`), the tree itself otherwise."""
-    if isinstance(comm, Mesh):
-        return [tree_leaves(t) for t in shard_tree(tree, pspecs, comm)]
-    return [tree_leaves(tree)]
-
-
 def _own_blocks(by_model: list, plan: ZeroLeafPlan, perm, comm):
     """A leaf's ``*_shard`` buffer from its flat float32 slices by model
     position: each slot's owned block (the block ``perm`` gives its shard
@@ -634,7 +626,7 @@ def zero_apply_and_gather(state, shard_trees, pspecs, mesh_axes,
     bootstrap = state["step"] == 0  # the master holds zeros before step 1
     params = state["params"]
     flat_p = tree_leaves(params)
-    slices = _rank_slices(params, pspecs, comm)
+    slices = [tree_leaves(t) for t in rank_slices(params, pspecs, comm)]
     flat_g = [tree_leaves(t) for t in (shard_trees if mesh
                                        else [shard_trees])]
     specs = spec_leaves(params, pspecs)
@@ -816,7 +808,7 @@ def make_consolidate_fn(comm, pspecs, layout: ZeroLayout, grad_topo,
         params = state["params"]
         flat_p = tree_leaves(params)
         specs = spec_leaves(params, pspecs)
-        slices = _rank_slices(params, pspecs, comm)
+        slices = [tree_leaves(t) for t in rank_slices(params, pspecs, comm)]
         ranks = _Ranks(comm) if layout.n_sharded else None
 
         def gather(shard_key, tail_key, rep_key):
@@ -870,7 +862,7 @@ def make_reshard_fn(comm, pspecs, layout: ZeroLayout, grad_topo,
         params = state["params"]
 
         def split(tree):
-            sl = _rank_slices(tree, pspecs, comm)
+            sl = [tree_leaves(t) for t in rank_slices(tree, pspecs, comm)]
             shards, tails, reps = [], [], []
             for plan, v in zip(layout.leaves, tree_leaves(tree)):
                 if not plan.sharded:

@@ -577,7 +577,9 @@ class ReplicaServer:
                 timeout_s=timeout_s,
             )
         except RpcError:
-            self._mig_conns.pop(key, None)
+            stale = self._mig_conns.pop(key, None)
+            if stale is not None:
+                stale.close()
             raise
 
     # ---- migration: the decode half (runs on the engine thread) ------------

@@ -313,6 +313,9 @@ class RpcConnection:
                 payload = recv_frame(self._sock)
             except RpcError as e:
                 self._fail_all(e)
+                # a dead stream is never read again: its socket closes
+                # here, not when the collector finds the connection
+                self.close()
                 return
             corr = payload.get("corr")
             with self._lock:

@@ -43,6 +43,12 @@ from flextree_tpu_torch.parallel.mesh import Mesh
 from flextree_tpu_torch.parallel.spmd import gather_tree
 from flextree_tpu_torch.utils.tree import tree_leaves
 
+# One intra-op thread for the whole test process (every worker imports this
+# module when it collects): six workers each running torch's default pool
+# of one thread a core oversubscribe the host; on 8 cores the whole suite
+# at six workers took 1230 s that way and 739 s with one thread.
+torch.set_num_threads(1)
+
 jt = importlib.import_module("flextree_tpu.models.transformer")
 jmo = importlib.import_module("flextree_tpu.models.moe")
 jtrain = importlib.import_module("flextree_tpu.parallel.train")
@@ -280,25 +286,98 @@ def _index_slices(params, family):
                                                port_mesh(family))]
 
 
+# the share of a leaf's elements (counted over every rank's slices, at one
+# step) whose residual may sit one quantum off JAX's: a stochastic (int8)
+# or nearest (bf16) rounding whose input lies on its threshold to within
+# the two packages' float32 difference (a gradient that cancels carries
+# its terms' rounding error, near a bf16 ulp of a small element; the
+# most seen is 5 of 4096 at the second bf16 step); 1 element at least
+FLIP_SHARE = 1e-2
+
+
+def _quanta(family, tc, xs, specs):
+    """Each rank's, each leaf's largest rounding quantum at its input
+    ``xs`` (every rank's flat ``grad + ef`` leaves): for int8, the largest
+    ``|x| / 127`` of any block that can hold the element in its bucket's
+    packed buffer (``block - 1`` elements each side); for bf16, one bf16
+    ulp of ``|x|``.  A residual lies within one quantum of zero, and a
+    flipped rounding moves it by exactly one.  ``specs``: the leaves'
+    partition specs."""
+    from flextree_tpu_torch.ops.quantize import get_codec
+    from flextree_tpu_torch.parallel.bucketing import plan_buckets
+
+    codec, mesh = get_codec(tc.codec), port_mesh(family)
+    if codec.name == "bf16":
+        return [[torch.ldexp(torch.ones_like(x), torch.frexp(x)[1] - 8) *
+                 (x != 0) for x in rank] for rank in xs]
+    sizes = dict(zip(AXES[family], SHAPES[family]))
+    if tc.bucket_bytes == 0:
+        groups = [(i,) for i in range(len(xs[0]))]
+    else:
+        groups = [b.indices for b in plan_buckets(
+            xs[0], specs, AXES[family],
+            topos=ttrain.resolve_axis_topos(mesh, AXES[family], tc.grad_topo),
+            axis_sizes=sizes, bucket_bytes=tc.bucket_bytes, codec=codec)]
+    out = [[torch.zeros_like(x) for x in rank] for rank in xs]
+    w = codec.block
+    for rank, q in zip(xs, out):
+        for idx in groups:
+            packed = torch.cat([rank[i].reshape(-1) for i in idx]).abs()
+            amax = torch.nn.functional.max_pool1d(
+                packed[None, None], 2 * w - 1, 1, w - 1)[0, 0]
+            for i, a in zip(idx, amax.split([rank[i].numel() for i in idx])):
+                q[i] = (a / 127).view(rank[i].shape)
+    return out
+
+
+def _check_residuals(got_ef, jax_ef, quanta, jmesh, index, flips, where):
+    """Every rank's residual against the JAX device's, element by element:
+    both within one quantum of zero; apart by at most 1e-6, or (a flipped
+    rounding) by at most one quantum, on at most ``FLIP_SHARE`` of each
+    leaf.  Marks the flipped elements in ``flips`` (flat leaf indices) and
+    returns their count."""
+    n_flipped = 0
+    for i, a in enumerate(jax.tree.leaves(jax_ef)):
+        wants = device_blocks(a, jmesh)
+        count = sum(w.size for w in wants)
+        here = 0
+        for r, want in enumerate(wants):
+            got = tree_leaves(got_ef[r])[i].numpy().astype(np.float64)
+            q = quanta[r][i].double().numpy() * (1 + 1e-5) + 1e-9
+            assert (np.abs(got) <= q).all(), (where, i, r, "port")
+            assert (np.abs(want) <= q).all(), (where, i, r, "jax")
+            gap = np.abs(got - want)
+            flip = gap > 1e-6
+            assert (gap[flip] <= q[flip]).all(), (where, i, r, "flip")
+            flips[i][index[r][i].numpy()[flip]] = True
+            here += int(flip.sum())
+        assert here <= max(1, FLIP_SHARE * count), (where, i, here, count)
+        n_flipped += here
+    return n_flipped
+
+
 def check_against_jax(family, option):
     """``STEPS`` steps of ``family`` under ``option`` in both packages from
     one JAX state, on the same batches.
 
     - The loss and (clipped) the norm within rtol 1e-5 at every step.
     - Under a lossy codec, every rank's residual against the JAX device's
-      within ``Codec.error_bound`` of one hop over two ranks at the
-      largest ``|grad + ef|`` that entered the sync: the two packages'
-      float32 sums differ in the last bit, so a stochastic rounding that
-      sits on its threshold can flip by one step.
+      element by element (:func:`_check_residuals`): within 1e-6, or, where
+      a rounding sat on its threshold, one quantum of the element's block
+      on at most ``FLIP_SHARE`` of each leaf.
     - The parameters within atol 1e-5, except where AdamW's update is
       ill-conditioned (the step-1 gradient below 1e-6 or the first two
       steps' below 1e-5 together, ``tests/test_torch_overlap.py``'s rule)
-      or a rounding flipped (a residual apart by more than 1e-6 on some
-      rank): those within AdamW's bound, 2 lr a step.
-    - Under ZeRO, the consolidated moments within 1e-5 of JAX's
-      ``make_consolidate_fn`` of its state."""
+      or a rounding flipped: those within AdamW's bound, 2 lr a step.
+    - Under ZeRO, the consolidated moments against JAX's
+      ``make_consolidate_fn`` of its state: ``mu`` and ``sqrt(nu)`` (the
+      gradient's scale) within rtol 1e-4 plus 1e-5 of the leaf's largest
+      value (a gradient that is a sum which cancels carries the float32
+      error of its terms, not of itself)."""
     from flextree_tpu_torch.ops.quantize import get_codec
     from flextree_tpu_torch.parallel import zero as tzero
+    from flextree_tpu_torch.parallel.bucketing import spec_leaves
+    from flextree_tpu_torch.parallel.spmd import rank_trees
 
     opts = OPTIONS[option]
     init, jstates, jm = jax_run(family, opts)
@@ -312,30 +391,27 @@ def check_against_jax(family, option):
     mesh, jmesh = port_mesh(family), jax_mesh(family)
     index = _index_slices(state["params"], family)
     flips = [np.zeros(p.numel(), bool) for p in tree_leaves(state["params"])]
-    gs = []
+    gs, n_flipped = [], []
     for k, (tokens, targets) in enumerate(batches()):
         gs.append([g.numpy() for g in tree_leaves(
             synced(state["params"], tokens, targets)[1])])
         if codec.lossy:
-            from flextree_tpu_torch.parallel.spmd import rank_trees
-
             efs = rank_trees(state["ef"], port_specs(family), mesh)
-            amax = max(float((g + e).abs().max()) for r, e in
-                       zip(raw(state["params"], tokens, targets)[1], efs)
-                       for g, e in zip(tree_leaves(r), tree_leaves(e)))
-            bound = codec.error_bound(amax, 2, (2,))
+            grads = raw(state["params"], tokens, targets)[1]
+            xs = [[(g + e).float() for g, e in zip(tree_leaves(r),
+                                                   tree_leaves(e))]
+                  for r, e in zip(grads, efs)]
+            quanta = _quanta(family, tc, xs, spec_leaves(
+                grads[0], port_specs(family)))
         state, m = step(state, tokens, targets)
         close(m["loss"].item(), float(jm[k]["loss"]), 0, rtol=1e-5)
         close(m["grad_norm"].item(), float(jm[k]["grad_norm"]), 0,
               rtol=1e-5)
-        if not codec.lossy:
-            continue
-        for i, a in enumerate(jax.tree.leaves(jstates[k]["ef"])):
-            for r, want in enumerate(device_blocks(a, jmesh)):
-                got = tree_leaves(state["ef"][r])[i].numpy()
-                gap = np.abs(got - want)
-                assert gap.max() <= bound, (family, option, k, i, r)
-                flips[i][index[r][i].numpy()[gap > 1e-6]] = True
+        if codec.lossy:
+            n_flipped.append(_check_residuals(
+                state["ef"], jstates[k]["ef"], quanta, jmesh, index, flips,
+                (family, option, k)))
+    print(f"{family} {option}: flipped roundings a step {n_flipped}")
     want = jax.tree.leaves(np_tree(jstates[-1]["params"]))
     got = [p.numpy() for p in tree_leaves(state["params"])]
     for a, b, g1, g2, flip in zip(got, want, gs[0], gs[1], flips):
@@ -356,9 +432,10 @@ def check_against_jax(family, option):
                                      AXES[family])
     jcons = np_tree(jzero.make_consolidate_fn(
         jmesh, jspecs, jlayout, None, codec.lossy)(jstates[-1]))
-    for key in ("mu", "nu"):
+    for key, f in (("mu", np.asarray), ("nu", np.sqrt)):
         for a, b in zip(tree_leaves(cons[key]), jax.tree.leaves(jcons[key])):
-            close(a.numpy(), b, 1e-5)
+            a, b = f(a.numpy().astype(np.float64)), f(b.astype(np.float64))
+            close(a, b, 1e-5 * np.abs(b).max(), rtol=1e-4)
 
 
 # ------------------------------------------------ checkpoints and convert

@@ -109,37 +109,12 @@ def test_fold_launches_are_the_codes_count(family, codec, monkeypatch):
 
 
 def _sync_launches(family, option, params):
-    """A step's sync launches as ``chip_smoke.py`` phase 24(b) derives
-    them: the whole tree, or each fired payload (the readiness plan on one
-    rank's slices; the pipeline's three tail buckets)."""
-    from flextree_tpu_torch.parallel import bucketing as bk
-    from flextree_tpu_torch.parallel import overlap as tov
-    from flextree_tpu_torch.parallel.spmd import shard_tree
-
-    mesh, axes, pspecs = port_mesh(family), AXES[family], port_specs(family)
-    sizes = dict(zip(axes, SHAPES[family]))
-    topos = ttrain.resolve_axis_topos(sizes, axes, None)
-    slices = shard_tree(params, pspecs, mesh)[0]
-    opts = OPTIONS.get(option, {})
-    tc = ttrain.TrainConfig(**opts)
-    codec = "int8" if tc.codec == "int8" else None
-    if not tc.overlap or (family == "pipeline" and tc.shard_optimizer):
-        payloads = [(slices, pspecs)]
-    elif family == "pipeline":
-        payloads = [({k: slices[k]}, {k: pspecs[k]})
-                    for k in ("ln_f", "layers", "embed")]
-    else:
-        rows = BATCH[0] // sizes["dp"] // sizes.get("ep", 1)
-        local = torch.zeros((rows, BATCH[1] // sizes["sp"]),
-                            dtype=torch.long)
-        plan, _ = ttrain.mesh_overlap_plan({}, params, pspecs, mesh, axes,
-                                           topos, tc, port_cfg(family), local,
-                                           torch.device("cpu"))
-        payloads = list(zip(tov.fired_payloads(plan, slices),
-                            tov.fired_payloads(plan, pspecs)))
-    return sum(bk.mesh_fold_launches(
-        tree_leaves(tree), bk.spec_leaves(tree, sp), axes, sizes, topos,
-        codec=codec, sharded=tc.shard_optimizer) for tree, sp in payloads)
+    """A step's sync launches under ``option``, as ``chip_smoke.py`` phase
+    24(b) derives them (``train.step_sync_fold_launches``)."""
+    tc = ttrain.TrainConfig(**OPTIONS.get(option, {}))
+    return ttrain.step_sync_fold_launches(
+        port_cfg(family), tc, params, port_specs(family), port_mesh(family),
+        AXES[family], BATCH, pipeline=family == "pipeline")
 
 
 _STEP_FOLDS: dict = {}  # a step's fold launches by (family, option)
