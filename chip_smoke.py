@@ -312,7 +312,28 @@ failure raises and exits non-zero:
     sharded step, clipping off, bitwise the replicated one (the
     consolidated moments too), the overlapped step bitwise the replicated
     one, the int8 overlapped step bitwise its serialized twin, ``ef``
-    included.
+    included;
+25. the supervised training run — (a) ``planner.autotune.autotune_plan``
+    on the card (8 ranks, the flagship gradient, f32, top 3, 3 rounds,
+    the trainer knob's call) with a fresh cache: the first call measures,
+    the winner no slower than the analytic argmin, the second call a cache
+    hit that launches no fold; the winner's allreduce bitwise its host
+    copies (fold bodies printed); ``trainer.main --mesh 8,1,1 --autotune``
+    (3 steps) on the cached winner, its fold launches the plan's; (b)
+    ``python -m flextree_tpu_torch.trainer`` (dp=1, flagship, 8 steps) in
+    a process of its own, SIGTERMed mid-run: checkpointed within one step
+    of the signal, the preempted line, exit 0; the relaunch resumes and
+    ends bitwise where a straight-through process ends; (c) ``fit`` over
+    dp=4 (global batch 12 x 1024) with a heartbeat roster of 4, ranks 1-3
+    beaten by peer processes, ``FT_LEASE`` 1.5 s: one peer SIGKILLed,
+    membership epochs 4 -> 3 with the replanned topology, the newest
+    checkpoint restored, the dp=3 step from ``on_shrink``, the loss
+    finite, launches the code's count; the survivors' sync at its new
+    lengths bitwise its host copies; (d) a dp=1 ``fit`` whose step stalls
+    once on the host: timed out, retried, bitwise an undisturbed run; a
+    ``BackgroundSaver`` checkpoint bitwise the live state; the bench's
+    ``ours_fused_supervised`` and ``ours_fused_recorded`` rows at the
+    flagship over dp=8, in turns (printed).
 
 The kernels line gives each kernel's launches by path
 (``launches_by_path``: serve, train, dp_train, allreduce, ir_families,
@@ -322,7 +343,8 @@ for phase 19(a), disagg for phase 20: the in-process decode engine's f32
 run plus the decode replica process's, pool for phase 21(a)'s f32 run,
 sp_ring, sp_zigzag and sp_ulysses for phase 22(b)'s three runs, pp_train
 and moe_train for phase 23(b)'s two, and ``wide_<option>_<family>`` for
-each of phase 24(b)'s ten runs, e.g. wide_int8_dense or wide_zero_moe)
+each of phase 24(b)'s ten runs, e.g. wide_int8_dense or wide_zero_moe;
+autotune, shrink and supervised_watchdog for phase 25(a), (c) and (d))
 and their sum (``launches``).
 
 Prints each phase's seconds, a ``{"kernels": [...]}`` line, the
@@ -5964,6 +5986,562 @@ def phase_wide(dev, smi, bw):
     return by_path, stage
 
 
+# phase 25: the supervised training run
+AT_STEPS = 3  # trainer.main --autotune steps at dp=8
+SIG_STEPS = 8  # the SIGTERM run's steps, each run a process of its own
+SIG_AT = 3  # the logged step that triggers the signal
+SIG_LINE = "I flextree_tpu_torch.train] step "
+SHRINK_WORLD = 4  # dp ranks before the shrink; 3 after
+SHRINK_BATCH = 12  # global rows: a multiple of 4 and of 3
+SHRINK_STEPS = 8
+SHRINK_KILL = 3  # the step during which a peer process is SIGKILLed
+SHRINK_LEASE_S = 1.5  # FT_LEASE of the roster (FT_STRAGGLER half of it)
+WD_STEPS = 4
+WD_STALL = 2  # the step that stalls on the host, once
+WD_TIMEOUT_S = 3.0
+SUP_BENCH_REPEAT = 5
+# a heartbeat peer: beats as rank argv[2] into argv[1] until killed
+PEER_CODE = """
+import sys, time
+sys.path.insert(0, '.')
+from flextree_tpu_torch.runtime import Supervisor, SupervisorConfig
+Supervisor(SupervisorConfig.from_env(rank=int(sys.argv[2]),
+                                     dir=sys.argv[1])).start()
+time.sleep(900)
+"""
+
+
+@contextlib.contextmanager
+def env_vars(**values):
+    """``os.environ`` with ``values`` set for the block, then as it was."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def dp_fold_launches(tm, cfg, tc, params, n, dev, batch):
+    """The fold kernel's launches of one dp=``n`` step's sync, from the
+    code (``train.step_sync_fold_launches``)."""
+    from flextree_tpu_torch.models.transformer import param_specs
+    from flextree_tpu_torch.parallel.mesh import flat_mesh
+
+    return tm.step_sync_fold_launches(cfg, tc, params, param_specs(cfg),
+                                      flat_mesh(n, dev, "dp"),
+                                      tm.AXIS_NAMES, batch)
+
+
+def autotune_checks(dev, trainer, fa, rs, tm, cm, params, cache):
+    """Phase 25(a): the autotuner on the card, its cache hit, the winner's
+    allreduce bitwise its host copies, and ``trainer.main --mesh 8,1,1
+    --autotune`` on the cached winner.  Returns the trainer run's
+    launches."""
+    from flextree_tpu_torch.models.transformer import TransformerConfig
+    from flextree_tpu_torch.parallel.mesh import flat_mesh
+    from flextree_tpu_torch.planner import autotune as at
+
+    nbytes = sum(p.numel() * p.element_size() for p in tm.tree_leaves(params))
+    # the call the trainer's knob makes (ir_families=(): the train sync
+    # runs legacy topologies), so its cache entry is the trainer's
+    kw = dict(codecs=("f32",), top_k=3, repeat=3, cache_path=cache,
+              ir_families=(), device=dev)
+    torch.cuda.synchronize()
+    rs.reduce_sources.launches = 0
+    t0 = time.monotonic()
+    plan = at.autotune_plan(DP, nbytes, **kw)
+    torch.cuda.synchronize()
+    tune_s, tune_launches = time.monotonic() - t0, rs.reduce_sources.launches
+    if plan.source != "measured" or not tune_launches:
+        raise AssertionError(f"the first autotune did not measure: "
+                             f"{plan.source}, {tune_launches} fold launches")
+    rs.reduce_sources.launches = 0
+    t0 = time.monotonic()
+    hit = at.autotune_plan(DP, nbytes, **kw)
+    hit_s, hit_launches = time.monotonic() - t0, rs.reduce_sources.launches
+    if hit.source != "cache" or hit_launches or \
+            hit.to_ft_topo() != plan.to_ft_topo():
+        raise AssertionError(f"the second autotune is not a pure cache hit: "
+                             f"{hit.source}, {hit_launches} fold launches, "
+                             f"{hit.to_ft_topo()} vs {plan.to_ft_topo()}")
+
+    def rows(table):
+        return [(w if isinstance(w, str) else tuple(w), lon, c, p, m)
+                for w, lon, c, p, m in table]
+
+    # the winner is the fastest measured row by construction; what can
+    # fail is the cache: its entry must hold the measured table exactly
+    if rows(hit.table) != rows(plan.table) or \
+            (hit.predicted_us, hit.measured_us) != \
+            (plan.predicted_us, plan.measured_us):
+        raise AssertionError(f"the cache entry's table {hit.table} is not "
+                             f"the measured one {plan.table}")
+    spec = plan.to_ft_topo()
+    log(f"phase 25(a) autotune ({DP} ranks, the flagship gradient, {nbytes} "
+        f"B f32, top 3, 3 rounds in turns): " + "; ".join(
+            f"{'*'.join(map(str, w)) if not isinstance(w, str) else w}"
+            f"{'+' + str(lon) if lon else ''} predicted {p:.1f} us, "
+            f"measured {m:.1f} us" for w, lon, _, p, m in plan.table)
+        + f"; winner {spec} ({plan.measured_us:.1f} us, the fastest row "
+        f"by construction; the analytic argmin's {plan.table[0][4]:.1f} us) "
+        f"in {tune_s:.2f} s with {tune_launches} fold launches; the second "
+        f"call a cache hit in {hit_s * 1e3:.2f} ms with {hit_launches} "
+        f"launches, its table the measured one")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 25)
+    seen = host_case(spec, DP, 1, nbytes // 4, "f32", gen, dev, flat_mesh,
+                     cm, rs)
+    log(f"phase 25(a) the winner's allreduce ({spec}, {DP} ranks, "
+        f"{nbytes // 4} f32) on the card is bitwise its host copies; fold "
+        f"bodies: {describe_bodies(seen)}")
+    torch.cuda.empty_cache()
+    with env_vars(FLEXTREE_PLAN_CACHE=cache):
+        out, launches, peak, wall = sp_train_run(
+            trainer, TRAIN_ARGV + ["--mesh", f"{DP},1,1", "--steps",
+                                   str(AT_STEPS), "--autotune"], fa, rs)
+    tc = out["train_cfg"]
+    if tc.grad_topo != {"dp": spec} or tc.autotune:
+        raise AssertionError(f"trainer --autotune ran grad_topo "
+                             f"{tc.grad_topo}, the cached winner is {spec}")
+    cfg = TransformerConfig(**MODEL, dtype=torch.bfloat16, attn_impl="flash")
+    per_step = dp_fold_launches(tm, cfg, tc, params, DP, dev,
+                                FLASH_TRAIN[:2])
+    want = AT_STEPS * MODEL["n_layers"] * DP
+    if launches["reduce_sources"] != AT_STEPS * per_step or any(
+            launches[k] != want for k in flash_counts(fa)):
+        raise AssertionError(f"trainer --autotune launches {launches}: fold "
+                             f"{AT_STEPS} x {per_step}, flash {want}")
+    losses = [loss for _, loss in out["result"].losses]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"trainer --autotune losses {losses}")
+    log(f"phase 25(a) trainer.main --mesh {DP},1,1 --autotune: grad_topo "
+        f"{tc.grad_topo} (the cached winner), {AT_STEPS} steps in "
+        f"{wall:.2f} s, loss {losses[0]:.4f} -> {losses[-1]:.4f}; fold "
+        f"launches {launches['reduce_sources']} = {AT_STEPS} x {per_step} "
+        f"(sync_fold_stages of the plan); flash {want} each")
+    return launches
+
+
+def trainer_process(args, ckpt_dir, signal_at=None):
+    """``python -m flextree_tpu_torch.trainer`` in a process of its own:
+    ``(exit code, stdout, stderr lines, wall time of the SIGTERM)``, the
+    signal sent once step ``signal_at`` is logged (None: never)."""
+    import signal
+
+    env = dict(os.environ, PYTHONPATH=HERE)
+    env.pop("FT_RANK", None)  # the log lines keep the unranked format
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "flextree_tpu_torch.trainer", *args,
+         "--ckpt-dir", ckpt_dir], cwd=HERE, env=env, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    lines, sent = [], None
+    try:
+        for line in proc.stderr:
+            lines.append(line)
+            at = line.find(SIG_LINE)
+            if signal_at is not None and sent is None and at >= 0 and int(
+                    line[at + len(SIG_LINE):].split()[0]) >= signal_at:
+                sent = time.time()
+                proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return proc.returncode, out, lines, sent
+
+
+def logged_after(lines, sent) -> list:
+    """The step numbers of ``lines`` logged after wall time ``sent``."""
+    import datetime
+
+    steps = []
+    for line in lines:
+        at = line.find(SIG_LINE)
+        if at > 0:
+            stamp = datetime.datetime.strptime(
+                line[:23], "%Y-%m-%d %H:%M:%S,%f").timestamp()
+            if stamp > sent:
+                steps.append(int(line[at + len(SIG_LINE):].split()[0]))
+    return steps
+
+
+def sigterm_checks(ckpt, tm, tmp):
+    """Phase 25(b): the dp=1 flagship trainer, a process of its own,
+    signalled mid-run: a checkpoint within one step of the signal, the
+    preempted line and exit 0; a relaunch resumes and ends bitwise where a
+    straight-through run of the same steps ends."""
+    args = TRAIN_ARGV + ["--steps", str(SIG_STEPS), "--ckpt-every", "1000"]
+
+    def final(d):
+        return ckpt.restore_train_state(d, "cpu")
+
+    clock = time.monotonic()
+    straight = os.path.join(tmp, "straight")
+    rc, out, lines, _ = trainer_process(args, straight)
+    if rc:
+        raise AssertionError(f"the straight-through run exited {rc}: "
+                             f"{''.join(lines[-10:])}")
+    straight_s = time.monotonic() - clock
+    ck = os.path.join(tmp, "preempted")
+    rc, out, lines, sent = trainer_process(args, ck, SIG_AT)
+    last = out.strip().splitlines()[-1] if out.strip() else ""
+    if rc or sent is None or "checkpointed)" not in last:
+        raise AssertionError(f"the signalled run exited {rc}, last line "
+                             f"{last!r}: {''.join(lines[-10:])}")
+    at = int(last.rsplit("preempted at step ", 1)[1].split(",")[0])
+    after = logged_after(lines, sent)
+    saved = ckpt.latest_checkpoint(ck)
+    if len(after) > 1 or not saved.endswith(f"ckpt_{at:08d}.npz") or \
+            at >= SIG_STEPS:
+        raise AssertionError(f"preempted at {at} ({saved}), steps logged "
+                             f"after the signal {after}")
+    rc, out, lines, _ = trainer_process(args, ck)
+    if rc or f"(resumed from {at})" not in out:
+        raise AssertionError(f"the relaunch exited {rc}: {out[-500:]}")
+    got, want = final(ck), final(straight)
+    same = int(got["step"]) == SIG_STEPS and all(
+        same_bits(a, b) for a, b in zip(tm.tree_leaves(got),
+                                        tm.tree_leaves(want)))
+    if not same:
+        again = os.path.join(tmp, "straight2")
+        trainer_process(args, again)
+        twin = all(same_bits(a, b) for a, b in zip(
+            tm.tree_leaves(final(again)), tm.tree_leaves(want)))
+        raise AssertionError(
+            f"the resumed run is not bitwise the straight-through run; two "
+            f"straight-through runs are {'' if twin else 'NOT '}bitwise "
+            f"equal")
+    log(f"phase 25(b) SIGTERM (dp=1 flagship trainer processes, {SIG_STEPS} "
+        f"steps): signalled after step {SIG_AT} was logged, checkpointed "
+        f"and exited 0 at step {at} (steps logged after the signal: "
+        f"{after}); the relaunch resumed from {at} and its step-"
+        f"{SIG_STEPS} state is bitwise the straight-through run's "
+        f"({straight_s:.1f} s a process)")
+
+
+def shrink_checks(dev, fa, rs, tm, bk, ckpt, params, tmp):
+    """Phase 25(c): ``fit`` over dp=4 in-process ranks with a heartbeat
+    roster of 4 (ranks 1-3 beaten by peer processes); one peer SIGKILLed,
+    the lease runs out, the survivors shrink to dp=3 (the replanned
+    topology, the newest checkpoint restored, the dp=3 step from
+    ``on_shrink``) and finish; launches the code's count; the survivors'
+    sync at its new lengths bitwise its host copies.  Returns the run's
+    launches."""
+    import signal
+
+    from flextree_tpu_torch import data as data_mod
+    from flextree_tpu_torch.models.transformer import TransformerConfig
+    from flextree_tpu_torch.parallel.loop import FitConfig, Supervision, fit
+    from flextree_tpu_torch.parallel.mesh import flat_mesh
+    from flextree_tpu_torch.planner.choose import replan_for_survivors
+    from flextree_tpu_torch.runtime import (
+        MembershipView,
+        Supervisor,
+        SupervisorConfig,
+    )
+    from flextree_tpu_torch.utils import profiling as spans
+
+    cfg = TransformerConfig(**MODEL, dtype=torch.bfloat16, attn_impl="flash")
+    tc = tm.TrainConfig(grad_clip_norm=1.0)
+    nbytes = sum(p.numel() * p.element_size() for p in tm.tree_leaves(params))
+    hb = os.path.join(tmp, "hb")
+    os.makedirs(hb)
+    lease = dict(FT_LEASE=str(SHRINK_LEASE_S),
+                 FT_STRAGGLER=str(SHRINK_LEASE_S / 2))
+    env = dict(os.environ, PYTHONPATH=HERE, **lease)
+    peers = {r: subprocess.Popen([sys.executable, "-c", PEER_CODE, hb,
+                                  str(r)], cwd=HERE, env=env)
+             for r in range(1, SHRINK_WORLD)}
+    ran = collections.Counter()  # steps run by each world size
+    topos: list = []
+
+    def counted(step, n, before=None):
+        def run(state, tokens, targets):
+            if before is not None:
+                before(int(state["step"]))
+            ran[n] += 1
+            return step(state, tokens, targets)
+        return run
+
+    def kill(at):
+        if at == SHRINK_KILL and peers[3].poll() is None:
+            peers[3].send_signal(signal.SIGKILL)
+            time.sleep(SHRINK_LEASE_S + 1.0)  # the lease runs out
+
+    def on_shrink(n_alive, plan):
+        topos.append(plan.to_ft_topo())
+        comm = flat_mesh(n_alive, dev, "dp")
+        tc3 = dataclasses.replace(tc, grad_topo=plan.to_ft_topo())
+        return counted(tm.make_train_step(cfg, tc3, comm=comm), n_alive), \
+            comm, None
+
+    try:
+        deadline = time.monotonic() + 120
+        while not all(os.path.exists(os.path.join(hb, f"hb_{r:05d}.json"))
+                      for r in peers):
+            if time.monotonic() > deadline or any(
+                    p.poll() is not None for p in peers.values()):
+                raise AssertionError("the heartbeat peers did not start")
+            time.sleep(0.2)
+        dataset = data_mod.LMDataset(
+            data_mod.synthetic_tokens(1_000_000, MODEL["vocab_size"],
+                                      seed=SEED),
+            batch=SHRINK_BATCH, seq_len=FLASH_TRAIN[1], seed=SEED)
+        state = tm.init_train_state(cfg, torch.Generator().manual_seed(SEED),
+                                    tc, device=dev)
+        step4 = tm.make_train_step(cfg, tc, comm=flat_mesh(SHRINK_WORLD, dev,
+                                                           "dp"))
+        with env_vars(**lease):
+            sup_cfg = SupervisorConfig.from_env(rank=0, dir=hb)
+            sup = Supervision(
+                supervisor=Supervisor(sup_cfg),
+                membership=MembershipView.for_config(
+                    sup_cfg, configured=SHRINK_WORLD),
+                configured_world=SHRINK_WORLD, on_shrink=on_shrink,
+                nbytes_hint=nbytes)
+            torch.cuda.synchronize()
+            zero_flash_counts(fa)
+            rs.reduce_sources.launches = 0
+            t0 = time.monotonic()
+            res = fit(state, counted(step4, SHRINK_WORLD, kill), dataset,
+                      FitConfig(num_steps=SHRINK_STEPS,
+                                ckpt_dir=os.path.join(tmp, "shrink"),
+                                ckpt_every=2, log_every=1),
+                      supervision=sup)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            launches = dict(flash_counts(fa),
+                            reduce_sources=rs.reduce_sources.launches)
+    finally:
+        for p in peers.values():
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    epochs = res.report.membership_epochs
+    replan = replan_for_survivors(SHRINK_WORLD - 1, nbytes,
+                                  configured=SHRINK_WORLD).to_ft_topo()
+    if [e["alive"] for e in epochs] != [SHRINK_WORLD, SHRINK_WORLD - 1] or \
+            epochs[1]["dead"] != [3] or topos != [epochs[1]["topo"]] or \
+            epochs[1]["topo"] != replan:
+        raise AssertionError(f"membership epochs {epochs}, on_shrink topos "
+                             f"{topos}, the replan {replan}")
+    restored = SHRINK_STEPS - ran[SHRINK_WORLD - 1]
+    if restored != epochs[1]["step"] // 2 * 2 or \
+            ran[SHRINK_WORLD] != SHRINK_KILL + 1:
+        raise AssertionError(f"steps by world {dict(ran)}: the dp=3 run did "
+                             f"not start from the newest checkpoint before "
+                             f"step {epochs[1]['step']}")
+    losses = [loss for _, loss in res.losses]
+    if not all(np.isfinite(losses)) or res.steps_run != SHRINK_STEPS:
+        raise AssertionError(f"shrink run losses {losses}, "
+                             f"{res.steps_run} steps")
+    batch = (SHRINK_BATCH, FLASH_TRAIN[1])
+    per = {n: dp_fold_launches(tm, cfg, dataclasses.replace(
+        tc, grad_topo=None if n == SHRINK_WORLD else topos[0]), params, n,
+        dev, batch) for n in ran}
+    want_fold = sum(ran[n] * per[n] for n in ran)
+    want_flash = sum(ran[n] * n for n in ran) * MODEL["n_layers"]
+    if launches["reduce_sources"] != want_fold or any(
+            launches[k] != want_flash for k in flash_counts(fa)):
+        raise AssertionError(f"shrink run launches {launches}: fold "
+                             f"{want_fold} ({dict(ran)} steps x {per}), "
+                             f"flash {want_flash}")
+    log(f"phase 25(c) live shrink (fit, flagship bf16 flash, global batch "
+        f"{SHRINK_BATCH} x {FLASH_TRAIN[1]}, roster of {SHRINK_WORLD}, "
+        f"FT_LEASE {SHRINK_LEASE_S} s): peer 3 SIGKILLed in step "
+        f"{SHRINK_KILL}; membership epochs "
+        + " -> ".join(f"{e['alive']} at step {e['step']} (topo {e['topo']})"
+                      for e in epochs)
+        + f"; restored step {restored}; steps by world {dict(ran)}; "
+        f"{SHRINK_STEPS} steps in {wall:.2f} s, loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}; fold launches {launches['reduce_sources']} = "
+        f"{' + '.join(f'{ran[n]} x {per[n]}' for n in sorted(ran))}; flash "
+        f"{want_flash} each")
+    # the survivors' sync at its new lengths against its host copies
+    gen = torch.Generator(device=dev).manual_seed(SEED + 253)
+    trees = [tm.tree_map(lambda p: torch.randn(p.shape, generator=gen,
+                                               device=dev), params)
+             for _ in range(SHRINK_WORLD - 1)]
+    buckets, got, tree_bytes = check_sync(trees, topos[0], 1, dev, flat_mesh,
+                                          tm, bk, rs, spans)
+    log(f"phase 25(c) the survivors' sync ({SHRINK_WORLD - 1} ranks, topo "
+        f"{topos[0]}, {len(buckets)} buckets of {tree_bytes} B a rank): "
+        f"per-leaf and bucketed bitwise, fold launches {got} the code's, "
+        f"bitwise its host copies")
+    return launches
+
+
+def watchdog_checks(dev, fa, tm, ckpt, tmp):
+    """Phase 25(d): a dp=1 flagship ``fit`` whose step stalls once on the
+    host: timed out, retried and bitwise an undisturbed run, the stalled
+    worker's step released and finished afterwards; the periodic saves on
+    a ``BackgroundSaver``, and one of its checkpoints bitwise the live
+    state while later steps run.  Returns the supervised run's launches
+    (the abandoned step's included)."""
+    import threading
+
+    from flextree_tpu_torch import data as data_mod
+    from flextree_tpu_torch.models.transformer import TransformerConfig
+    from flextree_tpu_torch.parallel.loop import FitConfig, Supervision, fit
+    from flextree_tpu_torch.runtime import BackgroundSaver
+
+    cfg = TransformerConfig(**MODEL, dtype=torch.bfloat16, attn_impl="flash")
+    tc = tm.TrainConfig(grad_clip_norm=1.0)
+    dataset = data_mod.LMDataset(
+        data_mod.synthetic_tokens(1_000_000, MODEL["vocab_size"], seed=SEED),
+        batch=FLASH_TRAIN[0], seq_len=FLASH_TRAIN[1], seed=SEED)
+    init = tm.init_train_state(cfg, torch.Generator().manual_seed(SEED), tc,
+                               device=dev)
+    step = tm.make_train_step(cfg, tc, device=dev)
+    plain = fit(init, step, dataset, FitConfig(num_steps=WD_STEPS,
+                                               log_every=0))
+    release, finished, stalled = threading.Event(), threading.Event(), []
+
+    def stalling(state, tokens, targets):
+        if int(state["step"]) == WD_STALL and not stalled:
+            stalled.append(threading.current_thread().name)
+            release.wait(300)  # a host stall, past the deadline
+            try:
+                return step(state, tokens, targets)
+            finally:
+                torch.cuda.synchronize()
+                finished.set()
+        return step(state, tokens, targets)
+
+    saver = BackgroundSaver(os.path.join(tmp, "wd"))
+    try:
+        torch.cuda.synchronize()
+        zero_flash_counts(fa)
+        t0 = time.monotonic()
+        res = fit(init, stalling, dataset,
+                  FitConfig(num_steps=WD_STEPS,
+                            ckpt_dir=os.path.join(tmp, "wd"), ckpt_every=2,
+                            log_every=0),
+                  supervision=Supervision(step_timeout_s=WD_TIMEOUT_S,
+                                          max_step_retries=1,
+                                          background_saver=saver))
+        wall = time.monotonic() - t0
+        release.set()
+        if not finished.wait(300):
+            raise AssertionError("the abandoned step never finished")
+        launches = flash_counts(fa)
+    finally:
+        release.set()
+        saver.close()
+    rep = res.report
+    same = all(same_bits(a, b) for a, b in zip(tm.tree_leaves(res.state),
+                                               tm.tree_leaves(plain.state)))
+    want = (WD_STEPS + 1) * MODEL["n_layers"]
+    if (rep.step_timeouts, rep.step_retries) != (1, 1) or not same or \
+            rep.background_saves < 1 or any(v != want
+                                            for v in launches.values()):
+        raise AssertionError(
+            f"watchdog run: {rep.step_timeouts} timeouts, {rep.step_retries} "
+            f"retries, bitwise {same}, {rep.background_saves} background "
+            f"saves, flash launches {launches} (want {want})")
+    # a background checkpoint of the live state while later steps run
+    live = res.state
+    with BackgroundSaver(os.path.join(tmp, "bg")) as bg:
+        bg.submit(live)
+        st = live
+        tokens, targets = dataset.batch_at(WD_STEPS)
+        for _ in range(2):
+            st, _m = step(st, tokens, targets)
+        if not bg.drain(120):
+            raise AssertionError("the background save did not land")
+    saved = ckpt.restore_train_state(os.path.join(tmp, "bg"), "cpu")
+    if not all(same_bits(a.cpu(), b) for a, b in
+               zip(tm.tree_leaves(live), tm.tree_leaves(saved))):
+        raise AssertionError("the background checkpoint is not bitwise the "
+                             "live state")
+    log(f"phase 25(d) watchdog (dp=1 flagship fit, {WD_STEPS} steps, "
+        f"deadline {WD_TIMEOUT_S} s): step {WD_STALL} stalled on the host, "
+        f"timed out and retried ({rep.step_timeouts} timeout, "
+        f"{rep.step_retries} retry) in {wall:.2f} s; the run is bitwise the "
+        f"undisturbed one; the abandoned step finished after it; flash "
+        f"launches {want} each = {WD_STEPS + 1} steps x "
+        f"{MODEL['n_layers']} layers; {rep.background_saves} background "
+        f"saves; a background checkpoint taken while 2 more steps ran is "
+        f"bitwise the live state")
+    return launches
+
+
+def supervision_bench(dev, smi):
+    """Phase 25(d): the train-step bench's supervised and recorded rows at
+    the flagship width over dp=8, timed in turns (printed, not gated)."""
+    from flextree_tpu_torch.bench.harness import (
+        TrainStepBenchConfig,
+        run_train_step_bench,
+    )
+
+    out = run_train_step_bench(TrainStepBenchConfig(
+        n_layers=MODEL["n_layers"], d_model=MODEL["d_model"],
+        d_ff=MODEL["d_ff"], n_heads=MODEL["n_heads"],
+        vocab_size=MODEL["vocab_size"], batch=FLASH_TRAIN[0],
+        seq_len=FLASH_TRAIN[1], devices=DP, repeat=SUP_BENCH_REPEAT,
+        supervised=True, recorder=True, device=str(dev)))
+    rows = out["rows"]
+    fused = rows["ours_fused"]
+    sup, rec = rows["ours_fused_supervised"], rows["ours_fused_recorded"]
+    log(f"phase 25(d) bench ({smi}; flagship bf16 flash, dp={DP}, "
+        f"{SUP_BENCH_REPEAT} rounds in turns; printed, not gated): "
+        f"ours_fused min {fused['train_step_ms']:.3f} ms (median "
+        f"{fused['train_step_median_ms']:.3f}); ours_fused_supervised min "
+        f"{sup['train_step_ms']:.3f} ms (median "
+        f"{sup['train_step_median_ms']:.3f}), supervision_overhead "
+        f"{sup['supervision_overhead']:.4f}; ours_fused_recorded min "
+        f"{rec['train_step_ms']:.3f} ms (median "
+        f"{rec['train_step_median_ms']:.3f}), recorder_overhead "
+        f"{rec['recorder_overhead']:.4f}; all bitwise the per-leaf step")
+    return rows
+
+
+def phase_supervised(dev, smi):
+    """Phase 25: the supervised training run — (a) :func:`autotune_checks`,
+    (b) :func:`sigterm_checks`, (c) :func:`shrink_checks`, (d)
+    :func:`watchdog_checks` and :func:`supervision_bench`.  Returns the
+    launches by path (``autotune``, ``shrink``, ``supervised_watchdog``)."""
+    import tempfile
+
+    from flextree_tpu_torch import trainer
+    from flextree_tpu_torch.models.transformer import (
+        TransformerConfig,
+        init_params,
+    )
+    from flextree_tpu_torch.ops import flash_attention as fa
+    from flextree_tpu_torch.ops import reduce_stacked as rs
+    from flextree_tpu_torch.parallel import bucketing as bk
+    from flextree_tpu_torch.parallel import compressed as cm
+    from flextree_tpu_torch.parallel import train as tm
+    from flextree_tpu_torch.utils import checkpoint as ckpt
+
+    params = init_params(TransformerConfig(**MODEL),
+                         torch.Generator().manual_seed(SEED), device=dev)
+    by_path = {}
+    with tempfile.TemporaryDirectory(prefix="ft-sup-") as tmp:
+        for part, run in (
+            ("a", lambda: by_path.update(autotune=autotune_checks(
+                dev, trainer, fa, rs, tm, cm, params,
+                os.path.join(tmp, "plans.json")))),
+            ("b", lambda: sigterm_checks(ckpt, tm, tmp)),
+            ("c", lambda: by_path.update(shrink=shrink_checks(
+                dev, fa, rs, tm, bk, ckpt, params, tmp))),
+            ("d", lambda: (by_path.update(
+                supervised_watchdog=watchdog_checks(dev, fa, tm, ckpt, tmp)),
+                supervision_bench(dev, smi))),
+        ):
+            clock = time.monotonic()
+            run()
+            torch.cuda.empty_cache()
+            log(f"phase 25({part}): {time.monotonic() - clock:.1f} s")
+    return by_path
+
+
 def collective_phases(dev, bw) -> list:
     """Phases 11-15 (the FlexTree collectives); returns their rows of the
     kernels line (``reduce_sources`` and ``reduce_stacked``, the fold
@@ -6477,6 +7055,9 @@ def main() -> int:
     wide_launches, _ = phase_wide(dev, smi, bw)
     sp_launches.update(wide_launches)
     log(f"phase 24: {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    sp_launches.update(phase_supervised(dev, smi))
+    log(f"phase 25: {time.monotonic() - t0:.1f} s")
     # each path's launches beside their sum
     for row in rows:
         if row["name"] in dp_launches:

@@ -45,6 +45,7 @@ report names the device it ran on.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -641,10 +642,17 @@ class TrainStepBenchConfig:
     the ZeRO-1 rows ``ours_sharded`` (float32 wire, held bitwise to the
     per-leaf step) and ``ours_sharded_int8`` (both wires int8), each with
     its per-rank optimizer-state ratio
-    (:func:`..parallel.zero.zero_shard_bytes`).  ``supervised`` and
-    ``recorder`` (the JAX rows of the supervision host path and the flight
-    recorder) wait for their modules and raise; ``supervised`` defaults to
-    False here, where JAX's is True."""
+    (:func:`..parallel.zero.zero_shard_bytes`).  ``supervised`` adds
+    ``ours_fused_supervised`` (the fused step on a live step watchdog's
+    worker, its device work waited for there as ``fit`` waits for it, the
+    duration fed to an EWMA and a heartbeat ``Supervisor``:
+    ``supervision_overhead``, its ms over the fused step's) and
+    ``recorder`` adds ``ours_fused_recorded`` (the fused step between a
+    flight recorder's ``step_start`` and ``step_end`` events, the latter
+    spilling the JSONL buffer, and one histogram observe:
+    ``recorder_overhead``).  Both are printed, not gated.  ``supervised``
+    defaults to False here, where JAX's is True, so a caller that asks for
+    no row gets the rows it always had."""
 
     n_layers: int = 6
     d_model: int = 64
@@ -671,9 +679,10 @@ def make_nosync_train_step(model_cfg, train_cfg, device=None, comm=None):
     (the ranks' gradients are never summed), but the baseline the overlap
     bench needs: a step's time over this one's is the sync time that
     extended the step (``utils.profiling.exposed_split``)."""
+    from ..ops.quantize import get_codec
     from ..parallel import train as tm
 
-    tm._refuse_unported(train_cfg)
+    get_codec(train_cfg.codec)  # raises for an unknown codec
     dev, dp, local = tm._local_ranks(comm, device)
 
     def step(state, tokens, targets):
@@ -721,14 +730,6 @@ def run_train_step_bench(cfg: TrainStepBenchConfig) -> dict:
     )
     from ..utils.profiling import exposed_split
 
-    refusals = ((cfg.supervised, "supervised=True"),
-                (cfg.recorder, "recorder=True"))
-    for bad, what in refusals:
-        if bad:
-            raise NotImplementedError(f"TrainStepBenchConfig {what} is not "
-                                      f"ported yet (ROADMAP.md, Queue 1: "
-                                      f"'Checkpoint, supervision and "
-                                      f"feedback plumbing')")
     dev = resolve_device(cfg.device)
     n = cfg.devices or 8
     mesh = flat_mesh(n, dev, "dp")
@@ -814,6 +815,108 @@ def run_train_step_bench(cfg: TrainStepBenchConfig) -> dict:
             shard_bytes[name] = dict(zero_shard_bytes(layout,
                                                       tc2.codec != "f32"),
                                      live_bytes_per_rank=held)
+    with contextlib.ExitStack() as hosts:
+        steps.update(_host_path_steps(cfg, steps["ours_fused"], dev, hosts))
+        states_in.update({name: state for name in steps
+                          if name not in states_in})
+        rows, identical = _train_step_rows(cfg, steps, syncs, states_in,
+                                           toks, tgts, dev, shard_bytes)
+    if cfg.overlap:
+        nosync_ms = rows["no_sync"]["train_step_ms"]
+        # the twin hides nothing, so its exposure is the overlapped step's
+        # sync total (the same buckets, the same payloads)
+        twin_exposed = max(
+            rows["ours_overlap_serialized"]["train_step_ms"] - nosync_ms,
+            0.0)
+        for name in syncs:
+            total = twin_exposed if name.startswith("ours_overlap") else \
+                rows[name]["sync_ms"]
+            exp, hid = exposed_split(rows[name]["train_step_ms"], nosync_ms,
+                                     total)
+            # a zero exposure (fully hidden, or noise crossing zero) must
+            # not put Infinity into the report
+            rows[name].update(exposed_comm_ms=exp, hidden_comm_ms=hid,
+                              exposed_vs_serialized=twin_exposed
+                              / max(exp, 0.1))
+    return {
+        "config": dataclasses.asdict(cfg),
+        "num_devices": n,
+        "device": _device_info(dev),
+        "n_grad_leaves": n_leaves,
+        "identical": identical,
+        "overlap_plan": None if plan is None else dataclasses.asdict(plan),
+        "opt_state_bytes": shard_bytes or None,
+        "rows": rows,
+    }
+
+
+def _host_path_steps(cfg, fused, dev, stack) -> dict:
+    """The rows that wrap the fused step in a host path: with
+    ``cfg.supervised`` the supervision one (a watchdog worker that also
+    waits for the device, as ``fit``'s does, an EWMA and a heartbeat
+    ``Supervisor`` fed the duration) and with ``cfg.recorder`` the flight
+    recorder's (two events, a spill, a histogram observe).  Their threads
+    and directories close with ``stack``."""
+    import shutil
+    import tempfile
+
+    from ..obs.metrics import MetricsRegistry
+    from ..obs.recorder import FlightRecorder
+    from ..runtime.supervisor import Supervisor, SupervisorConfig
+    from ..runtime.watchdog import StepWatchdog
+    from ..utils.profiling import Ewma
+
+    steps = {}
+    if cfg.supervised:
+        hb_dir = tempfile.mkdtemp(prefix="ft_hb_bench_")
+        stack.callback(shutil.rmtree, hb_dir, ignore_errors=True)
+        sup = stack.enter_context(
+            Supervisor(SupervisorConfig(rank=0, dir=hb_dir, interval_s=0.25)))
+        wd = stack.enter_context(StepWatchdog())
+        ewma = Ewma()
+
+        def on_worker(s, tk, tg):
+            out = fused(s, tk, tg)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            return out
+
+        def supervised_step(s, tk, tg):
+            t0 = time.perf_counter()
+            out = wd.run(on_worker, s, tk, tg, timeout_s=60.0, step=0)
+            dur = time.perf_counter() - t0
+            ewma.update(dur)
+            sup.record_step(0, dur)
+            return out
+
+        steps["ours_fused_supervised"] = supervised_step
+    if cfg.recorder:
+        obs_dir = tempfile.mkdtemp(prefix="ft_obs_bench_")
+        stack.callback(shutil.rmtree, obs_dir, ignore_errors=True)
+        rec = stack.enter_context(FlightRecorder(obs_dir, rank=0,
+                                                 source="train"))
+        hist = MetricsRegistry().histogram("train.step_ms")
+
+        def recorded_step(s, tk, tg):
+            t0 = time.perf_counter()
+            rec.record("step_start", step=0)
+            out = fused(s, tk, tg)
+            rec.record("step_end", step=0)
+            hist.observe((time.perf_counter() - t0) * 1e3)
+            return out
+
+        steps["ours_fused_recorded"] = recorded_step
+    return steps
+
+
+def _train_step_rows(cfg, steps, syncs, states_in, toks, tgts, dev,
+                     shard_bytes):
+    """``(rows, identical)`` of :func:`run_train_step_bench`: every step
+    warmed and held to the per-leaf step's parameters (bitwise, the int8
+    and no-sync rows aside), then the steps and the syncs each timed in
+    turns."""
+    from ..parallel.train import tree_leaves
+
     states_out = {name: step(states_in[name], toks, tgts)[0]  # warm-up too
                   for name, step in steps.items()}
     for fn in set(syncs.values()):
@@ -840,6 +943,7 @@ def run_train_step_bench(cfg: TrainStepBenchConfig) -> dict:
     if cfg.overlap:
         sync_times["ours_overlap_serialized"] = sync_times["ours_overlapped"]
     rows = {}
+    fused_ms = step_times["ours_fused"]["min_ms"]
     for name, t in step_times.items():
         rows[name] = {"train_step_ms": t["min_ms"],
                       "train_step_avg_ms": t["avg_ms"],
@@ -853,32 +957,15 @@ def run_train_step_bench(cfg: TrainStepBenchConfig) -> dict:
                                          / t["min_ms"])
         if name in shard_bytes:
             rows[name]["opt_state_bytes_ratio"] = shard_bytes[name]["ratio"]
-    if cfg.overlap:
-        nosync_ms = step_times["no_sync"]["min_ms"]
-        # the twin hides nothing, so its exposure is the overlapped step's
-        # sync total (the same buckets, the same payloads)
-        twin_exposed = max(
-            step_times["ours_overlap_serialized"]["min_ms"] - nosync_ms, 0.0)
-        for name in syncs:
-            total = twin_exposed if name.startswith("ours_overlap") else \
-                rows[name]["sync_ms"]
-            exp, hid = exposed_split(rows[name]["train_step_ms"], nosync_ms,
-                                     total)
-            # a zero exposure (fully hidden, or noise crossing zero) must
-            # not put Infinity into the report
-            rows[name].update(exposed_comm_ms=exp, hidden_comm_ms=hid,
-                              exposed_vs_serialized=twin_exposed
-                              / max(exp, 0.1))
-    return {
-        "config": dataclasses.asdict(cfg),
-        "num_devices": n,
-        "device": _device_info(dev),
-        "n_grad_leaves": n_leaves,
-        "identical": identical,
-        "overlap_plan": None if plan is None else dataclasses.asdict(plan),
-        "opt_state_bytes": shard_bytes or None,
-        "rows": rows,
-    }
+    if "ours_fused_supervised" in rows:
+        row = rows["ours_fused_supervised"]
+        row["sync_ms"] = sync_times["ours_fused"]["min_ms"]  # same sync
+        row["compute_ms"] = max(row["train_step_ms"] - row["sync_ms"], 0.0)
+        row["supervision_overhead"] = row["train_step_ms"] / fused_ms
+    if "ours_fused_recorded" in rows:
+        rows["ours_fused_recorded"]["recorder_overhead"] = \
+            rows["ours_fused_recorded"]["train_step_ms"] / fused_ms
+    return rows, identical
 
 
 def _interleaved_times(calls: dict, repeat: int, device) -> dict:

@@ -21,17 +21,38 @@ with the same contract as the JAX loop:
   (:class:`..obs.MetricsRegistry`), whose snapshot the
   :class:`RunReport` carries.
 
-Supervision (watchdog, heartbeats, live shrink, preemption), the arbiter
-lease and the feedback replan are not ported yet (ROADMAP.md, Queue 1:
-"Checkpoint, supervision and feedback plumbing"): passing
-``supervision=`` or ``arbiter=`` raises.
+Runtime supervision (JAX's ``Supervision``, field for field): pass a
+:class:`Supervision` and the loop gains a step watchdog (a hung step
+raises a typed ``FT_STEP_TIMEOUT`` instead of blocking forever, with a
+bounded retry for transient stalls), heartbeat-driven membership (this
+rank beats through a ``runtime.Supervisor``; dead peers confirmed by the
+``membership`` view trigger live shrink-to-survivors: drain pending
+saves, restore the newest CRC-verified checkpoint, replan the collective
+topology with ``planner.replan_for_survivors``, rebuild the step through
+``on_shrink`` and resume, with no process restart), straggler
+accounting, and preemption-aware checkpointing (a
+``runtime.PreemptionGuard``'s SIGTERM flag takes a synchronous
+"checkpoint now" path within one step; a ``runtime.BackgroundSaver``
+moves periodic saves off the step path).  ``Supervision()`` with every
+field None leaves the loop as it is without it.
+
+A retried step is exact: the step is functional and writes into no
+buffer that outlives it (the in-process transport's messages land in
+each call's own buffers, ZeRO-1's ``_Slots`` hold indices and its shard
+buffers are new a step, the overlap side stream is joined before the
+step returns, and each rank's ``ef`` is a new tree), so the abandoned
+worker, should it finish, leaves nothing the retry reads.
+
+The closed-loop feedback controller (``Supervision(feedback=)``), the
+coordinated control plane (``Supervision(coordination=)``) and the
+arbiter lease (``fit(arbiter=)``) are not ported yet (ROADMAP.md, Queue
+1: 'Checkpoint, supervision and feedback plumbing'): they raise.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
-import logging
 import math
 import os
 import time
@@ -39,22 +60,39 @@ from typing import Any, Callable
 
 import torch
 
-from ..obs import MetricsRegistry, record_event
+from ..obs import MetricsRegistry, dump_current, get_registry, record_event
 from ..utils.checkpoint import (
     latest_checkpoint,
     restore_train_state,
     save_train_state,
 )
+from ..utils.logging import get_logger
 
-__all__ = ["FitConfig", "FitResult", "RunReport", "TrainingDiverged", "fit"]
+__all__ = [
+    "FitConfig",
+    "FitResult",
+    "RunReport",
+    "ShrinkExhausted",
+    "Supervision",
+    "TrainingDiverged",
+    "fit",
+]
 
-log = logging.getLogger("flextree_tpu_torch.train")
+log = get_logger("flextree_tpu_torch.train")
+
+_ITEM = ("ROADMAP.md, Queue 1: 'Checkpoint, supervision and feedback "
+         "plumbing'")
 
 
 class TrainingDiverged(RuntimeError):
     """The NaN/Inf guard exhausted its recovery budget: ``max_bad_steps``
     consecutive anomalies with no checkpoint to rewind to, or
     ``max_rewinds`` rewinds that did not cure the divergence."""
+
+
+class ShrinkExhausted(RuntimeError):
+    """Peers kept dying past the ``Supervision.max_shrinks`` budget — the
+    run refuses to keep replanning around a collapsing world."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,15 +115,73 @@ class FitConfig:
 
 
 @dataclasses.dataclass
+class Supervision:
+    """Runtime-supervision wiring for :func:`fit`, the JAX
+    ``Supervision`` field for field (a None field leaves its feature off).
+
+    ``supervisor``: a ``runtime.Supervisor`` — this rank's heartbeat
+    emitter, started and stopped by ``fit`` and fed each step's duration.
+    ``membership``: a ``runtime.MembershipView`` (or any callable
+    returning ``{rank: state_str}``) polled every ``check_every`` steps.
+    ``configured_world``: the roster size at start (default: the first
+    poll's).  ``step_timeout_s``: the watchdog deadline (None reads
+    ``FT_STEP_TIMEOUT``; unset: no watchdog); a timed-out step is retried
+    up to ``max_step_retries`` times when no death is confirmed, then the
+    ``runtime.StepTimeout`` propagates.  ``on_shrink(n_alive, plan)``:
+    the rebuild hook of a shrink — None keeps the current step, a
+    ``(step_fn, comm, None)`` triple runs the survivor world's step, and
+    a 5-tuple adds ``(state_pack, state_unpack)`` for it (ZeRO-1's
+    reshard: the survivors restore the consolidated checkpoint, or
+    consolidate the live state when there is none, and recarve it).
+    ``nbytes_hint`` prices the replan; ``max_shrinks`` bounds them.
+    ``preemption``: a ``runtime.PreemptionGuard`` polled every
+    iteration.  ``background_saver``: a ``runtime.BackgroundSaver`` for
+    the periodic saves (the final save stays synchronous, after a drain).
+
+    ``feedback`` and ``coordination`` (the JAX closed-loop planner and
+    coordinated control plane) are not ported: setting either raises."""
+
+    supervisor: Any = None
+    membership: Any = None
+    configured_world: int | None = None
+    check_every: int = 1
+    step_timeout_s: float | None = None
+    max_step_retries: int = 1
+    on_shrink: Callable | None = None
+    nbytes_hint: int = 4 << 20
+    max_shrinks: int = 2
+    preemption: Any = None
+    background_saver: Any = None
+    feedback: Any = None
+    coordination: Any = None
+
+
+@dataclasses.dataclass
 class RunReport:
-    """End-of-run accounting of what the recovery machinery did (the
-    unsupervised subset of the JAX ``RunReport``)."""
+    """End-of-run accounting of what the recovery machinery did: the JAX
+    ``RunReport``'s fields and names (the feedback, lease and control
+    fields stay zero and empty: their modules are not ported)."""
 
     anomalies: int = 0  # non-finite steps skipped
     skipped_steps: list = dataclasses.field(default_factory=list)
     rewinds: int = 0  # checkpoint rewinds after consecutive anomalies
     ckpt_fallbacks: int = 0  # corrupt checkpoints skipped during restore
     resumed_from: int = 0
+    init_retries: int = 0  # bring-up attempts beyond the first
+    # --- runtime supervision (all zero/empty when fit ran unsupervised) ---
+    step_timeouts: int = 0  # watchdog deadlines hit (FT_STEP_TIMEOUT)
+    step_retries: int = 0  # timed-out steps retried (no death confirmed)
+    stragglers: list = dataclasses.field(default_factory=list)
+    feedback_refits: int = 0
+    feedback_replans: int = 0
+    feedback_refusals: int = 0
+    lease_epochs: list = dataclasses.field(default_factory=list)
+    # membership epochs: entry 0 is the starting world, one more per live
+    # shrink — {"step", "alive", "configured", "topo", "dead"}
+    membership_epochs: list = dataclasses.field(default_factory=list)
+    control_epochs: list = dataclasses.field(default_factory=list)
+    preempted_at: int | None = None  # step the SIGTERM checkpoint ran at
+    background_saves: int = 0  # off-step-path checkpoint writes
     # the run's metrics registry snapshot (train.step_ms and the counters)
     metrics: dict | None = None
 
@@ -122,13 +218,36 @@ def _stamp_step(state: dict, step: int) -> dict:
     return new
 
 
+def _apply_rebuild(rebuilt, cur_pack, cur_unpack):
+    """``(step_fn, state_pack, state_unpack)`` of an ``on_shrink`` result:
+    a triple keeps the current checkpoint converters (its comm and specs
+    are the caller's; restores go to the device of ``state['step']``)."""
+    if len(rebuilt) == 5:
+        return rebuilt[0], rebuilt[3], rebuilt[4]
+    return rebuilt[0], cur_pack, cur_unpack
+
+
+def _refuse_unported(supervision, arbiter) -> None:
+    for bad, what in ((arbiter is not None, "fit(arbiter=)"),
+                      (supervision is not None
+                       and supervision.feedback is not None,
+                       "Supervision(feedback=)"),
+                      (supervision is not None
+                       and supervision.coordination is not None,
+                       "Supervision(coordination=)")):
+        if bad:
+            raise NotImplementedError(f"{what} is not ported yet ({_ITEM})")
+
+
 def fit(state, step_fn: Callable, dataset, cfg: FitConfig = FitConfig(), *,
-        supervision=None, arbiter=None, state_pack: Callable | None = None,
+        supervision: Supervision | None = None, arbiter=None,
+        state_pack: Callable | None = None,
         state_unpack: Callable | None = None) -> FitResult:
     """Run ``step_fn`` for ``cfg.num_steps`` total steps over ``dataset``.
 
     Restores go to the device of ``state['step']``.  The run's metrics
-    registry receives ``train.step_ms`` and the run's counters; its
+    registry (the ambient one when a flight recorder is installed, else
+    the run's own) receives ``train.step_ms`` and the run's counters; its
     snapshot is ``result.report.metrics``.
 
     ``state_pack``/``state_unpack`` convert the live state to and from its
@@ -136,27 +255,34 @@ def fit(state, step_fn: Callable, dataset, cfg: FitConfig = FitConfig(), *,
     restore returns ``state_unpack(loaded)``.  The ZeRO-1 trainer passes
     :func:`.zero.make_consolidate_fn` and :func:`.zero.make_reshard_fn`,
     so its checkpoints are the replicated layout, the same for any world
-    size."""
-    if supervision is not None or arbiter is not None:
-        raise NotImplementedError(
-            "fit(supervision=/arbiter=) is not ported yet (ROADMAP.md, "
-            "Queue 1: 'Checkpoint, supervision and feedback plumbing')"
-        )
+    size; a live shrink may swap both through ``on_shrink``'s 5-tuple.
+
+    ``supervision`` arms the runtime supervision (:class:`Supervision`);
+    without it the loop is the unsupervised one."""
+    _refuse_unported(supervision, arbiter)
     report = RunReport()
-    reg = MetricsRegistry()
+    sup = supervision
+    reg = get_registry()
+    if reg is None:
+        reg = MetricsRegistry()
     step_ms = reg.histogram("train.step_ms")
     dev = state["step"].device
+    # the current epoch's step and converters: a live shrink swaps them
+    cur_step_fn, cur_pack, cur_unpack = step_fn, state_pack, state_unpack
 
     def _fallback(bad_path, exc):
         report.ckpt_fallbacks += 1
 
     def _restore():
         loaded = restore_train_state(cfg.ckpt_dir, dev, on_fallback=_fallback)
-        return loaded if state_unpack is None else state_unpack(loaded)
+        return loaded if cur_unpack is None else cur_unpack(loaded)
 
-    def _save(state):
-        save_train_state(cfg.ckpt_dir, state if state_pack is None
-                         else state_pack(state), max_to_keep=cfg.max_to_keep)
+    def _packed(s):
+        return s if cur_pack is None else cur_pack(s)
+
+    def _save(s):
+        save_train_state(cfg.ckpt_dir, _packed(s),
+                         max_to_keep=cfg.max_to_keep)
 
     resumed_from = 0
     if cfg.resume and cfg.ckpt_dir and latest_checkpoint(cfg.ckpt_dir):
@@ -180,23 +306,201 @@ def fit(state, step_fn: Callable, dataset, cfg: FitConfig = FitConfig(), *,
         return None
 
     batches = _batches(start)
+
+    def _run_step(st, tokens, targets):
+        # the step's device work is waited for inside the call, so the
+        # watchdog's deadline covers the kernels, not only their launch
+        out = cur_step_fn(st, tokens, targets)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return out
+
+    # ---- runtime supervision (sup=None leaves the unsupervised loop)
+    watchdog = step_timeout = world = None
+    known_dead: set = set()
+    flagged_stragglers: set = set()
+    shrinks = timeout_retries = 0
+    if sup is not None:
+        from ..runtime.watchdog import (
+            StepTimeout,
+            StepWatchdog,
+            step_timeout_from_env,
+        )
+
+        step_timeout = (sup.step_timeout_s if sup.step_timeout_s is not None
+                        else step_timeout_from_env())
+        if step_timeout is not None:
+            watchdog = StepWatchdog()
+        if sup.supervisor is not None:
+            sup.supervisor.start()
+
+        def _poll_membership() -> dict | None:
+            """The liveness source as ``{rank: state_str}``."""
+            m = sup.membership
+            if m is None:
+                return None
+            if hasattr(m, "poll"):
+                return {r: s.state for r, s in m.poll().items()}
+            return dict(m())
+
+        def _drained_saves(timeout=30.0) -> bool:
+            """True when no background save is pending or in flight; False
+            means a slow save still owns the directory, and the caller
+            must start no second writer (or restore) against it."""
+            if sup.background_saver is None:
+                return True
+            ok = sup.background_saver.drain(timeout)
+            if not ok:
+                log.warning("background save still in flight after %.0fs "
+                            "drain; skipping the conflicting synchronous "
+                            "writer", timeout)
+            return ok
+
+        def _shrink(at_step, new_dead):
+            """Live shrink-to-survivors: drain, rebuild, restore, resume."""
+            nonlocal state, world, shrinks, step, batches
+            nonlocal cur_step_fn, cur_pack, cur_unpack
+            from ..planner.choose import replan_for_survivors
+
+            prev_world = world
+            n_alive = max(1, world - len(new_dead))
+            plan = replan_for_survivors(n_alive, sup.nbytes_hint,
+                                        configured=prev_world)
+            log.warning("membership shrink at step %d: ranks %s dead, %d/%d "
+                        "alive; replanned topo %s", at_step, new_dead,
+                        n_alive, prev_world, plan.to_ft_topo())
+            _drained_saves(timeout=None)  # a restore never races a save
+            old_pack = cur_pack  # the old world's consolidator, pre-swap
+            rebuilt = (sup.on_shrink(n_alive, plan)
+                       if sup.on_shrink is not None else None)
+            if rebuilt is not None:
+                cur_step_fn, cur_pack, cur_unpack = _apply_rebuild(
+                    rebuilt, cur_pack, cur_unpack)
+            if cfg.ckpt_dir and latest_checkpoint(cfg.ckpt_dir):
+                state = _restore()
+                step = int(state["step"])
+                log.warning("restored checkpointed step %d for the survivor "
+                            "world", step)
+            elif old_pack is not None or cur_unpack is not None:
+                # no checkpoint yet, but the layout depends on the world
+                # (ZeRO-1 shards): the old world consolidates the live
+                # state, the survivor world recarves it
+                packed = old_pack(state) if old_pack is not None else state
+                state = cur_unpack(packed) if cur_unpack is not None \
+                    else packed
+                log.warning("no checkpoint to restore: resharded the live "
+                            "state for the survivor world")
+            world = n_alive
+            shrinks += 1
+            report.membership_epochs.append({
+                "step": at_step, "alive": n_alive, "configured": prev_world,
+                "topo": plan.to_ft_topo(), "dead": list(new_dead)})
+            record_event("shrink", step=at_step, dead=list(new_dead),
+                         alive=n_alive, configured=prev_world,
+                         topo=plan.to_ft_topo())
+            dump_current("peer_shrink", step=at_step, dead=list(new_dead))
+            batches = _batches(step)
+
+        def _membership_tick(at_step) -> str:
+            """One liveness poll: record stragglers, shrink on new deaths.
+            Returns "shrunk", "ok" or "unknown" (no membership source)."""
+            nonlocal world
+            statuses = _poll_membership()
+            if statuses is None:
+                return "unknown"
+            if world is None:
+                world = sup.configured_world or len(statuses)
+            for r, st in sorted(statuses.items()):
+                if st == "straggler" and r not in flagged_stragglers:
+                    flagged_stragglers.add(r)
+                    report.stragglers.append({"rank": r, "step": at_step})
+                    record_event("straggler", peer=r, step=at_step)
+                    log.warning("rank %d classified straggler at step %d",
+                                r, at_step)
+            new_dead = sorted(r for r, st in statuses.items()
+                              if st == "dead" and r not in known_dead)
+            if not new_dead:
+                return "ok"
+            known_dead.update(new_dead)
+            if shrinks >= sup.max_shrinks:
+                raise ShrinkExhausted(
+                    f"ranks {new_dead} died at step {at_step} after "
+                    f"{shrinks} shrink(s); max_shrinks={sup.max_shrinks}")
+            _shrink(at_step, new_dead)
+            return "shrunk"
+
+        # epoch 0: the starting world
+        if sup.membership is not None or sup.configured_world:
+            statuses0 = _poll_membership() or {}
+            world = sup.configured_world or (len(statuses0) or None)
+            if world:
+                report.membership_epochs.append({
+                    "step": start, "alive": world, "configured": world,
+                    "topo": None, "dead": []})
+
     record_event("fit_start", id=start, step=start, num_steps=cfg.num_steps,
                  resumed_from=resumed_from)
     try:
         while step < cfg.num_steps:
+            if sup is not None:
+                if sup.preemption is not None and sup.preemption.preempted:
+                    # checkpoint now: at most one step lost.  A drain that
+                    # times out means the in-flight background save is a
+                    # recent checkpoint; a second writer would race it
+                    if cfg.ckpt_dir and _drained_saves():
+                        _save(state)
+                    report.preempted_at = step
+                    record_event("preempt", step=step)
+                    dump_current("preempted", step=step)
+                    log.warning("preemption: checkpointed at step %d, "
+                                "exiting", step)
+                    break
+                if (sup.membership is not None
+                        and step % max(1, sup.check_every) == 0
+                        and _membership_tick(step) == "shrunk"):
+                    continue
             tokens, targets = (
                 next(batches) if batches is not None else dataset.batch_at(step)
             )
             record_event("step_start", step=step)
             t_step = time.perf_counter()
-            new_state, metrics = step_fn(state, tokens, targets)
+            if sup is None:
+                new_state, metrics = cur_step_fn(state, tokens, targets)
+            else:
+                try:
+                    new_state, metrics = (
+                        watchdog.run(_run_step, state, tokens, targets,
+                                     timeout_s=step_timeout, step=step)
+                        if watchdog is not None
+                        else cur_step_fn(state, tokens, targets))
+                except StepTimeout as e:
+                    report.step_timeouts += 1
+                    log.warning("%s", e)
+                    dump_current("watchdog_timeout", step=step)
+                    batches = _batches(step)  # reseek: the batch was consumed
+                    if (sup.membership is not None
+                            and _membership_tick(step) == "shrunk"):
+                        timeout_retries = 0
+                        continue
+                    if timeout_retries < sup.max_step_retries:
+                        timeout_retries += 1
+                        report.step_retries += 1
+                        log.warning("retrying step %d after timeout (%d/%d)",
+                                    step, timeout_retries,
+                                    sup.max_step_retries)
+                        continue
+                    raise
+                timeout_retries = 0
             # the guard reads the metrics back, which waits for the step's
             # device work; without it, wait explicitly so the time is the
             # step's and not its launch's
             finite = _metrics_finite(metrics) if cfg.nan_guard else True
             if not cfg.nan_guard and dev.type == "cuda":
                 torch.cuda.synchronize(dev)
-            step_ms.observe((time.perf_counter() - t_step) * 1e3)
+            dur_s = time.perf_counter() - t_step
+            step_ms.observe(dur_s * 1e3)
+            if sup is not None and sup.supervisor is not None:
+                sup.supervisor.record_step(step, dur_s)
             record_event("step_end", step=step)
             if not finite:
                 report.anomalies += 1
@@ -216,6 +520,9 @@ def fit(state, step_fn: Callable, dataset, cfg: FitConfig = FitConfig(), *,
                             f"still diverging after {report.rewinds} rewinds "
                             f"(step {step})"
                         )
+                    if sup is not None:
+                        _drained_saves(timeout=None)
+                    dump_current("nan_rewind", step=step)
                     state = _restore()
                     report.rewinds += 1
                     bad_streak = 0
@@ -241,13 +548,31 @@ def fit(state, step_fn: Callable, dataset, cfg: FitConfig = FitConfig(), *,
                                  for k in ("aux", "total") if k in metrics),
                          rate)
             if cfg.ckpt_dir and cfg.ckpt_every and step % cfg.ckpt_every == 0:
+                if sup is not None and sup.background_saver is not None:
+                    # off the step path (the pack, a collective, runs here)
+                    sup.background_saver.submit(_packed(state))
+                else:
+                    _save(state)
+        # the preemption path already saved this exact state
+        if cfg.ckpt_dir and step > start and report.preempted_at is None:
+            if sup is None or _drained_saves():
                 _save(state)
-        if cfg.ckpt_dir and step > start:
-            _save(state)
     finally:
+        if sup is not None:
+            if sup.background_saver is not None:
+                sup.background_saver.drain()
+                report.background_saves = sup.background_saver.saves
+            if sup.supervisor is not None:
+                sup.supervisor.stop()
+            if watchdog is not None:
+                watchdog.close()
         reg.counter("train.steps").inc(max(step - start, 0))
         reg.counter("train.anomalies").inc(report.anomalies)
         reg.counter("train.rewinds").inc(report.rewinds)
+        reg.counter("train.step_timeouts").inc(report.step_timeouts)
+        reg.counter("train.shrinks").inc(
+            max(len(report.membership_epochs) - 1, 0))
+        reg.counter("train.background_saves").inc(report.background_saves)
         reg.gauge("train.last_step").set(step)
         report.metrics = reg.snapshot()
         record_event("fit_end", id=start, step=step)

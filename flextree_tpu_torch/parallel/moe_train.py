@@ -35,13 +35,14 @@ import torch
 from ..models.moe import MoEConfig, init_moe_params, moe_forward, \
     moe_param_specs
 from ..models.transformer import cross_entropy_loss
+from ..ops.quantize import get_codec
 from .bucketing import comm_axis_sizes
 from .pipeline import factor_devices_4d, make_mesh_4d, step_mesh
 from .spmd import axis, gather_tree, shard_batch
 from .train import (
     TrainConfig,
-    _refuse_unported,
     make_train_state,
+    maybe_autotune_grad_topo,
     mesh_overlap_plan,
     overlap_stream,
     psum_all,
@@ -111,7 +112,7 @@ def _moe_grads(model_cfg, train_cfg, device, comm, axis_names,
     shards) and the ranks' new residuals (see
     :func:`make_moe_train_step`); ``cache`` the step's
     (:func:`.train.spmd_step`)."""
-    _refuse_unported(train_cfg)
+    get_codec(train_cfg.codec)  # raises for an unknown codec
     comm = step_mesh(comm, device, axis_names)
     dp, ep, sp, tp = axis_names
     sizes = comm_axis_sizes(comm, axis_names)
@@ -186,6 +187,8 @@ def make_moe_loss_and_grads(model_cfg: MoEConfig,
     full tree, the first half of :func:`make_moe_train_step` (same
     arguments); under ``shard_optimizer`` every rank's unsynced tree.  A
     lossy codec needs the train ``state`` (its ``step`` and ``ef``)."""
+    train_cfg = maybe_autotune_grad_topo(comm, model_cfg, train_cfg,
+                                         axis_names, init_moe_params, device)
     grads_fn, pspecs, comm, _ = _moe_grads(model_cfg, train_cfg, device,
                                            comm, axis_names)
 
@@ -214,7 +217,11 @@ def make_moe_train_step(model_cfg: MoEConfig,
     optimized ``total`` and, with clipping, ``grad_norm``.  Under
     ``shard_optimizer`` the state is :func:`init_moe_train_state`'s with
     the same ``comm``.  ``serialize_overlap``: the overlapped step's twin
-    (the whole backward, then the same buckets in the same order)."""
+    (the whole backward, then the same buckets in the same order).
+    ``train_cfg.autotune`` resolves ``grad_topo`` first
+    (:func:`.train.maybe_autotune_grad_topo`)."""
+    train_cfg = maybe_autotune_grad_topo(comm, model_cfg, train_cfg,
+                                         axis_names, init_moe_params, device)
     cache: dict = {}
     grads_fn, pspecs, comm, topos = _moe_grads(
         model_cfg, train_cfg, device, comm, axis_names, serialize_overlap,

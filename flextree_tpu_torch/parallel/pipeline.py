@@ -49,13 +49,14 @@ from ..models.transformer import (
     layer_forward,
     param_specs,
 )
+from ..ops.quantize import get_codec
 from .bucketing import WIDE_AXES_ITEM, comm_axis_sizes
 from .mesh import Mesh
 from .spmd import axis, gather_tree, shard_batch
 from .train import (
     TrainConfig,
-    _refuse_unported,
     make_mesh_nd,
+    maybe_autotune_grad_topo,
     make_train_state,
     overlap_stream,
     psum_all,
@@ -73,6 +74,7 @@ __all__ = [
     "unstack_layer_params",
     "pipeline_param_specs",
     "pipeline_state_specs",
+    "autotune_pipeline_grad_topo",
     "init_pipeline_train_state",
     "make_pipeline_train_step",
     "make_pipeline_loss_and_grads",
@@ -238,7 +240,7 @@ def _pipeline_grads(model_cfg, train_cfg, n_microbatches, device, comm,
     :func:`make_pipeline_train_step`)."""
     import torch
 
-    _refuse_unported(train_cfg)
+    get_codec(train_cfg.codec)  # raises for an unknown codec
     comm = step_mesh(comm, device, axis_names)
     dp, pp, sp, tp = axis_names
     sizes = comm_axis_sizes(comm, axis_names)
@@ -296,6 +298,16 @@ def _pipeline_grads(model_cfg, train_cfg, n_microbatches, device, comm,
     return grads_fn, pspecs, comm, topos
 
 
+def autotune_pipeline_grad_topo(comm, model_cfg, train_cfg,
+                                axis_names=PIPELINE_AXES, device=None):
+    """``train_cfg`` with an ``autotune`` grad_topo resolved over the
+    stacked tree's bytes (the JAX pipeline builder's call)."""
+    return maybe_autotune_grad_topo(
+        comm, model_cfg, train_cfg, axis_names,
+        init_fn=lambda cfg, gen, device: stack_layer_params(
+            init_params(cfg, gen, device)), device=device)
+
+
 def make_pipeline_loss_and_grads(model_cfg: TransformerConfig,
                                  train_cfg: TrainConfig = TrainConfig(),
                                  n_microbatches: int = 2, device=None,
@@ -305,6 +317,8 @@ def make_pipeline_loss_and_grads(model_cfg: TransformerConfig,
     tree, the first half of :func:`make_pipeline_train_step` (same
     arguments); under ``shard_optimizer`` every rank's unsynced tree.  A
     lossy codec needs the train ``state`` (its ``step`` and ``ef``)."""
+    train_cfg = autotune_pipeline_grad_topo(comm, model_cfg, train_cfg,
+                                            axis_names, device)
     grads_fn, pspecs, comm, _ = _pipeline_grads(
         model_cfg, train_cfg, n_microbatches, device, comm, axis_names)
 
@@ -338,7 +352,10 @@ def make_pipeline_train_step(model_cfg: TransformerConfig,
     clipped by their global norm and AdamW updates the full stacked tree
     (:func:`.train.spmd_update`, ZeRO-1's under ``shard_optimizer``).
     ``serialize_overlap``: the overlapped tail's twin, its three buckets
-    on the current stream."""
+    on the current stream.  ``train_cfg.autotune`` resolves ``grad_topo``
+    first (:func:`.train.maybe_autotune_grad_topo`)."""
+    train_cfg = autotune_pipeline_grad_topo(comm, model_cfg, train_cfg,
+                                            axis_names, device)
     grads_fn, pspecs, comm, topos = _pipeline_grads(
         model_cfg, train_cfg, n_microbatches, device, comm, axis_names,
         serialize_overlap)

@@ -88,10 +88,13 @@ secondary axes (:mod:`.zero`); ``overlap`` cuts every rank's backward into
 readiness segments at once, across the ranks the ring hops and the
 combine couple (:func:`.overlap.dense_overlap_step_grads`).
 
-What needs an unported module raises, naming its ROADMAP item:
-``autotune``, and a pipeline or MoE step over a ``torch.distributed``
-group (:func:`.pipeline.step_mesh`): a process group is one data-parallel
-axis (:func:`.bucketing.comm_axis_sizes`).  An IR-family ``grad_topo``
+``autotune`` resolves ``grad_topo`` by measurement when the step is
+built (:func:`maybe_autotune_grad_topo`, the plan cache of
+:mod:`..planner.autotune`) over a mesh; over a ``torch.distributed``
+group it raises, naming its ROADMAP item.  A pipeline or MoE step over a
+``torch.distributed`` group raises, naming its ROADMAP item
+(:func:`.pipeline.step_mesh`): a process group is one data-parallel axis
+(:func:`.bucketing.comm_axis_sizes`).  An IR-family ``grad_topo``
 (swing, generalized) raises ``TopologyError``, as the JAX train seam
 does.
 """
@@ -117,6 +120,7 @@ from ..ops.quantize import get_codec
 from ..schedule.stages import Topology, TopologyError
 from ..utils.tree import tree_leaves, tree_map, tree_unflatten
 from .bucketing import (
+    WIDE_AXES_ITEM,
     bucketed_sync_grads,
     comm_axis_sizes,
     per_leaf_sync_grads,
@@ -154,6 +158,7 @@ __all__ = [
     "overlap_stream",
     "psum_all",
     "resolve_axis_topos",
+    "maybe_autotune_grad_topo",
     "sync_grads",
     "sync_with_feedback",
     "schedule_lr",
@@ -193,21 +198,50 @@ class TrainConfig:
     shard_optimizer: bool = False
 
 
-def _refuse_unported(train_cfg: TrainConfig) -> None:
-    """Raise for a config that needs a module the port does not have yet,
-    naming the ROADMAP item it waits on (and ``ValueError`` for an unknown
-    codec)."""
-    get_codec(train_cfg.codec)
-    refusals = (
-        (train_cfg.autotune, "autotune=True",
-         "'Checkpoint, supervision and feedback plumbing' (autotune)"),
-    )
-    for bad, what, item in refusals:
-        if bad:
-            raise NotImplementedError(
-                f"TrainConfig {what} is not ported yet (ROADMAP.md, "
-                f"Queue 1: {item})"
-            )
+def maybe_autotune_grad_topo(comm, model_cfg, train_cfg: TrainConfig,
+                             axis_names=AXIS_NAMES, init_fn=None,
+                             device=None) -> TrainConfig:
+    """The JAX ``maybe_autotune_grad_topo``: with ``train_cfg.autotune``
+    and no explicit ``grad_topo``, time the analytic top-3 candidates of
+    each axis of ``comm`` above size 1 for the model's parameter bytes
+    under the configured codec (``planner.autotune.autotune_plan`` on an
+    in-process mesh of ``device``, default ``comm``'s), and pin the
+    measured winners into ``grad_topo``; else ``train_cfg`` itself.
+
+    The bytes come from ``init_fn(model_cfg, generator, device)`` (default
+    :func:`init_params`; the pipeline and MoE builders pass theirs) run on
+    the meta device, so no second tree is drawn.  Winners persist in the
+    plan cache, so a rebuild or a second run is a pure cache hit; axes of
+    one size share an entry.  As in JAX the search offers no IR family:
+    the train sync runs legacy topologies only.
+
+    Over a ``torch.distributed`` group it raises ``NotImplementedError``:
+    each process would time its own in-process mesh, not the group's
+    transport, and nothing would make the ranks pin one winner."""
+    if not train_cfg.autotune or train_cfg.grad_topo is not None:
+        return train_cfg
+    if comm is not None and not isinstance(comm, Mesh):
+        raise NotImplementedError(
+            "autotune over a torch.distributed group is not ported yet "
+            f"({WIDE_AXES_ITEM}, part 4)")
+    from ..planner.autotune import autotune_plan
+
+    with torch.device("meta"):
+        shapes = (init_fn or init_params)(model_cfg, torch.Generator(),
+                                          device="meta")
+    nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(shapes))
+    if device is None and isinstance(comm, Mesh):
+        device = comm.devices[0]
+    spec = {}
+    for ax, n in comm_axis_sizes(comm, axis_names).items():
+        if n <= 1:
+            continue
+        plan = autotune_plan(
+            n, nbytes, dtype="float32", codecs=(train_cfg.codec,), top_k=3,
+            repeat=3, overlap=train_cfg.overlap,
+            sharded=train_cfg.shard_optimizer, ir_families=(), device=device)
+        spec[ax] = plan.to_ft_topo()
+    return dataclasses.replace(train_cfg, grad_topo=spec, autotune=False)
 
 
 # ------------------------------------------------------------------- state
@@ -234,9 +268,8 @@ def make_train_state(params: dict, train_cfg: TrainConfig | None = None, *,
     ``layout`` (:func:`zero_layout_for`; None: one rank's, every leaf
     ``*_rep``); ``local``: each ``*_shard`` leaf is this rank's block
     alone (a process group) rather than every rank's (a mesh)."""
-    if train_cfg is not None:
-        _refuse_unported(train_cfg)
     dev = params["embed"].device
+    # get_codec raises for an unknown codec
     lossy = train_cfg is not None and get_codec(train_cfg.codec).lossy
     step = torch.zeros((), dtype=torch.int32, device=dev)
     if train_cfg is not None and train_cfg.shard_optimizer:
@@ -835,8 +868,11 @@ def make_loss_and_grads(model_cfg: TransformerConfig,
     each rank's unsynced gradient in ``comm``'s form (the list of the
     ranks' trees on a mesh) and ``ef`` None; with ``overlap`` it is the
     fired buckets' reduce-scatter, a :class:`~.zero.ZeroShard` a leaf, with
-    the ranks' new residuals."""
-    _refuse_unported(train_cfg)
+    the ranks' new residuals.  ``train_cfg.autotune`` resolves ``grad_topo``
+    first (:func:`maybe_autotune_grad_topo`)."""
+    train_cfg = maybe_autotune_grad_topo(comm, model_cfg, train_cfg,
+                                         device=device)
+    get_codec(train_cfg.codec)  # raises for an unknown codec
     if model_cfg.d_model % model_cfg.n_heads:
         raise ValueError(f"n_heads={model_cfg.n_heads} must divide "
                          f"d_model={model_cfg.d_model}")
@@ -947,7 +983,10 @@ def make_train_step(model_cfg: TransformerConfig,
     :func:`.zero.zero_sync_and_update`; with it the fired buckets'
     reduce-scatter, then :func:`.zero.maybe_clip_shards` and
     :func:`.zero.zero_apply_and_gather` after the backward, on the current
-    stream."""
+    stream.  ``train_cfg.autotune`` resolves ``grad_topo`` first
+    (:func:`maybe_autotune_grad_topo`)."""
+    train_cfg = maybe_autotune_grad_topo(comm, model_cfg, train_cfg,
+                                         device=device)
     if _spmd(comm):
         return _spmd_step(model_cfg, train_cfg, device, comm,
                           serialize_overlap)
@@ -973,7 +1012,7 @@ def _spmd_step(model_cfg, train_cfg, device, comm, serialize_overlap):
     """:func:`make_train_step`'s step over a mesh with sp or tp above 1:
     the backward and sync of :func:`_spmd_grads`, then
     :func:`spmd_update`."""
-    _refuse_unported(train_cfg)
+    get_codec(train_cfg.codec)  # raises for an unknown codec
     dev, _, _ = _local_ranks(comm, device)
     cache: dict = {}
     grads_fn, pspecs, topos = _spmd_grads(model_cfg, train_cfg, comm, dev,

@@ -8,11 +8,12 @@ the runtime — ``choose_topology(...).topology`` drops straight into
 ``parallel.allreduce.allreduce(topo=...)`` — while remaining usable
 offline via ``python -m flextree_tpu_torch.planner``.  Its constants are
 fitted on the card by ``python -m flextree_tpu_torch.tools.calibrate_host``
-(:mod:`.calibrate`).
+(:mod:`.calibrate`); the measured autotuner (:mod:`.autotune`) times the
+analytic shortlist on the card and caches the winner.
 
-Not ported: the measured autotuner and the closed-loop feedback
-(ROADMAP.md, Queue 1: 'Checkpoint, supervision and feedback plumbing') and
-the native C++ core (ROADMAP.md, Queue 1: '``schedule/native.py``').
+Not ported: the closed-loop feedback (ROADMAP.md, Queue 1: 'Checkpoint,
+supervision and feedback plumbing') and the native C++ core (ROADMAP.md,
+Queue 1: '``schedule/native.py``').
 """
 
 from .cost_model import (
@@ -38,6 +39,13 @@ from .calibrate import (
     predict_us,
     save_calibration,
     spearman,
+)
+from .autotune import (
+    PLAN_CACHE_SCHEMA,
+    TunedPlan,
+    analytic_shortlist,
+    autotune_plan,
+    invalidate_plan_cache,
 )
 from .choose import (
     Candidate,
@@ -77,6 +85,11 @@ __all__ = [
     "backend_fingerprint",
     "plan_cache_key",
     "CALIBRATION_SCHEMA",
+    "PLAN_CACHE_SCHEMA",
+    "TunedPlan",
+    "analytic_shortlist",
+    "autotune_plan",
+    "invalidate_plan_cache",
     "Candidate",
     "Plan",
     "candidate_topologies",

@@ -1,5 +1,5 @@
 """Runtime supervision (the port's copies of ``flextree_tpu.runtime``'s
-JAX-free parts that the serving tier needs):
+parts that the serving tier and the supervised training run need):
 
 - :mod:`.ctrlfile` — length+CRC32-trailered JSON control files (endpoint
   files, heartbeats, handoff documents), the same format as the JAX
@@ -7,13 +7,17 @@ JAX-free parts that the serving tier needs):
 - :mod:`.supervisor` — heartbeat/lease membership: HEALTHY / STRAGGLER /
   DEAD;
 - :mod:`.watchdog` — the step deadline: a hung call becomes a typed
-  ``StepTimeout`` and its worker thread is abandoned.
+  ``StepTimeout`` and its worker thread is abandoned;
+- :mod:`.preemption` — the SIGTERM "checkpoint now" flag
+  (``PreemptionGuard``) and the off-step-path checkpoint writer
+  (``BackgroundSaver``) that ``parallel.loop.fit``'s supervision uses.
 
-The leases, coordination and preemption guard of the JAX package come
-with the port's supervision slice (ROADMAP Queue 1 item 9).
+The JAX package's leases and coordinated control plane are not ported
+(ROADMAP.md, Queue 1: 'Checkpoint, supervision and feedback plumbing').
 """
 
 from .ctrlfile import control_trailer, read_control_json, write_control_json
+from .preemption import BackgroundSaver, PreemptionGuard
 from .supervisor import (
     DEAD,
     HEALTHY,
@@ -45,4 +49,6 @@ __all__ = [
     "StepTimeout",
     "StepWatchdog",
     "step_timeout_from_env",
+    "PreemptionGuard",
+    "BackgroundSaver",
 ]

@@ -49,15 +49,33 @@ tp).  It takes the JAX trainer's flags with their defaults, plus
     python -m flextree_tpu_torch.trainer --model moe --mesh 1,2,2,2 \
         --overlap --shard-optimizer
 
+    # supervised: a checkpoint on SIGTERM within one step (on whenever
+    # --ckpt-dir is set), a 30 s step watchdog, this process's heartbeat
+    # in a directory its peers share (a dead peer shrinks the run to the
+    # survivors), the flight recorder, and the gradient sync's topology
+    # picked by timing the planner's shortlist on the card
+    python -m flextree_tpu_torch.trainer --mesh 8,1,1 --ckpt-dir ck \
+        --step-timeout 30 --heartbeat-dir hb --flight-recorder --autotune
+
 ``--mesh`` (dp,sp,tp for the dense model; dp,pp,sp,tp or dp,ep,sp,tp for
 the pipeline and MoE models) or ``--devices N`` (split as the JAX
 ``factor_devices`` or ``factor_devices_4d`` splits it) give the ranks, all
 in this process on the one device; ``--overlap``, ``--shard-optimizer``
 and a lossy ``--codec`` run on every mesh of every model, alone and
 combined (the pipeline ignores ``--overlap`` under ``--shard-optimizer``,
-as the JAX step does).  ``--cpu`` is a switch.  A flag whose module is
-not ported yet raises ``NotImplementedError`` naming its ROADMAP item.
-The last line printed is the JAX trainer's.  A run checkpoints its
+as the JAX step does).  ``--cpu`` is a switch.  The supervision flags
+are the JAX trainer's: ``--step-timeout`` and ``--heartbeat-dir/-rank/
+-world`` arm ``parallel.loop.Supervision`` (``--heartbeat-dir`` through
+``SupervisorConfig.from_env`` and ``MembershipView.for_config``); with
+``--ckpt-dir`` a ``runtime.PreemptionGuard`` turns SIGTERM into a
+checkpoint within one step and a clean exit unless
+``--no-preempt-checkpoint``; ``--obs-dir``/``--flight-recorder`` install
+the flight recorder (``obs.flight_recorder``, default directory
+``{ckpt}/obs`` or ``ft_obs``) before the build; ``--autotune`` times the
+gradient sync's candidates (``planner.autotune``, cached under
+``FLEXTREE_PLAN_CACHE``).  ``--feedback-*`` (the closed-loop planner) is
+not ported yet and raises ``NotImplementedError`` naming its ROADMAP
+item.  The last line printed is the JAX trainer's.  A run checkpoints its
 replicated state, as the JAX trainer does (a pipeline run the stacked
 tree); with a lossy ``--codec`` the state carries the error-feedback
 residual ``"ef"``, each rank's, and the file holds slice by slice the
@@ -72,6 +90,7 @@ from __future__ import annotations
 
 import argparse
 import math
+import signal
 
 import torch
 
@@ -84,9 +103,6 @@ def _parser() -> argparse.ArgumentParser:
         prog="flextree_tpu_torch.trainer",
         description="Train the dense, pipeline or MoE LM on one card, on "
         "one rank or over a mesh of in-process ranks.",
-        epilog="The SIGTERM checkpoint guard of the JAX trainer "
-        "(runtime/preemption.py) is not ported yet: a terminated run "
-        "resumes from its last --ckpt-every checkpoint.",
     )
     ap.add_argument("--model", choices=["dense", "pipeline", "moe"],
                     default="dense")
@@ -127,7 +143,10 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--codec", choices=["f32", "bf16", "int8"], default="f32",
                     help="gradient-sync wire codec; bf16 and int8 sync with "
                     "error feedback")
-    ap.add_argument("--autotune", action="store_true")
+    ap.add_argument("--autotune", action="store_true",
+                    help="pick the gradient sync's topology by timing the "
+                    "planner's top candidates on this device; cached under "
+                    "FLEXTREE_PLAN_CACHE, so the next run is a cache hit")
     ap.add_argument("--shard-optimizer", action="store_true")
     ap.add_argument("--overlap", action=argparse.BooleanOptionalAction,
                     default=False)
@@ -146,19 +165,29 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--ckpt-every", type=int, default=100)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--no-resume", action="store_true")
-    ap.add_argument("--step-timeout", type=float, default=None, metavar="S")
-    ap.add_argument("--heartbeat-dir", type=str, default=None)
+    ap.add_argument("--step-timeout", type=float, default=None, metavar="S",
+                    help="per-step watchdog deadline in seconds (env "
+                    "FT_STEP_TIMEOUT): a hung step raises FT_STEP_TIMEOUT")
+    ap.add_argument("--heartbeat-dir", type=str, default=None,
+                    help="shared heartbeat directory: this process beats "
+                    "there and watches its peers (a dead peer shrinks the "
+                    "run to the survivors)")
     ap.add_argument("--heartbeat-rank", type=int, default=0)
-    ap.add_argument("--heartbeat-world", type=int, default=None)
+    ap.add_argument("--heartbeat-world", type=int, default=None,
+                    help="configured group size for membership accounting")
     ap.add_argument("--no-preempt-checkpoint", action="store_true",
-                    help="accepted for the JAX trainer's command lines; "
-                    "the guard it disables is not ported")
+                    help="disable the SIGTERM 'checkpoint now' guard "
+                    "(runtime/preemption.py), on whenever --ckpt-dir is set")
     ap.add_argument("--feedback-every", type=int, default=0, metavar="K")
     ap.add_argument("--feedback-band", type=float, default=0.5, metavar="R")
     ap.add_argument("--feedback-calibration", type=str, default=None,
                     metavar="PATH")
-    ap.add_argument("--obs-dir", type=str, default=None, metavar="DIR")
-    ap.add_argument("--flight-recorder", action="store_true")
+    ap.add_argument("--obs-dir", type=str, default=None, metavar="DIR",
+                    help="write this rank's flight-recorder events, failure "
+                    "dumps and metrics snapshot under DIR")
+    ap.add_argument("--flight-recorder", action="store_true",
+                    help="--obs-dir with the default directory "
+                    "({--ckpt-dir}/obs, or ft_obs without one)")
     return ap
 
 
@@ -189,25 +218,41 @@ def _mesh_shape(args) -> tuple:
 
 def _refuse_unported(args) -> None:
     """Raise for a flag whose module is not ported, naming its item."""
-    refusals = (
-        (args.autotune, "--autotune",
-         "'Checkpoint, supervision and feedback plumbing'"),
-        (args.feedback_every > 0 or args.feedback_band != 0.5
-         or args.feedback_calibration is not None, "--feedback-*",
-         "'Checkpoint, supervision and feedback plumbing'"),
-        (args.heartbeat_dir is not None, "--heartbeat-dir",
-         "'Checkpoint, supervision and feedback plumbing'"),
-        (args.step_timeout is not None, "--step-timeout",
-         "'Checkpoint, supervision and feedback plumbing'"),
-        (args.obs_dir is not None or args.flight_recorder,
-         "--obs-dir/--flight-recorder",
-         "'Checkpoint, supervision and feedback plumbing'"),
+    if (args.feedback_every > 0 or args.feedback_band != 0.5
+            or args.feedback_calibration is not None):
+        raise NotImplementedError(
+            f"--feedback-* is not ported yet ({_ROADMAP}: 'Checkpoint, "
+            f"supervision and feedback plumbing')")
+
+
+def _supervision(args):
+    """The JAX trainer's supervision wiring: any of ``--step-timeout``,
+    ``--heartbeat-dir`` or a preemption guard (on with ``--ckpt-dir``
+    unless ``--no-preempt-checkpoint``) arms it; None otherwise."""
+    from .parallel.loop import Supervision
+    from .runtime import (
+        MembershipView,
+        PreemptionGuard,
+        Supervisor,
+        SupervisorConfig,
     )
-    for bad, what, item in refusals:
-        if bad:
-            raise NotImplementedError(
-                f"{what} is not ported yet ({_ROADMAP}: {item})"
-            )
+
+    want_preempt = bool(args.ckpt_dir) and not args.no_preempt_checkpoint
+    if not (args.step_timeout or args.heartbeat_dir or want_preempt):
+        return None
+    supervisor = membership = None
+    if args.heartbeat_dir:
+        cfg_hb = SupervisorConfig.from_env(rank=args.heartbeat_rank,
+                                           dir=args.heartbeat_dir)
+        supervisor = Supervisor(cfg_hb)
+        membership = MembershipView.for_config(
+            cfg_hb, configured=args.heartbeat_world)
+    return Supervision(
+        supervisor=supervisor, membership=membership,
+        configured_world=args.heartbeat_world,
+        step_timeout_s=args.step_timeout,
+        preemption=PreemptionGuard().install() if want_preempt else None,
+    )
 
 
 def model_specs(model: str, cfg) -> dict:
@@ -265,6 +310,9 @@ def main(argv=None, *, out: dict | None = None) -> int:
     args = _parser().parse_args(argv)
     _refuse_unported(args)
 
+    import contextlib
+    import os
+
     from .data import LMDataset, synthetic_tokens
     from .device import resolve_device
     from .parallel.loop import FitConfig, fit
@@ -281,41 +329,82 @@ def main(argv=None, *, out: dict | None = None) -> int:
         total_steps=args.steps if args.schedule == "warmup_cosine" else 0,
         min_lr_frac=args.min_lr_frac,
         codec=args.codec,
+        autotune=args.autotune,
         overlap=args.overlap,
         shard_optimizer=args.shard_optimizer,
     )
-    gen = torch.Generator().manual_seed(args.seed)
-    cfg, state, step, comm = _build(args, tc, shape, dev, gen)
-    dataset = LMDataset(
-        synthetic_tokens(args.corpus_tokens, args.vocab, seed=args.seed),
-        batch=args.batch, seq_len=args.seq_len, seed=args.seed,
-    )
-    pack, unpack = sharded_hooks(comm, cfg, state["params"], tc, args.model)
-    result = fit(
-        state, step, dataset,
-        FitConfig(num_steps=args.steps, ckpt_dir=args.ckpt_dir,
-                  ckpt_every=args.ckpt_every, log_every=args.log_every,
-                  resume=not args.no_resume),
-        state_pack=pack, state_unpack=unpack,
-    )
+    supervision = _supervision(args)
+    # the flight recorder goes in before the build, so the build's events
+    # (the bucket plans) land in the record too
+    obs_ctx = contextlib.nullcontext()
+    if args.obs_dir or args.flight_recorder:
+        from .obs import flight_recorder
+
+        obs_dir = args.obs_dir or (os.path.join(args.ckpt_dir, "obs")
+                                   if args.ckpt_dir else "ft_obs")
+        obs_ctx = flight_recorder(obs_dir, rank=args.heartbeat_rank,
+                                  source="train")
+    prev_term = None  # the SIGTERM handler a chained dump replaced
+    try:
+        with obs_ctx as obs_rec:
+            if obs_rec is not None and (supervision is None
+                                        or supervision.preemption is None):
+                # no guard routes SIGTERM through fit's dump: chain a dump
+                # onto the default handler so a bare terminate leaves one
+                from .obs import install_signal_dump
+
+                prev_term = signal.getsignal(signal.SIGTERM)
+                install_signal_dump(obs_rec)
+            gen = torch.Generator().manual_seed(args.seed)
+            cfg, tc, state, step, comm = _build(args, tc, shape, dev, gen)
+            dataset = LMDataset(
+                synthetic_tokens(args.corpus_tokens, args.vocab,
+                                 seed=args.seed),
+                batch=args.batch, seq_len=args.seq_len, seed=args.seed,
+            )
+            pack, unpack = sharded_hooks(comm, cfg, state["params"], tc,
+                                         args.model)
+            result = fit(
+                state, step, dataset,
+                FitConfig(num_steps=args.steps, ckpt_dir=args.ckpt_dir,
+                          ckpt_every=args.ckpt_every,
+                          log_every=args.log_every,
+                          resume=not args.no_resume),
+                supervision=supervision, state_pack=pack,
+                state_unpack=unpack,
+            )
+    finally:
+        # in-process callers get their handlers back
+        if supervision is not None and supervision.preemption is not None:
+            supervision.preemption.uninstall()
+        if prev_term is not None:
+            signal.signal(signal.SIGTERM, prev_term)
     if out is not None:
         out.update(result=result, model_cfg=cfg, train_cfg=tc, comm=comm)
     first = result.losses[0][1] if result.losses else float("nan")
     last = result.losses[-1][1] if result.losses else float("nan")
     mesh = dict(zip(_AXES[args.model], shape))
+    preempted = result.report.preempted_at
     print(
         f"{args.model}: {result.steps_run} steps on mesh {mesh}; loss "
         f"{first:.4f} -> {last:.4f}"
         + (f" (resumed from {result.resumed_from})"
            if result.resumed_from else "")
+        + (f" (preempted at step {preempted}, checkpointed)"
+           if preempted is not None else ""),
+        flush=True,
     )
     return 0
 
 
 def _build(args, tc, shape, dev, gen):
-    """``(model config, train state, step, comm)`` for ``--model``."""
+    """``(model config, train config, train state, step, comm)`` for
+    ``--model``; an ``autotune`` config comes back with its ``grad_topo``
+    resolved, which the state, the step and the checkpoint converters all
+    read."""
     from .models.transformer import TransformerConfig
     from .parallel.mesh import Mesh, flat_mesh
+    from .parallel.train import maybe_autotune_grad_topo
 
     common = dict(
         vocab_size=args.vocab, d_model=args.d_model, n_heads=args.n_heads,
@@ -324,6 +413,7 @@ def _build(args, tc, shape, dev, gen):
     )
     if args.model == "pipeline":
         from .parallel.pipeline import (
+            autotune_pipeline_grad_topo,
             init_pipeline_train_state,
             make_mesh_4d,
             make_pipeline_train_step,
@@ -331,12 +421,13 @@ def _build(args, tc, shape, dev, gen):
 
         cfg = TransformerConfig(**common)
         comm = make_mesh_4d(shape=shape, device=dev)
-        return (cfg, init_pipeline_train_state(cfg, gen, tc, device=dev,
-                                               comm=comm),
+        tc = autotune_pipeline_grad_topo(comm, cfg, tc, _AXES["pipeline"])
+        return (cfg, tc, init_pipeline_train_state(cfg, gen, tc, device=dev,
+                                                   comm=comm),
                 make_pipeline_train_step(cfg, tc, args.microbatches,
                                          comm=comm), comm)
     if args.model == "moe":
-        from .models.moe import MoEConfig
+        from .models.moe import MoEConfig, init_moe_params
         from .parallel.moe_train import (
             init_moe_train_state,
             make_mesh_moe,
@@ -346,8 +437,10 @@ def _build(args, tc, shape, dev, gen):
         cfg = MoEConfig(**common, n_experts=args.n_experts, top_k=args.top_k,
                         capacity_factor=args.capacity_factor)
         comm = make_mesh_moe(shape=shape, device=dev)
-        return (cfg, init_moe_train_state(cfg, gen, tc, device=dev,
-                                          comm=comm),
+        tc = maybe_autotune_grad_topo(comm, cfg, tc, _AXES["moe"],
+                                      init_fn=init_moe_params)
+        return (cfg, tc, init_moe_train_state(cfg, gen, tc, device=dev,
+                                              comm=comm),
                 make_moe_train_step(cfg, tc, comm=comm), comm)
     from .parallel.train import AXIS_NAMES, init_train_state, make_train_step
 
@@ -357,7 +450,8 @@ def _build(args, tc, shape, dev, gen):
         comm = Mesh((dev,) * math.prod(shape), AXIS_NAMES, shape)
     else:
         comm = flat_mesh(dp, dev, "dp") if dp > 1 else None
-    return (cfg, init_train_state(cfg, gen, tc, device=dev, comm=comm),
+    tc = maybe_autotune_grad_topo(comm, cfg, tc, AXIS_NAMES, device=dev)
+    return (cfg, tc, init_train_state(cfg, gen, tc, device=dev, comm=comm),
             make_train_step(cfg, tc, device=dev, comm=comm), comm)
 
 

@@ -477,8 +477,19 @@ def test_train_step_bench_has_the_six_rows():
         assert rows[name]["opt_state_bytes_ratio"] == ratio
         acct = out["opt_state_bytes"][name]
         assert acct["live_bytes_per_rank"] == acct["sharded_bytes_per_rank"]
-    for flag, item in (("supervised", "supervision"),
-                       ("recorder", "supervision")):
-        with pytest.raises(NotImplementedError, match=item):
-            run_train_step_bench(TrainStepBenchConfig(**{flag: True},
-                                                      device="cpu"))
+    # the supervised and recorded rows run now: each the fused step on its
+    # host path, bitwise the per-leaf step (``identical``), with its ratio
+    # to the fused step
+    out = run_train_step_bench(TrainStepBenchConfig(
+        n_layers=1, d_model=32, d_ff=64, vocab_size=64, batch=4, seq_len=16,
+        devices=4, repeat=1, supervised=True, recorder=True, device="cpu"))
+    rows = out["rows"]
+    assert out["identical"]
+    assert set(rows) == {"per_leaf", "ours_fused", "ours_chunked",
+                         "ours_fused_supervised", "ours_fused_recorded"}
+    for name, key in (("ours_fused_supervised", "supervision_overhead"),
+                      ("ours_fused_recorded", "recorder_overhead")):
+        assert rows[name][key] == pytest.approx(
+            rows[name]["train_step_ms"] / rows["ours_fused"]["train_step_ms"])
+    assert rows["ours_fused_supervised"]["sync_ms"] == \
+        rows["ours_fused"]["sync_ms"]

@@ -213,13 +213,14 @@ def test_train_state_round_trips_and_refuses_other_layouts(jax_state):
                                    dict(shard_optimizer=True),
                                    dict(autotune=True)])
 def test_unported_train_config_features_refuse(field):
-    """What waits on its ROADMAP item refuses; a lossy codec runs now: its
+    """Every field runs now.  A lossy codec: its
     state carries a zero ``"ef"`` and a step on one rank (no sync, so the
     residual stays zero) gives the identity codec's update; so does
     ``overlap``: on one rank its segmented backward gives the plain step's
     update, bitwise; and so does ``shard_optimizer``: on one rank no leaf
     is sharded, its moments are whole in ``*_rep``, and the step and its
-    moments are the plain step's, bitwise."""
+    moments are the plain step's, bitwise; and so does ``autotune``: on
+    one rank it times nothing and the step is the plain one, bitwise."""
     cfg = ttrain.TrainConfig(**field)
     if "shard_optimizer" in field:
         model = tt.TransformerConfig(**DIMS)
@@ -284,13 +285,27 @@ def test_unported_train_config_features_refuse(field):
             ttrain.make_train_step(model, ttrain.TrainConfig(codec="fp4"),
                                    device="cpu")
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttrain.make_train_step(tt.TransformerConfig(**DIMS), cfg,
-                               device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttrain.init_train_state(tt.TransformerConfig(**DIMS),
-                                torch.Generator().manual_seed(0), cfg,
-                                device="cpu")
+    # autotune runs now (test_torch_autotune.py): on one rank no axis
+    # needs a sync, so nothing is timed, grad_topo resolves to no axis and
+    # the state and the step are the plain ones, bitwise; on a 2-rank mesh
+    # the dp axis' plan comes from the plan cache
+    assert "autotune" in field
+    model = tt.TransformerConfig(**DIMS)
+    state = ttrain.init_train_state(model, torch.Generator().manual_seed(0),
+                                    cfg, device="cpu")
+    plain = ttrain.init_train_state(model, torch.Generator().manual_seed(0),
+                                    device="cpu")
+    assert set(state) == set(plain)
+    assert ttrain.maybe_autotune_grad_topo(None, model, cfg) == \
+        dataclasses.replace(cfg, grad_topo={}, autotune=False)
+    tokens, targets = _tokens(1)
+    new, m = ttrain.make_train_step(model, cfg, device="cpu")(
+        state, tokens, targets)
+    want, wm = ttrain.make_train_step(model, device="cpu")(
+        plain, tokens, targets)
+    assert torch.equal(m["loss"], wm["loss"])
+    for a, b in zip(ttrain.tree_leaves(new), ttrain.tree_leaves(want)):
+        assert torch.equal(a, b)
 
 
 def test_sync_grads_is_the_identity_on_one_rank_only():

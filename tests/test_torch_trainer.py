@@ -235,9 +235,24 @@ def test_nan_guard_rewinds_to_the_checkpoint_then_gives_up(tmp_path):
 
 
 def test_fit_refuses_supervision_and_arbiter():
+    """Supervision runs now (test_torch_supervision.py): an empty
+    ``Supervision()`` leaves the run as it is without it, bitwise, with the
+    same report; the arbiter lease, the feedback controller and the
+    coordination handle still raise naming their ROADMAP item."""
     state, step, data = _setup()
-    for kw in (dict(supervision=object()), dict(arbiter=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    plain = loop.fit(state, step, data, loop.FitConfig(num_steps=2))
+    sup = loop.fit(state, step, data, loop.FitConfig(num_steps=2),
+                   supervision=loop.Supervision())
+    assert all(torch.equal(a, b) for a, b in zip(
+        ttrain.tree_leaves(plain.state), ttrain.tree_leaves(sup.state)))
+    a, b = plain.report.to_payload(), sup.report.to_payload()
+    assert a.pop("metrics")["counters"] == b.pop("metrics")["counters"]
+    assert a == b
+    for kw in (dict(arbiter=object()),
+               dict(supervision=loop.Supervision(feedback=object())),
+               dict(supervision=loop.Supervision(coordination=object()))):
+        with pytest.raises(NotImplementedError,
+                           match="Checkpoint, supervision and feedback"):
             loop.fit(state, step, data, loop.FitConfig(num_steps=1), **kw)
 
 
@@ -269,6 +284,76 @@ def test_trainer_cli_flash_on_cpu(tmp_path, capsys):
     assert "(resumed from 3)" in capsys.readouterr().out
 
 
+#: the supervision flags, lifted with the supervised training run
+_LIFTED = ("--autotune", "--heartbeat-dir", "--step-timeout", "--obs-dir")
+
+
+def _lifted_flag_runs(flags, tmp_path, capsys):
+    """Two steps on 2 ranks with the flag: ``--autotune`` takes the dp
+    axis' plan from the plan cache (measured on the first run), ``--heartbeat-dir``
+    beats this rank and records the starting world, ``--step-timeout``
+    runs each step on the watchdog, ``--obs-dir`` writes the flight
+    record with a ``step_end`` event a step; the run is the plain run,
+    bitwise, and its checkpoint resumes.  Each run leaves the caller's
+    SIGTERM handler as it found it: the guard of ``--ckpt-dir``, and the
+    flight record's chained dump without it."""
+    import signal
+
+    handler = signal.getsignal(signal.SIGTERM)
+    flag = flags[0]
+    value = {"--autotune": [], "--heartbeat-dir": [str(tmp_path / "hb")],
+             "--step-timeout": ["60"],
+             "--obs-dir": [str(tmp_path / "obs")]}[flag]
+    base = _SMALL + ["--mesh", "2,1,1", "--steps", "2", "--log-every", "1"]
+    prev = os.environ.get("FLEXTREE_PLAN_CACHE")
+    os.environ["FLEXTREE_PLAN_CACHE"] = str(tmp_path / "plans.json")
+    try:
+        plain: dict = {}
+        assert trainer.main(base, out=plain) == 0
+        out: dict = {}
+        ckpt = str(tmp_path / "ck")
+        assert trainer.main(base + [flag] + value + ["--ckpt-dir", ckpt],
+                            out=out) == 0
+        assert signal.getsignal(signal.SIGTERM) is handler
+        if flag == "--obs-dir":  # no guard: the dump is chained on SIGTERM
+            assert trainer.main(base + [flag, str(tmp_path / "obs2")]) == 0
+            assert signal.getsignal(signal.SIGTERM) is handler
+    finally:
+        if prev is None:
+            del os.environ["FLEXTREE_PLAN_CACHE"]
+        else:
+            os.environ["FLEXTREE_PLAN_CACHE"] = prev
+    last = capsys.readouterr().out.strip().splitlines()[-1]
+    assert last.startswith("dense: 2 steps on mesh {'dp': 2, 'sp': 1, "
+                           "'tp': 1}; loss ")
+    res = out["result"]
+    if flag == "--autotune":
+        tc = out["train_cfg"]
+        assert not tc.autotune and set(tc.grad_topo) == {"dp"}
+        doc = json.loads((tmp_path / "plans.json").read_text())
+        (entry,) = doc["entries"].values()
+        spec = ",".join(map(str, entry["widths"]))
+        assert tc.grad_topo["dp"] == spec + (f"+{entry['lonely']}"
+                                             if entry["lonely"] else "")
+    elif flag == "--heartbeat-dir":
+        assert os.path.exists(tmp_path / "hb" / "hb_00000.json")
+        assert res.report.membership_epochs == [
+            {"step": 0, "alive": 1, "configured": 1, "topo": None,
+             "dead": []}]
+    elif flag == "--obs-dir":
+        events = [json.loads(ln) for ln in
+                  (tmp_path / "obs" / "flight_00000.jsonl").read_text()
+                  .splitlines()]
+        assert sum(e["kind"] == "step_end" for e in events) == 2
+        assert (tmp_path / "obs" / "metrics_00000.json").exists()
+    assert all(torch.equal(a, b) for a, b in zip(
+        ttrain.tree_leaves(plain["result"].state),
+        ttrain.tree_leaves(res.state)))
+    saved = tckpt.restore_train_state(ckpt, "cpu")
+    assert all(torch.equal(a, b) for a, b in zip(
+        ttrain.tree_leaves(res.state), ttrain.tree_leaves(saved)))
+
+
 @pytest.mark.parametrize("flags", [
     ["--model", "moe"], ["--model", "pipeline"], ["--codec", "int8"],
     ["--codec", "bf16"], ["--overlap"], ["--shard-optimizer"],
@@ -277,7 +362,8 @@ def test_trainer_cli_flash_on_cpu(tmp_path, capsys):
     ["--devices", "4"], ["--mesh", "2,1,2"],
 ])
 def test_trainer_cli_refuses_unported_flags(flags, tmp_path, capsys):
-    """Each flag whose module is not ported raises naming its item; the
+    """``--feedback-*`` is not ported and raises naming its item; the
+    supervision flags run now (:func:`_lifted_flag_runs`); the
     pipeline and MoE models train now; a mesh
     with sp or tp above 1 trains now; the lossy codecs run now: 2 ranks train with error feedback, and the
     checkpoint holds the first rank's residual, which resumes; and so does
@@ -357,8 +443,12 @@ def test_trainer_cli_refuses_unported_flags(flags, tmp_path, capsys):
         assert last.startswith(f"dense: 2 steps on mesh {mesh}; loss ")
         assert all(math.isfinite(loss) for _, loss in out["result"].losses)
         return
+    if flags[0] in _LIFTED:
+        _lifted_flag_runs(flags, tmp_path, capsys)
+        return
     if flags[0] != "--codec":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError,
+                           match="Checkpoint, supervision and feedback"):
             trainer.main(_SMALL + flags)
         return
     ckpt = str(tmp_path / "ck")
@@ -401,6 +491,8 @@ def test_trainer_cli_data_parallel_on_cpu(tmp_path, capsys):
 
 
 def test_trainer_help_names_the_missing_preemption_guard(capsys):
+    """The guard is ported now: the help names it where
+    ``--no-preempt-checkpoint`` turns it off."""
     with pytest.raises(SystemExit):
         trainer.main(["--help"])
     assert "preemption.py" in capsys.readouterr().out
