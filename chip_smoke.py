@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --train-ab PARENT   # phase 8, PARENT's checkout and this in turns
     python3 chip_smoke.py --allreduce-ab PARENT   # phase 13's f32 sums, the same way
+    python3 chip_smoke.py --phase 26   # phase 1's build, then phase 26 alone
 
 Drives ``flextree_tpu_torch`` (never JAX) on the card, in phases; any
 failure raises and exits non-zero:
@@ -333,7 +334,31 @@ failure raises and exits non-zero:
     once on the host: timed out, retried, bitwise an undisturbed run; a
     ``BackgroundSaver`` checkpoint bitwise the live state; the bench's
     ``ours_fused_supervised`` and ``ours_fused_recorded`` rows at the
-    flagship over dp=8, in turns (printed).
+    flagship over dp=8, in turns (printed);
+26. the closed-loop planner feedback (``planner.feedback``) at the
+    flagship gradient over dp=8 — (a) ``default_probe_points(8, ...)``
+    (``8``, ``2,2,2`` and the ring at 4 MiB and 512 KiB) through the
+    controller's own timer: each probe's allreduce bitwise its host
+    copies, the fold launches the code's count, measured beside
+    predicted; (b) ``trainer.main --mesh 8,1,1 --feedback-every 2`` (7
+    steps) from a skewed calibration whose plan is not the default
+    constants', with a seeded plan-cache entry: one swapped replan, the
+    refit (``source="feedback"``, its sample count) in the run-local
+    file, the seeded entry gone, the host's file bitwise unchanged, the
+    steps' synced buckets the skewed plan's before the replan and the
+    refit plan's after it (each bucket length bitwise its host copies),
+    the launches the steps' plans' plus the ticks' probes', the
+    checkpoint the live state bitwise, the loss falling, the step on
+    either plan timed in turns (printed); (c) ``fit`` at
+    dp=8 with the probe-free controller from the skewed calibration, its
+    probe timer raising and its compute floor the sync-free twin's (no
+    span): rotations, a probe-free refit with per-phase scales, fold
+    launches exactly the steps' syncs' (no probe), each rotated bucket
+    length bitwise its host copies, the final state bitwise the same run
+    with rotation off; (d) with no recorder the armed controller never
+    ticks and the steps launch only their syncs' folds, the hook's host
+    cost a step timed directly; (e) ``python -m flextree_tpu_torch.obs
+    fleet`` over (b)'s and (c)'s records.
 
 The kernels line gives each kernel's launches by path
 (``launches_by_path``: serve, train, dp_train, allreduce, ir_families,
@@ -344,8 +369,9 @@ run plus the decode replica process's, pool for phase 21(a)'s f32 run,
 sp_ring, sp_zigzag and sp_ulysses for phase 22(b)'s three runs, pp_train
 and moe_train for phase 23(b)'s two, and ``wide_<option>_<family>`` for
 each of phase 24(b)'s ten runs, e.g. wide_int8_dense or wide_zero_moe;
-autotune, shrink and supervised_watchdog for phase 25(a), (c) and (d))
-and their sum (``launches``).
+autotune, shrink and supervised_watchdog for phase 25(a), (c) and (d);
+feedback_probe, feedback_train and feedback_probe_free for phase 26(a),
+(b) and (c)) and their sum (``launches``).
 
 Prints each phase's seconds, a ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Exits
@@ -6542,6 +6568,532 @@ def phase_supervised(dev, smi):
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# phase 26: the closed-loop planner feedback
+FB_EVERY = 2  # trainer --feedback-every of 26(b): ticks at steps 2, 4, 6
+FB_STEPS = 7  # the refit comes at the second tick (6 probes a tick, 8 due)
+FB_PF_EVERY = 4  # 26(c): a tick every 4 steps ...
+FB_PF_TICKS = 2  # ... 2 ticks a rotated plan (8 steps, 7 of them sampled)
+FB_PF_CYCLES = 2  # passes over (4 MiB, the cap, the base size)
+# the detection tick, 3 plans x 2 cycles x 2 ticks, the fit's tick, a tail
+FB_PF_STEPS = FB_PF_EVERY * (1 + 3 * FB_PF_CYCLES * FB_PF_TICKS + 3)
+FB_FLOOR_STEPS = 3  # timed steps of the sync-free twin
+FB_HOOK_CALLS = 100_000
+FB_TURNS = 4  # rounds of 26(b)'s skewed and refit steps in turns
+FB_OFF_STEPS = 3
+
+
+def probe_fold_launches(bk, rs, probes, n) -> dict:
+    """Each probe's fold launches in one allreduce, from the code
+    (``sync_fold_stages`` of one leaf of the probe's length)."""
+    from flextree_tpu_torch.schedule.stages import Topology
+
+    return {p: stage_launches(bk.sync_fold_stages(
+        [p.nbytes // 4], n, Topology.resolve(
+            n, "1" if p.spec == "ring" else p.spec)), rs.MAX_POINTERS)
+        for p in probes}
+
+
+def probe_checks(dev, fb, rs, bk, cm, flat_mesh, nbytes):
+    """Phase 26(a): the flagship gradient's default probes at dp=8 through
+    the controller's own timer: launches the code's count, each probe's
+    allreduce bitwise the plain fold of its host copies, measured beside
+    predicted.  Returns the fold launches."""
+    ctl = fb.FeedbackController(DP, nbytes, fb.FeedbackConfig(), device=dev)
+    probes = ctl.probes
+    if [(p.spec, p.nbytes) for p in probes] != [
+            (s, nb) for s in ("8", "2,2,2", "ring")
+            for nb in (4 << 20, 512 << 10)]:
+        raise AssertionError(f"the flagship's probe points are {probes}")
+    per = probe_fold_launches(bk, rs, probes, DP)
+    torch.cuda.synchronize()
+    rs.reduce_sources.launches = 0
+    secs = ctl._default_timer(probes, DP)
+    torch.cuda.synchronize()
+    launches = rs.reduce_sources.launches
+    want = sum(per.values()) * (1 + ctl.cfg.repeat)
+    if launches != want:
+        raise AssertionError(f"the probe timer launched the fold {launches} "
+                             f"times, the code's count is {want}")
+    for p in probes:
+        rows = ctl._inputs[(DP, p.nbytes // 4)]
+        got = ctl._fns[p]()
+        host = cm.compressed_allreduce([r.cpu() for r in rows],
+                                       flat_mesh(DP, "cpu"),
+                                       "1" if p.spec == "ring" else p.spec)
+        if not all(same_bits(a.cpu(), b) for a, b in zip(got, host)):
+            raise AssertionError(f"probe {p}: the card is not bitwise the "
+                                 f"plain fold of its host copies")
+    log("phase 26(a) the probe timer (flagship gradient at dp=8, "
+        f"{ctl.cfg.repeat} rounds in turns; each allreduce bitwise its host "
+        f"copies; {launches} fold launches = the code's, "
+        f"{sum(per.values())} a round x {1 + ctl.cfg.repeat}): " + "; ".join(
+            f"{p.spec} {p.nbytes} B measured {s * 1e6:.1f} us, predicted "
+            f"{fb.predict_spec_us(p.spec, DP, p.nbytes, ctl.params):.1f} us"
+            for p, s in zip(probes, secs)))
+    return launches
+
+
+def flight_events(obs_dir):
+    from flextree_tpu_torch.obs.timeline import read_dir
+
+    return read_dir(obs_dir)[0]
+
+
+def steps_buckets(events) -> dict:
+    """``{step: [bucket bytes in order]}`` of a recorded run's
+    ``bucket_planned`` spans between each step's start and end."""
+    out, cur = {}, None
+    for ev in events:
+        if ev["kind"] == "step_start":
+            cur = out.setdefault(ev["step"], [])
+        elif ev["kind"] == "step_end":
+            cur = None
+        elif ev["kind"] == "bucket_planned" and cur is not None:
+            cur.append(ev["nbytes"])
+    return out
+
+
+def plan_of(bk, tm, params, cfg, cost_params=None, bucket_bytes=None):
+    """The flagship sync's bucket bytes at dp=8 on the card."""
+    from flextree_tpu_torch.models.transformer import param_specs
+
+    sizes = {"dp": DP, "sp": 1, "tp": 1}
+    return [b.nbytes for b in bk.plan_buckets(
+        tm.tree_leaves(params), bk.spec_leaves(params, param_specs(cfg)),
+        tm.AXIS_NAMES, topos=tm.resolve_axis_topos(sizes, tm.AXIS_NAMES,
+                                                   None),
+        axis_sizes=sizes, params=cost_params, bucket_bytes=bucket_bytes)]
+
+
+def bucket_host_checks(lengths, dev, flat_mesh, cm, rs, seed) -> str:
+    """Each distinct bucket length's allreduce on the card bitwise the
+    plain fold of its host copies."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    seen = collections.Counter()
+    for count in sorted(set(lengths)):
+        seen.update(host_case("8", DP, 1, count, "f32", gen, dev, flat_mesh,
+                              cm, rs))
+    return describe_bodies(seen)
+
+
+def convergence_checks(dev, fa, rs, bk, tm, cm, ckpt, flat_mesh, params,
+                       cfg, tmp):
+    """Phase 26(b): ``trainer.main --mesh 8,1,1 --feedback-every`` from a
+    skewed calibration.  Returns the run's launches and its steady step
+    (ms)."""
+    from flextree_tpu_torch import trainer
+    from flextree_tpu_torch.planner import autotune as at
+    from flextree_tpu_torch.planner import calibrate as cal
+    from flextree_tpu_torch.planner import feedback as fb
+    from flextree_tpu_torch.planner.cost_model import TpuCostParams
+    from flextree_tpu_torch.tools.feedback_convergence import skew_params
+
+    nbytes = sum(p.numel() * p.element_size() for p in tm.tree_leaves(params))
+    skew = skew_params()
+    skew_plan = plan_of(bk, tm, params, cfg, skew)
+    if skew_plan == plan_of(bk, tm, params, cfg, TpuCostParams()):
+        raise AssertionError("the skewed constants plan the oracle's buckets: "
+                             "the scenario proves nothing")
+    host = os.path.join(tmp, "CALIBRATION.json")
+    cal.save_calibration(host, skew, backend="cuda",
+                         fingerprint=cal.backend_fingerprint(dev))
+    with open(host, "rb") as f:
+        host_bytes = f.read()
+    cache = os.path.join(tmp, "plans.json")
+    obs, ck = os.path.join(tmp, "obs_b"), os.path.join(tmp, "ck_b")
+    os.environ.pop("FLEXTREE_CALIBRATION_BACKEND", None)
+    with env_vars(FLEXTREE_CALIBRATION=host, FLEXTREE_PLAN_CACHE=cache):
+        seeded = at.autotune_plan(DP, nbytes, codecs=("f32",), top_k=2,
+                                  repeat=2, cache_path=cache, ir_families=(),
+                                  device=dev)
+        with open(cache) as f:
+            (key,) = json.load(f)["entries"]
+        argv = TRAIN_ARGV + ["--mesh", f"{DP},1,1", "--steps", str(FB_STEPS),
+                             "--feedback-every", str(FB_EVERY), "--obs-dir",
+                             obs, "--ckpt-dir", ck]
+        out, launches, peak, wall = sp_train_run(trainer, argv, fa, rs)
+        if os.environ["FLEXTREE_CALIBRATION"] != host or \
+                "FLEXTREE_CALIBRATION_BACKEND" in os.environ:
+            raise AssertionError("trainer.main left the calibration "
+                                 "variables repointed")
+        skew_per_step = dp_fold_launches(tm, cfg, out["train_cfg"], params,
+                                         DP, dev, FLASH_TRAIN[:2])
+    with open(host, "rb") as f:
+        if f.read() != host_bytes:
+            raise AssertionError("a refit wrote the host's calibration file")
+    rep = out["result"].report
+    events = flight_events(obs)
+    replans = [e for e in events if e["kind"] == "feedback_replan"]
+    ticks = [e for e in events if e["kind"] == "feedback_tick"]
+    if rep.feedback_replans < 1 or not replans or \
+            not all(e["swapped"] for e in replans):
+        raise AssertionError(f"no swapped replan: report {rep.feedback_refits}"
+                             f" refits, {rep.feedback_replans} replans, "
+                             f"{rep.feedback_refusals} refusals; {replans}")
+    with open(os.path.join(obs, "CALIBRATION.feedback.json")) as f:
+        sec = json.load(f)["cuda"]
+    if sec["source"] != "feedback" or not sec["meta"].get("samples"):
+        raise AssertionError(f"the refit section: {sec}")
+    with open(cache) as f:
+        if key in json.load(f)["entries"]:
+            raise AssertionError("the seeded plan-cache entry survived the "
+                                 "refit")
+    refit = cal._params_from_dict(sec["params"])
+    at_step = replans[0]["step"]
+    refit_plan = plan_of(bk, tm, params, cfg, refit)
+    by_step = steps_buckets(events)
+    before = {s: b for s, b in by_step.items() if s < at_step}
+    after = {s: b for s, b in by_step.items() if s >= at_step}
+    if len(replans) != 1 or any(b != skew_plan for b in before.values()) or \
+            any(b != refit_plan for b in after.values()) or not after:
+        raise AssertionError(f"the synced buckets: before the replan at "
+                             f"{at_step} {before}, after {after}; the skewed "
+                             f"plan {skew_plan}, the refit's {refit_plan}")
+    bodies = bucket_host_checks([nb // 4 for nb in refit_plan], dev,
+                                flat_mesh, cm, rs, SEED + 26)
+    with env_vars(FLEXTREE_CALIBRATION=os.path.join(
+            obs, "CALIBRATION.feedback.json"),
+            FLEXTREE_CALIBRATION_BACKEND="cuda"):
+        refit_per_step = dp_fold_launches(tm, cfg, out["train_cfg"], params,
+                                          DP, dev, FLASH_TRAIN[:2])
+    fb_probes = probe_fold_launches(
+        bk, rs, fb.default_probe_points(DP, nbytes), DP)
+    probe_launches = sum(fb_probes.values()) * (1 + 3 * len(ticks))
+    want_fold = skew_per_step * at_step + \
+        refit_per_step * (FB_STEPS - at_step) + probe_launches
+    want_flash = FB_STEPS * MODEL["n_layers"] * DP
+    if launches["reduce_sources"] != want_fold or any(
+            launches[k] != want_flash for k in flash_counts(fa)):
+        raise AssertionError(
+            f"launches {launches}: fold {skew_per_step} x {at_step} + "
+            f"{refit_per_step} x {FB_STEPS - at_step} + probes "
+            f"{probe_launches} = {want_fold}, flash {want_flash}")
+    saved = ckpt.restore_train_state(ck, dev)
+    state = out["result"].state
+    if not all(same_bits(a, b) for a, b in zip(tm.tree_leaves(state),
+                                               tm.tree_leaves(saved))):
+        raise AssertionError("the checkpoint is not the live state bitwise")
+    losses = [loss for _, loss in out["result"].losses]
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"the losses {losses}")
+    turns = plan_turns(dev, tm, cfg, out, {
+        "skewed": host, "refit": os.path.join(obs,
+                                              "CALIBRATION.feedback.json")})
+    log(f"phase 26(b) trainer.main --mesh {DP},1,1 --feedback-every "
+        f"{FB_EVERY} ({FB_STEPS} steps, flagship bf16 flash) from a skewed "
+        f"calibration (plan {len(skew_plan)} buckets; the seeded cache entry "
+        f"{seeded.source}): ticks at {[e['step'] for e in ticks]} taking "
+        f"{[e['elapsed_ms'] for e in ticks]} ms, "
+        f"refit and swapped replan at step {at_step} (topo "
+        f"{replans[0]['topo']}, {replans[0]['invalidated']} cache entries "
+        f"dropped; {sec['meta']['samples']} samples, fit "
+        f"{sec['meta']['fit'].get('drifted_phase')}); the refit plan "
+        f"{len(refit_plan)} buckets {refit_plan}, each bitwise its host "
+        f"copies ({bodies}); fold launches {launches['reduce_sources']} = "
+        f"{skew_per_step} x {at_step} + {refit_per_step} x "
+        f"{FB_STEPS - at_step} + probes {probe_launches}, flash {want_flash} "
+        f"each; the host's file unchanged; the checkpoint the live state "
+        f"bitwise; loss {losses[0]:.4f} -> {losses[-1]:.4f}; the step on the "
+        f"skewed plan and on the refit plan in turns ({FB_TURNS} rounds, the "
+        f"run's final state; printed, not gated): " + ", ".join(
+            f"{k} min {r['min_ms']:.3f} ms, median {r['median_ms']:.3f}"
+            for k, r in turns.items())
+        + f", {turns['skewed']['median_ms'] / turns['refit']['median_ms']:.3f}"
+        f"x; peak {peak / 2**30:.3f} GiB; {wall:.2f} s")
+    return launches, turns["refit"]["median_ms"]
+
+
+def plan_turns(dev, tm, cfg, out, calibrations) -> dict:
+    """The trainer run's step on its final state under each of
+    ``calibrations`` (the sync plans its buckets from the one in force),
+    timed in turns (``bench.harness._interleaved_times``)."""
+    from flextree_tpu_torch.bench.harness import _interleaved_times
+
+    step = tm.make_train_step(cfg, out["train_cfg"], device=dev,
+                              comm=out["comm"])
+    gen = torch.Generator().manual_seed(SEED + 28)
+    toks, tgts = (torch.randint(0, MODEL["vocab_size"], FLASH_TRAIN[:2],
+                                generator=gen) for _ in range(2))
+    state = out["result"].state
+
+    def pinned(path):
+        def call():
+            with env_vars(FLEXTREE_CALIBRATION=path,
+                          FLEXTREE_CALIBRATION_BACKEND="cuda"):
+                step(state, toks, tgts)
+
+        call()  # warm, outside the timed rounds
+        return call
+
+    return _interleaved_times({k: pinned(p) for k, p in calibrations.items()},
+                              FB_TURNS, dev)
+
+
+def probe_free_checks(dev, fa, rs, bk, tm, cm, flat_mesh, params, cfg, tmp):
+    """Phase 26(c): ``fit`` at dp=8 with the probe-free controller from a
+    skewed calibration, its probe timer raising; then the same run with
+    rotation off.  Returns the run's launches."""
+    from flextree_tpu_torch.bench.harness import make_nosync_train_step
+    from flextree_tpu_torch.data import LMDataset, synthetic_tokens
+    from flextree_tpu_torch.obs import flight_recorder
+    from flextree_tpu_torch.parallel.loop import FitConfig, Supervision, fit
+    from flextree_tpu_torch.planner import calibrate as cal
+    from flextree_tpu_torch.planner import feedback as fb
+    from flextree_tpu_torch.tools.feedback_convergence import skew_params
+    from flextree_tpu_torch.tools.probe_free_feedback import CountedSteps
+    from flextree_tpu_torch.utils.profiling import span_ledger
+
+    nbytes = sum(p.numel() * p.element_size() for p in tm.tree_leaves(params))
+    comm = flat_mesh(DP, dev, "dp")
+    tc = tm.TrainConfig(grad_clip_norm=1.0)
+    data = LMDataset(synthetic_tokens(1_000_000, MODEL["vocab_size"],
+                                      seed=SEED), batch=FLASH_TRAIN[0],
+                     seq_len=FLASH_TRAIN[1], seed=SEED)
+
+    def state0():
+        return tm.init_train_state(cfg, torch.Generator().manual_seed(SEED),
+                                   tc, device=dev, comm=comm)
+
+    # the compute floor: the sync-free twin, which enters no span
+    nosync = make_nosync_train_step(cfg, tc, device=dev, comm=comm)
+    st, (toks, tgts) = state0(), data.batch_at(0)
+    times = []
+    with span_ledger() as ledger:
+        for _ in range(FB_FLOOR_STEPS + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            nosync(st, toks, tgts)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    if ledger.names:
+        raise AssertionError(f"the sync-free twin entered spans "
+                             f"{ledger.names[:4]}")
+    floor_us = min(times[1:]) * 1e6
+    del st, nosync
+
+    def forbidden(probes, n):
+        raise AssertionError("the probe timer ran in the probe-free run")
+
+    def run(rotate: bool):
+        live = os.path.join(tmp, f"pf_{rotate}.json")
+        cal.save_calibration(live, skew_params(), backend="cuda",
+                             fingerprint=cal.backend_fingerprint(dev))
+        steps = CountedSteps(
+            lambda c: tm.make_train_step(cfg, c, device=dev, comm=comm),
+            cfg, params, comm, dev)
+        rotations = []
+
+        def on_rotate(bb):
+            rotations.append(int(bb))
+            return (steps(dataclasses.replace(tc, bucket_bytes=int(bb))),
+                    comm, None)
+
+        ctl = fb.FeedbackController(
+            DP, nbytes, fb.FeedbackConfig(
+                every_k=FB_PF_EVERY, band=0.5, probe_free=True,
+                compute_floor_us=floor_us, rotation_ticks=FB_PF_TICKS,
+                rotation_cycles=FB_PF_CYCLES, calibration_path=live,
+                plan_cache_path=os.path.join(tmp, "pf_plans.json"),
+                on_rotate=on_rotate if rotate else None,
+                on_replan=lambda plan, p: (steps(tc), comm, None),
+                run_id="chip_smoke"),
+            params=skew_params(), timer=forbidden, device=dev)
+        obs = os.path.join(tmp, f"obs_c_{rotate}")
+        torch.cuda.synchronize()
+        zero_flash_counts(fa)
+        rs.reduce_sources.launches = 0
+        t0 = time.monotonic()
+        with env_vars(FLEXTREE_CALIBRATION=live,
+                      FLEXTREE_CALIBRATION_BACKEND="cuda"), \
+                flight_recorder(obs, 0):
+            res = fit(state0(), steps(tc), data,
+                      FitConfig(num_steps=FB_PF_STEPS, log_every=0,
+                                prefetch=0),
+                      supervision=Supervision(feedback=ctl))
+        torch.cuda.synchronize()
+        launches = dict(flash_counts(fa),
+                        reduce_sources=rs.reduce_sources.launches)
+        with open(live) as f:
+            sec = json.load(f)["cuda"]
+        return dict(res=res, ctl=ctl, launches=launches,
+                    expected=steps.expected, rotations=rotations, sec=sec,
+                    obs=obs, wall=time.monotonic() - t0)
+
+    a = run(True)
+    rep, ctl = a["res"].report, a["ctl"]
+    events = flight_events(a["obs"])
+    probes = [e for e in events if e["kind"] == "feedback_tick"
+              and e.get("probes")]
+    errors = [e for e in events if e["kind"] == "feedback_error"]
+    want_flash = FB_PF_STEPS * MODEL["n_layers"] * DP
+    if a["launches"]["reduce_sources"] != a["expected"] or probes or \
+            errors or any(a["launches"][k] != want_flash
+                          for k in flash_counts(fa)):
+        raise AssertionError(
+            f"the probe-free run: launches {a['launches']}, its steps' syncs "
+            f"{a['expected']}, flash {want_flash}; probing ticks {probes}, "
+            f"errors {errors}")
+    fit_meta = a["sec"]["meta"].get("fit", {})
+    refusals = [e.get("reason") for e in events
+                if e["kind"] == "feedback_refused"]
+    if not a["rotations"] or rep.feedback_refits < 1 or \
+            a["sec"]["source"] != "feedback" or \
+            fit_meta.get("mode") != "probe-free" or \
+            not fit_meta.get("phase_scales"):
+        raise AssertionError(
+            f"no probe-free refit: rotations {a['rotations']}, "
+            f"{rep.feedback_refits} refits, {rep.feedback_refusals} "
+            f"refusals ({refusals}); "
+            f"the section {a['sec']['source']} {fit_meta}")
+    lengths = [nb // 4 for bb in sorted(set(a["rotations"]))
+               for nb in plan_of(bk, tm, params, cfg, bucket_bytes=bb)]
+    bodies = bucket_host_checks(lengths, dev, flat_mesh, cm, rs, SEED + 27)
+    b = run(False)
+    if b["rotations"] or b["res"].report.feedback_refits or \
+            b["launches"]["reduce_sources"] != b["expected"]:
+        raise AssertionError(f"the run with rotation off rotated or refit: "
+                             f"{b['rotations']}, {b['res'].report}")
+    if not all(same_bits(x, y) for x, y in zip(
+            tm.tree_leaves(a["res"].state), tm.tree_leaves(b["res"].state))):
+        raise AssertionError("the rotated run's final state is not bitwise "
+                             "the run with rotation off")
+    rows = fit_meta.get("plan_rows", {})
+    log(f"phase 26(c) probe-free fit at dp={DP} ({FB_PF_STEPS} steps, "
+        f"flagship bf16 flash, a tick every {FB_PF_EVERY} steps) from a "
+        f"skewed calibration, the probe timer raising: compute floor "
+        f"{floor_us / 1e3:.3f} ms (the sync-free twin, {FB_FLOOR_STEPS} "
+        f"steps, no span); rotations through bucket sizes {a['rotations']}, "
+        f"{rep.feedback_refits} probe-free refit(s) ({fit_meta.get('submode')}"
+        f", phase scales {fit_meta.get('phase_scales')}, drift "
+        f"{fit_meta.get('drifted_phase')}, implied floor "
+        f"{fit_meta.get('floor_implied_us')} us), plans " + "; ".join(
+            f"{r['fixed_us']} us fixed, {r['steps']} steps, min "
+            f"{r['step_us'] / 1e3:.3f} ms" for r in rows.values())
+        + f"; 0 probe launches: fold {a['launches']['reduce_sources']} = "
+        f"the steps' syncs' by the code, flash {want_flash} each; each "
+        f"rotated bucket length bitwise its host copies ({bodies}); the "
+        f"final state bitwise the run with rotation off; "
+        f"{a['wall']:.2f} s and {b['wall']:.2f} s")
+    return a["launches"], a["obs"]
+
+
+def recorder_off_checks(dev, fa, rs, tm, flat_mesh, params, cfg, step_ms):
+    """Phase 26(d): with no recorder the armed controller never ticks and
+    launches no probe fold; its hook's host cost a step, timed directly."""
+    from flextree_tpu_torch.data import LMDataset, synthetic_tokens
+    from flextree_tpu_torch.parallel.loop import FitConfig, Supervision, fit
+    from flextree_tpu_torch.planner import feedback as fb
+
+    def exploding(probes, n):
+        raise AssertionError("the probe timer ran with the recorder off")
+
+    nbytes = sum(p.numel() * p.element_size() for p in tm.tree_leaves(params))
+    ctl = fb.FeedbackController(DP, nbytes, fb.FeedbackConfig(every_k=1),
+                                timer=exploding, device=dev)
+    t0 = time.perf_counter()
+    for i in range(FB_HOOK_CALLS):
+        ctl.maybe_tick(i)
+    hook_us = (time.perf_counter() - t0) / FB_HOOK_CALLS * 1e6
+    comm = flat_mesh(DP, dev, "dp")
+    tc = tm.TrainConfig()
+    state = tm.init_train_state(cfg, torch.Generator().manual_seed(SEED), tc,
+                                device=dev, comm=comm)
+    data = LMDataset(synthetic_tokens(200_000, MODEL["vocab_size"],
+                                      seed=SEED), batch=FLASH_TRAIN[0],
+                     seq_len=FLASH_TRAIN[1], seed=SEED)
+    torch.cuda.synchronize()
+    rs.reduce_sources.launches = 0
+    fit(state, tm.make_train_step(cfg, tc, device=dev, comm=comm), data,
+        FitConfig(num_steps=FB_OFF_STEPS, log_every=0, prefetch=0),
+        supervision=Supervision(feedback=ctl))
+    torch.cuda.synchronize()
+    want = FB_OFF_STEPS * dp_fold_launches(tm, cfg, tc, params, DP, dev,
+                                           FLASH_TRAIN[:2])
+    if ctl.ticks or rs.reduce_sources.launches != want:
+        raise AssertionError(f"recorder off: {ctl.ticks} ticks, "
+                             f"{rs.reduce_sources.launches} fold launches "
+                             f"(the steps' syncs {want})")
+    log(f"phase 26(d) recorder off: the armed hook never ticked; "
+        f"{FB_OFF_STEPS} steps launched the fold {want} times, the syncs' "
+        f"own; the hook costs {hook_us:.4f} us a step on the host "
+        f"({FB_HOOK_CALLS} calls), "
+        f"{hook_us / (step_ms * 1e3):.2e} of the {step_ms:.3f} ms step")
+
+
+def fleet_checks(dirs):
+    """Phase 26(e): ``python -m flextree_tpu_torch.obs fleet`` over the
+    phase's obs dirs."""
+    import io
+
+    from flextree_tpu_torch.obs.__main__ import main as obs_cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = obs_cli(["fleet", *dirs, "--json"])
+    doc = json.loads(buf.getvalue())
+    if rc != 0:
+        raise AssertionError(f"obs fleet fitted nothing: {doc}")
+    log("phase 26(e) obs fleet over " + ", ".join(
+        os.path.basename(d) for d in dirs) + ": runs " + "; ".join(
+        f"{os.path.basename(r['dir'])} {r['samples']} samples "
+        f"{r['mode'] or 'refused'} condition {r['condition']}"
+        for r in doc["runs"]) + "; pooled " + "; ".join(
+        f"{fp}: {e['samples']} samples from {e['runs']} runs, {e['mode']}, "
+        f"condition {e['condition']}, drift {e['drifted_phase']}"
+        for fp, e in doc["pooled"].items()))
+
+
+def phase_feedback(dev, smi):
+    """Phase 26: the closed-loop planner feedback — (a)
+    :func:`probe_checks`, (b) :func:`convergence_checks`, (c)
+    :func:`probe_free_checks`, (d) :func:`recorder_off_checks`, (e)
+    :func:`fleet_checks`.  Returns the launches by path
+    (``feedback_probe``, ``feedback_train``, ``feedback_probe_free``)."""
+    import tempfile
+
+    from flextree_tpu_torch.models.transformer import (
+        TransformerConfig,
+        init_params,
+    )
+    from flextree_tpu_torch.ops import flash_attention as fa
+    from flextree_tpu_torch.ops import reduce_stacked as rs
+    from flextree_tpu_torch.parallel import bucketing as bk
+    from flextree_tpu_torch.parallel import compressed as cm
+    from flextree_tpu_torch.parallel import train as tm
+    from flextree_tpu_torch.parallel.mesh import flat_mesh
+    from flextree_tpu_torch.planner import feedback as fb
+    from flextree_tpu_torch.utils import checkpoint as ckpt
+
+    cfg = TransformerConfig(**MODEL, dtype=torch.bfloat16, attn_impl="flash")
+    params = init_params(TransformerConfig(**MODEL),
+                         torch.Generator().manual_seed(SEED), device=dev)
+    nbytes = sum(p.numel() * p.element_size() for p in tm.tree_leaves(params))
+    by_path = {}
+    log(f"phase 26 ({smi}): the flagship gradient {nbytes} B a rank at "
+        f"dp={DP}")
+    with tempfile.TemporaryDirectory(prefix="ft-feedback-") as tmp:
+        clock = time.monotonic()
+        by_path["feedback_probe"] = {"reduce_sources": probe_checks(
+            dev, fb, rs, bk, cm, flat_mesh, nbytes)}
+        log(f"phase 26(a): {time.monotonic() - clock:.1f} s")
+        clock = time.monotonic()
+        by_path["feedback_train"], step_ms = convergence_checks(
+            dev, fa, rs, bk, tm, cm, ckpt, flat_mesh, params, cfg, tmp)
+        torch.cuda.empty_cache()
+        log(f"phase 26(b): {time.monotonic() - clock:.1f} s")
+        clock = time.monotonic()
+        by_path["feedback_probe_free"], obs_c = probe_free_checks(
+            dev, fa, rs, bk, tm, cm, flat_mesh, params, cfg, tmp)
+        torch.cuda.empty_cache()
+        log(f"phase 26(c): {time.monotonic() - clock:.1f} s")
+        clock = time.monotonic()
+        recorder_off_checks(dev, fa, rs, tm, flat_mesh, params, cfg, step_ms)
+        fleet_checks([os.path.join(tmp, "obs_b"), obs_c])
+        log(f"phase 26(d, e): {time.monotonic() - clock:.1f} s")
+    return by_path
+
+
 def collective_phases(dev, bw) -> list:
     """Phases 11-15 (the FlexTree collectives); returns their rows of the
     kernels line (``reduce_sources`` and ``reduce_stacked``, the fold
@@ -6983,11 +7535,39 @@ def allreduce_ab(parent: str) -> int:
     return 0
 
 
+def one_phase(argv) -> int:
+    """``--phase 26``: phase 1's build, then phase 26 alone; prints its
+    launches by path and no result line."""
+    phases = {"26": phase_feedback}
+    if len(argv) != 1 or argv[0] not in phases:
+        print(f"usage: chip_smoke.py --phase {{{','.join(phases)}}}",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    from flextree_tpu_torch import kernels
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = smi_line()
+    log(f"phase 1 device: {torch.cuda.get_device_name(0)}; nvidia-smi: "
+        f"{smi}")
+    t0 = time.monotonic()
+    kernels.build()
+    log(f"phase 1 build total: {time.monotonic() - t0:.2f} s")
+    t0 = time.monotonic()
+    launches = phases[argv[0]](torch.device("cuda", 0), smi)
+    log(f"phase {argv[0]}: {time.monotonic() - t0:.1f} s")
+    print(json.dumps({"launches_by_path": launches}))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     ab = {"--train-ab": train_ab, "--allreduce-ab": allreduce_ab}
+    if sys.argv[1:2] == ["--phase"]:
+        return one_phase(sys.argv[2:])
     if sys.argv[1:2] and sys.argv[1] in ab:
         if len(sys.argv) != 3:
             print("usage: chip_smoke.py [--train-ab | --allreduce-ab "
@@ -7058,6 +7638,9 @@ def main() -> int:
     t0 = time.monotonic()
     sp_launches.update(phase_supervised(dev, smi))
     log(f"phase 25: {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    sp_launches.update(phase_feedback(dev, smi))
+    log(f"phase 26: {time.monotonic() - t0:.1f} s")
     # each path's launches beside their sum
     for row in rows:
         if row["name"] in dp_launches:

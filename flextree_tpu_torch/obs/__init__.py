@@ -1,9 +1,11 @@
 """Telemetry the serving tier and the gradient sync report through: the
 metrics registry, its cross-process window readers and its Prometheus
-exposition, the flight recorder, the bucket-plan provenance, and the
-cross-rank timeline (:mod:`.timeline`; ``python -m flextree_tpu_torch.obs``
-merges, validates and summarizes a run's obs directory) — the port's
-copies of ``flextree_tpu.obs``'s."""
+exposition, the flight recorder, the bucket-plan provenance, the per-step
+span clock (:mod:`.stepclock`, the probe-free feedback's measurement), and
+the cross-rank timeline (:mod:`.timeline`; ``python -m
+flextree_tpu_torch.obs`` merges, validates and summarizes a run's obs
+directory, tables its residuals and pools many runs' with ``fleet``) — the
+port's copies of ``flextree_tpu.obs``'s."""
 
 from .metrics import (
     Counter,
@@ -27,6 +29,7 @@ from .recorder import (
     record_event,
     use_recorder,
 )
+from .stepclock import StepPlan, StepSample, StepSpanClock, plan_from_capture
 
 __all__ = [
     "Counter",
@@ -48,4 +51,8 @@ __all__ = [
     "use_recorder",
     "bucket_provenance",
     "topo_spec",
+    "StepPlan",
+    "StepSample",
+    "StepSpanClock",
+    "plan_from_capture",
 ]

@@ -7,6 +7,7 @@ The port's copy of ``python -m flextree_tpu.obs``.  Usage::
     python -m flextree_tpu_torch.obs summary OBS_DIR
     python -m flextree_tpu_torch.obs residuals OBS_DIR [--fingerprint FP] [--json]
     python -m flextree_tpu_torch.obs metrics OBS_DIR [--prom]
+    python -m flextree_tpu_torch.obs fleet OBS_DIR [OBS_DIR ...] [--json] [--fit-out PATH]
     python -m flextree_tpu_torch.obs --device cpu summary OBS_DIR
 
 Like every entry point of the port, it resolves ``--device`` first
@@ -20,15 +21,20 @@ Perfetto exits non-zero.  Open the result at https://ui.perfetto.dev or
 ``chrome://tracing``.  ``summary`` prints per-rank event/dump counts —
 the 10-second "what did this run leave behind".  ``residuals`` prints
 the per-(topo, codec, tier) predicted-vs-measured comm residual table
-built from ``timeline.residual_pairs``; ``--fingerprint`` narrows to one
-measuring backend and ``--json`` emits the machine-readable sample list
-instead of the table.  ``metrics`` prints the per-rank
+built from ``timeline.residual_pairs``, with a ``drift`` column naming
+each group's drifted phase (``planner.feedback.attribute_groups``);
+``--fingerprint`` narrows to one measuring backend and ``--json`` emits
+the machine-readable sample list instead of the table.  ``metrics`` prints the per-rank
 ``metrics_{rank}.json`` registry snapshots; with ``--prom`` they render
 as Prometheus text exposition (histogram ``_bucket``/``_sum``/``_count``
 series plus windowed ``_window_p99`` gauges), so serving SLO instruments
-are scrapeable without parsing the JSON.  ``fleet`` (the cross-run
-pooled residual fit) needs the feedback fitter, which is not ported yet:
-it refuses.
+are scrapeable without parsing the JSON.  ``fleet`` pools the residual
+samples of many runs' obs dirs per backend fingerprint and fits each pool
+with ``planner.feedback.fit_residuals_auto`` (the α-β solve where the
+pooled geometry allows it, else the per-phase scales), beside each run's
+own fit; ``--fit-out`` writes the largest pool's fit as a calibration
+section (``source="feedback"``, the dirs and sample count under
+``meta.fleet``).  It exits non-zero when nothing could be fitted.
 """
 
 from __future__ import annotations
@@ -67,6 +73,11 @@ def _sample_json(s) -> dict:
         "source": s.source,
         "phases": s.phases,
     }
+
+
+def _fit_condition(meta: dict) -> float | None:
+    cond = meta.get("condition")
+    return float(cond) if isinstance(cond, (int, float)) else None
 
 
 def _dir_samples(dir: str):
@@ -124,10 +135,11 @@ def main(argv=None) -> int:
     )
     fp.add_argument(
         "--backend", default=None,
-        help="calibration section name for --fit-out",
+        help="calibration section name for --fit-out (default: the "
+        "--device's type)",
     )
     args = ap.parse_args(argv)
-    resolve_device(args.device)
+    dev = resolve_device(args.device)
 
     if args.cmd == "merge":
         events, dumps = read_dir(args.dir)
@@ -173,7 +185,16 @@ def main(argv=None) -> int:
                 indent=1, sort_keys=True,
             ))
             return 0
-        print(residual_table(samples, skipped))
+        # the per-group drift attribution of the per-phase fit
+        attribution = None
+        if samples:
+            try:
+                from ..planner.feedback import attribute_groups
+
+                attribution = attribute_groups(samples)
+            except Exception:  # noqa: BLE001 — the table must still print
+                attribution = None
+        print(residual_table(samples, skipped, attribution=attribution))
         return 0
 
     if args.cmd == "metrics":
@@ -198,10 +219,7 @@ def main(argv=None) -> int:
         return 0
 
     if args.cmd == "fleet":
-        raise NotImplementedError(
-            "obs fleet needs planner.feedback.fit_residuals_auto, which is "
-            "not ported yet (ROADMAP.md, Queue 1: 'Checkpoint, supervision "
-            "and feedback plumbing')")
+        return _fleet(args, dev)
 
     events, dumps = read_dir(args.dir)
     by_rank: dict[int, _Counter] = {}
@@ -218,6 +236,86 @@ def main(argv=None) -> int:
         print(f"no events under {args.dir}")
         return 1
     return 0
+
+
+def _fleet(args, dev) -> int:
+    """``fleet``: each run's fit, then each fingerprint's pooled fit."""
+    from ..planner.feedback import FeedbackRefused, fit_residuals_auto
+
+    runs = []
+    by_fp: dict = {}
+    fp_runs: dict = {}
+    for dir in args.dirs:
+        samples, skipped = _dir_samples(dir)
+        if args.fingerprint:
+            samples = [s for s in samples if s.fingerprint == args.fingerprint]
+        row = {"dir": dir, "samples": len(samples), "skipped": skipped,
+               "condition": None, "mode": None, "refused": None}
+        if samples:
+            try:
+                _params, meta = fit_residuals_auto(samples)
+                row["condition"] = _fit_condition(meta)
+                row["mode"] = meta.get("mode")
+            except FeedbackRefused as e:
+                row["refused"] = str(e)[:200]
+        else:
+            row["refused"] = "no residual samples"
+        runs.append(row)
+        for s in samples:
+            by_fp.setdefault(s.fingerprint, []).append(s)
+            fp_runs.setdefault(s.fingerprint, set()).add(dir)
+
+    pooled: dict = {}
+    fitted: dict = {}
+    for fpr, samples in sorted(by_fp.items(), key=lambda kv: str(kv[0])):
+        entry = {"samples": len(samples), "runs": len(fp_runs.get(fpr, ())),
+                 "condition": None, "mode": None, "drifted_phase": None,
+                 "refused": None}
+        try:
+            params, meta = fit_residuals_auto(samples)
+            entry["condition"] = _fit_condition(meta)
+            entry["mode"] = meta.get("mode")
+            entry["drifted_phase"] = meta.get("drifted_phase")
+            fitted[fpr] = (params, meta)
+        except FeedbackRefused as e:
+            entry["refused"] = str(e)[:200]
+        pooled[str(fpr)] = entry
+
+    out_doc = {"runs": runs, "pooled": pooled, "fit_out": None}
+    if args.fit_out and fitted:
+        from ..planner.calibrate import save_calibration
+
+        # the pool with the most samples (or the one --fingerprint kept)
+        fpr = max(fitted, key=lambda k: len(by_fp[k]))
+        params, meta = fitted[fpr]
+        save_calibration(
+            args.fit_out, params, backend=args.backend or dev.type,
+            fingerprint=fpr, source="feedback",
+            meta={"fleet": {"dirs": list(args.dirs),
+                            "samples": len(by_fp[fpr]), "fit": meta}})
+        out_doc["fit_out"] = args.fit_out
+    if args.json:
+        print(json.dumps(out_doc, indent=1, sort_keys=True))
+    else:
+        for r in runs:
+            status = (f"condition {r['condition']:.3g} ({r['mode']})"
+                      if r["condition"] is not None
+                      else f"refused: {r['refused']}")
+            print(f"{r['dir']}: {r['samples']} sample(s), {status}")
+        for fpr, e in pooled.items():
+            status = (
+                f"condition {e['condition']:.3g} ({e['mode']}"
+                + (f", drift {e['drifted_phase']}" if e["drifted_phase"]
+                   else "") + ")"
+                if e["condition"] is not None
+                else f"refused: {e['refused']}")
+            print(f"pooled[{fpr}]: {e['samples']} sample(s) from "
+                  f"{len(args.dirs)} dir(s), {status}")
+        if out_doc["fit_out"]:
+            print(f"wrote pooled calibration -> {out_doc['fit_out']}")
+    # pooling exists because single runs are thin: non-zero when nothing
+    # could be fitted, also when a --fingerprint filter left no samples
+    return 0 if fitted else 1
 
 
 if __name__ == "__main__":

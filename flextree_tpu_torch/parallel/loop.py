@@ -43,14 +43,26 @@ buffers are new a step, the overlap side stream is joined before the
 step returns, and each rank's ``ef`` is a new tree), so the abandoned
 worker, should it finish, leaves nothing the retry reads.
 
-The closed-loop feedback controller (``Supervision(feedback=)``), the
-coordinated control plane (``Supervision(coordination=)``) and the
+Closed-loop planner feedback (``Supervision(feedback=)``, a
+``planner.feedback.FeedbackController``): after every step but the last
+the loop calls its ``maybe_tick``, which with no flight recorder
+installed is one ``None`` check; on its cadence it times probes (or, in
+its probe-free mode, reads the per-step spans the loop feeds it: the
+step's bucket plan from ``utils.profiling.plan_capture`` and its time,
+waited for on the card) and past its drift band hands back a refitted
+plan and a rebuilt step, which the loop swaps in through the shrink's
+swap path without a restore.  A tick or span clock that raises records
+``feedback_error`` and disarms feedback for the rest of the run; training
+goes on under the current plan.
+
+The coordinated control plane (``Supervision(coordination=)``) and the
 arbiter lease (``fit(arbiter=)``) are not ported yet (ROADMAP.md, Queue
 1: 'Checkpoint, supervision and feedback plumbing'): they raise.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -67,6 +79,7 @@ from ..utils.checkpoint import (
     save_train_state,
 )
 from ..utils.logging import get_logger
+from ..utils.profiling import plan_capture
 
 __all__ = [
     "FitConfig",
@@ -137,9 +150,11 @@ class Supervision:
     ``preemption``: a ``runtime.PreemptionGuard`` polled every
     iteration.  ``background_saver``: a ``runtime.BackgroundSaver`` for
     the periodic saves (the final save stays synchronous, after a drain).
+    ``feedback``: a ``planner.feedback.FeedbackController`` (module
+    docstring).
 
-    ``feedback`` and ``coordination`` (the JAX closed-loop planner and
-    coordinated control plane) are not ported: setting either raises."""
+    ``coordination`` (the JAX coordinated control plane) is not ported:
+    setting it raises."""
 
     supervisor: Any = None
     membership: Any = None
@@ -159,8 +174,8 @@ class Supervision:
 @dataclasses.dataclass
 class RunReport:
     """End-of-run accounting of what the recovery machinery did: the JAX
-    ``RunReport``'s fields and names (the feedback, lease and control
-    fields stay zero and empty: their modules are not ported)."""
+    ``RunReport``'s fields and names (the lease and control fields stay
+    empty: their modules are not ported)."""
 
     anomalies: int = 0  # non-finite steps skipped
     skipped_steps: list = dataclasses.field(default_factory=list)
@@ -172,9 +187,10 @@ class RunReport:
     step_timeouts: int = 0  # watchdog deadlines hit (FT_STEP_TIMEOUT)
     step_retries: int = 0  # timed-out steps retried (no death confirmed)
     stragglers: list = dataclasses.field(default_factory=list)
-    feedback_refits: int = 0
-    feedback_replans: int = 0
-    feedback_refusals: int = 0
+    # --- closed-loop planner feedback (zero without a controller) ---
+    feedback_refits: int = 0  # drift-triggered constant refits
+    feedback_replans: int = 0  # refits whose on_replan hook swapped the step
+    feedback_refusals: int = 0  # refits refused (starved/degenerate samples)
     lease_epochs: list = dataclasses.field(default_factory=list)
     # membership epochs: entry 0 is the starting world, one more per live
     # shrink — {"step", "alive", "configured", "topo", "dead"}
@@ -227,11 +243,19 @@ def _apply_rebuild(rebuilt, cur_pack, cur_unpack):
     return rebuilt[0], cur_pack, cur_unpack
 
 
+def _disarm_feedback(step: int, exc: Exception, what: str) -> bool:
+    """Feedback never kills the run: record why it failed (in the flight
+    record, which outlives the process log) and disarm it.  Returns the
+    new ``feedback_dead``."""
+    record_event("feedback_error", step=step,
+                 reason=f"{type(exc).__name__}: {exc}"[:300])
+    log.exception("feedback %s failed at step %d; planner feedback disarmed "
+                  "for the rest of the run", what, step)
+    return True
+
+
 def _refuse_unported(supervision, arbiter) -> None:
     for bad, what in ((arbiter is not None, "fit(arbiter=)"),
-                      (supervision is not None
-                       and supervision.feedback is not None,
-                       "Supervision(feedback=)"),
                       (supervision is not None
                        and supervision.coordination is not None,
                        "Supervision(coordination=)")):
@@ -317,6 +341,7 @@ def fit(state, step_fn: Callable, dataset, cfg: FitConfig = FitConfig(), *,
 
     # ---- runtime supervision (sup=None leaves the unsupervised loop)
     watchdog = step_timeout = world = None
+    feedback_dead = False  # a tick raised: feedback disarmed for the run
     known_dead: set = set()
     flagged_stragglers: set = set()
     shrinks = timeout_retries = 0
@@ -467,12 +492,25 @@ def fit(state, step_fn: Callable, dataset, cfg: FitConfig = FitConfig(), *,
             if sup is None:
                 new_state, metrics = cur_step_fn(state, tokens, targets)
             else:
+                # probe-free feedback: when the controller wants per-step
+                # spans (probe-free with the recorder on; off, one None
+                # check), capture the step's bucket plan and wait for the
+                # card before reading the clock, so the span clock gets
+                # the step's time and not its launch's
+                fb = sup.feedback
+                fb_spans = (fb is not None and not feedback_dead
+                            and hasattr(fb, "wants_step_spans")
+                            and fb.wants_step_spans())
                 try:
-                    new_state, metrics = (
-                        watchdog.run(_run_step, state, tokens, targets,
-                                     timeout_s=step_timeout, step=step)
-                        if watchdog is not None
-                        else cur_step_fn(state, tokens, targets))
+                    with (plan_capture() if fb_spans
+                          else contextlib.nullcontext()) as fb_cap:
+                        new_state, metrics = (
+                            watchdog.run(_run_step, state, tokens, targets,
+                                         timeout_s=step_timeout, step=step)
+                            if watchdog is not None
+                            else cur_step_fn(state, tokens, targets))
+                        if fb_spans and dev.type == "cuda":
+                            torch.cuda.synchronize(dev)
                 except StepTimeout as e:
                     report.step_timeouts += 1
                     log.warning("%s", e)
@@ -491,6 +529,14 @@ def fit(state, step_fn: Callable, dataset, cfg: FitConfig = FitConfig(), *,
                         continue
                     raise
                 timeout_retries = 0
+                if fb_spans:
+                    try:
+                        if fb_cap:
+                            fb.set_step_plan(fb_cap)
+                        fb.observe_step(step, time.perf_counter() - t_step)
+                    except Exception as e:  # noqa: BLE001 — the obs contract
+                        feedback_dead = _disarm_feedback(step, e,
+                                                         "span clock")
             # the guard reads the metrics back, which waits for the step's
             # device work; without it, wait explicitly so the time is the
             # step's and not its launch's
@@ -538,6 +584,42 @@ def fit(state, step_fn: Callable, dataset, cfg: FitConfig = FitConfig(), *,
             state = new_state
             bad_streak = 0
             step += 1
+            if (sup is not None and sup.feedback is not None
+                    and not feedback_dead and step < cfg.num_steps):
+                # closed-loop planner feedback on the loop thread, after
+                # the step returned (never beside an abandoned watchdog
+                # worker's step); not after the last step, whose plan no
+                # step would run
+                try:
+                    decision = sup.feedback.maybe_tick(step)
+                    if decision is not None and decision.rebuilt is not None:
+                        # the shrink's swap minus the restore: the world
+                        # did not change, only the plan
+                        cur_step_fn, cur_pack, cur_unpack = _apply_rebuild(
+                            decision.rebuilt, cur_pack, cur_unpack)
+                    # a probe-free rotation (a bucket-size variant of the
+                    # same plan, values unchanged) swaps without a refit
+                    if decision is not None and not getattr(
+                            decision, "rotation", False):
+                        report.feedback_refits += 1
+                        report.feedback_replans += \
+                            decision.rebuilt is not None
+                        record_event("feedback_replan", step=step,
+                                     topo=decision.plan.to_ft_topo(),
+                                     invalidated=decision.invalidated,
+                                     swapped=decision.rebuilt is not None)
+                        log.warning(
+                            "feedback replan at step %d: topo %s, %d cache "
+                            "entr%s invalidated%s", step,
+                            decision.plan.to_ft_topo(), decision.invalidated,
+                            "y" if decision.invalidated == 1 else "ies",
+                            "" if decision.rebuilt is not None
+                            else " (no rebuild hook: plan recorded only)")
+                except Exception as e:  # noqa: BLE001 — the obs contract
+                    # an unwritable calibration path, a failed probe or a
+                    # broken rebuild hook; _apply_rebuild returns before
+                    # any name is rebound, so no swap is half-applied
+                    feedback_dead = _disarm_feedback(step, e, "tick")
             if cfg.log_every and (step % cfg.log_every == 0
                                   or step == cfg.num_steps):
                 loss = float(metrics["loss"])
@@ -559,6 +641,11 @@ def fit(state, step_fn: Callable, dataset, cfg: FitConfig = FitConfig(), *,
                 _save(state)
     finally:
         if sup is not None:
+            if sup.feedback is not None:
+                # refusals happen inside the controller (a refused refit
+                # returns no decision): mirror its count into the report
+                report.feedback_refusals = getattr(sup.feedback, "refusals",
+                                                   0)
             if sup.background_saver is not None:
                 sup.background_saver.drain()
                 report.background_saves = sup.background_saver.saves
@@ -573,6 +660,9 @@ def fit(state, step_fn: Callable, dataset, cfg: FitConfig = FitConfig(), *,
         reg.counter("train.shrinks").inc(
             max(len(report.membership_epochs) - 1, 0))
         reg.counter("train.background_saves").inc(report.background_saves)
+        reg.counter("train.feedback_refits").inc(report.feedback_refits)
+        reg.counter("train.feedback_replans").inc(report.feedback_replans)
+        reg.counter("train.feedback_refusals").inc(report.feedback_refusals)
         reg.gauge("train.last_step").set(step)
         report.metrics = reg.snapshot()
         record_event("fit_end", id=start, step=step)

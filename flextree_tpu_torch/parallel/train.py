@@ -832,8 +832,12 @@ def step_sync_fold_launches(model_cfg, train_cfg: TrainConfig, params,
     topos = resolve_axis_topos(sizes, axis_names, train_cfg.grad_topo)
     slices = shard_tree(params, pspecs, comm)[0]
     codec = "int8" if train_cfg.codec == "int8" else None
+    # a whole-tree sync packs by the configured bucket size, as the step's
+    # sync_with_feedback does; a fired bucket is its own payload
+    bucket_bytes = None
     if not train_cfg.overlap or (pipeline and train_cfg.shard_optimizer):
         payloads = [(slices, pspecs)]
+        bucket_bytes = train_cfg.bucket_bytes
     elif pipeline:
         payloads = [({k: slices[k]}, {k: pspecs[k]}) for k in PIPELINE_TAIL]
     else:
@@ -847,7 +851,8 @@ def step_sync_fold_launches(model_cfg, train_cfg: TrainConfig, params,
                             fired_payloads(plan, pspecs)))
     return sum(mesh_fold_launches(
         tree_leaves(tree), spec_leaves(tree, sp), axis_names, sizes, topos,
-        codec=codec, sharded=train_cfg.shard_optimizer)
+        bucket_bytes=bucket_bytes, codec=codec,
+        sharded=train_cfg.shard_optimizer)
         for tree, sp in payloads)
 
 

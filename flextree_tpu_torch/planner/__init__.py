@@ -9,11 +9,13 @@ the runtime — ``choose_topology(...).topology`` drops straight into
 offline via ``python -m flextree_tpu_torch.planner``.  Its constants are
 fitted on the card by ``python -m flextree_tpu_torch.tools.calibrate_host``
 (:mod:`.calibrate`); the measured autotuner (:mod:`.autotune`) times the
-analytic shortlist on the card and caches the winner.
+analytic shortlist on the card and caches the winner; the closed-loop
+feedback (:mod:`.feedback`) refits the constants from a run's flight
+records, detects drift and replans in-run.
 
-Not ported: the closed-loop feedback (ROADMAP.md, Queue 1: 'Checkpoint,
-supervision and feedback plumbing') and the native C++ core (ROADMAP.md,
-Queue 1: '``schedule/native.py``').
+Not ported: the feedback's coordinated control plane (ROADMAP.md, Queue
+1: 'Checkpoint, supervision and feedback plumbing') and the native C++
+core (ROADMAP.md, Queue 1: '``schedule/native.py``').
 """
 
 from .cost_model import (
@@ -46,6 +48,17 @@ from .autotune import (
     analytic_shortlist,
     autotune_plan,
     invalidate_plan_cache,
+)
+from .feedback import (
+    DriftDetector,
+    FeedbackConfig,
+    FeedbackController,
+    FeedbackRefused,
+    ProbePoint,
+    ReplanDecision,
+    cache_invalidation_predicate,
+    extract_residuals,
+    fit_from_samples,
 )
 from .choose import (
     Candidate,
@@ -90,6 +103,15 @@ __all__ = [
     "analytic_shortlist",
     "autotune_plan",
     "invalidate_plan_cache",
+    "DriftDetector",
+    "FeedbackConfig",
+    "FeedbackController",
+    "FeedbackRefused",
+    "ProbePoint",
+    "ReplanDecision",
+    "cache_invalidation_predicate",
+    "extract_residuals",
+    "fit_from_samples",
     "Candidate",
     "Plan",
     "candidate_topologies",

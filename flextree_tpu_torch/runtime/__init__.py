@@ -12,8 +12,10 @@ parts that the serving tier and the supervised training run need):
   (``PreemptionGuard``) and the off-step-path checkpoint writer
   (``BackgroundSaver``) that ``parallel.loop.fit``'s supervision uses.
 
-The JAX package's leases and coordinated control plane are not ported
-(ROADMAP.md, Queue 1: 'Checkpoint, supervision and feedback plumbing').
+The closed-loop planner feedback the supervised run arms lives in
+``planner.feedback``.  The JAX package's leases, arbiter and coordinated
+control plane are not ported (ROADMAP.md, Queue 1: 'Checkpoint,
+supervision and feedback plumbing').
 """
 
 from .ctrlfile import control_trailer, read_control_json, write_control_json

@@ -57,6 +57,13 @@ tp).  It takes the JAX trainer's flags with their defaults, plus
     python -m flextree_tpu_torch.trainer --mesh 8,1,1 --ckpt-dir ck \
         --step-timeout 30 --heartbeat-dir hb --flight-recorder --autotune
 
+    # closed-loop planner feedback: every 5 steps time a few probe
+    # allreduces over the largest mesh axis; past the drift band refit the
+    # cost constants into obs/CALIBRATION.feedback.json and swap in the
+    # replanned step
+    python -m flextree_tpu_torch.trainer --mesh 8,1,1 --obs-dir obs \
+        --feedback-every 5
+
 ``--mesh`` (dp,sp,tp for the dense model; dp,pp,sp,tp or dp,ep,sp,tp for
 the pipeline and MoE models) or ``--devices N`` (split as the JAX
 ``factor_devices`` or ``factor_devices_4d`` splits it) give the ranks, all
@@ -73,9 +80,17 @@ checkpoint within one step and a clean exit unless
 the flight recorder (``obs.flight_recorder``, default directory
 ``{ckpt}/obs`` or ``ft_obs``) before the build; ``--autotune`` times the
 gradient sync's candidates (``planner.autotune``, cached under
-``FLEXTREE_PLAN_CACHE``).  ``--feedback-*`` (the closed-loop planner) is
-not ported yet and raises ``NotImplementedError`` naming its ROADMAP
-item.  The last line printed is the JAX trainer's.  A run checkpoints its
+``FLEXTREE_PLAN_CACHE``).  ``--feedback-every K`` arms the closed-loop
+planner feedback (``planner.feedback.FeedbackController``, the probes on
+the largest mesh axis, the drift band ``--feedback-band``); it acts only
+with the flight recorder on.  Refits go to ``--feedback-calibration``,
+else to a run-local ``CALIBRATION.feedback.json`` under the obs directory
+(or a private temporary directory) seeded as a copy of
+``$FLEXTREE_CALIBRATION``, so the host's calibration file is never
+written; a replan rebuilds the step with ``FLEXTREE_CALIBRATION`` (and,
+when unset, ``FLEXTREE_CALIBRATION_BACKEND``) pointed at that file for
+the rest of the run, and both are restored when the run ends.  The last
+line printed is the JAX trainer's.  A run checkpoints its
 replicated state, as the JAX trainer does (a pipeline run the stacked
 tree); with a lossy ``--codec`` the state carries the error-feedback
 residual ``"ef"``, each rank's, and the file holds slice by slice the
@@ -90,11 +105,13 @@ from __future__ import annotations
 
 import argparse
 import math
+import os
+import shutil
 import signal
+import tempfile
 
 import torch
 
-_ROADMAP = "ROADMAP.md, Queue 1"
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -178,10 +195,25 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--no-preempt-checkpoint", action="store_true",
                     help="disable the SIGTERM 'checkpoint now' guard "
                     "(runtime/preemption.py), on whenever --ckpt-dir is set")
-    ap.add_argument("--feedback-every", type=int, default=0, metavar="K")
-    ap.add_argument("--feedback-band", type=float, default=0.5, metavar="R")
+    ap.add_argument("--feedback-every", type=int, default=0, metavar="K",
+                    help="arm the closed-loop planner feedback: every K "
+                    "steps (with the flight recorder on: --obs-dir or "
+                    "--flight-recorder) time probe allreduces over the "
+                    "largest mesh axis and past the drift band refit the "
+                    "cost constants, drop stale plan-cache entries and "
+                    "swap in the replanned step; 0 (default) is off, and "
+                    "with the recorder off the armed hook is one None "
+                    "check a step")
+    ap.add_argument("--feedback-band", type=float, default=0.5, metavar="R",
+                    help="drift band of --feedback-every: a replan fires "
+                    "when the median |predicted-measured|/measured over "
+                    "the window passes R")
     ap.add_argument("--feedback-calibration", type=str, default=None,
-                    metavar="PATH")
+                    metavar="PATH",
+                    help="where feedback refits go (source=\"feedback\"); "
+                    "default a run-local CALIBRATION.feedback.json under "
+                    "the obs directory, seeded from $FLEXTREE_CALIBRATION, "
+                    "so the host's file is never written")
     ap.add_argument("--obs-dir", type=str, default=None, metavar="DIR",
                     help="write this rank's flight-recorder events, failure "
                     "dumps and metrics snapshot under DIR")
@@ -214,15 +246,6 @@ def _mesh_shape(args) -> tuple:
         return shape
     factor = factor_devices if args.model == "dense" else factor_devices_4d
     return factor(args.devices or 1)
-
-
-def _refuse_unported(args) -> None:
-    """Raise for a flag whose module is not ported, naming its item."""
-    if (args.feedback_every > 0 or args.feedback_band != 0.5
-            or args.feedback_calibration is not None):
-        raise NotImplementedError(
-            f"--feedback-* is not ported yet ({_ROADMAP}: 'Checkpoint, "
-            f"supervision and feedback plumbing')")
 
 
 def _supervision(args):
@@ -308,35 +331,21 @@ def main(argv=None, *, out: dict | None = None) -> int:
     ``"comm"`` (for in-process callers that check the run, such as
     ``chip_smoke.py``)."""
     args = _parser().parse_args(argv)
-    _refuse_unported(args)
 
     import contextlib
-    import os
 
     from .data import LMDataset, synthetic_tokens
     from .device import resolve_device
     from .parallel.loop import FitConfig, fit
-    from .parallel.train import TrainConfig
 
     dev = resolve_device("cpu" if args.cpu else None)
     shape = _mesh_shape(args)
-    tc = TrainConfig(
-        lr=args.lr,
-        grad_topo=args.grad_topo,
-        grad_clip_norm=args.grad_clip,
-        schedule=args.schedule,
-        warmup_steps=args.warmup_steps,
-        total_steps=args.steps if args.schedule == "warmup_cosine" else 0,
-        min_lr_frac=args.min_lr_frac,
-        codec=args.codec,
-        autotune=args.autotune,
-        overlap=args.overlap,
-        shard_optimizer=args.shard_optimizer,
-    )
+    tc = _train_config(args)
     supervision = _supervision(args)
     # the flight recorder goes in before the build, so the build's events
     # (the bucket plans) land in the record too
     obs_ctx = contextlib.nullcontext()
+    obs_dir = None
     if args.obs_dir or args.flight_recorder:
         from .obs import flight_recorder
 
@@ -345,6 +354,10 @@ def main(argv=None, *, out: dict | None = None) -> int:
         obs_ctx = flight_recorder(obs_dir, rank=args.heartbeat_rank,
                                   source="train")
     prev_term = None  # the SIGTERM handler a chained dump replaced
+    # the calibration variables a feedback replan repoints, restored at
+    # the end for in-process callers
+    prev_cal = {k: os.environ.get(k) for k in (
+        "FLEXTREE_CALIBRATION", "FLEXTREE_CALIBRATION_BACKEND")}
     try:
         with obs_ctx as obs_rec:
             if obs_rec is not None and (supervision is None
@@ -364,6 +377,9 @@ def main(argv=None, *, out: dict | None = None) -> int:
             )
             pack, unpack = sharded_hooks(comm, cfg, state["params"], tc,
                                          args.model)
+            if args.feedback_every > 0:
+                supervision = _feedback(args, supervision, state, shape, dev,
+                                        obs_dir)
             result = fit(
                 state, step, dataset,
                 FitConfig(num_steps=args.steps, ckpt_dir=args.ckpt_dir,
@@ -379,6 +395,11 @@ def main(argv=None, *, out: dict | None = None) -> int:
             supervision.preemption.uninstall()
         if prev_term is not None:
             signal.signal(signal.SIGTERM, prev_term)
+        for key, val in prev_cal.items():
+            if val is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = val
     if out is not None:
         out.update(result=result, model_cfg=cfg, train_cfg=tc, comm=comm)
     first = result.losses[0][1] if result.losses else float("nan")
@@ -397,11 +418,87 @@ def main(argv=None, *, out: dict | None = None) -> int:
     return 0
 
 
+def _train_config(args):
+    """The ``TrainConfig`` of the flags."""
+    from .parallel.train import TrainConfig
+
+    return TrainConfig(
+        lr=args.lr,
+        grad_topo=args.grad_topo,
+        grad_clip_norm=args.grad_clip,
+        schedule=args.schedule,
+        warmup_steps=args.warmup_steps,
+        total_steps=args.steps if args.schedule == "warmup_cosine" else 0,
+        min_lr_frac=args.min_lr_frac,
+        codec=args.codec,
+        autotune=args.autotune,
+        overlap=args.overlap,
+        shard_optimizer=args.shard_optimizer,
+    )
+
+
+def _feedback(args, supervision, state, shape, dev, obs_dir):
+    """``supervision`` (a new one when None) armed with the closed-loop
+    planner feedback of ``--feedback-*`` (the JAX trainer's wiring).
+
+    The probes run over the largest mesh axis, priced at the parameter
+    bytes.  Refits go to ``--feedback-calibration``, else to a run-local
+    ``CALIBRATION.feedback.json`` (under ``obs_dir``, else in a private
+    temporary directory) seeded as a copy of ``$FLEXTREE_CALIBRATION``:
+    a refit rewrites its backend's section, and the host's measured file
+    must never be the one rewritten.  The replan hook points
+    ``FLEXTREE_CALIBRATION`` (and ``FLEXTREE_CALIBRATION_BACKEND`` when
+    unset, so a CPU run reads the section) at that file and rebuilds the
+    step alone: the bucket plan is derived from the calibration on every
+    sync call, so the variables stay pointed there for the rest of the
+    run (``main`` restores them at its end), and the rebuilt step holds
+    a new step cache, so no plan state of the old step survives."""
+    from .parallel.loop import Supervision
+    from .planner.feedback import FeedbackConfig, FeedbackController
+    from .utils.tree import tree_leaves, tree_map
+
+    leaves = tree_leaves(state["params"])
+    param_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    # the parameter shapes the rebuilt checkpoint converters lay out
+    shapes = tree_map(lambda t: torch.empty_like(t, device="meta"),
+                      state["params"])
+    cal = args.feedback_calibration
+    if not cal:
+        cal = os.path.join(
+            obs_dir if obs_dir is not None
+            else tempfile.mkdtemp(prefix="ft-feedback-"),
+            "CALIBRATION.feedback.json")
+        host = os.environ.get("FLEXTREE_CALIBRATION")
+        if host and os.path.exists(host):
+            os.makedirs(os.path.dirname(cal), exist_ok=True)
+            shutil.copyfile(host, cal)
+
+    def rebuild(plan, params):
+        os.environ["FLEXTREE_CALIBRATION"] = cal
+        os.environ.setdefault("FLEXTREE_CALIBRATION_BACKEND",
+                              controller._backend_name())
+        cfg, tc, _, step, comm = _build(args, _train_config(args), shape,
+                                        dev, None)
+        pack, unpack = sharded_hooks(comm, cfg, shapes, tc, args.model)
+        return (step, comm, None, pack, unpack)
+
+    controller = FeedbackController(
+        max(shape), param_bytes,
+        FeedbackConfig(every_k=args.feedback_every, band=args.feedback_band,
+                       calibration_path=cal, on_replan=rebuild),
+        device=dev)
+    if supervision is None:
+        supervision = Supervision()
+    supervision.feedback = controller
+    return supervision
+
+
 def _build(args, tc, shape, dev, gen):
     """``(model config, train config, train state, step, comm)`` for
     ``--model``; an ``autotune`` config comes back with its ``grad_topo``
     resolved, which the state, the step and the checkpoint converters all
-    read."""
+    read.  ``gen=None`` builds the step alone (the state is None): the
+    feedback replan's rebuild."""
     from .models.transformer import TransformerConfig
     from .parallel.mesh import Mesh, flat_mesh
     from .parallel.train import maybe_autotune_grad_topo
@@ -422,8 +519,9 @@ def _build(args, tc, shape, dev, gen):
         cfg = TransformerConfig(**common)
         comm = make_mesh_4d(shape=shape, device=dev)
         tc = autotune_pipeline_grad_topo(comm, cfg, tc, _AXES["pipeline"])
-        return (cfg, tc, init_pipeline_train_state(cfg, gen, tc, device=dev,
-                                                   comm=comm),
+        state = None if gen is None else init_pipeline_train_state(
+            cfg, gen, tc, device=dev, comm=comm)
+        return (cfg, tc, state,
                 make_pipeline_train_step(cfg, tc, args.microbatches,
                                          comm=comm), comm)
     if args.model == "moe":
@@ -439,8 +537,9 @@ def _build(args, tc, shape, dev, gen):
         comm = make_mesh_moe(shape=shape, device=dev)
         tc = maybe_autotune_grad_topo(comm, cfg, tc, _AXES["moe"],
                                       init_fn=init_moe_params)
-        return (cfg, tc, init_moe_train_state(cfg, gen, tc, device=dev,
-                                              comm=comm),
+        state = None if gen is None else init_moe_train_state(
+            cfg, gen, tc, device=dev, comm=comm)
+        return (cfg, tc, state,
                 make_moe_train_step(cfg, tc, comm=comm), comm)
     from .parallel.train import AXIS_NAMES, init_train_state, make_train_step
 
@@ -451,8 +550,10 @@ def _build(args, tc, shape, dev, gen):
     else:
         comm = flat_mesh(dp, dev, "dp") if dp > 1 else None
     tc = maybe_autotune_grad_topo(comm, cfg, tc, AXIS_NAMES, device=dev)
-    return (cfg, tc, init_train_state(cfg, gen, tc, device=dev, comm=comm),
-            make_train_step(cfg, tc, device=dev, comm=comm), comm)
+    state = None if gen is None else init_train_state(cfg, gen, tc,
+                                                      device=dev, comm=comm)
+    return (cfg, tc, state, make_train_step(cfg, tc, device=dev, comm=comm),
+            comm)
 
 
 if __name__ == "__main__":

@@ -237,8 +237,10 @@ def test_nan_guard_rewinds_to_the_checkpoint_then_gives_up(tmp_path):
 def test_fit_refuses_supervision_and_arbiter():
     """Supervision runs now (test_torch_supervision.py): an empty
     ``Supervision()`` leaves the run as it is without it, bitwise, with the
-    same report; the arbiter lease, the feedback controller and the
-    coordination handle still raise naming their ROADMAP item."""
+    same report; so does an armed feedback controller with no recorder
+    (test_torch_feedback_fit.py), whose hook is one None check and whose
+    probe timer never runs; the arbiter lease and the coordination handle
+    still raise naming their ROADMAP item."""
     state, step, data = _setup()
     plain = loop.fit(state, step, data, loop.FitConfig(num_steps=2))
     sup = loop.fit(state, step, data, loop.FitConfig(num_steps=2),
@@ -248,8 +250,22 @@ def test_fit_refuses_supervision_and_arbiter():
     a, b = plain.report.to_payload(), sup.report.to_payload()
     assert a.pop("metrics")["counters"] == b.pop("metrics")["counters"]
     assert a == b
+    from flextree_tpu_torch.planner.feedback import (
+        FeedbackConfig,
+        FeedbackController,
+    )
+
+    def never(probes, n):
+        raise AssertionError("probe timer ran with the recorder off")
+
+    ctl = FeedbackController(8, 1 << 20, FeedbackConfig(every_k=1),
+                             timer=never, device="cpu")
+    armed = loop.fit(state, step, data, loop.FitConfig(num_steps=2),
+                     supervision=loop.Supervision(feedback=ctl))
+    assert all(torch.equal(a, b) for a, b in zip(
+        ttrain.tree_leaves(plain.state), ttrain.tree_leaves(armed.state)))
+    assert ctl.ticks == 0 and armed.report.feedback_refits == 0
     for kw in (dict(arbiter=object()),
-               dict(supervision=loop.Supervision(feedback=object())),
                dict(supervision=loop.Supervision(coordination=object()))):
         with pytest.raises(NotImplementedError,
                            match="Checkpoint, supervision and feedback"):
@@ -285,7 +301,8 @@ def test_trainer_cli_flash_on_cpu(tmp_path, capsys):
 
 
 #: the supervision flags, lifted with the supervised training run
-_LIFTED = ("--autotune", "--heartbeat-dir", "--step-timeout", "--obs-dir")
+_LIFTED = ("--autotune", "--heartbeat-dir", "--step-timeout", "--obs-dir",
+           "--feedback-every")
 
 
 def _lifted_flag_runs(flags, tmp_path, capsys):
@@ -294,7 +311,10 @@ def _lifted_flag_runs(flags, tmp_path, capsys):
     beats this rank and records the starting world, ``--step-timeout``
     runs each step on the watchdog, ``--obs-dir`` writes the flight
     record with a ``step_end`` event a step; the run is the plain run,
-    bitwise, and its checkpoint resumes.  Each run leaves the caller's
+    bitwise, and its checkpoint resumes; ``--feedback-every 1`` with the
+    flight recorder ticks the controller after step 1 (its probes on the
+    2-rank dp axis, and its run-local calibration in the obs dir) and
+    the run is the plain run, bitwise.  Each run leaves the caller's
     SIGTERM handler as it found it: the guard of ``--ckpt-dir``, and the
     flight record's chained dump without it."""
     import signal
@@ -303,7 +323,9 @@ def _lifted_flag_runs(flags, tmp_path, capsys):
     flag = flags[0]
     value = {"--autotune": [], "--heartbeat-dir": [str(tmp_path / "hb")],
              "--step-timeout": ["60"],
-             "--obs-dir": [str(tmp_path / "obs")]}[flag]
+             "--obs-dir": [str(tmp_path / "obs")],
+             "--feedback-every": ["1", "--obs-dir",
+                                  str(tmp_path / "obs")]}[flag]
     base = _SMALL + ["--mesh", "2,1,1", "--steps", "2", "--log-every", "1"]
     prev = os.environ.get("FLEXTREE_PLAN_CACHE")
     os.environ["FLEXTREE_PLAN_CACHE"] = str(tmp_path / "plans.json")
@@ -346,6 +368,13 @@ def _lifted_flag_runs(flags, tmp_path, capsys):
                   .splitlines()]
         assert sum(e["kind"] == "step_end" for e in events) == 2
         assert (tmp_path / "obs" / "metrics_00000.json").exists()
+    elif flag == "--feedback-every":
+        events = [json.loads(ln) for ln in
+                  (tmp_path / "obs" / "flight_00000.jsonl").read_text()
+                  .splitlines()]
+        (tick,) = [e for e in events if e["kind"] == "feedback_tick"]
+        assert tick["step"] == 1 and tick["probes"] == 4
+        assert res.report.feedback_replans == 0
     assert all(torch.equal(a, b) for a, b in zip(
         ttrain.tree_leaves(plain["result"].state),
         ttrain.tree_leaves(res.state)))
@@ -362,8 +391,9 @@ def _lifted_flag_runs(flags, tmp_path, capsys):
     ["--devices", "4"], ["--mesh", "2,1,2"],
 ])
 def test_trainer_cli_refuses_unported_flags(flags, tmp_path, capsys):
-    """``--feedback-*`` is not ported and raises naming its item; the
-    supervision flags run now (:func:`_lifted_flag_runs`); the
+    """The supervision flags and ``--feedback-every`` run now
+    (:func:`_lifted_flag_runs`; the feedback flags in
+    test_torch_feedback_fit.py); the
     pipeline and MoE models train now; a mesh
     with sp or tp above 1 trains now; the lossy codecs run now: 2 ranks train with error feedback, and the
     checkpoint holds the first rank's residual, which resumes; and so does
@@ -446,11 +476,7 @@ def test_trainer_cli_refuses_unported_flags(flags, tmp_path, capsys):
     if flags[0] in _LIFTED:
         _lifted_flag_runs(flags, tmp_path, capsys)
         return
-    if flags[0] != "--codec":
-        with pytest.raises(NotImplementedError,
-                           match="Checkpoint, supervision and feedback"):
-            trainer.main(_SMALL + flags)
-        return
+    assert flags[0] == "--codec"
     ckpt = str(tmp_path / "ck")
     out: dict = {}
     assert trainer.main(_SMALL + flags + ["--mesh", "2,1,1", "--steps", "3",
