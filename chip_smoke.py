@@ -263,10 +263,11 @@ failure raises and exits non-zero:
     (the sync: the per-leaf sync's plain folds), its bodies printed; (b)
     ``trainer.main --mesh 2,2,2 --sp-impl {ring, zigzag, ulysses}`` and
     ``--mesh 8,1,1`` at the flagship width (bf16, flash, batch 8 x 1024,
-    6 steps): the loss finite and falling, each flash kernel's and the
+    4 steps): the loss finite and falling, each flash kernel's and the
     fold kernel's launches the counts the code gives, then the steady step
-    of each in turns, its device time and busy share under
-    ``torch.profiler`` and the peak memory (printed, not gated); (c)
+    of each in turns, the ring run's device time and busy share under
+    ``torch.profiler`` (one profile for the family) and the peak memory
+    (printed, not gated); (c)
     float32 at full width, each sp_impl on (2, 2, 2) against one rank, 3
     steps on the same batches: losses within rtol 1e-5, the step-1 synced
     gradient within 1e-5, the parameters within 1e-5 except on AdamW's
@@ -281,12 +282,13 @@ failure raises and exits non-zero:
     per-leaf sync's plain folds), its bodies printed; (b) ``trainer.main
     --model pipeline --microbatches 2`` and ``--model moe --n-experts 8
     --top-k 2 --capacity-factor 2.0`` at the flagship width (bf16, flash,
-    batch 8 x 1024, 6 steps): the loss finite and falling, each flash
+    batch 8 x 1024, 4 steps): the loss finite and falling, each flash
     kernel's and the fold kernel's launches the counts the code gives
     (``pm_flash_launches``, ``pm_fold_launches``), the checkpoint bitwise
     the live state; then the steady step of both and of phase 22's dense
-    ring step in turns, device time and busy share under
-    ``torch.profiler``, peak memory and MoE's aux (printed, not gated);
+    ring step in turns, the two models' device time and busy share under
+    ``torch.profiler`` (the dense ring's is 22(b)'s), peak memory and
+    MoE's aux (printed, not gated);
     (c) float32 at full width, 3 steps on the same batches: the pipeline
     against one rank's dense step from the same parameters, MoE
     (capacity factor n_experts / top_k, no aux) against the MoE step on
@@ -307,9 +309,9 @@ failure raises and exits non-zero:
     the flash and fold launches the code's count, the checkpoint bitwise
     the live state as the trainer packs it, a sharded run's optimizer
     bytes a rank ``zero_shard_bytes``'; then each family's runs and its
-    replicated step in turns (steady step), each run's device time and
-    busy share under ``torch.profiler`` and its peak memory (printed, not
-    gated); (c) float32 at full width (B=2, 3 steps) on each family: the
+    replicated step in turns (steady step), the family's first run's
+    device time and busy share under ``torch.profiler`` and each run's
+    peak memory (printed, not gated); (c) float32 at full width (B=2, 3 steps) on each family: the
     sharded step, clipping off, bitwise the replicated one (the
     consolidated moments too), the overlapped step bitwise the replicated
     one, the int8 overlapped step bitwise its serialized twin, ``ef``
@@ -359,6 +361,28 @@ failure raises and exits non-zero:
     ticks and the steps launch only their syncs' folds, the hook's host
     cost a step timed directly; (e) ``python -m flextree_tpu_torch.obs
     fleet`` over (b)'s and (c)'s records.
+27. the coordinated control plane and the chip arbiter — (a) the arbiter
+    spike (``tools.arbiter_spike.run_spike``) at the flagship width: the
+    ZeRO-1 dense step (bf16, flash, global batch 12 x 1024) on an
+    in-process dp-3 mesh under ``fit(arbiter=TrainLeaseClient)`` with a
+    checkpoint dir, a pool of flagship f32 kernel engines (a baseline and
+    two warmed burst engines), the rates and the SLO derived from the
+    baseline replica's capacity measured while training runs (a burst of
+    1.7 times it); the arbiter's events in order on their lane of a valid
+    merged timeline, the lease epochs 3 -> 1 -> 3 each a bitwise resume
+    with no step skipped, every request completed exactly once and its
+    f32 tokens one kernel engine's, the flash, fold and paged launches the
+    code's count (steps by world, the sharded plan's folds a step, decode
+    rounds), a single-replica round of the baseline kernel against the
+    plain stream, then the dp-3 reduce-scatter and all-gather of the
+    flagship gradient bitwise their host copies, the fold bodies printed;
+    the p99 before, during and after, breach -> grant, each resize's wall
+    and the dp-3 step before and after printed, not gated; (b)
+    ``tools.coord_chaos``'s smoke set: the coordinator killed at ack-wait,
+    a torn ledger and a coordinated resize on three host processes, and three processes on the card over gloo at
+    the flagship gradient's length switching to the chunked twin at one
+    agreed step: every floor, each rank's output bitwise the unfaulted
+    twin's and its host copies, its fold launches the code's count.
 
 The kernels line gives each kernel's launches by path
 (``launches_by_path``: serve, train, dp_train, allreduce, ir_families,
@@ -371,7 +395,9 @@ and moe_train for phase 23(b)'s two, and ``wide_<option>_<family>`` for
 each of phase 24(b)'s ten runs, e.g. wide_int8_dense or wide_zero_moe;
 autotune, shrink and supervised_watchdog for phase 25(a), (c) and (d);
 feedback_probe, feedback_train and feedback_probe_free for phase 26(a),
-(b) and (c)) and their sum (``launches``).
+(b) and (c); arbiter_train and arbiter_serve for phase 27(a)'s trainer
+and pool, coord_gloo for phase 27(b)'s gloo ranks, summed) and their sum
+(``launches``).
 
 Prints each phase's seconds, a ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Exits
@@ -381,6 +407,7 @@ non-zero, printing no result, when no CUDA device is present.
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import contextlib
 import dataclasses
 import json
@@ -3463,13 +3490,13 @@ ZERO_INT8_STEPS = 4
 ZERO_BENCH_REPEAT = 3
 
 
-def zero_plan(bk, tm, rs, leaves, specs, topos, sizes, codec=None):
+def zero_plan(bk, tm, rs, leaves, specs, topos, sizes, codec=None, n=DP):
     """The ZeRO-1 sync's bucket plan (``plan_buckets(sharded=True)``, as
     ``zero_reduce_scatter_grads`` plans it) and its fold stages and
-    fold-kernel launches a step."""
+    fold-kernel launches a step, over ``n`` data-parallel ranks."""
     plan = bk.plan_buckets(leaves, specs, tm.AXIS_NAMES, topos=topos,
                            axis_sizes=sizes, codec=codec, sharded=True)
-    stages = bk.sync_fold_stages([g.numel() for g in leaves], DP,
+    stages = bk.sync_fold_stages([g.numel() for g in leaves], n,
                                  topos["dp"], plan, codec=codec,
                                  sharded=True)
     return plan, stages, stage_launches(stages, rs.MAX_POINTERS)
@@ -3484,7 +3511,7 @@ def shards_identical(a_trees, b_trees, leaves) -> bool:
 
 
 def check_zero_syncs(zero, tm, bk, cm, rs, shapes, pspecs, topos, sizes,
-                     dev, flat_mesh, codec=None):
+                     dev, flat_mesh, codec=None, n=DP):
     """Phase 19(c), one codec: the step's sharded reduce-scatter
     (``zero_reduce_scatter_grads`` with the step's plan) of seeded per-rank
     gradients on the card, its folds counted by body
@@ -3492,22 +3519,23 @@ def check_zero_syncs(zero, tm, bk, cm, rs, shapes, pspecs, topos, sizes,
     with the card's plan (the cap set to its largest bucket), where
     ``reduce_sources`` takes its plain fold and the encode runs on the
     CPU: every rank's blocks and tails, and under int8 its residual,
-    bitwise.  Returns the plan, its stages and the folds by body."""
+    bitwise.  ``n`` data-parallel ranks.  Returns the plan, its stages and
+    the folds by body."""
     from flextree_tpu_torch.parallel import allreduce as ar
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 19)
     trees = [tm.tree_map(lambda p: torch.randn(
-        p.shape, generator=gen, device=dev), shapes) for _ in range(DP)]
+        p.shape, generator=gen, device=dev), shapes) for _ in range(n)]
     leaves = tm.tree_leaves(trees[0])
     specs = bk.spec_leaves(trees[0], pspecs)
     plan, stages, want = zero_plan(bk, tm, rs, leaves, specs, topos, sizes,
-                                   codec)
+                                   codec, n)
     kw = dict(codec=codec or "f32", step=CODEC_STEP,
               return_residual=codec is not None)
     with fold_bodies(rs, cm, ar) as seen:
         got = zero.zero_reduce_scatter_grads(
             trees, pspecs, tm.AXIS_NAMES, topos,
-            comm=flat_mesh(DP, dev, "dp"), **kw)
+            comm=flat_mesh(n, dev, "dp"), **kw)
     what = f"{codec or 'f32'} sharded reduce-scatter"
     if sum(seen.values()) != want:
         raise AssertionError(f"{what}: {sum(seen.values())} fold launches, "
@@ -3519,7 +3547,7 @@ def check_zero_syncs(zero, tm, bk, cm, rs, shapes, pspecs, topos, sizes,
                        codec=codec, sharded=True) != plan:
         raise AssertionError(f"{what}: the host plan differs from the card's")
     plain = zero.zero_reduce_scatter_grads(
-        host, pspecs, tm.AXIS_NAMES, topos, comm=flat_mesh(DP, "cpu", "dp"),
+        host, pspecs, tm.AXIS_NAMES, topos, comm=flat_mesh(n, "cpu", "dp"),
         bucket_bytes=cap, **kw)
     if codec is None:
         got, plain = (got, None), (plain, None)
@@ -4293,7 +4321,7 @@ POOL_STEP_TIMEOUT_S = 1.0
 # the files more than 10 s after the last sample and saw it drained
 POOL_SLO_WINDOW_S = 120.0
 # the bf16 pool with parallel_rounds off and on, in turns (no kill)
-POOL_TURNS = (False, True, True, False)
+POOL_TURNS = (False, True)  # (off, on, on, off) before phase 27
 
 
 def pool_engines(serving, params, cfg, pcfg, dev, recorders=()):
@@ -4597,14 +4625,15 @@ def phase_pool(dev, smi) -> int:
 
 SP_MESH = (2, 2, 2)  # (dp, sp, tp), the JAX trainer's --devices 8
 SP_IMPLS = ("ring", "zigzag", "ulysses")
-SP_STEPS = 6  # 10 before phase 24 needed the time
+SP_STEPS = 4  # 10 before phase 24, 6 before phase 27 needed the time
 SP_ARGV = TRAIN_ARGV + ["--mesh", ",".join(map(str, SP_MESH))]
 SP_ARGV[SP_ARGV.index("--steps") + 1] = str(SP_STEPS)
 SP_DP_ARGV = TRAIN_ARGV + ["--mesh", f"{DP},1,1"]
 SP_DP_ARGV[SP_DP_ARGV.index("--steps") + 1] = str(SP_STEPS)
 SP_F32_STEPS = 3
 SP_F32_BATCH = 2
-SP_TIMED = 4  # steady steps of each run, in turns
+SP_TIMED = 2  # steady steps of each run, in turns (4 before phase 27)
+PROFILED_SP = "ring"  # 22(b)'s one profile of the dense sp/tp family
 
 
 def sp_flash_cases():
@@ -4814,6 +4843,7 @@ def phase_sp_tp(dev, smi):
     from flextree_tpu_torch.parallel.mesh import Mesh, flat_mesh
 
     # ---- (a) the kernels at this path's shapes
+    clock = time.monotonic()
     gen = torch.Generator().manual_seed(SEED + 22)
     for case in sp_flash_cases():
         for tname, dtype in (("f32", torch.float32),
@@ -4839,6 +4869,8 @@ def phase_sp_tp(dev, smi):
     del shards
     torch.cuda.empty_cache()
 
+    log(f"phase 22(a): {time.monotonic() - clock:.1f} s")
+    clock = time.monotonic()
     # ---- (b) the trainer on (2, 2, 2) by sp_impl, and dp=8 beside it
     layers = MODEL["n_layers"]
     runs, by_path = {}, {}
@@ -4910,8 +4942,11 @@ def phase_sp_tp(dev, smi):
                 s, m = step(s, data[0], data[1])
             float(m["loss"])
 
+        # one profile for the family (the ring run), the others' device
+        # time not measured (the cut phase 27 needed)
         prof = device_profile(two_steps, f"phase 22(b) profile {impl} "
-                              f"(2 steps)")
+                              f"(2 steps)", top=False) if impl == PROFILED_SP \
+            else {"device_busy_s": None, "device_busy_share": None}
         r = runs[impl]
         r["step_ms"] = float(np.median(times[impl])) * 1e3
         r["busy_share"] = prof["device_busy_share"]
@@ -4929,8 +4964,10 @@ def phase_sp_tp(dev, smi):
             + f"; peak memory {r['peak'] / 2**30:.3f} GiB; {smi}")
     del steps, runs, full, dp_leaves
     torch.cuda.empty_cache()
-
+    log(f"phase 22(b): {time.monotonic() - clock:.1f} s")
+    clock = time.monotonic()
     sp_f32_equivalence(dev, cfg, tm)
+    log(f"phase 22(c): {time.monotonic() - clock:.1f} s")
     return by_path
 
 
@@ -5024,7 +5061,7 @@ PM_MESH = (1, 2, 2, 2)  # (dp, pp|ep, sp, tp), the JAX trainer's examples
 PM_MICRO = 2  # GPipe microbatches a rank
 # MoEConfig's defaults: 4 local experts a rank on ep=2, router_aux_weight 1e-2
 PM_MOE = dict(n_experts=8, top_k=2, capacity_factor=2.0)
-PM_STEPS = 6  # as SP_STEPS
+PM_STEPS = 4  # as SP_STEPS (6 before phase 27)
 PM_F32_STEPS = 3
 PM_F32_BATCH = 2
 
@@ -5300,8 +5337,10 @@ def pm_train_runs(dev, smi, models, slices, trainer, ckpt, fa, rs, ar, bk,
                 s, m = step(s, data[0], data[1])
             float(m["loss"])
 
+        # one profile a family: the dense ring's is 22(b)'s
         prof = device_profile(two_steps, f"phase 23(b) profile {name} "
-                              f"(2 steps)")
+                              f"(2 steps)", top=False) if name in runs \
+            else {"device_busy_s": None, "device_busy_share": None}
         ms = float(np.median(times[name])) * 1e3
         dev_ms = None if prof["device_busy_s"] is None else \
             prof["device_busy_s"] * 1e3 / 2
@@ -5438,7 +5477,9 @@ def phase_pp_moe(dev, smi):
 # phase 24: lossy codecs, ZeRO-1 and overlap on the wide meshes
 
 WIDE_STEPS = 4  # trainer steps a run: warmup-cosine over them, clipping
-WIDE_TIMED = 3  # steady steps of each run, in turns with the replicated
+# (3 steps end on a harder batch than the first: the loss need not fall)
+WIDE_TIMED = 2  # steady steps of each run, in turns with the replicated
+# (3 before phase 27)
 WIDE_F32_STEPS = 3
 WIDE_F32_BATCH = 2
 # 24(b)'s runs: (family, option, trainer flags)
@@ -5823,7 +5864,8 @@ def wide_train_runs(dev, smi, models, trainer, ckpt, fa, rs, ar, bk, tm,
         for k in order:
             ms = float(np.median(times[k])) * 1e3
             prof = {"device_busy_s": None}
-            if k != "replicated":
+            # one profile a family (its first run), the cut phase 27 needed
+            if k == names[0]:
                 step, state = steps[k]
 
                 def one_step(step=step, state=state):
@@ -6206,15 +6248,20 @@ def sigterm_checks(ckpt, tm, tmp):
     def final(d):
         return ckpt.restore_train_state(d, "cpu")
 
-    clock = time.monotonic()
+    def timed(*a):
+        clock = time.monotonic()
+        return trainer_process(*a), time.monotonic() - clock
+
+    # the straight-through run and the signalled one start together
     straight = os.path.join(tmp, "straight")
-    rc, out, lines, _ = trainer_process(args, straight)
-    if rc:
-        raise AssertionError(f"the straight-through run exited {rc}: "
-                             f"{''.join(lines[-10:])}")
-    straight_s = time.monotonic() - clock
     ck = os.path.join(tmp, "preempted")
-    rc, out, lines, sent = trainer_process(args, ck, SIG_AT)
+    with concurrent.futures.ThreadPoolExecutor(1) as ex:
+        first = ex.submit(timed, args, straight)
+        rc, out, lines, sent = trainer_process(args, ck, SIG_AT)
+        (src, _, slines, _), straight_s = first.result()
+    if src:
+        raise AssertionError(f"the straight-through run exited {src}: "
+                             f"{''.join(slines[-10:])}")
     last = out.strip().splitlines()[-1] if out.strip() else ""
     if rc or sent is None or "checkpointed)" not in last:
         raise AssertionError(f"the signalled run exited {rc}, last line "
@@ -6247,7 +6294,7 @@ def sigterm_checks(ckpt, tm, tmp):
         f"and exited 0 at step {at} (steps logged after the signal: "
         f"{after}); the relaunch resumed from {at} and its step-"
         f"{SIG_STEPS} state is bitwise the straight-through run's "
-        f"({straight_s:.1f} s a process)")
+        f"(that process {straight_s:.1f} s, beside the signalled one)")
 
 
 def shrink_checks(dev, fa, rs, tm, bk, ckpt, params, tmp):
@@ -7094,6 +7141,322 @@ def phase_feedback(dev, smi):
     return by_path
 
 
+# phase 27: the coordinated control plane and the chip arbiter
+SPIKE_BATCH = 12  # global rows a step: divides by 3 and by 1 (phase 25's)
+SPIKE_SLOTS = SLOTS  # a replica's slots (the JAX tool's 2 gave one
+# flagship replica ~3 requests/s beside the trainer: too few TTFTs a
+# window to breach)
+SPIKE_CACHE = dict(num_blocks=41, block_size=16, blocks_per_seq=4)
+SPIKE_PHASES = (4.0, 8.0, 8.0)  # baseline, burst, tail (s)
+SPIKE_POST_STEPS = 3  # dp-3 steps after the chips came home
+# the trainer's pause between steps, outside its timed step: the host
+# time a trainer of its own cards would not take from serving (the JAX
+# tool's 0.03 s with its small model; a flagship dp-3 step is ~130 ms
+# of host launches)
+SPIKE_TRAIN_PACE_S = 0.1
+
+
+class BaselineRecorder:
+    """Wraps the paged-attention function the decode step calls: keeps
+    clones of the newest layer-0 call of ``engine`` (its layer-0 K pool)
+    made while ``armed()``, for a check against the plain stream after the
+    run.  Each replica round runs on a thread of its own; the pool, not a
+    call count, tells the engine and the layer."""
+
+    def __init__(self, inner, engine, armed):
+        self.inner, self.pool0, self.armed = inner, engine.pools["k"][0], armed
+        self.saved, self.phase = None, None
+
+    def __call__(self, q, k_new, v_new, k_pool, v_pool, tables, lengths,
+                 **kw):
+        phase = self.armed() if k_pool is self.pool0 else None
+        if phase:
+            args = [t.clone() for t in (q, k_new, v_new, k_pool, v_pool,
+                                        tables, lengths)]
+        out = self.inner(q, k_new, v_new, k_pool, v_pool, tables, lengths,
+                         **kw)
+        if phase and int(lengths.max()) > 0:
+            self.saved, self.phase = (args, out.clone()), phase
+        return out
+
+
+def spike_fold_checks(dev, tm, bk, cm, rs, zero, ar, params, pspecs, topo):
+    """Phase 27(a): the fold kernel at the dp-3 ZeRO-1 sync of the
+    flagship gradient: the sharded reduce-scatter as the step runs it
+    (:func:`check_zero_syncs` over 3 ranks), and the all-gather of the
+    packed gradient's shards, each bitwise its host copies."""
+    from flextree_tpu_torch.parallel.mesh import flat_mesh
+
+    sizes = {"dp": 3, "sp": 1, "tp": 1}
+    topos = tm.resolve_axis_topos(sizes, tm.AXIS_NAMES, topo)
+    plan, stages, seen = check_zero_syncs(
+        zero, tm, bk, cm, rs, params, pspecs, topos, sizes, dev, flat_mesh,
+        n=3)
+    log(f"phase 27(a) the dp-3 sharded reduce-scatter as the step runs it "
+        f"(topo {topos['dp']}, {len(plan)} buckets of "
+        f"{[b.nbytes for b in plan]} B): every rank's blocks and tails "
+        f"bitwise the host copies; fold stages {stages}; launches by body: "
+        f"{describe_bodies(seen)}")
+    count = sum(p.numel() for p in tm.tree_leaves(params))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 27)
+    x = torch.randn((3, count), generator=gen, device=dev)
+    mesh = flat_mesh(3, dev, "dp")
+    shards = ar.reduce_scatter(list(x), mesh, topos["dp"], "sum")
+    with fold_bodies(rs, cm, ar) as seen:
+        back = ar.all_gather(shards, mesh, topos["dp"], out_shape=(count,))
+    hx = x.cpu()
+    hmesh = flat_mesh(3, "cpu", "dp")
+    hshards = ar.reduce_scatter(list(hx), hmesh, topos["dp"], "sum")
+    hback = ar.all_gather(hshards, hmesh, topos["dp"], out_shape=(count,))
+    if not all(same_bits(a.cpu(), b) for a, b in zip(shards, hshards)) or \
+            not all(same_bits(a.cpu(), b) for a, b in zip(back, hback)):
+        raise AssertionError("phase 27(a): the dp-3 reduce-scatter or "
+                             "all-gather is not bitwise its host copies")
+    log(f"phase 27(a) the dp-3 all-gather of the flagship gradient's shards "
+        f"({count} f32 a rank, topo {topos['dp']}): each rank's gathered "
+        f"buffer and the shards bitwise the host copies; fold launches "
+        f"{sum(seen.values())} (a gather folds nothing)")
+    return topos
+
+
+def spike_flash_checks(dev, fa, worlds):
+    """Phase 27(a): the three flash kernels against their plain versions
+    in bfloat16 at one rank's layer of each training world the spike ran
+    (``(SPIKE_BATCH / n, T, H, D)`` at dp-n), under phase 7's bars."""
+    _, t, h, d = FLASH_TRAIN
+    gen = torch.Generator().manual_seed(SEED + 270)
+    for n in sorted(worlds):
+        case = (f"arbiter_dp{n}", SPIKE_BATCH // n, t, t, h, d, True, 0, 0,
+                False)
+        errs, failures, note, run = flash_compare(fa, case, torch.bfloat16,
+                                                  dev, gen)
+        if failures:
+            raise AssertionError(f"phase 27(a) flash parity "
+                                 f"{describe_case(case, 'bf16')}: "
+                                 + "; ".join(failures))
+        log(f"phase 27(a) flash parity {describe_case(case, 'bf16')} (one "
+            f"rank's layer at dp-{n}): {describe_errors(errs)}; {note}")
+        del run
+        torch.cuda.empty_cache()
+
+
+def spike_oracle(serving, run, reqs, dev):
+    """The pool's greedy tokens against one kernel engine's on the same
+    prompts (float32, as phase 21(a)): ``{rid: first diverging token}``
+    of the requests that differ."""
+    eng = serving.ServingEngine(
+        run["sparams"], run["scfg"], run["pcfg"],
+        serving.BatcherConfig(slots=SPIKE_SLOTS), fused=True,
+        decode_impl="cuda", device=dev)
+    for r in reqs:
+        if not eng.submit(dataclasses.replace(r, arrival_s=0.0)):
+            raise AssertionError(f"phase 27(a): oracle rejected {r.rid}")
+    eng.run_until_idle()
+    done = run["completed"]
+    bad = {r.rid: first_divergence(done[r.rid].tokens,
+                                   eng.completed[r.rid].tokens)
+           for r in reqs}
+    return {rid: i for rid, i in bad.items() if i is not None}
+
+
+def phase_spike(dev, smi) -> dict:
+    """Phase 27(a): the arbiter spike (``tools.arbiter_spike``) at the
+    flagship width.  Returns the launches by path."""
+    import tempfile
+
+    from flextree_tpu_torch import serving
+    from flextree_tpu_torch.models.transformer import param_specs
+    from flextree_tpu_torch.obs import flight_recorder
+    from flextree_tpu_torch.ops import flash_attention as fa
+    from flextree_tpu_torch.ops import paged_attention as pa
+    from flextree_tpu_torch.ops import reduce_stacked as rs
+    from flextree_tpu_torch.parallel import allreduce as ar
+    from flextree_tpu_torch.parallel import bucketing as bk
+    from flextree_tpu_torch.parallel import compressed as cm
+    from flextree_tpu_torch.parallel import train as tm
+    from flextree_tpu_torch.parallel import zero
+    from flextree_tpu_torch.serving import kv_cache
+    from flextree_tpu_torch.tools import arbiter_spike as sp
+
+    cfg = sp.SpikeConfig(
+        device=str(dev), smoke=True, train_model=MODEL,
+        train_dtype="bfloat16", train_attn="flash", train_batch=SPIKE_BATCH,
+        train_seq=FLASH_TRAIN[1], serve_model=MODEL,
+        cache=SPIKE_CACHE, slots=SPIKE_SLOTS, phases=SPIKE_PHASES,
+        post_steps=SPIKE_POST_STEPS,
+        train_pace_s=SPIKE_TRAIN_PACE_S, deadline_s=150.0, seed=SEED + 27)
+    recorder = {}
+
+    def on_start():
+        # every count to 0 just before the path runs
+        torch.cuda.synchronize()
+        zero_flash_counts(fa)
+        rs.reduce_sources.launches = 0
+        pa.paged_attention.launches = 0
+
+    real_paged = kv_cache.paged_attention
+    with tempfile.TemporaryDirectory(prefix="ft-spike-") as wd:
+        obs_dir = os.path.join(wd, "obs")
+        state = {"pool": None}
+
+        def armed():
+            pool = state["pool"]
+            if pool is None or len(pool.alive_replicas) != 1:
+                return None
+            return "after the return" if any(
+                r.released for r in pool.replicas) else "before the grant"
+
+        def on_pool(pool, engines):
+            state["pool"] = pool
+            recorder["rec"] = rec = BaselineRecorder(real_paged, engines[0],
+                                                     armed)
+            kv_cache.paged_attention = rec
+
+        try:
+            with flight_recorder(obs_dir, rank=0):
+                doc = sp.run_spike(cfg, wd, on_start=on_start,
+                                   on_pool=on_pool,
+                                   log=lambda m: log(f"phase 27(a) {m}"))
+            torch.cuda.synchronize()
+            launches = dict(flash_counts(fa),
+                            reduce_sources=rs.reduce_sources.launches,
+                            paged_attention=pa.paged_attention.launches)
+        finally:
+            kv_cache.paged_attention = real_paged
+        run = doc.pop("_run")
+        sp.check_timeline(doc, obs_dir)
+    if doc["violations"]:
+        trail = [(d["t"], d["action"], d["p99_ms"], d["samples"])
+                 for d in doc["decisions"]]
+        raise AssertionError(f"phase 27(a): {doc['violations']}; capacity "
+                             f"{doc['capacity']}; the arbiter's readings "
+                             f"(s, action, p99 ms, samples): {trail}")
+    tr = doc["training"]
+    ran = {int(n): k for n, k in tr["steps_by_world"].items()}
+    layers = MODEL["n_layers"]
+    flash_want = sum(k * n for n, k in ran.items()) * layers
+    worlds = run["worlds"]
+    # the plan's bucket cap is the leaves' device's: count on the card's
+    params = tm.tree_map(lambda t: t.to(dev), worlds.shapes)
+    per = {n: dp_fold_launches(
+        tm, worlds.model_cfg, dataclasses.replace(
+            worlds.base_tc, grad_topo=run["plans"][n]), params, n,
+        dev, (SPIKE_BATCH, FLASH_TRAIN[1])) for n in ran}
+    fold_want = sum(ran[n] * per[n] for n in ran)
+    rounds = [e.decode_steps - d0 for e, d0 in zip(run["engines"],
+                                                   run["decode0"])]
+    paged_want = sum(rounds) * layers
+    if any(launches[k] != flash_want for k in flash_counts(fa)) or \
+            launches["reduce_sources"] != fold_want or \
+            launches["paged_attention"] != paged_want:
+        raise AssertionError(
+            f"phase 27(a): launches {launches}; the code gives flash "
+            f"{flash_want} (steps by world {ran} x world x {layers} layers),"
+            f" folds {fold_want} ({' + '.join(f'{ran[n]} x {per[n]}' for n in sorted(ran))}),"
+            f" paged {paged_want} (decode rounds {rounds} x {layers})")
+    spike_flash_checks(dev, fa, ran)
+    bad = spike_oracle(serving, run, run["requests"], dev)
+    if bad:
+        raise AssertionError(f"phase 27(a): the pool's f32 tokens differ "
+                             f"from one kernel engine's (rid: first token): "
+                             f"{bad}")
+    rec = recorder.get("rec")
+    if rec is None or rec.saved is None:
+        raise AssertionError("phase 27(a): no single-replica round recorded")
+    args, got = rec.saved
+    plain = pa.paged_attention(*args, impl="torch")
+    err = (got.float() - plain.float()).abs().max().item()
+    if not err <= pa.FUSED_DECODE_ATOL:
+        raise AssertionError(f"phase 27(a): the recorded round, kernel vs "
+                             f"plain stream {err}")
+    epochs = tr["lease_epochs"]
+    arb = doc["arbiter"]
+    p99 = doc["serving"]["p99_ms"]
+
+    def ms(v):
+        return "none" if v is None else f"{v:.1f} ms"
+
+    log(f"phase 27(a) arbiter spike (training: flagship bf16 flash ZeRO-1 "
+        f"on the in-process dp-3 mesh, global batch {SPIKE_BATCH} x "
+        f"{FLASH_TRAIN[1]}; serving: a pool of flagship f32 kernel engines, "
+        f"a baseline and 2 warmed burst engines, {SPIKE_SLOTS} slots; chips "
+        f"are logical slots of one card; {smi}): capacity "
+        f"{doc['capacity']['rps']:.2f} requests/s -> rates "
+        f"{doc['phases']['base_rate_rps']:.2f} / "
+        f"{doc['phases']['spike_rate_rps']:.2f} requests/s over "
+        f"{SPIKE_PHASES} s, SLO {arb['slo_p99_ms']:.1f} ms, window "
+        f"{sp.WINDOW_S} s, the trainer paced {SPIKE_TRAIN_PACE_S} s a "
+        f"step; arbiter events {doc['timeline']['arbiter_order']}"
+        f" ({doc['timeline']['arbiter_lane']} on the arbiter lane of a valid "
+        f"merged timeline of {doc['timeline']['events']} events); lease "
+        f"epochs " + " -> ".join(
+            f"{len(e['chips'])} at step {e['step']} (topo {e['topo']}, "
+            f"bitwise {e['bitwise_resume']})" for e in epochs)
+        + f"; {doc['serving']['completed']}/{doc['serving']['submitted']} "
+        f"requests completed exactly once, f32 tokens == one kernel "
+        f"engine's; launches {launches} = the code's (steps by world "
+        f"{ran}; fold a step {per}; decode rounds {rounds}); the baseline's "
+        f"round {rec.phase} (layer 0, {int((args[6] > 0).sum())} active "
+        f"slots): kernel vs plain stream {err:.3g} (bar "
+        f"{pa.FUSED_DECODE_ATOL}); {doc['run_s']:.1f} s")
+    log(f"phase 27(a) printed, not gated: windowed p99 before "
+        f"{ms(p99['before'])}, during {ms(p99['during'])}, after "
+        f"{ms(p99['after'])}; breach -> grant "
+        f"{arb['breach_to_grant_s'] or float('nan'):.3f} s; each resize's "
+        f"wall {[round(s, 3) for s in tr['resize_s']]} s; step at dp-3 before "
+        f"{ms(tr['pre_spike_step_ms'])} and after "
+        f"{ms(tr['post_reclaim_step_ms'])}; recovery "
+        f"{doc['recovery']['recovery_windows']} windows past max(grant, "
+        f"burst end)")
+    topos = spike_fold_checks(dev, tm, bk, cm, rs, zero, ar, params,
+                              param_specs(worlds.model_cfg), run["plans"][3])
+    del run, topos, params
+    torch.cuda.empty_cache()
+    return {"arbiter_train": {k: launches[k] for k in (
+                *flash_counts(fa), "reduce_sources")},
+            "arbiter_serve": {"paged_attention":
+                              launches["paged_attention"]}}
+
+
+def phase_coord(dev, smi) -> dict:
+    """Phase 27(b): ``tools.coord_chaos``'s smoke set: the matrix world
+    on the host toy step, the gloo world at the flagship gradient's
+    length on the card.  Returns the launches by path."""
+    from flextree_tpu_torch.tools import coord_chaos as cc
+
+    results = cc.run_matrix(cc.SMOKE, str(dev), cc.GLOO_COUNT,
+                            log=lambda m: log(f"phase 27(b) {m}"))
+    bad = [r["scenario"] for r in results if not r["ok"]]
+    if bad:
+        raise AssertionError(f"phase 27(b): scenarios failed: {bad}: "
+                             + json.dumps([r for r in results
+                                           if not r["ok"]])[:3000])
+    gloo = next(r for r in results if r["scenario"] == "gloo_group_replan")
+    per_rank = gloo["checks"]["fold_launches"]
+    want = cc.gloo_fold_launches(cc.WORLD, str(cc.WORLD), cc.GLOO_COUNT, 1)
+    log(f"phase 27(b) coord_chaos --smoke ({smi}): "
+        + "; ".join(f"{r['scenario']} ok ({r['seconds']:.1f} s)"
+                    for r in results)
+        + f"; the gloo world ({cc.WORLD} processes, {cc.GLOO_COUNT} f32 a "
+        f"rank on {dev}, {cc.GLOO_STEPS} steps, the replan applied at step "
+        f"{gloo['checks']['applied'][0][0]['step']} on every rank): each "
+        f"rank's output bitwise the unfaulted twin's and its host copies at "
+        f"steps {cc.GLOO_HOST_CHECKS}; fold launches a rank {per_rank} = the "
+        f"code's ({want} a step unchunked, chunked after the flip)")
+    return {"coord_gloo": {"reduce_sources": sum(per_rank)}}
+
+
+def phase_control(dev, smi) -> dict:
+    """Phase 27: (a) the arbiter spike, (b) the coordination chaos."""
+    t0 = time.monotonic()
+    out = phase_spike(dev, smi)
+    log(f"phase 27(a): {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    out.update(phase_coord(dev, smi))
+    log(f"phase 27(b): {time.monotonic() - t0:.1f} s")
+    return out
+
+
 def collective_phases(dev, bw) -> list:
     """Phases 11-15 (the FlexTree collectives); returns their rows of the
     kernels line (``reduce_sources`` and ``reduce_stacked``, the fold
@@ -7536,9 +7899,9 @@ def allreduce_ab(parent: str) -> int:
 
 
 def one_phase(argv) -> int:
-    """``--phase 26``: phase 1's build, then phase 26 alone; prints its
-    launches by path and no result line."""
-    phases = {"26": phase_feedback}
+    """``--phase 26`` or ``--phase 27``: phase 1's build, then that phase
+    alone; prints its launches by path and no result line."""
+    phases = {"26": phase_feedback, "27": phase_control}
     if len(argv) != 1 or argv[0] not in phases:
         print(f"usage: chip_smoke.py --phase {{{','.join(phases)}}}",
               file=sys.stderr)
@@ -7581,6 +7944,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    t_all = time.monotonic()
 
     # ---- phase 1: device and build
     smi = smi_line()
@@ -7641,6 +8005,10 @@ def main() -> int:
     t0 = time.monotonic()
     sp_launches.update(phase_feedback(dev, smi))
     log(f"phase 26: {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    sp_launches.update(phase_control(dev, smi))
+    log(f"phase 27: {time.monotonic() - t0:.1f} s")
+    log(f"phases 1-27: {time.monotonic() - t_all:.1f} s")
     # each path's launches beside their sum
     for row in rows:
         if row["name"] in dp_launches:

@@ -5,10 +5,10 @@ The port's copy of part of ``flextree_tpu/analysis``: the
 ``schedule_check`` that ``schedule.ir.compile_ir`` runs before it lowers a
 program, the phase-program checks of the standalone reduce-scatter and
 all-gather that ZeRO-1 runs, and ``protocol_check``'s exhaustive
-exploration of the RPC and KV-migration models.  The JAX package's HLO
-and jit-hygiene lints are not ported (ROADMAP.md, Queue 1: 'JAX-specific
-static analysis, last'); its concurrency lint and the coordination and
-lease models come with item 9.
+exploration of the coordination, lease, RPC and KV-migration models.
+The JAX package's HLO and jit-hygiene lints are not ported (ROADMAP.md,
+Queue 1: 'JAX-specific static analysis, last'); its concurrency lint
+comes with item 9d.
 """
 
 from .base import Violation, violations_to_json

@@ -8,6 +8,11 @@ conformance tests in ``tests/test_torch_protocol_check.py`` — are
 explored exhaustively over small worlds with faults injectable at every
 transition:
 
+- :class:`~flextree_tpu_torch.runtime.coord_model.CoordModel` — the
+  propose→ack→commit handshake at 2/3/4 ranks, coordinator crash at
+  every transition, stalled followers, duplicate acks, lost races;
+- :class:`~flextree_tpu_torch.runtime.lease_model.LeaseModel` — the
+  revoke→ack→grant chip handoff with tenant restart mid-handoff;
 - :class:`~flextree_tpu_torch.serving.rpc_model.RpcModel` — one rid's
   retry/hedge/re-route lifecycle against the replica idempotency store;
 - :class:`~flextree_tpu_torch.serving.rpc_model.MigrationModel` — the
@@ -16,16 +21,13 @@ transition:
   mid-migration never loses the request or leaks the prefill-side
   export.
 
-The JAX package's matrix also holds the coordination model at 2/3/4
-ranks and the lease model (``runtime/coord_model.py``,
-``runtime/lease_model.py``); the port's :func:`default_models` gains
-them with the coordination and lease runtime they model (ROADMAP.md,
-Queue 1: 'Checkpoint, supervision and feedback plumbing').
-
 Invariants checked in EVERY reachable state (write-time rules, per-state
-predicates, and quiescence checks): every rid landing in exactly one of
-{completed-once, shed, failed} with no re-execution of a completed rid,
-and no migration export left held.
+predicates, and quiescence checks): at most one commit per control
+epoch, commits byte-identical to their proposals, control and lease
+epochs strictly increasing, fenced ranks never applying, no chip
+granted to (or in active use by) two holders, every rid landing in
+exactly one of {completed-once, shed, failed} with no re-execution of a
+completed rid, and no migration export left held.
 
 The search is bounded EXPLICITLY: each model carries fault/decision
 budgets (reported per model), memoization is the visited-state set, and
@@ -149,11 +151,21 @@ def _witness(parent, state, extra=None, cap: int = 24) -> str:
 
 
 def default_models():
-    """The committed matrix: one RPC world, one KV-migration world (the
-    coordination and lease worlds come with their runtime, item 9)."""
+    """The committed matrix, the JAX package's: coordination at every
+    small-world width (crash injected at every transition of each), one
+    lease world, one RPC world, one KV-migration world."""
+    from ..runtime.coord_model import CoordModel
+    from ..runtime.lease_model import LeaseModel
     from ..serving.rpc_model import MigrationModel, RpcModel
 
-    return [RpcModel(), MigrationModel()]
+    return [
+        CoordModel(2),
+        CoordModel(3),
+        CoordModel(4),
+        LeaseModel(),
+        RpcModel(),
+        MigrationModel(),
+    ]
 
 
 def run_protocol_check(

@@ -3,9 +3,8 @@
 The port's copy of ``flextree_tpu/obs/timeline.py``; the port's recorder
 writes the same event files, so either package's merger reads the
 other's.  ``bucket_measured`` (the twin of the port's
-``bucket_planned``) comes from the step span clock and the feedback
-prober, which arrive with ROADMAP item 9: until then a port run yields
-planned spans and no residual pairs.
+``bucket_planned``) comes from the step span clock
+(``obs/stepclock.py``) and the feedback prober (``planner/feedback.py``).
 
 Reads every ``flight_*.jsonl`` (and ``*.dump.json`` sidecar) a run left
 in its obs directory and fuses them into one JSON document loadable by

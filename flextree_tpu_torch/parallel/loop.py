@@ -55,9 +55,22 @@ swap path without a restore.  A tick or span clock that raises records
 ``feedback_error`` and disarms feedback for the rest of the run; training
 goes on under the current plan.
 
-The coordinated control plane (``Supervision(coordination=)``) and the
-arbiter lease (``fit(arbiter=)``) are not ported yet (ROADMAP.md, Queue
-1: 'Checkpoint, supervision and feedback plumbing'): they raise.
+The arbiter lease (``fit(arbiter=)``, a ``runtime.TrainLeaseClient``):
+the loop polls the handle every iteration, and a moved grant rides the
+preemption checkpoint in place — drain the background saver, checkpoint
+now, replan for the new chip count, rebuild through the handle's
+``on_resize`` (the 3- or 5-tuple ``on_shrink`` returns), restore, prove
+the packed state bitwise the one just saved, record it in
+``RunReport.lease_epochs`` and ack the lease epoch.
+
+The coordinated control plane (``Supervision(coordination=)``, a
+``runtime.CoordinationHandle``): elastic decisions stop being
+rank-local.  A confirmed death parks until the group's coordinator (the
+lowest-rank healthy member) proposes a shrink; a feedback refit proposes
+a group replan; a coordinated lease client proposes a resize.  Every rank
+applies what the committed control epoch carries, at its step boundary,
+and records it in ``RunReport.control_epochs``; a rank the commit left
+out raises ``runtime.EpochFenced``.
 """
 
 from __future__ import annotations
@@ -92,9 +105,6 @@ __all__ = [
 ]
 
 log = get_logger("flextree_tpu_torch.train")
-
-_ITEM = ("ROADMAP.md, Queue 1: 'Checkpoint, supervision and feedback "
-         "plumbing'")
 
 
 class TrainingDiverged(RuntimeError):
@@ -151,10 +161,10 @@ class Supervision:
     iteration.  ``background_saver``: a ``runtime.BackgroundSaver`` for
     the periodic saves (the final save stays synchronous, after a drain).
     ``feedback``: a ``planner.feedback.FeedbackController`` (module
-    docstring).
-
-    ``coordination`` (the JAX coordinated control plane) is not ported:
-    setting it raises."""
+    docstring).  ``coordination``: a ``runtime.CoordinationHandle`` — the
+    loop calls its ``gate(step)`` once an iteration and applies every
+    committed decision it hands back (module docstring); arm the
+    feedback controller and the lease client with the same handle."""
 
     supervisor: Any = None
     membership: Any = None
@@ -174,8 +184,7 @@ class Supervision:
 @dataclasses.dataclass
 class RunReport:
     """End-of-run accounting of what the recovery machinery did: the JAX
-    ``RunReport``'s fields and names (the lease and control fields stay
-    empty: their modules are not ported)."""
+    ``RunReport``'s fields and names."""
 
     anomalies: int = 0  # non-finite steps skipped
     skipped_steps: list = dataclasses.field(default_factory=list)
@@ -191,10 +200,14 @@ class RunReport:
     feedback_refits: int = 0  # drift-triggered constant refits
     feedback_replans: int = 0  # refits whose on_replan hook swapped the step
     feedback_refusals: int = 0  # refits refused (starved/degenerate samples)
+    # one entry per applied grant change — {"step", "epoch", "chips",
+    # "topo", "bitwise_resume"} (empty without an arbiter)
     lease_epochs: list = dataclasses.field(default_factory=list)
     # membership epochs: entry 0 is the starting world, one more per live
     # shrink — {"step", "alive", "configured", "topo", "dead"}
     membership_epochs: list = dataclasses.field(default_factory=list)
+    # one entry per applied committed control epoch — {"step", "epoch",
+    # "kind", "fingerprint"} (empty without a coordination handle)
     control_epochs: list = dataclasses.field(default_factory=list)
     preempted_at: int | None = None  # step the SIGTERM checkpoint ran at
     background_saves: int = 0  # off-step-path checkpoint writes
@@ -254,13 +267,13 @@ def _disarm_feedback(step: int, exc: Exception, what: str) -> bool:
     return True
 
 
-def _refuse_unported(supervision, arbiter) -> None:
-    for bad, what in ((arbiter is not None, "fit(arbiter=)"),
-                      (supervision is not None
-                       and supervision.coordination is not None,
-                       "Supervision(coordination=)")):
-        if bad:
-            raise NotImplementedError(f"{what} is not ported yet ({_ITEM})")
+def _host_bytes(tree) -> list:
+    """The bytes of every tensor leaf of ``tree``, in ``tree_leaves``
+    order (a host copy: the state may change on the device after)."""
+    from ..utils.tree import tree_leaves
+
+    return [bytes(t.detach().to("cpu").contiguous().reshape(-1)
+                  .view(torch.uint8).numpy()) for t in tree_leaves(tree)]
 
 
 def fit(state, step_fn: Callable, dataset, cfg: FitConfig = FitConfig(), *,
@@ -282,8 +295,13 @@ def fit(state, step_fn: Callable, dataset, cfg: FitConfig = FitConfig(), *,
     size; a live shrink may swap both through ``on_shrink``'s 5-tuple.
 
     ``supervision`` arms the runtime supervision (:class:`Supervision`);
-    without it the loop is the unsupervised one."""
-    _refuse_unported(supervision, arbiter)
+    without it the loop is the unsupervised one.
+
+    ``arbiter`` is the run's chip-lease handle, a
+    ``runtime.TrainLeaseClient`` (or anything with its ``poll(step)``,
+    ``ack(directive)`` and ``on_resize`` surface); each grant change it
+    reports is applied in place and recorded in
+    ``RunReport.lease_epochs`` (module docstring)."""
     report = RunReport()
     sup = supervision
     reg = get_registry()
@@ -331,6 +349,69 @@ def fit(state, step_fn: Callable, dataset, cfg: FitConfig = FitConfig(), *,
 
     batches = _batches(start)
 
+    def _lease_resize(at_step, directive):
+        """Apply a grant change: checkpoint now, rebuild for the new chip
+        count, restore, prove the resume bitwise, ack.  The proof compares
+        the packed (world-independent) state on both sides of the cycle:
+        what the checkpoint saved is what the resized world runs from."""
+        nonlocal state, step, batches, cur_step_fn, cur_pack, cur_unpack
+        from ..planner.choose import replan_for_survivors
+
+        n = directive.n
+        if n < 1:
+            raise ValueError(
+                f"lease epoch {directive.epoch} grants training zero chips "
+                "— the arbiter's min_train_chips floor should forbid this")
+        configured = max(getattr(arbiter, "configured", None) or n, n)
+        plan = replan_for_survivors(
+            n, getattr(arbiter, "nbytes_hint", 4 << 20),
+            configured=configured)
+        if getattr(directive, "topo", None):
+            # a coordinated resize broadcasts the coordinator's plan:
+            # every rank runs it, not its own chooser's winner
+            from ..runtime.coordination import apply_spec_override
+
+            plan = apply_spec_override(plan, directive.topo, n)
+        log.warning("lease resize at step %d: epoch %d grants chips %s (%d); "
+                    "replanned topo %s", at_step, directive.epoch,
+                    list(directive.chips), n, plan.to_ft_topo())
+        if sup is not None and sup.background_saver is not None:
+            sup.background_saver.drain(None)  # a restore never races a save
+        packed = _packed(state)
+        pre = _host_bytes(packed)
+        if cfg.ckpt_dir:
+            # checkpoint now: the revoked chips leave no unsaved work
+            save_train_state(cfg.ckpt_dir, packed,
+                             max_to_keep=cfg.max_to_keep)
+        old_pack = cur_pack
+        on_resize = getattr(arbiter, "on_resize", None)
+        rebuilt = (on_resize(directive.chips, plan)
+                   if on_resize is not None else None)
+        if rebuilt is not None:
+            cur_step_fn, cur_pack, cur_unpack = _apply_rebuild(
+                rebuilt, cur_pack, cur_unpack)
+        if cfg.ckpt_dir and latest_checkpoint(cfg.ckpt_dir):
+            state = _restore()
+            step = int(state["step"])
+        elif old_pack is not None or cur_unpack is not None:
+            # no checkpoint dir: carry the live state through the packed
+            # layout, as the shrink does
+            state = cur_unpack(packed) if cur_unpack is not None else packed
+        bitwise = pre == _host_bytes(_packed(state))
+        if not bitwise:
+            log.error("lease resize at step %d is NOT a bitwise resume — the "
+                      "packed state changed across the checkpoint/restore "
+                      "cycle", at_step)
+        report.lease_epochs.append({
+            "step": at_step, "epoch": directive.epoch,
+            "chips": list(directive.chips), "topo": plan.to_ft_topo(),
+            "bitwise_resume": bitwise})
+        record_event("lease_resize", step=at_step, epoch=directive.epoch,
+                     chips=list(directive.chips), n=n,
+                     topo=plan.to_ft_topo(), bitwise_resume=bitwise)
+        arbiter.ack(directive)
+        batches = _batches(step)
+
     def _run_step(st, tokens, targets):
         # the step's device work is waited for inside the call, so the
         # watchdog's deadline covers the kernels, not only their launch
@@ -343,8 +424,10 @@ def fit(state, step_fn: Callable, dataset, cfg: FitConfig = FitConfig(), *,
     watchdog = step_timeout = world = None
     feedback_dead = False  # a tick raised: feedback disarmed for the run
     known_dead: set = set()
+    pending_dead: set = set()  # observed deaths awaiting a group decision
     flagged_stragglers: set = set()
     shrinks = timeout_retries = 0
+    coordn = sup.coordination if sup is not None else None
     if sup is not None:
         from ..runtime.watchdog import (
             StepTimeout,
@@ -381,16 +464,20 @@ def fit(state, step_fn: Callable, dataset, cfg: FitConfig = FitConfig(), *,
                             "writer", timeout)
             return ok
 
-        def _shrink(at_step, new_dead):
-            """Live shrink-to-survivors: drain, rebuild, restore, resume."""
+        def _shrink(at_step, new_dead, *, alive=None, plan=None):
+            """Live shrink-to-survivors: drain, rebuild, restore, resume.
+            ``alive`` and ``plan`` are a committed group shrink's: every
+            rank applies the coordinator's survivor count and topology."""
             nonlocal state, world, shrinks, step, batches
             nonlocal cur_step_fn, cur_pack, cur_unpack
             from ..planner.choose import replan_for_survivors
 
             prev_world = world
-            n_alive = max(1, world - len(new_dead))
-            plan = replan_for_survivors(n_alive, sup.nbytes_hint,
-                                        configured=prev_world)
+            n_alive = (int(alive) if alive is not None
+                       else max(1, world - len(new_dead)))
+            if plan is None:
+                plan = replan_for_survivors(n_alive, sup.nbytes_hint,
+                                            configured=prev_world)
             log.warning("membership shrink at step %d: ranks %s dead, %d/%d "
                         "alive; replanned topo %s", at_step, new_dead,
                         n_alive, prev_world, plan.to_ft_topo())
@@ -423,7 +510,10 @@ def fit(state, step_fn: Callable, dataset, cfg: FitConfig = FitConfig(), *,
             record_event("shrink", step=at_step, dead=list(new_dead),
                          alive=n_alive, configured=prev_world,
                          topo=plan.to_ft_topo())
-            dump_current("peer_shrink", step=at_step, dead=list(new_dead))
+            # with the handshake phase when the shrink was a group decision
+            dump_current("peer_shrink", step=at_step, dead=list(new_dead),
+                         **({"coord_phase": coordn.phase}
+                            if coordn is not None else {}))
             batches = _batches(step)
 
         def _membership_tick(at_step) -> str:
@@ -451,8 +541,107 @@ def fit(state, step_fn: Callable, dataset, cfg: FitConfig = FitConfig(), *,
                 raise ShrinkExhausted(
                     f"ranks {new_dead} died at step {at_step} after "
                     f"{shrinks} shrink(s); max_shrinks={sup.max_shrinks}")
+            if coordn is not None:
+                # a local death observation is not authority: park it
+                # until the coordination gate turns it into a group
+                # decision and the committed epoch delivers the shrink
+                pending_dead.update(new_dead)
+                return "ok"
             _shrink(at_step, new_dead)
             return "shrunk"
+
+        def _apply_committed(at_step, decision):
+            """Apply one committed group decision and advance this rank's
+            fence.  Every branch executes exactly what the commit carries;
+            a decision this rank cannot execute raises."""
+            nonlocal cur_step_fn, cur_pack, cur_unpack
+            from ..runtime.coordination import (
+                ProtocolViolation,
+                committed_shrink_plan,
+            )
+
+            payload = decision.payload
+            if decision.kind == "shrink":
+                if shrinks >= sup.max_shrinks:
+                    raise ShrinkExhausted(
+                        f"committed shrink epoch {decision.epoch} at step "
+                        f"{at_step} after {shrinks} shrink(s); "
+                        f"max_shrinks={sup.max_shrinks}")
+                dead = [int(r) for r in payload.get("dead", ())]
+                known_dead.update(dead)
+                pending_dead.difference_update(dead)
+                _shrink(at_step, dead, alive=int(payload["alive"]),
+                        plan=committed_shrink_plan(payload, sup.nbytes_hint))
+            elif decision.kind == "replan":
+                if sup.feedback is None:
+                    # the peers swap plans and this rank would keep the
+                    # old one: the split brain the protocol exists to stop
+                    raise ProtocolViolation(
+                        f"committed replan epoch {decision.epoch} but this "
+                        "rank has no feedback controller to apply it — arm "
+                        "Supervision.feedback with a coordinated "
+                        "FeedbackController on every rank, or on none")
+                dec = sup.feedback.apply_committed(payload, step=at_step)
+                report.feedback_refits += 1
+                if dec.rebuilt is not None:
+                    cur_step_fn, cur_pack, cur_unpack = _apply_rebuild(
+                        dec.rebuilt, cur_pack, cur_unpack)
+                    report.feedback_replans += 1
+                record_event("feedback_replan", step=at_step,
+                             topo=dec.plan.to_ft_topo(),
+                             invalidated=dec.invalidated,
+                             swapped=dec.rebuilt is not None,
+                             control_epoch=decision.epoch)
+            elif decision.kind == "resize":
+                if arbiter is None:
+                    raise ProtocolViolation(
+                        f"committed resize epoch {decision.epoch} but this "
+                        "rank has no lease client — pass the coordinated "
+                        "TrainLeaseClient as fit(arbiter=...) on every rank")
+                from ..runtime.leases import ResizeDirective
+
+                _lease_resize(at_step, ResizeDirective(
+                    epoch=int(payload["lease_epoch"]),
+                    chips=tuple(payload.get("chips", ())),
+                    reason=str(payload.get("reason", "")),
+                    control_epoch=decision.epoch, topo=payload.get("topo")))
+            else:
+                raise ProtocolViolation(
+                    f"committed decision kind {decision.kind!r} (epoch "
+                    f"{decision.epoch}) is unknown to this rank — version "
+                    "skew across the group; refusing to train on a "
+                    "possibly-stale plan")
+            coordn.mark_applied(decision)
+            report.control_epochs.append({
+                "step": at_step, "epoch": decision.epoch,
+                "kind": decision.kind, "fingerprint": decision.fingerprint})
+
+        def _coordination_gate(at_step) -> bool:
+            """One control-plane tick: apply at most one committed
+            decision, else propose the parked deaths (the coordinator
+            only).  True when a decision was applied: the world or the
+            plan just changed under the loop."""
+            decision = coordn.gate(at_step)
+            if decision is not None:
+                _apply_committed(at_step, decision)
+                return True
+            if (pending_dead and shrinks < sup.max_shrinks
+                    and coordn.is_coordinator):
+                from ..planner.choose import replan_for_survivors
+
+                n_alive = max(1, (world or 1) - len(pending_dead))
+                plan = replan_for_survivors(n_alive, sup.nbytes_hint,
+                                            configured=world)
+                # None while another decision is mid-handshake: the
+                # parked deaths propose again on a later tick
+                if coordn.propose("shrink", {
+                        "dead": sorted(pending_dead), "alive": n_alive,
+                        "configured": world,
+                        "topo": plan.to_ft_topo()}) is not None:
+                    # the ledger now carries the survivor set; the apply
+                    # reads the dead list back from the commit
+                    pending_dead.clear()
+            return False
 
         # epoch 0: the starting world
         if sup.membership is not None or sup.configured_world:
@@ -483,6 +672,17 @@ def fit(state, step_fn: Callable, dataset, cfg: FitConfig = FitConfig(), *,
                 if (sup.membership is not None
                         and step % max(1, sup.check_every) == 0
                         and _membership_tick(step) == "shrunk"):
+                    continue
+                if coordn is not None and _coordination_gate(step):
+                    # a committed group decision just applied: re-enter
+                    # the loop on the new world or plan
+                    continue
+            if arbiter is not None:
+                # the arbiter moved chips: apply the grant before the next
+                # step, then re-read the batch stream from `step`
+                directive = arbiter.poll(step)
+                if directive is not None:
+                    _lease_resize(step, directive)
                     continue
             tokens, targets = (
                 next(batches) if batches is not None else dataset.batch_at(step)
@@ -663,6 +863,8 @@ def fit(state, step_fn: Callable, dataset, cfg: FitConfig = FitConfig(), *,
         reg.counter("train.feedback_refits").inc(report.feedback_refits)
         reg.counter("train.feedback_replans").inc(report.feedback_replans)
         reg.counter("train.feedback_refusals").inc(report.feedback_refusals)
+        reg.counter("train.lease_resizes").inc(len(report.lease_epochs))
+        reg.counter("train.control_applies").inc(len(report.control_epochs))
         reg.gauge("train.last_step").set(step)
         report.metrics = reg.snapshot()
         record_event("fit_end", id=start, step=step)

@@ -11,11 +11,11 @@ fitted on the card by ``python -m flextree_tpu_torch.tools.calibrate_host``
 (:mod:`.calibrate`); the measured autotuner (:mod:`.autotune`) times the
 analytic shortlist on the card and caches the winner; the closed-loop
 feedback (:mod:`.feedback`) refits the constants from a run's flight
-records, detects drift and replans in-run.
+records, detects drift and replans in-run, alone or, given a
+``runtime.CoordinationHandle``, as a group decision every rank applies.
 
-Not ported: the feedback's coordinated control plane (ROADMAP.md, Queue
-1: 'Checkpoint, supervision and feedback plumbing') and the native C++
-core (ROADMAP.md, Queue 1: '``schedule/native.py``').
+Not ported: the native C++ core (ROADMAP.md, Queue 1:
+'``schedule/native.py``').
 """
 
 from .cost_model import (

@@ -64,9 +64,13 @@ Differences from the JAX package:
   ``r?`` fingerprint to this backend's entries at every rank count;
 - the rotation's size cap is the controller's device's
   (``parallel.bucketing``'s card or host cap);
-- the coordinated control plane (``coordination=``, ``apply_committed``)
-  is not ported (ROADMAP.md, Queue 1: 'Checkpoint, supervision and
-  feedback plumbing'): a controller given one raises.
+- the coordinated control plane (``coordination=``, a
+  ``runtime.CoordinationHandle``): followers never probe, the
+  coordinator proposes its refit as a group replan with a
+  ``suggest_apply_step`` boundary, every rank applies the committed
+  payload through :meth:`FeedbackController.apply_committed`, and every
+  rank's ack carries its detector's window summary, which the
+  coordinator pools before it decides.
 
 Limits: probes measure the collective alone (in-step contention is not
 in the sample); in-process mesh wires are memory copies, so the fit
@@ -102,6 +106,8 @@ from ..utils.logging import get_logger
 from .autotune import invalidate_plan_cache
 from .calibrate import (
     MeasuredPoint,
+    _params_from_dict,
+    _params_to_dict,
     backend_fingerprint,
     default_params,
     feature_vector,
@@ -142,9 +148,6 @@ __all__ = [
 ]
 
 log = get_logger("flextree_tpu_torch.feedback")
-
-_ITEM = ("ROADMAP.md, Queue 1: 'Checkpoint, supervision and feedback "
-         "plumbing'")
 
 
 class FeedbackRefused(RuntimeError):
@@ -1398,8 +1401,8 @@ class FeedbackController:
     ``record_event`` makes — so un-instrumented runs pay nothing
     (measured by ``python -m flextree_tpu_torch.tools.feedback_convergence``).
 
-    ``coordination`` (the JAX package's coordinated control plane) is not
-    ported: anything but None raises ``NotImplementedError``.
+    ``coordination``: a ``runtime.CoordinationHandle`` for a
+    multi-process group (module docstring).
     """
 
     def __init__(
@@ -1418,16 +1421,20 @@ class FeedbackController:
 
         if n < 1:
             raise ValueError(f"n must be >= 1, got {n}")
-        if coordination is not None:
-            raise NotImplementedError(
-                f"FeedbackController(coordination=) is not ported yet "
-                f"({_ITEM})")
         self.n = int(n)
         self.nbytes = int(nbytes)
         self.cfg = cfg or FeedbackConfig()
         self.device = torch.device(device if device is not None else "cuda")
         self.params = (params if params is not None
                        else default_params(self._backend_name()))
+        # multi-process groups: a refit becomes a proposal that every rank
+        # applies from the committed epoch (apply_committed); each rank's
+        # acks ship its detector's window summary (drift_provider), so the
+        # coordinator decides on the pooled cross-rank view
+        self.coordination = coordination
+        if coordination is not None and hasattr(coordination,
+                                                "drift_provider"):
+            coordination.drift_provider = self._detector_summary
         self._timer = timer
         self._clock = clock
         # the process's own fingerprint: what default_params compares the
@@ -1505,6 +1512,14 @@ class FeedbackController:
         k = max(1, self.cfg.every_k)
         if step == 0 or step % k != 0 or step == self._last_step:
             return None
+        if (self.coordination is not None
+                and not self.coordination.is_coordinator):
+            # a coordinated follower: the replan arrives as a committed
+            # group decision; probing would spend wall time on a decision
+            # this rank has no authority to make (checked on the cadence,
+            # not every step: is_coordinator reads the membership files;
+            # in probe-free mode the detector still fills from the spans)
+            return None
         self._last_step = step
         if self.cfg.probe_free:
             return self.tick_probe_free(step)
@@ -1557,10 +1572,27 @@ class FeedbackController:
             self.samples.append(rs)
             self._detector.observe(rs)
 
+    def _detector_summary(self) -> dict:
+        return self._detector.summary()
+
     def _pooled_breaches(self) -> dict[str, float]:
-        """Band breaches over this controller's windows, keyed as the
-        JAX controller keys them (``DriftDetector.key_str``); the
-        coordinated pooling of peers' summaries is not ported."""
+        """Band breaches over the pooled cross-rank view when coordinated
+        (the followers' ack-shipped summaries), else this controller's
+        windows, keyed as the JAX controller keys them
+        (``DriftDetector.key_str``)."""
+        peers = None
+        if self.coordination is not None and hasattr(self.coordination,
+                                                     "peer_drift"):
+            try:
+                # only summaries written since the last applied decision:
+                # an ack is written before the apply, so older acks carry
+                # the breach the group already corrected
+                applied = getattr(self.coordination, "applied_epoch", -1)
+                peers = self.coordination.peer_drift(min_epoch=applied + 1)
+            except Exception:  # noqa: BLE001 — pooling never kills a tick
+                peers = None
+        if peers:
+            return self._detector.pooled_breaches(peers)
         return {
             DriftDetector.key_str(k): v
             for k, v in self._detector.breaches().items()
@@ -1735,7 +1767,10 @@ class FeedbackController:
             # loop, same donation pattern, same recorder overhead): adopt
             # it for post-refit drift judgement
             self.step_clock.compute_floor_us = float(implied)
-        decision = self._apply_refit(step, new_params, meta, drift)
+        if self.coordination is not None:
+            decision = self._propose_replan(step, new_params, meta, drift)
+        else:
+            decision = self._apply_refit(step, new_params, meta, drift)
         # post-refit steps run a rebuilt plan priced by NEW constants:
         # both the step-sample buffer and the plan signature restart
         self.step_clock.samples.clear()
@@ -1855,6 +1890,8 @@ class FeedbackController:
             )
             log.warning("feedback refit refused at step %d: %s", step, e)
             return None
+        if self.coordination is not None:
+            return self._propose_replan(step, new_params, meta, drift)
         return self._apply_refit(step, new_params, meta, drift)
 
     def _apply_refit(
@@ -1916,11 +1953,86 @@ class FeedbackController:
         )
         return ReplanDecision(plan, new_params, drift, removed, meta, rebuilt)
 
+    # -- the coordinated (multi-process) replan path ---------------------
+
+    def _propose_replan(self, step: int, new_params: TpuCostParams,
+                        meta: dict, drift: dict) -> None:
+        """Publish the refit as a group decision instead of applying it.
+        The payload carries what a peer needs to apply identically: the
+        refitted constants (the calibration schema's dict form) and the
+        topology the coordinator's chooser picked under them.  Every
+        rank, this one included, applies it in :meth:`apply_committed`
+        when ``fit``'s coordination gate delivers the commit."""
+        payload = {
+            "params": _params_to_dict(new_params),
+            "topo": choose_topology(self.n, self.nbytes,
+                                    params=new_params).to_ft_topo(),
+            "drift": drift,
+            "fit_meta": meta,
+            "samples": len(self.samples),
+        }
+        epoch = self.coordination.propose(
+            "replan", payload,
+            apply_step=self.coordination.suggest_apply_step())
+        if epoch is None:
+            # another decision is mid-handshake (or coordinatorship just
+            # moved): keep the samples, breach again on a later tick
+            log.warning("feedback refit at step %d could not propose "
+                        "(control slot busy); retrying on a later tick",
+                        step)
+            return None
+        self.refits += 1
+        self._detector.reset()
+        self.samples.clear()
+        record_event("feedback_refit", step=int(step), topo=payload["topo"],
+                     invalidated=0, drift=drift, samples=payload["samples"],
+                     control_epoch=epoch, proposed=True)
+        log.warning("feedback refit at step %d proposed as control epoch %d "
+                    "(topo %s); group-wide apply on commit", step, epoch,
+                    payload["topo"])
+        return None
+
     def apply_committed(self, payload: dict, step: int | None = None):
-        """The JAX controller applies a committed group replan here; the
-        coordinated control plane is not ported, so this raises."""
-        raise NotImplementedError(
-            f"FeedbackController.apply_committed is not ported yet ({_ITEM})")
+        """Apply a committed group replan on this rank: rebuild the
+        constants, persist and invalidate, replan, and hand back the
+        :class:`ReplanDecision` a local refit would — ``fit`` swaps the
+        step through the same path.  It depends on the payload alone, so
+        every rank lands on one plan; a chooser that disagrees with the
+        broadcast topology follows the group and says so."""
+        new_params = _params_from_dict(dict(payload["params"]))
+        if self.cfg.calibration_path:
+            save_calibration(
+                self.cfg.calibration_path,
+                new_params,
+                backend=self._backend_name(),
+                fingerprint=self._fingerprint,
+                source="feedback",
+                meta={
+                    "samples": payload.get("samples"),
+                    "run_id": self.cfg.run_id or f"step{step}",
+                    "step": step,
+                    "fit": payload.get("fit_meta", {}),
+                    "drift": payload.get("drift", {}),
+                    "coordinated": True,
+                },
+            )
+        removed = invalidate_plan_cache(
+            cache_invalidation_predicate(self._fingerprint, None),
+            cache_path=self.cfg.plan_cache_path,
+        )
+        from ..runtime.coordination import apply_spec_override
+
+        plan = apply_spec_override(
+            choose_topology(self.n, self.nbytes, params=new_params),
+            payload.get("topo"), self.n)
+        self.params = new_params
+        self._detector.reset()
+        self.samples.clear()
+        rebuilt = (self.cfg.on_replan(plan, new_params)
+                   if self.cfg.on_replan is not None else None)
+        return ReplanDecision(plan, new_params,
+                              dict(payload.get("drift", {})), removed,
+                              dict(payload.get("fit_meta", {})), rebuilt)
 
     # -- the default probe timer -----------------------------------------
 

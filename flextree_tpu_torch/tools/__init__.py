@@ -2,7 +2,10 @@
 flextree_tpu_torch.tools.calibrate_host`` fits the planner's cost-model
 constants on the backend it runs on; ``...tools.feedback_convergence`` and
 ``...tools.probe_free_feedback`` run the closed-loop planner feedback end
-to end, with probes and without."""
+to end, with probes and without; ``...tools.arbiter_spike`` shares one
+device between a trainer and a serving pool under the chip arbiter, and
+``...tools.coord_chaos`` runs the coordinated control plane under kills,
+stops, torn files and a gloo wire."""
 
 from __future__ import annotations
 

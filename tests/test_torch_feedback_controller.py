@@ -295,9 +295,12 @@ def test_probe_free_mode_equals_jax(with_rotate, tmp_path):
         assert t["refusals"] == 1 and t["refits"] == 0
 
 
-def test_recorder_off_and_refused_coordination():
-    """Recorder off: the armed hooks never tick or time; the coordinated
-    control plane and ``apply_committed`` raise naming the item."""
+def test_recorder_off_and_refused_coordination(tmp_path):
+    """Recorder off: the armed hooks never tick or time.  A controller
+    given a coordination handle registers its detector's summary as the
+    handle's ack payload, and ``apply_committed`` applies a committed
+    replan as the JAX controller does (the coordinated path end to end is
+    test_torch_fit_lease.py's)."""
     def exploding(probes, n):
         raise AssertionError("probe timer ran with the recorder off")
 
@@ -310,12 +313,23 @@ def test_recorder_off_and_refused_coordination():
         ctl.observe_step(1, 0.01)
         assert all(ctl.maybe_tick(s) is None for s in range(1, 30))
         assert ctl.ticks == 0
-    with pytest.raises(NotImplementedError,
-                       match="Checkpoint, supervision and feedback"):
-        t_fb.FeedbackController(8, 1, coordination=object(), device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match="Checkpoint, supervision and feedback"):
-        ctl.apply_committed({})
+    from flextree_tpu_torch.runtime import CoordinationHandle
+
+    handle = CoordinationHandle(str(tmp_path), 1, membership=None)
+    coord = t_fb.FeedbackController(8, 1, coordination=handle, device="cpu")
+    assert coord.coordination is handle
+    assert handle.drift_provider() == coord._detector.summary()
+    payload = {"params": t_cal._params_to_dict(params("port", SKEW)),
+               "topo": "ring", "drift": {"k": 2.0}}
+    got = ctl.apply_committed(payload, step=4)
+    want = j_fb.FeedbackController(
+        8, 1 << 20, j_fb.FeedbackConfig(), params=params("jax", SKEW)
+    ).apply_committed(
+        {**payload, "params": j_cal._params_to_dict(params("jax", SKEW))},
+        step=4)
+    assert got.plan.to_ft_topo() == want.plan.to_ft_topo() == "1"
+    assert got.drift == want.drift == {"k": 2.0}
+    assert ctl.params == params("port", SKEW) and got.rebuilt is None
 
 
 def test_default_timer_on_a_cpu_mesh(tmp_path):

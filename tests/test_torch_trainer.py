@@ -234,13 +234,14 @@ def test_nan_guard_rewinds_to_the_checkpoint_then_gives_up(tmp_path):
     assert report["skipped_steps"] == [2, 3, 2, 3]
 
 
-def test_fit_refuses_supervision_and_arbiter():
+def test_fit_refuses_supervision_and_arbiter(tmp_path):
     """Supervision runs now (test_torch_supervision.py): an empty
     ``Supervision()`` leaves the run as it is without it, bitwise, with the
     same report; so does an armed feedback controller with no recorder
     (test_torch_feedback_fit.py), whose hook is one None check and whose
-    probe timer never runs; the arbiter lease and the coordination handle
-    still raise naming their ROADMAP item."""
+    probe timer never runs; and so do an arbiter lease whose grant never
+    moves and a coordination handle with nothing to decide
+    (test_torch_fit_lease.py runs both through real decisions)."""
     state, step, data = _setup()
     plain = loop.fit(state, step, data, loop.FitConfig(num_steps=2))
     sup = loop.fit(state, step, data, loop.FitConfig(num_steps=2),
@@ -254,6 +255,11 @@ def test_fit_refuses_supervision_and_arbiter():
         FeedbackConfig,
         FeedbackController,
     )
+    from flextree_tpu_torch.runtime import (
+        CoordinationHandle,
+        LeaseLedger,
+        TrainLeaseClient,
+    )
 
     def never(probes, n):
         raise AssertionError("probe timer ran with the recorder off")
@@ -265,11 +271,19 @@ def test_fit_refuses_supervision_and_arbiter():
     assert all(torch.equal(a, b) for a, b in zip(
         ttrain.tree_leaves(plain.state), ttrain.tree_leaves(armed.state)))
     assert ctl.ticks == 0 and armed.report.feedback_refits == 0
-    for kw in (dict(arbiter=object()),
-               dict(supervision=loop.Supervision(coordination=object()))):
-        with pytest.raises(NotImplementedError,
-                           match="Checkpoint, supervision and feedback"):
-            loop.fit(state, step, data, loop.FitConfig(num_steps=1), **kw)
+    ledger = LeaseLedger(str(tmp_path / "hb"))
+    ledger.publish(0, {"train": (0,), "serve": (1,)})
+    handle = CoordinationHandle(str(tmp_path / "hb"), 0, membership=None)
+    for kw in (dict(arbiter=TrainLeaseClient(ledger, initial_chips=(0,),
+                                             poll_interval_s=0.0)),
+               dict(supervision=loop.Supervision(coordination=handle))):
+        quiet = loop.fit(state, step, data, loop.FitConfig(num_steps=2),
+                         **kw)
+        assert all(torch.equal(a, b) for a, b in zip(
+            ttrain.tree_leaves(plain.state), ttrain.tree_leaves(quiet.state)))
+        assert quiet.report.lease_epochs == quiet.report.control_epochs == []
+    assert ledger.acked_epoch("train") == 0
+    assert handle.applied == [] and handle.ledger.read_proposal() is None
 
 
 # ------------------------------------------------------------- the CLI
