@@ -5,6 +5,7 @@
     python3 chip_smoke.py --train-ab PARENT   # phase 8, PARENT's checkout and this in turns
     python3 chip_smoke.py --allreduce-ab PARENT   # phase 13's f32 sums, the same way
     python3 chip_smoke.py --phase 26   # phase 1's build, then phase 26 alone
+    python3 chip_smoke.py --phase 28   # ... or 27, or 28
 
 Drives ``flextree_tpu_torch`` (never JAX) on the card, in phases; any
 failure raises and exits non-zero:
@@ -128,8 +129,8 @@ failure raises and exits non-zero:
     the trees, where the fold is the kernel's plain version; the plan
     printed and ``run_grad_sync_bench`` (per-leaf
     against fused, in turns; printed, not gated); (b) ``trainer.main
-    --mesh 8,1,1`` at the flagship width (bf16, flash, batch 8 x 1024, 20
-    steps, a checkpoint every 10): the loss finite and falling, the
+    --mesh 8,1,1`` at the flagship width (bf16, flash, batch 8 x 1024, 10
+    steps, a checkpoint at 10): the loss finite and falling, the
     checkpoint bitwise the live state, each flash kernel's launches
     steps x layers x 8, the fold kernel's steps x the plan's; the steady
     step and tokens/s beside the dp=1 step on the same global batch, in
@@ -167,7 +168,7 @@ failure raises and exits non-zero:
     one ``ftq_bucket*`` range a bucket of an int8 sync under
     ``torch.profiler``, and the int8 encode and decode alone (GB/s, the
     cost model's ``codec_bw_GBps``); (c) ``trainer.main --mesh 8,1,1
-    --codec int8`` (20 steps, a checkpoint) and ``--codec bf16`` (4): the
+    --codec int8`` (10 steps, a checkpoint) and ``--codec bf16`` (4): the
     loss finite and falling, the checkpoint bitwise the live state with
     the first rank's ``ef``, every rank's ``ef`` non-zero and each element
     within one quantization step of its block (the sync's inputs and
@@ -179,8 +180,8 @@ failure raises and exits non-zero:
 18. readiness-ordered overlap — the plan (``parallel.overlap.plan_overlap``:
     labels, boundaries, bytes, compute, the predicted total and exposed
     µs) printed; (a) ``trainer.main --mesh 8,1,1 --overlap`` at the
-    flagship width (bf16, flash, batch 8 x 1024, 20 steps, a checkpoint
-    every 10): the loss finite and falling, the checkpoint bitwise the
+    flagship width (bf16, flash, batch 8 x 1024, 10 steps, a checkpoint
+    at 10): the loss finite and falling, the checkpoint bitwise the
     live state, each flash kernel's launches steps x layers x 8, the fold
     kernel's steps x the fired buckets' inner plans'; (b) at full width,
     one float32 step of the overlapped step, its serialized twin and the
@@ -198,7 +199,7 @@ failure raises and exits non-zero:
 19. ZeRO-1 on 8 ranks — the sharded plan (``plan_buckets(sharded=True)``,
     its fold stages and the block permutation) printed; (a)
     ``trainer.main --mesh 8,1,1 --shard-optimizer`` at the flagship width
-    (bf16, flash, batch 8 x 1024, 20 steps, a checkpoint every 10): the
+    (bf16, flash, batch 8 x 1024, 10 steps, a checkpoint at 10): the
     loss finite and falling, each flash kernel's launches steps x layers x
     8, the fold kernel's steps x ``sync_fold_stages(sharded=True)``'s, the
     checkpoint bitwise the live state consolidated, a resume from it, the
@@ -377,12 +378,31 @@ failure raises and exits non-zero:
     plain stream, then the dp-3 reduce-scatter and all-gather of the
     flagship gradient bitwise their host copies, the fold bodies printed;
     the p99 before, during and after, breach -> grant, each resize's wall
-    and the dp-3 step before and after printed, not gated; (b)
-    ``tools.coord_chaos``'s smoke set: the coordinator killed at ack-wait,
+    and the dp-3 step before and after printed, not gated; (b), in the
+    full run beside phase 28's drivers, ``tools.coord_chaos``'s smoke set: the coordinator killed at ack-wait,
     a torn ledger and a coordinated resize on three host processes, and three processes on the card over gloo at
     the flagship gradient's length switching to the chunked twin at one
     agreed step: every floor, each rank's output bitwise the unfaulted
     twin's and its host copies, its fold launches the code's count.
+28. the degrade-to-survivors bring-up and the real-process chaos drivers,
+    side by side in threads (each driver's processes are its own):
+    (a) ``tools.multiproc_bringup`` (4 CUDA processes over gloo, the
+    planner's ``2,2`` and the ring) and ``tools.chaos_bringup``'s retry,
+    restart and degrade (3 of 4 survivors, the replanned topology), each
+    rank's allreduce bitwise its host copies and its fold launches the
+    code's; (b) ``tools.chaos_runtime``'s ``sigkill_sharded`` (the flagship
+    ZeRO-1 step, dp-3 -> dp-2, the reshard a fixed point) and
+    ``tools.obs_chaos``'s recorded kill (the flagship at dp-2, every JAX
+    floor of the merged timeline), their launches the code's, the flash
+    kernels at one rank's layer of each world, the W=3 and W=2
+    reduce-scatters and the dp-2 sync bitwise their host copies, the
+    recorder's overhead printed, not gated; (c) ``tools.rpc_chaos`` and
+    ``tools.serve_elastic_chaos``'s smoke sets (flagship f32 replica
+    processes), every floor, tokens bitwise the single-process
+    ``generate`` oracle's, each drained replica's paged launches its
+    decode rounds x layers (at least one replica drained and counted in
+    each scenario), and a recorded round at a replica's configuration,
+    kernel against plain stream.
 
 The kernels line gives each kernel's launches by path
 (``launches_by_path``: serve, train, dp_train, allreduce, ir_families,
@@ -396,8 +416,11 @@ each of phase 24(b)'s ten runs, e.g. wide_int8_dense or wide_zero_moe;
 autotune, shrink and supervised_watchdog for phase 25(a), (c) and (d);
 feedback_probe, feedback_train and feedback_probe_free for phase 26(a),
 (b) and (c); arbiter_train and arbiter_serve for phase 27(a)'s trainer
-and pool, coord_gloo for phase 27(b)'s gloo ranks, summed) and their sum
-(``launches``).
+and pool, coord_gloo for phase 27(b)'s gloo ranks, summed; bringup_gloo,
+chaos_sharded, obs_chaos, rpc_chaos and serve_elastic_chaos for phase
+28's child processes, counted there; rpc_chaos and serve_elastic_chaos
+count the replicas that drained: a SIGKILLed replica's launches are
+missing) and their sum (``launches``).
 
 Prints each phase's seconds, a ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Exits
@@ -2021,7 +2044,7 @@ SMALL_TREE = (((1003,), torch.float32), ((7, 9), torch.bfloat16),
               ((512,), torch.float32), ((5,), torch.bfloat16),
               ((33, 4), torch.bfloat16), ((1,), torch.float32))
 DP = 8
-DP_STEPS = 20
+DP_STEPS = 10  # 20 before phase 28
 DP_ARGV = TRAIN_ARGV + ["--mesh", f"{DP},1,1"]
 DP_ARGV[DP_ARGV.index("--steps") + 1] = str(DP_STEPS)
 DP_TIMED = 6  # steady steps of each of dp=8 and dp=1, in turns
@@ -2409,7 +2432,7 @@ ALIGNED_COUNT = 1 << 24
 BIAS_SIGMAS = 6
 EF_COUNT = 1 << 20
 EF_STEPS = 24
-DP_CODEC_STEPS = 20
+DP_CODEC_STEPS = 10  # 20 before phase 28
 DP_BF16_STEPS = 4
 DP_CODEC_ARGV = DP_ARGV + ["--codec", "int8"]
 DP_CODEC_ARGV[DP_CODEC_ARGV.index("--steps") + 1] = str(DP_CODEC_STEPS)
@@ -3014,7 +3037,7 @@ def phase_codec(dev, fa, trainer, ckpt):
 
 
 # phase 18: readiness-ordered backward/comm overlap
-OVL_ARGV = DP_ARGV + ["--overlap"]  # 20 steps, a checkpoint every 10
+OVL_ARGV = DP_ARGV + ["--overlap"]  # 10 steps, a checkpoint at 10
 OVL_INT8_STEPS = 2
 OVL_BENCH_REPEAT = 5
 OVL_RATE_REPS = 10
@@ -3484,7 +3507,7 @@ def phase_overlap(dev, fa, trainer, ckpt, smi):
 
 
 # phase 19: ZeRO-1, the sharded optimizer, on 8 ranks
-ZERO_ARGV = DP_ARGV + ["--shard-optimizer"]  # 20 steps, a checkpoint every 10
+ZERO_ARGV = DP_ARGV + ["--shard-optimizer"]  # 10 steps, a checkpoint at 10
 ZERO_BITS_STEPS = 3
 ZERO_INT8_STEPS = 4
 ZERO_BENCH_REPEAT = 3
@@ -7457,6 +7480,357 @@ def phase_control(dev, smi) -> dict:
     return out
 
 
+# phase 28: the degrade-to-survivors bring-up and the real-process chaos
+# drivers, run side by side: (a) the gloo worlds, (b) the supervised and
+# recorded runs, (c) the serving fleets
+CHAOS_SHARDED_STEPS = 30  # sigkill_sharded: dp-3 -> dp-2 (the JAX tool: 40)
+CHAOS_SHARDED_KILL_AT = 6  # (8)
+CHAOS_OVERHEAD_REPEAT = 8  # the recorder-overhead rows in turns (24)
+
+
+def chaos_paged_check(dev, oracle, pa, kv_cache, tag):
+    """A decode round of an engine at a replica's configuration (its
+    slots, cache and table width, ``oracle``'s flagship weights in f32)
+    with every slot busy, recorded (:class:`RoundRecorder`), the kernel
+    against the plain stream on its inputs."""
+    from flextree_tpu_torch import serving
+    from flextree_tpu_torch.tools import rpc_chaos as rc
+
+    eng = serving.ServingEngine(
+        oracle.params, oracle.cfg, serving.PagedCacheConfig(**rc.CACHE),
+        serving.BatcherConfig(slots=rc.SLOTS), fused=True, device=dev)
+    rec = RoundRecorder(kv_cache.paged_attention, MODEL["n_layers"], 2)
+    kv_cache.paged_attention = rec
+    try:
+        for r in rc.build_requests(seed=977, n=rc.SLOTS):
+            eng.submit(serving.Request(rid=10_000 + r["rid"],
+                                       prompt=r["prompt"],
+                                       max_new_tokens=r["max_new"]))
+        eng.run_until_idle()
+    finally:
+        kv_cache.paged_attention = rec.inner
+    if rec.saved is None:
+        raise AssertionError(f"phase 28(c) {tag}: no decode round recorded")
+    args, got = rec.saved
+    plain = pa.paged_attention(*args, impl="torch")
+    err = (got.float() - plain.float()).abs().max().item()
+    if not err <= pa.FUSED_DECODE_ATOL:
+        raise AssertionError(f"phase 28(c) {tag}: the recorded round, kernel "
+                             f"vs plain stream {err}")
+    log(f"phase 28(c) {tag}: decode round 2 at a replica's configuration "
+        f"({rc.SLOTS} slots, table width {rc.CACHE['blocks_per_seq']}, "
+        f"blocks of {rc.CACHE['block_size']}, lengths "
+        f"{args[6].tolist()}, f32): kernel vs plain stream {err:.3g} (bar "
+        f"{pa.FUSED_DECODE_ATOL})")
+    return err
+
+
+def multiproc_part(dev):
+    """Phase 28(a), first half: ``multiproc_bringup`` on 4 CUDA processes
+    over gloo; each rank's allreduce bitwise its host copies in the
+    child, its fold launches the code's.  Returns the result."""
+    from flextree_tpu_torch.tools import multiproc_bringup as mb
+
+    mp = mb.run(str(dev), mb.COUNT, mb.TIMING_COUNT, mb.REPEAT)
+    if not mp["ok"]:
+        raise AssertionError("phase 28(a) multiproc_bringup: "
+                             + json.dumps(mp, default=str)[:3000])
+    return mp
+
+
+def chaos_bringup_part(dev) -> list:
+    """Phase 28(a), second half: ``chaos_bringup``'s retry, restart and
+    degrade, each world's ranks bitwise their host copies.  Returns the
+    scenarios' results."""
+    from flextree_tpu_torch.tools import chaos_bringup as cb
+    from flextree_tpu_torch.tools import multiproc_bringup as mb
+
+    got = cb.run_matrix(cb.SCENARIOS, str(dev), mb.COUNT,
+                        log=lambda m: None)
+    bad = [r for r in got if not r["ok"]]
+    if bad:
+        raise AssertionError("phase 28(a) chaos_bringup: "
+                             + json.dumps(bad, default=str)[:3000])
+    return got
+
+
+def log_bringup(dev, mp, got) -> dict:
+    """Phase 28(a)'s lines; returns its fold launches by path."""
+    from flextree_tpu_torch.tools import chaos_bringup as cb
+    from flextree_tpu_torch.tools import multiproc_bringup as mb
+
+    t = mp["timings"]
+    log(f"phase 28(a) multiproc_bringup ({mb.NUM_PROCESSES} processes of "
+        f"one rank on {dev} over gloo, {mb.COUNT} f32 a rank): planner "
+        f"{mp['planner_pick']} and the ring, every rank bitwise its host "
+        f"copies and within rounding of gloo's all_reduce; fold launches "
+        f"{mp['fold_launches']} = the code's; min ms at "
+        f"{mb.TIMING_COUNT} f32: " + ", ".join(
+            f"{k} {v['min_s'] * 1e3:.3f}" for k, v in t["configs"].items()))
+    deg = next(r for r in got if r["scenario"] == "degrade")
+    retry = next(r for r in got if r["scenario"] == "retry")
+    log("phase 28(a) chaos_bringup: " + "; ".join(
+        f"{r['scenario']} ok ({r['seconds']:.1f} s)" for r in got)
+        + f"; retry attempts {sorted(r['attempts'] for r in retry['reports'])}"
+        f"; degrade: {cb.SURVIVORS} of {mb.NUM_PROCESSES} formed, replanned "
+        f"topo {deg['replanned_topo']}, bitwise their host copies; fold "
+        f"launches {sum(r['fold_launches'] for r in got)} = the code's")
+    return {"bringup_gloo": {"reduce_sources": sum(mp["fold_launches"])
+                             + sum(r["fold_launches"] for r in got)}}
+
+
+def chaos_runtime_part(dev, smi):
+    """Phase 28(b): ``chaos_runtime --scenario sigkill_sharded`` (the
+    flagship ZeRO-1 step, dp-3 -> dp-2) and ``obs_chaos``'s kill scenario
+    (the flagship bucketed step at dp-2, recorder on), each child's
+    launches against the code's.  Returns the results."""
+    import tempfile
+
+    from flextree_tpu_torch.tools import chaos_runtime as cr
+    from flextree_tpu_torch.tools import obs_chaos as oc
+
+    cr.SHARDED_STEPS = CHAOS_SHARDED_STEPS
+    cr.SHARDED_KILL_AT = CHAOS_SHARDED_KILL_AT
+    (sharded,) = cr.run_matrix(("sigkill_sharded",), str(dev),
+                               log=lambda m: None)
+    if not sharded["recovered"]:
+        raise AssertionError("phase 28(b) sigkill_sharded: "
+                             + json.dumps(sharded, default=str)[:3000])
+    with tempfile.TemporaryDirectory(prefix="ft-obs-chaos-") as wd:
+        t0 = time.monotonic()
+        obs = oc.run_kill_scenario(wd, str(dev))
+        obs["seconds"] = time.monotonic() - t0
+    if not obs["ok"]:
+        obs.pop("timeline", None)
+        raise AssertionError("phase 28(b) obs_chaos: "
+                             + json.dumps(obs, default=str)[:3000])
+    return sharded, obs
+
+
+def chaos_serving_part(dev, which):
+    """Phase 28(c): ``rpc_chaos --smoke`` or ``serve_elastic_chaos
+    --smoke`` with its own ``generate`` oracle; every floor, each drained
+    replica's paged launches its decode rounds x layers, and at least one
+    replica drained and counted, with launches, in each scenario."""
+    from flextree_tpu_torch.tools import rpc_chaos as rc
+    from flextree_tpu_torch.tools import serve_elastic_chaos as se
+
+    oracle = rc.Oracle(str(dev))
+    mod = rc if which == "rpc_chaos" else se
+    results = mod.run_matrix(mod.SMOKE, oracle, log=lambda m: None)
+    for r in results:
+        r.pop("fd", None)
+    bad = [r for r in results if not r["ok"]]
+    if bad:
+        raise AssertionError(f"phase 28(c) {which}: "
+                             + json.dumps(bad, default=str)[:3000])
+    for r in results:
+        lc = r.get("checks", {}).get("launches")
+        if lc is not None and not (lc["launches_the_codes"]
+                                   and lc["paged_launches"] > 0):
+            raise AssertionError(f"phase 28(c) {which} {r['scenario']}: "
+                                 f"paged launches {lc}")
+    return oracle, results
+
+
+def chaos_kernel_checks(dev, sharded, obs):
+    """Phase 28(b)'s kernels at these paths' shapes: the three flash
+    kernels at one rank's layer of each world (bf16, phase 7's bars), the
+    ZeRO-1 reduce-scatter of the flagship gradient at W=3 and W=2 and the
+    dp-2 bucketed sync, each bitwise its host copies; and each run's
+    launches against the code's count."""
+    from flextree_tpu_torch.models.transformer import (
+        TransformerConfig,
+        init_params,
+        param_specs,
+    )
+    from flextree_tpu_torch.ops import flash_attention as fa
+    from flextree_tpu_torch.ops import reduce_stacked as rs
+    from flextree_tpu_torch.parallel import bucketing as bk
+    from flextree_tpu_torch.parallel import compressed as cm
+    from flextree_tpu_torch.parallel import train as tm
+    from flextree_tpu_torch.parallel import zero
+    from flextree_tpu_torch.parallel.mesh import flat_mesh
+    from flextree_tpu_torch.utils import profiling as spans
+
+    layers = MODEL["n_layers"]
+    cfg = TransformerConfig(**MODEL, dtype=torch.bfloat16, attn_impl="flash")
+    params = init_params(cfg, torch.Generator().manual_seed(0), device=dev)
+    pspecs = param_specs(cfg)
+    sc = sharded["checks"]
+    ran = {int(n): k for n, k in sc["steps_by_world"].items()}
+    topos = {3: sc["topo0"], 2: sc["epochs"][1]["topo"]}
+    batch = tuple(sc["batch"])
+    # launches of the sharded run against the code's
+    per = {n: dp_fold_launches(tm, cfg, tm.TrainConfig(
+        shard_optimizer=True, grad_topo=topos[n]), params, n, dev, batch)
+        for n in ran}
+    flash_want = sum(k * n for n, k in ran.items()) * layers
+    fold_want = sum(ran[n] * per[n] for n in ran)
+    got = sc["launches"]
+    if any(got[k] != flash_want for k in flash_counts(fa)) or \
+            got["reduce_sources"] != fold_want:
+        raise AssertionError(
+            f"phase 28(b) sigkill_sharded: launches {got}; the code gives "
+            f"flash {flash_want} (steps by world {ran} x world x {layers}), "
+            f"folds {fold_want} ({per} a step)")
+    oc_checks = obs["checks"]
+    obatch = tuple(oc_checks["batch"])
+    osteps = oc_checks["steps_run"]
+    oper = dp_fold_launches(tm, cfg, tm.TrainConfig(), params, 2, dev, obatch)
+    ogot = oc_checks["launches"]
+    if any(ogot[k] != osteps * 2 * layers for k in flash_counts(fa)) or \
+            ogot["reduce_sources"] != osteps * oper:
+        raise AssertionError(
+            f"phase 28(b) obs_chaos: launches {ogot}; the code gives flash "
+            f"{osteps * 2 * layers}, folds {osteps} x {oper}")
+    # the flash kernels at one rank's layer of each world
+    _, t, h, d = FLASH_TRAIN
+    gen = torch.Generator().manual_seed(SEED + 280)
+    cases = sorted({(batch[0] // n, f"chaos_dp{n}") for n in ran}
+                   | {(obatch[0] // 2, "obs_dp2")})
+    for b, name in cases:
+        case = (name, b, t, t, h, d, True, 0, 0, False)
+        errs, failures, note, run = flash_compare(fa, case, torch.bfloat16,
+                                                  dev, gen)
+        if failures:
+            raise AssertionError(f"phase 28(b) flash parity "
+                                 f"{describe_case(case, 'bf16')}: "
+                                 + "; ".join(failures))
+        log(f"phase 28(b) flash parity {describe_case(case, 'bf16')} (one "
+            f"rank's layer): {describe_errors(errs)}; {note}")
+        del run
+    # the ZeRO-1 reduce-scatters at W=3 and W=2, bitwise the host copies
+    for n in sorted(ran, reverse=True):
+        sizes = {"dp": n, "sp": 1, "tp": 1}
+        ntopos = tm.resolve_axis_topos(sizes, tm.AXIS_NAMES, topos[n])
+        plan, stages, seen = check_zero_syncs(
+            zero, tm, bk, cm, rs, params, pspecs, ntopos, sizes, dev,
+            flat_mesh, n=n)
+        log(f"phase 28(b) the dp-{n} sharded reduce-scatter as "
+            f"sigkill_sharded's step runs it (topo {ntopos['dp']}, "
+            f"{len(plan)} buckets): every rank's blocks and tails bitwise "
+            f"the host copies; fold stages {stages}; launches by body: "
+            f"{describe_bodies(seen)}")
+    # obs_chaos's dp-2 bucketed sync at its lengths
+    gen = torch.Generator(device=dev).manual_seed(SEED + 281)
+    trees = [tm.tree_map(lambda p: torch.randn(p.shape, generator=gen,
+                                               device=dev), params)
+             for _ in range(2)]
+    buckets, fired, tree_bytes = check_sync(trees, "2", 1, dev, flat_mesh,
+                                            tm, bk, rs, spans)
+    log(f"phase 28(b) obs_chaos's dp-2 bucketed sync ({len(buckets)} "
+        f"buckets of {tree_bytes} B a rank): per-leaf and bucketed bitwise, "
+        f"fold launches {fired} the code's, bitwise its host copies")
+    del params, trees
+    torch.cuda.empty_cache()
+    return {"chaos_sharded": dict(got), "obs_chaos": dict(ogot)}
+
+
+def phase_chaos(dev, smi, with_coord=False) -> dict:
+    """Phase 28: the rest of item 9 on the card, its drivers side by side
+    in threads of this process (each runs child processes): (a) the gloo
+    bring-up worlds, (b) the supervised ZeRO-1 shrink and the recorded
+    kill, (c) ``rpc_chaos --smoke`` and ``serve_elastic_chaos --smoke``;
+    then each kernel at these paths' shapes, and the recorder's overhead
+    (printed, not gated).  ``with_coord``: phase 27(b), whose work runs in
+    child processes too, runs in the same pool (the full run).  Returns
+    the launches by path."""
+    from flextree_tpu_torch.ops import paged_attention as pa
+    from flextree_tpu_torch.serving import kv_cache
+    from flextree_tpu_torch.tools import obs_chaos as oc
+
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    clocks = {}
+
+    def timed(tag, fn, *args):
+        def run():
+            t = time.monotonic()
+            try:
+                return fn(*args)
+            finally:
+                clocks[tag] = time.monotonic() - t
+        return run
+
+    with concurrent.futures.ThreadPoolExecutor(6) as ex:
+        coord = ex.submit(timed("27(b)", phase_coord, dev, smi)) \
+            if with_coord else None
+        futs = {
+            "a_multiproc": ex.submit(timed("a_multiproc", multiproc_part,
+                                           dev)),
+            "a_chaos": ex.submit(timed("a_chaos", chaos_bringup_part, dev)),
+            "b": ex.submit(timed("b", chaos_runtime_part, dev, smi)),
+            "c_rpc": ex.submit(timed("c_rpc", chaos_serving_part, dev,
+                                     "rpc_chaos")),
+            "c_elastic": ex.submit(timed("c_elastic", chaos_serving_part,
+                                         dev, "serve_elastic_chaos")),
+        }
+        done = {k: f.result() for k, f in futs.items()}
+        coord_launches = coord.result() if coord is not None else {}
+    log(f"phase 28 drivers side by side: {time.monotonic() - t0:.1f} s ("
+        + ", ".join(f"{k} {v:.1f} s" for k, v in sorted(clocks.items()))
+        + ")")
+    if coord is not None:
+        log(f"phase 27(b): {clocks['27(b)']:.1f} s (beside phase 28's "
+            f"drivers)")
+    launches = log_bringup(dev, done["a_multiproc"], done["a_chaos"])
+    launches.update(coord_launches)
+    sharded, obs = done["b"]
+    sc = sharded["checks"]
+    log(f"phase 28(b) chaos_runtime sigkill_sharded ({smi}; the flagship "
+        f"bf16 flash ZeRO-1 on the in-process dp-3 mesh, {sc['batch']} a "
+        f"step, {CHAOS_SHARDED_STEPS} steps, peer 2 SIGKILLed at step "
+        f"{sc['killed_at_trainer_step']}): membership epochs "
+        + " -> ".join(f"{e['alive']} at step {e['step']} (topo {e['topo']})"
+                      for e in sc["epochs"])
+        + f"; steps by world {sc['steps_by_world']}; median step ms by world "
+        f"{ {k: round(v, 3) for k, v in sc['step_ms_by_world'].items()} }; "
+        f"the reshard a bitwise fixed point, state finite; "
+        f"{sharded['seconds']:.1f} s")
+    oc_ = obs["checks"]
+    log(f"phase 28(b) obs_chaos sigkill_recorded (the flagship bucketed "
+        f"step at dp-2, {oc_['batch']}, {oc.STEPS} steps, recorder "
+        f"on): every floor ({', '.join(k for k in obs['floors'])}); killed "
+        f"rank's {oc_['killed_rank_events']} events, the last "
+        f"{oc_['kill_to_last_killed_event_s']} s before the kill; "
+        f"{oc_['bucket_events']} bucket spans, e.g. "
+        f"{oc_['bucket_provenance_example']}; epochs "
+        + " -> ".join(f"{e['alive']} at step {e['step']}"
+                      for e in oc_["epochs"])
+        + f"; {obs['seconds']:.1f} s")
+    launches.update(chaos_kernel_checks(dev, sharded, obs))
+    paged = 0
+    for which in ("c_rpc", "c_elastic"):
+        oracle, results = done[which]
+        name = "rpc_chaos" if which == "c_rpc" else "serve_elastic_chaos"
+        n = sum(r["checks"]["launches"]["paged_launches"] for r in results
+                if "launches" in r.get("checks", {}))
+        log(f"phase 28(c) {name} --smoke (replica processes at the flagship "
+            f"width, f32, the paged kernel; tokens bitwise the "
+            f"single-process generate oracle's): " + "; ".join(
+                f"{r['scenario']} ok ({r['seconds']:.1f} s)"
+                for r in results)
+            + f"; drained replicas' paged launches {n} = their decode rounds "
+            f"x {MODEL['n_layers']}")
+        launches[name] = {"paged_attention": n}
+        chaos_paged_check(dev, oracle, pa, kv_cache, name)
+        paged += n
+        del oracle
+    torch.cuda.empty_cache()
+    t1 = time.monotonic()
+    over = oc.run_overhead_bench(CHAOS_OVERHEAD_REPEAT, str(dev))
+    rows = over["rows"]
+    log(f"phase 28(b) printed, not gated ({smi}): the recorder's overhead "
+        f"{over['recorder_overhead']:.4f} (JAX budget "
+        f"{oc.OVERHEAD_BUDGET}, the bench's default model, "
+        f"{CHAOS_OVERHEAD_REPEAT} turns): fused "
+        f"{rows['ours_fused']['train_step_ms']:.3f} ms, recorded "
+        f"{rows['ours_fused_recorded']['train_step_ms']:.3f} ms; "
+        f"{time.monotonic() - t1:.1f} s")
+    return launches
+
+
 def collective_phases(dev, bw) -> list:
     """Phases 11-15 (the FlexTree collectives); returns their rows of the
     kernels line (``reduce_sources`` and ``reduce_stacked``, the fold
@@ -7901,7 +8275,7 @@ def allreduce_ab(parent: str) -> int:
 def one_phase(argv) -> int:
     """``--phase 26`` or ``--phase 27``: phase 1's build, then that phase
     alone; prints its launches by path and no result line."""
-    phases = {"26": phase_feedback, "27": phase_control}
+    phases = {"26": phase_feedback, "27": phase_control, "28": phase_chaos}
     if len(argv) != 1 or argv[0] not in phases:
         print(f"usage: chip_smoke.py --phase {{{','.join(phases)}}}",
               file=sys.stderr)
@@ -8005,10 +8379,15 @@ def main() -> int:
     t0 = time.monotonic()
     sp_launches.update(phase_feedback(dev, smi))
     log(f"phase 26: {time.monotonic() - t0:.1f} s")
+    # phase 27(b)'s processes run beside phase 28's (each path's kernels
+    # launch and are counted in its own processes)
     t0 = time.monotonic()
-    sp_launches.update(phase_control(dev, smi))
-    log(f"phase 27: {time.monotonic() - t0:.1f} s")
-    log(f"phases 1-27: {time.monotonic() - t_all:.1f} s")
+    sp_launches.update(phase_spike(dev, smi))
+    log(f"phase 27(a): {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    sp_launches.update(phase_chaos(dev, smi, with_coord=True))
+    log(f"phase 28 (and 27(b) beside it): {time.monotonic() - t0:.1f} s")
+    log(f"phases 1-28: {time.monotonic() - t_all:.1f} s")
     # each path's launches beside their sum
     for row in rows:
         if row["name"] in dp_launches:

@@ -14,18 +14,20 @@ file, or ``FT_COORDINATOR`` / ``FT_NUM_PROCESSES`` / ``FT_PROCESS_ID``).
 Failures keep the JAX package's taxonomy: a malformed config raises
 :class:`BringupConfigError` at once; a world that does not assemble within
 the retry budget raises :class:`BringupTimeout` carrying every attempt's
-error.  :func:`spawn` runs a function on N local processes, each brought
-up by :func:`init_distributed`, with a deadline on the whole world.
+error.  :func:`init_distributed_or_degrade` forms the world of the
+survivors when the launcher reports fewer live processes than configured,
+and replans the allreduce for them (``planner.choose.replan_for_survivors``).
+:func:`spawn` runs a function on N local processes, each brought up by
+:func:`init_distributed`, with a deadline on the whole world.
 
-Not ported: the degrade-to-survivors path (its planner,
-``planner.choose.replan_for_survivors``, is ported; the bring-up that
-calls it is not) and the hybrid DCN x ICI meshes, which are TPU-slice
-concepts.
+Not ported: the hybrid DCN x ICI meshes (``hybrid_mesh``,
+``plan_for_mesh`` and their kin), ROADMAP.md Queue 1, item 11.
 """
 
 from __future__ import annotations
 
 import datetime
+import gc
 import json
 import os
 import random
@@ -37,6 +39,7 @@ from pathlib import Path
 __all__ = [
     "ClusterConfig",
     "init_distributed",
+    "init_distributed_or_degrade",
     "shutdown_distributed",
     "spawn",
     "free_port",
@@ -87,6 +90,7 @@ class BringupReport:
     elapsed_s: float = 0.0
     errors: list = field(default_factory=list)  # one string per failed attempt
     backend: str | None = None  # None: single process, nothing brought up
+    degraded_to: int | None = None  # survivor world size, when degraded
 
 
 @dataclass(frozen=True)
@@ -205,8 +209,10 @@ def init_distributed(
     already up or when the world is one process with no coordinator
     configured (the single-process dev loop); a coordinator with
     ``num_processes=1`` brings up a world of one.  ``backend``: ``"nccl"``
-    or ``"gloo"``; by default NCCL when ``device`` (default: the port's
-    default device, ``cuda`` when a GPU is present) is a GPU, else gloo.
+    or ``"gloo"``; by default NCCL when ``device`` is a GPU, else gloo.
+    ``device`` goes through :func:`~..device.resolve_device`: ``cuda``
+    unless named, so a host with no GPU must ask for ``device="cpu"`` or
+    ``backend="gloo"`` (otherwise :class:`BringupConfigError`).
 
     ``timeout`` is the per-attempt deadline in seconds (env
     ``FT_INIT_TIMEOUT``; default 300): a non-coordinator process first
@@ -218,8 +224,9 @@ def init_distributed(
     malformed config raises :class:`BringupConfigError` at once; an
     exhausted budget raises :class:`BringupTimeout`.
     """
-    import torch
     import torch.distributed as dist
+
+    from ..device import resolve_device
 
     report = BringupReport()
     if dist.is_initialized():
@@ -236,23 +243,35 @@ def init_distributed(
     while True:
         attempt += 1
         report.attempts = attempt
+        store = None
         try:
             cfg = _resolve_config(config, merge_env=merge_env)
             if cfg.coordinator is None and cfg.num_processes in (None, 1):
                 return report  # single-process run: nothing to initialize
             if backend is None:
-                if device is None:
-                    device = "cuda" if torch.cuda.is_available() else "cpu"
-                backend = "nccl" if torch.device(device).type == "cuda" \
-                    else "gloo"
+                try:
+                    dev = resolve_device(device)
+                except RuntimeError as e:  # no GPU: retrying cannot help
+                    raise BringupConfigError(str(e)) from e
+                backend = "nccl" if dev.type == "cuda" else "gloo"
             if cfg.process_id != 0:
                 _probe_coordinator(cfg.coordinator, timeout)
+            host, _, port = cfg.coordinator.rpartition(":")
+            wait = datetime.timedelta(seconds=timeout)
+            store = dist.TCPStore(host or "localhost", int(port),
+                                  cfg.num_processes, cfg.process_id == 0,
+                                  timeout=wait)
+            # keys of a world of this size only: a process that reaches a
+            # coordinator still serving an earlier, larger world (a
+            # degraded bring-up racing the full one) times out and
+            # retries instead of meeting that world's keys
             dist.init_process_group(
                 backend=backend,
-                init_method=f"tcp://{cfg.coordinator}",
+                store=dist.PrefixStore(f"ft_world_{cfg.num_processes}",
+                                       store),
                 world_size=cfg.num_processes,
                 rank=cfg.process_id,
-                timeout=datetime.timedelta(seconds=timeout),
+                timeout=wait,
             )
             report.elapsed_s = _monotonic() - t_start
             report.backend = backend
@@ -261,8 +280,8 @@ def init_distributed(
             raise
         except Exception as e:  # transient: connect refused, timeout, ...
             report.errors.append(f"{type(e).__name__}: {e}")
-            if dist.is_initialized():
-                dist.destroy_process_group()
+            store = None  # the coordinator's port goes with it
+            _reset_partial_bringup()
             if attempt > retries:
                 report.elapsed_s = _monotonic() - t_start
                 raise BringupTimeout(
@@ -274,6 +293,128 @@ def init_distributed(
             delay = min(backoff * (2 ** (attempt - 1)), max_backoff)
             delay *= 0.5 + random.random() / 2  # jitter: avoid retry stampede
             _sleep(delay)
+
+
+def _reset_partial_bringup() -> None:
+    """Release what a failed ``init_process_group`` left behind: a default
+    group that came up half way, and on process 0 the rendezvous's
+    ``TCPStore``, which still holds the coordinator's port while any frame
+    of the failed attempt refers to it.  The retry, or the degraded
+    world's bring-up, listens on the same port.  The group counter, which
+    names the default group's keys in the store, goes back to 0, so a
+    process that failed more attempts than its peers still meets them
+    under the same keys."""
+    import sys
+
+    import torch.distributed as dist
+
+    from torch.distributed import distributed_c10d as c10d
+
+    world = getattr(c10d, "_world", None)
+    if not hasattr(world, "group_count"):
+        # without the reset a survivor can meet its peers under other
+        # keys and hang in its first collective: refuse instead
+        raise BringupConfigError(
+            "torch.distributed has no _world.group_count to reset after a "
+            "failed bring-up; this torch is not supported")
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    world.group_count = 0
+    # the exception being handled keeps the failed attempt's frames (and
+    # the store they hold) alive; drop its traceback, then collect
+    exc = sys.exc_info()[1]
+    if exc is not None:
+        exc.__traceback__ = None
+        for linked in (exc.__cause__, exc.__context__):
+            if linked is not None:
+                linked.__traceback__ = None
+    gc.collect()
+
+
+def init_distributed_or_degrade(
+    config: ClusterConfig | str | Path | None = None,
+    *,
+    nbytes: int,
+    survivors=None,
+    min_processes: int = 1,
+    timeout: float | None = None,
+    retries: int | None = None,
+    backend: str | None = None,
+    device=None,
+):
+    """Bring up the configured world, or degrade to the survivors.
+
+    The *launcher*, the only party that knows which processes are alive,
+    supplies ``survivors`` (an int, or a callable returning one, such as a
+    probe of its child processes).  When it reports fewer processes than
+    configured (and at least ``min_processes``), the world is formed with
+    ``num_processes = survivors`` directly, and the allreduce topology is
+    replanned for the surviving count with
+    :func:`~..planner.choose.replan_for_survivors` (awkward counts get a
+    lonely topology or the ring, so 7 of 8 still runs a real tree).
+
+    The decision is taken before the full-world rendezvous when the
+    liveness source already reports a short world.  Otherwise the full
+    world is attempted; on torch a world whose peers never register fails
+    catchably (the rendezvous raises at its deadline), so on
+    :class:`BringupTimeout` the liveness source is polled again and the
+    same degrade applies, on the same coordinator port
+    (:func:`_reset_partial_bringup` released it).  A config file caught
+    mid-write by the launcher skips the upfront decision and is re-read.
+    The launcher keeps the surviving ``process_id``s contiguous.
+    ``backend`` and ``device`` are :func:`init_distributed`'s.
+
+    Returns ``(report, plan)``: ``plan`` is None when the full world came
+    up, else the replanned :class:`~..planner.choose.Plan` for the degraded
+    world (``report.degraded_to`` names its size).
+    """
+    try:
+        cfg = _resolve_config(config)
+    except json.JSONDecodeError:
+        # the launcher is still writing the shared file: skip the upfront
+        # decision, init_distributed's retries re-read it
+        cfg = None
+
+    def _alive():
+        return survivors() if callable(survivors) else survivors
+
+    def _short(n_alive):
+        configured = cfg.num_processes if cfg is not None else None
+        return (n_alive is not None and configured is not None
+                and min_processes <= n_alive < configured)
+
+    def _degrade(n_alive, prior_attempts=0, prior_errors=()):
+        from ..planner.choose import replan_for_survivors
+
+        degraded = ClusterConfig(coordinator=cfg.coordinator,
+                                 num_processes=n_alive,
+                                 process_id=cfg.process_id)
+        report = init_distributed(degraded, backend=backend, device=device,
+                                  timeout=timeout, retries=retries,
+                                  merge_env=False)
+        report.attempts += prior_attempts
+        report.errors = list(prior_errors) + report.errors
+        report.degraded_to = n_alive
+        plan = replan_for_survivors(n_alive, nbytes,
+                                    configured=cfg.num_processes)
+        return report, plan
+
+    n_alive = _alive()
+    if _short(n_alive):
+        return _degrade(n_alive)
+    try:
+        return init_distributed(config, backend=backend, device=device,
+                                timeout=timeout, retries=retries), None
+    except BringupTimeout as full_err:
+        if cfg is None:
+            try:  # the full attempt's retries may have outlived the write
+                cfg = _resolve_config(config)
+            except json.JSONDecodeError:
+                raise full_err from None
+        n_alive = _alive()  # the world may have shrunk while waiting
+        if not _short(n_alive):
+            raise
+        return _degrade(n_alive, full_err.attempts, full_err.errors)
 
 
 def shutdown_distributed() -> None:

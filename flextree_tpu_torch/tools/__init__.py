@@ -5,7 +5,14 @@ constants on the backend it runs on; ``...tools.feedback_convergence`` and
 to end, with probes and without; ``...tools.arbiter_spike`` shares one
 device between a trainer and a serving pool under the chip arbiter, and
 ``...tools.coord_chaos`` runs the coordinated control plane under kills,
-stops, torn files and a gloo wire."""
+stops, torn files and a gloo wire.  The chaos drivers run real processes
+under real faults: ``...tools.multiproc_bringup`` and
+``...tools.chaos_bringup`` the bring-up (retry, restart, degrade to the
+survivors), ``...tools.chaos_runtime`` a supervised run under SIGKILL,
+SIGSTOP and SIGTERM, ``...tools.obs_chaos`` the flight records of a
+killed run merged into one timeline, ``...tools.rpc_chaos`` the front
+door and its replica processes, and ``...tools.serve_elastic_chaos`` a
+replica fleet leasing chips from the arbiter."""
 
 from __future__ import annotations
 
@@ -15,7 +22,12 @@ import tempfile
 
 #: result files the repository commits (the JAX package's measurements):
 #: the port's tools never write them
-COMMITTED_RESULTS = ("FEEDBACK.json", "OBS_ATTRIBUTION.json", "BENCH_*.json")
+COMMITTED_RESULTS = ("FEEDBACK.json", "OBS_ATTRIBUTION.json", "BENCH_*.json",
+                     "CHAOS_BRINGUP.json", "MULTIPROC_BRINGUP.json",
+                     "CHAOS_RUNTIME.json", "OBS_CHAOS.json",
+                     "OBS_TIMELINE.json", "RPC_CHAOS.json",
+                     "SERVE_ELASTIC.json", "COORD_CHAOS.json",
+                     "ARBITER_SPIKE.json")
 
 
 def committed(path: str) -> bool:
