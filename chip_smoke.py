@@ -5,13 +5,15 @@
     python3 chip_smoke.py --train-ab PARENT   # phase 8, PARENT's checkout and this in turns
     python3 chip_smoke.py --allreduce-ab PARENT   # phase 13's f32 sums, the same way
     python3 chip_smoke.py --phase 26   # phase 1's build, then phase 26 alone
-    python3 chip_smoke.py --phase 28   # ... or 27, or 28
+    python3 chip_smoke.py --phase 29   # ... or 27, 28 or 29
 
 Drives ``flextree_tpu_torch`` (never JAX) on the card, in phases; any
 failure raises and exits non-zero:
 
 1. device and build — the card's name and power limit (``nvidia-smi``),
-   and every CUDA kernel built from ``flextree_tpu_torch/csrc``; the bf16
+   and every CUDA kernel built from ``flextree_tpu_torch/csrc`` (the
+   paged kernel first; the others while phases 2-6 run, waited for
+   before phase 7); the bf16
    flash forward, dq and dk/dv have ``HMMA`` (``mma.sync``) in their SASS
    and no register spills at head dim 64 (128's are reported);
 2. kernel parity — the paged-decode kernel against its plain versions
@@ -34,9 +36,9 @@ failure raises and exits non-zero:
    decode round of phase 3, each launch with a cold L2 and a ~0.5 ms head
    start (:func:`time_launches`), beside the least time the card could
    take (bytes over the memory rate);
-5. profile — 8 more requests through the same engine under
-   ``torch.profiler``: the device's busy share of the wall time and the
-   kernels that take it;
+5. profile — 8 more requests through the same engine, 16 of its steps
+   (decode rounds, after the admissions) under ``torch.profiler``: the
+   device's busy share of the wall time and the kernels that take it;
 6. float32 token identity — the kernel engine, the gather-oracle engine
    and the contiguous-cache ``generate`` give the same greedy tokens;
 7. flash parity — each flash kernel (forward, dq, dk/dv) against its
@@ -312,7 +314,7 @@ failure raises and exits non-zero:
     bytes a rank ``zero_shard_bytes``'; then each family's runs and its
     replicated step in turns (steady step), the family's first run's
     device time and busy share under ``torch.profiler`` and each run's
-    peak memory (printed, not gated); (c) float32 at full width (B=2, 3 steps) on each family: the
+    peak memory (printed, not gated); (c) float32 at full width (B=2, 2 steps) on each family: the
     sharded step, clipping off, bitwise the replicated one (the
     consolidated moments too), the overlapped step bitwise the replicated
     one, the int8 overlapped step bitwise its serialized twin, ``ef``
@@ -327,7 +329,8 @@ failure raises and exits non-zero:
     ``python -m flextree_tpu_torch.trainer`` (dp=1, flagship, 8 steps) in
     a process of its own, SIGTERMed mid-run: checkpointed within one step
     of the signal, the preempted line, exit 0; the relaunch resumes and
-    ends bitwise where a straight-through process ends; (c) ``fit`` over
+    ends bitwise where a straight-through process ends (in the full run,
+    beside phase 24, after 27(b)'s twin); (c) ``fit`` over
     dp=4 (global batch 12 x 1024) with a heartbeat roster of 4, ranks 1-3
     beaten by peer processes, ``FT_LEASE`` 1.5 s: one peer SIGKILLed,
     membership epochs 4 -> 3 with the replanned topology, the newest
@@ -353,7 +356,8 @@ failure raises and exits non-zero:
     the launches the steps' plans' plus the ticks' probes', the
     checkpoint the live state bitwise, the loss falling, the step on
     either plan timed in turns (printed); (c) ``fit`` at
-    dp=8 with the probe-free controller from the skewed calibration, its
+    dp=8 (40 steps: one rotation cycle) with the probe-free controller
+    from the skewed calibration, its
     probe timer raising and its compute floor the sync-free twin's (no
     span): rotations, a probe-free refit with per-phase scales, fold
     launches exactly the steps' syncs' (no probe), each rotated bucket
@@ -378,12 +382,15 @@ failure raises and exits non-zero:
     plain stream, then the dp-3 reduce-scatter and all-gather of the
     flagship gradient bitwise their host copies, the fold bodies printed;
     the p99 before, during and after, breach -> grant, each resize's wall
-    and the dp-3 step before and after printed, not gated; (b), in the
-    full run beside phase 28's drivers, ``tools.coord_chaos``'s smoke set: the coordinator killed at ack-wait,
-    a torn ledger and a coordinated resize on three host processes, and three processes on the card over gloo at
-    the flagship gradient's length switching to the chunked twin at one
-    agreed step: every floor, each rank's output bitwise the unfaulted
-    twin's and its host copies, its fold launches the code's count.
+    and the dp-3 step before and after printed, not gated; (b)
+    ``tools.coord_chaos``'s smoke set: three processes on the card over
+    gloo at the flagship gradient's length switching to the chunked twin
+    at one agreed step (in the full run beside phase 24, with the matrix
+    world's twin); then, with nothing beside them, the coordinator killed
+    at ack-wait, a torn ledger and a coordinated resize, each on three
+    host processes, the three worlds side by side: every floor, each
+    rank's output bitwise the unfaulted twin's and its host copies, its
+    fold launches the code's count.
 28. the degrade-to-survivors bring-up and the real-process chaos drivers,
     side by side in threads (each driver's processes are its own):
     (a) ``tools.multiproc_bringup`` (4 CUDA processes over gloo, the
@@ -403,6 +410,21 @@ failure raises and exits non-zero:
     decode rounds x layers (at least one replica drained and counted in
     each scenario), and a recorded round at a replica's configuration,
     kernel against plain stream.
+29. the bench CLI's attention mode and the kernel drivers, one after
+    another: (a) ``python -m flextree_tpu_torch.bench --bench attention``
+    in this process at the JAX defaults (B=4, T=4096, H=16, D=128, bf16,
+    causal), flash and SDPA (the yardstick), forward and grad,
+    ``--autotune`` once and ``--version``; the flash launches the code's
+    count; the three flash kernels against their plain versions at that
+    shape under phase 7's bf16 bars; (b) ``tools.roofline_reduce`` at W=8
+    in each dtype and its ``sources_tile`` sweep at W=4, every fold at
+    every tile bitwise its plain version, the copy bitwise; (c)
+    ``tools.bench_paged --smoke --width flagship``: every JAX floor, the
+    paged launches its fused rounds x layers, a replayed round kernel
+    against plain stream within 2e-5; (d) ``tools.measure_launch``'s
+    bracket, printed.
+
+Every line of the record carries the seconds since the script started.
 
 The kernels line gives each kernel's launches by path
 (``launches_by_path``: serve, train, dp_train, allreduce, ir_families,
@@ -420,7 +442,8 @@ and pool, coord_gloo for phase 27(b)'s gloo ranks, summed; bringup_gloo,
 chaos_sharded, obs_chaos, rpc_chaos and serve_elastic_chaos for phase
 28's child processes, counted there; rpc_chaos and serve_elastic_chaos
 count the replicas that drained: a SIGKILLed replica's launches are
-missing) and their sum (``launches``).
+missing; bench_attention, roofline_reduce and bench_paged for phase
+29(a)-(c)) and their sum (``launches``).
 
 Prints each phase's seconds, a ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Exits
@@ -445,6 +468,12 @@ import torch
 import torch.nn.functional as F
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, HERE)
+
+# the card's data-sheet peaks and the kernel table's timing protocol (a
+# cold L2 and a ~0.5 ms head start a launch) are the package's
+from flextree_tpu_torch.device import card_peaks  # noqa: E402
+from flextree_tpu_torch.utils.timing import time_launches  # noqa: E402
 
 # flagship model (the JAX package's single-chip flagship) and its cache
 MODEL = dict(vocab_size=8192, d_model=512, n_heads=8, n_layers=4, d_ff=2048)
@@ -455,26 +484,12 @@ PROMPT_RANGE = (16, 256)
 MAX_NEW = 64
 SEED = 0
 
-# memory rate (bytes/s), float32 non-tensor-core peak and bf16 tensor-core
-# peak (FLOP/s) by card name, from NVIDIA's data sheets (dense, full power
-# limit)
-_CARDS = (
-    ("H200", 4.8e12, 67e12, 989e12),
-    ("H100 NVL", 3.9e12, 60e12, 835e12),
-    ("H100 PCIe", 2.0e12, 51e12, 756e12),
-    ("H100", 3.35e12, 67e12, 989e12),
-)
+_T0 = time.monotonic()
 
 
 def log(msg: str) -> None:
-    print(msg, flush=True)
-
-
-def card_peaks(name: str):
-    for key, *peaks in _CARDS:
-        if key in name:
-            return peaks
-    raise RuntimeError(f"no peak rates recorded for card {name!r}")
+    """A line of the run's record, stamped with the seconds since start."""
+    print(f"[{time.monotonic() - _T0:7.1f}] {msg}", flush=True)
 
 
 def smi_line() -> str:
@@ -649,30 +664,6 @@ def drive(eng, reqs, pa):
     torch.cuda.synchronize()
     makespan = time.monotonic() - t0
     return makespan, pa.paged_attention.launches
-
-
-# GPU cycles (~0.5 ms) the card spins before each timed launch, as
-# bench/harness.py's reduce bench does: the launch is enqueued while the
-# card is busy, so its events time the kernel and not the wrapper's Python
-HEAD_START_CYCLES = 1_000_000
-
-
-def time_launches(fn, n, flush, warmup=3):
-    """Median ms of ``fn()`` over ``n`` launches timed with CUDA events,
-    after ``warmup`` untimed ones; each timed launch follows an L2 flush
-    (a cold L2) and a ~0.5 ms spin of the card (the head start)."""
-    for _ in range(warmup):
-        fn()
-    starts = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
-    ends = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
-    for i in range(n):
-        flush.zero_()
-        torch.cuda._sleep(HEAD_START_CYCLES)
-        starts[i].record()
-        fn()
-        ends[i].record()
-    torch.cuda.synchronize()
-    return float(np.median([s.elapsed_time(e) for s, e in zip(starts, ends)]))
 
 
 def phase_times(dev, pa, pools, rounds, bw, fp32_peak):
@@ -1065,20 +1056,17 @@ TRAIN_ARGV = [
 
 
 def device_profile(run, tag, top: bool = True):
-    """``run()`` under ``torch.profiler``: the wall time, the device's busy
-    share of it (kernel and copy time summed; one stream, so no overlap;
-    the ``comm_span`` ranges the profiler also lays on the device's
-    timeline are user annotations over those kernels, not work, and are
-    left out) and, with ``top``, the kernels that take the most.  Without
-    ``top`` only the card is traced, which reads back in a fraction of the
-    time."""
+    """``run()`` under ``torch.profiler``, the card's activity only (a
+    host trace reads back many times slower, and nothing here reads it):
+    the wall time, the device's busy share of it (kernel and copy time
+    summed; one stream, so no overlap; the ``comm_span`` ranges the
+    profiler may lay on the device's timeline are user annotations over
+    those kernels, not work, and are left out) and, with ``top``, the
+    kernels that take the most."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    activities = [ProfilerActivity.CUDA]
-    if top:
-        activities.insert(0, ProfilerActivity.CPU)
-    with profile(activities=activities) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
         run()
         torch.cuda.synchronize()
@@ -1317,15 +1305,28 @@ def phase_f32_train(dev, models, train_mod, data_mod):
             "witness_param_abs_gap": w_param, "witness_misses": w_misses}
 
 
-def phase_profile(eng, reqs):
-    """Run ``reqs`` again (fresh ids) under ``torch.profiler``."""
-    def run():
-        for r in reqs:
-            eng.submit(dataclasses.replace(r, rid=r.rid + 10_000,
-                                           arrival_s=0.0))
-        eng.run_until_idle()
+PROFILE_WARM_STEPS = 4  # engine steps before the window: the admissions
+PROFILE_STEPS = 16  # engine steps under the profiler (decode rounds)
 
-    return device_profile(run, "phase 5 profile")
+
+def phase_profile(eng, reqs):
+    """Run ``reqs`` again (fresh ids): :data:`PROFILE_WARM_STEPS` engine
+    steps, then :data:`PROFILE_STEPS` under ``torch.profiler`` (the
+    profiler's read-back grows with the events, ~250 launches a round),
+    then the rest to idle."""
+    for r in reqs:
+        eng.submit(dataclasses.replace(r, rid=r.rid + 10_000, arrival_s=0.0))
+    for _ in range(PROFILE_WARM_STEPS):
+        eng.step()
+
+    def run():
+        for _ in range(PROFILE_STEPS):
+            eng.step()
+
+    out = device_profile(run, f"phase 5 profile ({PROFILE_STEPS} engine "
+                         f"steps, {len(reqs)} requests resident)")
+    eng.run_until_idle()
+    return out
 
 
 # ------------------------------------------------ the FlexTree collectives
@@ -4655,7 +4656,8 @@ SP_DP_ARGV = TRAIN_ARGV + ["--mesh", f"{DP},1,1"]
 SP_DP_ARGV[SP_DP_ARGV.index("--steps") + 1] = str(SP_STEPS)
 SP_F32_STEPS = 3
 SP_F32_BATCH = 2
-SP_TIMED = 2  # steady steps of each run, in turns (4 before phase 27)
+SP_TIMED = 1  # steady steps of each run, in turns (4 before phase 27, 2
+# before phase 29)
 PROFILED_SP = "ring"  # 22(b)'s one profile of the dense sp/tp family
 
 
@@ -5501,9 +5503,9 @@ def phase_pp_moe(dev, smi):
 
 WIDE_STEPS = 4  # trainer steps a run: warmup-cosine over them, clipping
 # (3 steps end on a harder batch than the first: the loss need not fall)
-WIDE_TIMED = 2  # steady steps of each run, in turns with the replicated
-# (3 before phase 27)
-WIDE_F32_STEPS = 3
+WIDE_TIMED = 1  # steady steps of each run, in turns with the replicated
+# (3 before phase 27, 2 before phase 29)
+WIDE_F32_STEPS = 2  # 3 before phase 29
 WIDE_F32_BATCH = 2
 # 24(b)'s runs: (family, option, trainer flags)
 WIDE_RUNS = (
@@ -6320,6 +6322,19 @@ def sigterm_checks(ckpt, tm, tmp):
         f"(that process {straight_s:.1f} s, beside the signalled one)")
 
 
+def sigterm_part() -> dict:
+    """Phase 25(b) on its own, for the thread beside phase 24; no
+    launches counted here (the trainers are processes of their own)."""
+    import tempfile
+
+    from flextree_tpu_torch.parallel import train as tm
+    from flextree_tpu_torch.utils import checkpoint as ckpt
+
+    with tempfile.TemporaryDirectory(prefix="ft-sig-") as tmp:
+        sigterm_checks(ckpt, tm, tmp)
+    return {}
+
+
 def shrink_checks(dev, fa, rs, tm, bk, ckpt, params, tmp):
     """Phase 25(c): ``fit`` over dp=4 in-process ranks with a heartbeat
     roster of 4 (ranks 1-3 beaten by peer processes); one peer SIGKILLed,
@@ -6599,9 +6614,11 @@ def supervision_bench(dev, smi):
 
 def phase_supervised(dev, smi):
     """Phase 25: the supervised training run — (a) :func:`autotune_checks`,
-    (b) :func:`sigterm_checks`, (c) :func:`shrink_checks`, (d)
-    :func:`watchdog_checks` and :func:`supervision_bench`.  Returns the
-    launches by path (``autotune``, ``shrink``, ``supervised_watchdog``)."""
+    (c) :func:`shrink_checks`, (d) :func:`watchdog_checks` and
+    :func:`supervision_bench`; (b), whose trainers are processes of their
+    own, runs beside phase 24 in the full run (:func:`sigterm_part`).  Returns
+    the launches by path (``autotune``, ``shrink``,
+    ``supervised_watchdog``)."""
     import tempfile
 
     from flextree_tpu_torch import trainer
@@ -6624,7 +6641,6 @@ def phase_supervised(dev, smi):
             ("a", lambda: by_path.update(autotune=autotune_checks(
                 dev, trainer, fa, rs, tm, cm, params,
                 os.path.join(tmp, "plans.json")))),
-            ("b", lambda: sigterm_checks(ckpt, tm, tmp)),
             ("c", lambda: by_path.update(shrink=shrink_checks(
                 dev, fa, rs, tm, bk, ckpt, params, tmp))),
             ("d", lambda: (by_path.update(
@@ -6644,8 +6660,9 @@ FB_EVERY = 2  # trainer --feedback-every of 26(b): ticks at steps 2, 4, 6
 FB_STEPS = 7  # the refit comes at the second tick (6 probes a tick, 8 due)
 FB_PF_EVERY = 4  # 26(c): a tick every 4 steps ...
 FB_PF_TICKS = 2  # ... 2 ticks a rotated plan (8 steps, 7 of them sampled)
-FB_PF_CYCLES = 2  # passes over (4 MiB, the cap, the base size)
-# the detection tick, 3 plans x 2 cycles x 2 ticks, the fit's tick, a tail
+FB_PF_CYCLES = 1  # passes over (4 MiB, the cap, the base size); 2 before
+# phase 29 (the controller's default)
+# the detection tick, 3 plans x 1 cycle x 2 ticks, the fit's tick, a tail
 FB_PF_STEPS = FB_PF_EVERY * (1 + 3 * FB_PF_CYCLES * FB_PF_TICKS + 3)
 FB_FLOOR_STEPS = 3  # timed steps of the sync-free twin
 FB_HOOK_CALLS = 100_000
@@ -7441,14 +7458,26 @@ def phase_spike(dev, smi) -> dict:
                               launches["paged_attention"]}}
 
 
-def phase_coord(dev, smi) -> dict:
-    """Phase 27(b): ``tools.coord_chaos``'s smoke set: the matrix world
-    on the host toy step, the gloo world at the flagship gradient's
-    length on the card.  Returns the launches by path."""
+def coord_part(dev, scenarios, twin=None) -> list:
+    """``tools.coord_chaos``'s ``scenarios`` (a part of its smoke set),
+    the matrix world's side by side (``twin``: the twin's result, when it
+    ran elsewhere)."""
     from flextree_tpu_torch.tools import coord_chaos as cc
 
-    results = cc.run_matrix(cc.SMOKE, str(dev), cc.GLOO_COUNT,
-                            log=lambda m: log(f"phase 27(b) {m}"))
+    return cc.run_matrix(scenarios, str(dev), cc.GLOO_COUNT,
+                         log=lambda m: log(f"phase 27(b) {m}"), twin=twin,
+                         side_by_side=True)
+
+
+def phase_coord(dev, smi, results=None) -> dict:
+    """Phase 27(b): ``tools.coord_chaos``'s smoke set: the matrix world
+    on the host toy step, the gloo world at the flagship gradient's
+    length on the card (``results``: the set's results, when it ran in
+    parts elsewhere).  Returns the launches by path."""
+    from flextree_tpu_torch.tools import coord_chaos as cc
+
+    if results is None:
+        results = coord_part(dev, cc.SMOKE)
     bad = [r["scenario"] for r in results if not r["ok"]]
     if bad:
         raise AssertionError(f"phase 27(b): scenarios failed: {bad}: "
@@ -7727,35 +7756,52 @@ def chaos_kernel_checks(dev, sharded, obs):
     return {"chaos_sharded": dict(got), "obs_chaos": dict(ogot)}
 
 
-def phase_chaos(dev, smi, with_coord=False) -> dict:
+def timed_call(clocks: dict, tag: str, fn, *args):
+    """``fn(*args)`` as a thread's work, its seconds kept in
+    ``clocks[tag]``."""
+    def run():
+        t = time.monotonic()
+        try:
+            return fn(*args)
+        finally:
+            clocks[tag] = time.monotonic() - t
+    return run
+
+
+def twin_then_sigterm() -> dict:
+    """27(b)'s twin, then 25(b): host and trainer processes, for the
+    thread beside phase 24.  Returns the twin's result."""
+    from flextree_tpu_torch.tools import coord_chaos as cc
+
+    twin = cc.run_twin()
+    log(f"phase 27(b) twin: step {twin['final_step']} "
+        f"sha {twin['state_sha'][:16]}")
+    sigterm_part()
+    return twin
+
+
+def phase_chaos(dev, smi) -> dict:
     """Phase 28: the rest of item 9 on the card, its drivers side by side
     in threads of this process (each runs child processes): (a) the gloo
     bring-up worlds, (b) the supervised ZeRO-1 shrink and the recorded
     kill, (c) ``rpc_chaos --smoke`` and ``serve_elastic_chaos --smoke``;
     then each kernel at these paths' shapes, and the recorder's overhead
-    (printed, not gated).  ``with_coord``: phase 27(b), whose work runs in
-    child processes too, runs in the same pool (the full run).  Returns
-    the launches by path."""
+    (printed, not gated).  Nothing else runs beside them: with more child
+    processes in the pool, the bring-up's retry and 27(b)'s ack-wait kill
+    missed their connect and lease budgets.  Returns the launches by
+    path."""
     from flextree_tpu_torch.ops import paged_attention as pa
     from flextree_tpu_torch.serving import kv_cache
     from flextree_tpu_torch.tools import obs_chaos as oc
 
     torch.cuda.synchronize()
     t0 = time.monotonic()
-    clocks = {}
+    clocks: dict = {}
 
     def timed(tag, fn, *args):
-        def run():
-            t = time.monotonic()
-            try:
-                return fn(*args)
-            finally:
-                clocks[tag] = time.monotonic() - t
-        return run
+        return timed_call(clocks, tag, fn, *args)
 
-    with concurrent.futures.ThreadPoolExecutor(6) as ex:
-        coord = ex.submit(timed("27(b)", phase_coord, dev, smi)) \
-            if with_coord else None
+    with concurrent.futures.ThreadPoolExecutor(5) as ex:
         futs = {
             "a_multiproc": ex.submit(timed("a_multiproc", multiproc_part,
                                            dev)),
@@ -7767,15 +7813,10 @@ def phase_chaos(dev, smi, with_coord=False) -> dict:
                                          dev, "serve_elastic_chaos")),
         }
         done = {k: f.result() for k, f in futs.items()}
-        coord_launches = coord.result() if coord is not None else {}
     log(f"phase 28 drivers side by side: {time.monotonic() - t0:.1f} s ("
         + ", ".join(f"{k} {v:.1f} s" for k, v in sorted(clocks.items()))
         + ")")
-    if coord is not None:
-        log(f"phase 27(b): {clocks['27(b)']:.1f} s (beside phase 28's "
-            f"drivers)")
     launches = log_bringup(dev, done["a_multiproc"], done["a_chaos"])
-    launches.update(coord_launches)
     sharded, obs = done["b"]
     sc = sharded["checks"]
     log(f"phase 28(b) chaos_runtime sigkill_sharded ({smi}; the flagship "
@@ -7824,10 +7865,196 @@ def phase_chaos(dev, smi, with_coord=False) -> dict:
     log(f"phase 28(b) printed, not gated ({smi}): the recorder's overhead "
         f"{over['recorder_overhead']:.4f} (JAX budget "
         f"{oc.OVERHEAD_BUDGET}, the bench's default model, "
-        f"{CHAOS_OVERHEAD_REPEAT} turns): fused "
-        f"{rows['ours_fused']['train_step_ms']:.3f} ms, recorded "
+        f"{CHAOS_OVERHEAD_REPEAT} strict turns; the median of the turns' "
+        f"ratios {over['recorder_overhead_median']:.4f}): fused "
+        f"{rows['ours_fused_recorded']['fused_in_turns_ms']:.3f} ms, recorded "
         f"{rows['ours_fused_recorded']['train_step_ms']:.3f} ms; "
         f"{time.monotonic() - t1:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 29: the bench CLI's attention mode and the kernel drivers
+# ---------------------------------------------------------------------------
+
+ATTN_BENCH_ARGV = ["--bench", "attention"]  # the JAX defaults: 4x4096x16x128
+ATTN_BENCH_CASE = ("attn_bench", 4, 4096, 4096, 16, 128, True, 0, 0, False)
+ROOFLINE_LENGTH = 1 << 24  # 64 MiB a float32 source: past the L2
+
+
+def bench_cli(argv) -> tuple:
+    """``python -m flextree_tpu_torch.bench ARGV`` in this process: its exit
+    code and its stdout's lines."""
+    import contextlib
+    import io
+
+    from flextree_tpu_torch.bench.__main__ import main as bench_main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = bench_main(argv)
+    return rc, buf.getvalue().strip().splitlines()
+
+
+def attention_cli_part(dev, smi) -> dict:
+    """29(a): ``--bench attention`` through the CLI at the JAX defaults,
+    flash and SDPA forward and grad, ``--autotune`` once and
+    ``--version``; the flash launches the code's count; the three flash
+    kernels against their plain versions at the bench's shape, bf16."""
+    from flextree_tpu_torch.bench import harness
+    from flextree_tpu_torch.ops import flash_attention as fa
+
+    per_run = harness.ATTENTION_WARMUP + harness.ATTENTION_LAUNCHES
+    want = dict.fromkeys(flash_counts(fa), 0)
+    zero_flash_counts(fa)
+    rows = {}
+    for impl, mode, extra in (("flash", "fwd", []), ("flash", "grad", []),
+                              ("stock", "fwd", []), ("stock", "grad", []),
+                              ("flash", "fwd", ["--autotune"])):
+        argv = ATTN_BENCH_ARGV + ["--attn-impl", impl, "--attn-mode", mode,
+                                  *extra]
+        rc, lines = bench_cli(argv)
+        payload = json.loads(lines[-1])
+        if rc != 0 or payload["device"] != "cuda" or \
+                not payload["per_call_s"] > 0:
+            raise AssertionError(f"phase 29(a) {' '.join(argv)}: rc {rc}, "
+                                 f"{payload}")
+        if impl == "flash":
+            want["flash_fwd"] += per_run
+            if mode == "grad":
+                want["flash_bwd_dq"] += per_run
+                want["flash_bwd_dkv"] += per_run
+        rows[" ".join([impl, mode, *extra])] = payload
+        log(f"phase 29(a) bench {' '.join(argv)}: {lines[-2]} ({smi})")
+    launches = flash_counts(fa)
+    if launches != want:
+        raise AssertionError(f"phase 29(a) flash launches {launches}, the "
+                             f"code gives {want} ({per_run} a run)")
+    ratio = {m: rows[f"stock {m}"]["per_call_s"] / rows[f"flash {m}"]
+             ["per_call_s"] for m in ("fwd", "grad")}
+    log(f"phase 29(a) flash against SDPA at B=4 T=4096 H=16 D=128 bf16 "
+        f"causal, time ratios SDPA / ours: forward {ratio['fwd']:.3f}, grad "
+        f"{ratio['grad']:.3f}; flash launches {launches} = the code's")
+    rc, lines = bench_cli(["--version"])
+    if rc != 0 or not lines[-1].startswith("flextree-tpu-torch "):
+        raise AssertionError(f"phase 29(a) --version: rc {rc}, {lines}")
+    log(f"phase 29(a) --version: {lines[-1]}")
+    gen = torch.Generator().manual_seed(SEED + 29)
+    errs, failures, _, run = flash_compare(fa, ATTN_BENCH_CASE,
+                                           torch.bfloat16, dev, gen)
+    if failures:
+        raise AssertionError(f"phase 29(a) flash parity "
+                             f"{describe_case(ATTN_BENCH_CASE, 'bf16')}: "
+                             + "; ".join(failures))
+    log(f"phase 29(a) flash parity {describe_case(ATTN_BENCH_CASE, 'bf16')}"
+        f": {describe_errors(errs)} (phase 7's bf16 bars)")
+    del run
+    torch.cuda.empty_cache()
+    return launches
+
+
+def roofline_part(dev, rs, harness) -> dict:
+    """29(b): ``tools.roofline_reduce`` at W=8 in each dtype, and its
+    ``sources_tile`` sweep at W=4; every fold, at every tile, bitwise its
+    plain version, the copy bitwise its input (the tool raises
+    otherwise)."""
+    from flextree_tpu_torch.tools import roofline_reduce as rr
+
+    rs.reduce_stacked.launches = harness.hbm_copy.launches = 0
+    docs = [rr.run_roofline(ROOFLINE_LENGTH, False, str(dev), widths=(8,),
+                            log=lambda m: log(f"phase 29(b) roofline {m}")),
+            rr.run_roofline(ROOFLINE_LENGTH, True, str(dev), widths=(4,),
+                            log=lambda m: log(f"phase 29(b) sweep {m}"))]
+    for doc in docs:
+        if not all(r["bitwise_vs_plain"] for r in doc["results"]):
+            raise AssertionError(f"phase 29(b) a fold is not bitwise: {doc}")
+    log(f"phase 29(b) roofline_reduce at L={ROOFLINE_LENGTH}: copy ceiling "
+        f"{docs[0]['measured_copy_ceiling_GBps']:.1f} GB/s (peak "
+        f"{docs[0]['peak_hbm_GBps']:.0f}), torch.sum w=8 f32 "
+        f"{docs[0]['torch_sum_w8_GBps']:.1f} GB/s; every fold bitwise its "
+        f"plain version at every tile, the copy bitwise; "
+        f"{docs[0]['nvidia_smi']}")
+    return {"reduce_stacked": rs.reduce_stacked.launches,
+            "copy": harness.hbm_copy.launches}
+
+
+def paged_bench_part(dev) -> dict:
+    """29(c): ``tools.bench_paged --smoke --width flagship``: every JAX
+    floor by name, the paged launches its fused decode rounds x layers,
+    and one replayed round (layer 0), kernel against the plain stream."""
+    from flextree_tpu_torch.ops import paged_attention as pa
+    from flextree_tpu_torch.serving import kv_cache
+    from flextree_tpu_torch.tools import bench_paged as bp
+
+    pa.paged_attention.launches = 0
+    # fused call 8 of the replay's tolerance sweep is state 4 on clean pools
+    rec = RoundRecorder(kv_cache.paged_attention, MODEL["n_layers"], 8)
+    kv_cache.paged_attention = rec
+    try:
+        doc = bp.run_bench(smoke=True, width="flagship", device=str(dev),
+                           log=lambda m: log(f"phase 29(c) bench_paged {m}"))
+    finally:
+        kv_cache.paged_attention = rec.inner
+    launches = pa.paged_attention.launches
+    floors = doc["floors"]
+    if not doc["ok"] or not all(floors[k] for k in (
+            "fused_correct_ok", "concurrency_ok", "preempt_swap_ok",
+            "preempt_recompute_ok", "reserve_baseline_ok")):
+        raise AssertionError(f"phase 29(c) bench_paged floors: {floors}")
+    want = doc["fused_rounds"] * MODEL["n_layers"]
+    if launches != want:
+        raise AssertionError(f"phase 29(c) paged launches {launches} != "
+                             f"fused rounds {doc['fused_rounds']} x layers")
+    args, got = rec.saved
+    err = (got.float() - pa.paged_attention(*args, impl="torch").float()
+           ).abs().max().item()
+    if not err <= pa.FUSED_DECODE_ATOL:
+        raise AssertionError(f"phase 29(c) the replayed round, kernel vs "
+                             f"plain stream {err}")
+    rp = doc["round_replay"]
+    log(f"phase 29(c) bench_paged --smoke --width flagship: every floor "
+        f"({', '.join(k for k, v in floors.items() if v is True)}); fused "
+        f"round {rp['fused_round_ms']} ms vs gather {rp['gather_round_ms']} "
+        f"ms = {floors['fused_speedup']}x (reported, not enforced: smoke); "
+        f"on-demand concurrency {floors['ondemand_concurrency_gain']}x; "
+        f"preempts swap {doc['admission_ondemand']['preempts']}, recompute "
+        f"{doc['preempt_recompute']['preempts']}; paged launches {launches} "
+        f"= {doc['fused_rounds']} fused rounds x {MODEL['n_layers']}; a "
+        f"replayed round (lengths {args[6].tolist()}), kernel vs plain "
+        f"stream {err:.3g} (bar {pa.FUSED_DECODE_ATOL}); "
+        f"{doc['device'].get('nvidia_smi')}")
+    return {"paged_attention": launches}
+
+
+def phase_bench_drivers(dev, smi) -> dict:
+    """Phase 29: the bench CLI's attention mode and the kernel drivers
+    (item 10a and 10b's kernel drivers): (a) the CLI, (b)
+    ``roofline_reduce``, (c) ``bench_paged --smoke``, (d)
+    ``measure_launch``, one after another, nothing beside the timed rows.
+    Returns the launches by path."""
+    from flextree_tpu_torch.bench import harness
+    from flextree_tpu_torch.ops import reduce_stacked as rs
+    from flextree_tpu_torch.tools import measure_launch as ml
+
+    clock = [time.monotonic()]
+
+    def lap(part):
+        now = time.monotonic()
+        log(f"phase 29({part}): {now - clock[0]:.1f} s")
+        clock[0] = now
+
+    launches = {"bench_attention": attention_cli_part(dev, smi)}
+    lap("a")
+    launches["roofline_reduce"] = roofline_part(dev, rs, harness)
+    lap("b")
+    launches["bench_paged"] = paged_bench_part(dev)
+    lap("c")
+    bracket = ml.measure_launch_bracket(str(dev))
+    log(f"phase 29(d) measure_launch: device_op_us "
+        f"{bracket['device_op_us']:.3f}, host_dispatch_us "
+        f"{bracket['host_dispatch_us']:.3f}, launch_us "
+        f"{bracket['launch_us']:.3f} ({bracket['nvidia_smi']})")
+    lap("d")
     return launches
 
 
@@ -7926,9 +8153,10 @@ def collective_phases(dev, bw) -> list:
     }]
 
 
-def model_phases(dev, bw, fp32_peak, bf16_peak) -> list:
-    """Phases 2-10 (serving and training); returns their rows of the
-    kernels line."""
+def model_phases(dev, bw, fp32_peak, bf16_peak, built) -> list:
+    """Phases 2-10 (serving and training); ``built()`` waits for the
+    kernels other than the paged one, before phase 7.  Returns their rows
+    of the kernels line."""
     from flextree_tpu_torch import data as data_mod
     from flextree_tpu_torch import models, serving, trainer
     from flextree_tpu_torch.models.generate import generate
@@ -8036,6 +8264,8 @@ def model_phases(dev, bw, fp32_peak, bf16_peak) -> list:
     lap(6)
 
     # ---- phase 7: each flash kernel against its plain version
+    built()
+    lap("1 (the rest of the build, waited for)")
     worst = phase_flash_parity(dev, fa, pa)
 
     lap(7)
@@ -8273,9 +8503,10 @@ def allreduce_ab(parent: str) -> int:
 
 
 def one_phase(argv) -> int:
-    """``--phase 26`` or ``--phase 27``: phase 1's build, then that phase
-    alone; prints its launches by path and no result line."""
-    phases = {"26": phase_feedback, "27": phase_control, "28": phase_chaos}
+    """``--phase N`` (26 to 29): phase 1's build, then that phase alone;
+    prints its launches by path and no result line."""
+    phases = {"26": phase_feedback, "27": phase_control, "28": phase_chaos,
+              "29": phase_bench_drivers}
     if len(argv) != 1 or argv[0] not in phases:
         print(f"usage: chip_smoke.py --phase {{{','.join(phases)}}}",
               file=sys.stderr)
@@ -8326,20 +8557,28 @@ def main() -> int:
     bw, fp32_peak, bf16_peak = card_peaks(kind)
     log(f"phase 1 device: {kind}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}; nvidia-smi: {smi}")
+    # phases 2-6 launch only the paged kernel: the others build meanwhile
+    # (their nvcc processes started together), and phase 7 waits for them
     t0 = time.monotonic()
-    paths = kernels.build()
-    build_s = time.monotonic() - t0
-    for name, info in kernels.build_log.items():
-        regs = [ln.strip() for ln in info["ptxas"].splitlines()
-                if "registers" in ln]
-        log(f"phase 1 build {name}: {info['seconds']:.2f} s; "
-            f"{' | '.join(regs[:4])}{' | ...' if len(regs) > 4 else ''}")
-    log(f"phase 1 build total: {build_s:.2f} s")
-    check_tensor_cores(kernels, paths)
+    kernels.build(["paged_attention"])
+    building = concurrent.futures.ThreadPoolExecutor(1)
+    rest = building.submit(kernels.build)
 
-    t0 = time.monotonic()
-    rows = model_phases(dev, bw, fp32_peak, bf16_peak)
-    log(f"phases 2-10: {time.monotonic() - t0:.1f} s")
+    def built():
+        paths = rest.result()
+        building.shutdown()
+        for name, info in kernels.build_log.items():
+            regs = [ln.strip() for ln in info["ptxas"].splitlines()
+                    if "registers" in ln]
+            log(f"phase 1 build {name}: {info['seconds']:.2f} s; "
+                f"{' | '.join(regs[:4])}{' | ...' if len(regs) > 4 else ''}")
+        log(f"phase 1 build total: {time.monotonic() - t0:.2f} s (the "
+            f"paged kernel first, the rest beside phases 2-6)")
+        check_tensor_cores(kernels, paths)
+
+    t0_phases = time.monotonic()
+    rows = model_phases(dev, bw, fp32_peak, bf16_peak, built)
+    log(f"phases 2-10: {time.monotonic() - t0_phases:.1f} s")
     rows += collective_phases(dev, bw)
     from flextree_tpu_torch import trainer
     from flextree_tpu_torch.ops import flash_attention as fa
@@ -8370,24 +8609,50 @@ def main() -> int:
     sp_launches.update(phase_pp_moe(dev, smi))
     log(f"phase 23: {time.monotonic() - t0:.1f} s")
     t0 = time.monotonic()
-    wide_launches, _ = phase_wide(dev, smi, bw)
-    sp_launches.update(wide_launches)
-    log(f"phase 24: {time.monotonic() - t0:.1f} s")
+    # beside phase 24, which launches on the card from this process alone
+    # (its launch counts are read here): 27(b)'s gloo world, and 27(b)'s
+    # twin then 25(b)'s trainers, all child processes that launch nothing
+    # in this process.  27(b)'s matrix world reads leases of 2 s: it runs
+    # after them with nothing beside it (a beat starved past the lease
+    # beside them is a false death that supersedes the replan)
+    side_clocks: dict = {}
+    with concurrent.futures.ThreadPoolExecutor(2) as side:
+        gloo = side.submit(timed_call(side_clocks, "27(b) gloo", coord_part,
+                                      dev, ("gloo",)))
+        twin = side.submit(timed_call(side_clocks, "27(b) twin, 25(b)",
+                                      twin_then_sigterm))
+        wide_launches, _ = phase_wide(dev, smi, bw)
+        sp_launches.update(wide_launches)
+        log(f"phase 24: {time.monotonic() - t0:.1f} s")
+        coord_results = gloo.result()
+        twin = twin.result()
+    log(f"phase 24 with 27(b)'s gloo world and twin and 25(b) beside it: "
+        f"{time.monotonic() - t0:.1f} s ("
+        + ", ".join(f"{k} {v:.1f} s" for k, v in sorted(side_clocks.items()))
+        + ")")
+    t0 = time.monotonic()
+    from flextree_tpu_torch.tools import coord_chaos as cc
+
+    coord_results += coord_part(
+        dev, tuple(n for n in cc.SMOKE if n != "gloo"), twin)
+    log(f"phase 27(b) matrix world, alone: {time.monotonic() - t0:.1f} s")
+    sp_launches.update(phase_coord(dev, smi, coord_results))
     t0 = time.monotonic()
     sp_launches.update(phase_supervised(dev, smi))
     log(f"phase 25: {time.monotonic() - t0:.1f} s")
     t0 = time.monotonic()
     sp_launches.update(phase_feedback(dev, smi))
     log(f"phase 26: {time.monotonic() - t0:.1f} s")
-    # phase 27(b)'s processes run beside phase 28's (each path's kernels
-    # launch and are counted in its own processes)
     t0 = time.monotonic()
     sp_launches.update(phase_spike(dev, smi))
     log(f"phase 27(a): {time.monotonic() - t0:.1f} s")
     t0 = time.monotonic()
-    sp_launches.update(phase_chaos(dev, smi, with_coord=True))
-    log(f"phase 28 (and 27(b) beside it): {time.monotonic() - t0:.1f} s")
-    log(f"phases 1-28: {time.monotonic() - t_all:.1f} s")
+    sp_launches.update(phase_chaos(dev, smi))
+    log(f"phase 28: {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    sp_launches.update(phase_bench_drivers(dev, smi))
+    log(f"phase 29: {time.monotonic() - t0:.1f} s")
+    log(f"phases 1-29: {time.monotonic() - t_all:.1f} s")
     # each path's launches beside their sum
     for row in rows:
         if row["name"] in dp_launches:

@@ -37,8 +37,10 @@ step, the FlexTree collectives and their planner):
   flextree_tpu_torch.planner``) and its calibration, fitted on the card
   by ``python -m flextree_tpu_torch.tools.calibrate_host``;
 - :mod:`.bench` — the benchmark CLI (``python -m
-  flextree_tpu_torch.bench``): the allreduce, and the fold against the
-  copy kernel ``csrc/copy.cu``; :mod:`.utils.timing` its timing loops;
+  flextree_tpu_torch.bench``): the allreduce, the fold against the copy
+  kernel ``csrc/copy.cu``, and attention (the flash kernels against
+  SDPA); :mod:`.utils.timing` its timing loops, :mod:`.utils.buildstamp`
+  its ``--version``;
 - :mod:`.trainer` — the training CLI (``python -m
   flextree_tpu_torch.trainer``); :mod:`.data` the corpus and batching;
   :mod:`.utils.checkpoint` the JAX package's checkpoint format;
@@ -61,4 +63,6 @@ raise instead of falling back.
 
 from .device import resolve_device
 
-__all__ = ["resolve_device"]
+__version__ = "0.1.0"
+
+__all__ = ["__version__", "resolve_device"]

@@ -18,11 +18,26 @@ set of the reference harness (``benchmark.cpp:67-116``):
   leaves of ``--leaf-size`` float32 against the per-leaf sync over
   ``--ranks`` in-process ranks, timed in turns (exits 1 if the two
   differ in a bit), and with ``--codecs bf16,int8`` a lossy fused row a
-  codec, held to its error bound.
+  codec, held to its error bound;
+- ``--bench attention``: causal attention at ``--batch``, ``--seq-len``,
+  ``--heads``, ``--head-dim`` (the JAX defaults: 4, 4096, 16, 128) in
+  ``--attn-dtype`` (bfloat16), by ``--attn-impl``: ``flash`` (the port's
+  forward, dq and dk/dv kernels), ``reference`` (the plain full-matrix
+  attention) or ``stock`` (PyTorch's ``scaled_dot_product_attention``,
+  the library yardstick); ``--attn-mode fwd|grad`` (grad: dq + dk + dv of
+  ``sum(attention)``); ``--attn-timing device_loop`` (the card's time of
+  a launch, cold L2) or ``chained`` (a host clock over ``--repeat``
+  chained calls); ``--attn-variant``, ``--block-q`` and ``--block-k`` are
+  validated as JAX validates them, and ``--autotune`` runs the JAX block
+  search, which on Hopper is one run (``bench.harness.autotune_attention``
+  says why).  It prints the JAX line, then the payload.
 
-Runs on ``cuda`` unless ``--device cpu``; without a GPU and without
+``--version`` prints the port's version and git stamp, as the
+reference's ``--version`` does (``benchmark.cpp:109-115``).  Every bench
+runs on ``cuda`` unless ``--device cpu``; without a GPU and without
 ``--device cpu`` it raises.  Prints one JSON object; exits 1 when the
-allreduce's result is wrong.
+allreduce's result is wrong.  ``--comm-type`` (the library allreduce) is
+not ported yet (ROADMAP, Queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -33,7 +48,8 @@ import json
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="flextree_tpu_torch.bench")
-    ap.add_argument("--bench", choices=["allreduce", "reduce", "grad-sync"],
+    ap.add_argument("--bench", choices=["allreduce", "reduce", "grad-sync",
+                                        "attention"],
                     default="allreduce")
     ap.add_argument("--size", type=int, default=35,
                     help="elements per rank (reduce: per source)")
@@ -66,15 +82,48 @@ def main(argv=None) -> int:
                     help="--dist: JSON cluster config (env FT_* overrides)")
     ap.add_argument("--no-in-place", action="store_true",
                     help="time without writing each result over its input")
+    # attention-bench geometry and options (--bench attention)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--seq-len", type=int, default=4096)
+    ap.add_argument("--heads", type=int, default=16)
+    ap.add_argument("--head-dim", type=int, default=128)
+    ap.add_argument("--attn-impl", choices=["flash", "reference", "stock"],
+                    default="flash",
+                    help="stock: torch's scaled_dot_product_attention")
+    ap.add_argument("--autotune", action="store_true",
+                    help="the JAX block search; one run on Hopper, where "
+                    "the kernels tile for themselves")
+    ap.add_argument("--block-q", type=int, default=256)
+    ap.add_argument("--block-k", type=int, default=512)
+    ap.add_argument("--attn-variant", choices=["loop", "pipelined", "kvgrid"],
+                    default="loop",
+                    help="the JAX forward schedule; one kernel here")
+    ap.add_argument("--attn-mode", choices=["fwd", "grad"], default="fwd",
+                    help="grad: dq + dk + dv of sum(attention)")
+    ap.add_argument("--attn-timing", choices=["device_loop", "chained"],
+                    default="device_loop",
+                    help="device_loop: the card's time of a launch; "
+                    "chained: a host clock over --repeat chained calls")
+    ap.add_argument("--attn-dtype", type=str, default="bfloat16",
+                    help="compute dtype of --bench attention")
     ap.add_argument("--tag", type=str, default="flextree")
     ap.add_argument("--to-file", action="store_true")
     ap.add_argument("--out-dir", type=str, default=".")
+    ap.add_argument("--version", action="store_true")
     args = ap.parse_args(argv)
+
+    if args.version:
+        from ..utils.buildstamp import version_string
+
+        print(version_string())
+        return 0
 
     from ..device import resolve_device
     from . import harness
 
     device = str(resolve_device(args.device))
+    if args.bench == "attention":
+        return _attention(args, device, harness)
     if args.bench == "reduce":
         widths = tuple(int(w) for w in args.widths.split(","))
         cfg = harness.ReduceBenchConfig(
@@ -109,6 +158,29 @@ def main(argv=None) -> int:
             shutdown_distributed()
     print(json.dumps(report.payload()))
     return 0 if report.correct else 1
+
+
+def _attention(args, device: str, harness) -> int:
+    kw = dict(batch=args.batch, seq_len=args.seq_len, heads=args.heads,
+              head_dim=args.head_dim, dtype=args.attn_dtype,
+              impl=args.attn_impl, block_q=args.block_q,
+              block_k=args.block_k, timing=args.attn_timing,
+              mode=args.attn_mode, variant=args.attn_variant, device=device)
+    if args.attn_timing == "chained":
+        kw["repeat"] = args.repeat  # device_loop ignores repeat
+    cfg = harness.AttentionBenchConfig(**kw)
+    if args.autotune:
+        report = harness.autotune_attention(cfg, impl=args.attn_impl)
+    else:
+        report = harness.run_attention_bench(
+            cfg, tag=args.tag, to_file=args.to_file, out_dir=args.out_dir)
+    mfu = f" ({report.mfu * 100:.1f}% MFU)" if report.mfu is not None else ""
+    print(f"{report.config.impl}(bq={report.config.block_q}, "
+          f"bk={report.config.block_k}): {report.per_call_s * 1e3:.3f} "
+          f"ms/call, {report.tflops:.2f} TFLOP/s{mfu}"
+          + (f" -> {report.result_path}" if report.result_path else ""))
+    print(json.dumps(report.payload()))
+    return 0
 
 
 if __name__ == "__main__":

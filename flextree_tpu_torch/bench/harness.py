@@ -35,6 +35,12 @@ ceiling):
   (:func:`make_nosync_train_step`), timed in turns: each sync row's
   exposed and hidden sync time (``utils.profiling.exposed_split``), and
   every step's parameters held bitwise to the per-leaf step's;
+- :func:`run_attention_bench` — one attention implementation timed at
+  one geometry (the JAX harness's attention bench): the port's flash
+  kernels, the plain full-matrix reference, or PyTorch's
+  ``scaled_dot_product_attention`` as the library yardstick; forward, or
+  the three gradients of ``sum(attention)`` folded into one tensor;
+  :func:`autotune_attention` its block search;
 - :func:`hbm_copy` — the copy kernel ``csrc/copy.cu``, which replaces the
   Pallas ``copy_kernel`` of ``tools/roofline_reduce.py:101``: the measured
   streaming ceiling the fold is judged against.
@@ -56,7 +62,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import memory_rate, resolve_device
 from ..ops.reduce import get_op
 from ..ops.reduce_stacked import (
     reduce_sources,
@@ -67,7 +73,13 @@ from ..parallel.mesh import allreduce_over_mesh, flat_mesh
 from ..planner.cost_model import bus_bandwidth_GBps
 from ..schedule.ir import is_ir_family_spec, resolve_collective
 from ..schedule.stages import Topology
-from ..utils.timing import BenchResult, time_fn, time_fn_inplace
+from ..utils.logging import get_logger
+from ..utils.timing import (
+    HEAD_START_CYCLES,
+    BenchResult,
+    time_fn,
+    time_fn_inplace,
+)
 
 __all__ = [
     "BenchConfig",
@@ -87,17 +99,19 @@ __all__ = [
     "dist_train_steps",
     "GradSyncBenchConfig",
     "run_grad_sync_bench",
-    "CARD_MEMORY_RATE",
     "DEVICE_HEAD_START_CYCLES",
+    "AttentionBenchConfig",
+    "AttentionBenchReport",
+    "attention_bench_call",
+    "attention_flops",
+    "run_attention_bench",
+    "autotune_attention",
 ]
+
+log = get_logger("flextree_tpu_torch.bench")
 
 #: untimed calls after the first and before the timed ones
 WARMUP = 2
-
-#: Memory rate in bytes/s by card name, from NVIDIA's data sheets (the
-#: full power limit); the first key found in the device name wins.
-CARD_MEMORY_RATE = (("H200", 4.8e12), ("H100 NVL", 3.9e12),
-                    ("H100 PCIe", 2.0e12), ("H100", 3.35e12))
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -106,13 +120,6 @@ def torch_dtype(name: str) -> torch.dtype:
     if not isinstance(dt, torch.dtype):
         raise ValueError(f"unknown dtype {name!r}")
     return dt
-
-
-def _memory_rate(device: torch.device) -> float | None:
-    if device.type != "cuda":
-        return None
-    name = torch.cuda.get_device_name(device)
-    return next((rate for key, rate in CARD_MEMORY_RATE if key in name), None)
 
 
 def _device_info(device: torch.device) -> dict:
@@ -200,9 +207,9 @@ def _reference_rows(n: int, size: int, dtype: torch.dtype) -> torch.Tensor:
     per-rank-distinct rows so every op has a non-trivial reduction); small
     values, so float32 sums stay exact and integer wraparound is the same
     on host and device."""
-    base = np.arange(size, dtype=np.int64) % 256
-    data = base[None, :] + np.arange(n, dtype=np.int64)[:, None]
-    return torch.from_numpy(data).to(dtype)  # wraps to the width
+    base = torch.arange(size, dtype=torch.int64) % 256
+    data = base[None, :] + torch.arange(n, dtype=torch.int64)[:, None]
+    return data.to(dtype)  # wraps to the width
 
 
 # ------------------------------------------------------------ allreduce
@@ -302,8 +309,8 @@ def _matches(got: torch.Tensor, expect: torch.Tensor, data: torch.Tensor,
     n = data.shape[0]
     u = 2.0 ** -{torch.float16: 11, torch.bfloat16: 8, torch.float32: 24,
                  torch.float64: 53}[got.dtype]
-    mags = data.double().abs()
-    scale = mags.sum(0) if rop.name == "sum" else mags.prod(0)
+    scale = (data.abs().sum(0, dtype=torch.float64) if rop.name == "sum"
+             else data.double().abs().prod(0))
     g = got.double()
     overflow = expect.abs() > torch.finfo(got.dtype).max
     ok = (g - expect).abs() <= n * u * scale
@@ -934,9 +941,18 @@ def _train_step_rows(cfg, steps, syncs, states_in, toks, tgts, dev,
                                f"(bitwise)")
         identical = identical and same
     del states_out
-    step_times = _interleaved_times(
-        {name: (lambda step=step, st=states_in[name]: step(st, toks, tgts))
-         for name, step in steps.items()}, cfg.repeat, dev)
+    calls = {name: (lambda step=step, st=states_in[name]: step(st, toks, tgts))
+             for name, step in steps.items()}
+    recorded = calls.pop("ours_fused_recorded", None)
+    step_times = _interleaved_times(calls, cfg.repeat, dev)
+    if recorded is not None:
+        # the recorder costs ~1-2% of a step, less than the host wanders
+        # between the shuffled rounds: its row runs in strict turns with
+        # the fused step (fused, recorded, fused, recorded, ...)
+        pair = _interleaved_times({"ours_fused": calls["ours_fused"],
+                                   "ours_fused_recorded": recorded},
+                                  cfg.repeat, dev, shuffle=False)
+        step_times["ours_fused_recorded"] = pair["ours_fused_recorded"]
     sync_times = _interleaved_times(
         {name: fn for name, fn in syncs.items()
          if name != "ours_overlap_serialized"}, cfg.repeat, dev)
@@ -962,17 +978,25 @@ def _train_step_rows(cfg, steps, syncs, states_in, toks, tgts, dev,
         row["sync_ms"] = sync_times["ours_fused"]["min_ms"]  # same sync
         row["compute_ms"] = max(row["train_step_ms"] - row["sync_ms"], 0.0)
         row["supervision_overhead"] = row["train_step_ms"] / fused_ms
-    if "ours_fused_recorded" in rows:
-        rows["ours_fused_recorded"]["recorder_overhead"] = \
-            rows["ours_fused_recorded"]["train_step_ms"] / fused_ms
+    if recorded is not None:
+        # against the fused step of its own turns: min over min (the JAX
+        # figure), and the median of each turn's ratio beside it
+        a, b = pair["ours_fused"], pair["ours_fused_recorded"]
+        rows["ours_fused_recorded"].update(
+            recorder_overhead=b["min_ms"] / a["min_ms"],
+            recorder_overhead_median=float(np.median(
+                [y / x for x, y in zip(a["times_ms"], b["times_ms"])])),
+            fused_in_turns_ms=a["min_ms"])
     return rows, identical
 
 
-def _interleaved_times(calls: dict, repeat: int, device) -> dict:
+def _interleaved_times(calls: dict, repeat: int, device,
+                       shuffle: bool = True) -> dict:
     """Each variant's min, mean and median ms over ``repeat`` rounds, one
     call of every variant a round in a shuffled order (seeded), so that a
     stretch of contention on a shared host lands on every variant and no
-    variant always follows the same one.  ``calls`` maps a name to a
+    variant always follows the same one; ``shuffle=False`` keeps the
+    order of ``calls`` in every round (two variants: strict turns).  ``calls`` maps a name to a
     warm, argument-free function; each call is host-timed to the device's
     end (``torch.cuda.synchronize`` on a card)."""
     import random
@@ -987,7 +1011,8 @@ def _interleaved_times(calls: dict, repeat: int, device) -> dict:
     shuffler = random.Random(0)
     times: dict[str, list[float]] = {name: [] for name in calls}
     for _ in range(repeat):
-        shuffler.shuffle(order)
+        if shuffle:
+            shuffler.shuffle(order)
         for name in order:
             sync()
             t0 = time.perf_counter()
@@ -1020,10 +1045,11 @@ class ReduceBenchConfig:
     op: str = "sum"
     repeat: int = 20
     device: str | None = None  # None -> cuda
+    # the fold kernel's sources_tile values to time a shape at; a value
+    # that does not divide W is skipped (the kernel clamps it to the gcd,
+    # which repeats another row), 1 always runs
+    sources_tiles: tuple = (1,)
 
-
-#: GPU cycles (~0.5 ms) spent spinning before each timed launch
-_HEAD_START_CYCLES = 1_000_000
 
 _LIBRARY = {"sum": lambda x: torch.sum(x, 0), "max": lambda x: torch.amax(x, 0),
             "min": lambda x: torch.amin(x, 0), "prod": lambda x: torch.prod(x, 0)}
@@ -1036,12 +1062,14 @@ def run_reduce_bench(cfg: ReduceBenchConfig) -> dict:
     timed launches, GB/s, and the least time the card could take (bytes
     over its memory rate).  On the card each timed launch follows an L2
     flush and a ~0.5 ms spin, so it starts cold and only once the host has
-    enqueued it.  The kernel must match its plain version bitwise."""
+    enqueued it.  The kernel must match its plain version bitwise.  A row
+    a shape and ``sources_tile`` (``cfg.sources_tiles``); the library call
+    and the copy are timed on the ``sources_tile=1`` row only."""
     dev = resolve_device(cfg.device)
     dtype = torch_dtype(cfg.dtype)
     rop = get_op(cfg.op)
     rop.check_dtype(dtype)
-    rate = _memory_rate(dev)
+    rate = memory_rate(dev)
     before = None
     if dev.type == "cuda":
         flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
@@ -1050,7 +1078,7 @@ def run_reduce_bench(cfg: ReduceBenchConfig) -> dict:
             flush.zero_()
             # keep the card busy while the host enqueues the timed launch,
             # so the events time the kernel and not the wrapper's Python
-            torch.cuda._sleep(_HEAD_START_CYCLES)
+            torch.cuda._sleep(HEAD_START_CYCLES)
 
     def ms(fn, *args):
         return time_fn(fn, *args, device=dev, repeat=cfg.repeat,
@@ -1059,32 +1087,268 @@ def run_reduce_bench(cfg: ReduceBenchConfig) -> dict:
     rows = []
     for w, length in cfg.shapes:
         x = seeded_rows(w, length, dtype, seed=w).to(dev)
-        got = reduce_stacked(x, rop)
-        plain = reduce_stacked_plain(x, rop)
-        bitwise = digest(got) == digest(plain)
-        if not bitwise:
-            raise AssertionError(f"fold kernel differs from its plain version "
-                                 f"at W={w} L={length}")
-        lib = _LIBRARY.get(rop.name)
         n_bytes = (w + 1) * length * x.element_size()
-        src = torch.empty(n_bytes // 2, dtype=torch.uint8, device=dev)
-        row = {
-            "W": w, "L": length, "dtype": cfg.dtype, "op": rop.name,
-            "bytes": n_bytes, "bitwise_vs_plain": bitwise,
-            "ms": ms(reduce_stacked, x, rop),
-            "plain_ms": ms(reduce_stacked_plain, x, rop),
-            "library_ms": ms(lib, x) if lib is not None else None,
-            "copy_ms": ms(hbm_copy, src),
-            "copy_plain_ms": ms(hbm_copy_plain, src),
-            "copy_library_ms": ms(torch.Tensor.copy_, torch.empty_like(src),
-                                  src),
-            "bound_ms": n_bytes / rate * 1e3 if rate else None,
-        }
-        for key in ("ms", "plain_ms", "library_ms", "copy_ms",
-                    "copy_plain_ms", "copy_library_ms"):
-            if row[key] is not None:
-                row[key.replace("ms", "GBps")] = n_bytes / row[key] / 1e6
-        rows.append(row)
-        del x, got, plain, src
+        for st in cfg.sources_tiles:
+            if st != 1 and w % st:
+                continue
+            got = reduce_stacked(x, rop, sources_tile=st)
+            plain = reduce_stacked_plain(x, rop, sources_tile=st)
+            bitwise = digest(got) == digest(plain)
+            if not bitwise:
+                raise AssertionError(
+                    f"fold kernel differs from its plain version at W={w} "
+                    f"L={length} sources_tile={st}")
+            row = {
+                "W": w, "L": length, "dtype": cfg.dtype, "op": rop.name,
+                "sources_tile": st, "bytes": n_bytes,
+                "bitwise_vs_plain": bitwise,
+                "ms": ms(reduce_stacked, x, rop, st),
+                "plain_ms": ms(reduce_stacked_plain, x, rop, st),
+                "library_ms": None, "copy_ms": None, "copy_plain_ms": None,
+                "copy_library_ms": None,
+                "bound_ms": n_bytes / rate * 1e3 if rate else None,
+            }
+            if st == 1:  # the library call and the copy, once a shape
+                lib = _LIBRARY.get(rop.name)
+                src = torch.empty(n_bytes // 2, dtype=torch.uint8,
+                                  device=dev)
+                row.update({
+                    "library_ms": ms(lib, x) if lib is not None else None,
+                    "copy_ms": ms(hbm_copy, src),
+                    "copy_plain_ms": ms(hbm_copy_plain, src),
+                    "copy_library_ms": ms(torch.Tensor.copy_,
+                                          torch.empty_like(src), src),
+                })
+                del src
+            for key in ("ms", "plain_ms", "library_ms", "copy_ms",
+                        "copy_plain_ms", "copy_library_ms"):
+                if row[key] is not None:
+                    row[key.replace("ms", "GBps")] = n_bytes / row[key] / 1e6
+            rows.append(row)
+            del got, plain
+        del x
     return {"device": _device_info(dev), "memory_rate_GBps":
             rate / 1e9 if rate else None, "rows": rows}
+
+
+# ---------------------------------------------------------------- attention
+
+
+@dataclass(frozen=True)
+class AttentionBenchConfig:
+    """The JAX ``AttentionBenchConfig``'s fields and defaults (B=4,
+    T=4096, H=16, D=128, bf16, causal), plus ``device``.
+
+    ``impl``: ``flash`` (``ops.flash_attention``, the forward, dq and
+    dk/dv kernels), ``reference`` (the plain full-matrix
+    ``attention_reference``) or ``stock`` (PyTorch's
+    ``scaled_dot_product_attention``, the library yardstick, on inputs
+    made in its ``(B, H, T, D)`` layout).  ``mode``: ``fwd``, or ``grad``
+    (dq + dk + dv of ``sum(attention)`` folded into one tensor, so no
+    backward kernel can be skipped).  ``timing``: ``device_loop`` (the
+    card's time of a launch, :func:`~..utils.timing.time_launches`) or
+    ``chained`` (a host clock over ``repeat`` chained calls, dispatch
+    included).  ``block_q``/``block_k``/``variant`` are validated as JAX
+    validates them; the CUDA kernels choose their own tiles."""
+
+    batch: int = 4
+    seq_len: int = 4096
+    heads: int = 16
+    head_dim: int = 128
+    dtype: str = "bfloat16"
+    impl: str = "flash"  # flash | reference | stock
+    repeat: int = 20
+    block_q: int = 256
+    block_k: int = 512
+    variant: str = "loop"
+    timing: str = "device_loop"
+    mode: str = "fwd"
+    device: str | None = None  # None -> cuda
+
+
+#: untimed launches, then timed ones, of a ``device_loop`` timing (the
+#: median of the timed ones is reported)
+ATTENTION_WARMUP = 3
+ATTENTION_LAUNCHES = 20
+
+
+@dataclass(frozen=True)
+class AttentionBenchReport:
+    config: AttentionBenchConfig
+    per_call_s: float
+    tflops: float
+    mfu: float | None = None  # tflops / the card's peak in the dtype
+    result_path: str | None = None
+    device: dict | None = None
+
+    def payload(self) -> dict:
+        """The JAX payload's keys, plus ``device`` and ``device_name``."""
+        c = self.config
+        dev = self.device or {}
+        return {
+            "bench": "attention",
+            "impl": c.impl,
+            "mode": c.mode,
+            "batch": c.batch,
+            "seq_len": c.seq_len,
+            "heads": c.heads,
+            "head_dim": c.head_dim,
+            "dtype": c.dtype,
+            "block_q": c.block_q,
+            "block_k": c.block_k,
+            "variant": c.variant if c.impl == "flash" else None,
+            "per_call_s": self.per_call_s,
+            "tflops": self.tflops,
+            "mfu": self.mfu,
+            "device": dev.get("type"),
+            "device_name": dev.get("name"),
+        }
+
+
+def attention_flops(cfg: AttentionBenchConfig) -> float:
+    """Hardware FLOPs of one timed call.  The causal forward is
+    ``4·B·H·T²·D / 2`` (two products over the visible half).  ``grad``
+    scales it per implementation: ``flash`` 4.5× (the JAX figure; the
+    port's backward has its structure: the forward re-run, then dq's 3
+    and dk/dv's 4 products, each recomputing p: (2 + 3 + 4) / 2);
+    ``reference`` 3× (autograd keeps p and does 4 backward products: (2
+    + 4) / 2); ``stock`` 3.5×: SDPA's fused backward (its FlashAttention-2
+    and cuDNN routes) recomputes q·kᵀ once and does 5 products, 2.5× the
+    forward (Dao, "FlashAttention-2", 2023, §3.1.2), after the forward's
+    own 2.  Compare implementations by time: the scales differ."""
+    b, t, h, d = cfg.batch, cfg.seq_len, cfg.heads, cfg.head_dim
+    scale = 1.0
+    if cfg.mode == "grad":
+        scale = {"flash": 4.5, "reference": 3.0, "stock": 3.5}[cfg.impl]
+    return 4 * b * h * t * t * d / 2 * scale
+
+
+def attention_bench_call(cfg: AttentionBenchConfig):
+    """``(fn, (q, k, v))``: the timed function of ``cfg`` and its inputs on
+    ``cfg.device``: float32 standard normals from
+    ``numpy.random.default_rng(0)``, q then k then v, cast to
+    ``cfg.dtype``; ``(B, H, T, D)`` for ``stock``, ``(B, T, H, D)``
+    otherwise, as the JAX bench lays them out.  Raises for an unknown impl, mode or
+    variant, or a block size JAX refuses."""
+    from ..ops.flash_attention import VARIANTS, _blocks, flash_attention
+    from ..parallel.ring_attention import attention_reference
+
+    if cfg.mode not in ("fwd", "grad"):
+        raise ValueError(f"unknown mode {cfg.mode!r} (fwd|grad)")
+    if cfg.impl == "flash":
+        if cfg.variant not in VARIANTS:
+            raise ValueError(f"unknown flash variant {cfg.variant!r}")
+        _blocks(cfg.seq_len, cfg.seq_len, cfg.block_q, cfg.block_k)
+
+        def core(q, k, v):
+            return flash_attention(q, k, v, causal=True, block_q=cfg.block_q,
+                                   block_k=cfg.block_k, variant=cfg.variant)
+    elif cfg.impl == "reference":
+        def core(q, k, v):
+            return attention_reference(q, k, v, causal=True)
+    elif cfg.impl == "stock":
+        def core(q, k, v):
+            return torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=True)
+    else:
+        raise ValueError(f"unknown attention impl {cfg.impl!r}")
+    if cfg.mode == "grad":
+        def fn(q, k, v):
+            leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+            with torch.enable_grad():
+                dq, dk, dv = torch.autograd.grad(core(*leaves).sum(), leaves)
+            # all three in the timed result: dq alone would let dk/dv's
+            # kernel go unlaunched while the FLOP scale charges for it
+            return dq + dk + dv
+    else:
+        def fn(q, k, v):
+            with torch.no_grad():
+                return core(q, k, v)
+
+    dev = resolve_device(cfg.device)
+    b, t, h, d = cfg.batch, cfg.seq_len, cfg.heads, cfg.head_dim
+    shape = (b, h, t, d) if cfg.impl == "stock" else (b, t, h, d)
+    rng = np.random.default_rng(0)
+    dtype = torch_dtype(cfg.dtype)
+    qkv = tuple(torch.from_numpy(rng.standard_normal(shape, np.float32))
+                .to(dev, dtype) for _ in range(3))
+    return fn, qkv
+
+
+def run_attention_bench(cfg: AttentionBenchConfig, *, tag: str = "flextree",
+                        to_file: bool = False,
+                        out_dir: str = ".") -> AttentionBenchReport:
+    """Time one attention implementation at one geometry
+    (:class:`AttentionBenchConfig`): per-call seconds, TFLOP/s of
+    :func:`attention_flops`, and the MFU against the card's peak in the
+    dtype (:func:`~..device.chip_peak_tflops`; None on the CPU).  A failed
+    launch raises.  With ``to_file`` the payload is written to
+    ``out_dir`` under :func:`result_file_name`."""
+    from ..device import chip_peak_tflops
+    from ..utils.timing import l2_flush, time_chained, time_launches
+
+    fn, (q, k, v) = attention_bench_call(cfg)
+    dev = q.device
+    if cfg.timing == "device_loop":
+        if cfg.repeat != type(cfg).repeat:
+            log.warning(
+                "timing='device_loop' ignores repeat=%d (fixed launch "
+                "count); use timing='chained' if you want a repeat loop",
+                cfg.repeat)
+        per_call = time_launches(lambda: fn(q, k, v), ATTENTION_LAUNCHES,
+                                 l2_flush(dev), ATTENTION_WARMUP) / 1e3
+    elif cfg.timing == "chained":
+        per_call = time_chained(fn, q, k, v, n_calls=cfg.repeat)
+    else:
+        raise ValueError(f"unknown timing {cfg.timing!r} (device_loop|chained)")
+    tflops = attention_flops(cfg) / per_call / 1e12
+    peak = chip_peak_tflops(cfg.dtype, dev)
+    report = AttentionBenchReport(
+        cfg, per_call, tflops, round(tflops / peak, 4) if peak else None,
+        device=_device_info(dev))
+    log.info("attention %s: %.3f ms/call, %.2f TFLOP/s%s",
+             cfg.impl if cfg.mode == "fwd" else f"{cfg.impl}+grad",
+             per_call * 1e3, tflops,
+             f" ({report.mfu * 100:.1f}% MFU)" if report.mfu is not None
+             else "")
+    if to_file:
+        b, t, h, d = cfg.batch, cfg.seq_len, cfg.heads, cfg.head_dim
+        path = Path(out_dir) / result_file_name(tag, 1, b * t * h * d,
+                                                f"attn_{cfg.impl}")
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(json.dumps(report.payload(), indent=2,
+                                   sort_keys=True) + "\n")
+        report = dataclasses.replace(report, result_path=str(path))
+    return report
+
+
+def autotune_attention(
+    cfg: AttentionBenchConfig,
+    blocks: tuple[tuple[int, int], ...] = (
+        (256, 512), (512, 512), (512, 1024), (1024, 512)),
+    repeat: int | None = None,
+    impl: str = "flash",
+    variants: tuple[str, ...] | None = None,
+) -> AttentionBenchReport:
+    """The JAX block search (``harness.py:1100``), on Hopper: every pair of
+    ``blocks`` and every name of ``variants`` is validated as JAX
+    validates them, and the bench runs once, at ``cfg``'s blocks.
+
+    The JAX search times each ``(variant, block_q, block_k)`` because
+    each is another TPU program.  Here none is: the CUDA kernels choose
+    their own 64 × 64 tiles, and the three variants run the one forward
+    kernel (``ops/flash_attention.py``), while SDPA takes no block sizes
+    at all.  Sweeping them would re-run the identical benchmark, so this
+    follows the JAX function's own rule for ``impl="reference"``, whose
+    blocks reach nothing (``harness.py:1117-1122``).  A failure raises;
+    nothing is dropped."""
+    from ..ops.flash_attention import VARIANTS, _blocks
+
+    rep_kw = {} if repeat is None else {"repeat": repeat}
+    if impl != "reference":
+        unknown = set(variants or ()) - set(VARIANTS)
+        if unknown:
+            raise ValueError(f"unknown flash variant(s): {sorted(unknown)}")
+        for bq, bk in blocks:
+            _blocks(cfg.seq_len, cfg.seq_len, bq, bk)
+    return run_attention_bench(dataclasses.replace(cfg, impl=impl, **rep_kw))

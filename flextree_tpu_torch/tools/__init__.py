@@ -12,7 +12,13 @@ survivors), ``...tools.chaos_runtime`` a supervised run under SIGKILL,
 SIGSTOP and SIGTERM, ``...tools.obs_chaos`` the flight records of a
 killed run merged into one timeline, ``...tools.rpc_chaos`` the front
 door and its replica processes, and ``...tools.serve_elastic_chaos`` a
-replica fleet leasing chips from the arbiter."""
+replica fleet leasing chips from the arbiter.  The kernel drivers time
+the hand-written kernels against the JAX tools' floors:
+``...tools.bench_attention`` (the flash kernels against SDPA),
+``...tools.roofline_reduce`` (the fold against the card's memory rate
+and the copy kernel), ``...tools.bench_paged`` (the fused paged decode
+and on-demand admission) and ``...tools.measure_launch`` (the launch
+constant's bracket)."""
 
 from __future__ import annotations
 

@@ -535,7 +535,7 @@ def _replan_fingerprint() -> str:
     return decision_fingerprint("replan", _replan_payload())
 
 
-def run_twin(workdir: str) -> dict:
+def run_twin() -> dict:
     p = _spawn("twin", {"FT_STEPS": str(STEPS)})
     (out,), (rc,) = _harvest([p])
     if rc != 0:
@@ -864,45 +864,62 @@ FULL = ("kill_propose", "kill_ackwait", "kill_commit", "stall", "torn",
         "resize", "gloo")
 
 
-def run_matrix(scenarios, device: str, count: int, log=print) -> list:
-    """Run ``scenarios``; returns their results in that order.  The twin,
-    a host process, runs beside the gloo world, which does not read it,
-    so the gloo world goes first."""
+def _run_one(wd: str, name: str, twin, device: str, count: int,
+             log) -> dict:
+    """One scenario in its own directory under ``wd``; a crashed scenario
+    is a failed floor."""
+    sub = os.path.join(wd, name)
+    os.makedirs(sub, exist_ok=True)
+    t0 = time.monotonic()
+    try:
+        if name.startswith("kill_"):
+            res = run_kill_scenario(sub, name[len("kill_"):], twin)
+        elif name == "stall":
+            res = run_stall_scenario(sub, twin)
+        elif name == "torn":
+            res = run_torn_scenario(sub, twin)
+        elif name == "resize":
+            res = run_resize_scenario(sub, twin)
+        else:
+            res = run_gloo_scenario(sub, device, count)
+    except Exception as e:  # a crashed scenario is a failed floor
+        res = {"scenario": name, "ok": False, "floors": {},
+               "error": f"{type(e).__name__}: {e}"}
+    res["seconds"] = time.monotonic() - t0
+    log(f"scenario {res['scenario']}: {'OK' if res['ok'] else 'FAILED'} "
+        + json.dumps(res.get("floors", {}))
+        + (f" {res['error']}" if "error" in res else "")
+        + f" ({res['seconds']:.1f} s)")
+    return res
+
+
+def run_matrix(scenarios, device: str, count: int, log=print, *,
+               twin: dict | None = None, side_by_side: bool = False) -> list:
+    """Run ``scenarios``; returns their results in that order.  The gloo
+    world goes first, with the twin (a host process it does not read)
+    beside it; ``twin``, the result of an earlier :func:`run_twin`, is
+    used as it is.  ``side_by_side`` runs the matrix scenarios at once,
+    each world in its own directory: three light host worlds, so no
+    heavy neighbour can starve a beat past the lease."""
     results = {}
+    matrix = [n for n in scenarios if n != "gloo"]
     with tempfile.TemporaryDirectory(prefix="ft-coord-chaos-") as wd, \
-            concurrent.futures.ThreadPoolExecutor(1) as ex:
-        twin_run = ex.submit(run_twin, wd)
-        twin = None
-        for name in sorted(scenarios, key=lambda n: n != "gloo"):
-            if name != "gloo" and twin is None:
-                twin = twin_run.result()
-                log(f"twin: step {twin['final_step']} "
-                    f"sha {twin['state_sha'][:16]}")
-            sub = os.path.join(wd, name)
-            os.makedirs(sub, exist_ok=True)
-            t0 = time.monotonic()
-            try:
-                if name.startswith("kill_"):
-                    res = run_kill_scenario(sub, name[len("kill_"):], twin)
-                elif name == "stall":
-                    res = run_stall_scenario(sub, twin)
-                elif name == "torn":
-                    res = run_torn_scenario(sub, twin)
-                elif name == "resize":
-                    res = run_resize_scenario(sub, twin)
-                else:
-                    res = run_gloo_scenario(sub, device, count)
-            except Exception as e:  # a crashed scenario is a failed floor
-                res = {"scenario": name, "ok": False, "floors": {},
-                       "error": f"{type(e).__name__}: {e}"}
-            res["seconds"] = time.monotonic() - t0
-            log(f"scenario {res['scenario']}: "
-                f"{'OK' if res['ok'] else 'FAILED'} "
-                + json.dumps(res.get("floors", {}))
-                + (f" {res['error']}" if "error" in res else "")
-                + f" ({res['seconds']:.1f} s)")
-            results[name] = res
-        twin_run.result()  # a failed twin fails the matrix
+            concurrent.futures.ThreadPoolExecutor(
+                max(1, len(matrix)) if side_by_side else 1) as ex:
+        twin_run = ex.submit(run_twin) if matrix and twin is None else None
+        if "gloo" in scenarios:
+            results["gloo"] = _run_one(wd, "gloo", None, device, count, log)
+        if twin_run is not None:
+            twin = twin_run.result()  # a failed twin fails the matrix
+            log(f"twin: step {twin['final_step']} "
+                f"sha {twin['state_sha'][:16]}")
+        if side_by_side:
+            runs = {n: ex.submit(_run_one, wd, n, twin, device, count, log)
+                    for n in matrix}
+            results.update((n, run.result()) for n, run in runs.items())
+        else:
+            for name in matrix:
+                results[name] = _run_one(wd, name, twin, device, count, log)
     return [results[name] for name in scenarios]
 
 

@@ -161,6 +161,7 @@ class FleetManager:
         self._next_rank = 1 + max(list(procs) + list(standby_ranks),
                                   default=0)
         self._decode_sleep = decode_sleep
+        self.activated: list = []  # (wall, rank) of each granted replica
 
     def note_directive(self, d) -> None:
         """Record the replicas a directive revokes before it is applied:
@@ -206,6 +207,8 @@ class FleetManager:
                 self.ctrl, f"rpc_{rank:05d}.json"), ep)
             self.chip_to_rank[c] = rank
         self.fd.refresh()
+        self.activated += [(time.time(), self.chip_to_rank[c])
+                           for c in chips]
 
     def on_revoke(self, chips) -> None:
         ranks = [self.chip_to_rank[c] for c in chips]
@@ -337,6 +340,53 @@ def _read_trace(path: str) -> list:
         return []
 
 
+def _recovery_breakdown(ref, preempts, grants, recovery_wall, activated,
+                        completed, arrivals, wall0, spike_end,
+                        backlog) -> dict:
+    """Where the time from ``ref`` = max(grant, burst end) to the first
+    sub-SLO window goes, from the run's own records (walls, seconds):
+    the trainer's drain, checkpoint and ack (preempt to grant, before
+    ``ref`` when the grant is late); the granted standbys' activation
+    (they booted, loaded the kernels and the weights, and warmed before
+    any traffic); their first answers; the burst's backlog served; and
+    the window's memory: a request answered over the SLO keeps the
+    windowed p99 over it until it ages out of the window."""
+    done = {rid: wall0 + arrivals[rid] + r.ttft_s
+            for rid, r in completed.items()}
+    act = max(w for w, _ in activated) if activated else None
+    granted = {rank for _, rank in activated}
+    first_new = min((w for rid, w in done.items()
+                     if completed[rid].rank in granted
+                     and act is not None and w >= act), default=None)
+    slow = [w for rid, w in done.items()
+            if completed[rid].ttft_s * 1e3 > SLO_P99_MS]
+    burst = [w for rid, w in done.items() if arrivals[rid] <= spike_end]
+
+    def rel(w):
+        return None if w is None else w - ref
+
+    at_ref = min(backlog, key=lambda b: abs(b[0] - ref))[1] if backlog \
+        else None
+    peak = max(backlog, key=lambda b: b[1]) if backlog else None
+    return {
+        "preempt_to_grant_s": (grants[0] - preempts[0]) if preempts
+        else None,
+        "grant_after_burst_end_s": grants[0] - (wall0 + spike_end),
+        "activation_after_grant_s": None if act is None else act - grants[0],
+        "first_answer_of_a_granted_replica_s": rel(first_new),
+        "burst_backlog_served_s": rel(max(burst, default=None)),
+        "last_answer_over_slo_s": rel(max(slow, default=None)),
+        "window_age_out_s": (recovery_wall - max(slow)) if slow else None,
+        "recovery_s": recovery_wall - ref,
+        "backlog_at_ref": at_ref,
+        "backlog_peak": None if peak is None else
+        {"requests": peak[1], "at_s": rel(peak[0])},
+        "answers_over_slo": len(slow),
+        "answers_by_rank": {str(k): v for k, v in collections.Counter(
+            r.rank for r in completed.values()).items()},
+    }
+
+
 def run_autoscale_scenario(workdir: str, oracle) -> dict:
     from ..arbiter import (
         ArbiterConfig,
@@ -426,6 +476,7 @@ def run_autoscale_scenario(workdir: str, oracle) -> dict:
             t0 = _mono()
             wall0 = time.time()
             last_tick = t0
+            backlog: list = []  # (wall, submitted and not yet answered)
             deadline = t0 + 300.0
             while _mono() < deadline:
                 now = _mono()
@@ -436,6 +487,8 @@ def run_autoscale_scenario(workdir: str, oracle) -> dict:
                     arbiter.tick()
                     observe_ledger()
                     last_tick = now
+                    backlog.append((time.time(), len(requests) - len(pending)
+                                    - len(fd.completed) - len(fd.failed)))
                 d = sclient.poll()
                 if d is not None:
                     mgr.note_directive(d)
@@ -500,6 +553,11 @@ def run_autoscale_scenario(workdir: str, oracle) -> dict:
     ref = max(grants[0], wall0 + spike_end) if grants else None
     recovery_s = None if recovery_wall is None or ref is None else max(
         0.0, recovery_wall - ref)
+    breakdown = None
+    if ref is not None and recovery_wall is not None and fd is not None:
+        breakdown = _recovery_breakdown(
+            ref, preempts, grants, recovery_wall, mgr.activated,
+            fd.completed, arrivals, wall0, spike_end, backlog)
     single = _single_holder(ledger_docs, set(CHIPS))
     final = ledger.read()
     bad = rc.bitwise_violations(fd, requests, oracle) if fd else []
@@ -539,6 +597,7 @@ def run_autoscale_scenario(workdir: str, oracle) -> dict:
                 "recovery_s": recovery_s,
                 "recovery_windows": None if recovery_s is None
                 else recovery_s / WINDOW_S,
+                "recovery_breakdown": breakdown,
                 "lease_epochs": lease_epochs,
                 "trainer_error": tdoc.get("error"), "trainer_rc": train_rc,
                 "trainer_log_tail": train_log.splitlines()[-12:],

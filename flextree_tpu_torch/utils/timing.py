@@ -10,16 +10,31 @@ a host clock would time the enqueue); on the CPU each repetition is timed
 by the host clock.  The first call is timed on its own (``compile_s``: it
 loads or builds the kernels), then ``warmup`` calls, then ``repeat`` timed
 ones; :class:`BenchResult` gives their minimum, mean and median.
+
+Two loops time single launches and chains, as the kernel table's rows
+and the attention bench need them:
+
+- :func:`time_launches` — the card's protocol for one kernel: each timed
+  launch after an L2 flush (a cold cache, as a caller finds it) and a
+  ~0.5 ms spin of the card (:data:`HEAD_START_CYCLES`), so it is enqueued
+  while the card is busy and its CUDA events time the kernel, not the
+  wrapper's Python.  Device time, immune to dispatch, as the JAX
+  package's in-jit slope (``time_device_loop``) is.
+- :func:`time_chained` — the JAX ``time_chained`` (``utils/timing.py:208``):
+  a host clock over ``n_calls`` calls, each output fed back as the next
+  first argument, and one final read, so it includes dispatch.
 """
 
 from __future__ import annotations
 
+import statistics
 import time
 from dataclasses import dataclass
 
 import torch
 
-__all__ = ["BenchResult", "time_fn", "time_fn_inplace"]
+__all__ = ["BenchResult", "HEAD_START_CYCLES", "l2_flush", "time_chained",
+           "time_fn", "time_fn_inplace", "time_launches"]
 
 
 @dataclass(frozen=True)
@@ -112,3 +127,62 @@ def time_fn_inplace(fn, x, *, repeat: int = 10, warmup: int = 2,
         state["x"] = fn(state["x"])
 
     return _loop(step, x.device, repeat, warmup, before)
+
+
+#: GPU cycles (~0.5 ms) the card spins before each timed launch of
+#: :func:`time_launches`: the launch is enqueued while the card is busy.
+HEAD_START_CYCLES = 1_000_000
+
+
+def l2_flush(device) -> torch.Tensor:
+    """The buffer :func:`time_launches` zeroes before each launch: 64 MiB
+    on a card (more than an H100's 50 MB L2), empty on the CPU, which has
+    no cold-cache protocol here."""
+    device = torch.device(device)
+    n = 64 << 20 if device.type == "cuda" else 0
+    return torch.empty(n, dtype=torch.uint8, device=device)
+
+
+def time_launches(fn, n: int, flush: torch.Tensor, warmup: int = 3) -> float:
+    """Median ms of ``fn()`` over ``n`` launches, after ``warmup`` untimed
+    ones.  On a card (``flush`` a CUDA tensor, :func:`l2_flush`) each
+    timed launch follows a zeroing of ``flush`` (a cold L2) and a
+    :data:`HEAD_START_CYCLES` spin, and is timed by CUDA events; on the
+    CPU there are no events, and each launch is timed by the host clock."""
+    for _ in range(warmup):
+        fn()
+    if flush.device.type != "cuda":
+        times = []
+        for _ in range(n):
+            flush.zero_()
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(statistics.median(times))
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
+    for i in range(n):
+        flush.zero_()
+        torch.cuda._sleep(HEAD_START_CYCLES)
+        starts[i].record()
+        fn()
+        ends[i].record()
+    torch.cuda.synchronize(flush.device)
+    return float(statistics.median(s.elapsed_time(e)
+                                   for s, e in zip(starts, ends)))
+
+
+def time_chained(fn, q, *rest, n_calls: int = 10) -> float:
+    """Per-call seconds of ``fn(q, *rest)`` with each output fed back as
+    the next first argument, on the host clock from the first call of
+    the chain to a read of its last output (one ``synchronize`` on a
+    card), so dispatch is inside the time.  One untimed call first (the
+    kernels' build and load).  ``fn``'s output must have the shape and
+    dtype of its first argument."""
+    float(fn(q, *rest).float().sum())
+    t0 = time.perf_counter()
+    acc = q
+    for _ in range(n_calls):
+        acc = fn(acc, *rest)
+    float(acc.float().sum())
+    return (time.perf_counter() - t0) / n_calls

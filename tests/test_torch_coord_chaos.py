@@ -33,3 +33,40 @@ def test_coord_chaos_kill_and_gloo_on_the_cpu(monkeypatch):
     assert coord_chaos.gloo_fold_launches(3, "3", 4099, 1) == 2
     assert coord_chaos.gloo_fold_launches(3, "3", 4098, 2) == 2
     assert not os.environ.get("FT_COORD_ROLE")
+
+
+def test_matrix_side_by_side_uses_the_given_twin(monkeypatch):
+    """``side_by_side`` runs the matrix worlds at once (a barrier of three
+    that a sequential run would never pass), a given twin is used as it
+    is, and the results come back in the order asked."""
+    import threading
+
+    barrier = threading.Barrier(3, timeout=10)
+    twin = {"final_step": 40, "state_sha": "f" * 64}
+
+    def fake(name):
+        def run(workdir, *args):
+            barrier.wait()
+            assert args[-1] is twin and os.path.isdir(workdir)
+            return {"scenario": name, "ok": True, "floors": {}}
+        return run
+
+    def no_twin():
+        raise AssertionError("the given twin must be used")
+
+    monkeypatch.setattr(coord_chaos, "run_twin", no_twin)
+    monkeypatch.setattr(coord_chaos, "run_kill_scenario",
+                        lambda wd, phase, tw: fake("kill")(wd, tw))
+    monkeypatch.setattr(coord_chaos, "run_torn_scenario", fake("torn"))
+    monkeypatch.setattr(coord_chaos, "run_resize_scenario", fake("resize"))
+    results = coord_chaos.run_matrix(
+        ("resize", "kill_ackwait", "torn"), "cpu", 4099, log=lambda m: None,
+        twin=twin, side_by_side=True)
+    assert [r["scenario"] for r in results] == ["resize", "kill", "torn"]
+    assert all(r["ok"] for r in results), results
+    # the gloo world alone, side by side as the full run asks it: no twin
+    monkeypatch.setattr(coord_chaos, "run_gloo_scenario", lambda wd, d, n: {
+        "scenario": "gloo_group_replan", "ok": True, "floors": {}})
+    (gloo,) = coord_chaos.run_matrix(("gloo",), "cpu", 4099,
+                                     log=lambda m: None, side_by_side=True)
+    assert gloo["ok"], gloo

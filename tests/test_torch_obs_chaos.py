@@ -7,6 +7,7 @@ one by name)."""
 from __future__ import annotations
 
 from test_torch_chaos_drivers import floors_by_function, no_open_sockets  # noqa: F401
+from test_torch_supervision import no_gc_pauses  # noqa: F401
 
 import os
 
@@ -17,7 +18,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_kill_scenario_leaves_a_valid_merged_timeline(monkeypatch, tmp_path,
-                                                      no_open_sockets):  # noqa: F811
+                                                      no_open_sockets,  # noqa: F811
+                                                      no_gc_pauses):  # noqa: F811
+    # this process stamps the kill (the freshness floor's clock) and polls
+    # the children: no full collection of its heap may stall it there
     monkeypatch.setenv("OMP_NUM_THREADS", "1")
     res = oc.run_kill_scenario(str(tmp_path), "cpu")
     assert res["ok"], {k: v for k, v in res.items() if k != "timeline"}

@@ -10,6 +10,7 @@ The ``RunReport`` payloads must be equal outside ``metrics`` and the final
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import time
@@ -29,6 +30,20 @@ from flextree_tpu_torch.runtime import StepTimeout as TTimeout
 from flextree_tpu_torch.utils import checkpoint as tckpt
 
 STALL_S = 0.6
+
+
+@pytest.fixture
+def no_gc_pauses():
+    """Automatic collections off while the test runs: in a worker that
+    has run many test files, a generation-2 collection of its heap takes
+    0.24-0.42 s (measured), longer than the 0.2 s step deadline, and one
+    landing inside a step, on either side, times it out beside the
+    scripted stall.  (No collection is forced here either: one would
+    finalize whatever an earlier file on the worker left behind inside
+    this test.)"""
+    gc.disable()
+    yield
+    gc.enable()
 
 
 class _ToyData:
@@ -168,7 +183,7 @@ def _run_both(name, tmp_path):
 
 
 @pytest.mark.parametrize("name", SCENARIOS)
-def test_supervised_fit_matches_jax(name, tmp_path):
+def test_supervised_fit_matches_jax(name, tmp_path, no_gc_pauses):
     out = _run_both(name, tmp_path)
     (jres, jextra, _), (tres, textra, tmp) = out[False], out[True]
     jp, tp = jres.report.to_payload(), tres.report.to_payload()
