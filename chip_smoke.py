@@ -5,7 +5,7 @@
     python3 chip_smoke.py --train-ab PARENT   # phase 8, PARENT's checkout and this in turns
     python3 chip_smoke.py --allreduce-ab PARENT   # phase 13's f32 sums, the same way
     python3 chip_smoke.py --phase 26   # phase 1's build, then phase 26 alone
-    python3 chip_smoke.py --phase 29   # ... or 27, 28 or 29
+    python3 chip_smoke.py --phase 29   # ... or 27, 28, 29 or 30
 
 Drives ``flextree_tpu_torch`` (never JAX) on the card, in phases; any
 failure raises and exits non-zero:
@@ -311,10 +311,9 @@ failure raises and exits non-zero:
     the dense mesh, both) on each family: the loss finite and falling,
     the flash and fold launches the code's count, the checkpoint bitwise
     the live state as the trainer packs it, a sharded run's optimizer
-    bytes a rank ``zero_shard_bytes``'; then each family's runs and its
-    replicated step in turns (steady step), the family's first run's
-    device time and busy share under ``torch.profiler`` and each run's
-    peak memory (printed, not gated); (c) float32 at full width (B=2, 2 steps) on each family: the
+    bytes a rank ``zero_shard_bytes``'; each run's median step and peak
+    memory (printed, not gated); (c) float32 at full width (B=2, 2
+    steps) on each family: the
     sharded step, clipping off, bitwise the replicated one (the
     consolidated moments too), the overlapped step bitwise the replicated
     one, the int8 overlapped step bitwise its serialized twin, ``ef``
@@ -423,6 +422,30 @@ failure raises and exits non-zero:
     paged launches its fused rounds x layers, a replayed round kernel
     against plain stream within 2e-5; (d) ``tools.measure_launch``'s
     bracket, printed.
+30. the seven A/B drivers at their JAX ``--quick``/``--smoke`` sizes,
+    each through its ``main`` with a zero exit required (every correctness
+    floor gated; the timing floors printed, not gated, as the JAX modes
+    do; bench_disagg's one exception below): (a) in this process, ``tools.bench_bucketing`` (the flash
+    launches the code's count; its syncs' folds bitwise their host
+    copies; the flash kernels at one rank's layer), ``tools.zigzag_accounting``
+    (the exact critical paths; the 8-rank wall rows; the flash forward
+    launches the code's count; the flash kernels at the zigzag chunk and
+    ring hop shapes, f32) and ``tools.bench_prefix`` (paged launches its
+    decode rounds x layers; a decode round with a COW-shared block, kernel
+    against plain stream within 2e-5); (b) alone, each a 2-process gloo
+    world on the card, ``tools.bench_quantize`` (the fold at 2^18, 2^20
+    and 2^22 f32 and the in-process codec syncs against host copies),
+    ``tools.bench_sharded`` (the dp-2 f32 and int8 reduce-scatters
+    against host copies, the flash kernels at a rank's layer) and
+    ``tools.bench_overlap`` (the dp-2 syncs of the fused step and each
+    fired bucket under the children's constants against host copies, the
+    flash kernels at a rank's layer), the children's launches counted
+    there; (c) alone, ``tools.bench_disagg --smoke`` (flagship f32 replica
+    processes; each drained replica's paged launches its decode rounds x
+    layers; exit 1 taken only where its one violation is
+    ``migration_int8``'s token identity on exactly the rids the JAX
+    engine's int8 migration flips on the same weights), and a decode round
+    at a replica's configuration, kernel against plain stream.
 
 Every line of the record carries the seconds since the script started.
 
@@ -443,7 +466,9 @@ chaos_sharded, obs_chaos, rpc_chaos and serve_elastic_chaos for phase
 28's child processes, counted there; rpc_chaos and serve_elastic_chaos
 count the replicas that drained: a SIGKILLed replica's launches are
 missing; bench_attention, roofline_reduce and bench_paged for phase
-29(a)-(c)) and their sum (``launches``).
+29(a)-(c); ab_bucketing, ab_zigzag, ab_prefix, ab_quantize, ab_sharded,
+ab_overlap and ab_disagg for phase 30's drivers, the gloo children's
+launches counted there) and their sum (``launches``).
 
 Prints each phase's seconds, a ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Exits
@@ -3540,7 +3565,7 @@ def check_zero_syncs(zero, tm, bk, cm, rs, shapes, pspecs, topos, sizes,
     (``zero_reduce_scatter_grads`` with the step's plan) of seeded per-rank
     gradients on the card, its folds counted by body
     (:func:`fold_bodies`) against the plan's launches; then on host copies
-    with the card's plan (the cap set to its largest bucket), where
+    with the card's plan (the cap its packing used), where
     ``reduce_sources`` takes its plain fold and the encode runs on the
     CPU: every rank's blocks and tails, and under int8 its residual,
     bitwise.  ``n`` data-parallel ranks.  Returns the plan, its stages and
@@ -3565,7 +3590,10 @@ def check_zero_syncs(zero, tm, bk, cm, rs, shapes, pspecs, topos, sizes,
         raise AssertionError(f"{what}: {sum(seen.values())} fold launches, "
                              f"its plan derives {want}")
     host = [tm.tree_map(lambda g: g.cpu(), t) for t in trees]
-    cap = max(b.nbytes for b in plan)
+    caps = {b.cap for b in plan}
+    if len(caps) != 1:
+        raise AssertionError(f"{what}: the plan packs to caps {caps}")
+    cap = caps.pop()
     if bk.plan_buckets(tm.tree_leaves(host[0]), specs, tm.AXIS_NAMES,
                        topos=topos, axis_sizes=sizes, bucket_bytes=cap,
                        codec=codec, sharded=True) != plan:
@@ -5503,8 +5531,6 @@ def phase_pp_moe(dev, smi):
 
 WIDE_STEPS = 4  # trainer steps a run: warmup-cosine over them, clipping
 # (3 steps end on a harder batch than the first: the loss need not fall)
-WIDE_TIMED = 1  # steady steps of each run, in turns with the replicated
-# (3 before phase 27, 2 before phase 29)
 WIDE_F32_STEPS = 2  # 3 before phase 29
 WIDE_F32_BATCH = 2
 # 24(b)'s runs: (family, option, trainer flags)
@@ -5758,17 +5784,15 @@ def wide_train_runs(dev, smi, models, trainer, ckpt, fa, rs, ar, bk, tm,
     falling, each flash kernel's and the fold kernel's launches the code's
     count, the checkpoint bitwise the live state (packed as the trainer
     packs it); the optimizer-state bytes a rank of the sharded runs
-    against ``zero_shard_bytes`` and the replicated state's; then, per
-    family, the steady step of each run and of the replicated step in
-    turns, and each run's device time and busy share under
-    ``torch.profiler``, and the peak memory (printed, not gated).
-    Returns the launches by path."""
+    against ``zero_shard_bytes`` and the replicated state's; each run's
+    median step (its registry's ``train.step_ms``) and peak memory
+    (printed, not gated; the steady steps in turns and the profiles a
+    family were cut to make room for phase 30).  Returns the launches by
+    path."""
     import tempfile
 
-    from flextree_tpu_torch.parallel import moe_train, pipeline
-
     b, t = FLASH_TRAIN[:2]
-    runs, by_path = {}, {}
+    by_path = {}
     for family, option, flags in WIDE_RUNS:
         cfg, mesh, _, pspecs, _ = models[family]
         name = f"wide_{option}_{family}"
@@ -5828,8 +5852,6 @@ def wide_train_runs(dev, smi, models, trainer, ckpt, fa, rs, ar, bk, tm,
                           f"{acct['replicated_bytes']} B (ratio "
                           f"{acct['ratio']:.4f})")
         hist = res.report.metrics["histograms"]["train.step_ms"]
-        runs[name] = dict(out=out, family=family, peak=peak,
-                          p50=hist["p50"])
         by_path[name] = launches
         log(f"phase 24(b) {name} on mesh "
             f"{dict(zip(mesh.axis_names, mesh.shape))} (flagship, bf16, "
@@ -5839,83 +5861,9 @@ def wide_train_runs(dev, smi, models, trainer, ckpt, fa, rs, ar, bk, tm,
             f"{WIDE_STEPS} x (combine {combine} + sync {sync})); checkpoint "
             f"bitwise the live state{state_note}; registry step_ms p50 "
             f"{hist['p50']}; peak memory {peak / 2**30:.3f} GiB; "
-            f"{wall:.1f} s")
+            f"{wall:.1f} s; {smi}")
         del res
         torch.cuda.empty_cache()
-    # steady steps, per family: each run's step from its trained state and
-    # the replicated step from a fresh state, in turns
-    data = np.random.default_rng(SEED).integers(
-        0, MODEL["vocab_size"], (2, b, t)).astype(np.int32)
-    for family in ("dense", "pipeline", "moe"):
-        cfg, mesh, _, pspecs, _ = models[family]
-        names = [n for n, r in runs.items() if r["family"] == family]
-        rep_tc = dataclasses.replace(runs[names[0]]["out"]["train_cfg"],
-                                     codec="f32", shard_optimizer=False,
-                                     overlap=False)
-        gen = torch.Generator().manual_seed(SEED)
-
-        def make(tc_, family=family, cfg=cfg, mesh=mesh):
-            if family == "pipeline":
-                return pipeline.make_pipeline_train_step(
-                    cfg, tc_, PM_MICRO, comm=mesh)
-            if family == "moe":
-                return moe_train.make_moe_train_step(cfg, tc_, comm=mesh)
-            return tm.make_train_step(cfg, tc_, comm=mesh)
-
-        if family == "pipeline":
-            rep_state = pipeline.init_pipeline_train_state(cfg, gen,
-                                                           device=dev)
-        elif family == "moe":
-            rep_state = moe_train.init_moe_train_state(cfg, gen, device=dev)
-        else:
-            rep_state = tm.init_train_state(cfg, gen, device=dev)
-        steps = {"replicated": (make(rep_tc), rep_state)}
-        for n in names:
-            o = runs[n]["out"]
-            steps[n] = (make(o["train_cfg"]), o["result"].state)
-        times = {k: [] for k in steps}
-        order = list(steps)
-        for i in range(WIDE_TIMED + 1):
-            for k in (order if i % 2 else order[::-1]):
-                step, state = steps[k]
-                torch.cuda.synchronize()
-                t0 = time.monotonic()
-                state, m = step(state, data[0], data[1])
-                float(m["loss"])
-                if i:  # the first round warms each step up
-                    times[k].append(time.monotonic() - t0)
-                steps[k] = (step, state)
-        base = float(np.median(times["replicated"])) * 1e3
-        for k in order:
-            ms = float(np.median(times[k])) * 1e3
-            prof = {"device_busy_s": None}
-            # one profile a family (its first run), the cut phase 27 needed
-            if k == names[0]:
-                step, state = steps[k]
-
-                def one_step(step=step, state=state):
-                    float(step(state, data[0], data[1])[1]["loss"])
-
-                prof = device_profile(one_step, f"phase 24(b) profile {k} "
-                                      f"(1 step)", top=False)
-            dev_ms = None if prof["device_busy_s"] is None else \
-                prof["device_busy_s"] * 1e3
-            log(f"phase 24(b) steady {family} {k}: median step {ms:.3f} ms "
-                f"({WIDE_TIMED} steps in turns; {ms / base:.3f}x the "
-                f"replicated step's {base:.3f}), {b * t / ms * 1e3:.0f} "
-                f"tokens/s; device "
-                + ("not measured" if dev_ms is None else
-                   f"{dev_ms:.3f} ms a step, busy "
-                   f"{100 * prof['device_busy_share']:.1f}% of the wall "
-                   f"(torch.profiler)")
-                + ("" if k == "replicated" else
-                   f"; trainer run's peak memory "
-                   f"{runs[k]['peak'] / 2**30:.3f} GiB")
-                + f"; {smi}")
-        del steps
-        torch.cuda.empty_cache()
-    del runs
-    torch.cuda.empty_cache()
     return by_path
 
 
@@ -7517,7 +7465,7 @@ CHAOS_SHARDED_KILL_AT = 6  # (8)
 CHAOS_OVERHEAD_REPEAT = 8  # the recorder-overhead rows in turns (24)
 
 
-def chaos_paged_check(dev, oracle, pa, kv_cache, tag):
+def chaos_paged_check(dev, oracle, pa, kv_cache, tag, phase="28(c)"):
     """A decode round of an engine at a replica's configuration (its
     slots, cache and table width, ``oracle``'s flagship weights in f32)
     with every slot busy, recorded (:class:`RoundRecorder`), the kernel
@@ -7539,14 +7487,14 @@ def chaos_paged_check(dev, oracle, pa, kv_cache, tag):
     finally:
         kv_cache.paged_attention = rec.inner
     if rec.saved is None:
-        raise AssertionError(f"phase 28(c) {tag}: no decode round recorded")
+        raise AssertionError(f"phase {phase} {tag}: no decode round recorded")
     args, got = rec.saved
     plain = pa.paged_attention(*args, impl="torch")
     err = (got.float() - plain.float()).abs().max().item()
     if not err <= pa.FUSED_DECODE_ATOL:
-        raise AssertionError(f"phase 28(c) {tag}: the recorded round, kernel "
-                             f"vs plain stream {err}")
-    log(f"phase 28(c) {tag}: decode round 2 at a replica's configuration "
+        raise AssertionError(f"phase {phase} {tag}: the recorded round, "
+                             f"kernel vs plain stream {err}")
+    log(f"phase {phase} {tag}: decode round 2 at a replica's configuration "
         f"({rc.SLOTS} slots, table width {rc.CACHE['blocks_per_seq']}, "
         f"blocks of {rc.CACHE['block_size']}, lengths "
         f"{args[6].tolist()}, f32): kernel vs plain stream {err:.3g} (bar "
@@ -8058,6 +8006,544 @@ def phase_bench_drivers(dev, smi) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 30: the seven A/B drivers
+# ---------------------------------------------------------------------------
+
+AB_DIR = os.path.join("tmp", "chip_smoke_ab")  # the drivers' --out files
+
+
+def ab_driver(mod, argv, tag, accept=None) -> dict:
+    """``python -m flextree_tpu_torch.tools.<mod> ARGV --out ...`` in this
+    process (its stdout kept): exit code 0, or 1 with a report that
+    ``accept`` takes for the one expected violation, or the phase fails;
+    returns its report."""
+    import io
+
+    out = os.path.join(AB_DIR, f"{tag}.json")
+    if os.path.exists(out):
+        os.remove(out)
+    buf = io.StringIO()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(buf):
+        rc = mod.main([*argv, "--out", out])
+    lines = buf.getvalue().strip().splitlines()
+    doc = None
+    if os.path.exists(out):
+        with open(out) as f:
+            doc = json.load(f)
+    if rc != 0 and not (rc == 1 and accept and doc and accept(doc)):
+        raise AssertionError(f"phase 30 {tag}: exit code {rc}; "
+                             + " | ".join(lines[-12:]))
+    doc["_seconds"] = time.monotonic() - t0
+    return doc
+
+
+def host_copies(fn, xs, n, dev, flat_mesh, what) -> None:
+    """``fn(tensors, mesh)`` on ``n`` in-process ranks of the card, then
+    on CPU copies (where the fold is its plain version and the encode runs
+    on the host): every rank's every output tensor bitwise."""
+    got = fn(xs, flat_mesh(n, dev, "dp"))
+    plain = fn([x.cpu() for x in xs], flat_mesh(n, "cpu", "dp"))
+
+    def flat(v):
+        if isinstance(v, torch.Tensor):
+            return [v]
+        if isinstance(v, dict):
+            return [t for k in sorted(v) for t in flat(v[k])]
+        return [t for item in v for t in flat(item)]
+
+    a, b = flat(got), flat(plain)
+    if len(a) != len(b) or not all(same_bits(x.cpu(), y)
+                                   for x, y in zip(a, b)):
+        raise AssertionError(f"phase 30 {what}: the card is not bitwise "
+                             f"its host copies")
+
+
+class SharedRoundRecorder(RoundRecorder):
+    """:class:`RoundRecorder` keeping the first decode round (layer 0)
+    whose active sequences share a block (a COW-shared prefix)."""
+
+    def __init__(self, inner, n_layers):
+        super().__init__(inner, n_layers, -1)
+
+    def __call__(self, q, k_new, v_new, k_pool, v_pool, tables, lengths,
+                 **kw):
+        take = False
+        if self.saved is None and self.calls % self.n_layers == 0:
+            rows = tables[lengths > 0].cpu()
+            ids = rows[rows != 0]
+            take = ids.numel() > torch.unique(ids).numel()
+        if take:
+            args = [t.clone() for t in (q, k_new, v_new, k_pool, v_pool,
+                                        tables, lengths)]
+        out = self.inner(q, k_new, v_new, k_pool, v_pool, tables, lengths,
+                         **kw)
+        if take:
+            self.saved = (args, out.clone())
+        self.calls += 1
+        return out
+
+
+def ab_flash_checks(dev, fa, cases, tag):
+    """The three flash kernels against their plain versions at each
+    ``(name, dtype, case)`` (phase 7's bars)."""
+    gen = torch.Generator().manual_seed(SEED + 300)
+    for dtype, case in cases:
+        tname = "f32" if dtype == torch.float32 else "bf16"
+        errs, failures, note, run = flash_compare(fa, case, dtype, dev, gen)
+        if failures:
+            raise AssertionError(f"phase {tag} flash parity "
+                                 f"{describe_case(case, tname)}: "
+                                 + "; ".join(failures))
+        log(f"phase {tag} flash parity {describe_case(case, tname)}: "
+            f"{describe_errors(errs)}; {note}")
+        del run
+
+
+def zigzag_flash_launches(n: int) -> int:
+    """Flash forward launches of one plain-ring and one zigzag call over
+    ``n`` ranks (``impl="flash"``): a launch a visible (past or diagonal)
+    block, and zigzag's late-vs-early block every hop."""
+    from flextree_tpu_torch.parallel.zigzag import hop_branches
+
+    ring = zig = 0
+    for s in range(n):
+        for idx in range(n):
+            src = (idx - s) % n
+            ring += src <= idx
+            zig += sum(br != 2 for br in hop_branches(src, idx)) + 1
+    return ring + zig
+
+
+def ab_in_process(dev, smi) -> dict:
+    """30(a): bucketing --quick, zigzag_accounting and bench_prefix
+    --smoke in this process, one after another; each one's launches
+    against the code's count, its kernels at its shapes."""
+    from flextree_tpu_torch.ops import flash_attention as fa
+    from flextree_tpu_torch.ops import paged_attention as pa
+    from flextree_tpu_torch.ops import reduce_stacked as rs
+    from flextree_tpu_torch.parallel import bucketing as bk
+    from flextree_tpu_torch.parallel import train as tm
+    from flextree_tpu_torch.parallel.mesh import flat_mesh
+    from flextree_tpu_torch.serving import kv_cache
+    from flextree_tpu_torch.tools import bench_bucketing as bb
+    from flextree_tpu_torch.tools import bench_prefix as bp
+    from flextree_tpu_torch.tools import zigzag_accounting as za
+    from flextree_tpu_torch.utils import profiling as spans
+
+    launches = {}
+    # -- bucketing
+    zero_flash_counts(fa)
+    rs.reduce_sources.launches = 0
+    doc = ab_driver(bb, ["--quick", "--device", str(dev)], "bench_bucketing")
+    got = dict(flash_counts(fa), reduce_sources=rs.reduce_sources.launches)
+    step = doc["results"]["train_step"]
+    layers = step["config"]["n_layers"]
+    want = len(step["rows"]) * (1 + step["config"]["repeat"]) * 8 * layers
+    if any(got[k] != want for k in flash_counts(fa)) or \
+            not got["reduce_sources"]:
+        raise AssertionError(f"phase 30 bench_bucketing launches {got}; the "
+                             f"code gives flash {want}, folds > 0")
+    launches["ab_bucketing"] = got
+    small = doc["results"]["sync_many_small"]["rows"]
+    large = doc["results"]["sync_single_large"]["rows"]
+    rows = step["rows"]
+    log(f"phase 30(a) bench_bucketing --quick ({smi}; {doc['_seconds']:.1f}"
+        f" s): many-small fused {small['ours_fused']['vs_per_leaf']:.3f}x "
+        f"per-leaf ({small['per_leaf']['min_ms']:.3f} -> "
+        f"{small['ours_fused']['min_ms']:.3f} ms), single-large fused "
+        f"{large['ours_fused']['vs_per_leaf']:.3f}x, chunked "
+        f"{large['ours_chunked']['vs_per_leaf']:.3f}x; train step (flagship "
+        f"widths, {layers} layers, 8 ranks) per-leaf "
+        f"{rows['per_leaf']['train_step_ms']:.2f} ms, fused "
+        f"{rows['ours_fused']['train_step_ms']:.2f} ms; bitwise; flash "
+        f"launches {want} = {len(step['rows'])} steps x "
+        f"{1 + step['config']['repeat']} calls x 8 ranks x {layers}, folds "
+        f"{got['reduce_sources']}")
+    # its folds at its lengths: the grad-sync bench's leaves and the train
+    # step's gradient, per-leaf and bucketed, chunks 1 and 2
+    gen = torch.Generator(device=dev).manual_seed(SEED + 301)
+    cfg = doc["results"]["sync_many_small"]["config"]
+    lcfg = doc["results"]["sync_single_large"]["config"]
+    from flextree_tpu_torch.models.transformer import (
+        TransformerConfig,
+        init_params,
+    )
+
+    params = init_params(TransformerConfig(
+        **{k: step["config"][k] for k in ("vocab_size", "d_model", "n_heads",
+                                           "n_layers", "d_ff")}),
+        torch.Generator().manual_seed(0), device=dev)
+    shapes = {"many_small": {f"leaf{i}": (cfg["leaf_size"],)
+                             for i in range(cfg["n_leaves"])},
+              "single_large": {"leaf0": (lcfg["leaf_size"],)},
+              "train_step": params}
+
+    def seeded(tree):
+        return tm.tree_map(lambda p: torch.randn(p.shape, generator=gen,
+                                                 device=dev), tree)
+
+    for name, tree in shapes.items():
+        for chunks in (1, 2):
+            trees = [seeded(tree) if name == "train_step" else
+                     {k: torch.randn(s, generator=gen, device=dev)
+                      for k, s in tree.items()} for _ in range(8)]
+            buckets, fired, nbytes = check_sync(trees, None, chunks, dev,
+                                                flat_mesh, tm, bk, rs, spans)
+            del trees
+        log(f"phase 30(a) bench_bucketing's {name} sync on 8 ranks "
+            f"({len(buckets)} buckets of {nbytes} B a rank), chunks 1 and "
+            f"2: per-leaf and bucketed bitwise, fold launches the plan's, "
+            f"bitwise its host copies")
+    del params, shapes
+    torch.cuda.empty_cache()
+    ab_flash_checks(dev, fa, [(torch.bfloat16, (
+        "bucketing_rank", 1, 64, 64, step["config"]["n_heads"],
+        step["config"]["d_model"] // step["config"]["n_heads"], True, 0, 0,
+        False))], "30(a) bench_bucketing")
+
+    # -- zigzag accounting
+    zero_flash_counts(fa)
+    doc = ab_driver(za, ["--device", str(dev)], "zigzag_accounting")
+    wall = doc["wall_clock_1core_host"]
+    reps = wall["impls"]["flash"]["zigzag"]["reps"]
+    want = (1 + reps) * zigzag_flash_launches(8)
+    got = flash_counts(fa)
+    if got["flash_fwd"] != want or got["flash_bwd_dq"] or \
+            got["flash_bwd_dkv"]:
+        raise AssertionError(f"phase 30 zigzag_accounting flash launches "
+                             f"{got}; the code gives forward {want}")
+    launches["ab_zigzag"] = dict(got)
+    sched = doc["schedules"]
+    log(f"phase 30(a) zigzag_accounting ({smi}; {doc['_seconds']:.1f} s): "
+        f"critical paths (plain, zigzag) " + ", ".join(
+            f"{k} ({t['plain_critical_path']:g}, "
+            f"{t['zigzag_critical_path']:g})" for k, t in sched.items())
+        + f" = (4n-2, 2n), total work 2n^2 on both; 8 ranks at {wall['shape']}"
+        f": wall plain/zigzag reference "
+        f"{wall['impls']['reference']['wall_ratio_plain_over_zigzag']}, flash "
+        f"{wall['impls']['flash']['wall_ratio_plain_over_zigzag']}, outputs "
+        f"within {za.OUTPUT_ATOL} (gaps "
+        f"{wall['impls']['reference']['max_abs_gap_plain_vs_zigzag']:.3g}, "
+        f"{wall['impls']['flash']['max_abs_gap_plain_vs_zigzag']:.3g}); flash "
+        f"forward launches {want} = {1 + reps} calls x "
+        f"{zigzag_flash_launches(8)}")
+    t_local = 2048 // 8
+    ab_flash_checks(dev, fa, [
+        (torch.float32, ("zigzag_diag", 1, t_local // 2, t_local // 2, 4, 64,
+                         True, 0, 0, False)),
+        (torch.float32, ("zigzag_past", 1, t_local // 2, t_local // 2, 4, 64,
+                         False, 0, 0, False)),
+        (torch.float32, ("ring_diag", 1, t_local, t_local, 4, 64, True, 0, 0,
+                         False)),
+        (torch.float32, ("ring_past", 1, t_local, t_local, 4, 64, False, 0,
+                         0, False))], "30(a) zigzag_accounting")
+
+    # -- prefix cache
+    pa.paged_attention.launches = 0
+    rec = SharedRoundRecorder(kv_cache.paged_attention, MODEL["n_layers"])
+    kv_cache.paged_attention = rec
+    try:
+        doc = ab_driver(bp, ["--smoke", "--device", str(dev)],
+                        "bench_prefix")
+    finally:
+        kv_cache.paged_attention = rec.inner
+    got = pa.paged_attention.launches
+    rounds = sum(doc["fused_rounds"].values())
+    if got != rounds * MODEL["n_layers"]:
+        raise AssertionError(f"phase 30 bench_prefix paged launches {got} != "
+                             f"decode rounds {doc['fused_rounds']} x layers")
+    launches["ab_prefix"] = {"paged_attention": got}
+    if rec.saved is None:
+        raise AssertionError("phase 30 bench_prefix: no decode round with a "
+                             "shared block recorded")
+    args, out = rec.saved
+    err = (out.float() - pa.paged_attention(*args, impl="torch").float()
+           ).abs().max().item()
+    if not err <= pa.FUSED_DECODE_ATOL:
+        raise AssertionError(f"phase 30 bench_prefix: the shared-block round,"
+                             f" kernel vs plain stream {err}")
+    fl = doc["floors"]
+    log(f"phase 30(a) bench_prefix --smoke ({smi}; {doc['_seconds']:.1f} s;"
+        f" flagship f32): every floor ({', '.join(k for k, v in fl.items() if v is True)}); "
+        f"tokens saved {fl['prefix_tokens_saved_frac']}, warm hit rates "
+        f"{fl['warm_round_hit_rates']}, COW forks {fl['cow_forks']}, hit TTFT "
+        f"ratio {fl['hit_ttft_ratio']} (reported, not enforced: smoke); "
+        f"paged launches {got} = decode rounds {doc['fused_rounds']} x "
+        f"{MODEL['n_layers']}; a round with a shared block (lengths "
+        f"{args[6].tolist()}), kernel vs plain stream {err:.3g} (bar "
+        f"{pa.FUSED_DECODE_ATOL})")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def ab_gloo(dev, smi) -> dict:
+    """30(b): bench_quantize, bench_sharded and bench_overlap --quick, each
+    alone (two CUDA processes over gloo); the children's launches, and the
+    kernels at these paths' shapes on the card against host copies."""
+    from flextree_tpu_torch.models.transformer import (
+        TransformerConfig,
+        init_params,
+        param_specs,
+    )
+    from flextree_tpu_torch.ops import flash_attention as fa
+    from flextree_tpu_torch.ops import reduce_stacked as rs
+    from flextree_tpu_torch.parallel import bucketing as bk
+    from flextree_tpu_torch.parallel import compressed as cm
+    from flextree_tpu_torch.parallel import overlap as ov
+    from flextree_tpu_torch.parallel import train as tm
+    from flextree_tpu_torch.parallel import zero
+    from flextree_tpu_torch.parallel.allreduce import allreduce
+    from flextree_tpu_torch.parallel.mesh import flat_mesh
+    from flextree_tpu_torch.planner import calibrate
+    from flextree_tpu_torch.planner.cost_model import (
+        LinkParams,
+        TpuCostParams,
+    )
+    from flextree_tpu_torch.schedule.stages import Topology
+    from flextree_tpu_torch.tools import bench_overlap as bo
+    from flextree_tpu_torch.tools import bench_quantize as bq
+    from flextree_tpu_torch.tools import bench_sharded as bs
+    from flextree_tpu_torch.utils import profiling as spans
+
+    def child_sum(doc):
+        total = collections.Counter()
+        for per in doc["launches"]:
+            total.update(per)
+        return dict(total)
+
+    launches = {}
+    # -- quantize
+    rs.reduce_sources.launches = 0
+    doc = ab_driver(bq, ["--quick", "--device", str(dev)], "bench_quantize")
+    got = child_sum(doc)
+    inproc = rs.reduce_sources.launches
+    if not (got.get("reduce_sources") and inproc):
+        raise AssertionError(f"phase 30 bench_quantize fold launches: "
+                             f"children {doc['launches']}, in process "
+                             f"{inproc}")
+    got["reduce_sources"] += inproc
+    launches["ab_quantize"] = got
+    h = doc["headline"]
+    log(f"phase 30(b) bench_quantize --quick ({smi}; {doc['_seconds']:.1f} "
+        f"s; 2 CUDA processes over gloo): every check; " + "; ".join(
+            f"{int(k) >> 20} MB: " + ", ".join(
+                f"{c} {r['min_ms']:.3f} ms ({r['wire_bytes']} B)"
+                for c, r in sec["rows"].items())
+            for k, sec in doc["cross_process"].items())
+        + f"; int8 {h['int8_vs_fused_f32']}x fused f32 at the largest "
+        f"(printed, not enforced: quick), error {h['int8_max_err']:.4g} <= "
+        f"{h['int8_bound']:.4g}; in process int8 "
+        f"{doc['in_process']['rows']['ours_fused_int8']['vs_per_leaf']:.3f}x"
+        f" per-leaf; fold launches children {doc['launches']}, in process "
+        f"{inproc}")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 302)
+    for size in bq.SIZES:  # the full run's sizes too
+        xs = [torch.randn(size, generator=gen, device=dev) for _ in range(2)]
+        host_copies(lambda x, m: allreduce(x, m, topo="2"), xs, 2, dev,
+                    flat_mesh, f"bench_quantize f32 at {size}")
+        for codec in ("bf16", "int8"):
+            host_copies(lambda x, m, c=codec: cm.compressed_allreduce(
+                x, m, "2", c, 1, 0), xs, 2, dev, flat_mesh,
+                f"bench_quantize {codec} at {size}")
+        del xs
+    leaf = doc["in_process"]["total_mb"] * 2**20 // 4
+    xs = [torch.randn(int(leaf), generator=gen, device=dev) for _ in range(8)]
+    topos = tm.resolve_axis_topos(flat_mesh(8, dev, "dp"), ("dp",), None)
+    for codec in ("bf16", "int8"):
+        host_copies(lambda x, m, c=codec: tm.sync_grads(
+            [{"leaf0": t} for t in x], None, ("dp",), topos,
+            bucket_bytes=None, codec=c, comm=m), xs, 8, dev, flat_mesh,
+            f"bench_quantize in-process {codec} sync")
+    del xs
+    log(f"phase 30(b) bench_quantize's folds: the 2-rank f32, bf16 and int8 "
+        f"allreduces at {list(bq.SIZES)} f32 and the in-process 8-rank bf16 "
+        f"and int8 syncs of {int(leaf)} f32, each bitwise its host copies")
+    torch.cuda.empty_cache()
+
+    # -- sharded
+    doc = ab_driver(bs, ["--quick", "--device", str(dev)], "bench_sharded")
+    got = child_sum(doc)
+    if not all(got.get(k) for k in ("flash_fwd", "flash_bwd_dq",
+                                    "flash_bwd_dkv", "reduce_sources")):
+        raise AssertionError(f"phase 30 bench_sharded launches {doc['launches']}")
+    launches["ab_sharded"] = got
+    h = doc["headline"]
+    log(f"phase 30(b) bench_sharded --quick ({smi}; {doc['_seconds']:.1f} s;"
+        f" {doc['model']}): wire bytes a rank a step "
+        f"{ {k: v['total'] for k, v in doc['wire_bytes'].items()} }: int8 "
+        f"{h['wire_ratio_int8_vs_replicated_f32']}x (<= {bs.MAX_WIRE_RATIO}),"
+        f" f32 {h['wire_ratio_f32_vs_replicated_f32']}x (exactly 1); f32 "
+        f"bitwise in-run; optimizer state {h['opt_state_ratio']}x = "
+        f"zero_shard_bytes; int8 sync {h['int8_sync_vs_fused_f32_at_largest']}x,"
+        f" step ratios f32 {h['step_time_ratio_f32']}, int8 "
+        f"{h['step_time_ratio_int8']} (printed, not enforced: quick); "
+        f"launches {doc['launches']}")
+    cfg = bs.model_config(str(dev))
+    params = init_params(cfg, torch.Generator().manual_seed(0), device=dev)
+    pspecs = param_specs(cfg)
+    sizes = {"dp": 2, "sp": 1, "tp": 1}
+    topos = tm.resolve_axis_topos(sizes, tm.AXIS_NAMES, "2")
+    for codec in (None, "int8"):
+        plan, stages, seen = check_zero_syncs(
+            zero, tm, bk, cm, rs, params, pspecs, topos, sizes, dev,
+            flat_mesh, codec=codec, n=2)
+        log(f"phase 30(b) bench_sharded's {codec or 'f32'} sharded "
+            f"reduce-scatter at dp-2 ({len(plan)} buckets): blocks, tails"
+            f"{' and residual' if codec else ''} bitwise the host copies; "
+            f"fold stages {stages}; {describe_bodies(seen)}")
+    b, t = doc["batch"][0] // 2, doc["batch"][1]
+    ab_flash_checks(dev, fa, [(torch.bfloat16, (
+        "sharded_rank", b, t, t, cfg.n_heads, cfg.d_model // cfg.n_heads,
+        True, 0, 0, False))], "30(b) bench_sharded")
+    del params
+    torch.cuda.empty_cache()
+
+    # -- overlap
+    fa_before = flash_counts(fa)
+    rs.reduce_sources.launches = 0
+    doc = ab_driver(bo, ["--quick", "--device", str(dev)], "bench_overlap")
+    xp = doc["cross_process"]
+    got = child_sum(xp)
+    inproc = dict({k: v - fa_before[k] for k, v in flash_counts(fa).items()},
+                  reduce_sources=rs.reduce_sources.launches)
+    if not all(got.get(k) and inproc[k] for k in inproc):
+        raise AssertionError(f"phase 30 bench_overlap launches: children "
+                             f"{xp['launches']}, in process {inproc}")
+    launches["ab_overlap"] = {k: got[k] + inproc[k] for k in inproc}
+    h = doc["headline"]
+    log(f"phase 30(b) bench_overlap --quick ({smi}; {doc['_seconds']:.1f} s;"
+        f" {doc['model']}; cores {xp['cores_by_rank']}): plan "
+        f"{xp['plan']['boundaries']} over {xp['plan']['labels']}; "
+        f"calibration {xp['calibration']}; exposed ms by block "
+        + "; ".join(f"ser {b['exposed_med_ms']['ours_overlap_serialized']}, "
+                    f"ovl {b['exposed_med_ms']['ours_overlapped']}"
+                    for b in xp["blocks"])
+        + f"; reduction {h['exposed_comm_reduction']}x (printed, not "
+        f"enforced: quick); bitwise {xp['bitwise']}; messages a step "
+        f"{xp['collective_counts_by_rank']}; launches children "
+        f"{xp['launches']}, in process {inproc}")
+    # the fused step's and each fired bucket's sync at dp-2 under the
+    # child's calibrated constants (its bucket caps), against host copies
+    cp = {k: LinkParams(**v) if isinstance(v, dict) else v
+          for k, v in xp["cost_params"].items()}
+    cost = TpuCostParams(**cp)
+    cfg = bo.model_config(str(dev))
+    params = init_params(cfg, torch.Generator().manual_seed(0), device=dev)
+    real = calibrate.default_params
+    calibrate.default_params = lambda backend=None: cost
+    try:
+        plan = ov.plan_overlap(
+            params, param_specs(cfg), tm.AXIS_NAMES,
+            {"dp": Topology.flat(2), "sp": None, "tp": None},
+            {"dp": 2, "sp": 1, "tp": 1}, n_tokens=xp["tokens_per_rank"],
+            t_local=xp["batch"][1], d_model=cfg.d_model)
+        if [list(b) for b in plan.boundaries] != xp["plan"]["boundaries"]:
+            raise AssertionError(f"phase 30 bench_overlap: the child's plan "
+                                 f"{xp['plan']['boundaries']}, here "
+                                 f"{plan.boundaries}")
+        gen = torch.Generator(device=dev).manual_seed(SEED + 303)
+        trees = [tm.tree_map(lambda p: torch.randn(p.shape, generator=gen,
+                                                   device=dev), params)
+                 for _ in range(2)]
+        payloads = [trees] + [list(p) for p in zip(*(
+            ov.fired_payloads(plan, t) for t in trees))]
+        for i, part in enumerate(payloads):
+            buckets, fired, nbytes = check_sync(part, None, 1, dev,
+                                                flat_mesh, tm, bk, rs, spans)
+        del trees, payloads
+    finally:
+        calibrate.default_params = real
+    log(f"phase 30(b) bench_overlap's dp-2 syncs under the child's "
+        f"constants: the fused step's gradient and each of the "
+        f"{plan.n_buckets} fired buckets, per-leaf and bucketed bitwise, "
+        f"fold launches the plan's, bitwise their host copies")
+    b, t = xp["batch"][0] // 2, xp["batch"][1]
+    ab_flash_checks(dev, fa, [(torch.bfloat16, (
+        "overlap_rank", b, t, t, cfg.n_heads, cfg.d_model // cfg.n_heads,
+        True, 0, 0, False))], "30(b) bench_overlap")
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def ab_disagg(dev, smi) -> dict:
+    """30(c): bench_disagg --smoke alone (flagship f32 replica processes on
+    the card), its three scenarios: every floor but ``migration_int8``'s
+    token identity, which must fail on exactly the rids the JAX engine's
+    int8 migration flips on the same weights
+    (``bench_disagg.only_the_reference_flips``); each drained replica's
+    paged launches its decode rounds x layers, and a round at a replica's
+    configuration."""
+    from flextree_tpu_torch.ops import paged_attention as pa
+    from flextree_tpu_torch.serving import kv_cache
+    from flextree_tpu_torch.tools import bench_disagg as bdg
+    from flextree_tpu_torch.tools import rpc_chaos as rc
+
+    doc = ab_driver(bdg, ["--smoke", "--device", str(dev)], "bench_disagg",
+                    accept=bdg.only_the_reference_flips)
+    mig8 = doc["scenarios"]["migration_int8"]["checks"]
+    if mig8["bitwise_bad_rids"] != mig8["reference_flips"]:
+        raise AssertionError(f"phase 30 bench_disagg: int8 migration flips "
+                             f"rids {mig8['bitwise_bad_rids']}, the "
+                             f"reference {mig8['reference_flips']}")
+    paged = 0
+    parts = []
+    for name, r in doc["scenarios"].items():
+        lc = r["checks"]["launches"]
+        for fleet in ([lc] if "paged_launches" in lc else lc.values()):
+            if not (fleet["launches_the_codes"] and fleet["paged_launches"]):
+                raise AssertionError(f"phase 30 bench_disagg {name}: paged "
+                                     f"launches {lc}")
+            paged += fleet["paged_launches"]
+        ck = r["checks"]
+        parts.append(
+            f"{name} {'ok' if r['ok'] else 'as the reference'} "
+            f"({r['seconds']} s; migrate_min "
+            f"{ck['migrate_min_prompt_len']}, in the JAX window "
+            f"{ck['crossover_in_jax_window']}; migrated "
+            f"{ck['migrated_rids']}"
+            + (f"; token identity fails on rids {ck['bitwise_bad_rids']}, "
+               f"the reference's flips" if ck.get("reference_flips") else "")
+            + (f"; p99 inter-token disagg/colocated "
+               f"{ck['decode_p99_ratio']} (printed, not enforced: smoke)"
+               if "decode_p99_ratio" in ck else "") + ")")
+    log(f"phase 30(c) bench_disagg --smoke ({smi}; "
+        f"{doc['_seconds']:.1f} s; {doc['model']}): every floor but the "
+        f"reference's int8 flips; " + "; ".join(parts)
+        + f"; drained replicas' paged launches {paged} = their decode rounds"
+        f" x {MODEL['n_layers']}")
+    oracle = rc.Oracle(str(dev))
+    chaos_paged_check(dev, oracle, pa, kv_cache, "bench_disagg", "30(c)")
+    del oracle
+    torch.cuda.empty_cache()
+    return {"ab_disagg": {"paged_attention": paged}}
+
+
+def phase_ab_drivers(dev, smi) -> dict:
+    """Phase 30: the seven A/B drivers of item 10c at their --quick or
+    --smoke sizes, correctness floors gated (a driver's non-zero exit
+    fails the phase), timing floors printed: (a) the in-process ones in
+    this process, (b) the gloo ones and (c) the replica fleets, each
+    alone.  Returns the launches by path."""
+    clock = [time.monotonic()]
+
+    def lap(part):
+        now = time.monotonic()
+        log(f"phase 30({part}): {now - clock[0]:.1f} s")
+        clock[0] = now
+
+    torch.cuda.synchronize()
+    launches = ab_in_process(dev, smi)
+    lap("a")
+    launches.update(ab_gloo(dev, smi))
+    lap("b")
+    launches.update(ab_disagg(dev, smi))
+    lap("c")
+    return launches
+
+
 def collective_phases(dev, bw) -> list:
     """Phases 11-15 (the FlexTree collectives); returns their rows of the
     kernels line (``reduce_sources`` and ``reduce_stacked``, the fold
@@ -8503,10 +8989,10 @@ def allreduce_ab(parent: str) -> int:
 
 
 def one_phase(argv) -> int:
-    """``--phase N`` (26 to 29): phase 1's build, then that phase alone;
+    """``--phase N`` (26 to 30): phase 1's build, then that phase alone;
     prints its launches by path and no result line."""
     phases = {"26": phase_feedback, "27": phase_control, "28": phase_chaos,
-              "29": phase_bench_drivers}
+              "29": phase_bench_drivers, "30": phase_ab_drivers}
     if len(argv) != 1 or argv[0] not in phases:
         print(f"usage: chip_smoke.py --phase {{{','.join(phases)}}}",
               file=sys.stderr)
@@ -8652,7 +9138,10 @@ def main() -> int:
     t0 = time.monotonic()
     sp_launches.update(phase_bench_drivers(dev, smi))
     log(f"phase 29: {time.monotonic() - t0:.1f} s")
-    log(f"phases 1-29: {time.monotonic() - t_all:.1f} s")
+    t0 = time.monotonic()
+    sp_launches.update(phase_ab_drivers(dev, smi))
+    log(f"phase 30: {time.monotonic() - t0:.1f} s")
+    log(f"phases 1-30: {time.monotonic() - t_all:.1f} s")
     # each path's launches beside their sum
     for row in rows:
         if row["name"] in dp_launches:

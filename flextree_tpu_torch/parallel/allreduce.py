@@ -70,6 +70,7 @@ compressed halves of ``parallel/compressed.py``.
 
 from __future__ import annotations
 
+import contextlib
 import os
 from dataclasses import dataclass
 from functools import lru_cache
@@ -103,6 +104,9 @@ __all__ = [
     "CallShape",
     "call_shape",
     "chunk_sizes",
+    "WireCounters",
+    "wire",
+    "counting_wire",
 ]
 
 # ------------------------------------------------------------- transports
@@ -122,6 +126,64 @@ class Msg:
     tag: int = 0
 
 
+class WireCounters:
+    """The messages and bytes the transports send, per sending rank: the
+    first piece of the recorded trace of the port's collective calls that
+    ROADMAP plans.  The JAX package counts a step's collective bytes from
+    its lowered program (``analysis/hlo_lint.py``:
+    ``collective_wire_bytes``, ``collective_counts``); the port has no
+    lowered program, so it counts what the transports do send.
+
+    A message is one piece one rank sends another: each message of
+    :meth:`MeshTransport.run` and :meth:`DistTransport.run` whose sender
+    runs in this process, and each fold source a mesh rank reads from
+    another rank in place (a message on a wire of separate devices; see
+    :meth:`MeshTransport.sources`), so a mesh and a process group count
+    the same schedule alike.  Its bytes are those of the sent buffer,
+    whatever its dtype.  The rank is the transport's rank (the rank in
+    the process group, or in the mesh the collective ran over).
+
+    The transports count only while :attr:`on` (inside a
+    :func:`counting_wire` block): then a message costs two integer adds on
+    the host, no device sync and no read of a tensor's values; otherwise
+    it costs one test of a flag."""
+
+    def __init__(self):
+        self.on = False
+        self.messages: dict = {}
+        self.bytes: dict = {}
+
+    def add(self, rank: int, t: torch.Tensor) -> None:
+        self.messages[rank] = self.messages.get(rank, 0) + 1
+        self.bytes[rank] = self.bytes.get(rank, 0) + \
+            t.numel() * t.element_size()
+
+    def reset(self) -> None:
+        self.messages, self.bytes = {}, {}
+
+    def read(self) -> dict:
+        """``{"messages": {rank: n}, "bytes": {rank: n}}`` since the last
+        reset."""
+        return {"messages": dict(self.messages), "bytes": dict(self.bytes)}
+
+
+#: the process's counters (every transport adds to them)
+wire = WireCounters()
+
+
+@contextlib.contextmanager
+def counting_wire():
+    """Reset :data:`wire`, count while the block runs, and yield it: read
+    it inside or after the block to get what the block's collectives
+    sent."""
+    wire.reset()
+    was, wire.on = wire.on, True
+    try:
+        yield wire
+    finally:
+        wire.on = was
+
+
 def _rank(key) -> int:
     """The rank a fold of a stage's plan runs on: its key, or the key's
     first item (a pair stage keys its folds by ``(rank, block)``)."""
@@ -139,18 +201,31 @@ class MeshTransport:
         self.devices = mesh.devices
 
     def run(self, msgs) -> None:
+        count = wire.on
         for m in msgs:
+            if count:
+                wire.add(m.src, m.send)
             m.recv.copy_(m.send)
 
     def sources(self, plan: dict, piece) -> dict:
         """The sources of each fold of a stage, in fold order: ``plan[k]``
         lists the ranks whose ``piece(s, k)`` fold ``k`` reads, on rank
         ``_rank(k)``.  A piece on that rank's device is read where it
-        lies; one on another device is first copied to it (a message)."""
-        return {k: [t if t.device == self.devices[_rank(k)] else
-                    t.to(self.devices[_rank(k)])
-                    for t in (piece(s, k) for s in srcs)]
-                for k, srcs in plan.items()}
+        lies; one on another device is first copied to it.  Each piece of
+        another rank counts as a message of its rank
+        (:class:`WireCounters`)."""
+        out, count = {}, wire.on
+        for k, srcs in plan.items():
+            d = _rank(k)
+            got = []
+            for s in srcs:
+                t = piece(s, k)
+                if count and s != d:
+                    wire.add(s, t)
+                got.append(t if t.device == self.devices[d] else
+                           t.to(self.devices[d]))
+            out[k] = got
+        return out
 
 
 class DistTransport:
@@ -177,10 +252,12 @@ class DistTransport:
 
     def run(self, msgs) -> None:
         dist = self.dist
-        ops, staged = [], []
+        ops, staged, count = [], [], wire.on
         for m in msgs:
             if m.src == self.rank:
                 t = m.send
+                if count:
+                    wire.add(self.rank, t)
                 if self.host_staged and t.is_cuda:
                     t = t.cpu()  # gloo's send/recv take CPU tensors
                 ops.append(dist.P2POp(dist.isend, t.view(torch.uint8),

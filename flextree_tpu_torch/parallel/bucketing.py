@@ -187,12 +187,16 @@ def comm_axis_sizes(comm, mesh_axes) -> dict:
 class Bucket:
     """One fused sync unit: ``indices`` into the flat gradient leaves, all
     sharing ``axes`` (replication axes, mesh order) and ``dtype`` (the
-    numpy-style name, ``"float32"``, so plans compare across packages)."""
+    numpy-style name, ``"float32"``, so plans compare across packages).
+    ``cap`` is the size its group packed to (``bucket_bytes`` or the
+    derived one; a leaf above it is a bucket of its own): passed back as
+    ``bucket_bytes``, it plans the group again on any device."""
 
     axes: tuple[str, ...]
     dtype: str
     indices: tuple[int, ...]
     nbytes: int
+    cap: int = dataclasses.field(default=0, compare=False, repr=False)
 
 
 def _dtype_name(t) -> str:
@@ -249,12 +253,13 @@ def plan_buckets(
         cur_bytes = 0
         for i, nb in zip(idxs, sizes):
             if cur and cur_bytes + nb > cap:
-                buckets.append(Bucket(axes, dtype, tuple(cur), cur_bytes))
+                buckets.append(Bucket(axes, dtype, tuple(cur), cur_bytes,
+                                      cap))
                 cur, cur_bytes = [], 0
             cur.append(i)
             cur_bytes += nb
         if cur:
-            buckets.append(Bucket(axes, dtype, tuple(cur), cur_bytes))
+            buckets.append(Bucket(axes, dtype, tuple(cur), cur_bytes, cap))
     return tuple(buckets)
 
 

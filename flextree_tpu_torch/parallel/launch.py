@@ -455,7 +455,10 @@ def spawn(fn, world: int, args=(), *, backend: str = "gloo",
     :func:`init_distributed` on a free localhost port.  Returns the
     per-rank results in rank order.  The whole world has ``timeout``
     seconds: a rank that has not reported by then is killed, and any
-    failure raises with the rank's traceback.  ``fn`` and ``args`` must
+    failure raises with the rank's traceback.  A rank that fails or dies
+    without reporting ends the wait at once (its peers may be blocked in
+    a collective with it until their process group's timeout): the
+    others are killed and the failure raised.  ``fn`` and ``args`` must
     be picklable (a module-level function)."""
     import multiprocessing as mp
     import queue as queue_mod
@@ -479,22 +482,32 @@ def spawn(fn, world: int, args=(), *, backend: str = "gloo",
             try:
                 rank, res = q.get(timeout=min(left, 1.0))
             except queue_mod.Empty:
-                if all(not p.is_alive() for p in procs) and q.empty():
-                    break
+                if q.empty() and any(not p.is_alive() and r not in results
+                                     for r, p in enumerate(procs)):
+                    break  # a rank died without reporting
                 continue
             results[rank] = res
+            if res[0] != "ok":
+                break
     finally:
         for p in procs:
             p.join(timeout=max(0.0, min(5.0, deadline - _monotonic())))
             if p.is_alive():
                 p.kill()
                 p.join(timeout=5)
+    while True:  # what the others reported while they were joined
+        try:
+            rank, res = q.get_nowait()
+        except queue_mod.Empty:
+            break
+        results.setdefault(rank, res)
     missing = {r: procs[r].exitcode for r in range(world) if r not in results}
     errors = {r: res[1] for r, res in results.items() if res[0] != "ok"}
     if missing or errors:
         raise RuntimeError(
             f"spawned world of {world}: ranks {sorted(missing)} did not "
             f"report (exit codes {list(missing.values())}; None = killed at "
-            f"the {timeout:.0f} s deadline); errors: " + "; ".join(
+            f"the {timeout:.0f} s deadline or after a peer's failure); "
+            f"errors: " + "; ".join(
                 f"rank {r}: {e}" for r, e in sorted(errors.items())))
     return [results[r][1] for r in range(world)]

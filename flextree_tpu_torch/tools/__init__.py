@@ -18,13 +18,30 @@ the hand-written kernels against the JAX tools' floors:
 ``...tools.roofline_reduce`` (the fold against the card's memory rate
 and the copy kernel), ``...tools.bench_paged`` (the fused paged decode
 and on-demand admission) and ``...tools.measure_launch`` (the launch
-constant's bracket)."""
+constant's bracket).  The A/B drivers run the JAX tools' feature
+proofs with their floors: ``...tools.bench_bucketing`` (the fused
+gradient sync, JAX ``tools/bench_bucketing.py``),
+``...tools.zigzag_accounting`` (zigzag ring attention's critical path,
+``tools/zigzag_accounting.py``), ``...tools.bench_prefix`` (the
+cross-request prefix cache, ``tools/bench_prefix.py``),
+``...tools.bench_quantize`` (the wire codecs over a gloo world,
+``tools/bench_quantize.py``), ``...tools.bench_sharded`` (ZeRO-1,
+``tools/bench_sharded.py``), ``...tools.bench_overlap`` (the
+backward/comm overlap, ``tools/bench_overlap.py``) and
+``...tools.bench_disagg`` (prefill/decode disaggregation over replica
+processes, ``tools/bench_disagg.py``)."""
 
 from __future__ import annotations
 
 import fnmatch
 import os
 import tempfile
+
+#: the flagship model's widths and depth (``__graft_entry__.py``): the
+#: model the tools run on a card; a tool whose JAX counterpart runs
+#: another depth overrides ``n_layers`` only
+FLAGSHIP = dict(vocab_size=8192, d_model=512, n_heads=8, n_layers=4,
+                d_ff=2048)
 
 #: result files the repository commits (the JAX package's measurements):
 #: the port's tools never write them
@@ -33,7 +50,7 @@ COMMITTED_RESULTS = ("FEEDBACK.json", "OBS_ATTRIBUTION.json", "BENCH_*.json",
                      "CHAOS_RUNTIME.json", "OBS_CHAOS.json",
                      "OBS_TIMELINE.json", "RPC_CHAOS.json",
                      "SERVE_ELASTIC.json", "COORD_CHAOS.json",
-                     "ARBITER_SPIKE.json")
+                     "ARBITER_SPIKE.json", "ZIGZAG_ACCOUNTING.json")
 
 
 def committed(path: str) -> bool:

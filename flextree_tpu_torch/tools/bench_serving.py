@@ -65,6 +65,8 @@ from ..serving import (
     ServingEngine,
 )
 
+from . import FLAGSHIP
+
 __all__ = [
     "MIN_THROUGHPUT_RATIO",
     "WIDTHS",
@@ -97,8 +99,7 @@ PROMPT_VOCAB = 256  # prompts draw token ids below this (the JAX stream)
 
 #: model widths by name: the flagship, the JAX bench's, a CPU-test size
 WIDTHS = {
-    "flagship": dict(vocab_size=8192, d_model=512, n_heads=8, n_layers=4,
-                     d_ff=2048),
+    "flagship": dict(FLAGSHIP),
     "jax": dict(vocab_size=256, d_model=256, n_heads=8, n_layers=4,
                 d_ff=1024),
     "tiny": dict(vocab_size=256, d_model=32, n_heads=4, n_layers=2,

@@ -52,6 +52,7 @@ import sys
 import tempfile
 import time
 
+from . import FLAGSHIP as _FLAGSHIP
 from . import checked_out
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -68,8 +69,7 @@ STEP_SLEEP = 0.1
 
 #: the sharded scenario's model on a card: the flagship
 #: (``__graft_entry__.py``), bf16, the flash kernels
-FLAGSHIP = dict(vocab_size=8192, d_model=512, n_heads=8, n_layers=4,
-                d_ff=2048)
+FLAGSHIP = dict(_FLAGSHIP)
 #: the JAX tool's model on the CPU
 TINY = dict(vocab_size=64, d_model=32, n_heads=4, n_layers=1, d_ff=64)
 #: global rows a step (divides by 3 and by 2) and the sequence length,

@@ -51,7 +51,7 @@ import time
 
 import numpy as np
 
-from . import checked_out
+from . import FLAGSHIP, checked_out
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -59,9 +59,12 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
 #: the JAX tool's model (``tools/rpc_chaos.py``), for the CPU
 MODEL_ARGS = ["--vocab", "64", "--d-model", "32", "--n-heads", "2",
               "--n-layers", "1", "--d-ff", "64", "--seed", "0"]
-#: the flagship width (``__graft_entry__.py``), for a card
-FLAGSHIP_ARGS = ["--vocab", "8192", "--d-model", "512", "--n-heads", "8",
-                 "--n-layers", "4", "--d-ff", "2048", "--seed", "0"]
+#: the flagship (``tools.FLAGSHIP``), for a card
+FLAGSHIP_ARGS = ["--vocab", str(FLAGSHIP["vocab_size"]),
+                 "--d-model", str(FLAGSHIP["d_model"]),
+                 "--n-heads", str(FLAGSHIP["n_heads"]),
+                 "--n-layers", str(FLAGSHIP["n_layers"]),
+                 "--d-ff", str(FLAGSHIP["d_ff"]), "--seed", "0"]
 PROMPT_LENS = (4, 6, 8)
 MAX_NEW = (8, 16)
 #: the replica's default paged cache and slots (``replica_main``)

@@ -149,6 +149,26 @@ def test_flagship_plan_matches_jax_and_the_caps_do():
         tb.CPU_MAX_BUCKET_BYTES
 
 
+@pytest.mark.parametrize("sharded", [False, True])
+def test_a_plans_cap_plans_it_again_on_host_leaves(sharded):
+    """Each bucket carries the size its group packed to: the card's
+    derived plan, its ``cap`` passed back as ``bucket_bytes``, plans host
+    leaves to the same buckets, where the host's own cap would not."""
+    d, ff = 512, 2048
+    layer = [(d,), (d, d), (d, d), (d, d), (d, d), (d,), (d, ff), (ff, d)]
+    shapes = [(8192, d), (d,)] + layer * 4
+    kw = dict(topos={"dp": tstages.Topology.flat(2)}, axis_sizes={"dp": 2},
+              sharded=sharded)
+    card = tb.plan_buckets([torch.empty(s, device="meta") for s in shapes],
+                           [None] * 34, ("dp",),
+                           max_bucket_bytes=tb.DEFAULT_MAX_BUCKET_BYTES, **kw)
+    (cap,) = {b.cap for b in card}
+    host = [torch.empty(s) for s in shapes]
+    assert tb.plan_buckets(host, [None] * 34, ("dp",), bucket_bytes=cap,
+                           **kw) == card
+    assert tb.plan_buckets(host, [None] * 34, ("dp",), **kw) != card
+
+
 # ------------------------------------------------------- bitwise identity
 
 

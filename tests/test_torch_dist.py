@@ -114,3 +114,24 @@ def test_spawn_reports_a_failing_rank():
     with pytest.raises(RuntimeError, match="rank 1"):
         launch.spawn(dist_allreduce_cases, 2, ([("3", 4, "sum", "float32", 0,
                                                  1)],), timeout=60)
+
+
+def _dies_or_waits(rank, world):
+    """Rank 1 exits without reporting; rank 0 stays blocked (as a rank
+    stuck in a collective with a dead peer may, until its process group's
+    timeout)."""
+    import os
+
+    if rank == 1:
+        os._exit(3)
+    time.sleep(100)
+    return rank
+
+
+def test_spawn_stops_waiting_when_a_rank_dies():
+    # without the dead rank ending the wait, spawn would wait out rank 0's
+    # 100 s block (its 120 s deadline)
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError, match=r"ranks \[.*1.*\] did not report"):
+        launch.spawn(_dies_or_waits, 2, timeout=120)
+    assert time.monotonic() - t0 < 60
